@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON line:
+
+1. device  — nvidia-smi name and power limit, torch and CUDA versions;
+2. build   — nvcc build of every kernel under paddle_tpu_torch/kernels/csrc;
+3. kernels — each kernel against its plain PyTorch version on the card,
+             at the serving path's shapes, with times (CUDA events,
+             median of 25, L2 flushed before each launch) beside the plain
+             version, a PyTorch library yardstick and the card's bound;
+4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
+             6 layers, d_ff 4096, max_seq 2048) served through
+             InferenceServer.load_generative/generate, some requests
+             arriving mid-decode; tokens and final logits checked
+             against dense_forward (no paging, no kernels);
+5. serve_int8 — the same with quant='int8';
+6. batch_invariance — one prompt solo vs inside a batch of 16
+             (information, not a gate).
+
+Then the kernels' summary line, the nvidia-smi line, and as the last
+line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
+without that line; so does a run without CUDA or outside the repository.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+# kernel vs plain tolerance: both sides accumulate in float32 in a
+# different order; |err| <= ATOL + RTOL * |plain|
+ATOL = RTOL = 1e-4
+# end-to-end logits after 6 layers of float32 math whose sums run in a
+# different order (kernels vs dense plain attention, tiles vs cuBLAS)
+LOGIT_TOL = 1e-3
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOPS = 67e12              # H100 SXM float32, non-tensor-core peak
+SEED = 0
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0].strip()
+
+
+class Timer:
+    """Median CUDA-event device time of single calls, the L2 cache
+    flushed before each one, as a serving step finds it.  The flush
+    READS a 64 MiB buffer: a write would leave dirty lines whose
+    write-back lands inside the next timed call.  A spin kernel then
+    keeps the card busy while the host enqueues the call, so the host's
+    launch overhead is not counted as device time."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.ones(16 << 20, dtype=torch.float32,
+                                device="cuda")
+
+    def __call__(self, fn, iters=25, warmup=3):
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(iters):
+            self.flush.sum()
+            torch.cuda._sleep(2_000_000)      # ~1 ms of spinning
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        times.sort()
+        return times[len(times) // 2]
+
+
+def bound_ms(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def compare(torch, got, want):
+    err = (got.double() - want.double()).abs()
+    ok = bool((err <= ATOL + RTOL * want.double().abs()).all())
+    return float(err.max()), ok
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def check_kernels(torch, timer):
+    import numpy as np
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels.flash_attention import (
+        attention_reference, flash_attention_fwd_lse, paged_attention,
+        paged_attention_reference)
+    from paddle_tpu_torch.kernels.matmul_fused import (
+        dequantize_weight, matmul_int8_dequant, matmul_int8_reference,
+        quantize_weight)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = "cuda"
+    rows, bad = [], []
+
+    def record(name, shape, err, ok, ms, plain_ms, lib_ms, nbytes, flops):
+        b_ms, by = bound_ms(nbytes, flops)
+        rows.append({"kernel": name, "shape": shape, "max_abs_err": err,
+                     "ok": ok, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": by})
+        if not ok:
+            bad.append("%s %s (max abs err %g)" % (name, shape, err))
+
+    # K1: causal prefill attention [1, 8, S, 128]
+    h, d = 8, 128
+    scale = 1.0 / math.sqrt(d)
+    for s in (16, 256, 2048):
+        q, k, v = (torch.randn(1, h, s, d, device=dev, generator=gen)
+                   for _ in range(3))
+        out, lse = flash_attention_fwd_lse(q, k, v, causal=True)
+        ref_out, ref_lse = attention_reference(q, k, v, scale, True)
+        e1, ok1 = compare(torch, out, ref_out)
+        e2, ok2 = compare(torch, lse, ref_lse)
+        record("flash_fwd", "[1,8,%d,128] causal" % s, max(e1, e2),
+               ok1 and ok2,
+               timer(lambda: flash_attention_fwd_lse(q, k, v, causal=True)),
+               timer(lambda: attention_reference(q, k, v, scale, True)),
+               timer(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True)),
+               4 * (4 * h * s * d + h * s),
+               4 * h * d * s * (s + 1) // 2)
+
+    # K7: paged decode, B=16, NB=128, bs=16 over a 512-block pool
+    b, nb, bs, n_pages = 16, 128, 16, 512
+    rng = np.random.RandomState(SEED)
+    q = torch.randn(b, h, d, device=dev, generator=gen)
+    kp = torch.randn(n_pages, bs, h, d, device=dev, generator=gen)
+    vp = torch.randn(n_pages, bs, h, d, device=dev, generator=gen)
+    tables = torch.from_numpy(
+        rng.randint(1, n_pages, size=(b, nb)).astype(np.int32)).to(dev)
+    lens_np = rng.randint(1, nb * bs + 1, size=b).astype(np.int32)
+    lens_np[0], lens_np[1] = 1, nb * bs       # a padding row, a full row
+    lens = torch.from_numpy(lens_np).to(dev)
+
+    def paged_library():
+        kc = kp[tables.long()].reshape(b, nb * bs, h, d).permute(0, 2, 3, 1)
+        vc = vp[tables.long()].reshape(b, nb * bs, h, d).transpose(1, 2)
+        sc = torch.matmul(q.unsqueeze(2), kc).squeeze(2) * scale
+        live = torch.arange(nb * bs, device=dev)[None, None] < \
+            lens.long()[:, None, None]
+        p = torch.softmax(sc.masked_fill(~live, -1e30), dim=-1)
+        return torch.matmul(p.unsqueeze(2), vc).squeeze(2)
+
+    out = paged_attention(q, kp, vp, tables, lens)
+    err, ok = compare(torch, out,
+                      paged_attention_reference(q, kp, vp, tables, lens,
+                                                scale))
+    live_pos = int(lens_np.sum())
+    record("paged_attention", "B=16 NB=128 bs=16 H=8 D=128", err, ok,
+           timer(lambda: paged_attention(q, kp, vp, tables, lens)),
+           timer(lambda: paged_attention_reference(q, kp, vp, tables,
+                                                   lens, scale)),
+           timer(paged_library),
+           4 * (2 * live_pos * h * d + 2 * b * h * d) + 4 * b * (nb + 1),
+           4 * live_pos * h * d)
+
+    # K8: int8-weight projections of the flagship layer, at every decode
+    # batch bucket (M = 1..16, each its own instantiation) and at prefill
+    for kk, n in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
+        w = (rng.randn(kk, n) * 0.1).astype(np.float32)
+        qn, sn, chunk = quantize_weight(w)
+        wq = torch.from_numpy(qn).to(dev)
+        sc = torch.from_numpy(sn).to(dev)
+        wd = dequantize_weight(wq, sc, chunk)
+        for m in (1, 2, 4, 8, 16, 2048):
+            x = torch.randn(m, kk, device=dev, generator=gen)
+            out = matmul_int8_dequant(x, wq, sc, chunk)
+            err, ok = compare(torch, out,
+                              matmul_int8_reference(x, wq, sc, chunk))
+            record("matmul_int8", "M=%d K=%d N=%d" % (m, kk, n), err, ok,
+                   timer(lambda: matmul_int8_dequant(x, wq, sc, chunk)),
+                   timer(lambda: matmul_int8_reference(x, wq, sc, chunk)),
+                   timer(lambda: torch.matmul(x, wd)),
+                   4 * m * kk + kk * n + 4 * (kk // chunk) * n + 4 * m * n,
+                   2 * m * kk * n)
+    # the epilogue the engine does not use: bias, tanh-gelu, residual
+    x = torch.randn(16, kk, device=dev, generator=gen)
+    bias = torch.randn(n, device=dev, generator=gen)
+    res = torch.randn(16, n, device=dev, generator=gen)
+    err, ok = compare(
+        torch, matmul_int8_dequant(x, wq, sc, chunk, bias, res, "gelu"),
+        matmul_int8_reference(x, wq, sc, chunk, bias, res, "gelu"))
+    if not ok:
+        bad.append("matmul_int8 epilogue (max abs err %g)" % err)
+    torch.cuda.synchronize()
+    return rows, bad
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6: serving
+# ---------------------------------------------------------------------------
+
+MAX_NEW = 32
+
+
+def _prompts(cfg, seed, lengths):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, cfg.vocab, size=n).tolist() for n in lengths]
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def serve(torch, srv, name, prompts):
+    """Generate for every prompt, the second half arriving while the
+    first half decodes; returns (results, seconds, launches)."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    eng = srv.engine(name)
+    half = len(prompts) // 2
+    # one short request first: CUDA/cuBLAS first-call set-up is load
+    # time, not any measured request's TTFT
+    srv.generate(name, prompts[0][:16], 2).result(600)
+    torch.cuda.synchronize()
+    reset_launches()
+    steps0, prefills0 = eng.decode_steps, eng.prefills
+    t0 = time.perf_counter()
+    futs = [srv.generate(name, p, MAX_NEW) for p in prompts[:half]]
+    while eng.decode_steps == steps0 and not futs[0].done():
+        time.sleep(0.001)
+    futs += [srv.generate(name, p, MAX_NEW) for p in prompts[half:]]
+    res = [f.result(600) for f in futs]
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches["prefills"] = eng.prefills - prefills0
+    launches["decode_steps"] = eng.decode_steps - steps0
+    if any(len(r["tokens"]) != MAX_NEW for r in res):
+        raise AssertionError("a request did not get %d tokens" % MAX_NEW)
+    if eng.pool.used_blocks != 0:
+        raise AssertionError("pool not drained: %d blocks used"
+                             % eng.pool.used_blocks)
+    return res, secs, launches
+
+
+def serve_summary(res, secs):
+    ttft = [r["ttft_ms"] for r in res]
+    itl = [x for r in res for x in r["itl_ms"]]
+    n_tok = sum(len(r["tokens"]) for r in res)
+    return {"requests": len(res), "tokens": n_tok,
+            "tokens_per_s": n_tok / secs, "seconds": secs,
+            "ttft_ms_p50": _pct(ttft, 0.5), "ttft_ms_p90": _pct(ttft, 0.9),
+            "itl_ms_p50": _pct(itl, 0.5), "itl_ms_p90": _pct(itl, 0.9),
+            "preempted": sum(r["preempted"] for r in res)}
+
+
+def oracle_check(torch, eng, params, prompt, tokens):
+    """The served tokens and the engine's final logits against
+    dense_forward on the card.  A served token must be the dense
+    argmax up to LOGIT_TOL (a near-tie may go either way); the final
+    logits, from a replay of the request on the engine, must match the
+    dense row within LOGIT_TOL."""
+    from paddle_tpu_torch.serving import GenRequest, dense_forward
+
+    n = len(prompt)
+    dense = dense_forward(eng.config, params, prompt + tokens[:-1],
+                          device=eng.device)[n - 1:]
+    served = torch.tensor(tokens, device=dense.device)
+    picked = dense[torch.arange(len(tokens), device=dense.device), served]
+    gap = float((dense.max(dim=-1).values - picked).max())
+    agree = int((dense.argmax(dim=-1) == served).sum())
+    # replay on the engine itself (the tenant is idle): prefill, then
+    # decode steps with logits, feeding the served tokens
+    req = GenRequest(prompt, MAX_NEW, None, None)
+    req.blocks = eng.pool.alloc(eng.pool.blocks_for(n + MAX_NEW))
+    try:
+        first = eng.prefill(req)
+        logits = None
+        for tok in tokens[:-1]:
+            _, logits = eng.decode_step([req.blocks], [req.context_len],
+                                        [tok], with_logits=True)
+            req.context_len += 1
+    finally:
+        eng.free_sequence(req)
+    final = torch.from_numpy(logits[0]).to(dense.device)
+    err = float((final - dense[-1]).abs().max())
+    ok = (gap <= LOGIT_TOL and err <= LOGIT_TOL
+          and first == tokens[0])
+    return {"dense_argmax_agree": agree, "of": len(tokens),
+            "max_logit_gap_to_dense_argmax": gap,
+            "final_logits_max_abs_err": err, "tolerance": LOGIT_TOL,
+            "ok": ok}
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import paddle_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print("chip_smoke: run from the repository root (%s)" % e,
+              file=sys.stderr)
+        return 2
+    from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.kernels import KERNELS, _build
+    from paddle_tpu_torch.serving import (FLAGSHIP_LM, InferenceServer,
+                                          tiny_lm)
+
+    resolve_device("cuda")      # pins float32 matmuls (no TF32)
+    phase = "device"
+    try:
+        smi = nvidia_smi()
+        emit({"phase": "device", "nvidia_smi": smi,
+              "name": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count(),
+              "torch": torch.__version__, "cuda": torch.version.cuda})
+
+        phase = "build"
+        t0 = time.perf_counter()
+        report = _build.build_all()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "kernels": report})
+
+        phase = "kernels"
+        timer = Timer(torch)
+        rows, bad = check_kernels(torch, timer)
+        emit({"phase": "kernels", "atol": ATOL, "rtol": RTOL,
+              "rows": rows})
+        if bad:
+            raise AssertionError("kernel disagrees with its plain "
+                                 "version: " + "; ".join(bad))
+
+        phase = "serve_f32"
+        cfg, params = tiny_lm(SEED, **FLAGSHIP_LM)
+        lengths = (16, 300, 1024, 64, 517, 33, 100, 800, 17, 256, 1000, 48)
+        prompts = _prompts(cfg, SEED + 1, lengths)
+        srv = InferenceServer(device="cuda")
+        try:
+            eng = srv.load_generative("f32", cfg, params, kv_blocks=512)
+            res, secs, launches = serve(torch, srv, "f32", prompts)
+            for k in ("flash_fwd", "paged_attention"):
+                if launches[k] <= 0:
+                    raise AssertionError("%s never launched" % k)
+            check = oracle_check(torch, eng, params, prompts[6],
+                                 res[6]["tokens"])
+            emit({"phase": "serve_f32", "launches": launches,
+                  **serve_summary(res, secs), "oracle": check})
+            if not check["ok"]:
+                raise AssertionError("f32 tenant disagrees with "
+                                     "dense_forward")
+
+            phase = "serve_int8"
+            eng8 = srv.load_generative("int8", cfg, params, quant="int8",
+                                       kv_blocks=512)
+            res8, secs8, launches8 = serve(torch, srv, "int8", prompts)
+            if min(launches8.values()) <= 0:
+                raise AssertionError("a kernel never launched on the int8 "
+                                     "tenant: %r" % launches8)
+            agree = sum(a == b for r, r8 in zip(res, res8)
+                        for a, b in zip(r["tokens"], r8["tokens"]))
+            check8 = oracle_check(torch, eng8, eng8._params, prompts[6],
+                                  res8[6]["tokens"])
+            emit({"phase": "serve_int8", "launches": launches8,
+                  **serve_summary(res8, secs8),
+                  "token_agreement_with_f32": [agree,
+                                               len(prompts) * MAX_NEW],
+                  "oracle": check8})
+            if not check8["ok"]:
+                raise AssertionError("int8 tenant disagrees with "
+                                     "dense_forward over its own "
+                                     "dequantized weights")
+
+            phase = "batch_invariance"
+            solo = srv.generate("f32", prompts[3], MAX_NEW).result(600)
+            batch = _prompts(cfg, SEED + 2, [40 + 37 * i for i in range(15)])
+            futs = [srv.generate("f32", p, MAX_NEW)
+                    for p in [prompts[3]] + batch]
+            in_batch = [f.result(600) for f in futs][0]
+            emit({"phase": "batch_invariance", "information": True,
+                  "identical": solo["tokens"] == in_batch["tokens"],
+                  "solo": solo["tokens"], "in_batch_of_16":
+                  in_batch["tokens"]})
+        finally:
+            srv.close()
+    except Exception as e:
+        emit({"phase": phase, "ok": False,
+              "error": "%s: %s" % (type(e).__name__, e)})
+        traceback.print_exc()
+        return 1
+
+    by_name = {}
+    for r in rows:
+        by_name.setdefault(r["kernel"], []).append(r)
+    # one summary row per kernel: K1 at the longest prefill, K7 at the
+    # full decode batch, K8 at the full decode batch on the slower of the
+    # two largest projections (w1 and w2 move the same bytes and FLOPs)
+    pick = {"flash_fwd": ["[1,8,2048,128] causal"],
+            "paged_attention": ["B=16 NB=128 bs=16 H=8 D=128"],
+            "matmul_int8": ["M=16 K=1024 N=4096", "M=16 K=4096 N=1024"]}
+    meta = {"flash_fwd": ("paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+                          "paddle_tpu/kernels/flash_attention.py:68"),
+            "paged_attention": (
+                "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+                "paddle_tpu/kernels/flash_attention.py:496"),
+            "matmul_int8": ("paddle_tpu_torch/kernels/csrc/matmul_int8.cu",
+                            "paddle_tpu/kernels/matmul_fused.py:275")}
+    # launches: the int8 tenant's serve run, the one path that runs all
+    # three kernels; each serve run's own counts stand beside it
+    summary = []
+    for name in KERNELS:
+        r = max((x for x in by_name[name] if x["shape"] in pick[name]),
+                key=lambda x: x["ms"])
+        summary.append({
+            "name": name, "route": "cuda", "source": meta[name][0],
+            "replaces": meta[name][1], "launches": launches8[name],
+            "launches_path": "serve_int8",
+            "launches_by_path": {"serve_f32": launches[name],
+                                 "serve_int8": launches8[name]},
+            "max_abs_err": max(x["max_abs_err"] for x in by_name[name]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
+    emit({"kernels": summary})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of paddle_tpu.
+
+A second package beside ``paddle_tpu``: same module names, PyTorch
+tensors instead of jax arrays, and hand-written CUDA C++ kernels for
+Hopper (``kernels/csrc``) where the JAX package wrote Pallas kernels for
+the TPU.  It imports nothing of jax or paddle_tpu.
+
+This slice carries token-level generative serving:
+``serving.InferenceServer().load_generative(...)`` then ``generate``.
+"""
+from __future__ import annotations
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,62 @@
+"""Runtime flags — the serving subset of ``paddle_tpu/core/flags.py``.
+
+Same ``FLAGS_<name>`` environment override and attribute access as the
+JAX package's registry; only the flags this port reads are defined.
+"""
+from __future__ import annotations
+
+import os
+
+__all__ = ["FLAGS", "define_flag"]
+
+
+def _parse(raw, default):
+    if isinstance(default, bool):
+        return raw.lower() in ("1", "true", "yes", "on")
+    if isinstance(default, int):
+        return int(raw)
+    if isinstance(default, float):
+        return float(raw)
+    return raw
+
+
+class _Flags:
+    """Attribute-style access; unknown flags raise AttributeError."""
+
+    def __init__(self):
+        object.__setattr__(self, "_defs", {})
+
+    def define(self, name, default, help=""):
+        raw = os.environ.get("FLAGS_" + name)
+        value = _parse(raw, default) if raw is not None else default
+        self._defs[name] = {"value": value, "default": default,
+                            "help": help}
+
+    def __getattr__(self, name):
+        try:
+            return self._defs[name]["value"]
+        except KeyError:
+            raise AttributeError("undefined flag %r" % name)
+
+    def __setattr__(self, name, value):
+        if name not in self._defs:
+            raise AttributeError("undefined flag %r" % name)
+        self._defs[name]["value"] = value
+
+
+FLAGS = _Flags()
+
+
+def define_flag(name, default, help=""):
+    FLAGS.define(name, default, help)
+
+
+define_flag("serve_max_batch", 16,
+            "generative serving: most sequences in one decode step; the "
+            "top of the power-of-2 batch bucket ladder")
+define_flag("serve_kv_block_size", 16,
+            "generative serving: tokens per KV cache block (power of "
+            "two)")
+define_flag("serve_kv_blocks", 512,
+            "generative serving: KV cache blocks in a tenant's paged "
+            "pool (block 0 is the reserved padding scratch block)")

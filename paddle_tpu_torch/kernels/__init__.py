@@ -1,0 +1,21 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version.  ``KERNELS`` maps each kernel's name to its wrapper, whose
+``launches`` attribute counts kernel launches."""
+from __future__ import annotations
+
+from .flash_attention import (flash_attention, flash_attention_fwd_lse,
+                              paged_attention)
+from .matmul_fused import matmul_int8_dequant
+
+__all__ = ["KERNELS", "reset_launches", "flash_attention",
+           "flash_attention_fwd_lse", "paged_attention",
+           "matmul_int8_dequant"]
+
+KERNELS = {"flash_fwd": flash_attention_fwd_lse,
+           "paged_attention": paged_attention,
+           "matmul_int8": matmul_int8_dequant}
+
+
+def reset_launches():
+    for fn in KERNELS.values():
+        fn.launches = 0

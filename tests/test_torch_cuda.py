@@ -1,0 +1,107 @@
+"""paddle_tpu_torch's CUDA kernels against their plain PyTorch versions
+on the card.  Every test is marked ``cuda`` and skips without a card
+(the kernels have no CPU mode).  The file imports neither jax nor
+paddle_tpu, so it also runs where only the port is installed:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+Tolerance atol = rtol = 1e-4: both sides accumulate in float32, in a
+different order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels import (flash_attention_fwd_lse,
+                                      matmul_int8_dequant, paged_attention)
+from paddle_tpu_torch.kernels import matmul_fused as pmm
+from paddle_tpu_torch.kernels.flash_attention import (
+    attention_reference, paged_attention_reference)
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,tk", [(16, 16), (100, 100), (256, 256),
+                                  (64, 200)])
+def test_flash_kernel_matches_plain_on_card(cuda, t, tk):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(2, 8, t, 128, device=cuda, generator=g)
+    k, v = (torch.randn(2, 8, tk, 128, device=cuda, generator=g)
+            for _ in range(2))
+    for causal in (False, True):
+        out, lse = flash_attention_fwd_lse(q, k, v, causal=causal)
+        ro, rl = attention_reference(q, k, v, 128 ** -0.5, causal)
+        torch.testing.assert_close(out, ro, **TOL)
+        torch.testing.assert_close(lse, rl, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nb", [(1, 1), (3, 8), (16, 128)])
+def test_paged_kernel_matches_plain_on_card(cuda, b, nb):
+    bs = 16
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(b, 8, 128, device=cuda, generator=g)
+    kp = torch.randn(64, bs, 8, 128, device=cuda, generator=g)
+    vp = torch.randn(64, bs, 8, 128, device=cuda, generator=g)
+    tables = torch.randint(1, 64, (b, nb), device=cuda, generator=g,
+                           dtype=torch.int32)
+    lens = torch.randint(1, nb * bs + 1, (b,), device=cuda, generator=g,
+                         dtype=torch.int32)
+    out = paged_attention(q, kp, vp, tables, lens)
+    ref = paged_attention_reference(q, kp, vp, tables, lens, 128 ** -0.5)
+    torch.testing.assert_close(out, ref, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 100])
+def test_int8_kernel_matches_plain_on_card(cuda, m):
+    rng = np.random.RandomState(0)
+    w = (rng.randn(1024, 256) * 0.1).astype(np.float32)
+    q, s, chunk = pmm.quantize_weight(w, chunk=256)
+    q, s = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    x = torch.from_numpy(rng.randn(m, 1024).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.randn(256).astype(np.float32)).to(cuda)
+    res = torch.from_numpy(rng.randn(m, 256).astype(np.float32)).to(cuda)
+    for act in ("", "relu", "gelu"):
+        out = matmul_int8_dequant(x, q, s, chunk, bias, res, act)
+        ref = pmm.matmul_int8_reference(x, q, s, chunk, bias, res, act)
+        torch.testing.assert_close(out, ref, **TOL)
+
+
+@pytest.mark.cuda
+def test_int8_decode_rows_are_batch_invariant(cuda):
+    """A row's result does not depend on how many rows share the call
+    (decode buckets M = 1..16 run one kernel with one summation order)."""
+    rng = np.random.RandomState(1)
+    w = (rng.randn(1024, 512) * 0.1).astype(np.float32)
+    q, s, chunk = pmm.quantize_weight(w)
+    q, s = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    x = torch.from_numpy(rng.randn(16, 1024).astype(np.float32)).to(cuda)
+    full = matmul_int8_dequant(x, q, s, chunk)
+    for m in (1, 2, 4, 8):
+        assert torch.equal(matmul_int8_dequant(x[:m].contiguous(), q, s,
+                                               chunk), full[:m])
+
+
+@pytest.mark.cuda
+def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    q = torch.randn(1, 2, 16, 96, device=cuda)       # head_dim 96
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_fwd_lse(q, q, q)
+    q = torch.randn(1, 2, 16, 128, device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd_lse(q, q, q)
+    pages = torch.randn(4, 8, 2, 128, device=cuda)   # block_size 8
+    tables = torch.ones(1, 2, dtype=torch.int32, device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="block_size"):
+        paged_attention(torch.randn(1, 2, 128, device=cuda), pages, pages,
+                        tables, lens)

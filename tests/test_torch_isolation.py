@@ -1,0 +1,91 @@
+"""paddle_tpu_torch stands alone: no module of the port, and not
+chip_smoke.py, imports jax or paddle_tpu; entry points default to CUDA
+and raise without it unless the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from paddle_tpu_torch import resolve_device
+from paddle_tpu_torch.serving import (GenerativeEngine, InferenceServer,
+                                      tiny_lm)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "paddle_tpu_torch")):
+        out.extend(os.path.join(root, f) for f in files
+                   if f.endswith(".py"))
+    return sorted(out)
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and \
+                getattr(node.func, "id", None) == "__import__":
+            for arg in node.args[:1]:
+                if isinstance(arg, ast.Constant):
+                    yield str(arg.value)
+
+
+def test_port_imports_neither_jax_nor_paddle_tpu():
+    files = _port_files()
+    assert len(files) > 10, files
+    bad = []
+    for path in files:
+        for mod in _imports(path):
+            if mod.split(".")[0] in FORBIDDEN:
+                bad.append("%s imports %s" % (os.path.relpath(path, REPO),
+                                              mod))
+    assert not bad, bad
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_load_generative_without_cuda_raises(monkeypatch):
+    _no_cuda(monkeypatch)
+    cfg, params = tiny_lm(7, vocab=64, d_model=32, n_heads=2, n_layers=1,
+                          d_ff=64, block_size=8, max_blocks=8, max_batch=4)
+    with InferenceServer() as srv:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            srv.load_generative("g", cfg, params, kv_blocks=8)
+        assert srv.models() == []
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GenerativeEngine(cfg, params, kv_blocks=8, warm=False)
+
+
+def test_resolve_device(monkeypatch):
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+
+
+def test_chip_smoke_alone_exits_nonzero(tmp_path):
+    """Copied into a directory that holds nothing else of the repo (or
+    run without a card), the script fails and prints no result."""
+    src = os.path.join(REPO, "chip_smoke.py")
+    dst = tmp_path / "chip_smoke.py"
+    dst.write_text(open(src).read())
+    proc = subprocess.run([sys.executable, str(dst)], cwd=str(tmp_path),
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": ""})
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
