@@ -10,9 +10,10 @@ Phases, each printed as one JSON line:
 1. device  — nvidia-smi name and power limit, torch and CUDA versions;
 2. build   — nvcc build of every kernel under paddle_tpu_torch/kernels/csrc;
 3. kernels — each kernel against its plain PyTorch version on the card,
-             at the serving path's shapes, with times (CUDA events,
-             median of 25, L2 flushed before each launch) beside the plain
-             version, a PyTorch library yardstick and the card's bound;
+             at the serving and training paths' shapes, with times (CUDA
+             events, median of 25, L2 flushed before each launch) beside
+             the plain version, a PyTorch library yardstick and the
+             card's bound;
 4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
@@ -20,7 +21,17 @@ Phases, each printed as one JSON line:
              against dense_forward (no paging, no kernels);
 5. serve_int8 — the same with quant='int8';
 6. batch_invariance — one prompt solo vs inside a batch of 16
-             (information, not a gate).
+             (information, not a gate);
+7. train_f32 — the same LM as a fluid Program (models/transformer
+             get_model: Adam lr 1e-3, sequence 2048, batch 16) built by
+             paddle_tpu_torch.fluid and run by Executor(CUDAPlace(0)):
+             the startup program, then 1 warm-up and 5 timed steps on
+             one fixed batch; every loss finite, the last below the
+             first, K1/K2/K3 launched 6 times a step each;
+8. train_oracle — one step at full width, depth 1, batch 1 on the card
+             against the same program on Executor(CPUPlace()) (the
+             plain versions) from the same parameters: loss and every
+             parameter gradient.
 
 Then the kernels' summary line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -42,6 +53,16 @@ ATOL = RTOL = 1e-4
 # end-to-end logits after 6 layers of float32 math whose sums run in a
 # different order (kernels vs dense plain attention, tiles vs cuBLAS)
 LOGIT_TOL = 1e-3
+# card vs CPU training step (train_oracle), the same f32 math summed in
+# another order through one transformer layer: loss to ORACLE_LOSS_RTOL
+# relative; each gradient to ORACLE_GRAD_RTOL in relative Frobenius
+# norm, ||card - cpu|| / ||cpu||.  Not elementwise: a pre-activation
+# within rounding of 0 takes relu's other branch on one side (counted as
+# relu_flips), which moves single gradient elements by a whole term of
+# their sum (percents of the largest |value|) and the tensor's norm by
+# about 1/sqrt(tokens * d_ff / 2) ~ 5e-4 per flip
+ORACLE_LOSS_RTOL = 1e-5
+ORACLE_GRAD_RTOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32, non-tensor-core peak
 SEED = 0
@@ -113,7 +134,9 @@ def check_kernels(torch, timer):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels.flash_attention import (
-        attention_reference, flash_attention_fwd_lse, paged_attention,
+        attention_reference, flash_attention_bwd,
+        flash_attention_bwd_reference, flash_attention_fwd_lse,
+        flash_bwd_dkv, flash_bwd_dq, paged_attention,
         paged_attention_reference)
     from paddle_tpu_torch.kernels.matmul_fused import (
         dequantize_weight, matmul_int8_dequant, matmul_int8_reference,
@@ -132,24 +155,62 @@ def check_kernels(torch, timer):
         if not ok:
             bad.append("%s %s (max abs err %g)" % (name, shape, err))
 
-    # K1: causal prefill attention [1, 8, S, 128]
+    # K1: causal prefill attention [1, 8, S, 128] and the training
+    # step's [16, 8, 2048, 128]
     h, d = 8, 128
     scale = 1.0 / math.sqrt(d)
-    for s in (16, 256, 2048):
-        q, k, v = (torch.randn(1, h, s, d, device=dev, generator=gen)
+    for b_, s in ((1, 16), (1, 256), (1, 2048), (16, 2048)):
+        q, k, v = (torch.randn(b_, h, s, d, device=dev, generator=gen)
                    for _ in range(3))
         out, lse = flash_attention_fwd_lse(q, k, v, causal=True)
         ref_out, ref_lse = attention_reference(q, k, v, scale, True)
         e1, ok1 = compare(torch, out, ref_out)
         e2, ok2 = compare(torch, lse, ref_lse)
-        record("flash_fwd", "[1,8,%d,128] causal" % s, max(e1, e2),
+        del out, lse, ref_out, ref_lse
+        record("flash_fwd", "[%d,8,%d,128] causal" % (b_, s), max(e1, e2),
                ok1 and ok2,
                timer(lambda: flash_attention_fwd_lse(q, k, v, causal=True)),
                timer(lambda: attention_reference(q, k, v, scale, True)),
                timer(lambda: F.scaled_dot_product_attention(
                    q, k, v, is_causal=True)),
-               4 * (4 * h * s * d + h * s),
-               4 * h * d * s * (s + 1) // 2)
+               4 * b_ * (4 * h * s * d + h * s),
+               4 * b_ * h * d * s * (s + 1) // 2)
+        del q, k, v
+
+    # K2/K3: flash backward from the saved lse at the training step's
+    # shape [16, 8, 2048, 128] and a short one; the yardstick is the
+    # backward of F.scaled_dot_product_attention from a saved forward
+    for b_, s in ((1, 256), (16, 2048)):
+        q, k, v, do = (torch.randn(b_, h, s, d, device=dev, generator=gen)
+                       for _ in range(4))
+        out, lse = attention_reference(q, k, v, scale, True)
+        delta = (do * out).sum(-1)
+        want = flash_attention_bwd_reference(q, k, v, out, lse, do, scale,
+                                             True)
+        got = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        errs = [compare(torch, a, w) for a, w in zip(got, want)]
+        plain_ms = timer(lambda: flash_attention_bwd_reference(
+            q, k, v, out, lse, do, scale, True), iters=5)
+        del got, want
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        lib_ms = timer(lambda: torch.autograd.grad(
+            o_lib, (qg, kg, vg), do, retain_graph=True))
+        del o_lib, qg, kg, vg
+        shape = "[%d,8,%d,128] causal" % (b_, s)
+        tile = b_ * h * d * s * (s + 1) // 2 * 2     # one causal product
+        io = 4 * b_ * h * s * d
+        record("flash_bwd_dq", shape, errs[0][0], errs[0][1],
+               timer(lambda: flash_bwd_dq(q, k, v, do, lse, delta, scale,
+                                          True)),
+               plain_ms, lib_ms, 5 * io + 8 * b_ * h * s, 3 * tile)
+        record("flash_bwd_dkv", shape, max(errs[1][0], errs[2][0]),
+               errs[1][1] and errs[2][1],
+               timer(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                           True)),
+               plain_ms, lib_ms, 6 * io + 8 * b_ * h * s, 4 * tile)
+        del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
 
     # K7: paged decode, B=16, NB=128, bs=16 over a 512-block pool
     b, nb, bs, n_pages = 16, 128, 16, 512
@@ -222,6 +283,8 @@ def check_kernels(torch, timer):
 # ---------------------------------------------------------------------------
 
 MAX_NEW = 32
+# the kernels a serving run launches (the int8 tenant runs all three)
+SERVE_KERNELS = ("flash_fwd", "paged_attention", "matmul_int8")
 
 
 def _prompts(cfg, seed, lengths):
@@ -317,6 +380,130 @@ def oracle_check(torch, eng, params, prompt, tokens):
             "ok": ok}
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: training through the fluid Executor
+# ---------------------------------------------------------------------------
+
+TRAIN_LM = dict(vocab_size=8192, seq_len=2048, d_model=1024, n_head=8,
+                n_layers=6, d_ff=4096, learning_rate=1e-3)
+TRAIN_BATCH = 16
+TRAIN_STEPS = 5
+# kernels a training step launches, with their count per step (one per
+# layer: ring_attention runs K1, ring_attention_grad K2 and K3)
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def build_lm(fluid, **overrides):
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = transformer.get_model(**{**TRAIN_LM, **overrides})
+    return main, startup, loss
+
+
+def lm_batch(batch, seed):
+    """One batch of next-token pairs from a seeded RandomState."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, TRAIN_LM["vocab_size"],
+                       (batch, TRAIN_LM["seq_len"] + 1)).astype(np.int64)
+    return {"src": toks[:, :-1], "label": toks[:, 1:, None]}
+
+
+def train_f32(torch):
+    """Startup, then 1 warm-up and TRAIN_STEPS timed steps of the
+    flagship LM on one fixed batch, through Executor(CUDAPlace(0))."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    main, startup, loss = build_lm(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    feed = lm_batch(TRAIN_BATCH, SEED + 3)
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0][0])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        step_ms.append((time.perf_counter() - t0) * 1e3)   # the fetch syncs
+        losses.append(float(out[0][0]))
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_LM["seq_len"]
+    p50 = _pct(step_ms, 0.5)
+    n_layers = TRAIN_LM["n_layers"]
+    per_step = {k: launches[k] / TRAIN_STEPS for k in TRAIN_KERNELS}
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and all(v == n_layers for v in per_step.values()))
+    return {"phase": "train_f32", "batch": TRAIN_BATCH, **TRAIN_LM,
+            "startup_s": startup_s, "losses": losses, "step_ms": step_ms,
+            "step_ms_p50": p50, "tokens_per_s": tokens / p50 * 1e3,
+            "max_memory_allocated_bytes": peak,
+            "launches_per_step": per_step, "launches": launches,
+            "ok": ok}
+
+
+def train_oracle(torch):
+    """One step of the LM at full width, depth 1, batch 1 on the card
+    and, from the same parameters, on Executor(CPUPlace()): the loss
+    and every parameter gradient."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+
+    main, startup, loss = build_lm(fluid, n_layers=1)
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    host = fluid.Scope()
+    set_scope_arrays(host, get_scope_arrays(card, persist), "cpu")
+    params = sorted(p.name for p in main.all_parameters())
+    relu_in = [op.input("X")[0] for op in main.desc.blocks[0].ops
+               if op.type == "relu"]
+    fetch = [loss.name] + [p + "@GRAD" for p in params] + relu_in
+    feed = lm_batch(1, SEED + 4)
+    got = fluid.Executor(fluid.CUDAPlace(0)).run(main, feed=feed,
+                                                 fetch_list=fetch,
+                                                 scope=card)
+    want = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
+                                                fetch_list=fetch,
+                                                scope=host)
+    loss_err = abs(float(got[0][0]) - float(want[0][0])) / \
+        abs(float(want[0][0]))
+    grads = {}
+    for name, a, b in zip(fetch[1:1 + len(params)], got[1:], want[1:]):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        grads[name] = {
+            "fro_rel": float(np.linalg.norm(a - b) / np.linalg.norm(b)),
+            "max_abs_rel": float(np.abs(a - b).max() / np.abs(b).max())}
+    flips = sum(int(((a > 0) != (b > 0)).sum())
+                for a, b in zip(got[1 + len(params):],
+                                want[1 + len(params):]))
+    worst = max(grads, key=lambda n: grads[n]["fro_rel"])
+    ok = (math.isfinite(loss_err) and loss_err <= ORACLE_LOSS_RTOL
+          and all(math.isfinite(g["fro_rel"])
+                  and g["fro_rel"] <= ORACLE_GRAD_RTOL
+                  for g in grads.values()))
+    return {"phase": "train_oracle", "n_layers": 1, "batch": 1,
+            "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
+            "loss_rel_err": loss_err, "relu_flips": flips,
+            "worst_grad": worst, "grads": grads,
+            "loss_tolerance": ORACLE_LOSS_RTOL,
+            "grad_tolerance": ORACLE_GRAD_RTOL, "ok": ok}
+
+
 def main():
     import torch
 
@@ -383,7 +570,7 @@ def main():
             eng8 = srv.load_generative("int8", cfg, params, quant="int8",
                                        kv_blocks=512)
             res8, secs8, launches8 = serve(torch, srv, "int8", prompts)
-            if min(launches8.values()) <= 0:
+            if min(launches8[k] for k in SERVE_KERNELS) <= 0:
                 raise AssertionError("a kernel never launched on the int8 "
                                      "tenant: %r" % launches8)
             agree = sum(a == b for r, r8 in zip(res, res8)
@@ -412,6 +599,21 @@ def main():
                   in_batch["tokens"]})
         finally:
             srv.close()
+
+        phase = "train_f32"
+        torch.cuda.empty_cache()
+        train = train_f32(torch)
+        emit(train)
+        if not train["ok"]:
+            raise AssertionError("training step failed its checks")
+        launches_train = train["launches"]
+
+        phase = "train_oracle"
+        oracle = train_oracle(torch)
+        emit(oracle)
+        if not oracle["ok"]:
+            raise AssertionError("card training step disagrees with the "
+                                 "CPU one")
     except Exception as e:
         emit({"phase": phase, "ok": False,
               "error": "%s: %s" % (type(e).__name__, e)})
@@ -421,31 +623,42 @@ def main():
     by_name = {}
     for r in rows:
         by_name.setdefault(r["kernel"], []).append(r)
-    # one summary row per kernel: K1 at the longest prefill, K7 at the
-    # full decode batch, K8 at the full decode batch on the slower of the
-    # two largest projections (w1 and w2 move the same bytes and FLOPs)
-    pick = {"flash_fwd": ["[1,8,2048,128] causal"],
+    # one summary row per kernel, at its main path's shape: K1/K2/K3 at
+    # the training step's attention, K7 at the full decode batch, K8 at
+    # the full decode batch on the slower of the two largest projections
+    # (w1 and w2 move the same bytes and FLOPs)
+    pick = {"flash_fwd": ["[16,8,2048,128] causal"],
+            "flash_bwd_dq": ["[16,8,2048,128] causal"],
+            "flash_bwd_dkv": ["[16,8,2048,128] causal"],
             "paged_attention": ["B=16 NB=128 bs=16 H=8 D=128"],
             "matmul_int8": ["M=16 K=1024 N=4096", "M=16 K=4096 N=1024"]}
-    meta = {"flash_fwd": ("paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
-                          "paddle_tpu/kernels/flash_attention.py:68"),
-            "paged_attention": (
-                "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-                "paddle_tpu/kernels/flash_attention.py:496"),
-            "matmul_int8": ("paddle_tpu_torch/kernels/csrc/matmul_int8.cu",
-                            "paddle_tpu/kernels/matmul_fused.py:275")}
-    # launches: the int8 tenant's serve run, the one path that runs all
-    # three kernels; each serve run's own counts stand beside it
+    csrc = "paddle_tpu_torch/kernels/csrc/"
+    tpu = "paddle_tpu/kernels/"
+    meta = {"flash_fwd": (csrc + "flash_fwd.cu",
+                          tpu + "flash_attention.py:68"),
+            "flash_bwd_dq": (csrc + "flash_bwd.cu",
+                             tpu + "flash_attention.py:284"),
+            "flash_bwd_dkv": (csrc + "flash_bwd.cu",
+                              tpu + "flash_attention.py:307"),
+            "paged_attention": (csrc + "paged_attention.cu",
+                                tpu + "flash_attention.py:496"),
+            "matmul_int8": (csrc + "matmul_int8.cu",
+                            tpu + "matmul_fused.py:275")}
+    # launches: each kernel's count on its main path (train_f32 for the
+    # training kernels, the int8 tenant's serve run, which runs all three
+    # serving kernels, for the rest); every path's count stands beside it
     summary = []
     for name in KERNELS:
         r = max((x for x in by_name[name] if x["shape"] in pick[name]),
                 key=lambda x: x["ms"])
+        path = "train_f32" if name in TRAIN_KERNELS else "serve_int8"
+        by_path = {"serve_f32": launches.get(name, 0),
+                   "serve_int8": launches8.get(name, 0),
+                   "train_f32": launches_train.get(name, 0)}
         summary.append({
             "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches8[name],
-            "launches_path": "serve_int8",
-            "launches_by_path": {"serve_f32": launches[name],
-                                 "serve_int8": launches8[name]},
+            "replaces": meta[name][1], "launches": by_path[path],
+            "launches_path": path, "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in by_name[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

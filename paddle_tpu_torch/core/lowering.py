@@ -1,0 +1,320 @@
+"""Running a block's ops eagerly on torch tensors.
+
+Counterpart of ``paddle_tpu/core/lowering.py``.  The JAX package traces
+a whole block into one XLA computation; here each op's lowering runs
+eagerly, in order, against an environment of tensors (``ctx.env``), and
+the executor (``executor_impl``) moves values between that environment
+and the Scope.  The same lowerings also run on ``meta`` tensors for
+build-time shape inference (``infer_op_outputs``).
+
+Not ported yet: the bf16 AMP casts of the JAX package's lowering and its
+ragged-sequence ('@LEN') propagation.
+"""
+from __future__ import annotations
+
+import torch
+
+from .registry import get_op_info
+from .types import proto_to_torch_dtype
+
+EMPTY_VAR = ""
+
+
+class Ins:
+    """Read-only view of an op's input slots during lowering.
+
+    ``ins[slot]`` -> the single value of a one-var slot;
+    ``ins.list(slot)`` -> list (entries may be None for empty var names);
+    ``ins.get(slot)`` -> single value or None.
+    """
+
+    __slots__ = ("_d",)
+
+    def __init__(self, d):
+        self._d = d
+
+    def __getitem__(self, slot):
+        v = self._d[slot]
+        if len(v) != 1 or v[0] is None:
+            raise ValueError("slot %r expected exactly one value, got %r" %
+                             (slot, v))
+        return v[0]
+
+    def get(self, slot, default=None):
+        v = self._d.get(slot)
+        if not v or v[0] is None:
+            return default
+        return v[0]
+
+    def list(self, slot):
+        return self._d.get(slot, [])
+
+    def has(self, slot):
+        v = self._d.get(slot)
+        return bool(v) and any(x is not None for x in v)
+
+    def slots(self):
+        return self._d.keys()
+
+
+class LoweringContext:
+    """State shared by the ops of one block run."""
+
+    def __init__(self, program, block_idx, env, device, seed=0):
+        self.program = program
+        self.block_idx = block_idx
+        self.block = program.blocks[block_idx]
+        self.env = env                  # name -> tensor
+        self.device = device            # torch.device the block runs on
+        self.seed = seed                # this run's random seed
+        self._generator = None
+
+    def generator(self, seed=0):
+        """``torch.Generator`` for a random op: a fresh one seeded with
+        the op's own ``seed`` attr when set, else the run's generator
+        (seeded once from the program's seed and the run counter), whose
+        stream advances op by op."""
+        if seed:
+            return torch.Generator(device=self.device).manual_seed(seed)
+        if self._generator is None:
+            self._generator = torch.Generator(
+                device=self.device).manual_seed(self.seed)
+        return self._generator
+
+
+def run_op(ctx, op):
+    info = get_op_info(op.type)
+    if info.host_op:
+        return
+    ins = _gather_inputs(ctx.env, op)
+    attrs = {k: a.value for k, a in op.attrs.items()}
+    outs = info.lower(ctx, ins, attrs, op)
+    _scatter_outputs(ctx.env, op, outs)
+
+
+def _gather_inputs(env, op):
+    d = {}
+    for slot, names in op.inputs.items():
+        vals = []
+        for n in names:
+            if n == EMPTY_VAR:
+                vals.append(None)
+            elif n in env:
+                vals.append(env[n])
+            else:
+                raise KeyError(
+                    "op %s input %s/%s not found in environment" %
+                    (op.type, slot, n))
+        d[slot] = vals
+    return Ins(d)
+
+
+def _scatter_outputs(env, op, outs):
+    outs = outs or {}
+    for slot, names in op.outputs.items():
+        if slot not in outs:
+            if names and any(n != EMPTY_VAR for n in names):
+                raise ValueError("op %s produced no value for output slot %s"
+                                 % (op.type, slot))
+            continue
+        vals = outs[slot]
+        if not isinstance(vals, (list, tuple)):
+            vals = [vals]
+        if len(vals) != len(names):
+            raise ValueError(
+                "op %s output slot %s: %d values for %d names" %
+                (op.type, slot, len(vals), len(names)))
+        for n, v in zip(names, vals):
+            if n == EMPTY_VAR or v is None:
+                continue
+            env[n] = v
+
+
+# ---------------------------------------------------------------------------
+# Generic gradient lowering: autograd over the forward lowering.
+# ---------------------------------------------------------------------------
+
+def generic_grad_lower(ctx, ins, attrs, op):
+    """Lower ``<fwd>_grad`` by differentiating the forward lowering.
+
+    Where the JAX package takes ``jax.vjp`` of the forward lowering, this
+    re-runs the forward lowering under ``torch.enable_grad()`` on leaves
+    that require grad and calls ``torch.autograd.grad`` with the op's
+    output grads as ``grad_outputs``.  A missing cotangent counts as
+    zero, non-float outputs are skipped, and '' holes in the grad op's
+    outputs stay holes.  The forward is recomputed: eager PyTorch has no
+    dead-code elimination to drop it, as XLA does for the vjp.
+    """
+    fwd_type = op.type[: -len("_grad")]
+    info = get_op_info(fwd_type)
+
+    out_grad_slots = [s for s in ins.slots() if s.endswith("@GRAD")]
+    fwd_output_slots = [s[: -len("@GRAD")] for s in out_grad_slots]
+    fwd_input_slots = [s for s in ins.slots() if not s.endswith("@GRAD")
+                       and s not in fwd_output_slots]
+
+    # differentiable leaves, read off the grad op's own outputs: slot
+    # "X@GRAD" parallels forward slot "X", with "" holes
+    wrt = []  # [(fwd_slot, index)]
+    for gslot, names in op.outputs.items():
+        base = gslot[: -len("@GRAD")]
+        for i, n in enumerate(names):
+            if n != EMPTY_VAR:
+                wrt.append((base, i))
+    if not wrt:
+        return {}
+
+    fwd_op_view = _FwdOpView(
+        fwd_type, {s: list(op.inputs.get(s, [])) for s in fwd_input_slots},
+        {s: list(op.inputs.get(s, [])) for s in fwd_output_slots})
+
+    merged = {s: list(ins.list(s)) for s in fwd_input_slots}
+    leaves = []
+    with torch.enable_grad():
+        for slot, i in wrt:
+            leaf = merged[slot][i].detach().requires_grad_(True)
+            merged[slot][i] = leaf
+            leaves.append(leaf)
+        outs = info.lower(ctx, Ins(merged), dict(attrs), fwd_op_view)
+        outputs, cots = [], []
+        for s in fwd_output_slots:
+            if s in info.no_vjp_outputs:
+                continue
+            vals = outs.get(s)
+            if not isinstance(vals, (list, tuple)):
+                vals = [vals]
+            gvals = ins.list(s + "@GRAD")
+            for i, ov in enumerate(vals):
+                g = gvals[i] if i < len(gvals) else None
+                if g is None or not _is_float(ov) or not ov.requires_grad:
+                    continue
+                outputs.append(ov)
+                cots.append(g)
+        grads = (torch.autograd.grad(outputs, leaves, cots,
+                                     allow_unused=True)
+                 if outputs else [None] * len(leaves))
+    by_leaf = {}
+    for (slot, i), leaf, g in zip(wrt, leaves, grads):
+        by_leaf[(slot, i)] = torch.zeros_like(leaf.detach()) if g is None \
+            else g
+    result = {}
+    for gslot, names in op.outputs.items():
+        base = gslot[: -len("@GRAD")]
+        result[gslot] = [by_leaf.get((base, i)) if n != EMPTY_VAR else None
+                         for i, n in enumerate(names)]
+    return result
+
+
+class _FwdOpView:
+    """Minimal OpDesc stand-in handed to forward lowerings during the
+    gradient's forward re-run."""
+
+    __slots__ = ("type", "inputs", "outputs")
+
+    def __init__(self, type_, inputs, outputs=None):
+        self.type = type_
+        self.inputs = inputs
+        self.outputs = outputs or {}
+
+    def input_arg_names(self):
+        return [n for ns in self.inputs.values() for n in ns]
+
+    def output_arg_names(self):
+        return [n for ns in self.outputs.values() for n in ns]
+
+
+def _is_float(x):
+    return isinstance(x, torch.Tensor) and x.is_floating_point()
+
+
+# ---------------------------------------------------------------------------
+# Build-time shape inference on meta tensors.
+# ---------------------------------------------------------------------------
+
+# Sentinels for dynamic (-1) dims, as in the JAX package: inference runs
+# on a second sentinel only when an output dim equals the first, and a
+# dim maps back to -1 only when it tracks both substitutions.
+_FAKE_BATCH = 97
+_FAKE_BATCH_ALT = 89
+_META = torch.device("meta")
+
+
+def infer_op_outputs(program, block, op):
+    """Infer output (shape, torch dtype) per output var by running the
+    op's registered ``infer_shape`` or, as the general fallback, its
+    lowering on ``meta`` tensors (no data, no FLOPs)."""
+    info = get_op_info(op.type)
+    attrs = {k: a.value for k, a in op.attrs.items()}
+
+    def build_specs(fake):
+        specs = {}
+        dynamic = False
+        for slot, names in op.inputs.items():
+            lst = []
+            for n in names:
+                if n == EMPTY_VAR:
+                    lst.append(None)
+                    continue
+                vd = _find_var(program, block, n)
+                if vd is None:
+                    raise KeyError("var %s not found for shape inference" % n)
+                shape, dtype = vd.shape, proto_to_torch_dtype(vd.dtype)
+                if any(d == -1 for d in shape):
+                    dynamic = True
+                shape = tuple(fake if d == -1 else d for d in shape)
+                lst.append(torch.empty(shape, dtype=dtype, device=_META))
+            specs[slot] = lst
+        return specs, dynamic
+
+    def run(specs):
+        if callable(info.infer_shape):
+            outs = info.infer_shape(Ins(specs), attrs, op)
+        else:
+            ctx = LoweringContext(program, block.idx, {}, _META)
+            outs = info.lower(ctx, Ins(specs), attrs, op)
+        return {slot: (list(v) if isinstance(v, (list, tuple)) else [v])
+                for slot, v in (outs or {}).items()}
+
+    specs, dynamic = build_specs(_FAKE_BATCH)
+    shaped = run(specs)
+    shaped_alt = None
+    if dynamic and any(
+            _FAKE_BATCH in tuple(getattr(t, "shape", ()))
+            for outs in shaped.values() for t in outs if t is not None):
+        try:
+            shaped_alt = run(build_specs(_FAKE_BATCH_ALT)[0])
+        except Exception:
+            shaped_alt = None
+
+    result = {}
+    for slot, names in op.outputs.items():
+        if slot not in shaped:
+            continue
+        alt_slot = shaped_alt.get(slot) if shaped_alt else None
+        for i, (n, t) in enumerate(zip(names, shaped[slot])):
+            if n == EMPTY_VAR or not isinstance(t, torch.Tensor):
+                continue
+            alt = alt_slot[i] if alt_slot and i < len(alt_slot) else None
+            alt_shape = tuple(alt.shape) if isinstance(alt, torch.Tensor) \
+                and alt.dim() == t.dim() else None
+            shape = []
+            for j, d in enumerate(t.shape):
+                if not dynamic:
+                    shape.append(d)
+                elif d == _FAKE_BATCH and (
+                        alt_shape is None
+                        or alt_shape[j] == _FAKE_BATCH_ALT):
+                    shape.append(-1)
+                else:
+                    shape.append(d)
+            result[n] = (tuple(shape), t.dtype)
+    return result
+
+
+def _find_var(program, block, name):
+    blk = block
+    while blk is not None:
+        if name in blk.vars:
+            return blk.vars[name]
+        blk = program.blocks[blk.parent_idx] if blk.parent_idx >= 0 else None
+    return None

@@ -1,0 +1,45 @@
+"""fluid-compatible user API of the port.
+
+Counterpart of ``paddle_tpu.fluid`` for the surface the transformer
+LM's training reaches:
+
+    import paddle_tpu_torch.fluid as fluid
+    x = fluid.layers.data(name="x", shape=[13])
+    y = fluid.layers.fc(x, size=1)
+    ...
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+
+Programs built here serialize to the same bytes as the JAX package's.
+"""
+import paddle_tpu_torch.ops  # noqa: F401  (register the operator library)
+
+from . import framework
+from .framework import (Program, Block, Operator, Variable, Parameter,
+                        default_main_program, default_startup_program,
+                        program_guard, switch_main_program,
+                        switch_startup_program)
+from . import layers
+from . import initializer
+from .param_attr import ParamAttr
+from . import param_attr
+from .layer_helper import LayerHelper
+from . import layer_helper
+from . import backward
+from .backward import append_backward, calc_gradient
+from . import optimizer
+from . import unique_name
+from .executor import Executor, global_scope, scope_guard, fetch_var
+from . import io
+
+from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace
+from paddle_tpu_torch.core.scope import Scope
+
+__all__ = [
+    "Program", "Block", "Operator", "Variable", "Parameter",
+    "default_main_program", "default_startup_program", "program_guard",
+    "switch_main_program", "switch_startup_program",
+    "layers", "initializer", "ParamAttr", "LayerHelper",
+    "append_backward", "calc_gradient", "optimizer", "unique_name",
+    "Executor", "global_scope", "scope_guard", "fetch_var", "io",
+    "CPUPlace", "CUDAPlace", "Scope",
+]

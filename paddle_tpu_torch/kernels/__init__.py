@@ -3,15 +3,19 @@ version.  ``KERNELS`` maps each kernel's name to its wrapper, whose
 ``launches`` attribute counts kernel launches."""
 from __future__ import annotations
 
-from .flash_attention import (flash_attention, flash_attention_fwd_lse,
-                              paged_attention)
+from .flash_attention import (flash_attention, flash_attention_bwd,
+                              flash_attention_fwd_lse, flash_attention_train,
+                              flash_bwd_dkv, flash_bwd_dq, paged_attention)
 from .matmul_fused import matmul_int8_dequant
 
 __all__ = ["KERNELS", "reset_launches", "flash_attention",
-           "flash_attention_fwd_lse", "paged_attention",
+           "flash_attention_fwd_lse", "flash_attention_bwd",
+           "flash_attention_train", "paged_attention",
            "matmul_int8_dequant"]
 
 KERNELS = {"flash_fwd": flash_attention_fwd_lse,
+           "flash_bwd_dq": flash_bwd_dq,
+           "flash_bwd_dkv": flash_bwd_dkv,
            "paged_attention": paged_attention,
            "matmul_int8": matmul_int8_dequant}
 

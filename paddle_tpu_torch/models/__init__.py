@@ -1,0 +1,1 @@
+"""Model programs of the port (counterpart of paddle_tpu/models)."""

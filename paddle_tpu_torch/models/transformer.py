@@ -1,0 +1,115 @@
+"""Transformer language model — the attention-era flagship.
+
+Counterpart of paddle_tpu/models/transformer.py: the same fluid program,
+built by the port's fluid (same variable names, same desc).  Only the
+dense single-device model is ported: tensor parallelism (``tp``), the
+sequence-parallel ring (``sp``), mixture-of-experts blocks
+(``moe_experts``) and the fused-block rewrite (``fuse_transformer``)
+raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import paddle_tpu_torch.fluid as fluid
+from paddle_tpu_torch.fluid.param_attr import ParamAttr
+
+__all__ = ["transformer_lm", "get_model"]
+
+
+def _attn_block(x, d_model, n_head, tp, sp, prefix):
+    ln = fluid.layers.layer_norm(x, begin_norm_axis=2)
+    head_dim = d_model // n_head
+    wattr = (lambda: ParamAttr(sharding=(None, "tp"))) if tp else \
+        (lambda: None)
+    qkv = []
+    for nm in ("q", "k", "v"):
+        h = fluid.layers.fc(ln, size=d_model, num_flatten_dims=2,
+                            param_attr=wattr(), bias_attr=False,
+                            name="%s_%s" % (prefix, nm))
+        h = fluid.layers.reshape(h, [0, 0, n_head, head_dim])
+        qkv.append(fluid.layers.transpose(h, [0, 2, 1, 3]))  # [B,H,S,Dh]
+    q, k, v = qkv
+
+    helper = fluid.layer_helper.LayerHelper(prefix + "_ring")
+    att = helper.create_tmp_variable(x.dtype)
+    # LSE output = the flash residual: the backward runs the two flash
+    # kernels from it instead of re-executing the forward inside the
+    # grad op's vjp (~2.5 ms/layer on the secondary bench)
+    lse = helper.create_tmp_variable("float32")
+    lse.stop_gradient = True
+    helper.append_op(
+        type="ring_attention", inputs={"Q": [q], "K": [k], "V": [v]},
+        outputs={"Out": [att], "LSE": [lse]},
+        attrs={"causal": True, "sp_axis": "sp" if sp else "",
+               "batch_axis": "dp", "head_axis": "tp" if tp else ""})
+    att = fluid.layers.transpose(att, [0, 2, 1, 3])
+    att = fluid.layers.reshape(att, [0, 0, d_model])
+    out = fluid.layers.fc(
+        att, size=d_model, num_flatten_dims=2,
+        param_attr=ParamAttr(sharding=("tp", None)) if tp else None,
+        name=prefix + "_o")
+    return fluid.layers.elementwise_add(x, out)
+
+
+def _ffn_block(x, d_model, d_ff, tp, prefix):
+    ln = fluid.layers.layer_norm(x, begin_norm_axis=2)
+    h = fluid.layers.fc(
+        ln, size=d_ff, num_flatten_dims=2, act="relu",
+        param_attr=ParamAttr(sharding=(None, "tp")) if tp else None,
+        name=prefix + "_fc1")
+    h = fluid.layers.fc(
+        h, size=d_model, num_flatten_dims=2,
+        param_attr=ParamAttr(sharding=("tp", None)) if tp else None,
+        name=prefix + "_fc2")
+    return fluid.layers.elementwise_add(x, h)
+
+
+def transformer_lm(src, vocab_size, max_len, d_model=256, n_head=8,
+                   n_layers=4, d_ff=1024, tp=False, sp=False,
+                   moe_experts=0, ep=False):
+    """src: [B, S] int64 token ids -> logits [B, S, vocab_size]."""
+    _dense_only(tp, sp, moe_experts, ep)
+    emb = fluid.layers.embedding(src, (vocab_size, d_model))
+    pos = fluid.layers.create_parameter([max_len, d_model], "float32",
+                                        name="pos_emb")
+    x = fluid.layers.elementwise_add(emb, pos, axis=1)
+    for i in range(n_layers):
+        x = _attn_block(x, d_model, n_head, tp, sp, "blk%d" % i)
+        x = _ffn_block(x, d_model, d_ff, tp, "blk%d" % i)
+    x = fluid.layers.layer_norm(x, begin_norm_axis=2)
+    logits = fluid.layers.fc(x, size=vocab_size, num_flatten_dims=2,
+                             name="lm_head")
+    return logits
+
+
+def _dense_only(tp, sp, moe_experts, ep):
+    for name, on in (("tp", tp), ("sp", sp), ("moe_experts", moe_experts),
+                     ("ep", ep)):
+        if on:
+            raise NotImplementedError(
+                "transformer_lm(%s=...): only the dense single-device "
+                "model is ported to paddle_tpu_torch yet" % name)
+
+
+def get_model(vocab_size=1000, seq_len=64, batch_size=None, d_model=256,
+              n_head=8, n_layers=4, d_ff=1024, learning_rate=1e-3,
+              tp=False, sp=False, moe_experts=0, ep=False,
+              fuse_transformer=None):
+    """(avg_cost, [src, label], []) — next-token LM loss, minimized by
+    Adam.  ``fuse_transformer`` None means the unfused program (the JAX
+    package's default, ``FLAGS.transformer_fuse`` off); True raises."""
+    if fuse_transformer:
+        raise NotImplementedError(
+            "fuse_transformer: the fused-block rewrite and its kernels are "
+            "not ported to paddle_tpu_torch yet")
+
+    src = fluid.layers.data(name="src", shape=[seq_len], dtype="int64")
+    label = fluid.layers.data(name="label", shape=[seq_len, 1],
+                              dtype="int64")
+    logits = transformer_lm(src, vocab_size, seq_len, d_model, n_head,
+                            n_layers, d_ff, tp=tp, sp=sp,
+                            moe_experts=moe_experts, ep=ep)
+    loss = fluid.layers.softmax_with_cross_entropy(logits, label)
+    avg_cost = fluid.layers.mean(loss)
+    opt = fluid.optimizer.Adam(learning_rate=learning_rate)
+    opt.minimize(avg_cost)
+    return avg_cost, [src, label], []

@@ -1,0 +1,89 @@
+"""Tensor manipulation ops.
+
+Counterpart of ``paddle_tpu/ops/tensor.py`` for the ops ported so far.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.core.types import DataType, proto_to_torch_dtype
+
+
+@register_op("reshape")
+def _reshape(ctx, ins, attrs, op):
+    x = ins["X"]
+    shape = list(attrs.get("shape"))
+    # 0 = keep input dim (reference reshape semantics), -1 = infer
+    shape = [x.shape[i] if d == 0 else d for i, d in enumerate(shape)]
+    return {"Out": x.reshape(shape)}
+
+
+@register_op("transpose")
+def _transpose(ctx, ins, attrs, op):
+    # a view: a consumer that needs contiguous memory (a kernel) copies
+    return {"Out": ins["X"].permute(*attrs.get("axis"))}
+
+
+@register_op("assign")
+def _assign(ctx, ins, attrs, op):
+    return {"Out": ins["X"]}
+
+
+@register_op("assign_value", grad_maker=None)
+def _assign_value(ctx, ins, attrs, op):
+    dtype = proto_to_torch_dtype(attrs.get("dtype", DataType.FP32))
+    shape = attrs.get("shape")
+    if attrs.get("fp32_values"):
+        vals = np.asarray(attrs["fp32_values"], dtype=np.float32)
+    else:
+        vals = np.asarray(attrs.get("int32_values", []), dtype=np.int32)
+    if ctx.device.type == "meta":
+        return {"Out": torch.empty(shape, dtype=dtype, device=ctx.device)}
+    return {"Out": torch.from_numpy(vals.reshape(shape)).to(
+        device=ctx.device, dtype=dtype)}
+
+
+@register_op("fill_constant", grad_maker=None)
+def _fill_constant(ctx, ins, attrs, op):
+    dtype = proto_to_torch_dtype(attrs.get("dtype", DataType.FP32))
+    return {"Out": torch.full(tuple(attrs.get("shape", [1])),
+                              attrs.get("value", 0.0), dtype=dtype,
+                              device=ctx.device)}
+
+
+def _lookup_idx(ids):
+    return ids.reshape(ids.shape[:-1]) if ids.shape[-1] == 1 else ids
+
+
+@register_op("lookup_table")
+def _lookup_table(ctx, ins, attrs, op):
+    """Embedding lookup (reference lookup_table_op.cc).  Ids [..., 1]
+    int64, kept int64 (the JAX package narrows them to int32)."""
+    w, ids = ins["W"], ins["Ids"]
+    padding_idx = attrs.get("padding_idx", -1)
+    idx = _lookup_idx(ids).long()
+    out = w[idx]
+    if padding_idx != -1:
+        out = out.masked_fill((idx == padding_idx)[..., None], 0.0)
+    return {"Out": out}
+
+
+@register_op("lookup_table_grad", grad_maker=None)
+def _lookup_table_grad(ctx, ins, attrs, op):
+    """Dense W@GRAD of the lookup: the out-grad rows scatter-added into
+    a zero table (``index_add_``).  The sparse (SelectedRows) form of
+    the JAX package is not ported yet."""
+    if attrs.get("is_sparse", False) or ins.get("W") is None:
+        raise NotImplementedError(
+            "lookup_table_grad: SelectedRows (is_sparse / distributed "
+            "table) gradients are not ported to paddle_tpu_torch yet")
+    w, ids, g = ins["W"], ins["Ids"], ins["Out@GRAD"]
+    padding_idx = attrs.get("padding_idx", -1)
+    rows = _lookup_idx(ids).reshape(-1).long()
+    vals = g.reshape(-1, w.shape[1]).to(w.dtype)
+    if padding_idx != -1:
+        # the vjp of the padding mask: those rows contribute nothing
+        vals = vals.masked_fill((rows == padding_idx)[:, None], 0.0)
+    return {"W@GRAD": torch.zeros_like(w).index_add_(0, rows, vals)}

@@ -1,0 +1,141 @@
+"""Where a training step's time goes on the card.
+
+Builds the flagship LM as a fluid Program (``models/transformer``
+get_model: vocab 8192, d_model 1024, 8 heads, 6 layers, d_ff 4096,
+sequence 2048, Adam; ``--batch`` sequences, default 16), runs its
+startup program and 2 untimed steps on one fixed batch drawn from
+``--seed``, then:
+
+- ``--steps`` steps (default 3) under ``torch.profiler``: host wall
+  time of a step, ended by the loss fetch (median), device time per
+  step (the sum of kernel, memcpy and memset times), the device's idle
+  share of the step, and device time by kernel name;
+- as many steps with CUDA events recorded on the current stream around
+  every op of the program (``executor_impl.OP_HOOK``): device time per
+  step by op type.  The events bracket everything the op enqueued,
+  including what autograd's device thread launched for a ``*_grad`` op
+  (a profiler range on the calling thread would miss that), and any
+  gap in between, which the idle share above bounds.
+
+Where the profiler records no device time these read "not measured".
+Run on a CUDA machine from the repository root:
+
+    python -m paddle_tpu_torch.tools.profile_train [--batch 16]
+
+Prints one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+
+from .. import fluid
+from ..core import executor_impl
+from ..models import transformer
+
+LM = dict(vocab_size=8192, seq_len=2048, d_model=1024, n_head=8,
+          n_layers=6, d_ff=4096, learning_rate=1e-3)
+
+
+class OpTimer:
+    """``executor_impl.OP_HOOK``: CUDA events around each op."""
+
+    def __init__(self):
+        self.marks = []
+
+    @contextlib.contextmanager
+    def __call__(self, op):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self.marks.append((op.type, start, end))
+
+    def by_type(self, steps):
+        torch.cuda.synchronize()
+        out = {}
+        for kind, start, end in self.marks:
+            ms, calls = out.get(kind, (0.0, 0))
+            out[kind] = (ms + start.elapsed_time(end), calls + 1)
+        return {k: {"ms_per_step": ms / steps, "calls_per_step": n / steps}
+                for k, (ms, n) in sorted(out.items(),
+                                         key=lambda kv: -kv[1][0])}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    main_prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main_prog, startup), fluid.unique_name.guard():
+        loss, _, _ = transformer.get_model(**LM)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(args.seed)
+    toks = rng.randint(0, LM["vocab_size"],
+                       (args.batch, LM["seq_len"] + 1)).astype(np.int64)
+    feed = {"src": toks[:, :-1], "label": toks[:, 1:, None]}
+
+    def step():
+        return exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    step_ms = []
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            step()                  # the loss fetch synchronizes
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    kernels = {}
+    for evt in prof.key_averages():
+        # device-side events only (kernels, memcpy/memset): a CPU op's
+        # self device time repeats its kernels' time
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels[evt.key] = {"ms_per_step": us / 1e3 / args.steps,
+                                "calls_per_step": evt.count / args.steps}
+    busy = sum(k["ms_per_step"] for k in kernels.values())
+    med = float(np.median(step_ms))
+    top = dict(sorted(kernels.items(),
+                      key=lambda kv: -kv[1]["ms_per_step"])[:15])
+
+    timer = OpTimer()
+    executor_impl.OP_HOOK = timer
+    try:
+        for _ in range(args.steps):
+            step()
+    finally:
+        executor_impl.OP_HOOK = None
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "batch": args.batch,
+        **LM, "steps": args.steps,
+        "step_ms_median": med,
+        "tokens_per_s": args.batch * LM["seq_len"] / med * 1e3,
+        "device_ms_per_step": busy if kernels else "not measured",
+        "device_idle_share": 1.0 - busy / med if kernels
+        else "not measured",
+        "by_op_type": timer.by_type(args.steps),
+        "kernels": top or "not measured"}))
+
+
+if __name__ == "__main__":
+    main()

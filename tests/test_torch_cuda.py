@@ -12,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.kernels import (flash_attention_fwd_lse,
+from paddle_tpu_torch.kernels import (flash_attention_bwd,
+                                      flash_attention_fwd_lse,
+                                      flash_attention_train,
                                       matmul_int8_dequant, paged_attention)
 from paddle_tpu_torch.kernels import matmul_fused as pmm
 from paddle_tpu_torch.kernels.flash_attention import (
-    attention_reference, paged_attention_reference)
+    attention_reference, flash_attention_bwd_reference,
+    paged_attention_reference)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -41,6 +44,40 @@ def test_flash_kernel_matches_plain_on_card(cuda, t, tk):
         ro, rl = attention_reference(q, k, v, 128 ** -0.5, causal)
         torch.testing.assert_close(out, ro, **TOL)
         torch.testing.assert_close(lse, rl, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,tk", [(2, 16, 16), (2, 100, 100),
+                                    (1, 256, 256), (2, 64, 200),
+                                    (1, 200, 64)])
+def test_flash_bwd_kernels_match_plain_on_card(cuda, b, t, tk):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, do = (torch.randn(b, 8, t, 128, device=cuda, generator=g)
+             for _ in range(2))
+    k, v = (torch.randn(b, 8, tk, 128, device=cuda, generator=g)
+            for _ in range(2))
+    for causal in (False, True):
+        out, lse = attention_reference(q, k, v, 128 ** -0.5, causal)
+        got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        want = flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                             128 ** -0.5, causal)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, **TOL)
+
+
+@pytest.mark.cuda
+def test_flash_train_autograd_runs_the_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(1, 8, 128, 128, device=cuda, generator=g,
+                           requires_grad=True) for _ in range(3))
+    w = torch.randn(1, 8, 128, 128, device=cuda, generator=g)
+    out, _ = flash_attention_train(q, k, v, causal=True)
+    grads = torch.autograd.grad((out * w).sum(), (q, k, v))
+    qd, kd, vd = (x.detach().requires_grad_() for x in (q, k, v))
+    ref, _ = attention_reference(qd, kd, vd, 128 ** -0.5, True)
+    want = torch.autograd.grad((ref * w).sum(), (qd, kd, vd))
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, **TOL)
 
 
 @pytest.mark.cuda
@@ -105,3 +142,37 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="block_size"):
         paged_attention(torch.randn(1, 2, 128, device=cuda), pages, pages,
                         tables, lens)
+
+
+@pytest.mark.cuda
+def test_executor_step_on_card_runs_the_flash_kernels(cuda):
+    """One training step of a small LM with head_dim 128 through
+    Executor(CUDAPlace(0)): K1 once and K2/K3 once per layer, and the
+    card's loss is the CPU executor's from the same parameters."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = transformer.get_model(
+            vocab_size=64, seq_len=128, d_model=256, n_head=2, n_layers=2,
+            d_ff=64)
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = [n for n, v in main.desc.blocks[0].vars.items()
+               if v.persistable]
+    host = fluid.Scope()
+    set_scope_arrays(host, get_scope_arrays(card, persist), "cpu")
+    toks = np.random.RandomState(0).randint(0, 64, (2, 129))
+    feed = {"src": toks[:, :-1], "label": toks[:, 1:, None]}
+    reset_launches()
+    got, = fluid.Executor(fluid.CUDAPlace(0)).run(
+        main, feed=feed, fetch_list=[loss], scope=card)
+    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    assert counts["flash_fwd"] == counts["flash_bwd_dq"] == \
+        counts["flash_bwd_dkv"] == 2, counts
+    want, = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=[loss], scope=host)
+    np.testing.assert_allclose(got, want, rtol=1e-5)

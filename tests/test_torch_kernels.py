@@ -18,9 +18,12 @@ from paddle_tpu.kernels import matmul_fused as jmm
 from paddle_tpu.serving import tiny_lm as jax_tiny_lm
 from paddle_tpu_torch.distributed import compress as port_compress
 from paddle_tpu_torch.kernels import (KERNELS, flash_attention,
+                                      flash_attention_bwd,
                                       flash_attention_fwd_lse,
+                                      flash_attention_train,
                                       matmul_int8_dequant,
                                       paged_attention)
+from paddle_tpu_torch.kernels.flash_attention import attention_reference
 from paddle_tpu_torch.kernels import matmul_fused as pmm
 from paddle_tpu_torch.serving import tiny_lm as port_tiny_lm
 
@@ -208,6 +211,73 @@ def test_tiny_lm_bit_identical():
 
 def test_cpu_path_launches_no_kernel():
     before = {k: fn.launches for k, fn in KERNELS.items()}
-    q, k, v = (_t(a) for a in _qkv(9, t=8, tk=8))
+    q, k, v = (_t(a).requires_grad_() for a in _qkv(9, t=8, tk=8))
     flash_attention(q, k, v, causal=True)
+    out, _ = flash_attention_train(q, k, v, causal=True)
+    out.sum().backward()
     assert {k: fn.launches for k, fn in KERNELS.items()} == before
+
+
+# ------------------------------------------------------- K2/K3 flash bwd
+
+def _bwd_case(seed, causal, t=64, tk=64):
+    q, k, v = _qkv(seed, t=t, tk=tk)
+    do = np.random.RandomState(seed + 100).randn(*q.shape).astype(
+        np.float32)
+    out, lse = jfa.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                           force_xla=True)
+    return q, k, v, np.asarray(out), np.asarray(lse), do
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mode", ["force_xla", "interpret"])
+def test_flash_bwd_plain_matches_jax(causal, mode):
+    """The port's flash_attention_bwd (its plain version on the CPU)
+    against the JAX package's, through its XLA branch and through the
+    Pallas dQ / dK-dV kernels in interpret mode."""
+    args = _bwd_case(5, causal)
+    kw = ({"force_xla": True} if mode == "force_xla" else
+          {"interpret": True, "block_q": 32, "block_k": 32})
+    want = jfa.flash_attention_bwd(*args, causal=causal, **kw)
+    got = flash_attention_bwd(*(_t(a) for a in args), causal=causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_flash_bwd_ragged_kv_matches_jax():
+    """Tk != T under the top-left causal mask."""
+    args = _bwd_case(6, True, t=32, tk=48)
+    want = jfa.flash_attention_bwd(*args, causal=True, force_xla=True)
+    got = flash_attention_bwd(*(_t(a) for a in args), causal=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_train_autograd_matches_plain_autograd(causal):
+    """flash_attention_train's backward (the flash backward from the
+    saved lse) equals autograd through the plain forward."""
+    q, k, v = _qkv(7, t=32, tk=32)
+    w = _t(np.random.RandomState(8).randn(*q.shape).astype(np.float32))
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    out, lse = flash_attention_train(*leaves, causal=causal)
+    assert not lse.requires_grad
+    got = torch.autograd.grad((out * w).sum(), leaves)
+    ref_leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    ref, _ = attention_reference(*ref_leaves, 32 ** -0.5, causal)
+    want = torch.autograd.grad((ref * w).sum(), ref_leaves)
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_flash_bwd_wrapper_validates_inputs():
+    q, k, v, out, lse, do = (_t(a) for a in _bwd_case(9, True, t=8, tk=8))
+    with pytest.raises(ValueError, match="float32"):
+        flash_attention_bwd(q.double(), k, v, out, lse, do)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention_bwd(q, k, v, out, lse[:, :, :4], do)
+    with pytest.raises(ValueError, match="B, H, T, D"):
+        flash_attention_bwd(q[0], k, v, out, lse, do)
