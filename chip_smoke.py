@@ -13,7 +13,8 @@ Phases, each printed as one JSON line:
              at the serving and training paths' shapes, with times (CUDA
              events, median of 25, L2 flushed before each launch) beside
              the plain version, a PyTorch library yardstick and the
-             card's bound;
+             card's bound; K4 also at every epilogue variant on ragged
+             shapes;
 4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
@@ -31,7 +32,13 @@ Phases, each printed as one JSON line:
 8. train_oracle — one step at full width, depth 1, batch 1 on the card
              against the same program on Executor(CPUPlace()) (the
              plain versions) from the same parameters: loss and every
-             parameter gradient.
+             parameter gradient;
+9. train_fused — phase 7 for the fused-block program
+             (get_model(fuse_transformer=True), FLAGS_transformer_fuse):
+             K1/K2/K3 6 times a step each, the fused matmul epilogue K4
+             25 times (6 QKV + 6 x 3 + lm_head), add + LayerNorm K5 12
+             times (2 a layer);
+10. train_fused_oracle — phase 8 for the fused-block program.
 
 Then the kernels' summary line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -139,8 +146,9 @@ def check_kernels(torch, timer):
         flash_bwd_dkv, flash_bwd_dq, paged_attention,
         paged_attention_reference)
     from paddle_tpu_torch.kernels.matmul_fused import (
-        dequantize_weight, matmul_int8_dequant, matmul_int8_reference,
-        quantize_weight)
+        add_ln, add_ln_reference, dequantize_weight, matmul_epilogue,
+        matmul_epilogue_reference, matmul_int8_dequant,
+        matmul_int8_reference, quantize_weight)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
@@ -274,7 +282,73 @@ def check_kernels(torch, timer):
         matmul_int8_reference(x, wq, sc, chunk, bias, res, "gelu"))
     if not ok:
         bad.append("matmul_int8 epilogue (max abs err %g)" % err)
+    del x, bias, res, wq, sc, wd
+    torch.cuda.empty_cache()
+
+    # K4: the fused training step's five projections at M = 16 * 2048
+    # tokens, each with its epilogue; the yardstick is torch.addmm
+    # (torch.matmul for the bias-free QKV; fc1's relu not included)
+    m = TRAIN_BATCH * TRAIN_LM["seq_len"]
+    for what, kk, n, with_bias, act in FUSED_MATMULS:
+        x = torch.randn(m, kk, device=dev, generator=gen)
+        w = torch.randn(kk, n, device=dev, generator=gen) * kk ** -0.5
+        bias = torch.randn(n, device=dev, generator=gen) if with_bias \
+            else None
+        err, ok = compare(torch, matmul_epilogue(x, w, bias, None, act),
+                          matmul_epilogue_reference(x, w, bias, None,
+                                                    act)[0])
+        record("matmul_epilogue", "%s M=%d K=%d N=%d" % (what, m, kk, n),
+               err, ok,
+               timer(lambda: matmul_epilogue(x, w, bias, None, act)),
+               timer(lambda: matmul_epilogue_reference(x, w, bias, None,
+                                                       act)),
+               timer(lambda: torch.addmm(bias, x, w) if with_bias
+                     else torch.matmul(x, w)),
+               4 * (m * kk + kk * n + m * n + (n if with_bias else 0)),
+               2 * m * kk * n)
+        del x, w, bias
+    # every epilogue (act x bias x residual x pre) on ragged M and N,
+    # float4 (N % 4 == 0) and scalar (N % 4 != 0) instantiations
+    for m_, kk, n in ((1000, 1024, 1000), (333, 256, 1001)):
+        x = torch.randn(m_, kk, device=dev, generator=gen)
+        w = torch.randn(kk, n, device=dev, generator=gen) * kk ** -0.5
+        bias = torch.randn(n, device=dev, generator=gen)
+        res = torch.randn(m_, n, device=dev, generator=gen)
+        for act in ("", "relu", "gelu"):
+            for b_, r_ in ((None, None), (bias, None), (bias, res),
+                           (None, res)):
+                out, pre = matmul_epilogue(x, w, b_, r_, act,
+                                           save_preact=True)
+                want, want_pre = matmul_epilogue_reference(x, w, b_, r_,
+                                                           act)
+                for got_, want_, part in ((out, want, "out"),
+                                          (pre, want_pre, "pre")):
+                    err, ok = compare(torch, got_, want_)
+                    if not ok:
+                        bad.append("matmul_epilogue M=%d K=%d N=%d act=%r "
+                                   "bias=%s residual=%s %s (max abs err "
+                                   "%g)" % (m_, kk, n, act, b_ is not None,
+                                            r_ is not None, part, err))
+
+    # K5: the fused step's residual add + LayerNorm, [16 * 2048, 1024]
+    # with scale and bias; the yardstick is two calls, x + y then
+    # F.layer_norm
+    d = TRAIN_LM["d_model"]
+    x, y = (torch.randn(m, d, device=dev, generator=gen) for _ in range(2))
+    scale = torch.rand(d, device=dev, generator=gen) + 0.5
+    bias = torch.randn(d, device=dev, generator=gen)
+    errs = [compare(torch, a, b_) for a, b_ in
+            zip(add_ln(x, y, scale, bias),
+                add_ln_reference(x, y, scale, bias))]
+    record("add_ln", "[%d,%d] affine" % (m, d), max(e for e, _ in errs),
+           all(ok for _, ok in errs),
+           timer(lambda: add_ln(x, y, scale, bias)),
+           timer(lambda: add_ln_reference(x, y, scale, bias)),
+           timer(lambda: F.layer_norm(x + y, (d,), scale, bias)),
+           4 * (4 * m * d + 2 * d + 2 * m), 8 * m * d)
+    del x, y
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return rows, bad
 
 
@@ -391,6 +465,25 @@ TRAIN_STEPS = 5
 # kernels a training step launches, with their count per step (one per
 # layer: ring_attention runs K1, ring_attention_grad K2 and K3)
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the fused program's kernels besides those: K4 for every projection,
+# K5 for every residual add + LayerNorm seam
+FUSED_KERNELS = ("matmul_epilogue", "add_ln")
+# the fused program's projections (name, K, N, bias, act), each one K4
+# launch per layer, lm_head once a step
+FUSED_MATMULS = (("qkv", 1024, 3072, False, ""),
+                 ("out_proj", 1024, 1024, True, ""),
+                 ("fc1", 1024, 4096, True, "relu"),
+                 ("fc2", 4096, 1024, True, ""),
+                 ("lm_head", 1024, 8192, True, ""))
+
+
+def train_launches_per_step(fuse):
+    """{kernel: launches a training step must make}."""
+    n = TRAIN_LM["n_layers"]
+    want = {k: n for k in TRAIN_KERNELS}
+    if fuse:
+        want.update(matmul_epilogue=4 * n + 1, add_ln=2 * n)
+    return want
 
 
 def build_lm(fluid, **overrides):
@@ -412,13 +505,14 @@ def lm_batch(batch, seed):
     return {"src": toks[:, :-1], "label": toks[:, 1:, None]}
 
 
-def train_f32(torch):
+def train(torch, fuse):
     """Startup, then 1 warm-up and TRAIN_STEPS timed steps of the
-    flagship LM on one fixed batch, through Executor(CUDAPlace(0))."""
+    flagship LM (the fused-block program with ``fuse``) on one fixed
+    batch, through Executor(CUDAPlace(0))."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.kernels import KERNELS, reset_launches
 
-    main, startup, loss = build_lm(fluid)
+    main, startup, loss = build_lm(fluid, fuse_transformer=fuse)
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     t0 = time.perf_counter()
@@ -441,28 +535,31 @@ def train_f32(torch):
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_LM["seq_len"]
     p50 = _pct(step_ms, 0.5)
-    n_layers = TRAIN_LM["n_layers"]
-    per_step = {k: launches[k] / TRAIN_STEPS for k in TRAIN_KERNELS}
+    want = train_launches_per_step(fuse)
+    per_step = {k: launches[k] / TRAIN_STEPS for k in KERNELS}
     ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-          and all(v == n_layers for v in per_step.values()))
-    return {"phase": "train_f32", "batch": TRAIN_BATCH, **TRAIN_LM,
+          and all(per_step[k] == want.get(k, 0) for k in KERNELS))
+    return {"phase": "train_fused" if fuse else "train_f32",
+            "batch": TRAIN_BATCH, **TRAIN_LM,
             "startup_s": startup_s, "losses": losses, "step_ms": step_ms,
             "step_ms_p50": p50, "tokens_per_s": tokens / p50 * 1e3,
             "max_memory_allocated_bytes": peak,
-            "launches_per_step": per_step, "launches": launches,
+            "launches_per_step": per_step,
+            "launches_per_step_wanted": want, "launches": launches,
             "ok": ok}
 
 
-def train_oracle(torch):
-    """One step of the LM at full width, depth 1, batch 1 on the card
-    and, from the same parameters, on Executor(CPUPlace()): the loss
-    and every parameter gradient."""
+def train_oracle(torch, fuse):
+    """One step of the LM (the fused-block program with ``fuse``) at
+    full width, depth 1, batch 1 on the card and, from the same
+    parameters, on Executor(CPUPlace()): the loss and every parameter
+    gradient."""
     import numpy as np
 
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
 
-    main, startup, loss = build_lm(fluid, n_layers=1)
+    main, startup, loss = build_lm(fluid, n_layers=1, fuse_transformer=fuse)
     card = fluid.Scope()
     fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
     persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
@@ -470,8 +567,16 @@ def train_oracle(torch):
     host = fluid.Scope()
     set_scope_arrays(host, get_scope_arrays(card, persist), "cpu")
     params = sorted(p.name for p in main.all_parameters())
-    relu_in = [op.input("X")[0] for op in main.desc.blocks[0].ops
-               if op.type == "relu"]
+    # where relu's branch is decided: the relu op's input, or in the
+    # fused program (no relu op) the zero pattern of blk0_fc1's fused
+    # Out, which is relu(pre) itself
+    ops = main.desc.blocks[0].ops
+    relu_in = ([op.output("Out")[0] for op in ops
+                if op.type == "fused_matmul_bias_act"
+                and op.input("W") == ["blk0_fc1.w_0"]] if fuse else
+               [op.input("X")[0] for op in ops if op.type == "relu"])
+    if len(relu_in) != 1:
+        raise AssertionError("want one relu site, found %r" % relu_in)
     fetch = [loss.name] + [p + "@GRAD" for p in params] + relu_in
     feed = lm_batch(1, SEED + 4)
     got = fluid.Executor(fluid.CUDAPlace(0)).run(main, feed=feed,
@@ -496,7 +601,8 @@ def train_oracle(torch):
           and all(math.isfinite(g["fro_rel"])
                   and g["fro_rel"] <= ORACLE_GRAD_RTOL
                   for g in grads.values()))
-    return {"phase": "train_oracle", "n_layers": 1, "batch": 1,
+    return {"phase": "train_fused_oracle" if fuse else "train_oracle",
+            "n_layers": 1, "batch": 1,
             "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
             "loss_rel_err": loss_err, "relu_flips": flips,
             "worst_grad": worst, "grads": grads,
@@ -600,20 +706,23 @@ def main():
         finally:
             srv.close()
 
-        phase = "train_f32"
-        torch.cuda.empty_cache()
-        train = train_f32(torch)
-        emit(train)
-        if not train["ok"]:
-            raise AssertionError("training step failed its checks")
-        launches_train = train["launches"]
+        launches_train = {}
+        for fuse in (False, True):
+            phase = "train_fused" if fuse else "train_f32"
+            torch.cuda.empty_cache()
+            result = train(torch, fuse)
+            emit(result)
+            if not result["ok"]:
+                raise AssertionError("%s failed its checks" % phase)
+            launches_train[phase] = result["launches"]
 
-        phase = "train_oracle"
-        oracle = train_oracle(torch)
-        emit(oracle)
-        if not oracle["ok"]:
-            raise AssertionError("card training step disagrees with the "
-                                 "CPU one")
+            phase = "train_fused_oracle" if fuse else "train_oracle"
+            torch.cuda.empty_cache()
+            oracle = train_oracle(torch, fuse)
+            emit(oracle)
+            if not oracle["ok"]:
+                raise AssertionError("%s: the card's training step "
+                                     "disagrees with the CPU one" % phase)
     except Exception as e:
         emit({"phase": phase, "ok": False,
               "error": "%s: %s" % (type(e).__name__, e)})
@@ -626,12 +735,17 @@ def main():
     # one summary row per kernel, at its main path's shape: K1/K2/K3 at
     # the training step's attention, K7 at the full decode batch, K8 at
     # the full decode batch on the slower of the two largest projections
-    # (w1 and w2 move the same bytes and FLOPs)
+    # (w1 and w2 move the same bytes and FLOPs), K4 at the slowest of the
+    # fused step's five projections, K5 at the fused step's seam
+    m = TRAIN_BATCH * TRAIN_LM["seq_len"]
     pick = {"flash_fwd": ["[16,8,2048,128] causal"],
             "flash_bwd_dq": ["[16,8,2048,128] causal"],
             "flash_bwd_dkv": ["[16,8,2048,128] causal"],
             "paged_attention": ["B=16 NB=128 bs=16 H=8 D=128"],
-            "matmul_int8": ["M=16 K=1024 N=4096", "M=16 K=4096 N=1024"]}
+            "matmul_int8": ["M=16 K=1024 N=4096", "M=16 K=4096 N=1024"],
+            "matmul_epilogue": ["%s M=%d K=%d N=%d" % (what, m, kk, n)
+                                for what, kk, n, _, _ in FUSED_MATMULS],
+            "add_ln": ["[%d,%d] affine" % (m, TRAIN_LM["d_model"])]}
     csrc = "paddle_tpu_torch/kernels/csrc/"
     tpu = "paddle_tpu/kernels/"
     meta = {"flash_fwd": (csrc + "flash_fwd.cu",
@@ -643,18 +757,24 @@ def main():
             "paged_attention": (csrc + "paged_attention.cu",
                                 tpu + "flash_attention.py:496"),
             "matmul_int8": (csrc + "matmul_int8.cu",
-                            tpu + "matmul_fused.py:275")}
+                            tpu + "matmul_fused.py:275"),
+            "matmul_epilogue": (csrc + "matmul_fused.cu",
+                                tpu + "matmul_fused.py:105"),
+            "add_ln": (csrc + "matmul_fused.cu",
+                       tpu + "matmul_fused.py:394")}
     # launches: each kernel's count on its main path (train_f32 for the
-    # training kernels, the int8 tenant's serve run, which runs all three
-    # serving kernels, for the rest); every path's count stands beside it
+    # flash training kernels, train_fused for K4/K5, the int8 tenant's
+    # serve run, which runs all three serving kernels, for the rest);
+    # every path's count stands beside it
     summary = []
     for name in KERNELS:
         r = max((x for x in by_name[name] if x["shape"] in pick[name]),
                 key=lambda x: x["ms"])
-        path = "train_f32" if name in TRAIN_KERNELS else "serve_int8"
+        path = ("train_fused" if name in FUSED_KERNELS else
+                "train_f32" if name in TRAIN_KERNELS else "serve_int8")
         by_path = {"serve_f32": launches.get(name, 0),
                    "serve_int8": launches8.get(name, 0),
-                   "train_f32": launches_train.get(name, 0)}
+                   **{p: c.get(name, 0) for p, c in launches_train.items()}}
         summary.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": by_path[path],

@@ -1,4 +1,5 @@
-"""Runtime flags — the serving subset of ``paddle_tpu/core/flags.py``.
+"""Runtime flags — the subset of ``paddle_tpu/core/flags.py`` the port
+reads.
 
 Same ``FLAGS_<name>`` environment override and attribute access as the
 JAX package's registry; only the flags this port reads are defined.
@@ -60,3 +61,14 @@ define_flag("serve_kv_block_size", 16,
 define_flag("serve_kv_blocks", 512,
             "generative serving: KV cache blocks in a tenant's paged "
             "pool (block 0 is the reserved padding scratch block)")
+define_flag("transformer_fuse", False,
+            "transformer block fusion: models that honor the flag "
+            "(models/transformer.py get_model) run "
+            "FuseTransformerBlockPass before backward generation — the "
+            "QKV projections collapse to one wide matmul, "
+            "matmul+bias(+gelu/relu)(+dropout)(+residual) chains and "
+            "residual-add+layer_norm chains become fused ops backed by "
+            "kernels/matmul_fused.py (f32 accumulator epilogues, "
+            "explicit saved-activation grad lowerings).  Acts at PROGRAM "
+            "BUILD time; the unfused program stays the default for "
+            "bisection")

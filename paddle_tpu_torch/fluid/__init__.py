@@ -30,6 +30,7 @@ from . import optimizer
 from . import unique_name
 from .executor import Executor, global_scope, scope_guard, fetch_var
 from . import io
+from . import transpiler
 
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace
 from paddle_tpu_torch.core.scope import Scope
@@ -41,5 +42,6 @@ __all__ = [
     "layers", "initializer", "ParamAttr", "LayerHelper",
     "append_backward", "calc_gradient", "optimizer", "unique_name",
     "Executor", "global_scope", "scope_guard", "fetch_var", "io",
+    "transpiler",
     "CPUPlace", "CUDAPlace", "Scope",
 ]

@@ -6,18 +6,20 @@ from __future__ import annotations
 from .flash_attention import (flash_attention, flash_attention_bwd,
                               flash_attention_fwd_lse, flash_attention_train,
                               flash_bwd_dkv, flash_bwd_dq, paged_attention)
-from .matmul_fused import matmul_int8_dequant
+from .matmul_fused import add_ln, matmul_epilogue, matmul_int8_dequant
 
 __all__ = ["KERNELS", "reset_launches", "flash_attention",
            "flash_attention_fwd_lse", "flash_attention_bwd",
            "flash_attention_train", "paged_attention",
-           "matmul_int8_dequant"]
+           "matmul_epilogue", "add_ln", "matmul_int8_dequant"]
 
 KERNELS = {"flash_fwd": flash_attention_fwd_lse,
            "flash_bwd_dq": flash_bwd_dq,
            "flash_bwd_dkv": flash_bwd_dkv,
            "paged_attention": paged_attention,
-           "matmul_int8": matmul_int8_dequant}
+           "matmul_int8": matmul_int8_dequant,
+           "matmul_epilogue": matmul_epilogue,
+           "add_ln": add_ln}
 
 
 def reset_launches():

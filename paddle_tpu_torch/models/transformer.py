@@ -1,11 +1,11 @@
 """Transformer language model — the attention-era flagship.
 
 Counterpart of paddle_tpu/models/transformer.py: the same fluid program,
-built by the port's fluid (same variable names, same desc).  Only the
-dense single-device model is ported: tensor parallelism (``tp``), the
-sequence-parallel ring (``sp``), mixture-of-experts blocks
-(``moe_experts``) and the fused-block rewrite (``fuse_transformer``)
-raise NotImplementedError.
+built by the port's fluid (same variable names, same desc), unfused or
+with the fused-block rewrite (``fuse_transformer``).  Only the dense
+single-device model is ported: tensor parallelism (``tp``), the
+sequence-parallel ring (``sp``) and mixture-of-experts blocks
+(``moe_experts``) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -95,12 +95,19 @@ def get_model(vocab_size=1000, seq_len=64, batch_size=None, d_model=256,
               tp=False, sp=False, moe_experts=0, ep=False,
               fuse_transformer=None):
     """(avg_cost, [src, label], []) — next-token LM loss, minimized by
-    Adam.  ``fuse_transformer`` None means the unfused program (the JAX
-    package's default, ``FLAGS.transformer_fuse`` off); True raises."""
-    if fuse_transformer:
-        raise NotImplementedError(
-            "fuse_transformer: the fused-block rewrite and its kernels are "
-            "not ported to paddle_tpu_torch yet")
+    Adam.
+
+    ``fuse_transformer`` None → ``FLAGS.transformer_fuse``; True runs
+    FuseTransformerBlockPass on the built graph BEFORE backward
+    generation (fused QKV / matmul+bias+act / residual+LN ops backed by
+    kernels/matmul_fused.py), so minimize differentiates the fused
+    forward through the explicit saved-activation grad lowerings.  The
+    unfused program stays the default.
+    """
+    from paddle_tpu_torch.core.flags import FLAGS
+
+    if fuse_transformer is None:
+        fuse_transformer = bool(FLAGS.transformer_fuse)
 
     src = fluid.layers.data(name="src", shape=[seq_len], dtype="int64")
     label = fluid.layers.data(name="label", shape=[seq_len, 1],
@@ -110,6 +117,10 @@ def get_model(vocab_size=1000, seq_len=64, batch_size=None, d_model=256,
                             moe_experts=moe_experts, ep=ep)
     loss = fluid.layers.softmax_with_cross_entropy(logits, label)
     avg_cost = fluid.layers.mean(loss)
+    if fuse_transformer:
+        from paddle_tpu_torch.fluid.transpiler import \
+            TransformerFuseTranspiler
+        TransformerFuseTranspiler().transpile(fluid.default_main_program())
     opt = fluid.optimizer.Adam(learning_rate=learning_rate)
     opt.minimize(avg_cost)
     return avg_cost, [src, label], []

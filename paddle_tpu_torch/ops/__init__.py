@@ -1,6 +1,7 @@
 """The port's operator library: importing this package registers every
 op (counterpart of ``paddle_tpu/ops``; only the ops the transformer LM's
-training step and its optests reach are ported so far)."""
+training step, plain and fused, and its optests reach are ported so
+far)."""
 from . import math  # noqa: F401
 from . import tensor  # noqa: F401
 from . import nn  # noqa: F401
@@ -8,3 +9,4 @@ from . import loss  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import random  # noqa: F401
 from . import parallel_ops  # noqa: F401
+from . import fused_ops  # noqa: F401

@@ -2,9 +2,10 @@
 
 Builds the flagship LM as a fluid Program (``models/transformer``
 get_model: vocab 8192, d_model 1024, 8 heads, 6 layers, d_ff 4096,
-sequence 2048, Adam; ``--batch`` sequences, default 16), runs its
-startup program and 2 untimed steps on one fixed batch drawn from
-``--seed``, then:
+sequence 2048, Adam; ``--batch`` sequences, default 16; ``--fuse`` for
+the fused-block program, ``FLAGS_transformer_fuse``), runs its startup
+program and 2 untimed steps on one fixed batch drawn from ``--seed``,
+then:
 
 - ``--steps`` steps (default 3) under ``torch.profiler``: host wall
   time of a step, ended by the loss fetch (median), device time per
@@ -20,7 +21,7 @@ startup program and 2 untimed steps on one fixed batch drawn from
 Where the profiler records no device time these read "not measured".
 Run on a CUDA machine from the repository root:
 
-    python -m paddle_tpu_torch.tools.profile_train [--batch 16]
+    python -m paddle_tpu_torch.tools.profile_train [--batch 16] [--fuse]
 
 Prints one JSON line.
 """
@@ -74,11 +75,14 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fuse", action="store_true",
+                    help="profile the fused-block program")
     args = ap.parse_args(argv)
 
     main_prog, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main_prog, startup), fluid.unique_name.guard():
-        loss, _, _ = transformer.get_model(**LM)
+        loss, _, _ = transformer.get_model(**LM,
+                                           fuse_transformer=args.fuse)
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     exe.run(startup, scope=scope)
@@ -127,7 +131,7 @@ def main(argv=None):
         executor_impl.OP_HOOK = None
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "batch": args.batch,
-        **LM, "steps": args.steps,
+        **LM, "fuse_transformer": args.fuse, "steps": args.steps,
         "step_ms_median": med,
         "tokens_per_s": args.batch * LM["seq_len"] / med * 1e3,
         "device_ms_per_step": busy if kernels else "not measured",

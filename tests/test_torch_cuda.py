@@ -129,6 +129,62 @@ def test_int8_decode_rows_are_batch_invariant(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(33, 4, 7), (100, 68, 130),
+                                   (128, 256, 256), (257, 1024, 3072),
+                                   (2048, 1024, 1024)])
+def test_matmul_epilogue_kernel_matches_plain_on_card(cuda, m, k, n):
+    """K4 for every epilogue (act x bias x residual x pre), ragged M and
+    N edges and N % 4 != 0 (the scalar-load instantiation) included."""
+    rng = np.random.RandomState(0)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype(np.float32)).to(cuda)
+
+    x, w = t(m, k), t(k, n, scale=k ** -0.5)
+    bias, res = t(n), t(m, n)
+    for act in ("", "relu", "gelu"):
+        for b, r in ((None, None), (bias, None), (bias, res), (None, res)):
+            out, pre = pmm.matmul_epilogue(x, w, b, r, act,
+                                           save_preact=True)
+            want, want_pre = pmm.matmul_epilogue_reference(x, w, b, r, act)
+            torch.testing.assert_close(out, want, **TOL)
+            torch.testing.assert_close(pre, want_pre, **TOL)
+            torch.testing.assert_close(
+                pmm.matmul_epilogue(x, w, b, r, act), want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(1, 4), (37, 100), (64, 256), (8, 640),
+                                 (300, 1024)])
+def test_add_ln_kernel_matches_plain_on_card(cuda, m, d):
+    rng = np.random.RandomState(1)
+    x, y = (torch.from_numpy(rng.randn(m, d).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    scale = torch.from_numpy(
+        (rng.rand(d) + 0.5).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.randn(d).astype(np.float32)).to(cuda)
+    for sc, bi in ((None, None), (scale, bias), (scale, None)):
+        got = pmm.add_ln(x, y, sc, bi)
+        want = pmm.add_ln_reference(x, y, sc, bi)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(8, 6, device=cuda)                   # K = 6
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pmm.matmul_epilogue(x, torch.randn(6, 8, device=cuda))
+    w = torch.randn(8, 4, device=cuda).t()               # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        pmm.matmul_epilogue(torch.randn(3, 4, device=cuda), w)
+    big = torch.randn(4, 2048, device=cuda)              # D > 1024
+    with pytest.raises(ValueError, match="1024"):
+        pmm.add_ln(big, big)
+
+
+@pytest.mark.cuda
 def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     q = torch.randn(1, 2, 16, 96, device=cuda)       # head_dim 96
     with pytest.raises(ValueError, match="head_dim"):
@@ -176,3 +232,46 @@ def test_executor_step_on_card_runs_the_flash_kernels(cuda):
     want, = fluid.Executor(fluid.CPUPlace()).run(
         main, feed=feed, fetch_list=[loss], scope=host)
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_executor_fused_step_on_card_runs_the_fused_kernels(cuda):
+    """One training step of the small fused LM (FLAGS_transformer_fuse)
+    through Executor(CUDAPlace(0)): per layer one QKV, three epilogue
+    matmuls and two add + LN seams, plus the lm_head; the card's loss
+    and gradients are the CPU executor's from the same parameters."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = transformer.get_model(
+            vocab_size=64, seq_len=128, d_model=256, n_head=2, n_layers=2,
+            d_ff=64, fuse_transformer=True)
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = [n for n, v in main.desc.blocks[0].vars.items()
+               if v.persistable]
+    host = fluid.Scope()
+    set_scope_arrays(host, get_scope_arrays(card, persist), "cpu")
+    fetch = [loss.name] + sorted(p.name + "@GRAD"
+                                 for p in main.all_parameters())
+    toks = np.random.RandomState(0).randint(0, 64, (2, 129))
+    feed = {"src": toks[:, :-1], "label": toks[:, 1:, None]}
+    reset_launches()
+    got = fluid.Executor(fluid.CUDAPlace(0)).run(
+        main, feed=feed, fetch_list=fetch, scope=card)
+    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    assert counts["matmul_epilogue"] == 2 * 4 + 1, counts
+    assert counts["add_ln"] == 2 * 2, counts
+    assert counts["flash_fwd"] == counts["flash_bwd_dq"] == \
+        counts["flash_bwd_dkv"] == 2, counts
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=host)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    for name, a, b in zip(fetch[1:], got[1:], want[1:]):
+        # relative Frobenius norm, as chip_smoke.py's oracle: a relu
+        # input within rounding of 0 may take the other branch
+        assert np.linalg.norm(a - b) <= 1e-2 * np.linalg.norm(b), name

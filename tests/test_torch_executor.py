@@ -59,8 +59,7 @@ def test_program_ops_are_the_slice():
 
 
 @pytest.mark.parametrize("kw", [{"tp": True}, {"sp": True},
-                                {"moe_experts": 2},
-                                {"fuse_transformer": True}])
+                                {"moe_experts": 2}, {"ep": True}])
 def test_unported_model_options_raise(kw):
     with pytest.raises(NotImplementedError):
         build(tfluid, ttransformer, **kw)

@@ -44,6 +44,12 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_paddle_tpu():
     files = _port_files()
     assert len(files) > 10, files
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for mod in ("analysis/defuse.py", "fluid/transpiler/pass_framework.py",
+                "fluid/transpiler/layout_transpiler.py",
+                "fluid/transpiler/transformer_fuse.py", "ops/fused_ops.py",
+                "kernels/matmul_fused.py"):
+        assert "paddle_tpu_torch/" + mod in rel, mod
     bad = []
     for path in files:
         for mod in _imports(path):
