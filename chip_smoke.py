@@ -38,7 +38,32 @@ Phases, each printed as one JSON line:
              K1/K2/K3 6 times a step each, the fused matmul epilogue K4
              25 times (6 QKV + 6 x 3 + lm_head), add + LayerNorm K5 12
              times (2 a layer);
-10. train_fused_oracle — phase 8 for the fused-block program.
+10. train_fused_oracle — phase 8 for the fused-block program;
+11. infer_resnet_fused — ResNet-50 (models/resnet get_model: flowers,
+             224 x 224, 102 classes, uint8 images cast and scaled on the
+             card) as the is_test NHWC fused-stage program
+             (FLAGS_conv_layout=NHWC): one forward at batch 256 launches
+             the conv-stage kernel K6 53 times with its full epilogue
+             (BN affine, residual, relu); its softmax is held against
+             the NCHW is_test program's on the card from the same
+             parameters, whose BN running statistics are the batch's own;
+12. train_resnet — the NCHW training program (Momentum 0.9, lr 0.01)
+             through Executor(CUDAPlace(0)): startup, 1 warm-up and 5
+             timed steps on one fixed uint8 batch of 256; every loss
+             finite, the last below the first, no K6 launch;
+13. train_resnet_fused — phase 12 for the NHWC fused-stage program: K6
+             53 times a step, in its statistics form;
+14. train_resnet_fused_oracle — one step of the fused program at depth
+             50, batch 2, on the card against Executor(CPUPlace()) from
+             the same parameters: loss and every parameter gradient,
+             the gradients (worst and median) to twice the CPU's own
+             spread when one ulp is added to every filter, that spread
+             itself at most 5 %.
+
+Phase 3 holds K6 against its plain version at each of the path's 20
+conv shapes at batch 256 (statistics form; the five heaviest also with
+affine + residual + relu) and at every epilogue combination on ragged
+shapes.
 
 Then the kernels' summary line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -70,6 +95,29 @@ LOGIT_TOL = 1e-3
 # about 1/sqrt(tokens * d_ff / 2) ~ 5e-4 per flip
 ORACLE_LOSS_RTOL = 1e-5
 ORACLE_GRAD_RTOL = 1e-2
+# K6's per-channel sums over N*Ho*Wo pixels are sums of values near 0:
+# each is held to conv_fused.STATS_RTOL (1e-6) of the sum of its terms'
+# magnitudes, against a float64 sum of K6's own raw conv output, which
+# the output check holds to the plain version (conv_fused.stats_error)
+# the ResNet card-vs-CPU step (train_resnet_fused_oracle): 53 conv
+# stages of f32 sums in another order (K6 vs the CPU's conv), each
+# renormalized by its BN; loss to 1e-4 relative.  At depth 50 the
+# step's gradients are chaotic at f32 resolution: on the CPU alone, one
+# ulp added to every filter flips relu outputs and moves the gradients
+# by percents in relative Frobenius norm.  So the CPU runs twice, from
+# the parameters and from that one-ulp step, and every card gradient is
+# held to RESNET_ORACLE_SPREAD times the CPU's own worst spread (never
+# below ORACLE_GRAD_RTOL), and the median gradient to that multiple of
+# the CPU's median spread: a wrong grad is off by O(1), f32 reordering
+# by the spread.  A spread above RESNET_ORACLE_SPREAD_MAX fails the
+# phase, so no unstable step can raise the bar without limit (the
+# readings: 3.2 % worst, 2.3 % median)
+RESNET_ORACLE_LOSS_RTOL = 1e-4
+RESNET_ORACLE_SPREAD = 2.0
+RESNET_ORACLE_SPREAD_MAX = 0.05
+# infer_resnet_fused: the fused program's softmax probabilities against
+# the NCHW program's on the card (K6 vs cuDNN, 53 f32 conv stages)
+INFER_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32, non-tensor-core peak
 SEED = 0
@@ -119,6 +167,21 @@ class Timer:
         return times[len(times) // 2]
 
 
+def conv_min_flops(n, shp):
+    """The fewest operations a known algorithm needs for one conv shape,
+    counted for its bound.  3x3 stride 1: Winograd F(4x4, 3x3) (Lavin and
+    Gray, "Fast Algorithms for Convolutional Neural Networks", 2016)
+    multiplies 36 transformed terms per 4x4 output tile and (Ci, Co)
+    pair where the direct conv does 16 * 9, so a quarter of the direct
+    count, its transforms and partial edge tiles left out so the bound
+    stays below what that algorithm can do.  Else (1x1, the strided 7x7
+    stem) the direct count."""
+    h, ci, co, k, s, p = shp
+    if k == 3 and s == 1:
+        return conv_flops(n, shp) // 4
+    return conv_flops(n, shp)
+
+
 def bound_ms(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
@@ -145,6 +208,8 @@ def check_kernels(torch, timer):
         flash_attention_bwd_reference, flash_attention_fwd_lse,
         flash_bwd_dkv, flash_bwd_dq, paged_attention,
         paged_attention_reference)
+    from paddle_tpu_torch.kernels.conv_fused import (
+        conv2d_nhwc, conv2d_nhwc_reference)
     from paddle_tpu_torch.kernels.matmul_fused import (
         add_ln, add_ln_reference, dequantize_weight, matmul_epilogue,
         matmul_epilogue_reference, matmul_int8_dequant,
@@ -349,7 +414,131 @@ def check_kernels(torch, timer):
     del x, y
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+    # K6: every conv stage of the ResNet-50 forward at batch 256, in the
+    # training form (raw conv + per-channel sums); the five heaviest
+    # (launches x FLOPs) also in the inference form (BN affine +
+    # residual + relu).  The yardstick is F.conv2d on channels_last
+    # tensors (cuDNN, TF32 off) plus the same epilogue in torch; the
+    # bound counts the operations of conv_min_flops.
+    nb = RESNET_BATCH
+    shapes = conv_stage_shapes()
+    heavy = sorted(shapes, key=lambda c: -shapes[c] * conv_flops(nb, c))[:5]
+    fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    fwd_err = 0.0
+    for shp in sorted(shapes, key=lambda c: -shapes[c] * conv_flops(nb, c)):
+        h, ci, co, k, s, p = shp
+        ho = (h + 2 * p - k) // s + 1
+        x = torch.randn(nb, h, h, ci, device=dev, generator=gen)
+        w = torch.randn(k, k, ci, co, device=dev, generator=gen) * \
+            (k * k * ci) ** -0.5
+        xcl = x.permute(0, 3, 1, 2)                  # channels_last
+        wcl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        a = torch.rand(co, device=dev, generator=gen) + 0.5
+        b = torch.randn(co, device=dev, generator=gen)
+        r = torch.randn(nb, ho, ho, co, device=dev, generator=gen)
+        rcl = r.permute(0, 3, 1, 2)
+        modes = [("stats", dict(stats=True))]
+        if shp in heavy:
+            modes.append(("affine+residual+relu",
+                          dict(affine=(a, b), residual=r, act="relu")))
+        for mode, kw in modes:
+            def lib(kw=kw):
+                y = F.conv2d(xcl, wcl, None, s, p)
+                if kw.get("stats"):
+                    return y, y.sum((0, 2, 3)), torch.square(y).sum(
+                        (0, 2, 3))
+                return torch.relu(y * a[:, None, None] + b[:, None, None]
+                                  + rcl)
+
+            got = conv2d_nhwc(x, w, (s, s), (p, p), **kw)
+            want = conv2d_nhwc_reference(x, w, (s, s), (p, p), **kw)
+            err, ok, rel = conv_compare(torch, got, want, x, w, s, p)
+            del got, want
+            # bytes: the rows of x the conv reads (a strided 1x1 skips
+            # the rest), w, the output, and the sums or (a, b, residual)
+            rows_x = min(h, ho * min(k, s) + max(k - s, 0))
+            out_b = 4 * nb * ho * ho * co
+            nbytes = 4 * (nb * rows_x * rows_x * ci + w.numel()) + out_b + (
+                8 * co if mode == "stats" else 8 * co + out_b)
+            row = {"ms": timer(lambda: conv2d_nhwc(x, w, (s, s), (p, p),
+                                                   **kw)),
+                   "plain_ms": timer(lambda: conv2d_nhwc_reference(
+                       x, w, (s, s), (p, p), **kw)),
+                   "library_ms": timer(lib)}
+            record("conv_stage", "%s x%d %s" % (conv_shape_str(shp),
+                                                shapes[shp], mode),
+                   err, ok, row["ms"], row["plain_ms"], row["library_ms"],
+                   nbytes, conv_min_flops(nb, shp))
+            rows[-1]["stats_rel_err"] = rel
+            if mode == "stats":
+                row["bound_ms"] = rows[-1]["bound_ms"]
+                for key in fwd:
+                    fwd[key] += shapes[shp] * row[key]
+                fwd_err = max(fwd_err, err)
+        del x, w, xcl, wcl, r, rcl
+        torch.cuda.empty_cache()
+    # the whole forward's K6 work: each shape's times by its launches
+    rows.append({"kernel": "conv_stage", "shape": CONV_FWD,
+                 "max_abs_err": fwd_err, "ok": True, **fwd,
+                 "bound_by": "operations"})
+    # every epilogue combination on ragged shapes: M not a multiple of
+    # the tile, the stem's scalar gather (Ci = 3, 7x7, stride 2, padding
+    # 3, Co = 64) and a float4-gather 3x3 stage
+    for n_, h, ci, co, k, s, p in ((3, 23, 3, 64, 7, 2, 3),
+                                   (2, 9, 64, 128, 3, 1, 1)):
+        ho = (h + 2 * p - k) // s + 1
+        x = torch.randn(n_, h, h, ci, device=dev, generator=gen)
+        w = torch.randn(k, k, ci, co, device=dev, generator=gen) * \
+            (k * k * ci) ** -0.5
+        ab = (torch.rand(co, device=dev, generator=gen) + 0.5,
+              torch.randn(co, device=dev, generator=gen))
+        r = torch.randn(n_, ho, ho, co, device=dev, generator=gen)
+        for stats in (False, True):
+            for affine in (None, ab):
+                for res in (None, r):
+                    for act in ("", "relu"):
+                        kw = dict(stats=stats, affine=affine, residual=res,
+                                  act=act)
+                        err, ok, rel = conv_compare(
+                            torch, conv2d_nhwc(x, w, (s, s), (p, p), **kw),
+                            conv2d_nhwc_reference(x, w, (s, s), (p, p),
+                                                  **kw), x, w, s, p)
+                        if not ok:
+                            bad.append(
+                                "conv_stage N=%d %s stats=%s affine=%s "
+                                "residual=%s act=%r (max abs err %g, stats "
+                                "rel err %s)"
+                                % (n_, conv_shape_str((h, ci, co, k, s, p)),
+                                   stats, affine is not None,
+                                   res is not None, act, err, rel))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return rows, bad
+
+
+def conv_flops(n, shp):
+    h, ci, co, k, s, p = shp
+    ho = (h + 2 * p - k) // s + 1
+    return 2 * n * ho * ho * co * k * k * ci
+
+
+def conv_shape_str(shp):
+    return "(H %d, Ci %d, Co %d, k %d, s %d, p %d)" % shp
+
+
+def conv_compare(torch, got, want, x, w, s, p):
+    """K6 against its plain version: the output elementwise (ATOL /
+    RTOL); with stats, the per-channel sums by conv_fused.stats_error.
+    Returns (max abs err, ok, worst stats error over sum |terms|)."""
+    from paddle_tpu_torch.kernels.conv_fused import STATS_RTOL, stats_error
+
+    if not isinstance(got, tuple):
+        return compare(torch, got, want) + (None,)
+    err, ok = compare(torch, got[0], want[0])
+    s_err, rel = stats_error(x, w, (s, s), (p, p), got[1], got[2])
+    return max(err, s_err), ok and rel <= STATS_RTOL, rel
 
 
 # ---------------------------------------------------------------------------
@@ -610,6 +799,272 @@ def train_oracle(torch, fuse):
             "grad_tolerance": ORACLE_GRAD_RTOL, "ok": ok}
 
 
+# ---------------------------------------------------------------------------
+# phases 11-14: ResNet-50 through the fluid Executor
+# ---------------------------------------------------------------------------
+
+RESNET = dict(data_set="flowers", depth=50, learning_rate=0.01,
+              input_dtype="uint8")
+RESNET_BATCH = 256
+RESNET_STEPS = 5
+RESNET_CONVS = 53      # conv stages: K6 launches a fused step or forward
+RESNET_ORACLE_BATCH = 2
+RESNET_PATHS = ("infer_resnet_fused", "train_resnet", "train_resnet_fused")
+CONV_FWD = "ResNet-50 forward, batch 256, stats: 53 launches, 20 shapes"
+
+
+def build_resnet(fluid, fused, is_test=False):
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = resnet.get_model(
+            **RESNET, is_test=is_test,
+            data_format="NHWC" if fused else "NCHW", fused_stages=fused)
+    return main, startup, loss
+
+
+def conv_stage_shapes():
+    """{(H, Ci, Co, k, stride, pad): launches a forward} of the fused
+    ResNet-50 program, read off its desc."""
+    import paddle_tpu_torch.fluid as fluid
+
+    main, _, _ = build_resnet(fluid, True, is_test=True)
+    block = main.desc.blocks[0]
+    shapes = {}
+    for op in block.ops:
+        if op.type != "fused_conv2d_bn_act":
+            continue
+        _, h, _, ci = block.vars[op.input("Input")[0]].shape
+        k, _, _, co = block.vars[op.input("Filter")[0]].shape
+        key = (h, ci, co, k, op.attr("strides")[0], op.attr("paddings")[0])
+        shapes[key] = shapes.get(key, 0) + 1
+    if sum(shapes.values()) != RESNET_CONVS:
+        raise AssertionError("want %d conv stages, found %r"
+                             % (RESNET_CONVS, shapes))
+    return shapes
+
+
+def resnet_batch(batch, seed):
+    """One batch of uint8 images and labels from a seeded RandomState."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {"data": rng.randint(0, 256, (batch, 3, 224, 224))
+            .astype(np.uint8),
+            "label": rng.randint(0, 102, (batch, 1)).astype(np.int64)}
+
+
+def _hwio_for(arrays, main):
+    """``arrays`` with each 4-D filter transposed OIHW -> HWIO where
+    ``main`` stores it so."""
+    import numpy as np
+
+    block = main.desc.blocks[0]
+    out = {}
+    for name, v in arrays.items():
+        vd = block.vars.get(name)
+        if vd is None:
+            continue
+        if v.ndim == 4 and tuple(v.shape) != tuple(vd.shape):
+            v = np.ascontiguousarray(np.transpose(v, (2, 3, 1, 0)))
+        out[name] = v
+    return out
+
+
+def infer_resnet(torch):
+    """The is_test fused forward at batch 256 against the NCHW is_test
+    forward on the card, from the NCHW startup's parameters with each
+    BN's running statistics set to this batch's own (fetched from one
+    step of the NCHW training program), so both normalize as training
+    does.  1 warm-up and RESNET_STEPS timed forwards of the fused
+    program."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = resnet_batch(RESNET_BATCH, SEED + 6)
+    tmain, tstart, _ = build_resnet(fluid, False)
+    scope = fluid.Scope()
+    exe.run(tstart, scope=scope)
+    persist = sorted(n for n, v in tmain.desc.blocks[0].vars.items()
+                     if v.persistable)
+    params = get_scope_arrays(scope, persist)
+    bns = [op for op in tmain.desc.blocks[0].ops if op.type == "batch_norm"]
+    stats = exe.run(tmain, feed=feed, scope=scope,
+                    fetch_list=[op.output("SavedMean")[0] for op in bns] +
+                    [op.output("SavedVariance")[0] for op in bns])
+    del scope
+    for op, m, v in zip(bns, stats[:len(bns)], stats[len(bns):]):
+        params[op.input("Mean")[0]] = m
+        params[op.input("Variance")[0]] = v
+    torch.cuda.empty_cache()
+
+    probs = {}
+    for fused in (False, True):
+        main, _, _ = build_resnet(fluid, fused, is_test=True)
+        softmax = [op.output("Out")[0] for op in main.desc.blocks[0].ops
+                   if op.type == "softmax"]
+        scope = fluid.Scope()
+        set_scope_arrays(scope, _hwio_for(params, main), "cuda")
+        reset_launches()
+        probs[fused] = exe.run(main, feed=feed, fetch_list=softmax,
+                               scope=scope)[0]
+        if fused:
+            first = KERNELS["conv_stage"].launches
+            fwd_ms = []
+            for _ in range(RESNET_STEPS):
+                t0 = time.perf_counter()
+                exe.run(main, feed=feed, fetch_list=softmax, scope=scope)
+                fwd_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: fn.launches for k, fn in KERNELS.items()}
+        del scope
+        torch.cuda.empty_cache()
+    err = float(np.abs(probs[True] - probs[False]).max())
+    top1 = int((probs[True].argmax(1) == probs[False].argmax(1)).sum())
+    p50 = _pct(fwd_ms, 0.5)
+    ok = (np.isfinite(probs[True]).all() and err <= INFER_TOL
+          and first == RESNET_CONVS
+          and launches["conv_stage"] == RESNET_CONVS * (1 + RESNET_STEPS)
+          and all(launches[k] == 0 for k in KERNELS if k != "conv_stage"))
+    return {"phase": "infer_resnet_fused", "batch": RESNET_BATCH, **RESNET,
+            "forward_ms": fwd_ms, "forward_ms_p50": p50,
+            "images_per_s": RESNET_BATCH / p50 * 1e3,
+            "conv_stage_launches_per_forward": first,
+            "softmax_max_abs_err_vs_nchw": err, "tolerance": INFER_TOL,
+            "top1_agree_vs_nchw": [top1, RESNET_BATCH],
+            "launches": launches, "ok": bool(ok)}
+
+
+def train_resnet(torch, fused):
+    """Startup, then 1 warm-up and RESNET_STEPS timed steps of ResNet-50
+    (the NHWC fused-stage program with ``fused``) on one fixed uint8
+    batch, through Executor(CUDAPlace(0))."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    main, startup, loss = build_resnet(fluid, fused)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    feed = resnet_batch(RESNET_BATCH, SEED + 5)
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0][0])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms = []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        step_ms.append((time.perf_counter() - t0) * 1e3)   # the fetch syncs
+        losses.append(float(out[0][0]))
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    p50 = _pct(step_ms, 0.5)
+    want = {"conv_stage": RESNET_CONVS} if fused else {}
+    per_step = {k: launches[k] / RESNET_STEPS for k in KERNELS}
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and all(per_step[k] == want.get(k, 0) for k in KERNELS))
+    return {"phase": "train_resnet_fused" if fused else "train_resnet",
+            "batch": RESNET_BATCH, **RESNET, "startup_s": startup_s,
+            "losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+            "images_per_s": RESNET_BATCH / p50 * 1e3,
+            "max_memory_allocated_bytes": peak,
+            "launches_per_step": per_step,
+            "launches_per_step_wanted": want, "launches": launches,
+            "ok": ok}
+
+
+def resnet_oracle(torch, seed=SEED):
+    """One step of the fused ResNet-50 at full width and depth, batch 2,
+    on the card and, from the same parameters, on Executor(CPUPlace()),
+    then on the CPU again with one ulp added to every filter (the
+    step's own f32 spread): the loss and every parameter gradient; relu
+    flips counted on the zero pattern of each relu stage's Y.  ``seed``
+    draws the parameters and the batch."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    main, startup, loss = build_resnet(fluid, True)
+    startup.random_seed = seed
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    arrays = get_scope_arrays(card, persist)
+    params = sorted(p.name for p in main.all_parameters() if p.trainable)
+    relu_y = [op.output("Y")[0] for op in main.desc.blocks[0].ops
+              if op.type == "fused_conv2d_bn_act" and op.attr("act") == "relu"]
+    fetch = [loss.name] + [p + "@GRAD" for p in params] + relu_y
+    feed = resnet_batch(RESNET_ORACLE_BATCH, seed + 7)
+    reset_launches()
+    got = fluid.Executor(fluid.CUDAPlace(0)).run(main, feed=feed,
+                                                 fetch_list=fetch,
+                                                 scope=card)
+    k6 = KERNELS["conv_stage"].launches
+    cpu = []
+    for ulp in (False, True):
+        host = fluid.Scope()
+        set_scope_arrays(host, {
+            k: np.nextafter(v, np.float32(np.inf)) if ulp and v.ndim == 4
+            else v for k, v in arrays.items()}, "cpu")
+        cpu.append(fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch, scope=host))
+    want, moved = cpu
+    n = len(params)
+
+    def fro_rel(a, b):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def flips(xs, ys):
+        return sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(xs, ys))
+
+    loss_err = abs(float(got[0][0]) - float(want[0][0])) / \
+        abs(float(want[0][0]))
+    grads = {name: {"fro_rel": fro_rel(a, b), "cpu_ulp_fro_rel":
+                    fro_rel(c, b)}
+             for name, a, b, c in zip(fetch[1:1 + n], got[1:1 + n],
+                                      want[1:1 + n], moved[1:1 + n])}
+    spread = max(g["cpu_ulp_fro_rel"] for g in grads.values())
+    tol = max(ORACLE_GRAD_RTOL, RESNET_ORACLE_SPREAD * spread)
+    median = _pct([g["fro_rel"] for g in grads.values()], 0.5)
+    median_spread = _pct([g["cpu_ulp_fro_rel"] for g in grads.values()], 0.5)
+    median_tol = max(ORACLE_GRAD_RTOL, RESNET_ORACLE_SPREAD * median_spread)
+    worst = max(grads, key=lambda g: grads[g]["fro_rel"])
+    ok = (math.isfinite(loss_err) and loss_err <= RESNET_ORACLE_LOSS_RTOL
+          and k6 == RESNET_CONVS
+          and spread <= RESNET_ORACLE_SPREAD_MAX and median <= median_tol
+          and all(math.isfinite(g["fro_rel"]) and g["fro_rel"] <= tol
+                  for g in grads.values()))
+    return {"phase": "train_resnet_fused_oracle", "depth": 50,
+            "batch": RESNET_ORACLE_BATCH, "seed": seed,
+            "conv_stage_launches": k6,
+            "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
+            "loss_cpu_ulp": float(moved[0][0]), "loss_rel_err": loss_err,
+            "relu_flips": flips(got[1 + n:], want[1 + n:]),
+            "relu_flips_cpu_ulp": flips(moved[1 + n:], want[1 + n:]),
+            "relu_outputs": int(sum(a.size for a in want[1 + n:])),
+            "worst_grad": worst, "worst_fro_rel": grads[worst]["fro_rel"],
+            "median_fro_rel": median,
+            "cpu_ulp_worst_fro_rel": spread,
+            "cpu_ulp_median_fro_rel": median_spread,
+            "cpu_ulp_tolerance": RESNET_ORACLE_SPREAD_MAX,
+            "grads": grads, "loss_tolerance": RESNET_ORACLE_LOSS_RTOL,
+            "grad_tolerance": tol, "median_grad_tolerance": median_tol,
+            "ok": ok}
+
+
 def main():
     import torch
 
@@ -723,6 +1178,30 @@ def main():
             if not oracle["ok"]:
                 raise AssertionError("%s: the card's training step "
                                      "disagrees with the CPU one" % phase)
+
+        phase = "infer_resnet_fused"
+        torch.cuda.empty_cache()
+        result = infer_resnet(torch)
+        emit(result)
+        if not result["ok"]:
+            raise AssertionError("%s failed its checks" % phase)
+        launches_train[phase] = result["launches"]
+        for fused in (False, True):
+            phase = "train_resnet_fused" if fused else "train_resnet"
+            torch.cuda.empty_cache()
+            result = train_resnet(torch, fused)
+            emit(result)
+            if not result["ok"]:
+                raise AssertionError("%s failed its checks" % phase)
+            launches_train[phase] = result["launches"]
+
+        phase = "train_resnet_fused_oracle"
+        torch.cuda.empty_cache()
+        oracle = resnet_oracle(torch)
+        emit(oracle)
+        if not oracle["ok"]:
+            raise AssertionError("%s: the card's training step disagrees "
+                                 "with the CPU one" % phase)
     except Exception as e:
         emit({"phase": phase, "ok": False,
               "error": "%s: %s" % (type(e).__name__, e)})
@@ -736,7 +1215,8 @@ def main():
     # the training step's attention, K7 at the full decode batch, K8 at
     # the full decode batch on the slower of the two largest projections
     # (w1 and w2 move the same bytes and FLOPs), K4 at the slowest of the
-    # fused step's five projections, K5 at the fused step's seam
+    # fused step's five projections, K5 at the fused step's seam, K6 as
+    # the sum of the ResNet-50 forward's 53 launches
     m = TRAIN_BATCH * TRAIN_LM["seq_len"]
     pick = {"flash_fwd": ["[16,8,2048,128] causal"],
             "flash_bwd_dq": ["[16,8,2048,128] causal"],
@@ -745,7 +1225,8 @@ def main():
             "matmul_int8": ["M=16 K=1024 N=4096", "M=16 K=4096 N=1024"],
             "matmul_epilogue": ["%s M=%d K=%d N=%d" % (what, m, kk, n)
                                 for what, kk, n, _, _ in FUSED_MATMULS],
-            "add_ln": ["[%d,%d] affine" % (m, TRAIN_LM["d_model"])]}
+            "add_ln": ["[%d,%d] affine" % (m, TRAIN_LM["d_model"])],
+            "conv_stage": [CONV_FWD]}
     csrc = "paddle_tpu_torch/kernels/csrc/"
     tpu = "paddle_tpu/kernels/"
     meta = {"flash_fwd": (csrc + "flash_fwd.cu",
@@ -761,16 +1242,19 @@ def main():
             "matmul_epilogue": (csrc + "matmul_fused.cu",
                                 tpu + "matmul_fused.py:105"),
             "add_ln": (csrc + "matmul_fused.cu",
-                       tpu + "matmul_fused.py:394")}
+                       tpu + "matmul_fused.py:394"),
+            "conv_stage": (csrc + "conv_fused.cu",
+                           tpu + "conv_fused.py:73")}
     # launches: each kernel's count on its main path (train_f32 for the
-    # flash training kernels, train_fused for K4/K5, the int8 tenant's
-    # serve run, which runs all three serving kernels, for the rest);
-    # every path's count stands beside it
+    # flash training kernels, train_fused for K4/K5, train_resnet_fused
+    # for K6, the int8 tenant's serve run, which runs all three serving
+    # kernels, for the rest); every path's count stands beside it
     summary = []
     for name in KERNELS:
         r = max((x for x in by_name[name] if x["shape"] in pick[name]),
                 key=lambda x: x["ms"])
-        path = ("train_fused" if name in FUSED_KERNELS else
+        path = ("train_resnet_fused" if name == "conv_stage" else
+                "train_fused" if name in FUSED_KERNELS else
                 "train_f32" if name in TRAIN_KERNELS else "serve_int8")
         by_path = {"serve_f32": launches.get(name, 0),
                    "serve_int8": launches8.get(name, 0),

@@ -61,6 +61,21 @@ define_flag("serve_kv_block_size", 16,
 define_flag("serve_kv_blocks", 512,
             "generative serving: KV cache blocks in a tenant's paged "
             "pool (block 0 is the reserved padding scratch block)")
+define_flag("conv_layout", "NCHW",
+            "convnet pipeline layout: 'NCHW' (reference contract; the "
+            "default) or 'NHWC' — models that honor the flag (e.g. "
+            "models/resnet.py get_model) run the LayoutTranspiler NHWC "
+            "pass: data_format propagated through conv/pool/bn/"
+            "elementwise chains, conv weights pinned HWIO at creation, "
+            "and conv+BN+act stages fused into the conv-stage kernel "
+            "(kernels/conv_fused.py).  Acts at PROGRAM BUILD time "
+            "(get_model) — flip it before building, not on a built "
+            "program; the NCHW program stays selectable for bisection")
+define_flag("conv_fused_stages", True,
+            "with conv_layout=NHWC, also run FuseConvBNActPass "
+            "(conv+BN(+residual)(+relu) -> fused_conv2d_bn_act backed "
+            "by kernels/conv_fused.py); off = layout pass alone, for "
+            "attributing wins between the two levers")
 define_flag("transformer_fuse", False,
             "transformer block fusion: models that honor the flag "
             "(models/transformer.py get_model) run "

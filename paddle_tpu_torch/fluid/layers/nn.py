@@ -7,11 +7,12 @@ from __future__ import annotations
 import numpy as np
 
 from ..layer_helper import LayerHelper
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "softmax_with_cross_entropy", "mean",
-    "reshape", "transpose", "elementwise_add",
+    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+    "softmax", "cross_entropy", "softmax_with_cross_entropy", "mean",
+    "reshape", "transpose", "topk", "scale", "elementwise_add",
 ]
 
 
@@ -66,6 +67,102 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return tmp
 
 
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           use_mkldnn=False, act=None, name=None):
+    helper = LayerHelper("conv2d", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    num_channels = input.shape[1]
+    filter_size = _pair(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = (num_channels // groups) * filter_size[0] * filter_size[1]
+    std = (2.0 / fan_in) ** 0.5
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr(), shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, std, 0))
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": [input], "Filter": [filter_param]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, use_mkldnn=False, name=None, exclusive=True):
+    if pool_type not in ("max", "avg"):
+        raise ValueError("pool_type must be max|avg, got %r" % pool_type)
+    helper = LayerHelper("pool2d", **locals())
+    dtype = helper.input_dtype()
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "global_pooling": global_pooling,
+               "strides": _pair(pool_stride),
+               "paddings": _pair(pool_padding),
+               "ceil_mode": ceil_mode, "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, use_mkldnn=False, name=None,
+               moving_mean_name=None, moving_variance_name=None,
+               do_model_average_for_mean_and_var=False):
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = helper.input_dtype()
+    input_shape = input.shape
+    if data_layout == "NCHW":
+        channel_num = input_shape[1]
+    else:
+        channel_num = input_shape[-1]
+    param_shape = [channel_num]
+    scale = helper.create_parameter(
+        attr=helper.param_attr(), shape=param_shape, dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(
+        attr=helper.bias_attr() or None, shape=param_shape, dtype=dtype,
+        is_bias=True)
+    from ..param_attr import ParamAttr
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name,
+                       initializer=ConstantInitializer(0.0),
+                       trainable=False),
+        shape=param_shape, dtype=dtype)
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name,
+                       initializer=ConstantInitializer(1.0),
+                       trainable=False),
+        shape=param_shape, dtype=dtype)
+    variance.stop_gradient = True
+
+    saved_mean = helper.create_tmp_variable(dtype, stop_gradient=True)
+    saved_variance = helper.create_tmp_variable(dtype, stop_gradient=True)
+    batch_norm_out = input if in_place else \
+        helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [batch_norm_out], "MeanOut": [mean],
+                 "VarianceOut": [variance], "SavedMean": [saved_mean],
+                 "SavedVariance": [saved_variance]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout})
+    return helper.append_activation(batch_norm_out)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
@@ -92,6 +189,24 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
         outputs={"Y": [out], "Mean": [mean_out], "Variance": [variance_out]},
         attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(out)
+
+
+def softmax(input, use_cudnn=True, name=None):
+    helper = LayerHelper("softmax", **locals())
+    out = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False):
+    helper = LayerHelper("cross_entropy", **locals())
+    out = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False):
@@ -128,6 +243,29 @@ def transpose(x, perm, name=None):
                      outputs={"Out": [out]},
                      attrs={"axis": [int(p) for p in perm]})
     return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", **locals())
+    values = helper.create_tmp_variable(dtype=input.dtype)
+    indices = helper.create_tmp_variable(dtype="int64")
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    values.stop_gradient = True
+    indices.stop_gradient = True
+    return values, indices
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type="scale", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out)
 
 
 def _elementwise(op_type, x, y, axis=-1, act=None, name=None):

@@ -5,10 +5,14 @@ far).
 """
 from __future__ import annotations
 
+import numpy as np
+
+from paddle_tpu_torch.core.types import np_dtype_to_proto
+
 from ..layer_helper import LayerHelper
 from ..initializer import ConstantInitializer
 
-__all__ = ["create_parameter", "create_global_var"]
+__all__ = ["create_parameter", "create_global_var", "cast"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None,
@@ -29,3 +33,14 @@ def create_global_var(shape, value, dtype, persistable=False,
     helper.set_variable_initializer(
         var, initializer=ConstantInitializer(value=float(value)))
     return var
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast", **locals())
+    out = helper.create_tmp_variable(dtype=np.dtype(dtype)
+                                     if not isinstance(dtype, np.dtype)
+                                     else dtype)
+    helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"in_dtype": int(x.proto_dtype),
+                            "out_dtype": int(np_dtype_to_proto(dtype))})
+    return out

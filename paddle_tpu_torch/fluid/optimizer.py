@@ -2,7 +2,7 @@
 
 Counterpart of paddle_tpu/fluid/optimizer.py (minimize =
 append_backward + regularization + clipping +
-_create_optimization_pass); only Adam is ported so far.
+_create_optimization_pass); Momentum and Adam are ported so far.
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ from .clip import append_gradient_clip_ops, error_clip_callback
 from . import unique_name
 from . import layers
 
-__all__ = ["Adam", "AdamOptimizer", "Optimizer"]
+__all__ = ["Momentum", "MomentumOptimizer", "Adam", "AdamOptimizer",
+           "Optimizer"]
 
 
 class Optimizer:
@@ -132,6 +133,34 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+class MomentumOptimizer(Optimizer):
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = bool(use_nesterov)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity_acc = self._get_accumulator(self._velocity_acc_str,
+                                             param_and_grad[0])
+        return block.append_op(
+            type=self.type,
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "Velocity": velocity_acc,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": param_and_grad[0],
+                     "VelocityOut": velocity_acc},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov}, infer_shape=False)
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -174,4 +203,5 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon}, infer_shape=False)
 
 
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

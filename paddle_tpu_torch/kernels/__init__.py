@@ -7,11 +7,13 @@ from .flash_attention import (flash_attention, flash_attention_bwd,
                               flash_attention_fwd_lse, flash_attention_train,
                               flash_bwd_dkv, flash_bwd_dq, paged_attention)
 from .matmul_fused import add_ln, matmul_epilogue, matmul_int8_dequant
+from .conv_fused import conv2d_nhwc
 
 __all__ = ["KERNELS", "reset_launches", "flash_attention",
            "flash_attention_fwd_lse", "flash_attention_bwd",
            "flash_attention_train", "paged_attention",
-           "matmul_epilogue", "add_ln", "matmul_int8_dequant"]
+           "matmul_epilogue", "add_ln", "matmul_int8_dequant",
+           "conv2d_nhwc"]
 
 KERNELS = {"flash_fwd": flash_attention_fwd_lse,
            "flash_bwd_dq": flash_bwd_dq,
@@ -19,7 +21,8 @@ KERNELS = {"flash_fwd": flash_attention_fwd_lse,
            "paged_attention": paged_attention,
            "matmul_int8": matmul_int8_dequant,
            "matmul_epilogue": matmul_epilogue,
-           "add_ln": add_ln}
+           "add_ln": add_ln,
+           "conv_stage": conv2d_nhwc}
 
 
 def reset_launches():

@@ -1,0 +1,184 @@
+"""The fused conv-stage kernel of the ResNet program (NHWC activations,
+HWIO weights).
+
+Counterpart of ``paddle_tpu/kernels/conv_fused.py``:
+
+- ``conv2d_nhwc`` (K6, ``csrc/conv_fused.cu``): x [N, H, W, Ci] conv
+  w [KH, KW, Ci, Co] into an f32 accumulator, with the optional
+  epilogue stats (per-channel sum and sum of squares, the training
+  form), affine (y * a + b, the test-mode BatchNorm fold), + residual,
+  relu;
+- ``conv2d_nhwc_reference``: its plain version, the reference's
+  fallback branch (``F.conv2d`` on permuted views, f32, stats from the
+  f32 conv output, then the epilogue);
+- ``fused_conv_bn_act_reference``: the test-mode conv + BN (+ residual)
+  (+ relu) stage from running statistics;
+- ``stats_error``: the rule K6's statistics are held to.
+
+A CPU tensor runs the plain version; a CUDA tensor launches K6 or
+raises (there is no fallback).  ``conv2d_nhwc.launches`` counts kernel
+launches.  The reference's ``force_xla`` / ``interpret`` knobs and its
+autotune cache have no counterpart here.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from ._build import ptr, require, route, stream
+
+__all__ = ["nchw_views", "conv_nhwc", "conv2d_nhwc_reference",
+           "conv2d_nhwc", "fused_conv_bn_act_reference", "stats_error",
+           "STATS_RTOL", "STATS_TILE"]
+
+STATS_TILE = 128   # output pixels per stats partial (BM in the kernel)
+# K6's per-channel sums over N*Ho*Wo pixels are sums of values near 0, so
+# each is held to STATS_RTOL of the sum of its terms' magnitudes, against
+# a float64 sum of K6's own raw conv output (which the output check holds
+# to the plain conv).  What that leaves is the f32 reduction: 8 rows, 16
+# row groups, then the tiles' partials, worst ~2e-7 of the magnitudes;
+# one lost 128-pixel partial of the stem (25,088 of them at batch 256)
+# moves a sum by ~4e-5 of them
+STATS_RTOL = 1e-6
+_ACTS = {"": 0, "relu": 1}
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v), int(v))
+
+
+def nchw_views(x, w, nhwc=True, hwio=True):
+    """NCHW / OIHW views of NHWC data and HWIO filters for torch's conv
+    (channels-last memory on the card; nothing is copied)."""
+    return (x.permute(0, 3, 1, 2) if nhwc else x,
+            w.permute(3, 2, 0, 1) if hwio else w)
+
+
+def conv_nhwc(x, w, strides, paddings):
+    """NHWC x HWIO conv in f32 through ``F.conv2d`` on NCHW / OIHW views
+    (cuDNN on the card, TF32 off), NHWC out."""
+    xv, wv = nchw_views(x.float(), w.float())
+    return F.conv2d(xv, wv, None, _pair(strides),
+                    _pair(paddings)).permute(0, 2, 3, 1)
+
+
+def _epilogue(acc, affine, residual, act):
+    y = acc
+    if affine is not None:
+        a, b = affine
+        y = y * a.float() + b.float()
+    if residual is not None:
+        y = y + residual.float()
+    if act == "relu":
+        y = torch.relu(y)
+    return y
+
+
+def conv2d_nhwc_reference(x, w, strides=(1, 1), paddings=(0, 0), *,
+                          stats=False, affine=None, residual=None, act=""):
+    """Plain version of ``conv2d_nhwc``: returns y, or (y, sum, sum_sq)
+    with ``stats``."""
+    acc = conv_nhwc(x, w, strides, paddings)
+    y = _epilogue(acc, affine, residual, act).to(x.dtype)
+    if not stats:
+        return y
+    co = w.shape[3]
+    flat = acc.reshape(-1, co)
+    return y, flat.sum(dim=0), torch.square(flat).sum(dim=0)
+
+
+def conv2d_nhwc(x, w, strides=(1, 1), paddings=(0, 0), *, stats=False,
+                affine=None, residual=None, act=""):
+    """NHWC x [N, H, W, Ci] * HWIO w [KH, KW, Ci, Co] -> [N, Ho, Wo, Co].
+
+    ``stats``: also return per-channel (sum, sum_sq) f32 of the raw conv
+    output (the fused-BN training form).  ``affine=(a, b)``: fuse
+    ``y * a + b`` per channel.  ``residual``: fuse a same-shape add;
+    ``act``: '' | 'relu'.  The kernel takes float32, contiguous, 16-byte
+    aligned operands and Co a multiple of 4; any N, H, W, Ci, kernel
+    size, stride and padding."""
+    extra = [t for t in (residual,) + tuple(affine or ()) if t is not None]
+    where = route(x, w, *extra)
+    require(x.dim() == 4 and w.dim() == 4,
+            "want x [N, H, W, Ci] and w [KH, KW, Ci, Co]")
+    n, h, wd, ci = x.shape
+    kh, kw, wci, co = w.shape
+    sh, sw = _pair(strides)
+    ph, pw = _pair(paddings)
+    ho = (h + 2 * ph - kh) // sh + 1
+    wo = (wd + 2 * pw - kw) // sw + 1
+    require(wci == ci, "x has %d channels, w takes %d" % (ci, wci))
+    require(ho >= 1 and wo >= 1, "empty conv output")
+    require(residual is None or tuple(residual.shape) == (n, ho, wo, co),
+            "residual must be [N, Ho, Wo, Co] = %r" % ((n, ho, wo, co),))
+    require(affine is None or (len(affine) == 2 and all(
+        tuple(t.shape) == (co,) for t in affine)), "affine must be (a, b), "
+            "each [Co]")
+    require(act in _ACTS, "unsupported fused activation %r" % (act,))
+    if where == "cpu":
+        return conv2d_nhwc_reference(x, w, (sh, sw), (ph, pw), stats=stats,
+                                     affine=affine, residual=residual,
+                                     act=act)
+    if affine is not None:
+        affine = tuple(t.float().contiguous() for t in affine)
+    ops = [x, w] + list(affine or ()) + ([residual] if residual is not None
+                                          else [])
+    require(all(t.dtype == torch.float32 for t in ops),
+            "conv stage kernel takes float32")
+    require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops),
+            "conv stage kernel needs contiguous, 16-byte aligned operands")
+    require(co % 4 == 0, "conv stage kernel needs Co a multiple of 4, got %d"
+            % co)
+    out = torch.empty((n, ho, wo, co), dtype=torch.float32, device=x.device)
+    m = n * ho * wo
+    partials = torch.empty(((m + STATS_TILE - 1) // STATS_TILE, 2, co),
+                           dtype=torch.float32, device=x.device) \
+        if stats else None
+    fn = _build.function(
+        "conv_fused", "conv_stage_f32",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+    null = ctypes.c_void_p(None)
+    rc = fn(ptr(x), ptr(w),
+            ptr(affine[0]) if affine is not None else null,
+            ptr(affine[1]) if affine is not None else null,
+            ptr(residual) if residual is not None else null,
+            ptr(out), ptr(partials) if stats else null,
+            n, h, wd, ci, co, kh, kw, sh, sw, ph, pw, _ACTS[act], stream())
+    _build.check(rc, "conv2d_nhwc")
+    conv2d_nhwc.launches += 1
+    if not stats:
+        return out
+    return out, partials[:, 0].sum(dim=0), partials[:, 1].sum(dim=0)
+
+
+conv2d_nhwc.launches = 0
+
+
+def fused_conv_bn_act_reference(x, w, scale, bias, mean, var, *, strides,
+                                paddings, eps, act="", residual=None):
+    """The fused stage in TEST mode (running statistics), plain."""
+    a = scale.float() * torch.rsqrt(var.float() + eps)
+    b = bias.float() - mean.float() * a
+    return conv2d_nhwc_reference(x, w, strides, paddings, affine=(a, b),
+                                 residual=residual, act=act)
+
+
+def stats_error(x, w, strides, paddings, s, ss):
+    """How far per-channel (sum, sum_sq) from ``conv2d_nhwc(...,
+    stats=True)`` are from float64 sums of the raw conv output, which
+    ``conv2d_nhwc`` recomputes without epilogue (on the card, K6's same
+    accumulation, bit for bit): (max |err|, max |err| / sum |terms|).
+    Pass when the second is at most STATS_RTOL."""
+    acc = conv2d_nhwc(x, w, strides, paddings)
+    acc = acc.reshape(-1, acc.shape[-1]).double()
+    err = rel = 0.0
+    for got, terms in ((s, acc), (ss, acc.square())):
+        e = (got.double() - terms.sum(0)).abs()
+        err = max(err, float(e.max()))
+        rel = max(rel, float((e / terms.abs().sum(0)).max()))
+    return err, rel

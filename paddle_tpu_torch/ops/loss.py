@@ -8,6 +8,23 @@ import torch
 
 from paddle_tpu_torch.core.registry import register_op
 
+_TOL = 1e-20  # reference math/cross_entropy.h TolerableValue
+
+
+@register_op("cross_entropy")
+def _cross_entropy(ctx, ins, attrs, op):
+    """-log(max(p, 1e-20)) of the label's probability (or the soft-label
+    sum).  X holds probabilities, [N, D]."""
+    x = ins["X"]
+    label = ins["Label"]
+    if attrs.get("soft_label", False):
+        loss = -torch.sum(label * torch.log(torch.clamp_min(x, _TOL)),
+                          dim=-1, keepdim=True)
+    else:
+        picked = torch.gather(x, -1, _hard_label_idx(label, x.dim()))
+        loss = -torch.log(torch.clamp_min(picked, _TOL))
+    return {"Y": loss}
+
 
 @register_op("softmax_with_cross_entropy")
 def _softmax_with_ce(ctx, ins, attrs, op):

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.core.types import proto_to_torch_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -42,6 +43,21 @@ _ew("elementwise_mul", torch.mul)
 @register_op("relu")
 def _relu(ctx, ins, attrs, op):
     return {"Out": torch.relu(ins["X"])}
+
+
+@register_op("scale")
+def _scale(ctx, ins, attrs, op):
+    x = ins["X"]
+    scale = attrs.get("scale", 1.0)
+    bias = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        return {"Out": x * scale + bias}
+    return {"Out": (x + bias) * scale}
+
+
+@register_op("cast")
+def _cast(ctx, ins, attrs, op):
+    return {"Out": ins["X"].to(proto_to_torch_dtype(attrs["out_dtype"]))}
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,176 @@
 """Neural-network ops.
 
-Counterpart of ``paddle_tpu/ops/nn.py`` for the ops ported so far.
+Counterpart of ``paddle_tpu/ops/nn.py`` for the ops ported so far:
+``conv2d``, ``pool2d``, ``batch_norm``, ``layer_norm``, ``softmax`` and
+the fused conv stage ``fused_conv2d_bn_act``.  Plain convolutions are
+``F.conv2d`` (cuDNN on the card, TF32 off), as the JAX package leaves
+them to ``lax.conv_general_dilated``; the fused stage's forward conv is
+the hand-written kernel K6 (``kernels/conv_fused.py``).
+
+Not ported: the legacy per-op ``FLAGS.conv_nhwc`` experiment (the
+layout transpiler replaced it), grouped/depthwise/3-D/transposed convs,
+lrn, dropout.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.kernels import conv_fused
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return [int(x) for x in v]
+    return [int(v), int(v)]
+
+
+def _wanted(op, slot):
+    """Whether the grad op asks for ``slot`` (not a '' hole)."""
+    names = op.outputs.get(slot) or []
+    return any(names)
+
+
+# ---------------------------------------------------------------------------
+# conv2d
+# ---------------------------------------------------------------------------
+
+def _conv_views(x, w, attrs):
+    """NCHW / OIHW views of the op's operands for torch's conv, and
+    whether the data travels NHWC.  The layout transpiler pins NHWC
+    data and HWIO filters; torch takes the permuted views as they are,
+    so nothing is copied here."""
+    data_format = attrs.get("data_format", "NCHW")
+    filter_format = attrs.get("filter_format",
+                              "HWIO" if data_format == "NHWC" else "OIHW")
+    nhwc, hwio = data_format == "NHWC", filter_format == "HWIO"
+    x, w = conv_fused.nchw_views(x, w, nhwc, hwio)
+    return x, w, nhwc, hwio
+
+
+@register_op("conv2d")
+def _conv2d(ctx, ins, attrs, op):
+    xv, wv, nhwc, _ = _conv_views(ins["Input"], ins["Filter"], attrs)
+    out = F.conv2d(xv, wv, None, _pair(attrs.get("strides", [1, 1])),
+                   _pair(attrs.get("paddings", [0, 0])),
+                   _pair(attrs.get("dilations", [1, 1])),
+                   attrs.get("groups", 1))
+    return {"Output": out.permute(0, 2, 3, 1) if nhwc else out}
+
+
+@register_op("conv2d_grad", grad_maker=None)
+def _conv2d_grad(ctx, ins, attrs, op):
+    """dInput and dFilter from Output@GRAD, in the op's own layouts.
+    Explicit, so the backward does not re-run the forward conv (the
+    generic autograd lowering would)."""
+    x, w = ins["Input"], ins["Filter"]
+    xv, wv, nhwc, hwio = _conv_views(x, w, attrs)
+    dy = ins["Output@GRAD"]
+    want = [_wanted(op, "Input@GRAD"), _wanted(op, "Filter@GRAD")]
+    dx, dw = _conv_backward(dy.permute(0, 3, 1, 2) if nhwc else dy, xv, wv,
+                            _pair(attrs.get("strides", [1, 1])),
+                            _pair(attrs.get("paddings", [0, 0])),
+                            _pair(attrs.get("dilations", [1, 1])),
+                            attrs.get("groups", 1), want)
+    out = {}
+    if dx is not None:
+        out["Input@GRAD"] = dx.permute(0, 2, 3, 1) if nhwc else dx
+    if dw is not None:
+        out["Filter@GRAD"] = (dw.permute(2, 3, 1, 0).contiguous() if hwio
+                              else dw)
+    return out
+
+
+def _conv_backward(dy, xv, wv, strides, paddings, dilations, groups, want):
+    """(dx, dw) of ``F.conv2d(xv, wv)`` for the NCHW / OIHW views, None
+    where not wanted."""
+    if not any(want):
+        return None, None
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        dy.to(xv.dtype), xv, wv, None, strides, paddings, dilations,
+        False, [0, 0], groups, [want[0], want[1], False])
+    return dx, dw
+
+
+# ---------------------------------------------------------------------------
+# pool2d
+# ---------------------------------------------------------------------------
+
+@register_op("pool2d")
+def _pool2d(ctx, ins, attrs, op):
+    x = ins["X"]
+    ptype = attrs.get("pooling_type", "max")
+    ksize = _pair(attrs.get("ksize", [2, 2]))
+    strides = _pair(attrs.get("strides", [1, 1]))
+    paddings = _pair(attrs.get("paddings", [0, 0]))
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+    hd, wd = (1, 2) if nhwc else (2, 3)
+    if attrs.get("global_pooling", False):
+        ksize = [x.shape[hd], x.shape[wd]]
+        paddings = [0, 0]
+        strides = [1, 1]
+    if attrs.get("adaptive", False):
+        raise NotImplementedError("pool2d: adaptive pooling is not ported")
+    xv = x.permute(0, 3, 1, 2) if nhwc else x
+    # output extent floor((H + 2p - k) / s) + 1, as the reference's
+    # reduce_window (ceil_mode is not honoured there either)
+    if ptype == "max":
+        out = F.max_pool2d(xv, ksize, strides, paddings)
+    else:
+        # exclusive: a padded window divides by its in-image count;
+        # otherwise by the window size
+        out = F.avg_pool2d(xv, ksize, strides, paddings,
+                           count_include_pad=not attrs.get("exclusive",
+                                                           True))
+    return {"Out": out.permute(0, 2, 3, 1) if nhwc else out}
+
+
+# ---------------------------------------------------------------------------
+# batch_norm
+# ---------------------------------------------------------------------------
+
+@register_op("batch_norm")
+def _batch_norm(ctx, ins, attrs, op):
+    """reference batch_norm_op.cc: in train mode normalizes with the
+    batch statistics and blends them into the running ones (MeanOut /
+    VarianceOut alias Mean / Variance); in test mode normalizes with
+    the running statistics.
+
+    The order is the JAX package's, not ``F.batch_norm``'s: f32
+    var = mean(x^2) - mean^2 (biased), blended with ``momentum``.  New
+    tensors come out for MeanOut / VarianceOut; the persistables are
+    never updated in place (the generic grad lowering re-runs this
+    forward)."""
+    x = ins["X"]
+    scale, bias = ins["Scale"], ins["Bias"]
+    mean_in, var_in = ins["Mean"], ins["Variance"]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    c_axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" \
+        else x.dim() - 1
+    red = tuple(i for i in range(x.dim()) if i != c_axis)
+    bshape = [1] * x.dim()
+    bshape[c_axis] = x.shape[c_axis]
+
+    if attrs.get("is_test", False):
+        mean, var = mean_in, var_in
+        mean_out, var_out = mean_in, var_in
+    else:
+        xf = x.float()
+        mean = torch.mean(xf, dim=red)
+        var = torch.mean(torch.square(xf), dim=red) - torch.square(mean)
+        mean = mean.to(mean_in.dtype)
+        var = var.to(var_in.dtype)
+        mean_out = mean_in * momentum + mean * (1 - momentum)
+        var_out = var_in * momentum + var * (1 - momentum)
+
+    inv_std = torch.rsqrt(var.to(x.dtype).reshape(bshape) + eps)
+    y = (x - mean.to(x.dtype).reshape(bshape)) * inv_std
+    y = y * scale.to(x.dtype).reshape(bshape) \
+        + bias.to(x.dtype).reshape(bshape)
+    return {"Y": y, "MeanOut": mean_out, "VarianceOut": var_out,
+            "SavedMean": mean, "SavedVariance": var}
 
 
 @register_op("layer_norm")
@@ -33,3 +197,156 @@ def _layer_norm(ctx, ins, attrs, op):
     lead = tuple(x.shape[:begin])
     return {"Y": y, "Mean": mean.reshape(lead),
             "Variance": var.reshape(lead)}
+
+
+@register_op("softmax")
+def _softmax(ctx, ins, attrs, op):
+    return {"Out": torch.softmax(ins["X"], dim=-1)}
+
+
+# ---------------------------------------------------------------------------
+# Fused conv + BN (+ residual) (+ relu) stage, NHWC / HWIO — the op
+# FuseConvBNActPass emits (fluid/transpiler/layout_transpiler.py).  The
+# training forward takes the conv and its per-channel statistics from K6
+# in one pass; the backward is an EXPLICIT grad lowering over the
+# forward's saved ConvOut / SavedMean / SavedInvStd that never re-runs
+# the forward, with its two grad convs in the pinned layout.
+# ---------------------------------------------------------------------------
+
+def _fused_conv_bn_lower(ctx, ins, attrs, op):
+    x, w = ins["Input"], ins["Filter"]
+    scale, bias = ins["Scale"], ins["Bias"]
+    mean_in, var_in = ins["Mean"], ins["Variance"]
+    residual = ins.get("Residual")
+    strides = _pair(attrs.get("strides", [1, 1]))
+    paddings = _pair(attrs.get("paddings", [0, 0]))
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    act = attrs.get("act", "")
+    if attrs.get("force_xla", False) and x.is_cuda:
+        # the reference's XLA branch; the port has only K6 on the card
+        raise NotImplementedError(
+            "fused_conv2d_bn_act: force_xla has no counterpart on CUDA "
+            "(the conv stage always runs the K6 kernel)")
+    x = x.contiguous()
+    if residual is not None:
+        residual = residual.contiguous()
+    co = w.shape[3]
+
+    if attrs.get("is_test", False):
+        inv = torch.rsqrt(var_in.float() + eps)
+        a = scale.float() * inv
+        b = bias.float() - mean_in.float() * a
+        y = conv_fused.conv2d_nhwc(x, w, strides, paddings, affine=(a, b),
+                                   residual=residual, act=act)
+        # fully fused: the raw conv output never reaches memory, and a
+        # test-mode program has no grad op to read it
+        return {"Y": y, "MeanOut": mean_in, "VarianceOut": var_in,
+                "SavedMean": mean_in.float(), "SavedInvStd": inv,
+                "ConvOut": None}
+
+    conv_out, s, ss = conv_fused.conv2d_nhwc(x, w, strides, paddings,
+                                             stats=True)
+    m = conv_out.numel() // co                     # N * Ho * Wo
+    mean = s / m
+    var = ss / m - torch.square(mean)              # f32, from f32 sums
+    inv = torch.rsqrt(var + eps)
+    a = scale.float() * inv
+    b = bias.float() - mean * a
+    yf = conv_out.float() * a + b
+    if residual is not None:
+        yf += residual.float()
+    if act == "relu":
+        yf.relu_()
+    mean_out = mean_in * momentum + mean.to(mean_in.dtype) * (1 - momentum)
+    var_out = var_in * momentum + var.to(var_in.dtype) * (1 - momentum)
+    return {"Y": yf.to(x.dtype), "ConvOut": conv_out,
+            "MeanOut": mean_out, "VarianceOut": var_out,
+            "SavedMean": mean, "SavedInvStd": inv}
+
+
+def _fused_conv_bn_infer(ins, attrs, op):
+    """Shapes without touching the kernel: conv arithmetic + [Co]."""
+    x, w = ins["Input"], ins["Filter"]
+    sh, sw = _pair(attrs.get("strides", [1, 1]))
+    ph, pw = _pair(attrs.get("paddings", [0, 0]))
+    n, h, wd, _ = x.shape
+    kh, kw, _, co = w.shape
+    ho = (h + 2 * ph - kh) // sh + 1
+    wo = (wd + 2 * pw - kw) // sw + 1
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    return {"Y": meta((n, ho, wo, co), x.dtype),
+            "ConvOut": meta((n, ho, wo, co), x.dtype),
+            "MeanOut": meta((co,), ins["Mean"].dtype),
+            "VarianceOut": meta((co,), ins["Variance"].dtype),
+            "SavedMean": meta((co,), torch.float32),
+            "SavedInvStd": meta((co,), torch.float32)}
+
+
+register_op("fused_conv2d_bn_act", lower=_fused_conv_bn_lower,
+            infer_shape=_fused_conv_bn_infer)
+
+
+@register_op("fused_conv2d_bn_act_grad", grad_maker=None)
+def _fused_conv_bn_grad(ctx, ins, attrs, op):
+    """Backward from saved residuals only (no forward re-execution):
+    relu mask from the reconstructed pre-activation, batch-statistics BN
+    gradient from (ConvOut, SavedMean, SavedInvStd), and the two conv
+    gradients in the pinned NHWC / HWIO layout."""
+    x, w = ins["Input"], ins["Filter"]
+    scale = ins["Scale"]
+    conv_out = ins["ConvOut"]
+    mean, inv = ins["SavedMean"], ins["SavedInvStd"]
+    residual = ins.get("Residual")
+    dy = ins["Y@GRAD"]
+    strides = _pair(attrs.get("strides", [1, 1]))
+    paddings = _pair(attrs.get("paddings", [0, 0]))
+    co = w.shape[3]
+    red = (0, 1, 2)                                  # N, Ho, Wo
+
+    a = scale.float() * inv
+    b = ins["Bias"].float() - mean * a
+    cf = conv_out.float()
+    xhat = (cf - mean) * inv
+    dyf = dy.float()
+    if attrs.get("act", "") == "relu":
+        pre = cf * a + b
+        if residual is not None:
+            pre = pre + residual.float()
+        dyf = torch.where(pre > 0, dyf, torch.zeros_like(dyf))
+        del pre
+    dscale = (dyf * xhat).sum(dim=red)
+    dbias = dyf.sum(dim=red)
+    if attrs.get("is_test", False):
+        dconv = dyf * a
+    else:
+        m = conv_out.numel() // co
+        dconv = a * (dyf - dbias / m - xhat * dscale / m)
+    del xhat, cf
+
+    xv, wv = conv_fused.nchw_views(x, w)
+    dx, dw = _conv_backward(
+        dconv.permute(0, 3, 1, 2), xv, wv, strides, paddings, [1, 1], 1,
+        [_wanted(op, "Input@GRAD"), _wanted(op, "Filter@GRAD")])
+    out = {"Scale@GRAD": dscale.to(scale.dtype),
+           "Bias@GRAD": dbias.to(ins["Bias"].dtype)}
+    if dx is not None:
+        out["Input@GRAD"] = dx.permute(0, 2, 3, 1).to(x.dtype)
+    if dw is not None:
+        out["Filter@GRAD"] = dw.permute(2, 3, 1, 0).contiguous().to(w.dtype)
+    if residual is not None:
+        out["Residual@GRAD"] = dyf.to(residual.dtype)
+    # Running stats are stop_gradient in real programs; when a harness
+    # declares their grads anyway, the only dependency is the momentum
+    # blend into MeanOut / VarianceOut.
+    momentum = attrs.get("momentum", 0.9)
+    for slot, gslot in (("Mean", "MeanOut@GRAD"),
+                        ("Variance", "VarianceOut@GRAD")):
+        if slot + "@GRAD" in op.outputs:
+            src = ins.get(gslot)
+            out[slot + "@GRAD"] = (src * momentum if src is not None
+                                   else torch.zeros_like(ins[slot]))
+    return out

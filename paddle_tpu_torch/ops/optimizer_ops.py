@@ -2,7 +2,7 @@
 anew, and the executor writes those persistables back to the scope.
 
 Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` for the ops ported
-so far (the dense branch of adam).
+so far (the dense branches of momentum and adam).
 """
 from __future__ import annotations
 
@@ -15,13 +15,30 @@ def _lr(ins):
     return ins["LearningRate"].reshape(())
 
 
-@register_op("adam", grad_maker=None)
-def _adam(ctx, ins, attrs, op):
-    p, g = ins["Param"], ins["Grad"]
+def _dense(g, op_type):
     if not isinstance(g, torch.Tensor):
         raise NotImplementedError(
-            "adam: SelectedRows gradients are not ported to "
-            "paddle_tpu_torch yet")
+            "%s: SelectedRows gradients are not ported to "
+            "paddle_tpu_torch yet" % op_type)
+    return g
+
+
+@register_op("momentum", grad_maker=None)
+def _momentum(ctx, ins, attrs, op):
+    p, g, v = ins["Param"], _dense(ins["Grad"], "momentum"), ins["Velocity"]
+    mu = attrs.get("mu")
+    lr = _lr(ins)
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": p_out, "VelocityOut": v_out}
+
+
+@register_op("adam", grad_maker=None)
+def _adam(ctx, ins, attrs, op):
+    p, g = ins["Param"], _dense(ins["Grad"], "adam")
     m1, m2 = ins["Moment1"], ins["Moment2"]
     b1p, b2p = ins["Beta1Pow"].reshape(()), ins["Beta2Pow"].reshape(())
     b1 = attrs.get("beta1", 0.9)

@@ -26,6 +26,23 @@ def _transpose(ctx, ins, attrs, op):
     return {"Out": ins["X"].permute(*attrs.get("axis"))}
 
 
+def _top_k_infer(ins, attrs, op):
+    """The desc records the indices as int32, as the JAX package's does
+    (its int64 narrows to int32 without jax_enable_x64), so programs
+    serialize alike; the lowering's tensor is int64."""
+    x = ins["X"]
+    shape = tuple(x.shape[:-1]) + (attrs.get("k", 1),)
+    return {"Out": torch.empty(shape, dtype=x.dtype, device=x.device),
+            "Indices": torch.empty(shape, dtype=torch.int32,
+                                   device=x.device)}
+
+
+@register_op("top_k", grad_maker=None, infer_shape=_top_k_infer)
+def _top_k(ctx, ins, attrs, op):
+    vals, idx = torch.topk(ins["X"], attrs.get("k", 1), dim=-1)
+    return {"Out": vals, "Indices": idx}
+
+
 @register_op("assign")
 def _assign(ctx, ins, attrs, op):
     return {"Out": ins["X"]}

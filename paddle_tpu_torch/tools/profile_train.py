@@ -1,11 +1,18 @@
 """Where a training step's time goes on the card.
 
-Builds the flagship LM as a fluid Program (``models/transformer``
-get_model: vocab 8192, d_model 1024, 8 heads, 6 layers, d_ff 4096,
-sequence 2048, Adam; ``--batch`` sequences, default 16; ``--fuse`` for
-the fused-block program, ``FLAGS_transformer_fuse``), runs its startup
-program and 2 untimed steps on one fixed batch drawn from ``--seed``,
-then:
+Builds one of two models as a fluid Program:
+
+- ``--model lm`` (the default): the flagship LM (``models/transformer``
+  get_model: vocab 8192, d_model 1024, 8 heads, 6 layers, d_ff 4096,
+  sequence 2048, Adam; ``--batch`` sequences, default 16; ``--fuse``
+  for the fused-block program, ``FLAGS_transformer_fuse``);
+- ``--model resnet50``: ResNet-50 (``models/resnet`` get_model:
+  flowers, 224 x 224, 102 classes, uint8 images, Momentum 0.9 at lr
+  0.01; ``--batch`` images, default 256; ``--fuse`` for the NHWC
+  fused-stage program, ``FLAGS_conv_layout=NHWC``);
+
+runs its startup program and 2 untimed steps on one fixed batch drawn
+from ``--seed``, then:
 
 - ``--steps`` steps (default 3) under ``torch.profiler``: host wall
   time of a step, ended by the loss fetch (median), device time per
@@ -21,7 +28,8 @@ then:
 Where the profiler records no device time these read "not measured".
 Run on a CUDA machine from the repository root:
 
-    python -m paddle_tpu_torch.tools.profile_train [--batch 16] [--fuse]
+    python -m paddle_tpu_torch.tools.profile_train [--model resnet50]
+        [--batch N] [--fuse]
 
 Prints one JSON line.
 """
@@ -38,10 +46,12 @@ from torch.autograd import DeviceType
 
 from .. import fluid
 from ..core import executor_impl
-from ..models import transformer
+from ..models import resnet, transformer
 
 LM = dict(vocab_size=8192, seq_len=2048, d_model=1024, n_head=8,
           n_layers=6, d_ff=4096, learning_rate=1e-3)
+RESNET50 = dict(data_set="flowers", depth=50, learning_rate=0.01,
+                input_dtype="uint8")
 
 
 class OpTimer:
@@ -72,24 +82,41 @@ class OpTimer:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--model", choices=("lm", "resnet50"), default="lm")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="sequences (lm, default 16) or images (resnet50, "
+                    "default 256)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fuse", action="store_true",
-                    help="profile the fused-block program")
+                    help="profile the fused-block (lm) or the NHWC "
+                    "fused-stage (resnet50) program")
     args = ap.parse_args(argv)
 
+    rng = np.random.RandomState(args.seed)
     main_prog, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main_prog, startup), fluid.unique_name.guard():
-        loss, _, _ = transformer.get_model(**LM,
-                                           fuse_transformer=args.fuse)
+        if args.model == "lm":
+            batch = args.batch or 16
+            config = dict(LM, fuse_transformer=args.fuse)
+            loss, _, _ = transformer.get_model(**config)
+            toks = rng.randint(0, LM["vocab_size"],
+                               (batch, LM["seq_len"] + 1)).astype(np.int64)
+            feed = {"src": toks[:, :-1], "label": toks[:, 1:, None]}
+            per_step, unit = batch * LM["seq_len"], "tokens_per_s"
+        else:
+            batch = args.batch or 256
+            config = dict(RESNET50, data_format="NHWC" if args.fuse
+                          else "NCHW", fused_stages=args.fuse)
+            loss, _, _ = resnet.get_model(**config)
+            feed = {"data": rng.randint(0, 256, (batch, 3, 224, 224))
+                    .astype(np.uint8),
+                    "label": rng.randint(0, 102, (batch, 1))
+                    .astype(np.int64)}
+            per_step, unit = batch, "images_per_s"
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     exe.run(startup, scope=scope)
-    rng = np.random.RandomState(args.seed)
-    toks = rng.randint(0, LM["vocab_size"],
-                       (args.batch, LM["seq_len"] + 1)).astype(np.int64)
-    feed = {"src": toks[:, :-1], "label": toks[:, 1:, None]}
 
     def step():
         return exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
@@ -130,10 +157,9 @@ def main(argv=None):
     finally:
         executor_impl.OP_HOOK = None
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "batch": args.batch,
-        **LM, "fuse_transformer": args.fuse, "steps": args.steps,
-        "step_ms_median": med,
-        "tokens_per_s": args.batch * LM["seq_len"] / med * 1e3,
+        "device": torch.cuda.get_device_name(0), "model": args.model,
+        "batch": batch, **config, "steps": args.steps,
+        "step_ms_median": med, unit: per_step / med * 1e3,
         "device_ms_per_step": busy if kernels else "not measured",
         "device_idle_share": 1.0 - busy / med if kernels
         else "not measured",

@@ -28,7 +28,9 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    return torch.device("cuda")
+    from paddle_tpu_torch import resolve_device
+
+    return resolve_device("cuda")    # f32 cuBLAS and cuDNN, no TF32
 
 
 @pytest.mark.cuda
@@ -274,4 +276,97 @@ def test_executor_fused_step_on_card_runs_the_fused_kernels(cuda):
     for name, a, b in zip(fetch[1:], got[1:], want[1:]):
         # relative Frobenius norm, as chip_smoke.py's oracle: a relu
         # input within rounding of 0 may take the other branch
+        assert np.linalg.norm(a - b) <= 1e-2 * np.linalg.norm(b), name
+
+
+# K6: every epilogue combination on ragged shapes -- M not a multiple of
+# the 128-pixel tile, the stem's scalar gather (Ci = 3, 7x7, stride 2,
+# padding 3), Co = 64 (half a tile), 3x3 and 1x1 stages with float4
+# gathers, a stride-2 1x1
+CONV_SHAPES = [(3, 23, 3, 64, 7, 2, 3), (2, 9, 64, 128, 3, 1, 1),
+               (2, 7, 256, 68, 1, 2, 0), (1, 5, 40, 256, 3, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_stage_kernel_matches_plain_on_card(cuda, shape):
+    from paddle_tpu_torch.kernels import conv_fused as pcf
+
+    n, h, ci, co, k, s, p = shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(n, h, h, ci, device=cuda, generator=g)
+    w = torch.randn(k, k, ci, co, device=cuda, generator=g) * \
+        (k * k * ci) ** -0.5
+    ho = (h + 2 * p - k) // s + 1
+    a = torch.rand(co, device=cuda, generator=g) + 0.5
+    b = torch.randn(co, device=cuda, generator=g)
+    r = torch.randn(n, ho, ho, co, device=cuda, generator=g)
+    for stats in (False, True):
+        for affine in (None, (a, b)):
+            for res in (None, r):
+                for act in ("", "relu"):
+                    kw = dict(stats=stats, affine=affine, residual=res,
+                              act=act)
+                    got = pcf.conv2d_nhwc(x, w, (s, s), (p, p), **kw)
+                    want = pcf.conv2d_nhwc_reference(x, w, (s, s), (p, p),
+                                                     **kw)
+                    if not stats:
+                        got, want = (got,), (want,)
+                    torch.testing.assert_close(got[0], want[0], **TOL)
+                    if stats:
+                        _, rel = pcf.stats_error(x, w, (s, s), (p, p),
+                                                 got[1], got[2])
+                        assert rel <= pcf.STATS_RTOL, rel
+
+
+@pytest.mark.cuda
+def test_conv_stage_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    from paddle_tpu_torch.kernels import conv_fused as pcf
+
+    x = torch.randn(1, 8, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pcf.conv2d_nhwc(x, torch.randn(3, 3, 16, 6, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        pcf.conv2d_nhwc(x.transpose(1, 2), torch.randn(3, 3, 16, 8,
+                                                       device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        pcf.conv2d_nhwc(x.double(), torch.randn(3, 3, 16, 8, device=cuda,
+                                                dtype=torch.float64))
+
+
+@pytest.mark.cuda
+def test_executor_fused_resnet_step_on_card_runs_the_conv_stage(cuda):
+    """One Momentum step of the fused cifar10 ResNet, depth 8, batch 4
+    (FLAGS_conv_layout=NHWC) through Executor(CUDAPlace(0)): K6 once per
+    conv stage (9); the card's loss and gradients are the CPU
+    executor's from the same parameters."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = resnet.get_model(data_set="cifar10", depth=8,
+                                      data_format="NHWC", fused_stages=True)
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = [n for n, v in main.desc.blocks[0].vars.items()
+               if v.persistable]
+    host = fluid.Scope()
+    set_scope_arrays(host, get_scope_arrays(card, persist), "cpu")
+    fetch = [loss.name] + sorted(p.name + "@GRAD"
+                                 for p in main.all_parameters()
+                                 if p.trainable)
+    rng = np.random.RandomState(0)
+    feed = {"data": rng.rand(4, 3, 32, 32).astype(np.float32),
+            "label": rng.randint(0, 10, (4, 1)).astype(np.int64)}
+    reset_launches()
+    got = fluid.Executor(fluid.CUDAPlace(0)).run(
+        main, feed=feed, fetch_list=fetch, scope=card)
+    assert KERNELS["conv_stage"].launches == 9
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=host)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    for name, a, b in zip(fetch[1:], got[1:], want[1:]):
         assert np.linalg.norm(a - b) <= 1e-2 * np.linalg.norm(b), name

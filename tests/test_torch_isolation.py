@@ -48,7 +48,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     for mod in ("analysis/defuse.py", "fluid/transpiler/pass_framework.py",
                 "fluid/transpiler/layout_transpiler.py",
                 "fluid/transpiler/transformer_fuse.py", "ops/fused_ops.py",
-                "kernels/matmul_fused.py"):
+                "kernels/matmul_fused.py", "kernels/conv_fused.py",
+                "models/resnet.py", "ops/metric.py",
+                "fluid/layers/metric_op.py"):
         assert "paddle_tpu_torch/" + mod in rel, mod
     bad = []
     for path in files:
@@ -95,3 +97,42 @@ def test_chip_smoke_alone_exits_nonzero(tmp_path):
                           env={**os.environ, "PYTHONPATH": ""})
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+RESNET_STANDALONE = """
+import sys
+for mod in ("jax", "jaxlib", "google.protobuf", "paddle_tpu"):
+    sys.modules[mod] = None       # any import of them now fails
+import math
+import numpy as np
+import paddle_tpu_torch.fluid as fluid
+from paddle_tpu_torch.models import resnet
+
+main, startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(main, startup), fluid.unique_name.guard():
+    loss, _, _ = resnet.get_model(data_set="cifar10", depth=8,
+                                  input_dtype="uint8", data_format="NHWC",
+                                  fused_stages=True)
+assert any(o.type == "fused_conv2d_bn_act" for o in main.desc.blocks[0].ops)
+scope = fluid.Scope()
+exe = fluid.Executor(fluid.CPUPlace())
+exe.run(startup, scope=scope)
+rng = np.random.RandomState(0)
+feed = {"data": rng.randint(0, 256, (4, 3, 32, 32)).astype(np.uint8),
+        "label": rng.randint(0, 10, (4, 1)).astype(np.int64)}
+losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                        scope=scope)[0][0]) for _ in range(2)]
+assert all(math.isfinite(x) for x in losses), losses
+assert losses[1] < losses[0], losses
+print("OK", losses)
+"""
+
+
+def test_fused_resnet_trains_without_jax_or_protobuf():
+    """The card's machine has neither: build the fused-stage ResNet with
+    the uint8 front-end and train 2 steps with both made unimportable."""
+    proc = subprocess.run([sys.executable, "-c", RESNET_STANDALONE],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK"), proc.stdout
