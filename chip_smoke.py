@@ -58,12 +58,28 @@ Phases, each printed as one JSON line:
              the same parameters: loss and every parameter gradient,
              the gradients (worst and median) to twice the CPU's own
              spread when one ulp is added to every filter, that spread
-             itself at most 5 %.
+             itself at most 5 %;
+15. train_sp — phase 7's LM as the sequence-parallel program
+             (get_model(sp=True)) through ExecutorCore on the mesh
+             make_mesh({"sp": 4}, [cuda:0] * 4), the 4 ring shards laid
+             on the one card: every ring_attention runs the ring, K9 60
+             times a step (6 layers x 10 live folds), K2 and K3 60
+             times, K1 never; the dense program's loss from the same
+             parameters and batch beside it, for information;
+16. train_sp_oracle — one sp step at full width, depth 1, batch 1 on
+             the card against the same step on a 4-shard CPU mesh
+             (ExecutorCore(CPUPlace(), mesh=[cpu] * 4)) and against the
+             dense program's step on the card, from the same parameters,
+             at phase 8's bars.
 
 Phase 3 holds K6 against its plain version at each of the path's 20
 conv shapes at batch 256 (statistics form; the five heaviest also with
 affine + residual + relu) and at every epilogue combination on ragged
-shapes.
+shapes; K9 at the ring's shard [16, 8, 512, 128] (the diagonal causal
+fold, a non-causal fold from a carry seeded by an earlier one, a
+half-masked and a wholly masked block, the last bit-identical to its
+carry); K2/K3 non-causal at that shape; K10, which no path runs, at the
+LM's logits [32768, 8192].
 
 Then the kernels' summary line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -208,6 +224,8 @@ def check_kernels(torch, timer):
         flash_attention_bwd_reference, flash_attention_fwd_lse,
         flash_bwd_dkv, flash_bwd_dq, paged_attention,
         paged_attention_reference)
+    from paddle_tpu_torch.kernels.fused import (
+        fused_softmax_cross_entropy, softmax_ce_reference)
     from paddle_tpu_torch.kernels.conv_fused import (
         conv2d_nhwc, conv2d_nhwc_reference)
     from paddle_tpu_torch.kernels.matmul_fused import (
@@ -283,6 +301,23 @@ def check_kernels(torch, timer):
                                            True)),
                plain_ms, lib_ms, 6 * io + 8 * b_ * h * s, 4 * tile)
         del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+
+    check_ring_kernels(torch, timer, gen, record, bad)
+
+    # K10: the LM's logits [16 * 2048, 8192] (no path runs it); the
+    # yardstick is F.cross_entropy(reduction="none")
+    n, c = TRAIN_BATCH * TRAIN_LM["seq_len"], TRAIN_LM["vocab_size"]
+    logits = torch.randn(n, c, device=dev, generator=gen) * 3
+    labels = torch.randint(0, c, (n,), device=dev, generator=gen)
+    err, ok = compare(torch, fused_softmax_cross_entropy(logits, labels),
+                      softmax_ce_reference(logits, labels))
+    record("fused_ce", "[%d,%d]" % (n, c), err, ok,
+           timer(lambda: fused_softmax_cross_entropy(logits, labels)),
+           timer(lambda: softmax_ce_reference(logits, labels)),
+           timer(lambda: F.cross_entropy(logits, labels, reduction="none")),
+           4 * n * c + 8 * n + 4 * n, 4 * n * c)
+    del logits, labels
     torch.cuda.empty_cache()
 
     # K7: paged decode, B=16, NB=128, bs=16 over a 512-block pool
@@ -518,6 +553,103 @@ def check_kernels(torch, timer):
     return rows, bad
 
 
+def check_ring_kernels(torch, timer, gen, record, bad):
+    """K9 at the ring's shard of the training step at sp = 4, q, k, v
+    [16, 8, 512, 128]: the diagonal causal fold from a fresh carry, a
+    non-causal fold from the carry it left, a half-masked block
+    (k_offset 256) and a wholly masked one (k_offset 512), which must
+    leave its carry bit-identical; then K2/K3 non-causal at that shape,
+    the ring's off-diagonal backward steps.  K9's yardstick is SDPA over
+    the same block with the same mask: not the same function (it
+    normalizes and keeps no carry), a point of reference."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels.flash_attention import (
+        NEG_INF, attention_reference, chunk_update_reference,
+        flash_attention_bwd_reference, flash_attention_chunk,
+        flash_bwd_dkv, flash_bwd_dq)
+
+    dev = "cuda"
+    b, h, s, d = TRAIN_BATCH, TRAIN_LM["n_head"], \
+        TRAIN_LM["seq_len"] // SP, TRAIN_LM["d_model"] // TRAIN_LM["n_head"]
+    scale = 1.0 / math.sqrt(d)
+    shape = "[%d,%d,%d,%d]" % (b, h, s, d)
+    q, k, v, k2, v2 = (torch.randn(b, h, s, d, device=dev, generator=gen)
+                       for _ in range(5))
+    fresh = (torch.full((b, h, s), NEG_INF, device=dev),
+             torch.zeros(b, h, s, device=dev),
+             torch.zeros(b, h, s, d, device=dev))
+    seeded = flash_attention_chunk(q, k, v, *fresh, causal=True)
+    pos = torch.arange(s, device=dev)
+    for what, kv, carry, causal, off in (
+            ("diagonal causal", (k, v), fresh, True, 0),
+            ("non-causal, seeded carry", (k2, v2), seeded, False, 0),
+            ("causal k_offset %d (half masked)" % (s // 2), (k2, v2),
+             fresh, True, s // 2),
+            ("causal k_offset %d (wholly masked), seeded carry" % s,
+             (k2, v2), seeded, True, s)):
+        got = flash_attention_chunk(q, *kv, *carry, causal=causal,
+                                    k_offset=off)
+        want = chunk_update_reference(q, *kv, *carry, scale, causal, off)
+        errs = [compare(torch, a, w_) for a, w_ in zip(got, want)]
+        ok = all(o for _, o in errs)
+        if causal and off >= s and not all(
+                torch.equal(a, c_) for a, c_ in zip(got, carry)):
+            bad.append("flash_chunk: a wholly masked block changed the "
+                       "carry")
+        del got, want
+        # what this block's data needs: the scores to compute, the q rows
+        # with a live key and the k/v rows with a live query, the carry
+        # read and written whole (dead rows copy theirs through)
+        mask = pos[:, None] >= off + pos[None, :] if causal else None
+        live = int(mask.sum()) if causal else s * s
+        rows_q = int(mask.any(1).sum()) if causal else s
+        rows_k = int(mask.any(0).sum()) if causal else s
+        record("flash_chunk", "%s %s" % (shape, what),
+               max(e for e, _ in errs), ok,
+               timer(lambda: flash_attention_chunk(
+                   q, *kv, *carry, causal=causal, k_offset=off)),
+               timer(lambda: chunk_update_reference(
+                   q, *kv, *carry, scale, causal, off)),
+               timer(lambda: F.scaled_dot_product_attention(
+                   q, *kv, attn_mask=mask if off else None,
+                   is_causal=causal and not off)),
+               4 * (b * h * d * (rows_q + 2 * rows_k)
+                    + 2 * (2 * b * h * s + b * h * s * d)),
+               4 * b * h * d * live)
+    del seeded, fresh, k2, v2
+
+    # K2/K3 non-causal from the saved lse at the shard shape
+    do = torch.randn(b, h, s, d, device=dev, generator=gen)
+    out, lse = attention_reference(q, k, v, scale, False)
+    delta = (do * out).sum(-1)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do, scale, False)
+    got = (flash_bwd_dq(q, k, v, do, lse, delta, scale, False),
+           *flash_bwd_dkv(q, k, v, do, lse, delta, scale, False))
+    errs = [compare(torch, a, w_) for a, w_ in zip(got, want)]
+    plain_ms = timer(lambda: flash_attention_bwd_reference(
+        q, k, v, out, lse, do, scale, False), iters=5)
+    del got, want
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qg, kg, vg)
+    lib_ms = timer(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
+                                               retain_graph=True))
+    del o_lib, qg, kg, vg
+    tile = 2 * b * h * d * s * s        # one non-causal product
+    io = 4 * b * h * s * d
+    record("flash_bwd_dq", shape + " non-causal", errs[0][0], errs[0][1],
+           timer(lambda: flash_bwd_dq(q, k, v, do, lse, delta, scale,
+                                      False)),
+           plain_ms, lib_ms, 5 * io + 8 * b * h * s, 3 * tile)
+    record("flash_bwd_dkv", shape + " non-causal",
+           max(errs[1][0], errs[2][0]), errs[1][1] and errs[2][1],
+           timer(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                       False)),
+           plain_ms, lib_ms, 6 * io + 8 * b * h * s, 4 * tile)
+    del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+
+
 def conv_flops(n, shp):
     h, ci, co, k, s, p = shp
     ho = (h + 2 * p - k) // s + 1
@@ -659,6 +791,13 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 FUSED_KERNELS = ("matmul_epilogue", "add_ln")
 # the fused program's projections (name, K, N, bias, act), each one K4
 # launch per layer, lm_head once a step
+# the sequence-parallel path: 4 ring shards on the one card; per layer
+# and step 10 live chunk folds (K9) forward and 10 chunk backward steps
+# (K2 + K3) at causal, p(p+1)/2 of p*p
+SP = 4
+SP_KERNELS = {"flash_chunk": SP * (SP + 1) // 2,
+              "flash_bwd_dq": SP * (SP + 1) // 2,
+              "flash_bwd_dkv": SP * (SP + 1) // 2}
 FUSED_MATMULS = (("qkv", 1024, 3072, False, ""),
                  ("out_proj", 1024, 1024, True, ""),
                  ("fc1", 1024, 4096, True, "relu"),
@@ -743,8 +882,6 @@ def train_oracle(torch, fuse):
     full width, depth 1, batch 1 on the card and, from the same
     parameters, on Executor(CPUPlace()): the loss and every parameter
     gradient."""
-    import numpy as np
-
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
 
@@ -774,29 +911,153 @@ def train_oracle(torch, fuse):
     want = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
                                                 fetch_list=fetch,
                                                 scope=host)
+    return {"phase": "train_fused_oracle" if fuse else "train_oracle",
+            "n_layers": 1, "batch": 1, "loss_card": float(got[0][0]),
+            "loss_cpu": float(want[0][0]),
+            **step_agreement(got, want, fetch[1:1 + len(params)])}
+
+
+def step_agreement(got, want, grad_names):
+    """One step's fetches ([loss, *grads, *relu inputs]) against a
+    reference's: the loss to ORACLE_LOSS_RTOL, each gradient to
+    ORACLE_GRAD_RTOL in relative Frobenius norm, relu flips counted."""
+    import numpy as np
+
+    n = len(grad_names)
     loss_err = abs(float(got[0][0]) - float(want[0][0])) / \
         abs(float(want[0][0]))
     grads = {}
-    for name, a, b in zip(fetch[1:1 + len(params)], got[1:], want[1:]):
+    for name, a, b in zip(grad_names, got[1:], want[1:]):
         a, b = a.astype(np.float64), b.astype(np.float64)
         grads[name] = {
             "fro_rel": float(np.linalg.norm(a - b) / np.linalg.norm(b)),
             "max_abs_rel": float(np.abs(a - b).max() / np.abs(b).max())}
     flips = sum(int(((a > 0) != (b > 0)).sum())
-                for a, b in zip(got[1 + len(params):],
-                                want[1 + len(params):]))
-    worst = max(grads, key=lambda n: grads[n]["fro_rel"])
+                for a, b in zip(got[1 + n:], want[1 + n:]))
+    worst = max(grads, key=lambda g: grads[g]["fro_rel"])
     ok = (math.isfinite(loss_err) and loss_err <= ORACLE_LOSS_RTOL
           and all(math.isfinite(g["fro_rel"])
                   and g["fro_rel"] <= ORACLE_GRAD_RTOL
                   for g in grads.values()))
-    return {"phase": "train_fused_oracle" if fuse else "train_oracle",
-            "n_layers": 1, "batch": 1,
-            "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
-            "loss_rel_err": loss_err, "relu_flips": flips,
+    return {"loss_rel_err": loss_err, "relu_flips": flips,
             "worst_grad": worst, "grads": grads,
             "loss_tolerance": ORACLE_LOSS_RTOL,
             "grad_tolerance": ORACLE_GRAD_RTOL, "ok": ok}
+
+
+# ---------------------------------------------------------------------------
+# phases 15-16: sequence-parallel training on a 4-shard mesh
+# ---------------------------------------------------------------------------
+
+def sp_mesh(torch, device):
+    from paddle_tpu_torch.parallel import make_mesh
+
+    return make_mesh({"sp": SP}, [torch.device(device)] * SP)
+
+
+def train_sp(torch):
+    """Startup, then 1 warm-up and TRAIN_STEPS timed steps of the sp LM
+    on one fixed batch through ExecutorCore(CUDAPlace(0)) on the 4-shard
+    one-card mesh; the dense program's loss from the startup parameters
+    and the same batch beside the warm-up's, for information."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.executor_impl import ExecutorCore
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    main, startup, loss = build_lm(fluid, sp=True)
+    mesh = sp_mesh(torch, "cuda:0")
+    core = ExecutorCore(fluid.CUDAPlace(0), mesh=mesh)
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    core.run(startup.desc, scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    feed = lm_batch(TRAIN_BATCH, SEED + 3)
+    dmain, _, dloss = build_lm(fluid)
+    dense = fluid.Scope()
+    for name, v in main.desc.blocks[0].vars.items():
+        if v.persistable and scope.has_var(name):
+            dense.set(name, scope.find_var(name).clone())
+    dense_loss = float(fluid.Executor(fluid.CUDAPlace(0)).run(
+        dmain, feed=feed, fetch_list=[dloss], scope=dense)[0][0])
+    del dense
+    torch.cuda.empty_cache()
+    losses = [float(core.run(main.desc, scope, 0, feed, [loss.name])[0][0])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = core.run(main.desc, scope, 0, feed, [loss.name])
+        step_ms.append((time.perf_counter() - t0) * 1e3)   # the fetch syncs
+        losses.append(float(out[0][0]))
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_LM["seq_len"]
+    p50 = _pct(step_ms, 0.5)
+    want = {k: TRAIN_LM["n_layers"] * n for k, n in SP_KERNELS.items()}
+    per_step = {k: launches[k] / TRAIN_STEPS for k in KERNELS}
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and all(per_step[k] == want.get(k, 0) for k in KERNELS))
+    return {"phase": "train_sp", "batch": TRAIN_BATCH, **TRAIN_LM,
+            "mesh": {"axes": mesh.shape,
+                     "logical_devices": [str(d_) for d_ in mesh.devices],
+                     "physical_devices": len(set(mesh.devices))},
+            "startup_s": startup_s, "losses": losses, "step_ms": step_ms,
+            "step_ms_p50": p50, "tokens_per_s": tokens / p50 * 1e3,
+            "max_memory_allocated_bytes": peak,
+            "dense_loss_same_params_and_batch": dense_loss,
+            "dense_vs_sp_first_loss_rel": abs(dense_loss - losses[0]) /
+            abs(dense_loss), "information": ["dense_loss_same_params_"
+                                             "and_batch"],
+            "launches_per_step": per_step,
+            "launches_per_step_wanted": want, "launches": launches,
+            "ok": ok}
+
+
+def train_sp_oracle(torch):
+    """One sp step at full width, depth 1, batch 1 on the card's 4-shard
+    mesh against the same step on a 4-shard CPU mesh, and against the
+    dense program's step on the card, all from the same parameters."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.executor_impl import ExecutorCore
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    main, startup, loss = build_lm(fluid, n_layers=1, sp=True)
+    dmain, _, _ = build_lm(fluid, n_layers=1)
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    arrays = get_scope_arrays(card, persist)
+    host, dense = fluid.Scope(), fluid.Scope()
+    set_scope_arrays(host, arrays, "cpu")
+    set_scope_arrays(dense, arrays, "cuda")
+    params = sorted(p.name for p in main.all_parameters())
+    relu_in = [op.input("X")[0] for op in main.desc.blocks[0].ops
+               if op.type == "relu"]
+    fetch = [loss.name] + [p + "@GRAD" for p in params] + relu_in
+    feed = lm_batch(1, SEED + 4)
+    reset_launches()
+    got = ExecutorCore(fluid.CUDAPlace(0), mesh=sp_mesh(torch, "cuda:0")
+                       ).run(main.desc, card, 0, feed, fetch)
+    launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+    want_cpu = ExecutorCore(fluid.CPUPlace(), mesh=sp_mesh(torch, "cpu")
+                            ).run(main.desc, host, 0, feed, fetch)
+    want_dense = fluid.Executor(fluid.CUDAPlace(0)).run(
+        dmain, feed=feed, fetch_list=fetch, scope=dense)
+    vs_cpu = step_agreement(got, want_cpu, fetch[1:1 + len(params)])
+    vs_dense = step_agreement(got, want_dense, fetch[1:1 + len(params)])
+    return {"phase": "train_sp_oracle", "n_layers": 1, "batch": 1,
+            "sp": SP, "launches": launches,
+            "loss_card": float(got[0][0]),
+            "loss_cpu_sp": float(want_cpu[0][0]),
+            "loss_card_dense": float(want_dense[0][0]),
+            "vs_cpu_sp": vs_cpu, "vs_card_dense": vs_dense,
+            "ok": (vs_cpu["ok"] and vs_dense["ok"]
+                   and launches == dict(SP_KERNELS))}
 
 
 # ---------------------------------------------------------------------------
@@ -1202,6 +1463,23 @@ def main():
         if not oracle["ok"]:
             raise AssertionError("%s: the card's training step disagrees "
                                  "with the CPU one" % phase)
+
+        phase = "train_sp"
+        torch.cuda.empty_cache()
+        result = train_sp(torch)
+        emit(result)
+        if not result["ok"]:
+            raise AssertionError("%s failed its checks" % phase)
+        launches_train[phase] = result["launches"]
+
+        phase = "train_sp_oracle"
+        torch.cuda.empty_cache()
+        oracle = train_sp_oracle(torch)
+        emit(oracle)
+        if not oracle["ok"]:
+            raise AssertionError("%s: the card's sp step disagrees with the "
+                                 "CPU sp step or the dense card step"
+                                 % phase)
     except Exception as e:
         emit({"phase": phase, "ok": False,
               "error": "%s: %s" % (type(e).__name__, e)})
@@ -1216,8 +1494,12 @@ def main():
     # the full decode batch on the slower of the two largest projections
     # (w1 and w2 move the same bytes and FLOPs), K4 at the slowest of the
     # fused step's five projections, K5 at the fused step's seam, K6 as
-    # the sum of the ResNet-50 forward's 53 launches
+    # the sum of the ResNet-50 forward's 53 launches, K9 at the slower of
+    # the ring's diagonal and off-diagonal folds, K10 at the LM's logits
     m = TRAIN_BATCH * TRAIN_LM["seq_len"]
+    shard = "[%d,%d,%d,%d]" % (TRAIN_BATCH, TRAIN_LM["n_head"],
+                               TRAIN_LM["seq_len"] // SP,
+                               TRAIN_LM["d_model"] // TRAIN_LM["n_head"])
     pick = {"flash_fwd": ["[16,8,2048,128] causal"],
             "flash_bwd_dq": ["[16,8,2048,128] causal"],
             "flash_bwd_dkv": ["[16,8,2048,128] causal"],
@@ -1226,7 +1508,10 @@ def main():
             "matmul_epilogue": ["%s M=%d K=%d N=%d" % (what, m, kk, n)
                                 for what, kk, n, _, _ in FUSED_MATMULS],
             "add_ln": ["[%d,%d] affine" % (m, TRAIN_LM["d_model"])],
-            "conv_stage": [CONV_FWD]}
+            "conv_stage": [CONV_FWD],
+            "flash_chunk": [shard + " diagonal causal",
+                            shard + " non-causal, seeded carry"],
+            "fused_ce": ["[%d,%d]" % (m, TRAIN_LM["vocab_size"])]}
     csrc = "paddle_tpu_torch/kernels/csrc/"
     tpu = "paddle_tpu/kernels/"
     meta = {"flash_fwd": (csrc + "flash_fwd.cu",
@@ -1244,16 +1529,22 @@ def main():
             "add_ln": (csrc + "matmul_fused.cu",
                        tpu + "matmul_fused.py:394"),
             "conv_stage": (csrc + "conv_fused.cu",
-                           tpu + "conv_fused.py:73")}
+                           tpu + "conv_fused.py:73"),
+            "flash_chunk": (csrc + "flash_chunk.cu",
+                            tpu + "flash_attention.py:795"),
+            "fused_ce": (csrc + "fused_ce.cu", tpu + "fused.py:29")}
     # launches: each kernel's count on its main path (train_f32 for the
     # flash training kernels, train_fused for K4/K5, train_resnet_fused
-    # for K6, the int8 tenant's serve run, which runs all three serving
-    # kernels, for the rest); every path's count stands beside it
+    # for K6, train_sp for K9, the int8 tenant's serve run, which runs
+    # all three serving kernels, for the rest; K10 is on no path, so 0);
+    # every path's count stands beside it
     summary = []
     for name in KERNELS:
         r = max((x for x in by_name[name] if x["shape"] in pick[name]),
                 key=lambda x: x["ms"])
         path = ("train_resnet_fused" if name == "conv_stage" else
+                "train_sp" if name == "flash_chunk" else
+                None if name == "fused_ce" else
                 "train_fused" if name in FUSED_KERNELS else
                 "train_f32" if name in TRAIN_KERNELS else "serve_int8")
         by_path = {"serve_f32": launches.get(name, 0),
@@ -1261,7 +1552,8 @@ def main():
                    **{p: c.get(name, 0) for p, c in launches_train.items()}}
         summary.append({
             "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": by_path[path],
+            "replaces": meta[name][1],
+            "launches": by_path[path] if path else 0,
             "launches_path": path, "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in by_name[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],

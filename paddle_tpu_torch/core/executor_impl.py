@@ -18,8 +18,13 @@ device (``lowering.run_op``):
 - everything runs under ``torch.no_grad()``: gradients come from the
   program's own ``*_grad`` ops.
 
-Not ported yet: the compile cache and ``PreparedProgram``, meshes, the
-numerics bisect machinery, host ops and ragged (LoD) feeds.
+With a ``mesh`` (``parallel.Mesh``), the ops that shard over it (the
+ring attention op under an ``sp`` axis) place their shards on the
+mesh's devices; every other op runs on the place's device.
+
+Not ported yet: the compile cache and ``PreparedProgram``, GSPMD's
+partition of the whole step over a mesh, the numerics bisect machinery,
+host ops and ragged (LoD) feeds.
 """
 from __future__ import annotations
 
@@ -40,9 +45,13 @@ OP_HOOK = None
 
 
 class ExecutorCore:
-    def __init__(self, place):
+    """place: the device every op runs on.  mesh: an optional
+    ``parallel.Mesh`` that the sharded ops lay their shards over."""
+
+    def __init__(self, place, mesh=None):
         self.place = place
         self.device = place.torch_device()
+        self.mesh = mesh
 
     def run(self, program, scope, block_id=0, feed=None, fetch_list=None,
             return_numpy=True):
@@ -58,7 +67,7 @@ class ExecutorCore:
         env = {name: self._feed_tensor(block, name, val)
                for name, val in (feed or {}).items()}
         ctx = LoweringContext(program, block_id, env, self.device,
-                              seed=_run_seed(program, scope))
+                              seed=_run_seed(program, scope), mesh=self.mesh)
         written = set()
         free_after = _free_plan(block, core_ops, set(fetch_list))
         with torch.no_grad():

@@ -60,13 +60,14 @@ class Ins:
 class LoweringContext:
     """State shared by the ops of one block run."""
 
-    def __init__(self, program, block_idx, env, device, seed=0):
+    def __init__(self, program, block_idx, env, device, seed=0, mesh=None):
         self.program = program
         self.block_idx = block_idx
         self.block = program.blocks[block_idx]
         self.env = env                  # name -> tensor
         self.device = device            # torch.device the block runs on
         self.seed = seed                # this run's random seed
+        self.mesh = mesh                # parallel.Mesh of the run, or None
         self._generator = None
 
     def generator(self, seed=0):

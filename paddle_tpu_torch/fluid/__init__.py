@@ -1,7 +1,8 @@
 """fluid-compatible user API of the port.
 
 Counterpart of ``paddle_tpu.fluid`` for the surface the transformer
-LM's training reaches:
+LM's and ResNet's training reaches, and ``ParallelExecutor`` over a
+sequence-parallel mesh:
 
     import paddle_tpu_torch.fluid as fluid
     x = fluid.layers.data(name="x", shape=[13])
@@ -29,6 +30,7 @@ from .backward import append_backward, calc_gradient
 from . import optimizer
 from . import unique_name
 from .executor import Executor, global_scope, scope_guard, fetch_var
+from .parallel_executor import ParallelExecutor
 from . import io
 from . import transpiler
 
@@ -42,6 +44,7 @@ __all__ = [
     "layers", "initializer", "ParamAttr", "LayerHelper",
     "append_backward", "calc_gradient", "optimizer", "unique_name",
     "Executor", "global_scope", "scope_guard", "fetch_var", "io",
+    "ParallelExecutor",
     "transpiler",
     "CPUPlace", "CUDAPlace", "Scope",
 ]

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use by ``nvcc`` into its own shared library under ``_build/``
-(listed in ``.gitignore``), keyed by a hash of the source and the
-flags, then loaded with ``ctypes``.  No PyTorch headers are included, so
+(listed in ``.gitignore``), keyed by a hash of the source, the shared
+headers and the flags, then loaded with ``ctypes``.  No PyTorch headers are included, so
 a build takes seconds, not minutes.  ``build_all`` starts one ``nvcc``
 per source, all at once, and waits for them together.
 
@@ -28,8 +28,8 @@ __all__ = ["SOURCES", "build_all", "load", "function", "check",
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("flash_fwd", "flash_bwd", "paged_attention", "matmul_int8",
-           "matmul_fused", "conv_fused")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_chunk", "paged_attention",
+           "matmul_int8", "matmul_fused", "conv_fused", "fused_ce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -55,10 +55,13 @@ def nvcc_path():
 
 
 def _lib_path(name):
-    src = os.path.join(CSRC, name + ".cu")
+    """The library's path, keyed by its source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha1()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, "%s-%s.so" % (name, h.hexdigest()[:12]))
 

@@ -13,30 +13,15 @@
 // launch latency.  Design: one block per (batch*head, 64-row Q tile);
 // a loop over 32-row K/V tiles replaces the TPU's sequential grid axis
 // (blocks run in parallel and in no order, so the running max, sum and
-// accumulator live in registers of the block).  The Q tile is loaded
-// once, pre-scaled; each thread owns 4 query rows x (32/16) scores and
-// 4 rows x (D/16) output columns.  Rows padded to D+1 floats keep the
-// 16 column lanes of a half-warp on distinct banks.  The [T, T] score
-// matrix never exists in device memory.  Ragged T and Tk are masked
-// here, not by the caller.  Masked scores are NEG_INF = -1e30 (not
-// -inf), as in the reference, so they underflow to exactly zero.
-#include <cuda_runtime.h>
-#include <math.h>
+// accumulator live in registers of the block): flash_tile.cuh's
+// fold_k_tiles, from (NEG_INF, 0, 0), then out = acc / l and lse.  The
+// [T, T] score matrix never exists in device memory.  Ragged T and Tk
+// are masked here, not by the caller.
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 32;        // key rows per tile
-constexpr int NT = 256;       // 16 row groups x 16 column lanes
-constexpr int RM = BQ / 16;   // query rows per thread
-constexpr int CN = BK / 16;   // score columns per thread
-
-template <int D>
-constexpr int smem_bytes() {
-  return (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1)) *
-         (int)sizeof(float);
-}
+using namespace flash;
 
 template <int D>
 __global__ void __launch_bounds__(NT, 2)
@@ -44,27 +29,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int T, int Tk, float scale,
                  int causal) {
-  constexpr int DP = D + 1;
-  constexpr int DN = D / 16;  // output columns per thread
+  constexpr int DN = D / 16;
   extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][DP], pre-scaled
-  float* Ks = Qs + BQ * DP;      // [BK][DP]
-  float* Vs = Ks + BK * DP;      // [BK][D]
-  float* Ps = Vs + BK * D;       // [BQ][BK + 1]
-
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const float* qb = q + (size_t)bh * T * D;
-  const float* kb = k + (size_t)bh * Tk * D;
-  const float* vb = v + (size_t)bh * Tk * D;
-
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D, gr = q0 + r;
-    Qs[r * DP + c] = gr < T ? qb[(size_t)gr * D + c] * scale : 0.f;
-  }
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
 
   float m[RM], l[RM], acc[RM][DN];
 #pragma unroll
@@ -74,85 +44,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
   }
-
-  int n_k = (Tk + BK - 1) / BK;
-  if (causal) n_k = min(n_k, (q0 + BQ - 1) / BK + 1);  // the TPU skip rule
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's Ks/Vs/Ps are consumed
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D, gr = k0 + r;
-      const bool ok = gr < Tk;
-      Ks[r * DP + c] = ok ? kb[(size_t)gr * D + c] : 0.f;
-      Vs[r * D + c] = ok ? vb[(size_t)gr * D + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float kv[CN];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) kv[j] = Ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float qv = Qs[(ty * RM + i) * DP + d];
-#pragma unroll
-        for (int j = 0; j < CN; ++j) s[i][j] += qv * kv[j];
-      }
-    }
-
-    // online softmax: each row's BK scores sit on the 16 lanes of one
-    // half-warp, so xor-shuffles 8..1 reduce a row without shared memory
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qr = q0 + ty * RM + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int kc = k0 + tx + 16 * j;
-        if (kc >= Tk || (causal && kc > qr)) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty * RM + i) * (BK + 1) + tx + 16 * j] = p;
-        ps += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[i] = l[i] * alpha + ps;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DN; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float vv[DN];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) vv[j] = Vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float p = Ps[(ty * RM + i) * (BK + 1) + c];
-#pragma unroll
-        for (int j = 0; j < DN; ++j) acc[i][j] += p * vv[j];
-      }
-    }
-  }
+  fold_k_tiles<D>(q + (size_t)bh * T * D, k + (size_t)bh * Tk * D,
+                  v + (size_t)bh * Tk * D, smem, q0, T, Tk,
+                  live_k_tiles(q0, Tk, causal, 0), scale, causal, 0, m, l,
+                  acc);
 
 #pragma unroll
   for (int i = 0; i < RM; ++i) {

@@ -6,8 +6,10 @@ interfaces and layouts: ``[B, H, T, D]`` for the flash forward and
 backward, ``q [B, H, D]`` with pages ``[N, bs, H, D]`` for paged decode.
 
 Each entry is a wrapper around a hand-written CUDA kernel
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_chunk.cu``,
 ``csrc/paged_attention.cu``) with its plain PyTorch version beside it.
+The ring-step chunk form (``flash_attention_chunk`` and its backward)
+threads an explicit online-softmax carry for ``parallel/ring.py``.
 The wrapper checks device, dtype, shape and contiguity; for a tensor on
 the CPU it runs the plain version, for a CUDA tensor it launches the
 kernel or raises.  ``<wrapper>.launches`` counts kernel launches.
@@ -24,8 +26,10 @@ from ._build import ptr, require, route, stream
 
 __all__ = ["flash_attention", "flash_attention_fwd_lse",
            "flash_attention_bwd", "flash_attention_train",
-           "flash_bwd_dq", "flash_bwd_dkv", "paged_attention",
+           "flash_bwd_dq", "flash_bwd_dkv", "flash_attention_chunk",
+           "chunk_finalize", "flash_attention_chunk_bwd", "paged_attention",
            "attention_reference", "flash_attention_bwd_reference",
+           "chunk_update_reference", "chunk_bwd_reference",
            "paged_attention_reference", "NEG_INF"]
 
 NEG_INF = -1e30
@@ -234,6 +238,177 @@ def flash_attention_train(q, k, v, scale=None, causal=False):
     the flash backward (kernels on the card, plain versions on the
     CPU) instead of through its ops."""
     return _FlashAttention.apply(q, k, v, scale, causal)
+
+
+# ---------------------------------------------------------------------------
+# K9: the ring-step chunk update, and its backward through K2/K3
+# ---------------------------------------------------------------------------
+
+def _chunk_block_k(tk):
+    """K/V rows per step of the plain chunk versions: the JAX package's
+    default tile (1024) fitted to ``tk`` as its ``resolve_chunk_blocks``
+    fits it, the largest power of two <= 1024 dividing ``tk`` (down to
+    8), else all of ``tk``."""
+    block = min(1024, tk)
+    while block > 8 and tk % block:
+        block //= 2
+    return block if tk % block == 0 else tk
+
+
+def _chunk_mask(s, k0, k_offset):
+    """Scores ``s`` [B, H, Sq, bk] of a K tile whose first row is ``k0``
+    of the block, NEG_INF where q_pos < k_offset + k_pos."""
+    t, bk = s.shape[2], s.shape[3]
+    q_pos = torch.arange(t, device=s.device)[:, None]
+    k_pos = k_offset + k0 + torch.arange(bk, device=s.device)[None, :]
+    return s.masked_fill(q_pos < k_pos, NEG_INF)
+
+
+def chunk_update_reference(q, k, v, m, l, acc, scale, causal, k_offset=0):
+    """Plain chunk update — the math of the JAX package's
+    ``_chunk_update_xla``: K/V streamed ``_chunk_block_k`` rows at a
+    time, masked scores forced to zero mass (the fully-masked guard),
+    the carry rescaled by exp(m - m').  Returns new ``(m, l, acc)``."""
+    tk = k.shape[2]
+    bk = _chunk_block_k(tk)
+    qs = q.float() * scale
+    for k0 in range(0, tk, bk):
+        s = torch.einsum("bhtd,bhkd->bhtk", qs, k[:, :, k0:k0 + bk].float())
+        if causal:
+            s = _chunk_mask(s, k0, k_offset)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(s <= 0.5 * NEG_INF, torch.zeros_like(s),
+                        torch.exp(s - m_new[..., None]))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhtk,bhkd->bhtd", p, v[:, :, k0:k0 + bk].float())
+        m = m_new
+    return m, l, acc
+
+
+def flash_attention_chunk(q, k, v, m, l, acc, scale=None, causal=False,
+                          k_offset=0):
+    """One ring-step update: fold the K/V block into the online-softmax
+    carry.
+
+    ``q`` [B, H, Sq, D]; ``k``/``v`` [B, H, Sk, D], one ring block;
+    carry ``m``/``l`` [B, H, Sq] f32 (start NEG_INF / 0) and ``acc``
+    [B, H, Sq, D] f32 (start 0; the UNNORMALIZED numerator).  Returns
+    the new ``(m, l, acc)``.  ``causal`` masks q_pos < k_offset + k_pos:
+    ``k_offset`` 0 is the ring's diagonal block, ``k_offset >= Sq`` a
+    block wholly in the future, which leaves the carry bit-identical.
+    On the card, K9; on the CPU, ``chunk_update_reference``."""
+    where = route(q, k, v, m, l, acc)
+    require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
+            "q/k/v must be [B, H, S, D]")
+    b, h, t, d = q.shape
+    require(k.shape[:2] == (b, h) and k.shape[3] == d
+            and tuple(m.shape) == (b, h, t) and l.shape == m.shape
+            and acc.shape == q.shape,
+            "shape mismatch q %s k %s m %s l %s acc %s"
+            % (tuple(q.shape), tuple(k.shape), tuple(m.shape),
+               tuple(l.shape), tuple(acc.shape)))
+    require(all(x.dtype == torch.float32 for x in (q, k, v, m, l, acc)),
+            "flash attention chunk takes float32")
+    require(t > 0 and k.shape[2] > 0, "empty sequence")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    k_offset = int(k_offset)
+    if where == "cpu":
+        return chunk_update_reference(q, k, v, m, l, acc, scale, causal,
+                                      k_offset)
+    require(all(x.is_contiguous() for x in (q, k, v, m, l, acc)),
+            "flash chunk kernel needs contiguous inputs")
+    require(d == _HEAD_DIM, "flash chunk kernel is built for head_dim %d, "
+            "not %d" % (_HEAD_DIM, d))
+    m2, l2, acc2 = torch.empty_like(m), torch.empty_like(l), \
+        torch.empty_like(acc)
+    fn = _build.function(
+        "flash_chunk", "flash_chunk_f32",
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    rc = fn(ptr(q), ptr(k), ptr(v), ptr(m), ptr(l), ptr(acc), ptr(m2),
+            ptr(l2), ptr(acc2), b * h, t, k.shape[2], d, float(scale),
+            int(bool(causal)), k_offset, stream())
+    _build.check(rc, "flash_chunk")
+    flash_attention_chunk.launches += 1
+    return m2, l2, acc2
+
+
+flash_attention_chunk.launches = 0
+
+
+def chunk_finalize(m, l, acc, dtype):
+    """``(out, lse)`` from a finished chunk carry: the numerator over l,
+    and lse = m + log l.  Rows that never saw a live key give output 0
+    and an lse of NEG_INF, not NaN."""
+    l_safe = torch.clamp(l, min=1e-30)
+    out = (acc / l_safe[..., None]).to(dtype)
+    lse = torch.where(l > 0, m + torch.log(l_safe),
+                      torch.full_like(m, NEG_INF))
+    return out, lse
+
+
+def chunk_bwd_reference(q, k, v, do, lse, delta, scale, causal,
+                        k_offset=0):
+    """Plain chunk backward — the math of the JAX package's
+    ``_chunk_bwd_xla``: P rebuilt tile by tile from the saved lse (zero
+    for masked scores and for rows whose lse is NEG_INF), K/V streamed
+    ``_chunk_block_k`` rows at a time.  Returns ``(dq, dk, dv)``."""
+    tk = k.shape[2]
+    bk = _chunk_block_k(tk)
+    qf, dof = q.float(), do.float()
+    dead = lse <= 0.5 * NEG_INF
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for k0 in range(0, tk, bk):
+        kj, vj = k[:, :, k0:k0 + bk].float(), v[:, :, k0:k0 + bk].float()
+        s = torch.einsum("bhtd,bhkd->bhtk", qf, kj) * scale
+        if causal:
+            s = _chunk_mask(s, k0, k_offset)
+        p = torch.where((s <= 0.5 * NEG_INF) | dead[..., None],
+                        torch.zeros_like(s), torch.exp(s - lse[..., None]))
+        dvs.append(torch.einsum("bhtk,bhtd->bhkd", p, dof))
+        dp = torch.einsum("bhtd,bhkd->bhtk", dof, vj)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bhtk,bhkd->bhtd", ds, kj)
+        dks.append(torch.einsum("bhtk,bhtd->bhkd", ds, qf))
+    return (dq.to(q.dtype), torch.cat(dks, 2).to(k.dtype),
+            torch.cat(dvs, 2).to(v.dtype))
+
+
+def flash_attention_chunk_bwd(q, k, v, do, lse, delta, scale=None,
+                              causal=False, k_offset=0):
+    """Backward of one ring step: ``(dq, dk, dv)`` of one Q shard against
+    one K/V block, from the forward's per-row ``lse`` [B, H, Sq] and
+    ``delta`` = rowsum(dO * O) [B, H, Sq]; no forward re-run.  Same
+    ``causal``/``k_offset`` contract as ``flash_attention_chunk``.  On
+    the card it runs K2 (dQ) and K3 (dK, dV), as the JAX package's TPU
+    branch runs its two flash backward kernels; a CPU tensor takes
+    ``chunk_bwd_reference``.  A causal block with a non-zero
+    ``k_offset`` (an XLA branch in the JAX package, which the ring
+    never takes) has no kernel here: on the card it raises
+    NotImplementedError, as those kernels' mask has no offset."""
+    where = _bwd_args(q, k, v, do, lse, do)    # no O: dO stands in
+    require(tuple(delta.shape) == tuple(lse.shape)
+            and delta.device == q.device,
+            "delta must be [B, H, Sq] beside q")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    delta = delta.float()
+    if where == "cpu":
+        return chunk_bwd_reference(q, k, v, do, lse, delta, scale, causal,
+                                   int(k_offset))
+    if causal and k_offset:
+        raise NotImplementedError(
+            "flash_attention_chunk_bwd(causal=True, k_offset=%d): the flash "
+            "backward kernels mask with no offset" % k_offset)
+    require(delta.is_contiguous(), "flash backward kernels need a "
+            "contiguous delta")
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------

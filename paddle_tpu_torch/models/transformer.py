@@ -2,10 +2,13 @@
 
 Counterpart of paddle_tpu/models/transformer.py: the same fluid program,
 built by the port's fluid (same variable names, same desc), unfused or
-with the fused-block rewrite (``fuse_transformer``).  Only the dense
-single-device model is ported: tensor parallelism (``tp``), the
-sequence-parallel ring (``sp``) and mixture-of-experts blocks
-(``moe_experts``) raise NotImplementedError.
+with the fused-block rewrite (``fuse_transformer``).  ``sp=True`` builds
+the sequence-parallel program (an ``sp`` sharding constraint on the
+activations and ``sp_axis`` on the attention ops): run on a mesh with an
+``sp`` axis (``fluid.ParallelExecutor(mesh_axes={"sp": p})``), its
+attention is the ring of ``parallel/ring.py``; elsewhere it runs dense.
+Tensor parallelism (``tp``) and mixture-of-experts blocks
+(``moe_experts``, ``ep``) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -67,11 +70,14 @@ def transformer_lm(src, vocab_size, max_len, d_model=256, n_head=8,
                    n_layers=4, d_ff=1024, tp=False, sp=False,
                    moe_experts=0, ep=False):
     """src: [B, S] int64 token ids -> logits [B, S, vocab_size]."""
-    _dense_only(tp, sp, moe_experts, ep)
+    _not_ported(tp, moe_experts, ep)
     emb = fluid.layers.embedding(src, (vocab_size, d_model))
     pos = fluid.layers.create_parameter([max_len, d_model], "float32",
                                         name="pos_emb")
     x = fluid.layers.elementwise_add(emb, pos, axis=1)
+    if sp:
+        from paddle_tpu_torch.parallel.api import sharding_constraint
+        x = sharding_constraint(x, ("dp", "sp", None))
     for i in range(n_layers):
         x = _attn_block(x, d_model, n_head, tp, sp, "blk%d" % i)
         x = _ffn_block(x, d_model, d_ff, tp, "blk%d" % i)
@@ -81,13 +87,12 @@ def transformer_lm(src, vocab_size, max_len, d_model=256, n_head=8,
     return logits
 
 
-def _dense_only(tp, sp, moe_experts, ep):
-    for name, on in (("tp", tp), ("sp", sp), ("moe_experts", moe_experts),
-                     ("ep", ep)):
+def _not_ported(tp, moe_experts, ep):
+    for name, on in (("tp", tp), ("moe_experts", moe_experts), ("ep", ep)):
         if on:
             raise NotImplementedError(
-                "transformer_lm(%s=...): only the dense single-device "
-                "model is ported to paddle_tpu_torch yet" % name)
+                "transformer_lm(%s=...): tensor and expert parallelism are "
+                "not ported to paddle_tpu_torch yet" % name)
 
 
 def get_model(vocab_size=1000, seq_len=64, batch_size=None, d_model=256,

@@ -1,10 +1,13 @@
-"""Attention op of the transformer LM.
+"""SPMD annotation ops and the attention op of the transformer LM.
 
-Counterpart of the dense (single-device) branch of
-``paddle_tpu/ops/parallel_ops.py``: ``ring_attention`` runs the flash
-forward (K1) and ``ring_attention_grad`` the flash backward kernels
-(K2, K3) from the saved LSE.  The sequence-parallel ring (an ``sp_axis``
-over a mesh) is not ported yet.
+Counterpart of ``paddle_tpu/ops/parallel_ops.py``.  ``ring_attention``
+runs the sequence-parallel ring (``parallel/ring.py``, K9 forward, K2/K3
+backward per ring step) when the executor's mesh has the op's ``sp``
+axis with size > 1, and the dense flash path (K1 forward, K2/K3
+backward) otherwise: no mesh, no such axis, or size 1.  The op cuts
+Q/K/V along S into the ring's shards and joins ``Out`` and ``LSE`` back,
+as ``shard_map``'s in/out specs do in the JAX package.  Batch (``dp``)
+and head (``tp``) axes of size > 1 are not ported and raise.
 """
 from __future__ import annotations
 
@@ -16,11 +19,31 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd, flash_attention_fwd_lse, flash_attention_train)
 
 
-def _dense_only(attrs):
-    if attrs.get("sp_axis"):
-        raise NotImplementedError(
-            "ring_attention with sp_axis=%r: the sequence-parallel ring is "
-            "not ported to paddle_tpu_torch yet" % attrs["sp_axis"])
+@register_op("sharding_constraint")
+def _sharding_constraint_lower(ctx, ins, attrs, op=None):
+    """Identity: the executor runs every op on its own device, and only
+    the ring attention op shards over the mesh."""
+    return {"Out": ins["X"]}
+
+
+def _axis_or_none(mesh, name):
+    return name if (name and mesh is not None
+                    and name in mesh.axis_names
+                    and mesh.shape[name] > 1) else None
+
+
+def _ring_axes(ctx, attrs):
+    """The op's sp axis on ``ctx.mesh`` (or None: the dense path);
+    raises for a batch or head axis of size > 1."""
+    mesh = ctx.mesh
+    for key, default in (("batch_axis", "dp"), ("head_axis", "tp")):
+        axis = _axis_or_none(mesh, attrs.get(key, default))
+        if axis is not None:
+            raise NotImplementedError(
+                "ring_attention over %s=%r (size %d): only the sp axis is "
+                "ported to paddle_tpu_torch yet"
+                % (key, axis, mesh.shape[axis]))
+    return _axis_or_none(mesh, attrs.get("sp_axis", "sp"))
 
 
 def _scale(attrs):
@@ -42,31 +65,49 @@ def _ring_attention_lower(ctx, ins, attrs, op=None):
     """Causal (or not) scaled-dot-product attention, Q/K/V [B, H, S, D].
     The ``transpose`` lowerings hand over views: the kernels take
     contiguous operands.  Under autograd (the generic grad lowering's
-    forward re-run) the forward goes through ``flash_attention_train``,
-    so the backward is K2/K3 and not an autograd of a kernel call."""
-    _dense_only(attrs)
+    forward re-run) the forward goes through an autograd Function
+    (``flash_attention_train``, or the ring's), so the backward is the
+    flash or ring backward and not an autograd of a kernel call."""
+    sp_axis = _ring_axes(ctx, attrs)
     q, k, v = (ins[s].contiguous() for s in ("Q", "K", "V"))
     causal = bool(attrs.get("causal", True))
+    with_lse = op is not None and bool(op.outputs.get("LSE"))
+    if sp_axis is not None:
+        from paddle_tpu_torch.parallel.ring import (ring_attention,
+                                                    ring_attention_fwd_lse)
+        if with_lse:
+            out, lse = ring_attention_fwd_lse(q, k, v, ctx.mesh, sp_axis,
+                                              causal, _scale(attrs))
+            return {"Out": out, "LSE": lse}
+        return {"Out": ring_attention(q, k, v, ctx.mesh, sp_axis, causal,
+                                      _scale(attrs))}
     train = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
     fwd = flash_attention_train if train else flash_attention_fwd_lse
     out, lse = fwd(q, k, v, _scale(attrs), causal)
-    if op is not None and op.outputs.get("LSE"):
+    if with_lse:
         return {"Out": out, "LSE": lse}
     return {"Out": out}
 
 
 @register_op("ring_attention_grad", grad_maker=None)
 def _ring_attention_grad_lower(ctx, ins, attrs, op=None):
-    """Flash backward from the forward's saved LSE (no forward re-run);
-    without the LSE residual (an op built without that output) the
-    generic grad lowering re-runs the forward under autograd."""
-    _dense_only(attrs)
+    """Backward from the forward's saved LSE (no forward re-run): the
+    reverse ring under sp, the flash backward kernels dense.  Without
+    the LSE residual (an op built without that output) the generic grad
+    lowering re-runs the forward under autograd."""
+    sp_axis = _ring_axes(ctx, attrs)
     lse = ins.get("LSE")
     if lse is None:
         return core_lowering.generic_grad_lower(ctx, ins, attrs, op)
-    dq, dk, dv = flash_attention_bwd(
-        *(ins[s].contiguous() for s in ("Q", "K", "V", "Out")),
-        lse.contiguous(), ins["Out@GRAD"].contiguous(),
-        scale=_scale(attrs), causal=bool(attrs.get("causal", True)))
+    args = [ins[s].contiguous() for s in ("Q", "K", "V", "Out")] + [
+        lse.contiguous(), ins["Out@GRAD"].contiguous()]
+    causal = bool(attrs.get("causal", True))
+    if sp_axis is not None:
+        from paddle_tpu_torch.parallel.ring import ring_attention_bwd
+        dq, dk, dv = ring_attention_bwd(*args, ctx.mesh, sp_axis, causal,
+                                        _scale(attrs))
+    else:
+        dq, dk, dv = flash_attention_bwd(*args, scale=_scale(attrs),
+                                         causal=causal)
     return {"Q@GRAD": dq, "K@GRAD": dk, "V@GRAD": dv}

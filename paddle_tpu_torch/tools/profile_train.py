@@ -5,7 +5,9 @@ Builds one of two models as a fluid Program:
 - ``--model lm`` (the default): the flagship LM (``models/transformer``
   get_model: vocab 8192, d_model 1024, 8 heads, 6 layers, d_ff 4096,
   sequence 2048, Adam; ``--batch`` sequences, default 16; ``--fuse``
-  for the fused-block program, ``FLAGS_transformer_fuse``);
+  for the fused-block program, ``FLAGS_transformer_fuse``; ``--sp P``
+  for the sequence-parallel program on a P-shard mesh laid on the one
+  card, run by ``ExecutorCore`` with that mesh);
 - ``--model resnet50``: ResNet-50 (``models/resnet`` get_model:
   flowers, 224 x 224, 102 classes, uint8 images, Momentum 0.9 at lr
   0.01; ``--batch`` images, default 256; ``--fuse`` for the NHWC
@@ -29,7 +31,7 @@ Where the profiler records no device time these read "not measured".
 Run on a CUDA machine from the repository root:
 
     python -m paddle_tpu_torch.tools.profile_train [--model resnet50]
-        [--batch N] [--fuse]
+        [--batch N] [--fuse] [--sp P]
 
 Prints one JSON line.
 """
@@ -47,6 +49,7 @@ from torch.autograd import DeviceType
 from .. import fluid
 from ..core import executor_impl
 from ..models import resnet, transformer
+from ..parallel import make_mesh
 
 LM = dict(vocab_size=8192, seq_len=2048, d_model=1024, n_head=8,
           n_layers=6, d_ff=4096, learning_rate=1e-3)
@@ -91,14 +94,20 @@ def main(argv=None):
     ap.add_argument("--fuse", action="store_true",
                     help="profile the fused-block (lm) or the NHWC "
                     "fused-stage (resnet50) program")
+    ap.add_argument("--sp", type=int, default=0,
+                    help="lm: the sequence-parallel program on a mesh of "
+                    "this many ring shards laid on the one card")
     args = ap.parse_args(argv)
+    if args.sp and args.model != "lm":
+        ap.error("--sp applies to --model lm")
 
     rng = np.random.RandomState(args.seed)
     main_prog, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main_prog, startup), fluid.unique_name.guard():
         if args.model == "lm":
             batch = args.batch or 16
-            config = dict(LM, fuse_transformer=args.fuse)
+            config = dict(LM, fuse_transformer=args.fuse,
+                          sp=args.sp > 1)
             loss, _, _ = transformer.get_model(**config)
             toks = rng.randint(0, LM["vocab_size"],
                                (batch, LM["seq_len"] + 1)).astype(np.int64)
@@ -118,8 +127,17 @@ def main(argv=None):
     exe = fluid.Executor(fluid.CUDAPlace(0))
     exe.run(startup, scope=scope)
 
-    def step():
-        return exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+    if args.sp > 1 and args.model == "lm":
+        core = executor_impl.ExecutorCore(
+            fluid.CUDAPlace(0),
+            mesh=make_mesh({"sp": args.sp}, ["cuda:0"] * args.sp))
+
+        def step():
+            return core.run(main_prog.desc, scope, 0, feed, [loss.name])
+    else:
+        def step():
+            return exe.run(main_prog, feed=feed, fetch_list=[loss],
+                           scope=scope)
 
     for _ in range(2):
         step()

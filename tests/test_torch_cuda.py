@@ -370,3 +370,206 @@ def test_executor_fused_resnet_step_on_card_runs_the_conv_stage(cuda):
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
     for name, a, b in zip(fetch[1:], got[1:], want[1:]):
         assert np.linalg.norm(a - b) <= 1e-2 * np.linalg.norm(b), name
+
+
+# K9: the ring-step chunk fold -- ragged Sq/Sk, causal on the diagonal,
+# a partial k_offset, a block wholly in the future, non-causal; from a
+# fresh carry and from one seeded by an earlier fold
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,tk", [(64, 64), (100, 200), (256, 256),
+                                  (200, 100)])
+def test_flash_chunk_kernel_matches_plain_on_card(cuda, t, tk):
+    import importlib
+
+    pfa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(2, 8, t, 128, device=cuda, generator=g)
+    k, v, k0, v0 = (torch.randn(2, 8, tk, 128, device=cuda, generator=g)
+                    for _ in range(4))
+    fresh = (torch.full((2, 8, t), pfa.NEG_INF, device=cuda),
+             torch.zeros(2, 8, t, device=cuda),
+             torch.zeros(2, 8, t, 128, device=cuda))
+    seeded = pfa.flash_attention_chunk(q, k0, v0, *fresh)
+    for carry in (fresh, seeded):
+        for causal, off in ((True, 0), (True, t // 2), (True, t),
+                            (False, 0)):
+            got = pfa.flash_attention_chunk(q, k, v, *carry, causal=causal,
+                                            k_offset=off)
+            want = pfa.chunk_update_reference(q, k, v, *carry,
+                                              128 ** -0.5, causal, off)
+            for a, w in zip(got, want):
+                torch.testing.assert_close(a, w, **TOL)
+            if causal and off >= t:     # wholly in the future
+                for a, c in zip(got, carry):
+                    assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_flash_chunk_bwd_on_card_runs_k2_k3(cuda):
+    import importlib
+
+    pfa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, do = (torch.randn(2, 8, 128, 128, device=cuda, generator=g)
+             for _ in range(2))
+    k, v = (torch.randn(2, 8, 128, 128, device=cuda, generator=g)
+            for _ in range(2))
+    for causal in (True, False):
+        out, lse = attention_reference(q, k, v, 128 ** -0.5, causal)
+        delta = (do * out).sum(-1)
+        dq0, dkv0 = pfa.flash_bwd_dq.launches, pfa.flash_bwd_dkv.launches
+        got = pfa.flash_attention_chunk_bwd(q, k, v, do, lse, delta,
+                                            causal=causal)
+        assert (pfa.flash_bwd_dq.launches - dq0,
+                pfa.flash_bwd_dkv.launches - dkv0) == (1, 1)
+        want = pfa.chunk_bwd_reference(q, k, v, do, lse, delta,
+                                       128 ** -0.5, causal)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, **TOL)
+    # a causal block with an offset has no kernel: it raises on the card
+    # and never reaches the plain version
+    dq0 = pfa.flash_bwd_dq.launches
+    with pytest.raises(NotImplementedError, match="k_offset=64"):
+        pfa.flash_attention_chunk_bwd(q, k, v, do, lse, delta, causal=True,
+                                      k_offset=64)
+    assert pfa.flash_bwd_dq.launches == dq0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [2, 4])
+def test_ring_on_one_card_matches_dense_flash(cuda, p):
+    """The ring over a p-shard mesh laid on one card: out, lse and the
+    gradients against the dense flash path; p(p+1)/2 K9 folds and as
+    many K2/K3 launches, no K1."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.parallel import make_mesh, ring
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, do = (torch.randn(1, 8, 256, 128, device=cuda, generator=g)
+                   for _ in range(4))
+    mesh = make_mesh({"sp": p}, [cuda] * p)
+    reset_launches()
+    out, lse = ring.ring_attention_fwd_lse(q, k, v, mesh, causal=True)
+    grads = ring.ring_attention_bwd(q, k, v, out, lse, do, mesh,
+                                    causal=True)
+    n = p * (p + 1) // 2
+    assert {k_: f.launches for k_, f in KERNELS.items()
+            if f.launches} == {"flash_chunk": n, "flash_bwd_dq": n,
+                               "flash_bwd_dkv": n}
+    ro, rl = attention_reference(q, k, v, 128 ** -0.5, True)
+    torch.testing.assert_close(out, ro, **TOL)
+    torch.testing.assert_close(lse, rl, **TOL)
+    want = flash_attention_bwd_reference(q, k, v, ro, rl, do, 128 ** -0.5,
+                                         True)
+    for a, w in zip(grads, want):
+        torch.testing.assert_close(a, w, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(64, 512), (37, 1001), (8, 8192)])
+def test_fused_ce_kernel_matches_plain_on_card(cuda, n, c):
+    from paddle_tpu_torch.kernels import fused as pfused
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    logits = torch.randn(n, c, device=cuda, generator=g) * 3
+    labels = torch.randint(0, c, (n,), device=cuda, generator=g)
+    before = pfused.fused_softmax_cross_entropy.launches
+    got = pfused.fused_softmax_cross_entropy(logits, labels)
+    assert pfused.fused_softmax_cross_entropy.launches == before + 1
+    torch.testing.assert_close(
+        got, pfused.softmax_ce_reference(logits, labels), **TOL)
+    # a row that does not start 16-byte aligned takes the scalar loads
+    if c % 4 == 0:
+        off = logits.reshape(-1)[1:1 + n * (c - 4)].reshape(n, c - 4)
+        torch.testing.assert_close(
+            pfused.fused_softmax_cross_entropy(off, labels % (c - 4)),
+            pfused.softmax_ce_reference(off, labels % (c - 4)), **TOL)
+
+
+@pytest.mark.cuda
+def test_executor_core_sp_mesh_step_on_card_runs_the_ring(cuda):
+    """One Adam step of a small sp LM with head_dim 128 on a 4-shard mesh
+    laid on one card (ExecutorCore with the mesh) against the same step
+    on a 4-shard CPU mesh from the same parameters: 10 K9 folds and 10
+    K2/K3 launches a layer, no K1; loss and gradients agree."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.executor_impl import ExecutorCore
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.parallel import make_mesh
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = transformer.get_model(
+            vocab_size=64, seq_len=128, d_model=256, n_head=2, n_layers=2,
+            d_ff=64, sp=True)
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = [n for n, v in main.desc.blocks[0].vars.items()
+               if v.persistable]
+    host = fluid.Scope()
+    set_scope_arrays(host, get_scope_arrays(card, persist), "cpu")
+    fetch = [loss.name] + sorted(p.name + "@GRAD"
+                                 for p in main.all_parameters())
+    toks = np.random.RandomState(0).randint(0, 64, (2, 129))
+    feed = {"src": toks[:, :-1], "label": toks[:, 1:, None]}
+    reset_launches()
+    got = ExecutorCore(fluid.CUDAPlace(0),
+                       mesh=make_mesh({"sp": 4}, [cuda] * 4)).run(
+        main.desc, card, 0, feed, fetch)
+    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    assert counts["flash_chunk"] == counts["flash_bwd_dq"] == \
+        counts["flash_bwd_dkv"] == 2 * 10, counts
+    assert counts["flash_fwd"] == 0, counts
+    want = ExecutorCore(fluid.CPUPlace(),
+                        mesh=make_mesh({"sp": 4}, ["cpu"] * 4)).run(
+        main.desc, host, 0, feed, fetch)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    for name, a, b in zip(fetch[1:], got[1:], want[1:]):
+        assert np.linalg.norm(a - b) <= 1e-2 * np.linalg.norm(b), name
+
+
+@pytest.mark.cuda
+def test_parallel_executor_lays_its_mesh_on_the_cards(cuda):
+    """ParallelExecutor with no use_cuda runs on the cards: a mesh wider
+    than the visible cards raises; an sp=1 mesh cut by num_devices runs
+    Adam steps on the card from per-device feed dicts, its losses those
+    of the same steps on the CPU.  (An sp > 1 ring under
+    ParallelExecutor needs as many cards; the one-card ring is driven
+    through ExecutorCore above.)"""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = transformer.get_model(
+            vocab_size=64, seq_len=128, d_model=256, n_head=2, n_layers=1,
+            d_ff=64, sp=True)
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="needs %d devices" % (n + 1)):
+        fluid.ParallelExecutor(main_program=main, mesh_axes={"sp": n + 1})
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = [k for k, v in main.desc.blocks[0].vars.items()
+               if v.persistable]
+    host = fluid.Scope()
+    set_scope_arrays(host, get_scope_arrays(card, persist), "cpu")
+    pe = fluid.ParallelExecutor(main_program=main, scope=card,
+                                num_devices=1, mesh_axes={"sp": 1})
+    assert [d.type for d in pe.mesh.devices] == ["cuda"]
+    cpu_pe = fluid.ParallelExecutor(use_cuda=False, main_program=main,
+                                    scope=host, mesh_axes={"sp": 1})
+    rng = np.random.RandomState(1)
+    reset_launches()
+    for rtol in (1e-5, 1e-4):    # the first step, then one after Adam's
+        toks = rng.randint(0, 64, (2, 129))
+        halves = [{"src": toks[i:i + 1, :-1],
+                   "label": toks[i:i + 1, 1:, None]} for i in range(2)]
+        got, = pe.run([loss.name], feed=halves)
+        want, = cpu_pe.run([loss.name], feed=halves)
+        np.testing.assert_allclose(got, want, rtol=rtol)
+    assert KERNELS["flash_fwd"].launches == 2
+    assert KERNELS["flash_chunk"].launches == 0

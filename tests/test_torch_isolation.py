@@ -50,7 +50,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                 "fluid/transpiler/transformer_fuse.py", "ops/fused_ops.py",
                 "kernels/matmul_fused.py", "kernels/conv_fused.py",
                 "models/resnet.py", "ops/metric.py",
-                "fluid/layers/metric_op.py"):
+                "fluid/layers/metric_op.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/api.py", "parallel/ring.py",
+                "fluid/parallel_executor.py", "kernels/fused.py"):
         assert "paddle_tpu_torch/" + mod in rel, mod
     bad = []
     for path in files:
@@ -132,6 +134,45 @@ def test_fused_resnet_trains_without_jax_or_protobuf():
     """The card's machine has neither: build the fused-stage ResNet with
     the uint8 front-end and train 2 steps with both made unimportable."""
     proc = subprocess.run([sys.executable, "-c", RESNET_STANDALONE],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK"), proc.stdout
+
+
+SP_STANDALONE = """
+import sys
+for mod in ("jax", "jaxlib", "google.protobuf", "paddle_tpu"):
+    sys.modules[mod] = None       # any import of them now fails
+import math
+import numpy as np
+import paddle_tpu_torch.fluid as fluid
+from paddle_tpu_torch.models import transformer
+
+main, startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(main, startup), fluid.unique_name.guard():
+    loss, _, _ = transformer.get_model(vocab_size=64, seq_len=16, d_model=32,
+                                       n_head=2, n_layers=2, d_ff=64,
+                                       sp=True)
+scope = fluid.Scope()
+fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+pe = fluid.ParallelExecutor(use_cuda=False, loss_name=loss.name,
+                            main_program=main, scope=scope,
+                            mesh_axes={"sp": 4})
+toks = np.random.RandomState(0).randint(0, 64, (2, 17))
+feed = {"src": toks[:, :-1], "label": toks[:, 1:, None]}
+losses = [float(pe.run(fetch_list=[loss], feed=feed)[0][0])
+          for _ in range(2)]
+assert all(math.isfinite(x) for x in losses), losses
+assert losses[1] < losses[0], losses
+print("OK", losses)
+"""
+
+
+def test_sp_lm_trains_without_jax_or_protobuf():
+    """The sequence-parallel LM on a 4-shard CPU mesh, 2 steps through
+    ParallelExecutor, with jax, protobuf and paddle_tpu unimportable."""
+    proc = subprocess.run([sys.executable, "-c", SP_STANDALONE],
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -114,13 +114,40 @@ def test_lookup_table_grad_sparse_raises():
         run_in_port(main, feed, optest._fetch_names(t))
 
 
-def test_ring_attention_sp_axis_raises():
+def _sp_spec():
     s = optest.SPECS["ring_attention"]
     t = optest._make_optest("ring_attention", s)
     t.attrs = dict(s["attrs"], sp_axis="sp")
+    return s, t
+
+
+def test_ring_attention_sp_axis_raises():
+    """With sp_axis set, a mesh whose batch axis (dp) is > 1 asks for
+    data parallelism, which is not ported: the op raises."""
+    from paddle_tpu_torch.core.executor_impl import ExecutorCore
+    from paddle_tpu_torch.parallel import make_mesh
+
+    _, t = _sp_spec()
     main, _, feed = t._build()
-    with pytest.raises(NotImplementedError, match="ring"):
-        run_in_port(main, feed, optest._fetch_names(t))
+    prog = tfluid.Program.parse_from_string(main.desc.serialize_to_string())
+    mesh = make_mesh({"dp": 2, "sp": 2}, ["cpu"] * 4)
+    core = ExecutorCore(tfluid.CPUPlace(), mesh=mesh)
+    with pytest.raises(NotImplementedError, match="ring_attention over "
+                       "batch_axis='dp'"):
+        core.run(prog.desc, PortScope(), 0, feed, optest._fetch_names(t))
+
+
+def test_ring_attention_sp_axis_without_mesh_runs_dense():
+    """With sp_axis set and no mesh, the op runs the dense path and
+    replays its spec, as the JAX package's op does (the port used to
+    raise here)."""
+    s, t = _sp_spec()
+    names = optest._fetch_names(t)
+    ref = t.run_outputs(jfluid.CPUPlace(), fetch_names=names)
+    main, _, feed = t._build()
+    got = run_in_port(main, feed, names)
+    for n in names:
+        _check(n, ref[n], got[n], s["tol"])
 
 
 @pytest.mark.parametrize("op", ["ring_attention", "mul", "layer_norm",
