@@ -13,8 +13,11 @@ Phases, each printed as one JSON line:
              at the serving and training paths' shapes, with times (CUDA
              events, median of 25, L2 flushed before each launch) beside
              the plain version, a PyTorch library yardstick and the
-             card's bound; K4 also at every epilogue variant on ragged
-             shapes;
+             card's bound (the f32 matrix-product kernels K1-K4, K6 and
+             K9 against split-TF32 tensor-core products, K8 against the
+             two-MMA split its exact int8 weights allow, the rest
+             against f32 FMAs; ``ops_rate`` says which); K4 also at
+             every epilogue variant on ragged shapes;
 4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
@@ -136,6 +139,17 @@ RESNET_ORACLE_SPREAD_MAX = 0.05
 INFER_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32, non-tensor-core peak
+# float32-accurate products on the tensor cores: split-TF32 spends three
+# TF32 MMAs (hi*hi, hi*lo, lo*hi) on each, at 494.7 TFLOP/s dense TF32
+SPLIT_TF32_FLOPS = 494.7e12 / 3
+# the f32 matrix-product kernels, bound by SPLIT_TF32_FLOPS (the least
+# time the card takes for float32-accurate products, whether or not the
+# kernel uses the tensor cores yet); the others by F32_FLOPS
+PRODUCT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                   "matmul_epilogue", "conv_stage", "flash_chunk")
+# K8's int8 weights are exact in TF32 (8 bits fit its 10-bit mantissa),
+# so only the f32 activations split: two MMAs (hi*w, lo*w) a product
+INT8W_SPLIT_TF32_FLOPS = 494.7e12 / 2
 SEED = 0
 
 
@@ -198,11 +212,20 @@ def conv_min_flops(n, shp):
     return conv_flops(n, shp)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, rate):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def ops_rate(name):
+    """(name, FLOP/s) of the peak a kernel's operations are held to."""
+    if name in PRODUCT_KERNELS:
+        return "split-tf32", SPLIT_TF32_FLOPS
+    if name == "matmul_int8":
+        return "split-tf32-int8w", INT8W_SPLIT_TF32_FLOPS
+    return "f32", F32_FLOPS
 
 
 def compare(torch, got, want):
@@ -238,11 +261,12 @@ def check_kernels(torch, timer):
     rows, bad = [], []
 
     def record(name, shape, err, ok, ms, plain_ms, lib_ms, nbytes, flops):
-        b_ms, by = bound_ms(nbytes, flops)
+        rate_name, rate = ops_rate(name)
+        b_ms, by = bound_ms(nbytes, flops, rate)
         rows.append({"kernel": name, "shape": shape, "max_abs_err": err,
                      "ok": ok, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "bound_ms": b_ms,
-                     "bound_by": by})
+                     "bound_by": by, "ops_rate": rate_name})
         if not ok:
             bad.append("%s %s (max abs err %g)" % (name, shape, err))
 
@@ -517,7 +541,8 @@ def check_kernels(torch, timer):
     # the whole forward's K6 work: each shape's times by its launches
     rows.append({"kernel": "conv_stage", "shape": CONV_FWD,
                  "max_abs_err": fwd_err, "ok": True, **fwd,
-                 "bound_by": "operations"})
+                 "bound_by": "operations",
+                 "ops_rate": ops_rate("conv_stage")[0]})
     # every epilogue combination on ragged shapes: M not a multiple of
     # the tile, the stem's scalar gather (Ci = 3, 7x7, stride 2, padding
     # 3, Co = 64) and a float4-gather 3x3 stage
@@ -1558,6 +1583,7 @@ def main():
             "max_abs_err": max(x["max_abs_err"] for x in by_name[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "ops_rate": r["ops_rate"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -6,72 +6,80 @@
 // lse = m + log(l) per query row, skipping K tiles wholly above the
 // diagonal under the causal mask.
 //
-// What bounds it on the H100: in float32 there is no tensor-core path
-// (TF32 would lose the reference's precision), so a long causal prefill
-// is bound by float32 FMA issue (67 TFLOP/s) and, in this simple form,
-// by shared-memory reads feeding those FMAs; a short one is bound by
-// launch latency.  Design: one block per (batch*head, 64-row Q tile);
-// a loop over 32-row K/V tiles replaces the TPU's sequential grid axis
-// (blocks run in parallel and in no order, so the running max, sum and
-// accumulator live in registers of the block): flash_tile.cuh's
-// fold_k_tiles, from (NEG_INF, 0, 0), then out = acc / l and lse.  The
-// [T, T] score matrix never exists in device memory.  Ragged T and Tk
-// are masked here, not by the caller.
+// What bounds it on the H100: its two products, 4 T Tk D FLOPs (about
+// half that causal), done in split-TF32 on the tensor cores, 3 TF32
+// MMAs a product, so at most 494.7 / 3 = 165 TFLOP/s of float32-accurate
+// products (the float32 FMA pipes give 67); against that, the bytes
+// (q, k, v read once, out and lse written once) at 3.35 TB/s.  A causal
+// [16, 8, 2048, 128] prefill is 137 GFLOP against 513 MiB: 0.83 ms of
+// products against 0.16 ms of bytes, so operation-bound; a short one is
+// bound by launch latency.  Design: flash_tile.cuh's fold_k_tiles, from
+// (NEG_INF, 0, 0), then out = o / l and lse: a block per (batch*head,
+// Q tile of 64 rows, or 128 on a grid that fills the card), a
+// warp per 16 rows on mma.sync m16n8k8 tf32 in split form, each operand
+// split once, K/V tiles double-buffered by cp.async, a warp skipping the
+// keys in its own rows' future; the [T, T] score matrix never exists in
+// device memory.  Under the causal
+// mask the heaviest Q tiles (the last) launch first, so the light ones
+// fill the tail.  Ragged T and Tk are masked here, not by the caller.
 #include "flash_tile.cuh"
 
 namespace {
 
 using namespace flash;
 
-template <int D>
-__global__ void __launch_bounds__(NT, 2)
+template <class C>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int T, int Tk, float scale,
                  int causal) {
-  constexpr int DN = D / 16;
-  extern __shared__ float smem[];
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+  constexpr int D = C::D;
+  extern __shared__ float4 smem4[];
+  const int bh = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * C::BQ;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 16 * (threadIdx.x / 32) + g;
 
-  float m[RM], l[RM], acc[RM][DN];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, o[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
-  }
-  fold_k_tiles<D>(q + (size_t)bh * T * D, k + (size_t)bh * Tk * D,
-                  v + (size_t)bh * Tk * D, smem, q0, T, Tk,
-                  live_k_tiles(q0, Tk, causal, 0), scale, causal, 0, m, l,
-                  acc);
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  fold_k_tiles<C>(q + (size_t)bh * T * D, k + (size_t)bh * Tk * D,
+                  v + (size_t)bh * Tk * D, reinterpret_cast<float*>(smem4),
+                  q0, T, Tk, live_k_tiles<C>(q0, Tk, causal, 0), scale,
+                  causal, 0, m, l, o);
 
+  // rows g (C-fragment elements 0, 1) and g + 8 (2, 3); output n-tile
+  // pair (2n, 2n + 1) holds d = 16n + 4t .. 16n + 4t + 3 of each row
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qr = q0 + ty * RM + i;
+  for (int i = 0; i < 2; ++i) {
+    const int qr = r0 + 8 * i;
     if (qr >= T) continue;
-    float* orow = out + ((size_t)bh * T + qr) * D;
+    const float inv = 1.f / l[i];
+    float4* orow = reinterpret_cast<float4*>(out + ((size_t)bh * T + qr) * D);
 #pragma unroll
-    for (int j = 0; j < DN; ++j) orow[tx + 16 * j] = acc[i][j] / l[i];
-    if (tx == 0) lse[(size_t)bh * T + qr] = m[i] + logf(l[i]);
+    for (int n = 0; n < D / 16; ++n)
+      orow[4 * n + t] = make_float4(
+          o[2 * n][2 * i] * inv, o[2 * n + 1][2 * i] * inv,
+          o[2 * n][2 * i + 1] * inv, o[2 * n + 1][2 * i + 1] * inv);
+    if (t == 0) lse[(size_t)bh * T + qr] = m[i] + logf(l[i]);
   }
 }
 
-template <int D>
+template <class C>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    float* out, float* lse, int bh, int t, int tk,
                    float scale, int causal, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((t + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<D><<<grid, NT, bytes, stream>>>(q, k, v, out, lse, t,
-                                                   tk, scale, causal);
+  const int n_q = (t + C::BQ - 1) / C::BQ;
+  if (n_q > 65535) return cudaErrorInvalidValue;
+  dim3 grid(bh, n_q);
+  flash_fwd_kernel<C><<<grid, C::NT, C::bytes, stream>>>(
+      q, k, v, out, lse, t, tk, scale, causal);
   return cudaGetLastError();
 }
 
@@ -87,5 +95,11 @@ extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
   // built for the flagship LM's head_dim only; add an instantiation
   // when a configuration serves another
   if (d != 128) return (int)cudaErrorInvalidValue;
-  return (int)launch<128>(q, k, v, out, lse, bh, t, tk, scale, causal, s);
+  bool large = false;
+  cudaError_t err = use_large<128>(bh, t, &large);
+  if (err != cudaSuccess) return (int)err;
+  return (int)(large ? launch<Large<128>>(q, k, v, out, lse, bh, t, tk, scale,
+                                          causal, s)
+                     : launch<Small<128>>(q, k, v, out, lse, bh, t, tk, scale,
+                                          causal, s));
 }

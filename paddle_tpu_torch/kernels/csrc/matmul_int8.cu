@@ -9,9 +9,11 @@
 //
 // What bounds it on the H100: at decode (M <= 16) bytes -- every int8
 // weight byte is read once per step and used for M FMAs -- and at
-// prefill (M up to 2048) float32 FMA issue (67 TFLOP/s; there is no
-// f32 tensor-core path that keeps the reference's precision).  So two
-// kernels:
+// prefill (M up to 2048) the products.  They run as float32 FMAs (67
+// TFLOP/s); the least time for them is on the tensor cores: the int8
+// weights are exact in TF32, so a float32-accurate product takes two
+// TF32 MMAs (x hi and x lo times w), 494.7/2 TFLOP/s -- not used yet.
+// So two kernels:
 //
 // - decode (M <= 16), mm_int8_skinny: a block owns a 32-column slab and
 //   one K range.  Its 256 threads are 8 column groups (4 columns, one

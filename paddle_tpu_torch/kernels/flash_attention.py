@@ -43,6 +43,14 @@ _BLOCK_SIZE = 16
 # K1: flash forward with LSE
 # ---------------------------------------------------------------------------
 
+def _aligned16(*tensors):
+    """Whether every tensor's data starts on a 16-byte boundary, as the
+    K1/K9 tile loop's 16-byte cp.async copies and float4 accesses need
+    (a contiguous view at an offset that is not a multiple of 4 floats
+    does not)."""
+    return all(x.data_ptr() % 16 == 0 for x in tensors)
+
+
 def attention_reference(q, k, v, scale, causal):
     """Plain attention returning ``(out, lse)`` — the math of the JAX
     package's ``flash_attention_fwd_lse`` fallback branch: f32 scores,
@@ -81,6 +89,8 @@ def flash_attention_fwd_lse(q, k, v, scale=None, causal=False):
         return attention_reference(q, k, v, scale, causal)
     require(all(x.is_contiguous() for x in (q, k, v)),
             "flash attention kernel needs contiguous q/k/v")
+    require(_aligned16(q, k, v), "flash attention kernel needs q/k/v "
+            "on 16-byte boundaries (copy an offset view with .clone())")
     require(d == _HEAD_DIM, "flash kernel is built for head_dim %d, not %d"
             % (_HEAD_DIM, d))
     out = torch.empty_like(q)
@@ -320,6 +330,9 @@ def flash_attention_chunk(q, k, v, m, l, acc, scale=None, causal=False,
                                       k_offset)
     require(all(x.is_contiguous() for x in (q, k, v, m, l, acc)),
             "flash chunk kernel needs contiguous inputs")
+    require(_aligned16(q, k, v, acc), "flash chunk kernel needs q/k/v "
+            "and acc on 16-byte boundaries (copy an offset view with "
+            ".clone())")
     require(d == _HEAD_DIM, "flash chunk kernel is built for head_dim %d, "
             "not %d" % (_HEAD_DIM, d))
     m2, l2, acc2 = torch.empty_like(m), torch.empty_like(l), \

@@ -7,8 +7,12 @@ the sequence-parallel program (an ``sp`` sharding constraint on the
 activations and ``sp_axis`` on the attention ops): run on a mesh with an
 ``sp`` axis (``fluid.ParallelExecutor(mesh_axes={"sp": p})``), its
 attention is the ring of ``parallel/ring.py``; elsewhere it runs dense.
-Tensor parallelism (``tp``) and mixture-of-experts blocks
-(``moe_experts``, ``ep``) raise NotImplementedError.
+``tp`` shards the block weights' ``ParamAttr`` over a ``tp`` axis and
+``moe_experts`` swaps every second FFN for a top-1 mixture-of-experts
+block (``moe_ffn``, its expert weights over an ``ep`` axis with
+``ep``).  Both build the reference's program and run it dense; a mesh
+whose tp or ep axis is larger than 1 raises NotImplementedError in the
+ops.
 """
 from __future__ import annotations
 
@@ -66,11 +70,33 @@ def _ffn_block(x, d_model, d_ff, tp, prefix):
     return fluid.layers.elementwise_add(x, h)
 
 
+def _moe_block(x, d_model, d_ff, n_experts, ep, prefix):
+    ln = fluid.layers.layer_norm(x, begin_norm_axis=2)
+    router = fluid.layers.create_parameter(
+        [d_model, n_experts], "float32", name=prefix + "_router")
+    eattr = (ParamAttr(sharding=("ep", None, None), name=prefix + "_w1")
+             if ep else ParamAttr(name=prefix + "_w1"))
+    e2attr = (ParamAttr(sharding=("ep", None, None), name=prefix + "_w2")
+              if ep else ParamAttr(name=prefix + "_w2"))
+    w1 = fluid.layers.create_parameter([n_experts, d_model, d_ff],
+                                       "float32", attr=eattr)
+    w2 = fluid.layers.create_parameter([n_experts, d_ff, d_model],
+                                       "float32", attr=e2attr)
+    helper = fluid.layer_helper.LayerHelper(prefix + "_moe")
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(
+        type="moe_ffn",
+        inputs={"X": [ln], "RouterW": [router], "W1": [w1], "W2": [w2]},
+        outputs={"Out": [out]},
+        attrs={"ep_axis": "ep" if ep else "", "dp_axis": "dp",
+               "capacity_factor": 2.0})
+    return fluid.layers.elementwise_add(x, out)
+
+
 def transformer_lm(src, vocab_size, max_len, d_model=256, n_head=8,
                    n_layers=4, d_ff=1024, tp=False, sp=False,
                    moe_experts=0, ep=False):
     """src: [B, S] int64 token ids -> logits [B, S, vocab_size]."""
-    _not_ported(tp, moe_experts, ep)
     emb = fluid.layers.embedding(src, (vocab_size, d_model))
     pos = fluid.layers.create_parameter([max_len, d_model], "float32",
                                         name="pos_emb")
@@ -80,19 +106,15 @@ def transformer_lm(src, vocab_size, max_len, d_model=256, n_head=8,
         x = sharding_constraint(x, ("dp", "sp", None))
     for i in range(n_layers):
         x = _attn_block(x, d_model, n_head, tp, sp, "blk%d" % i)
-        x = _ffn_block(x, d_model, d_ff, tp, "blk%d" % i)
+        if moe_experts and i % 2 == 1:
+            x = _moe_block(x, d_model, d_ff, moe_experts, ep,
+                           "blk%d" % i)
+        else:
+            x = _ffn_block(x, d_model, d_ff, tp, "blk%d" % i)
     x = fluid.layers.layer_norm(x, begin_norm_axis=2)
     logits = fluid.layers.fc(x, size=vocab_size, num_flatten_dims=2,
                              name="lm_head")
     return logits
-
-
-def _not_ported(tp, moe_experts, ep):
-    for name, on in (("tp", tp), ("moe_experts", moe_experts), ("ep", ep)):
-        if on:
-            raise NotImplementedError(
-                "transformer_lm(%s=...): tensor and expert parallelism are "
-                "not ported to paddle_tpu_torch yet" % name)
 
 
 def get_model(vocab_size=1000, seq_len=64, batch_size=None, d_model=256,

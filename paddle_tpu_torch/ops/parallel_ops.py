@@ -8,6 +8,8 @@ backward) otherwise: no mesh, no such axis, or size 1.  The op cuts
 Q/K/V along S into the ring's shards and joins ``Out`` and ``LSE`` back,
 as ``shard_map``'s in/out specs do in the JAX package.  Batch (``dp``)
 and head (``tp``) axes of size > 1 are not ported and raise.
+``moe_ffn`` is the top-1 mixture-of-experts FFN in its dense-dispatch
+form; an ``ep`` axis of size > 1 (expert parallelism) raises.
 """
 from __future__ import annotations
 
@@ -111,3 +113,32 @@ def _ring_attention_grad_lower(ctx, ins, attrs, op=None):
         dq, dk, dv = flash_attention_bwd(*args, scale=_scale(attrs),
                                          causal=causal)
     return {"Q@GRAD": dq, "K@GRAD": dk, "V@GRAD": dv}
+
+
+@register_op("moe_ffn")
+def _moe_ffn_lower(ctx, ins, attrs, op=None):
+    """Top-1 mixture-of-experts FFN, dense dispatch (every token through
+    every expert, the chosen one's row kept and scaled by its gate).  X:
+    [T, D] or [B, S, D] (flattened internally).  The reference's
+    expert-parallel all-to-all over the ep axis (ROADMAP item 10) is not
+    ported: an ep axis of size > 1 raises.  Its ``emit_router_stats``
+    metrics side effect waits for the telemetry port (ROADMAP item 11);
+    dense dispatch drops no token, so ``capacity_factor`` has no use."""
+    mesh = ctx.mesh
+    axis = _axis_or_none(mesh, attrs.get("ep_axis", "ep"))
+    if axis is not None:
+        raise NotImplementedError(
+            "moe_ffn over ep_axis=%r (size %d): expert parallelism is "
+            "ROADMAP item 10, not ported to paddle_tpu_torch yet"
+            % (axis, mesh.shape[axis]))
+    x, wg, w1, w2 = (ins[s] for s in ("X", "RouterW", "W1", "W2"))
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    gates = torch.softmax(x2 @ wg, dim=-1)
+    expert = torch.argmax(gates, dim=-1)
+    gate = torch.gather(gates, 1, expert[:, None])[:, 0]
+    h = torch.relu(torch.einsum("td,edf->tef", x2, w1))
+    y = torch.einsum("tef,efd->ted", h, w2)
+    out = y[torch.arange(x2.shape[0], device=x2.device), expert] * \
+        gate[:, None]
+    return {"Out": out.reshape(shape)}

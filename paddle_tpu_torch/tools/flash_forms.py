@@ -1,0 +1,207 @@
+"""Time the two tile forms of K1 and K9 at the same shapes on the card.
+
+``flash_fwd.cu`` and ``flash_chunk.cu`` each pick one of two tile
+forms from the grid, inside their C launcher: Small (64 x 16 tiles,
+4 warps, two blocks an SM) or Large (128 x 32, 8 warps, one block an
+SM), Large when its blocks give every SM one (``use_large`` in
+``flash_tile.cuh``).  The product has no way to force a form.  This tool compiles, beside the product libraries, one more
+translation unit per kernel that includes the kernel's source and
+exports its launcher for either form, then times both forms on the same
+inputs (CUDA events, median of single calls, L2 flushed before each)
+and holds each against the plain version at atol = rtol = 1e-4:
+
+- K1 causal at the serving prefill shapes [1, 8, 256, 128] and
+  [1, 8, 2048, 128], at the training shape [16, 8, 2048, 128], and on a
+  sweep of head counts at T = 2048 around the switch (bh x 16 Large
+  blocks against the SM count: 8 heads take Small, 12 Large);
+- K9 at the ring's shard [16, 8, 512, 128], diagonal (causal,
+  k_offset 0) and non-causal.
+
+Run on a CUDA machine from the repository root:
+
+    python -m paddle_tpu_torch.tools.flash_forms
+
+Prints one JSON line per shape, then the card's name and power limit.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import os
+import subprocess
+
+import torch
+
+from ..kernels import _build
+from ..kernels.flash_attention import (NEG_INF, attention_reference,
+                                       chunk_update_reference)
+
+FORMS = ("small", "large")
+TOL = 1e-4
+# Large<128>::BQ, the rows a Large block owns
+LARGE_BQ = 128
+
+_K1 = r'''
+#include "%s/flash_fwd.cu"
+extern "C" int flash_fwd_form(const float* q, const float* k,
+                              const float* v, float* out, float* lse,
+                              int bh, int t, int tk, float scale, int causal,
+                              int large, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(large ? launch<Large<128>>(q, k, v, out, lse, bh, t, tk,
+                                          scale, causal, s)
+                     : launch<Small<128>>(q, k, v, out, lse, bh, t, tk,
+                                          scale, causal, s));
+}
+'''
+_K9 = r'''
+#include "%s/flash_chunk.cu"
+extern "C" int flash_chunk_form(const float* q, const float* k,
+                                const float* v, const float* m_in,
+                                const float* l_in, const float* acc_in,
+                                float* m_out, float* l_out, float* acc_out,
+                                int bh, int t, int tk, float scale,
+                                int causal, int k_offset, int large,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(large ? launch<Large<128>>(q, k, v, m_in, l_in, acc_in,
+                                          m_out, l_out, acc_out, bh, t, tk,
+                                          scale, causal, k_offset, s)
+                     : launch<Small<128>>(q, k, v, m_in, l_in, acc_in,
+                                          m_out, l_out, acc_out, bh, t, tk,
+                                          scale, causal, k_offset, s));
+}
+'''
+
+
+def build():
+    """Compile both form exporters (two nvcc, started together) into
+    ``_build/forms/``; returns their ctypes entries."""
+    out = os.path.join(_build.BUILD_DIR, "forms")
+    os.makedirs(out, exist_ok=True)
+    nvcc = _build.nvcc_path()
+    procs = {}
+    for name, text in (("k1", _K1), ("k9", _K9)):
+        src = os.path.join(out, name + "_forms.cu")
+        with open(src, "w") as f:
+            f.write(text % _build.CSRC)
+        lib = os.path.join(out, name + "_forms.so")
+        procs[name] = (subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    fns = {}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for %s:\n%s" % (name, log[-4000:]))
+        fns[name] = ctypes.CDLL(lib)
+    k1, k9 = fns["k1"].flash_fwd_form, fns["k9"].flash_chunk_form
+    k1.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    k9.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    k1.restype = k9.restype = ctypes.c_int
+    return k1, k9
+
+
+class Timer:
+    """Median CUDA-event time of single calls, the L2 flushed (a 64 MiB
+    read) before each and the card kept busy while the host enqueues."""
+
+    def __init__(self):
+        self.flush = torch.ones(16 << 20, device="cuda")
+
+    def __call__(self, fn, iters=25, warmup=3):
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(iters):
+            self.flush.sum()
+            torch.cuda._sleep(2_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        times.sort()
+        return times[len(times) // 2]
+
+
+def _close(got, want):
+    return bool(torch.allclose(got, want, atol=TOL, rtol=TOL))
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_forms needs a CUDA card")
+    k1, k9 = build()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    timer = Timer()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p = _build.ptr
+    d = 128
+    scale = 1.0 / math.sqrt(d)
+
+    k1_shapes = [(1, 8, 256), (1, 8, 2048), (16, 8, 2048)]
+    k1_shapes += [(1, bh, 2048) for bh in (8, 9, 10, 12, 16, 24, 32, 64)]
+    for b, h, t in k1_shapes:
+        bh = b * h
+        q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+                   for _ in range(3))
+        out = torch.empty_like(q)
+        lse = torch.empty(b, h, t, device="cuda")
+        ro, rl = attention_reference(q, k, v, scale, True)
+        row = {"kernel": "flash_fwd", "shape": [b, h, t, d], "causal": True,
+               "large_blocks": bh * -(-t // LARGE_BQ),
+               "launcher_picks": ("large" if bh * -(-t // LARGE_BQ)
+                                  >= sms else "small")}
+        for large, form in enumerate(FORMS):
+            call = lambda: _build.check(k1(
+                p(q), p(k), p(v), p(out), p(lse), bh, t, t, scale, 1, large,
+                st()), "flash_fwd_form")
+            call()
+            ok = _close(out, ro) and _close(lse, rl)
+            row[form + "_ms"] = timer(call)
+            row[form + "_ok"] = ok
+        print(json.dumps(row), flush=True)
+        del q, k, v, out, lse, ro, rl
+
+    b, h, t = 16, 8, 512
+    bh = b * h
+    q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+               for _ in range(3))
+    m = torch.full((b, h, t), NEG_INF, device="cuda")
+    l = torch.zeros(b, h, t, device="cuda")
+    acc = torch.zeros(b, h, t, d, device="cuda")
+    m2, l2, acc2 = torch.empty_like(m), torch.empty_like(l), \
+        torch.empty_like(acc)
+    for causal in (True, False):
+        want = chunk_update_reference(q, k, v, m, l, acc, scale, causal, 0)
+        row = {"kernel": "flash_chunk", "shape": [b, h, t, d],
+               "causal": causal, "k_offset": 0,
+               "large_blocks": bh * -(-t // LARGE_BQ),
+               "launcher_picks": ("large" if bh * -(-t // LARGE_BQ)
+                                  >= sms else "small")}
+        for large, form in enumerate(FORMS):
+            call = lambda: _build.check(k9(
+                p(q), p(k), p(v), p(m), p(l), p(acc), p(m2), p(l2), p(acc2),
+                bh, t, t, scale, int(causal), 0, large, st()),
+                "flash_chunk_form")
+            call()
+            ok = all(_close(a, w) for a, w in zip((m2, l2, acc2), want))
+            row[form + "_ms"] = timer(call)
+            row[form + "_ok"] = ok
+        print(json.dumps(row), flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print(smi[0] if smi else "nvidia-smi: not available", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -35,7 +35,7 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,tk", [(16, 16), (100, 100), (256, 256),
-                                  (64, 200)])
+                                  (64, 200), (1000, 1000), (300, 2048)])
 def test_flash_kernel_matches_plain_on_card(cuda, t, tk):
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(2, 8, t, 128, device=cuda, generator=g)
@@ -46,6 +46,109 @@ def test_flash_kernel_matches_plain_on_card(cuda, t, tk):
         ro, rl = attention_reference(q, k, v, 128 ** -0.5, causal)
         torch.testing.assert_close(out, ro, **TOL)
         torch.testing.assert_close(lse, rl, **TOL)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_at_the_prefill_shape_on_card(cuda):
+    """[1, 8, 2048, 128] causal: the serving prefill's shape, 32 Q tiles
+    a head, so most K tiles of a block lie on or below the diagonal."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(1, 8, 2048, 128, device=cuda, generator=g)
+               for _ in range(3))
+    out, lse = flash_attention_fwd_lse(q, k, v, causal=True)
+    ro, rl = attention_reference(q, k, v, 128 ** -0.5, True)
+    torch.testing.assert_close(out, ro, **TOL)
+    torch.testing.assert_close(lse, rl, **TOL)
+
+
+def _tf32_truncated(x):
+    """x with the low 13 mantissa bits cleared: single-pass TF32."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _misses(got, want):
+    return not torch.allclose(got, want, **TOL)
+
+
+def _split_tf32_guard(cuda, b, seed):
+    """With q and k [b, 8, 256, 128] scaled by 4 (scores of std ~16),
+    the plain version fed single-pass TF32 q and k misses atol = rtol =
+    1e-4, and K1 and K9, whose products are split-TF32, meet it."""
+    import importlib
+
+    pfa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k = (4 * torch.randn(b, 8, 256, 128, device=cuda, generator=g)
+            for _ in range(2))
+    v = torch.randn(b, 8, 256, 128, device=cuda, generator=g)
+    scale = 128 ** -0.5
+    ro, rl = attention_reference(q, k, v, scale, True)
+    to, tl = attention_reference(_tf32_truncated(q), _tf32_truncated(k), v,
+                                 scale, True)
+    assert _misses(to, ro) or _misses(tl, rl)
+    out, lse = flash_attention_fwd_lse(q, k, v, causal=True)
+    torch.testing.assert_close(out, ro, **TOL)
+    torch.testing.assert_close(lse, rl, **TOL)
+
+    fresh = (torch.full((b, 8, 256), pfa.NEG_INF, device=cuda),
+             torch.zeros(b, 8, 256, device=cuda),
+             torch.zeros(b, 8, 256, 128, device=cuda))
+    want = pfa.chunk_update_reference(q, k, v, *fresh, scale, True, 0)
+    trunc = pfa.chunk_update_reference(_tf32_truncated(q),
+                                       _tf32_truncated(k), v, *fresh, scale,
+                                       True, 0)
+    assert any(_misses(a, w) for a, w in zip(trunc, want))
+    got = pfa.flash_attention_chunk(q, k, v, *fresh, causal=True)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **TOL)
+
+
+@pytest.mark.cuda
+def test_split_tf32_keeps_float32_precision_on_card(cuda):
+    """The precision guard on 16 heads: 32 blocks of 128 rows, so the
+    launchers take the 64 x 16 (Small) tiles.  This pins the hi/lo
+    split of every operand there."""
+    _split_tf32_guard(cuda, 2, 6)
+
+
+@pytest.mark.cuda
+def test_split_tf32_keeps_float32_precision_in_large_tiles_on_card(cuda):
+    """The precision guard on 288 heads: 576 blocks of 128 rows, more
+    than the H100's 132 SMs, so the launchers take the 128 x 32
+    (Large) tiles, the form training and the ring run, whose 256
+    threads split and load the tiles in other chunks than Small's."""
+    _split_tf32_guard(cuda, 36, 7)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_a_misaligned_view_on_card(cuda):
+    """A contiguous view one float into its storage is not on a 16-byte
+    boundary: K1 and K9 raise before any launch (their 16-byte copies
+    would fault and poison the context), and the card still works."""
+    import importlib
+
+    pfa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    n = 8 * 64 * 128
+    base = torch.randn(n + 1, device=cuda)
+    bad = base[1:].view(1, 8, 64, 128)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 != 0
+    good = torch.randn(1, 8, 64, 128, device=cuda)
+    launches = (pfa.flash_attention_fwd_lse.launches,
+                pfa.flash_attention_chunk.launches)
+    for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_fwd_lse(*args, causal=True)
+    carry = (torch.full((1, 8, 64), pfa.NEG_INF, device=cuda),
+             torch.zeros(1, 8, 64, device=cuda))
+    for q, acc in ((bad, torch.zeros_like(good)), (good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            pfa.flash_attention_chunk(q, good, good, *carry, acc)
+    assert (pfa.flash_attention_fwd_lse.launches,
+            pfa.flash_attention_chunk.launches) == launches
+    out, lse = flash_attention_fwd_lse(bad.clone(), good, good, causal=True)
+    ro, rl = attention_reference(bad, good, good, 128 ** -0.5, True)
+    torch.testing.assert_close(out, ro, **TOL)
+    torch.testing.assert_close(lse, rl, **TOL)
 
 
 @pytest.mark.cuda
@@ -402,6 +505,68 @@ def test_flash_chunk_kernel_matches_plain_on_card(cuda, t, tk):
             if causal and off >= t:     # wholly in the future
                 for a, c in zip(got, carry):
                     assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,tk,off", [(100, 200, 37), (256, 256, 37),
+                                      (200, 100, -37)])
+def test_flash_chunk_kernel_at_an_unaligned_offset_on_card(cuda, t, tk,
+                                                           off):
+    """A causal k_offset that is not a multiple of 16 (or of the 8-key
+    groups a warp skips by), from a fresh and from a seeded carry."""
+    import importlib
+
+    pfa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(2, 8, t, 128, device=cuda, generator=g)
+    k, v, k0, v0 = (torch.randn(2, 8, tk, 128, device=cuda, generator=g)
+                    for _ in range(4))
+    fresh = (torch.full((2, 8, t), pfa.NEG_INF, device=cuda),
+             torch.zeros(2, 8, t, device=cuda),
+             torch.zeros(2, 8, t, 128, device=cuda))
+    seeded = pfa.flash_attention_chunk(q, k0, v0, *fresh)
+    for carry in (fresh, seeded):
+        got = pfa.flash_attention_chunk(q, k, v, *carry, causal=True,
+                                        k_offset=off)
+        want = pfa.chunk_update_reference(q, k, v, *carry, 128 ** -0.5,
+                                          True, off)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,tk", [(100, 100), (300, 200)])
+def test_flash_kernels_on_a_large_grid_on_card(cuda, t, tk):
+    """288 heads: enough blocks that K1 and K9 take their 128 x 32 tile
+    shape (the training step's), at ragged T and Tk, causal and not, K9
+    from a seeded carry at an unaligned k_offset."""
+    import importlib
+
+    pfa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(36, 8, t, 128, device=cuda, generator=g)
+    k, v, k0, v0 = (torch.randn(36, 8, tk, 128, device=cuda, generator=g)
+                    for _ in range(4))
+    scale = 128 ** -0.5
+    for causal in (False, True):
+        out, lse = flash_attention_fwd_lse(q, k, v, causal=causal)
+        ro, rl = attention_reference(q, k, v, scale, causal)
+        torch.testing.assert_close(out, ro, **TOL)
+        torch.testing.assert_close(lse, rl, **TOL)
+    fresh = (torch.full((36, 8, t), pfa.NEG_INF, device=cuda),
+             torch.zeros(36, 8, t, device=cuda),
+             torch.zeros(36, 8, t, 128, device=cuda))
+    seeded = pfa.flash_attention_chunk(q, k0, v0, *fresh)
+    for causal, off in ((True, 0), (True, 37), (False, 0), (True, t)):
+        got = pfa.flash_attention_chunk(q, k, v, *seeded, causal=causal,
+                                        k_offset=off)
+        want = pfa.chunk_update_reference(q, k, v, *seeded, scale, causal,
+                                          off)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, **TOL)
+        if causal and off >= t:
+            for a, c in zip(got, seeded):
+                assert torch.equal(a, c)
 
 
 @pytest.mark.cuda

@@ -61,11 +61,21 @@ def test_program_ops_are_the_slice():
 @pytest.mark.parametrize("kw", [{"tp": True}, {"sp": True, "tp": True},
                                 {"moe_experts": 2}, {"ep": True}])
 def test_unported_model_options_raise(kw):
-    """tp, moe_experts and ep raise, and the error names the option; sp
-    beside tp builds until tp is reached, so tp is what is named."""
-    unported = next(k for k in kw if k != "sp")
-    with pytest.raises(NotImplementedError, match=r"\(%s=" % unported):
-        build(tfluid, ttransformer, **kw)
+    """tp, sp+tp, moe_experts and ep build, and their programs run
+    dense on a plain CPU Executor; a mesh whose tp or ep axis is larger
+    than 1 asks for tensor or expert parallelism, which is not ported,
+    and raises."""
+    tmain, tstart, loss, _ = build(tfluid, ttransformer, **kw)
+    scope = tfluid.Scope()
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    exe.run(tstart, scope=scope)
+    out, = exe.run(tmain, feed=_feed(0), fetch_list=[loss], scope=scope)
+    assert np.isfinite(out).all()
+    axis = "tp" if kw.get("tp") else "ep"
+    axes = {"sp": 2, axis: 2} if kw.get("sp") else {axis: 2}
+    with pytest.raises(NotImplementedError, match="%s=2" % axis):
+        tfluid.ParallelExecutor(use_cuda=False, mesh_axes=axes,
+                                main_program=tmain, scope=scope)
 
 
 def _feed(seed, batch=2):

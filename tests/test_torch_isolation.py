@@ -177,3 +177,40 @@ def test_sp_lm_trains_without_jax_or_protobuf():
                           timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK"), proc.stdout
+
+
+MOE_STANDALONE = """
+import sys
+for mod in ("jax", "jaxlib", "google.protobuf", "paddle_tpu"):
+    sys.modules[mod] = None       # any import of them now fails
+import math
+import numpy as np
+import paddle_tpu_torch.fluid as fluid
+from paddle_tpu_torch.models import transformer
+
+main, startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(main, startup), fluid.unique_name.guard():
+    loss, _, _ = transformer.get_model(vocab_size=64, seq_len=16, d_model=32,
+                                       n_head=2, n_layers=2, d_ff=64,
+                                       tp=True, moe_experts=2, ep=True)
+scope = fluid.Scope()
+exe = fluid.Executor(fluid.CPUPlace())
+exe.run(startup, scope=scope)
+toks = np.random.RandomState(0).randint(0, 64, (2, 17))
+feed = {"src": toks[:, :-1], "label": toks[:, 1:, None]}
+losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                        scope=scope)[0][0]) for _ in range(2)]
+assert all(math.isfinite(x) for x in losses), losses
+assert losses[1] < losses[0], losses
+print("OK", losses)
+"""
+
+
+def test_tp_moe_lm_trains_without_jax_or_protobuf():
+    """The tp + moe + ep LM, 2 dense steps on a plain CPU Executor, with
+    jax, protobuf and paddle_tpu unimportable."""
+    proc = subprocess.run([sys.executable, "-c", MOE_STANDALONE],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK"), proc.stdout

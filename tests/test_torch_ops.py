@@ -59,6 +59,13 @@ def _check(name, ref, got, tol):
 
 @pytest.mark.parametrize("op", SLICE_OPS)
 def test_op_replays_its_spec(op):
+    replay_spec(op)
+
+
+def replay_spec(op):
+    """Run ``op``'s SPECS entry (and its gradient program, where the
+    spec has ``grad``) in both packages; hold every output at the
+    spec's tolerance."""
     s = optest.SPECS[op]
     t = optest._make_optest(op, s)
     names = optest._fetch_names(t)
