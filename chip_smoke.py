@@ -81,7 +81,7 @@ affine + residual + relu) and at every epilogue combination on ragged
 shapes; K9 at the ring's shard [16, 8, 512, 128] (the diagonal causal
 fold, a non-causal fold from a carry seeded by an earlier one, a
 half-masked and a wholly masked block, the last bit-identical to its
-carry); K2/K3 non-causal at that shape; K10, which no path runs, at the
+carry); K2/K3 at that shape, non-causal and the causal diagonal; K10, which no path runs, at the
 LM's logits [32768, 8192].
 
 Then the kernels' summary line, the nvidia-smi line, and as the last
@@ -379,14 +379,15 @@ def check_kernels(torch, timer):
            4 * live_pos * h * d)
 
     # K8: int8-weight projections of the flagship layer, at every decode
-    # batch bucket (M = 1..16, each its own instantiation) and at prefill
+    # batch bucket (M = 1..16, each its own instantiation), at the largest
+    # prefill bucket the serve phase pads to (M = 1024) and at M = 2048
     for kk, n in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
         w = (rng.randn(kk, n) * 0.1).astype(np.float32)
         qn, sn, chunk = quantize_weight(w)
         wq = torch.from_numpy(qn).to(dev)
         sc = torch.from_numpy(sn).to(dev)
         wd = dequantize_weight(wq, sc, chunk)
-        for m in (1, 2, 4, 8, 16, 2048):
+        for m in (1, 2, 4, 8, 16, 1024, 2048):
             x = torch.randn(m, kk, device=dev, generator=gen)
             out = matmul_int8_dequant(x, wq, sc, chunk)
             err, ok = compare(torch, out,
@@ -583,8 +584,8 @@ def check_ring_kernels(torch, timer, gen, record, bad):
     [16, 8, 512, 128]: the diagonal causal fold from a fresh carry, a
     non-causal fold from the carry it left, a half-masked block
     (k_offset 256) and a wholly masked one (k_offset 512), which must
-    leave its carry bit-identical; then K2/K3 non-causal at that shape,
-    the ring's off-diagonal backward steps.  K9's yardstick is SDPA over
+    leave its carry bit-identical; then K2/K3 at that shape, non-causal
+    (the ring's off-diagonal backward steps) and causal (its diagonal).  K9's yardstick is SDPA over
     the same block with the same mask: not the same function (it
     normalizes and keeps no carry), a point of reference."""
     import torch.nn.functional as F
@@ -644,34 +645,39 @@ def check_ring_kernels(torch, timer, gen, record, bad):
                4 * b * h * d * live)
     del seeded, fresh, k2, v2
 
-    # K2/K3 non-causal from the saved lse at the shard shape
+    # K2/K3 from the saved lse at the shard shape: non-causal (the ring's
+    # off-diagonal steps) and causal (its diagonal step)
     do = torch.randn(b, h, s, d, device=dev, generator=gen)
-    out, lse = attention_reference(q, k, v, scale, False)
-    delta = (do * out).sum(-1)
-    want = flash_attention_bwd_reference(q, k, v, out, lse, do, scale, False)
-    got = (flash_bwd_dq(q, k, v, do, lse, delta, scale, False),
-           *flash_bwd_dkv(q, k, v, do, lse, delta, scale, False))
-    errs = [compare(torch, a, w_) for a, w_ in zip(got, want)]
-    plain_ms = timer(lambda: flash_attention_bwd_reference(
-        q, k, v, out, lse, do, scale, False), iters=5)
-    del got, want
-    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qg, kg, vg)
-    lib_ms = timer(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
-                                               retain_graph=True))
-    del o_lib, qg, kg, vg
-    tile = 2 * b * h * d * s * s        # one non-causal product
-    io = 4 * b * h * s * d
-    record("flash_bwd_dq", shape + " non-causal", errs[0][0], errs[0][1],
-           timer(lambda: flash_bwd_dq(q, k, v, do, lse, delta, scale,
-                                      False)),
-           plain_ms, lib_ms, 5 * io + 8 * b * h * s, 3 * tile)
-    record("flash_bwd_dkv", shape + " non-causal",
-           max(errs[1][0], errs[2][0]), errs[1][1] and errs[2][1],
-           timer(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, scale,
-                                       False)),
-           plain_ms, lib_ms, 6 * io + 8 * b * h * s, 4 * tile)
-    del q, k, v, do, out, lse, delta
+    for causal, what in ((False, " non-causal"), (True, " diagonal causal")):
+        out, lse = attention_reference(q, k, v, scale, causal)
+        delta = (do * out).sum(-1)
+        want = flash_attention_bwd_reference(q, k, v, out, lse, do, scale,
+                                             causal)
+        got = (flash_bwd_dq(q, k, v, do, lse, delta, scale, causal),
+               *flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal))
+        errs = [compare(torch, a, w_) for a, w_ in zip(got, want)]
+        plain_ms = timer(lambda: flash_attention_bwd_reference(
+            q, k, v, out, lse, do, scale, causal), iters=5)
+        del got, want
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        lib_ms = timer(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
+                                                   retain_graph=True))
+        del o_lib, qg, kg, vg
+        # one product over the scores the mask leaves live
+        tile = 2 * b * h * d * (s * (s + 1) // 2 if causal else s * s)
+        io = 4 * b * h * s * d
+        record("flash_bwd_dq", shape + what, errs[0][0], errs[0][1],
+               timer(lambda: flash_bwd_dq(q, k, v, do, lse, delta, scale,
+                                          causal)),
+               plain_ms, lib_ms, 5 * io + 8 * b * h * s, 3 * tile)
+        record("flash_bwd_dkv", shape + what,
+               max(errs[1][0], errs[2][0]), errs[1][1] and errs[2][1],
+               timer(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                           causal)),
+               plain_ms, lib_ms, 6 * io + 8 * b * h * s, 4 * tile)
+        del out, lse, delta
+    del q, k, v, do
     torch.cuda.empty_cache()
 
 

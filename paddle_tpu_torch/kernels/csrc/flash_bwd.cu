@@ -1,181 +1,389 @@
-// K2 and K3: flash attention backward from the saved log-sum-exp, float32.
+// K2 and K3: flash attention backward from the saved log-sum-exp, float32,
+// the seven products in split-TF32 on the tensor cores.
 //
 // Replace the TPU kernels paddle_tpu/kernels/flash_attention.py
 // _dq_kernel (launched by _flash_bwd_dq) and _dkv_kernel (launched by
 // _flash_bwd_dkv).  Given Q, K, V, dO, the forward's per-row lse and
 // delta = rowsum(dO * O) (computed by the caller, as the JAX package
-// does), they rebuild the probability tile P = exp(Q K^T * scale - lse)
-// tile by tile, form dS = P * (dO V^T - delta), and accumulate
-//   K2: dQ = dS K * scale                    (one block per Q tile)
-//   K3: dK = dS^T Q * scale, dV = P^T dO     (one block per K tile)
-// The [T, Tk] score matrix never exists in device memory.
+// does), they rebuild the probability tile P = exp(Q K^T scale - lse)
+// tile by tile, form dS = P (dO V^T - delta), and accumulate
+//   K2: dQ = dS K scale                      (a block per Q tile)
+//   K3: dK = dS^T Q scale, dV = P^T dO       (a block per K tile)
+// Each output element is written by exactly one block: no atomics, and
+// the result is deterministic (the reason for the two-kernel split).
+// The [T, Tk] score matrix never exists in device memory.  The mask is
+// the chunk form's: a score is dead where q_pos < k_offset + k_pos
+// (causal; k_offset 0 is the plain top-left mask), past the ragged T or
+// Tk edge, or in a row whose lse is NEG_INF (a row with no live key);
+// a dead score has p = 0 exactly, so zero-filled rows add exactly
+// nothing.
 //
-// What bounds them on the H100: in float32 there is no tensor-core path
-// (TF32 would lose the 1e-4 agreement with the plain version), so at the
-// training shape both are bound by the float32 FMA rate (67 TFLOP/s): K2
-// does three T x Tk x D products per head, K3 four.  Design: the TPU's
-// sequential grid axis becomes a loop inside the block; each output
-// element belongs to exactly one block, so there are no atomics and the
-// result is deterministic (the reason for the two-kernel split).  Tiles
-// live in dynamic shared memory (above the 48 KB static limit), rows
-// padded to D+1 floats so the 16 column lanes of a half-warp hit distinct
-// banks; each thread owns 4 rows x (tile/16) scores and 4 rows x (D/16)
-// accumulator columns, as in flash_fwd.cu.  Under the causal mask K2 stops
-// at the diagonal and K3 starts there (the TPU kernels' `live` rule).
-// Ragged T and Tk are masked here, not by the caller.
-#include <cuda_runtime.h>
-#include <math.h>
+// What bounds them on the H100: their products, K2 three and K3 four
+// T x Tk x D products a head (about half of that causal), done in
+// split-TF32 on the tensor cores (flash_tile.cuh: x = hi + lo, hi*hi +
+// hi*lo + lo*hi on mma.sync.m16n8k8.tf32, f32-accurate), so at most
+// 494.7 / 3 TFLOP/s; against that, the bytes (q, k, v, dO, lse, delta
+// read once, the gradients written once) at 3.35 TB/s.  At the training
+// shape [16, 8, 2048, 128] causal that is 1.25 ms (K2) and 1.67 ms (K3)
+// of products, operation-bound.
+//
+// Design: both kernels are one loop.  A block of 8 warps owns BR = 128
+// resident rows of two operands (K2: Q and dO; K3: K and V), a warp 16
+// of them, and streams BT = 16-row tiles of the other two (K2: K and V;
+// K3: Q and dO, with their lse and delta), double-buffered by cp.async.
+// Per tile each warp computes, in mma.sync C-fragments,
+//   c1 = R1 S1^T, c2 = R2 S2^T        (K2: s, dp; K3: s^T, dp^T)
+// then p and ds in registers, and accumulates into 16 x D fragments
+//   K2: dq += ds S1;   K3: dv += p^T S2, dk += ds^T S1,
+// each tile's terms summed on the tensor cores in fresh fragments and
+// added to the long-lived accumulator in float32 (round to nearest), so
+// the tensor cores' truncating accumulation never runs over a whole
+// row of the sequence.
+// K3 builds p^T straight from K Q^T, never a transpose (the reference's
+// transpose-free form).
+//
+// Registers: a warp's 16 x 128 f32 accumulator is 64 registers a thread,
+// K3 holds two.  So no operand stays resident in registers: the
+// resident rows stay raw in shared memory and each warp splits its A
+// fragments as it loads them (a LOP and a FADD an element, reused over
+// the tile's two 8-row groups); each streamed tile is split once, hi in
+// place and lo beside it, by the thread that copied each 16-byte chunk.
+// The inner loops have no branch: on an edge or diagonal tile the
+// groups a warp could skip are zero-filled or finite rows whose p the
+// mask sets to 0, and a warp with no live score in a tile skips it.
+// Shared memory: resident 2 x 128 x 132 floats, two buffers of 4 x 16 x
+// 132 (+ 32) = 203,008 bytes, one block an SM.
+//
+// Layout: one row stride S = D + 4 (= 4 mod 32) for every tile, because
+// a streamed tile is read in two forms.  In c = R S^T (k = d) the
+// fragments take the natural d order, A column t <-> d = 8kk + t, which
+// is ldmatrix's: one ldmatrix.x4 loads an A fragment or the B fragments
+// of both 8-row groups, 8 rows of 16 bytes a phase on banks 4r .. 4r +
+// 3, all distinct.  In acc += P S (k = the tile's row) the A-fragment
+// column t holds row 2t and t + 4 row 2t + 1, exactly the two scores a
+// thread's C-fragment holds, so P goes from C to A layout in registers;
+// B is a float2 at rows 2t, 2t + 1 and d = 16n + 2g: banks 8t + 2g
+// (+1), distinct in each half-warp; and the output n-tile pair (2n,
+// 2n + 1) holds d = 16n + 4t .. + 3 of a row, a float4 store.  So q,
+// k, v, dO and the gradients must start on 16-byte boundaries; the
+// wrappers check it.
+//
+// Under the causal mask K2 stops at the last K tile its block sees and
+// a warp skips a tile wholly in its rows' future; K3 starts at the
+// first Q tile that sees its block (the TPU kernels' `live` rule) and a
+// warp skips a tile wholly before its keys.
+// Causal K2 blocks launch heaviest first, as K1's; K3's heaviest (the
+// first K tiles) launch first in plain order.
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr int NT = 256;        // 16 row groups x 16 column lanes
+using namespace flash;
 
-// ---------------------------------------------------------------- K2: dQ
-constexpr int DQ_BQ = 64;      // query rows per block
-constexpr int DQ_BK = 32;      // key rows per tile
+template <int D_>
+struct Bwd {
+  static_assert(D_ % 32 == 0, "head_dim must be a multiple of 32");
+  static constexpr int D = D_;
+  static constexpr int BR = 128;             // resident rows per block
+  static constexpr int BT = 16;              // streamed rows per tile
+  static constexpr int NT = BR / 16 * 32;    // threads: a warp per 16 rows
+  static constexpr int NJ = BT / 8;          // 8-row groups of a tile
+  static constexpr int KD = D / 8;           // k-steps over d
+  static constexpr int S = D + 4;            // every row stride
+  static constexpr int TILE = BT * S;
+  // one streamed buffer: S1 hi, S1 lo, S2 hi, S2 lo, then K3's lse and
+  // delta of the tile's rows
+  static constexpr int BUF = 4 * TILE + 2 * BT;
+  static constexpr int bytes = (2 * BR * S + 2 * BUF) * (int)sizeof(float);
+  static_assert(bytes <= 227 * 1024, "shared memory");
+};
 
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (2 * DQ_BQ * (D + 1) + 2 * DQ_BK * (D + 1) +
-          DQ_BQ * (DQ_BK + 1)) * (int)sizeof(float);
+using B128 = Bwd<128>;
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 4-byte cp.async, zero-filled when !ok (lse and delta rows carry no
+// 16-byte alignment)
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(s), "l"(src), "r"(ok ? 4 : 0) : "memory");
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT, 2)
+// Four 8 x 4-float matrices from shared memory, each thread giving one
+// row address (lanes 8m .. 8m + 7 the rows of matrix m); register m of
+// lane l holds float l % 4 of row l / 4 of matrix m, which is a tf32
+// mma fragment's layout.  Rows of stride = 4 mod 32 floats: conflict-free.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* row) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The resident operands' split, per use: hi = x with its low 13 bits
+// cleared (the TF32 the MMA reads), lo = x - hi exactly: one LOP and one
+// FADD, fewer instructions than cvt.rna's rounding in this
+// instruction-bound loop.  lo < 2^-10 |x| instead of 2^-11, so a product keeps 2^-20
+// relative instead of 2^-21, still f32-accurate.
+__device__ __forceinline__ void split_trunc(uint32_t x, uint32_t& hi,
+                                            uint32_t& lo) {
+  hi = x & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
+}
+
+// c1 = R1 S1^T and c2 = R2 S2^T for the warp's 16 resident rows (R1w,
+// R2w raw, stride S) against the split streamed tile's two 8-row groups.
+// c1 (the scores) sums each pair of k-steps on the tensor cores in a
+// fresh fragment and adds it in float32: the backward divides by the
+// saved lse, so an error in s goes straight into p, and the tensor
+// cores' accumulation truncates to the accumulator's magnitude (|s|
+// reaches hundreds before the scale).  c2 (dp, whose error only shifts
+// ds by as much) accumulates straight, the small terms first.
+template <class C>
+__device__ __forceinline__ void tile_scores(
+    const float* R1w, const float* R2w, const float* S1h, const float* S1l,
+    const float* S2h, const float* S2l, float (&c1)[C::NJ][4],
+    float (&c2)[C::NJ][4]) {
+  constexpr int NJ = C::NJ, KD = C::KD, S = C::S;
+  static_assert(KD % 2 == 0, "k-steps come in pairs");
+  static_assert(NJ == 2, "one ldmatrix.x4 holds B for both 8-row groups");
+  const int lane = threadIdx.x % 32, m = lane / 8, r = lane % 8;
+  // this lane's ldmatrix row: A matrices (rows 0-7 | 8-15) x (d 0-3 |
+  // 4-7), B matrices (group 0 d 0-3, 0 d 4-7, group 1 d 0-3, 1 d 4-7)
+  const int ra = ((m & 1) * 8 + r) * S + (m >> 1) * 4;
+  const int rb = ((m >> 1) * 8 + r) * S + (m & 1) * 4;
+  zero(c1);
+  zero(c2);
+#pragma unroll
+  for (int k2 = 0; k2 < KD; k2 += 2) {
+    float x[NJ][4];
+    zero(x);
+#pragma unroll
+    for (int kk = k2; kk < k2 + 2; ++kk) {
+      uint32_t a1[4], a2[4], h1[4], l1[4], h2[4], l2[4];
+      ldsm4(a1, R1w + ra + 8 * kk);
+      ldsm4(a2, R2w + ra + 8 * kk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        split_trunc(a1[i], h1[i], l1[i]);
+        split_trunc(a2[i], h2[i], l2[i]);
+      }
+      uint32_t bh[4], bl[4], vh[4], vl[4];
+      ldsm4(bh, S1h + rb + 8 * kk);
+      ldsm4(bl, S1l + rb + 8 * kk);
+      ldsm4(vh, S2h + rb + 8 * kk);
+      ldsm4(vl, S2l + rb + 8 * kk);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        mma3(x[j], h1, l1, bh[2 * j], bh[2 * j + 1], bl[2 * j],
+             bl[2 * j + 1]);
+        mma3(c2[j], h2, l2, vh[2 * j], vh[2 * j + 1], vl[2 * j],
+             vl[2 * j + 1]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c1[j][e] += x[j][e];
+  }
+}
+
+// acc[16 x D] += P[16 x BT] Sx[BT x D]: P in C-fragments, split in
+// registers; Sx a split streamed tile.  Each output n-tile pair sums
+// the tile's terms on the tensor cores in fragments of its own, then
+// adds them to acc in float32: the tensor cores' accumulation
+// truncates, and a gradient summed over thousands of rows straight in
+// acc would carry that bias on every addition.
+template <class C>
+__device__ __forceinline__ void tile_accumulate(
+    const float (&p)[C::NJ][4], const float* Sh, const float* Sl,
+    float (&acc)[C::D / 8][4]) {
+  constexpr int D = C::D, NJ = C::NJ, S = C::S;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  uint32_t ph[NJ][4], pl[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    split(p[j][0], ph[j][0], pl[j][0]);   // row g,     tile row 2t
+    split(p[j][2], ph[j][1], pl[j][1]);   // row g + 8, tile row 2t
+    split(p[j][1], ph[j][2], pl[j][2]);   // row g,     tile row 2t + 1
+    split(p[j][3], ph[j][3], pl[j][3]);   // row g + 8, tile row 2t + 1
+  }
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n) {
+    float x[4] = {0.f, 0.f, 0.f, 0.f}, y[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int at = (8 * j + 2 * t) * S + 2 * g + 16 * n;
+      const float2 h0 = *reinterpret_cast<const float2*>(Sh + at);
+      const float2 h1 = *reinterpret_cast<const float2*>(Sh + at + S);
+      const float2 l0 = *reinterpret_cast<const float2*>(Sl + at);
+      const float2 l1 = *reinterpret_cast<const float2*>(Sl + at + S);
+      // n-tile 2n: d = 16n + 2g, n-tile 2n + 1: d + 1; k = t, t + 4
+      mma3(x, ph[j], pl[j], __float_as_uint(h0.x), __float_as_uint(h1.x),
+           __float_as_uint(l0.x), __float_as_uint(l1.x));
+      mma3(y, ph[j], pl[j], __float_as_uint(h0.y), __float_as_uint(h1.y),
+           __float_as_uint(l0.y), __float_as_uint(l1.y));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * n][e] += x[e];
+      acc[2 * n + 1][e] += y[e];
+    }
+  }
+}
+
+// Copy rows [r0, r0 + BT) of the two streamed operands (and, for K3,
+// their lse and delta) into buffer buf; rows past n are zero-filled.
+template <class C, bool STATS>
+__device__ __forceinline__ void load_tile(float* buf, const float* s1,
+                                          const float* s2, const float* lse,
+                                          const float* delta, int r0, int n) {
+  constexpr int D = C::D, BT = C::BT, S = C::S, NT = C::NT, TILE = C::TILE;
+  load_rows<D, BT, S, NT>(buf, s1, r0, n);
+  load_rows<D, BT, S, NT>(buf + 2 * TILE, s2, r0, n);
+  if (STATS) {
+    const int i = threadIdx.x;
+    if (i < 2 * BT) {
+      const int r = i % BT;
+      const bool ok = r0 + r < n;
+      cp4(buf + 4 * TILE + i, (i < BT ? lse : delta) + (ok ? r0 + r : 0),
+          ok);
+    }
+  }
+}
+
+template <class C>
+__device__ __forceinline__ void split_tile(float* buf) {
+  constexpr int D = C::D, BT = C::BT, S = C::S, NT = C::NT, TILE = C::TILE;
+  split_rows<D, BT, S, NT>(buf, buf + TILE);
+  split_rows<D, BT, S, NT>(buf + 2 * TILE, buf + 3 * TILE);
+}
+
+// Store a warp's 16 x D accumulator times mul to rows r and r + 8 of out
+// (rows at or past n are not written).
+template <class C>
+__device__ __forceinline__ void store_rows(float* out, int r, int n,
+                                           float mul,
+                                           const float (&acc)[C::D / 8][4]) {
+  constexpr int D = C::D;
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (r + 8 * i >= n) continue;
+    float4* row = reinterpret_cast<float4*>(out + (size_t)(r + 8 * i) * D);
+#pragma unroll
+    for (int m = 0; m < D / 16; ++m)
+      row[4 * m + t] = make_float4(
+          acc[2 * m][2 * i] * mul, acc[2 * m + 1][2 * i] * mul,
+          acc[2 * m][2 * i + 1] * mul, acc[2 * m + 1][2 * i + 1] * mul);
+  }
+}
+
+// ---------------------------------------------------------------- K2: dQ
+template <class C>
+__global__ void __launch_bounds__(C::NT, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
-                    int T, int Tk, float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int RM = DQ_BQ / 16;   // query rows per thread
-  constexpr int CN = DQ_BK / 16;   // score columns per thread
-  constexpr int DN = D / 16;       // dQ columns per thread
-  constexpr int SP = DQ_BK + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [BQ][DP], pre-scaled
-  float* dOs = Qs + DQ_BQ * DP;     // [BQ][DP]
-  float* Ks = dOs + DQ_BQ * DP;     // [BK][DP]
-  float* Vs = Ks + DQ_BK * DP;      // [BK][DP]
-  float* dSs = Vs + DQ_BK * DP;     // [BQ][BK + 1]
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * DQ_BQ;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const float* qb = q + (size_t)bh * T * D;
-  const float* ob = dout + (size_t)bh * T * D;
+                    int T, int Tk, float scale, int causal, int k_offset) {
+  constexpr int D = C::D, BR = C::BR, BT = C::BT, NJ = C::NJ, S = C::S;
+  constexpr int NT = C::NT, TILE = C::TILE, BUF = C::BUF;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [BR][S] raw
+  float* Os = Qs + BR * S;                       // [BR][S] raw dO
+  float* KV = Os + BR * S;                       // two streamed buffers
+  const int bh = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rw = 16 * warp;
   const float* kb = k + (size_t)bh * Tk * D;
   const float* vb = v + (size_t)bh * Tk * D;
 
-  for (int i = tid; i < DQ_BQ * D; i += NT) {
-    const int r = i / D, c = i % D, gr = q0 + r;
-    const bool ok = gr < T;
-    Qs[r * DP + c] = ok ? qb[(size_t)gr * D + c] * scale : 0.f;
-    dOs[r * DP + c] = ok ? ob[(size_t)gr * D + c] : 0.f;
-  }
-  float lse_r[RM], delta_r[RM], acc[RM][DN];
+  // this thread's rows q0 + rw + g and + 8: lse in log2 units (+inf
+  // where dead or past T, so p = 2^-inf = 0) and delta
+  const float sl2 = scale * LOG2E;
+  float lr[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qr = q0 + ty * RM + i;
-    lse_r[i] = qr < T ? lse[(size_t)bh * T + qr] : 0.f;
-    delta_r[i] = qr < T ? delta[(size_t)bh * T + qr] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + rw + g + 8 * i;
+    const float l = r < T ? lse[(size_t)bh * T + r] : NEG_INF;
+    lr[i] = l <= 0.5f * NEG_INF ? INFINITY : l * LOG2E;
+    dl[i] = r < T ? delta[(size_t)bh * T + r] : 0.f;
   }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  int n_k = (Tk + DQ_BK - 1) / DQ_BK;
-  if (causal) n_k = min(n_k, (q0 + DQ_BQ - 1) / DQ_BK + 1);
+  int n_k = (Tk + BT - 1) / BT;
+  if (causal) {
+    const int last = q0 + BR - 1 - k_offset;
+    n_k = last < 0 ? 0 : min(n_k, last / BT + 1);
+  }
+  if (n_k > 0) {
+    load_rows<D, BR, S, NT>(Qs, q + (size_t)bh * T * D, q0, T);
+    load_rows<D, BR, S, NT>(Os, dout + (size_t)bh * T * D, q0, T);
+    load_tile<C, false>(KV, kb, vb, nullptr, nullptr, 0, Tk);
+    cp_commit();
+  }
+  const int wlast = q0 + rw + 15;            // the warp's last query
   for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * DQ_BK;
-    __syncthreads();  // the previous tile's Ks/Vs/dSs are consumed
-    for (int i = tid; i < DQ_BK * D; i += NT) {
-      const int r = i / D, c = i % D, gr = k0 + r;
-      const bool ok = gr < Tk;
-      Ks[r * DP + c] = ok ? kb[(size_t)gr * D + c] : 0.f;
-      Vs[r * DP + c] = ok ? vb[(size_t)gr * D + c] : 0.f;
-    }
-    __syncthreads();
-
-    // S = (Q scale) K^T and dP = dO V^T, both [BQ, BK]
-    float s[RM][CN], dp[RM][CN];
+    const int k0 = kt * BT;
+    float* buf = KV + (kt & 1) * BUF;
+    if (kt + 1 < n_k)
+      load_tile<C, false>(KV + ((kt + 1) & 1) * BUF, kb, vb, nullptr,
+                          nullptr, k0 + BT, Tk);
+    cp_commit();
+    cp_wait<1>();                  // this thread's chunks of tile kt
+    split_tile<C>(buf);
+    __syncthreads();               // tile kt split; the resident rows landed
+    // skip the tile when the warp's rows are all past T or all see none
+    // of its keys (the tile wholly in their future)
+    if (q0 + rw < T && (!causal || wlast >= k_offset + k0)) {
+      float c1[NJ][4], c2[NJ][4];
+      tile_scores<C>(Qs + rw * S, Os + rw * S, buf, buf + TILE,
+                     buf + 2 * TILE, buf + 3 * TILE, c1, c2);
+      // p = exp(s scale - lse), 0 where dead; ds = p (dp - delta) in
+      // c1.  Only a tile on the Tk edge or the warp's diagonal has a
+      // dead score (rows past T or dead carry lse = +inf)
+      const bool edge = k0 + BT > Tk ||
+                        (causal && q0 + rw < k_offset + k0 + BT - 1);
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[CN], vv[CN];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * DP + d];
-        vv[j] = Vs[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float qv = Qs[(ty * RM + i) * DP + d];
-        const float ov = dOs[(ty * RM + i) * DP + d];
-#pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          s[i][j] += qv * kv[j];
-          dp[i][j] += ov * vv[j];
+        for (int e = 0; e < 4; ++e) {
+          const int i = e / 2;
+          float p = ex2(c1[j][e] * sl2 - lr[i]);
+          if (edge) {
+            const int kc = k0 + 8 * j + 2 * t + (e & 1);
+            const int r = q0 + rw + g + 8 * i;
+            if (kc >= Tk || (causal && r < k_offset + kc))
+              p = 0.f;
+          }
+          c1[j][e] = p * (c2[j][e] - dl[i]);
         }
-      }
+      tile_accumulate<C>(c1, buf, buf + TILE, acc);
     }
-    // P from the saved lse, masked to exactly 0 above the diagonal and
-    // past Tk; dS = P (dP - delta)
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qr = q0 + ty * RM + i;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int kc = k0 + tx + 16 * j;
-        const bool live = kc < Tk && !(causal && kc > qr);
-        const float p = live ? expf(s[i][j] - lse_r[i]) : 0.f;
-        dSs[(ty * RM + i) * SP + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K
-#pragma unroll 4
-    for (int c = 0; c < DQ_BK; ++c) {
-      float kk[DN];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) kk[j] = Ks[c * DP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float ds = dSs[(ty * RM + i) * SP + c];
-#pragma unroll
-        for (int j = 0; j < DN; ++j) acc[i][j] += ds * kk[j];
-      }
-    }
+    __syncthreads();               // tile kt's buffer is consumed
   }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qr = q0 + ty * RM + i;
-    if (qr >= T) continue;
-    float* row = dq + ((size_t)bh * T + qr) * D;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) row[tx + 16 * j] = acc[i][j] * scale;
-  }
+  store_rows<C>(dq + (size_t)bh * T * D, q0 + rw + g, T, scale, acc);
 }
 
 // ------------------------------------------------------------ K3: dK, dV
-constexpr int DKV_BK = 64;     // key rows per block
-constexpr int DKV_BQ = 32;     // query rows per tile
-
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * DKV_BK * (D + 1) + 2 * DKV_BQ * (D + 1) +
-          DKV_BK * (DKV_BQ + 1) + 2 * DKV_BQ) * (int)sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT, 2)
+template <class C>
+__global__ void __launch_bounds__(C::NT, 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -183,201 +391,151 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, int T,
-                     int Tk, float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int RM = DKV_BK / 16;  // key rows per thread
-  constexpr int CN = DKV_BQ / 16;  // score columns (query rows) per thread
-  constexpr int DN = D / 16;       // dK/dV columns per thread
-  constexpr int TP = DKV_BQ + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;                 // [BK][DP], pre-scaled
-  float* Vs = Ks + DKV_BK * DP;     // [BK][DP]
-  float* Qs = Vs + DKV_BK * DP;     // [BQ][DP]
-  float* dOs = Qs + DKV_BQ * DP;    // [BQ][DP]
-  float* Ts = dOs + DKV_BQ * DP;    // [BK][BQ + 1]: P^T, then dS^T
-  float* lse_s = Ts + DKV_BK * TP;  // [BQ]
-  float* delta_s = lse_s + DKV_BQ;  // [BQ]
-
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * DKV_BK;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
+                     int Tk, float scale, int causal, int k_offset) {
+  constexpr int D = C::D, BR = C::BR, BT = C::BT, NJ = C::NJ, S = C::S;
+  constexpr int NT = C::NT, TILE = C::TILE, BUF = C::BUF;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);   // [BR][S] raw
+  float* Vs = Ks + BR * S;                       // [BR][S] raw
+  float* QO = Vs + BR * S;                       // two streamed buffers
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rw = 16 * warp;
+  const int kw = k0 + rw;                        // the warp's first key
   const float* qb = q + (size_t)bh * T * D;
   const float* ob = dout + (size_t)bh * T * D;
-  const float* kb = k + (size_t)bh * Tk * D;
-  const float* vb = v + (size_t)bh * Tk * D;
+  const float* lb = lse + (size_t)bh * T;
+  const float* db = delta + (size_t)bh * T;
+  const float sl2 = scale * LOG2E;
 
-  for (int i = tid; i < DKV_BK * D; i += NT) {
-    const int r = i / D, c = i % D, gr = k0 + r;
-    const bool ok = gr < Tk;
-    Ks[r * DP + c] = ok ? kb[(size_t)gr * D + c] * scale : 0.f;
-    Vs[r * DP + c] = ok ? vb[(size_t)gr * D + c] : 0.f;
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
+    acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
   }
-  float acc_k[RM][DN], acc_v[RM][DN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
-  const int n_q = (T + DKV_BQ - 1) / DKV_BQ;
-  // causal: query rows above this K tile's first row see none of it
-  const int q_start = causal ? k0 / DKV_BQ : 0;
+  const int n_q = (T + BT - 1) / BT;
+  // causal: the first Q tile whose last row sees the block's first key
+  const int first = k_offset + k0;
+  const int q_start = causal ? (first <= 0 ? 0 : min(n_q, first / BT)) : 0;
+  if (q_start < n_q) {
+    load_rows<D, BR, S, NT>(Ks, k + (size_t)bh * Tk * D, k0, Tk);
+    load_rows<D, BR, S, NT>(Vs, v + (size_t)bh * Tk * D, k0, Tk);
+    load_tile<C, true>(QO, qb, ob, lb, db, q_start * BT, T);
+    cp_commit();
+  }
   for (int qt = q_start; qt < n_q; ++qt) {
-    const int q0 = qt * DKV_BQ;
-    __syncthreads();  // the previous tile's Qs/dOs/Ts are consumed
-    for (int i = tid; i < DKV_BQ * D; i += NT) {
-      const int r = i / D, c = i % D, gr = q0 + r;
-      const bool ok = gr < T;
-      Qs[r * DP + c] = ok ? qb[(size_t)gr * D + c] : 0.f;
-      dOs[r * DP + c] = ok ? ob[(size_t)gr * D + c] : 0.f;
-    }
-    if (tid < DKV_BQ) {
-      const int gr = q0 + tid;
-      lse_s[tid] = gr < T ? lse[(size_t)bh * T + gr] : 0.f;
-      delta_s[tid] = gr < T ? delta[(size_t)bh * T + gr] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = (K scale) Q^T and dP^T = V dO^T, both [BK, BQ]: P^T is built
-    // straight from K Q^T, never transposed
-    float s[RM][CN], dp[RM][CN];
+    const int q0 = qt * BT;
+    float* buf = QO + ((qt - q_start) & 1) * BUF;
+    if (qt + 1 < n_q)
+      load_tile<C, true>(QO + ((qt + 1 - q_start) & 1) * BUF, qb, ob, lb, db,
+                         q0 + BT, T);
+    cp_commit();
+    cp_wait<1>();                  // this thread's chunks of tile qt
+    split_tile<C>(buf);
+    __syncthreads();               // tile qt split; the resident rows landed
+    const float* Ls = buf + 4 * TILE;
+    const float* Ds = Ls + BT;
+    // skip the tile when the warp's keys are all past Tk or no query of
+    // the tile sees any of them
+    if (kw < Tk && (!causal || q0 + BT - 1 >= k_offset + kw)) {
+      float c1[NJ][4], c2[NJ][4];
+      tile_scores<C>(Ks + rw * S, Vs + rw * S, buf, buf + TILE,
+                     buf + 2 * TILE, buf + 3 * TILE, c1, c2);
+      // p^T = exp(s^T scale - lse[q]) in c1, 0 where dead; ds^T =
+      // p^T (dp^T - delta[q]) in c2.  The columns' lse in log2 units,
+      // +inf for a query past T or a dead row (p = 2^-inf = 0); only a
+      // tile on the warp's diagonal has other dead scores
+      float lq[NJ][2], dlt[NJ][2];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[CN], ov[CN];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * DP + d];
-        ov[j] = dOs[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float kv = Ks[(ty * RM + i) * DP + d];
-        const float vv = Vs[(ty * RM + i) * DP + d];
-#pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          s[i][j] += kv * qv[j];
-          dp[i][j] += vv * ov[j];
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;
+          const float l = Ls[c];
+          lq[j][e] = q0 + c >= T || l <= 0.5f * NEG_INF ? INFINITY
+                                                        : l * LOG2E;
+          dlt[j][e] = Ds[c];
         }
-      }
+      const bool edge = causal && q0 < k_offset + kw + 15;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(c1[j][e] * sl2 - lq[j][e & 1]);
+          if (edge) {
+            const int qc = q0 + 8 * j + 2 * t + (e & 1);
+            const int kr = kw + g + 8 * (e / 2);
+            if (qc < k_offset + kr) p = 0.f;
+          }
+          c1[j][e] = p;
+          c2[j][e] = p * (c2[j][e] - dlt[j][e & 1]);
+        }
+      tile_accumulate<C>(c1, buf + 2 * TILE, buf + 3 * TILE, acc_v);
+      tile_accumulate<C>(c2, buf, buf + TILE, acc_k);
     }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int kr = k0 + ty * RM + i;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int qc = q0 + tx + 16 * j;
-        const bool live = qc < T && kr < Tk && !(causal && qc < kr);
-        const float p =
-            live ? expf(s[i][j] - lse_s[tx + 16 * j]) : 0.f;
-        s[i][j] = p * (dp[i][j] - delta_s[tx + 16 * j]);  // dS^T
-        Ts[(ty * RM + i) * TP + tx + 16 * j] = p;
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO
-#pragma unroll 4
-    for (int c = 0; c < DKV_BQ; ++c) {
-      float oo[DN];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) oo[j] = dOs[c * DP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float p = Ts[(ty * RM + i) * TP + c];
-#pragma unroll
-        for (int j = 0; j < DN; ++j) acc_v[i][j] += p * oo[j];
-      }
-    }
-    __syncthreads();  // P^T is consumed: reuse Ts for dS^T
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j)
-        Ts[(ty * RM + i) * TP + tx + 16 * j] = s[i][j];
-    __syncthreads();
-
-    // dK += dS^T Q
-#pragma unroll 4
-    for (int c = 0; c < DKV_BQ; ++c) {
-      float qq[DN];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) qq[j] = Qs[c * DP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float ds = Ts[(ty * RM + i) * TP + c];
-#pragma unroll
-        for (int j = 0; j < DN; ++j) acc_k[i][j] += ds * qq[j];
-      }
-    }
+    __syncthreads();               // tile qt's buffer is consumed
   }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int kr = k0 + ty * RM + i;
-    if (kr >= Tk) continue;
-    float* krow = dk + ((size_t)bh * Tk + kr) * D;
-    float* vrow = dv + ((size_t)bh * Tk + kr) * D;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) {
-      krow[tx + 16 * j] = acc_k[i][j] * scale;
-      vrow[tx + 16 * j] = acc_v[i][j];
-    }
-  }
+  store_rows<C>(dk + (size_t)bh * Tk * D, kw + g, Tk, scale, acc_k);
+  store_rows<C>(dv + (size_t)bh * Tk * D, kw + g, Tk, 1.f, acc_v);
 }
 
-template <int D>
+template <class C>
 cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* dout, const float* lse,
                       const float* delta, float* dq, int bh, int t, int tk,
-                      float scale, int causal, cudaStream_t stream) {
-  constexpr int bytes = dq_smem_bytes<D>();
+                      float scale, int causal, int k_offset,
+                      cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_bwd_dq_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((t + DQ_BQ - 1) / DQ_BQ, bh);
-  flash_bwd_dq_kernel<D><<<grid, NT, bytes, stream>>>(
-      q, k, v, dout, lse, delta, dq, t, tk, scale, causal);
+  const int n_q = (t + C::BR - 1) / C::BR;
+  if (n_q > 65535) return cudaErrorInvalidValue;
+  dim3 grid(bh, n_q);
+  flash_bwd_dq_kernel<C><<<grid, C::NT, C::bytes, stream>>>(
+      q, k, v, dout, lse, delta, dq, t, tk, scale, causal, k_offset);
   return cudaGetLastError();
 }
 
-template <int D>
+template <class C>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* dout, const float* lse,
                        const float* delta, float* dk, float* dv, int bh,
-                       int t, int tk, float scale, int causal,
+                       int t, int tk, float scale, int causal, int k_offset,
                        cudaStream_t stream) {
-  constexpr int bytes = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_bwd_dkv_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((tk + DKV_BK - 1) / DKV_BK, bh);
-  flash_bwd_dkv_kernel<D><<<grid, NT, bytes, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, t, tk, scale, causal);
+  const int n_k = (tk + C::BR - 1) / C::BR;
+  if (n_k > 65535) return cudaErrorInvalidValue;
+  dim3 grid(bh, n_k);
+  flash_bwd_dkv_kernel<C><<<grid, C::NT, C::bytes, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, t, tk, scale, causal, k_offset);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q/dout [bh, t, d], k/v [bh, tk, d], lse/delta [bh, t], dq [bh, t, d];
-// all float32, contiguous.  Returns the launch's cudaError_t.
+// all float32, contiguous, q/k/v/dout/dq on 16-byte boundaries; causal
+// masks q_pos < k_offset + k_pos.  Returns the launch's cudaError_t.
 extern "C" int flash_bwd_dq_f32(const float* q, const float* k,
                                 const float* v, const float* dout,
                                 const float* lse, const float* delta,
                                 float* dq, int bh, int t, int tk, int d,
-                                float scale, int causal, void* stream) {
+                                float scale, int causal, int k_offset,
+                                void* stream) {
   if (bh <= 0 || t <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
   // built for the flagship LM's head_dim only, like flash_fwd.cu
   if (d != 128) return (int)cudaErrorInvalidValue;
-  return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, t, tk,
-                             scale, causal,
-                             static_cast<cudaStream_t>(stream));
+  return (int)launch_dq<B128>(q, k, v, dout, lse, delta, dq, bh, t, tk,
+                              scale, causal, k_offset,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // as above, writing dk and dv [bh, tk, d]
@@ -386,10 +544,10 @@ extern "C" int flash_bwd_dkv_f32(const float* q, const float* k,
                                  const float* lse, const float* delta,
                                  float* dk, float* dv, int bh, int t, int tk,
                                  int d, float scale, int causal,
-                                 void* stream) {
+                                 int k_offset, void* stream) {
   if (bh <= 0 || t <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
   if (d != 128) return (int)cudaErrorInvalidValue;
-  return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, t, tk,
-                              scale, causal,
-                              static_cast<cudaStream_t>(stream));
+  return (int)launch_dkv<B128>(q, k, v, dout, lse, delta, dk, dv, bh, t, tk,
+                               scale, causal, k_offset,
+                               static_cast<cudaStream_t>(stream));
 }

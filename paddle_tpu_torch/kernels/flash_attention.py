@@ -45,8 +45,8 @@ _BLOCK_SIZE = 16
 
 def _aligned16(*tensors):
     """Whether every tensor's data starts on a 16-byte boundary, as the
-    K1/K9 tile loop's 16-byte cp.async copies and float4 accesses need
-    (a contiguous view at an offset that is not a multiple of 4 floats
+    flash kernels' 16-byte cp.async copies and float4 accesses need (a
+    contiguous view at an offset that is not a multiple of 4 floats
     does not)."""
     return all(x.data_ptr() % 16 == 0 for x in tensors)
 
@@ -164,18 +164,25 @@ def _bwd_args(q, k, v, out, lse, do):
 
 
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal):
+def _require_aligned(*tensors):
+    require(_aligned16(*tensors), "flash backward kernels need q/k/v/do "
+            "on 16-byte boundaries (copy an offset view with .clone())")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, k_offset=0):
     """K2 on the card: dQ ``[B, H, T, D]`` from contiguous float32 CUDA
-    operands and ``delta = rowsum(dO * O)`` [B, H, T]."""
+    operands and ``delta = rowsum(dO * O)`` [B, H, T]; ``causal`` masks
+    q_pos < k_offset + k_pos."""
+    _require_aligned(q, k, v, do)
     b, h, t, d = q.shape
     dq = torch.empty_like(q)
     fn = _build.function("flash_bwd", "flash_bwd_dq_f32", _BWD_ARGTYPES)
     rc = fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
             b * h, t, k.shape[2], d, float(scale), int(bool(causal)),
-            stream())
+            int(k_offset), stream())
     _build.check(rc, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq
@@ -184,9 +191,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal):
 flash_bwd_dq.launches = 0
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, k_offset=0):
     """K3 on the card: ``(dK, dV)`` ``[B, H, Tk, D]``, operands as for
     ``flash_bwd_dq``."""
+    _require_aligned(q, k, v, do)
     b, h, t, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -194,7 +202,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
                          [ctypes.c_void_p] + _BWD_ARGTYPES)
     rc = fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dk),
             ptr(dv), b * h, t, k.shape[2], d, float(scale),
-            int(bool(causal)), stream())
+            int(bool(causal)), int(k_offset), stream())
     _build.check(rc, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -397,12 +405,10 @@ def flash_attention_chunk_bwd(q, k, v, do, lse, delta, scale=None,
     one K/V block, from the forward's per-row ``lse`` [B, H, Sq] and
     ``delta`` = rowsum(dO * O) [B, H, Sq]; no forward re-run.  Same
     ``causal``/``k_offset`` contract as ``flash_attention_chunk``.  On
-    the card it runs K2 (dQ) and K3 (dK, dV), as the JAX package's TPU
-    branch runs its two flash backward kernels; a CPU tensor takes
-    ``chunk_bwd_reference``.  A causal block with a non-zero
-    ``k_offset`` (an XLA branch in the JAX package, which the ring
-    never takes) has no kernel here: on the card it raises
-    NotImplementedError, as those kernels' mask has no offset."""
+    the card it runs K2 (dQ) and K3 (dK, dV), whose mask takes the
+    offset, as the JAX package's TPU branch runs its two flash backward
+    kernels (its causal off-diagonal offsets go to ``_chunk_bwd_xla``,
+    the same math); a CPU tensor takes ``chunk_bwd_reference``."""
     where = _bwd_args(q, k, v, do, lse, do)    # no O: dO stands in
     require(tuple(delta.shape) == tuple(lse.shape)
             and delta.device == q.device,
@@ -413,14 +419,10 @@ def flash_attention_chunk_bwd(q, k, v, do, lse, delta, scale=None,
     if where == "cpu":
         return chunk_bwd_reference(q, k, v, do, lse, delta, scale, causal,
                                    int(k_offset))
-    if causal and k_offset:
-        raise NotImplementedError(
-            "flash_attention_chunk_bwd(causal=True, k_offset=%d): the flash "
-            "backward kernels mask with no offset" % k_offset)
     require(delta.is_contiguous(), "flash backward kernels need a "
             "contiguous delta")
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, k_offset)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, k_offset)
     return dq, dk, dv
 
 

@@ -170,6 +170,94 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, b, t, tk):
             torch.testing.assert_close(a, w, **TOL)
 
 
+def _bwd_inputs(cuda, b, t, seed, qk_mul=1.0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k = (qk_mul * torch.randn(b, 8, t, 128, device=cuda, generator=g)
+            for _ in range(2))
+    v, do = (torch.randn(b, 8, t, 128, device=cuda, generator=g)
+             for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+def test_flash_bwd_split_tf32_keeps_float32_precision_on_card(cuda):
+    """The precision guard for K2/K3: _split_tf32_guard's inputs (q and k
+    [2, 8, 256, 128] scaled by 4) through the backward.  The plain
+    backward fed single-pass TF32 q and k misses atol = rtol = 1e-4;
+    K2 and K3, whose seven products are split-TF32, meet it."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 256, 6, qk_mul=4.0)
+    scale = 128 ** -0.5
+    out, lse = attention_reference(q, k, v, scale, True)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do, scale, True)
+    trunc = flash_attention_bwd_reference(
+        _tf32_truncated(q), _tf32_truncated(k), v, out, lse, do, scale, True)
+    assert any(_misses(a, w) for a, w in zip(trunc, want))
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **TOL)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_are_deterministic_on_card(cuda):
+    """Each gradient element is written by exactly one block, with no
+    atomics: two calls on the same inputs are bit-identical."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 1000, 9)
+    for causal in (True, False):
+        out, lse = attention_reference(q, k, v, 128 ** -0.5, causal)
+        first = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        second = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_refuse_a_misaligned_view_on_card(cuda):
+    """K2 and K3 copy q, k, v and dO in 16-byte chunks: a contiguous view
+    one float into its storage raises ValueError before any launch, and
+    the card still works afterwards."""
+    import importlib
+
+    pfa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    n = 8 * 64 * 128
+    base = torch.randn(n + 1, device=cuda)
+    bad = base[1:].view(1, 8, 64, 128)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 != 0
+    q, k, v, do = _bwd_inputs(cuda, 1, 64, 3)
+    out, lse = attention_reference(q, k, v, 128 ** -0.5, True)
+    launches = (pfa.flash_bwd_dq.launches, pfa.flash_bwd_dkv.launches)
+    for i in (0, 1, 2, 5):               # q, k, v, do
+        args = [q, k, v, out, lse, do]
+        args[i] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_bwd(*args, causal=True)
+    assert (pfa.flash_bwd_dq.launches,
+            pfa.flash_bwd_dkv.launches) == launches
+    got = flash_attention_bwd(q, k, v, out, lse, bad.clone(), causal=True)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, bad,
+                                         128 ** -0.5, True)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **TOL)
+
+
+@pytest.mark.cuda
+def test_flash_chunk_bwd_ring_diagonal_on_card(cuda):
+    """The ring's causal diagonal step at [2, 8, 512, 128] (a shard of a
+    2048-token sequence at sp = 4) through K2/K3 against
+    chunk_bwd_reference."""
+    import importlib
+
+    pfa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    q, k, v, do = _bwd_inputs(cuda, 2, 512, 10)
+    scale = 128 ** -0.5
+    out, lse = attention_reference(q, k, v, scale, True)
+    delta = (do * out).sum(-1)
+    got = pfa.flash_attention_chunk_bwd(q, k, v, do, lse, delta,
+                                        causal=True)
+    want = pfa.chunk_bwd_reference(q, k, v, do, lse, delta, scale, True)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **TOL)
+
+
 @pytest.mark.cuda
 def test_flash_train_autograd_runs_the_kernels(cuda):
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -579,25 +667,24 @@ def test_flash_chunk_bwd_on_card_runs_k2_k3(cuda):
              for _ in range(2))
     k, v = (torch.randn(2, 8, 128, 128, device=cuda, generator=g)
             for _ in range(2))
-    for causal in (True, False):
-        out, lse = attention_reference(q, k, v, 128 ** -0.5, causal)
-        delta = (do * out).sum(-1)
+    # the diagonal block, a non-causal one, and causal blocks at an
+    # offset (K2/K3 take it in their mask), one of them unaligned to
+    # every tile; lse and delta are the diagonal forward's, so rows the
+    # offset leaves without a live key in this block take no gradient
+    out, lse = attention_reference(q, k, v, 128 ** -0.5, True)
+    delta = (do * out).sum(-1)
+    for causal, off in ((True, 0), (False, 0), (True, 64), (True, 37)):
         dq0, dkv0 = pfa.flash_bwd_dq.launches, pfa.flash_bwd_dkv.launches
         got = pfa.flash_attention_chunk_bwd(q, k, v, do, lse, delta,
-                                            causal=causal)
+                                            causal=causal, k_offset=off)
         assert (pfa.flash_bwd_dq.launches - dq0,
                 pfa.flash_bwd_dkv.launches - dkv0) == (1, 1)
         want = pfa.chunk_bwd_reference(q, k, v, do, lse, delta,
-                                       128 ** -0.5, causal)
+                                       128 ** -0.5, causal, off)
         for a, w in zip(got, want):
             torch.testing.assert_close(a, w, **TOL)
-    # a causal block with an offset has no kernel: it raises on the card
-    # and never reaches the plain version
-    dq0 = pfa.flash_bwd_dq.launches
-    with pytest.raises(NotImplementedError, match="k_offset=64"):
-        pfa.flash_attention_chunk_bwd(q, k, v, do, lse, delta, causal=True,
-                                      k_offset=64)
-    assert pfa.flash_bwd_dq.launches == dq0
+        if off:
+            assert got[0][:, :, :off].abs().max().item() == 0.0
 
 
 @pytest.mark.cuda
