@@ -17,7 +17,8 @@ Phases, each printed as one JSON line:
              K9 against split-TF32 tensor-core products, K8 against the
              two-MMA split its exact int8 weights allow, the rest
              against f32 FMAs; ``ops_rate`` says which); K4 also at
-             every epilogue variant on ragged shapes;
+             every epilogue variant on ragged shapes; each K4 and K8
+             row's ``form`` names the form it ran;
 4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
@@ -75,7 +76,14 @@ Phases, each printed as one JSON line:
              dense program's step on the card, from the same parameters,
              at phase 8's bars.
 
-Phase 3 holds K6 against its plain version at each of the path's 20
+Phase 3 holds K8 against its plain version at the flagship layer's
+four projections at every decode bucket M = 1..16 (the decode kernel,
+``form`` "decode") and at the prefill buckets M = 1024 and 2048 (the
+split-TF32 GEMM tile of csrc/gemm_tile.cuh: "tile 128x64" where its
+blocks give every SM one, else "tile 64x64"), and checks that prefill
+rows are batch-invariant (64-row calls give the M = 1024 call's rows
+bit for bit); K4 at the fused step's five projections at M = 16 x 2048
+(all "tile 128x64"); K6 against its plain version at each of the path's 20
 conv shapes at batch 256 (statistics form; the five heaviest also with
 affine + residual + relu) and at every epilogue combination on ragged
 shapes; K9 at the ring's shard [16, 8, 512, 128] (the diagonal causal
@@ -254,7 +262,7 @@ def check_kernels(torch, timer):
     from paddle_tpu_torch.kernels.matmul_fused import (
         add_ln, add_ln_reference, dequantize_weight, matmul_epilogue,
         matmul_epilogue_reference, matmul_int8_dequant,
-        matmul_int8_reference, quantize_weight)
+        matmul_int8_reference, quantize_weight, tile_form)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
@@ -398,6 +406,18 @@ def check_kernels(torch, timer):
                    timer(lambda: torch.matmul(x, wd)),
                    4 * m * kk + kk * n + 4 * (kk // chunk) * n + 4 * m * n,
                    2 * m * kk * n)
+            rows[-1]["form"] = tile_form("matmul_int8", m, n)
+            if m == 1024:
+                # prefill rows are batch-invariant: 64-row calls (the
+                # Small form) give the M = 1024 call's rows bit for bit
+                inv = all(torch.equal(
+                    matmul_int8_dequant(x[r0:r0 + 64].contiguous(), wq, sc,
+                                        chunk), out[r0:r0 + 64])
+                    for r0 in (0, 512, 960))
+                rows[-1]["prefill_rows_invariant"] = inv
+                if not inv:
+                    bad.append("matmul_int8 K=%d N=%d: rows of M=64 calls "
+                               "differ from the M=1024 call's" % (kk, n))
     # the epilogue the engine does not use: bias, tanh-gelu, residual
     x = torch.randn(16, kk, device=dev, generator=gen)
     bias = torch.randn(n, device=dev, generator=gen)
@@ -431,6 +451,7 @@ def check_kernels(torch, timer):
                      else torch.matmul(x, w)),
                4 * (m * kk + kk * n + m * n + (n if with_bias else 0)),
                2 * m * kk * n)
+        rows[-1]["form"] = tile_form("matmul_epilogue", m, n)
         del x, w, bias
     # every epilogue (act x bias x residual x pre) on ragged M and N,
     # float4 (N % 4 == 0) and scalar (N % 4 != 0) instantiations

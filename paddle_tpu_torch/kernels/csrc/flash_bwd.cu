@@ -102,14 +102,6 @@ using B128 = Bwd<128>;
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-// 4-byte cp.async, zero-filled when !ok (lse and delta rows carry no
-// 16-byte alignment)
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-               :: "r"(s), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-
 // Four 8 x 4-float matrices from shared memory, each thread giving one
 // row address (lanes 8m .. 8m + 7 the rows of matrix m); register m of
 // lane l holds float l % 4 of row l / 4 of matrix m, which is a tf32

@@ -60,7 +60,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"   // the split-TF32 primitives
+
 namespace flash {
+
+using namespace tc;
 
 constexpr float NEG_INF = -1e30f;
 
@@ -87,26 +91,6 @@ using Small = Tile<D, 64, 16, 2>;
 template <int D>
 using Large = Tile<D, 128, 32, 1>;
 
-// The SM count of the card that launches first, queried once.  It
-// only picks a tile form, and both compute the same, so a host of
-// mixed cards would lose speed, never correctness.
-struct SmCount {
-  cudaError_t err;
-  int sms;
-};
-inline const SmCount& sm_count() {
-  static const SmCount c = [] {
-    SmCount r{cudaSuccess, 0};
-    int dev = 0;
-    r.err = cudaGetDevice(&dev);
-    if (r.err == cudaSuccess)
-      r.err = cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-    return r;
-  }();
-  return c;
-}
-
 // Whether bh heads of t query rows take the Large tiles: when those
 // give every SM a block (else Small).  Both forms timed at the same
 // shapes (tools/flash_forms.py, H100): Small wins at 128 Large blocks
@@ -131,60 +115,6 @@ __device__ __forceinline__ int live_k_tiles(int q0, int Tk, int causal,
   if (!causal) return n_k;
   const int last = q0 + BQ - 1 - k_offset;
   return last < 0 ? 0 : min(n_k, last / BK + 1);
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo exactly, hi = x rounded to TF32; the MMA reads lo's top
-// 11 significant bits (it ignores a TF32 operand's low 13), so the
-// split keeps x to 2^-21 relative for two instructions
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b in split-TF32, the small terms first
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-  mma(c, al, bh0, bh1);
-  mma(c, ah, bl0, bl1);
-  mma(c, ah, bh0, bh1);
-}
-
-template <int NJ>
-__device__ __forceinline__ void zero(float (&c)[NJ][4]) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-}
-
-__device__ __forceinline__ void cp16(float* dst, const float* src,
-                                     bool ok) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(s), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
 // Rows [r0, r0 + R) of a [n, D] matrix into shared rows of stride S,

@@ -5,161 +5,123 @@
 // times W = int8 q [K, N] x f32 scales [K/chunk, N] (one scale per
 // K-chunk of a column), accumulated in f32, then + bias, act ('' /
 // relu / tanh-gelu), + residual.  The f32 weights never exist in device
-// memory: int8 values are rescaled on the SM right before the FMAs.
+// memory: int8 values are converted on the SM right before the products.
 //
 // What bounds it on the H100: at decode (M <= 16) bytes -- every int8
-// weight byte is read once per step and used for M FMAs -- and at
-// prefill (M up to 2048) the products.  They run as float32 FMAs (67
-// TFLOP/s); the least time for them is on the tensor cores: the int8
-// weights are exact in TF32, so a float32-accurate product takes two
-// TF32 MMAs (x hi and x lo times w), 494.7/2 TFLOP/s -- not used yet.
-// So two kernels:
+// weight byte is read once per step and used for M products -- and at
+// prefill (M up to 2048) the products.  The int8 weights are exact in
+// TF32, so a float32-accurate product takes two TF32 MMAs (x hi and x lo
+// times q), 494.7 / 2 TFLOP/s at most.  So two forms:
 //
 // - decode (M <= 16), mm_int8_skinny: a block owns a 32-column slab and
-//   one K range.  Its 256 threads are 8 column groups (4 columns, one
-//   4-byte load per row) x 32 K lanes, so a warp reads whole 32-byte
-//   rows.  K runs in steps of 256 rows: x's slice of the step is staged
-//   in shared memory, and each thread's 8 weight rows of the NEXT step
-//   are loaded into registers before this step's FMAs, keeping them in
-//   flight.  One slab per block alone leaves most SMs idle when N is
-//   1024 (32 blocks), so the K range is split over a thread block
-//   cluster of KS blocks (KS <= 8, chosen from K and N only) and the
-//   cluster's first block sums the others' partials through distributed
-//   shared memory -- no workspace in device memory.  Every sum runs in
-//   a fixed order (K lanes by shuffles, then warps, then cluster ranks),
-//   and nothing in it depends on M, so decode is batch-invariant.
-// - prefill (M > 16), mm_int8_tiled: 64 x 64 output tiles looping over
-//   32-deep K tiles; the tile depth divides the quantization chunk, so
-//   one scale row rescales a whole tile (the reference's chunk % bk == 0
-//   rule) into shared memory.
+//   one K range.  Its 256 threads are 8 column groups (4 columns) x 32 K
+//   lanes, so a warp reads whole 32-byte rows of a step's weights.  K
+//   runs in steps of 256 rows; a ring of 4 steps (x's slice and the
+//   weight rows, 24 KB of weights a block) is kept in flight in shared
+//   memory by cp.async while a step's FMAs run, and the warp partials
+//   reuse the ring at the end.  One slab per block alone leaves most
+//   SMs idle when N is 1024 (32 blocks), so the K range is split over a
+//   thread block cluster of KS blocks (KS <= 8, chosen from K and N
+//   only) and the cluster's first block sums the others' partials
+//   through distributed shared memory -- no workspace in device memory.
+//   Every sum runs in a fixed order (K lanes by shuffles, then warps,
+//   then cluster ranks), and nothing in it depends on M, so decode is
+//   batch-invariant.
+// - prefill (M > 16): gemm_tile.cuh's tile with int8 weights (Int8W), on
+//   the tensor cores in split-TF32: x split into hi and lo as each
+//   fragment loads, q converted to f32 once when it lands, two MMAs a
+//   product; each 32-deep K tile sums in a fresh fragment, which its
+//   chunk's scale row multiplies into the accumulator (the tile depth
+//   divides the quantization chunk: the reference's chunk % bk == 0
+//   rule).  No sum depends on M or on the tile form, so a row's result
+//   is the same in any prefill batch.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "gemm_tile.cuh"
+
 namespace cg = cooperative_groups;
 namespace {
 
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
-
-__device__ __forceinline__ float apply_act(float y, int act) {
-  if (act == ACT_RELU) return fmaxf(y, 0.f);
-  if (act == ACT_GELU)
-    return 0.5f * y *
-           (1.f + tanhf(0.7978845608028654f * (y + 0.044715f * y * y * y)));
-  return y;
-}
-
-template <int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-mm_int8_tiled(const float* __restrict__ x, const int8_t* __restrict__ wq,
-              const float* __restrict__ scales,
-              const float* __restrict__ bias,
-              const float* __restrict__ res, float* __restrict__ out,
-              int M, int N, int K, int chunk, int act) {
-  constexpr int CX = BN / TN;           // column threads
-  constexpr int NT = (BM / TM) * CX;
-  __shared__ float Xs[BK][BM + 1];      // x tile, transposed
-  __shared__ float Ws[BK][BN];          // dequantized weight tile
-
-  const int tid = threadIdx.x;
-  const int tx = tid % CX;
-  const int ty = tid / CX;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += NT) {
-      const int r = i / BK, c = i % BK, gm = m0 + r;
-      Xs[c][r] = gm < M ? x[(size_t)gm * K + k0 + c] : 0.f;
-    }
-    const float* srow = scales + (size_t)(k0 / chunk) * N;
-    for (int i = tid; i < BK * BN / 4; i += NT) {
-      const int r = i / (BN / 4), c = (i % (BN / 4)) * 4, gn = n0 + c;
-      if (gn < N) {
-        const char4 w4 = *reinterpret_cast<const char4*>(
-            wq + (size_t)(k0 + r) * N + gn);
-        const float4 s4 = *reinterpret_cast<const float4*>(srow + gn);
-        Ws[r][c] = (float)w4.x * s4.x;
-        Ws[r][c + 1] = (float)w4.y * s4.y;
-        Ws[r][c + 2] = (float)w4.z * s4.z;
-        Ws[r][c + 3] = (float)w4.w * s4.w;
-      } else {
-        Ws[r][c] = Ws[r][c + 1] = Ws[r][c + 2] = Ws[r][c + 3] = 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float xv[TM], wv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) xv[i] = Xs[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) wv[j] = Ws[kk][tx + CX * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += xv[i] * wv[j];
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + CX * j;
-      if (gn >= N) continue;
-      float y = acc[i][j];
-      if (bias) y += bias[gn];
-      y = apply_act(y, act);
-      if (res) y += res[(size_t)gm * N + gn];
-      out[(size_t)gm * N + gn] = y;
-    }
-  }
-}
+using gemm::apply_act;
+using tc::cp16;
+using tc::cp4;
+using tc::cp_commit;
+using tc::cp_wait;
 
 // decode: M <= MB rows; a block owns 32 columns and K rows
 // [blockIdx.y * kpb, (blockIdx.y + 1) * kpb); the blocks of one column
 // slab form a cluster along y
-constexpr int KT = 256;       // K rows per step of the skinny kernel
+constexpr int KT = 256;       // K rows per step of the decode kernel
 constexpr int RPT = KT / 32;  // rows per thread per step
 constexpr int MAX_KS = 8;     // largest portable cluster
+constexpr int DSTAGES = 4;    // steps in flight
+constexpr int DECODE_M = 16;  // the decode kernel's rows; more: the tile
 
-// the RPT weight rows (4 columns each) a thread uses in one step
-__device__ __forceinline__ void load_rows(const int8_t* __restrict__ wq,
-                                          int k0, int kl, int k_end, int N,
-                                          int n, char4 (&w4)[RPT]) {
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int k = k0 + kl + 32 * r;
-    w4[r] = k < k_end ? __ldg(reinterpret_cast<const char4*>(
-                            wq + (size_t)k * N + n))
-                      : make_char4(0, 0, 0, 0);
+// one step's stage in shared memory: x[:, k0 .. k0 + KT) f32, then the
+// step's KT weight rows of the block's 32 columns
+template <int MB>
+struct Dec {
+  static constexpr int XS = MB * KT * 4;
+  static constexpr int STAGE = XS + KT * 32;
+  static constexpr int PART = MB * 32 * 4;
+  static constexpr int bytes = DSTAGES * STAGE + PART;
+  static_assert(8 * MB * 32 * 4 <= DSTAGES * STAGE,
+                "warp partials reuse the stages");
+  static_assert(2 * (bytes + 1024) <= 228 * 1024, "two blocks an SM");
+};
+
+// cp.async one step into its stage: x rows past M and K rows past
+// k_end zero; VEC: N % 16 == 0, whole 16-byte weight chunks, else
+// 4-byte copies with columns past N zero
+template <int MB, bool VEC>
+__device__ __forceinline__ void load_step(char* stage,
+                                          const float* __restrict__ x,
+                                          const int8_t* __restrict__ wq,
+                                          int k0, int k_end, int n0, int M,
+                                          int N, int K) {
+  float* xs = reinterpret_cast<float*>(stage);
+  for (int i = threadIdx.x; i < MB * KT / 4; i += 256) {
+    const int m = i / (KT / 4), c = 4 * (i % (KT / 4));
+    const bool ok = m < M && k0 + c < k_end;
+    cp16(xs + m * KT + c, x + (ok ? (size_t)m * K + k0 + c : 0), ok);
+  }
+  char* ws = stage + Dec<MB>::XS;
+  if (VEC) {
+    for (int i = threadIdx.x; i < KT * 2; i += 256) {
+      const int r = i / 2, c = 16 * (i % 2);
+      const bool ok = k0 + r < k_end && n0 + c < N;
+      cp16(ws + r * 32 + c, wq + (ok ? (size_t)(k0 + r) * N + n0 + c : 0),
+           ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < KT * 8; i += 256) {
+      const int r = i / 8, c = 4 * (i % 8);
+      const bool ok = k0 + r < k_end && n0 + c < N;
+      cp4(ws + r * 32 + c, wq + (ok ? (size_t)(k0 + r) * N + n0 + c : 0),
+          ok);
+    }
   }
 }
 
-// MB >= 8 needs ~130 registers: capping it at 128 lets two blocks share
-// an SM, which is faster at M=16; the cap slows M <= 4, which needs
-// fewer than 128 anyway
-template <int MB>
-__global__ void __launch_bounds__(256, MB >= 8 ? 2 : 1)
+// Its 256 threads are 8 column groups (4 columns) x 32 K lanes: a
+// thread's rows of a step are kl, kl + 32, ..., so a warp reads whole
+// 32-byte rows of the stage.  DSTAGES steps of x and weights are in
+// flight by cp.async while a step's FMAs run.
+template <int MB, bool VEC>
+__global__ void __launch_bounds__(256, 2)
 mm_int8_skinny(const float* __restrict__ x, const int8_t* __restrict__ wq,
                const float* __restrict__ scales,
                const float* __restrict__ bias,
                const float* __restrict__ res, float* __restrict__ out,
                int M, int N, int K, int chunk, int act, int kpb) {
-  __shared__ float xs[MB][KT];      // x[:, k0 .. k0+KT) of this step
-  __shared__ float red[8][MB][32];  // per-warp partials
-  __shared__ float part[MB][32];    // this block's partial
+  using D = Dec<MB>;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  float (*part)[32] =
+      reinterpret_cast<float (*)[32]>(smem + DSTAGES * D::STAGE);
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -169,6 +131,7 @@ mm_int8_skinny(const float* __restrict__ x, const int8_t* __restrict__ wq,
   const int n = min(n0 + cgp * 4, N - 4);   // N % 4 == 0; past N: unused
   const int k_begin = blockIdx.y * kpb;
   const int k_end = min(K, k_begin + kpb);
+  const int steps = k_end > k_begin ? (k_end - k_begin + KT - 1) / KT : 0;
   // a step never crosses a quantization chunk when KT divides chunk
   const bool step_scale = chunk % KT == 0;
 
@@ -178,19 +141,24 @@ mm_int8_skinny(const float* __restrict__ x, const int8_t* __restrict__ wq,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
 
-  // software pipeline: the next step's weight rows are in flight while
-  // this step's FMAs run
-  char4 cur[RPT], nxt[RPT];
-  load_rows(wq, k_begin, kl, k_end, N, n, cur);
-  for (int k0 = k_begin; k0 < k_end; k0 += KT) {
-    __syncthreads();
-    for (int i = tid; i < KT * MB; i += 256) {
-      const int m = i / KT, kk = i % KT;
-      xs[m][kk] =
-          (m < M && k0 + kk < k_end) ? x[(size_t)m * K + k0 + kk] : 0.f;
-    }
-    __syncthreads();
-    if (k0 + KT < k_end) load_rows(wq, k0 + KT, kl, k_end, N, n, nxt);
+#pragma unroll
+  for (int s = 0; s < DSTAGES - 1; ++s) {
+    if (s < steps)
+      load_step<MB, VEC>(smem + s * D::STAGE, x, wq, k_begin + s * KT,
+                         k_end, n0, M, N, K);
+    cp_commit();
+  }
+  for (int st = 0; st < steps; ++st) {
+    const int k0 = k_begin + st * KT;
+    cp_wait<DSTAGES - 2>();
+    __syncthreads();                // step st landed; step st - 1 consumed
+    if (st + DSTAGES - 1 < steps)
+      load_step<MB, VEC>(smem + (st + DSTAGES - 1) % DSTAGES * D::STAGE, x,
+                         wq, k0 + (DSTAGES - 1) * KT, k_end, n0, M, N, K);
+    cp_commit();
+    const char* stage = smem + st % DSTAGES * D::STAGE;
+    const float* xs = reinterpret_cast<const float*>(stage);
+    const char* ws = stage + D::XS;
     float4 s4 = __ldg(reinterpret_cast<const float4*>(
         scales + (size_t)(k0 / chunk) * N + n));
 #pragma unroll
@@ -199,18 +167,18 @@ mm_int8_skinny(const float* __restrict__ x, const int8_t* __restrict__ wq,
       if (!step_scale)
         s4 = __ldg(reinterpret_cast<const float4*>(
             scales + (size_t)(min(k, k_end - 1) / chunk) * N + n));
-      // rows past k_end loaded as zero: they add nothing
-      const float w[4] = {(float)cur[r].x * s4.x, (float)cur[r].y * s4.y,
-                          (float)cur[r].z * s4.z, (float)cur[r].w * s4.w};
+      // rows past k_end landed as zero: they add nothing
+      const char4 q =
+          *reinterpret_cast<const char4*>(ws + (kl + 32 * r) * 32 + 4 * cgp);
+      const float w[4] = {(float)q.x * s4.x, (float)q.y * s4.y,
+                          (float)q.z * s4.z, (float)q.w * s4.w};
 #pragma unroll
       for (int m = 0; m < MB; ++m) {
-        const float xv = xs[m][kl + 32 * r];
+        const float xv = xs[m * KT + kl + 32 * r];
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[m][j] += xv * w[j];
       }
     }
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) cur[r] = nxt[r];
   }
   // the 4 K lanes of a warp sit 8 and 16 lanes apart
 #pragma unroll
@@ -222,6 +190,9 @@ mm_int8_skinny(const float* __restrict__ x, const int8_t* __restrict__ wq,
       v += __shfl_xor_sync(0xffffffffu, v, 16);
       acc[m][j] = v;
     }
+  cp_wait<0>();
+  __syncthreads();                  // every stage consumed: reuse them
+  float (*red)[MB][32] = reinterpret_cast<float (*)[MB][32]>(smem);
   if (lane < 8) {
 #pragma unroll
     for (int m = 0; m < MB; ++m)
@@ -253,11 +224,12 @@ mm_int8_skinny(const float* __restrict__ x, const int8_t* __restrict__ wq,
   cluster.sync();  // keep every block's shared memory alive until read
 }
 
-template <int MB>
-cudaError_t launch_skinny(const float* x, const int8_t* wq,
-                          const float* scales, const float* bias,
-                          const float* res, float* out, int M, int N, int K,
-                          int chunk, int act, cudaStream_t stream) {
+template <int MB, bool VEC>
+cudaError_t launch_skinny_form(const float* x, const int8_t* wq,
+                               const float* scales, const float* bias,
+                               const float* res, float* out, int M, int N,
+                               int K, int chunk, int act,
+                               cudaStream_t stream) {
   // split K over KS blocks of a cluster while the grid still fits two
   // blocks per SM (264) and each K range keeps at least one step
   const int slabs = (N + 31) / 32;
@@ -265,9 +237,15 @@ cudaError_t launch_skinny(const float* x, const int8_t* wq,
   while (ks < MAX_KS && slabs * ks * 2 <= 264 && K / (2 * ks) >= KT)
     ks *= 2;
   const int kpb = (K / ks + KT - 1) / KT * KT;
+  constexpr int bytes = Dec<MB>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      mm_int8_skinny<MB, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(slabs, ks);
   cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -276,30 +254,30 @@ cudaError_t launch_skinny(const float* x, const int8_t* wq,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, mm_int8_skinny<MB>, x, wq, scales, bias, res,
-                         out, M, N, K, chunk, act, kpb);
+  err = cudaLaunchKernelEx(&cfg, mm_int8_skinny<MB, VEC>, x, wq, scales,
+                           bias, res, out, M, N, K, chunk, act, kpb);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
-template <int BM, int BN, int BK, int TM, int TN>
-cudaError_t launch_tiled(const float* x, const int8_t* wq,
-                         const float* scales, const float* bias,
-                         const float* res, float* out, int M, int N, int K,
-                         int chunk, int act, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  mm_int8_tiled<BM, BN, BK, TM, TN>
-      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(x, wq, scales, bias, res,
-                                                   out, M, N, K, chunk, act);
-  return cudaGetLastError();
+template <int MB>
+cudaError_t launch_skinny(const float* x, const int8_t* wq,
+                          const float* scales, const float* bias,
+                          const float* res, float* out, int M, int N, int K,
+                          int chunk, int act, cudaStream_t stream) {
+  return N % 16 == 0
+             ? launch_skinny_form<MB, true>(x, wq, scales, bias, res, out, M,
+                                            N, K, chunk, act, stream)
+             : launch_skinny_form<MB, false>(x, wq, scales, bias, res, out,
+                                             M, N, K, chunk, act, stream);
 }
 
 }  // namespace
 
 // x [M, K] f32, wq [K, N] int8, scales [K/chunk, N] f32, bias [N] or
-// NULL, res [M, N] or NULL, out [M, N] f32; all contiguous.  K and
-// chunk must be multiples of the tile depth 32, N of 4.
+// NULL, res [M, N] or NULL, out [M, N] f32; all contiguous, x, wq and
+// scales 16-byte aligned.  K and chunk must be multiples of the tile
+// depth 32, N of 4.
 extern "C" int matmul_int8_f32(const float* x, const int8_t* wq,
                                const float* scales, const float* bias,
                                const float* res, float* out, int M, int N,
@@ -319,9 +297,20 @@ extern "C" int matmul_int8_f32(const float* x, const int8_t* wq,
   if (M <= 8)
     return (int)launch_skinny<8>(x, wq, scales, bias, res, out, M, N, K,
                                  chunk, act, s);
-  if (M <= 16)
-    return (int)launch_skinny<16>(x, wq, scales, bias, res, out, M, N, K,
-                                  chunk, act, s);
-  return (int)launch_tiled<64, 64, 32, 4, 4>(x, wq, scales, bias, res, out,
-                                             M, N, K, chunk, act, s);
+  if (M <= DECODE_M)
+    return (int)launch_skinny<DECODE_M>(x, wq, scales, bias, res, out, M, N,
+                                        K, chunk, act, s);
+  const gemm::Args a{x, wq, scales, bias, res, out, nullptr, M, N, K, chunk,
+                     act};
+  return (int)gemm::run<gemm::Int8W>(a, N % 16 == 0, s);
+}
+
+// The tile (BM, BN) matmul_int8_f32 runs for an [M, N] output, or
+// (0, 0) for the decode kernel.
+extern "C" int matmul_int8_tile(int M, int N, int* bm, int* bn) {
+  if (M <= DECODE_M) {
+    *bm = *bn = 0;
+    return 0;
+  }
+  return (int)gemm::tile_of(M, N, bm, bn);
 }

@@ -37,10 +37,10 @@ from ._build import ptr, require, route, stream
 __all__ = ["apply_act", "matmul_epilogue_reference", "matmul_epilogue",
            "ln_from_sum", "add_ln_reference", "add_ln", "quantize_weight",
            "dequantize_weight", "matmul_int8_reference",
-           "matmul_int8_dequant"]
+           "matmul_int8_dequant", "tile_form"]
 
 _ACTS = {"": 0, "relu": 1, "gelu": 2}
-_BK = 32   # the kernel's K tile depth (BK in csrc/matmul_int8.cu)
+_BK = 32   # the GEMM tile's K depth (Tile::BK in csrc/gemm_tile.cuh)
 _LN_MAX_D = 1024   # add_ln_kernel keeps a row in one warp's registers
 
 
@@ -280,6 +280,8 @@ def matmul_int8_dequant(x2, wq, scales, chunk, bias=None, residual=None,
                                      residual, act)
     require(all(t.is_contiguous() for t in [x2, wq, scales] + extra),
             "int8 matmul kernel needs contiguous inputs")
+    require(all(t.data_ptr() % 16 == 0 for t in [x2, wq, scales] + extra),
+            "int8 matmul kernel needs 16-byte aligned inputs")
     require(m > 0 and k % _BK == 0 and chunk % _BK == 0 and n % 4 == 0,
             "int8 matmul kernel needs K and chunk multiples of %d and "
             "N a multiple of 4" % _BK)
@@ -298,3 +300,20 @@ def matmul_int8_dequant(x2, wq, scales, chunk, bias=None, residual=None,
 
 
 matmul_int8_dequant.launches = 0
+
+
+def tile_form(kernel, m, n):
+    """The form the CUDA launcher of ``kernel`` ('matmul_epilogue', K4,
+    or 'matmul_int8', K8) runs for an [m, n] output: 'tile BMxBN' (the
+    split-TF32 GEMM tile's shape) or 'decode' (K8 at M <= 16), as the
+    launcher itself decides (from the card's SM count)."""
+    require(kernel in ("matmul_epilogue", "matmul_int8"),
+            "no tile form for %r" % (kernel,))
+    fn = _build.function(
+        "matmul_fused" if kernel == "matmul_epilogue" else "matmul_int8",
+        kernel + "_tile",
+        [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+         ctypes.POINTER(ctypes.c_int)])
+    bm, bn = ctypes.c_int(), ctypes.c_int()
+    _build.check(fn(m, n, ctypes.byref(bm), ctypes.byref(bn)), kernel)
+    return "tile %dx%d" % (bm.value, bn.value) if bm.value else "decode"

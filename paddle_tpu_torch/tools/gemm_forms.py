@@ -1,0 +1,223 @@
+"""Time tile forms of the split-TF32 GEMM tile (K4, K8's prefill form)
+at the same shapes on the card.
+
+``matmul_fused.cu`` (K4) and ``matmul_int8.cu`` (K8, M > 16) run
+``gemm_tile.cuh``'s tile in one of two forms, picked inside the C
+launcher from the grid (``gemm::use_large``): Large (128 x 64, 4 warps,
+3 stages) when its blocks give every SM one, else Small (64 x 64, 4
+warps, 4 stages).  The product has no way to force a form.  This tool compiles,
+beside the product libraries, one translation unit that includes the
+tile and exports a launcher for each form of ``FORMS`` (the two the
+product uses and candidates of other shapes and K depths), then
+times every form on the same inputs (CUDA events, median of single
+calls, L2 flushed before each) and holds each against the plain
+version at atol = rtol = 1e-4:
+
+- K4 at the fused LM step's five projections, M = 16 x 2048, with
+  their epilogues (``chip_smoke.FUSED_MATMULS``);
+- K8 at the int8 tenant's four projections at prefill buckets M = 64,
+  256, 1024 (the largest the serve phase pads to) and 2048.
+
+Run on a CUDA machine from the repository root:
+
+    python -m paddle_tpu_torch.tools.gemm_forms [--k8-only]
+
+Prints one JSON line per shape (each form's ms and agreement, the form
+the launcher picks, the library call's ms), then the card's name and
+power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..kernels import _build
+from ..kernels.matmul_fused import (dequantize_weight, matmul_epilogue,
+                                    matmul_epilogue_reference,
+                                    matmul_int8_reference, quantize_weight,
+                                    tile_form)
+
+TOL = 1e-4
+# (name, gemm::Tile<BM, BN, WM, WN, STAGES, MIN_BLOCKS>); the first two
+# are the product's Large and Small
+FORMS = (("large", "Large"),
+         ("small", "Small"),
+         ("128x128", "Tile<128, 128, 2, 4, 3, 1>"),
+         ("128x128k64", "Tile<128, 128, 2, 4, 3, 1, 64>"),
+         ("64x128", "Tile<64, 128, 2, 2, 4, 2>"),
+         ("64x64k64", "Tile<64, 64, 2, 2, 3, 2, 64>"))
+_ACTS = {"": 0, "relu": 1, "gelu": 2}
+
+
+def _source():
+    cases = "\n".join(
+        "    case %d: return vec ? launch<%s, W, true>(a, s)\n"
+        "                       : launch<%s, W, false>(a, s);"
+        % (i, t, t) for i, (_, t) in enumerate(FORMS))
+    return r'''
+#include "%s/gemm_tile.cuh"
+using namespace gemm;
+template <class W>
+static cudaError_t run_form(int form, const Args& a, bool vec,
+                            cudaStream_t s) {
+  switch (form) {
+%s
+  }
+  return cudaErrorInvalidValue;
+}
+extern "C" int gemm_form_f32(int form, const float* x, const float* w,
+                             const float* bias, const float* res,
+                             float* out, float* pre, int M, int N, int K,
+                             int act, void* stream) {
+  const Args a{x, w, nullptr, bias, res, out, pre, M, N, K, 0, act};
+  return (int)run_form<F32W>(form, a, N %% 4 == 0,
+                             static_cast<cudaStream_t>(stream));
+}
+extern "C" int gemm_form_int8(int form, const float* x, const int8_t* w,
+                              const float* scales, const float* bias,
+                              const float* res, float* out, int M, int N,
+                              int K, int chunk, int act, void* stream) {
+  const Args a{x, w, scales, bias, res, out, nullptr, M, N, K, chunk, act};
+  return (int)run_form<Int8W>(form, a, N %% 16 == 0,
+                              static_cast<cudaStream_t>(stream));
+}
+''' % (_build.CSRC, cases)
+
+
+def build():
+    """Compile the form exporter into ``_build/forms/``; returns its
+    ctypes entries (f32, int8) and ptxas's summary per kernel."""
+    out = os.path.join(_build.BUILD_DIR, "forms")
+    os.makedirs(out, exist_ok=True)
+    src = os.path.join(out, "gemm_forms.cu")
+    with open(src, "w") as f:
+        f.write(_source())
+    lib = os.path.join(out, "gemm_forms.so")
+    proc = subprocess.run(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed:\n%s" % proc.stdout[-4000:])
+    dll = ctypes.CDLL(lib)
+    f32, i8 = dll.gemm_form_f32, dll.gemm_form_int8
+    f32.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    i8.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    f32.restype = i8.restype = ctypes.c_int
+    return f32, i8, _build._ptxas_summary(proc.stdout)
+
+
+class Timer:
+    """Median CUDA-event time of single calls, the L2 flushed (a 64 MiB
+    read) before each and the card kept busy while the host enqueues."""
+
+    def __init__(self):
+        self.flush = torch.ones(16 << 20, device="cuda")
+
+    def __call__(self, fn, iters=15, warmup=2):
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(iters):
+            self.flush.sum()
+            torch.cuda._sleep(2_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        times.sort()
+        return times[len(times) // 2]
+
+
+def _close(got, want):
+    return bool(torch.allclose(got, want, atol=TOL, rtol=TOL))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k8-only", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("gemm_forms needs a CUDA card")
+    resolve_device("cuda")
+    f32, i8, ptxas = build()
+    for sym, line in sorted(ptxas.items()):
+        print(json.dumps({"kernel": sym, "ptxas": line}), flush=True)
+    timer = Timer()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p = _build.ptr
+    null = ctypes.c_void_p(None)
+    rng = np.random.RandomState(0)
+
+    for kk, n in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
+        w = (rng.randn(kk, n) * 0.1).astype(np.float32)
+        qn, sn, chunk = quantize_weight(w)
+        wq, sc = torch.from_numpy(qn).cuda(), torch.from_numpy(sn).cuda()
+        wd = dequantize_weight(wq, sc, chunk)
+        for m in (64, 256, 1024, 2048):
+            x = torch.randn(m, kk, device="cuda", generator=gen)
+            out = torch.empty(m, n, device="cuda")
+            want = matmul_int8_reference(x, wq, sc, chunk)
+            row = {"kernel": "matmul_int8", "shape": [m, kk, n],
+                   "launcher_picks": tile_form("matmul_int8", m, n),
+                   "library_ms": timer(lambda: torch.matmul(x, wd))}
+            for f, (name, _) in enumerate(FORMS):
+                call = lambda: _build.check(i8(
+                    f, p(x), p(wq), p(sc), null, null, p(out), m, n, kk,
+                    chunk, 0, st()), "gemm_form_int8")
+                call()
+                row[name + "_ok"] = _close(out, want)
+                row[name + "_ms"] = timer(call)
+            print(json.dumps(row), flush=True)
+    if not args.k8_only:
+        m = 16 * 2048
+        for what, kk, n, with_bias, act in (
+                ("qkv", 1024, 3072, False, ""),
+                ("out_proj", 1024, 1024, True, ""),
+                ("fc1", 1024, 4096, True, "relu"),
+                ("fc2", 4096, 1024, True, ""),
+                ("lm_head", 1024, 8192, True, "")):
+            x = torch.randn(m, kk, device="cuda", generator=gen)
+            w = torch.randn(kk, n, device="cuda", generator=gen) * kk ** -0.5
+            bias = (torch.randn(n, device="cuda", generator=gen)
+                    if with_bias else None)
+            out = torch.empty(m, n, device="cuda")
+            want = matmul_epilogue_reference(x, w, bias, None, act)[0]
+            row = {"kernel": "matmul_epilogue", "shape": [m, kk, n],
+                   "what": what,
+                   "launcher_picks": tile_form("matmul_epilogue", m, n),
+                   "product_ms": timer(lambda: matmul_epilogue(
+                       x, w, bias, None, act), iters=7),
+                   "library_ms": timer(
+                       lambda: torch.addmm(bias, x, w) if with_bias
+                       else torch.matmul(x, w), iters=7)}
+            for f, (name, _) in enumerate(FORMS):
+                call = lambda: _build.check(f32(
+                    f, p(x), p(w), p(bias) if bias is not None else null,
+                    null, p(out), null, m, n, kk, _ACTS[act], st()),
+                    "gemm_form_f32")
+                call()
+                row[name + "_ok"] = _close(out, want)
+                row[name + "_ms"] = timer(call, iters=7)
+            print(json.dumps(row), flush=True)
+            del x, w, bias, out, want
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

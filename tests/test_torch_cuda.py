@@ -321,6 +321,97 @@ def test_int8_decode_rows_are_batch_invariant(cuda):
                                                chunk), full[:m])
 
 
+def _epilogues(bias, res):
+    """Every epilogue: act x (bias, residual) combinations."""
+    return [(act, b, r) for act in ("", "relu", "gelu")
+            for b, r in ((None, None), (bias, None), (bias, res),
+                         (None, res))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [None, 256])
+@pytest.mark.parametrize("m", [17, 100, 1000, 1024, 2048])
+def test_int8_prefill_kernel_matches_plain_on_card(cuda, m, chunk):
+    """K8's prefill form (M > 16, the split-TF32 GEMM tile) at K = 4096:
+    two default chunks of 2048 or sixteen of 256, every epilogue; N =
+    1536 (16-byte weight rows; both tile forms over the M range) and
+    N = 1000 (4-byte copies)."""
+    rng = np.random.RandomState(2)
+    k = 4096
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(cuda)
+    for n in (1536, 1000):
+        w = (rng.randn(k, n) * 0.1).astype(np.float32)
+        q, s, ch = pmm.quantize_weight(w, chunk=chunk)
+        assert ch == (chunk or 2048)
+        q, s = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+        bias = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+        res = torch.from_numpy(rng.randn(m, n).astype(np.float32)).to(cuda)
+        for act, b, r in _epilogues(bias, res):
+            out = matmul_int8_dequant(x, q, s, ch, b, r, act)
+            ref = pmm.matmul_int8_reference(x, q, s, ch, b, r, act)
+            torch.testing.assert_close(out, ref, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5, 16])
+def test_int8_decode_kernel_on_4byte_rows_on_card(cuda, m):
+    """K8's decode form (M <= 16) where N % 16 != 0, so its weight rows
+    take 4-byte copies: K = 4096 over sixteen chunks of 256, every
+    epilogue."""
+    rng = np.random.RandomState(5)
+    k, n = 4096, 1000
+    w = (rng.randn(k, n) * 0.1).astype(np.float32)
+    q, s, chunk = pmm.quantize_weight(w, chunk=256)
+    q, s = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    res = torch.from_numpy(rng.randn(m, n).astype(np.float32)).to(cuda)
+    assert pmm.tile_form("matmul_int8", m, n) == "decode"
+    for act, b, r in _epilogues(bias, res):
+        out = matmul_int8_dequant(x, q, s, chunk, b, r, act)
+        ref = pmm.matmul_int8_reference(x, q, s, chunk, b, r, act)
+        torch.testing.assert_close(out, ref, **TOL)
+
+
+@pytest.mark.cuda
+def test_int8_prefill_rows_are_batch_invariant(cuda):
+    """A prefill row's result does not depend on the batch it is in:
+    rows of an M = 64 call (the Small tile form) equal the same rows of
+    an M = 1024 call (the Large form) bit for bit."""
+    rng = np.random.RandomState(3)
+    w = (rng.randn(1024, 3072) * 0.1).astype(np.float32)
+    q, s, chunk = pmm.quantize_weight(w)
+    q, s = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    x = torch.from_numpy(rng.randn(1024, 1024).astype(np.float32)).to(cuda)
+    assert pmm.tile_form("matmul_int8", 64, 3072) != \
+        pmm.tile_form("matmul_int8", 1024, 3072)
+    full = matmul_int8_dequant(x, q, s, chunk)
+    for r0 in (0, 512, 960):
+        part = matmul_int8_dequant(x[r0:r0 + 64].contiguous(), q, s, chunk)
+        assert torch.equal(part, full[r0:r0 + 64])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(4096, 1024), (300, 1001)])
+def test_matmul_epilogue_kernel_at_k4096_on_card(cuda, m, n):
+    """K4 over K = 4096 (fc2's depth, 128 K tiles each summed in a fresh
+    fragment), every epilogue, out and pre: the Large form with
+    16-byte copies and the Small form with 4-byte ones."""
+    rng = np.random.RandomState(4)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype(np.float32)).to(cuda)
+
+    x, w = t(m, 4096), t(4096, n, scale=4096 ** -0.5)
+    bias, res = t(n), t(m, n)
+    for act, b, r in _epilogues(bias, res):
+        out, pre = pmm.matmul_epilogue(x, w, b, r, act, save_preact=True)
+        want, want_pre = pmm.matmul_epilogue_reference(x, w, b, r, act)
+        torch.testing.assert_close(out, want, **TOL)
+        torch.testing.assert_close(pre, want_pre, **TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(33, 4, 7), (100, 68, 130),
                                    (128, 256, 256), (257, 1024, 3072),
