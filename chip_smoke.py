@@ -17,8 +17,8 @@ Phases, each printed as one JSON line:
              K9 against split-TF32 tensor-core products, K8 against the
              two-MMA split its exact int8 weights allow, the rest
              against f32 FMAs; ``ops_rate`` says which); K4 also at
-             every epilogue variant on ragged shapes; each K4 and K8
-             row's ``form`` names the form it ran;
+             every epilogue variant on ragged shapes; each K4, K6 and
+             K8 row's ``form`` names the form it ran;
 4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
@@ -83,13 +83,15 @@ split-TF32 GEMM tile of csrc/gemm_tile.cuh: "tile 128x64" where its
 blocks give every SM one, else "tile 64x64"), and checks that prefill
 rows are batch-invariant (64-row calls give the M = 1024 call's rows
 bit for bit); K4 at the fused step's five projections at M = 16 x 2048
-(all "tile 128x64"); K6 against its plain version at each of the path's 20
-conv shapes at batch 256 (statistics form; the five heaviest also with
-affine + residual + relu) and at every epilogue combination on ragged
-shapes; K9 at the ring's shard [16, 8, 512, 128] (the diagonal causal
-fold, a non-causal fold from a carry seeded by an earlier one, a
-half-masked and a wholly masked block, the last bit-identical to its
-carry); K2/K3 at that shape, non-causal and the causal diagonal; K10, which no path runs, at the
+(all "tile 128x64"); K6 (an implicit GEMM on the same tile, all "tile
+128x64") against its plain version at each of the path's 20 conv shapes at batch 256 (statistics form; the five heaviest
+also with affine + residual + relu) and at every epilogue combination
+on ragged shapes and at the path's widths (K = 4608, a Co = 64 3x3
+stage at 56 x 56, the stem at 224 x 224); K9 at the ring's shard
+[16, 8, 512, 128] (the diagonal causal fold, a non-causal fold from a
+carry seeded by an earlier one, a half-masked and a wholly masked
+block, the last bit-identical to its carry); K2/K3 at that shape,
+non-causal and the causal diagonal; K10, which no path runs, at the
 LM's logits [32768, 8192].
 
 Then the kernels' summary line, the nvidia-smi line, and as the last
@@ -258,7 +260,7 @@ def check_kernels(torch, timer):
     from paddle_tpu_torch.kernels.fused import (
         fused_softmax_cross_entropy, softmax_ce_reference)
     from paddle_tpu_torch.kernels.conv_fused import (
-        conv2d_nhwc, conv2d_nhwc_reference)
+        conv2d_nhwc, conv2d_nhwc_reference, conv_stage_tile)
     from paddle_tpu_torch.kernels.matmul_fused import (
         add_ln, add_ln_reference, dequantize_weight, matmul_epilogue,
         matmul_epilogue_reference, matmul_int8_dequant,
@@ -553,6 +555,8 @@ def check_kernels(torch, timer):
                    err, ok, row["ms"], row["plain_ms"], row["library_ms"],
                    nbytes, conv_min_flops(nb, shp))
             rows[-1]["stats_rel_err"] = rel
+            rows[-1]["form"] = "tile %dx%d" % conv_stage_tile(
+                nb * ho * ho, co)
             if mode == "stats":
                 row["bound_ms"] = rows[-1]["bound_ms"]
                 for key in fwd:
@@ -566,10 +570,14 @@ def check_kernels(torch, timer):
                  "bound_by": "operations",
                  "ops_rate": ops_rate("conv_stage")[0]})
     # every epilogue combination on ragged shapes: M not a multiple of
-    # the tile, the stem's scalar gather (Ci = 3, 7x7, stride 2, padding
-    # 3, Co = 64) and a float4-gather 3x3 stage
+    # the tile, the stem's 4-byte gather (Ci = 3, 7x7, stride 2, padding
+    # 3, Co = 64) and a 16-byte-gather 3x3 stage; then at the path's
+    # widths: K = 4608 with M = 196, a Co = 64 3x3 stage, the full stem
     for n_, h, ci, co, k, s, p in ((3, 23, 3, 64, 7, 2, 3),
-                                   (2, 9, 64, 128, 3, 1, 1)):
+                                   (2, 9, 64, 128, 3, 1, 1),
+                                   (4, 7, 512, 512, 3, 1, 1),
+                                   (2, 56, 64, 64, 3, 1, 1),
+                                   (2, 224, 3, 64, 7, 2, 3)):
         ho = (h + 2 * p - k) // s + 1
         x = torch.randn(n_, h, h, ci, device=dev, generator=gen)
         w = torch.randn(k, k, ci, co, device=dev, generator=gen) * \

@@ -13,7 +13,9 @@ Counterpart of ``paddle_tpu/kernels/conv_fused.py``:
   f32 conv output, then the epilogue);
 - ``fused_conv_bn_act_reference``: the test-mode conv + BN (+ residual)
   (+ relu) stage from running statistics;
-- ``stats_error``: the rule K6's statistics are held to.
+- ``stats_error``: the rule K6's statistics are held to;
+- ``conv_stage_tile``: the tile K6 runs for a shape (its rows of
+  statistics partials).
 
 A CPU tensor runs the plain version; a CUDA tensor launches K6 or
 raises (there is no fallback).  ``conv2d_nhwc.launches`` counts kernel
@@ -32,16 +34,15 @@ from ._build import ptr, require, route, stream
 
 __all__ = ["nchw_views", "conv_nhwc", "conv2d_nhwc_reference",
            "conv2d_nhwc", "fused_conv_bn_act_reference", "stats_error",
-           "STATS_RTOL", "STATS_TILE"]
+           "conv_stage_tile", "STATS_RTOL"]
 
-STATS_TILE = 128   # output pixels per stats partial (BM in the kernel)
 # K6's per-channel sums over N*Ho*Wo pixels are sums of values near 0, so
 # each is held to STATS_RTOL of the sum of its terms' magnitudes, against
 # a float64 sum of K6's own raw conv output (which the output check holds
-# to the plain conv).  What that leaves is the f32 reduction: 8 rows, 16
-# row groups, then the tiles' partials, worst ~2e-7 of the magnitudes;
-# one lost 128-pixel partial of the stem (25,088 of them at batch 256)
-# moves a sum by ~4e-5 of them
+# to the plain conv).  What that leaves is the f32 reduction: a thread's
+# 8 rows, 8 row groups, the 2 warps along M, then the tiles' partials,
+# worst ~3e-7 of the magnitudes; one lost 128-pixel partial of the stem
+# (25,088 of them at batch 256) moves a sum by ~4e-5 of them
 STATS_RTOL = 1e-6
 _ACTS = {"": 0, "relu": 1}
 
@@ -135,28 +136,52 @@ def conv2d_nhwc(x, w, strides=(1, 1), paddings=(0, 0), *, stats=False,
     require(co % 4 == 0, "conv stage kernel needs Co a multiple of 4, got %d"
             % co)
     out = torch.empty((n, ho, wo, co), dtype=torch.float32, device=x.device)
-    m = n * ho * wo
-    partials = torch.empty(((m + STATS_TILE - 1) // STATS_TILE, 2, co),
-                           dtype=torch.float32, device=x.device) \
-        if stats else None
+    partials = None
+    if stats:
+        bm, _ = conv_stage_tile(n * ho * wo, co)
+        partials = torch.empty((-(-n * ho * wo // bm), 2, co),
+                               dtype=torch.float32, device=x.device)
+    _launch(x, w, (sh, sw), (ph, pw), affine, residual, act, out, partials)
+    conv2d_nhwc.launches += 1
+    if not stats:
+        return out
+    sums = partials.sum(dim=0)
+    return out, sums[0], sums[1]
+
+
+conv2d_nhwc.launches = 0
+
+
+def _launch(x, w, strides, paddings, affine, residual, act, out, partials):
+    """One launch of K6 on checked operands; ``partials`` (or None) has
+    ceil(M / BM) rows, BM from conv_stage_tile."""
     fn = _build.function(
         "conv_fused", "conv_stage_f32",
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     null = ctypes.c_void_p(None)
+    n, h, wd, ci = x.shape
+    kh, kw, _, co = w.shape
     rc = fn(ptr(x), ptr(w),
             ptr(affine[0]) if affine is not None else null,
             ptr(affine[1]) if affine is not None else null,
             ptr(residual) if residual is not None else null,
-            ptr(out), ptr(partials) if stats else null,
-            n, h, wd, ci, co, kh, kw, sh, sw, ph, pw, _ACTS[act], stream())
+            ptr(out), ptr(partials) if partials is not None else null,
+            n, h, wd, ci, co, kh, kw, *strides, *paddings, _ACTS[act],
+            stream())
     _build.check(rc, "conv2d_nhwc")
-    conv2d_nhwc.launches += 1
-    if not stats:
-        return out
-    return out, partials[:, 0].sum(dim=0), partials[:, 1].sum(dim=0)
 
 
-conv2d_nhwc.launches = 0
+def conv_stage_tile(m, co):
+    """The output tile (BM, BN) K6 runs for ``m`` output pixels and
+    ``co`` channels, as its launcher decides: each BM pixels give one
+    row of statistics partials."""
+    fn = _build.function(
+        "conv_fused", "conv_stage_tile",
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    bm, bn = ctypes.c_int(), ctypes.c_int()
+    _build.check(fn(m, co, ctypes.byref(bm), ctypes.byref(bn)),
+                 "conv_stage_tile")
+    return bm.value, bn.value
 
 
 def fused_conv_bn_act_reference(x, w, scale, bias, mean, var, *, strides,

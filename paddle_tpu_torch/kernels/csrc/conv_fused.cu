@@ -1,5 +1,6 @@
 // K6: the ResNet conv stage -- an NHWC x HWIO convolution in float32 with
-// a fused epilogue, as an implicit GEMM.
+// a fused epilogue, as an implicit GEMM on the split-TF32 tensor-core
+// tile of gemm_tile.cuh.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/conv_fused.py
 // _conv_stage_kernel (launched by conv2d_nhwc): x f32 [N, H, W, Ci] (NHWC)
@@ -7,299 +8,367 @@
 // zero padding (ph, pw) into an f32 accumulator, then, from the
 // accumulator and in this order:
 //   stats    per-channel partial (sum acc, sum acc^2), written per M tile
-//            to partials [ceil(M / 128), 2, Co] before any other epilogue
+//            to partials [ceil(M / BM), 2, Co] before any other epilogue
 //            (the wrapper reduces them in a fixed order: deterministic,
-//            no atomics);
+//            no atomics; conv_stage_tile gives BM);
 //   affine   y = acc * a[c] + b[c] (the test-mode BatchNorm fold);
 //   residual y += r;
 //   act      relu.
 //
-// What bounds K6 on the H100: float32 FMA throughput (67 TFLOP/s).  Every
-// ResNet-50 stage shape at batch 256 does 120..1100 FLOPs per byte it
-// must move, far above the card's 20 FLOP/byte in f32, and TF32 would
-// keep only ~3 decimal digits of the reference's f32 conv.
+// The product: M = N * Ho * Wo output pixels, GEMM-N = Co, K = KH * KW *
+// Ci in (kh, kw, ci) order, which is HWIO's row order, so the filter as
+// stored is the row-major [K, Co] W operand that gemm_tile.cuh's F32W
+// load reads.  The products run in split-TF32 on mma.sync (three TF32
+// MMAs a product, each 32-deep K tile in a fresh fragment added in
+// float32: float32's accuracy at K = 4608, tf32_mma.cuh).
 //
-// Design: the Pallas kernel runs one image per grid step over an input
-// padded in HBM.  Here the conv is an implicit GEMM: M = N * Ho * Wo
-// output pixels, GEMM-N = Co, K = KH * KW * Ci.  The HWIO filter as
-// stored is the row-major [K, Co] B operand.  The A tile is gathered
-// straight from NHWC x through (n, ho, wo) x (kh, kw, ci) index
-// arithmetic; padding is a zero predicate on the load, so there is no
-// im2col buffer and no padded copy in memory.  M tiles run across image
-// boundaries, so the 7 x 7 stages (49 rows an image) still fill a tile.
-// The tile machinery is K4's (csrc/matmul_fused.cu): one block owns a
-// 128 x 128 output tile and loops over K itself, 256 threads each hold
-// an 8 x 8 accumulator (two 4 x 4 quadrants 64 apart), K tiles 8 deep
-// are double-buffered in shared memory with the next tile's loads in
-// registers during the FMAs, the A tile stored k-major and padded.
-// Scalar f32 FMAs, no TF32.  Ci % 8 == 0 (every ResNet stage but the
-// stem) selects float4 gathers along Ci: an 8-deep K tile then lies in
-// one (kh, kw) tap, whose position every thread tracks incrementally.
-// The stem (Ci = 3) gathers scalars and decomposes each k.  Co must be a
-// multiple of 4 (float4 loads of w, a, b, r and stores of out); ragged M
-// and Co are masked.  The stats reduction reuses the tile buffers.
+// What bounds K6 on the H100, at ResNet-50's 20 stage shapes at batch
+// 256: the 3x3 stages and the stem by their operations (120..1100 FLOPs
+// a byte; 164.9 TFLOP/s for f32-accurate products, where the f32 FMA
+// pipes give 67); the 1x1 stages with K = 64 by their bytes (the output
+// is most of them: (56, 64, 256, 1x1) writes 822 MB, 0.25 ms at
+// 3.35 TB/s); the other 1x1 stages by both about equally.
+//
+// Design.  The Pallas kernel runs one image a grid step over an input
+// padded in HBM.  Here the tile's mainloop is K4's and K8's; only the A
+// operand and the epilogue are K6's own (gemm_tile.cuh's policies):
+// - ConvA gathers A straight from NHWC x: no im2col buffer, no padded
+//   copy.  Once a block it writes each of its BM rows' (offset of x at
+//   the top-left tap from the block's first image, hi0, wi0) into a
+//   table in shared memory (a thread copies for 8 rows, too many to
+//   hold in registers beside the accumulators); a copy is then one
+//   16-byte table read, two bounds checks and a 32-bit offset.  A thread's K column lies in one tap (kh, kw): with
+//   Ci % 4 == 0 its 4 channels are one 16-byte cp.async, else one
+//   4-byte one a channel (the stem, Ci = 3).  Each K tile the thread
+//   steps its (kh, kw, ci) by BK, so the K loop has no integer divide.
+//   Padding, the ragged M edge and k >= K are cp.async's zero fill.
+//   M tiles run across image boundaries, so the 7 x 7 stages fill them.
+// - ConvEpi runs from the accumulator fragments: the statistics of the
+//   raw accumulator over the tile's valid rows, summed in one fixed
+//   order (a thread's own rows, then the 8 row groups of a fragment by
+//   __shfl_xor over lane bits 2..4, then the WM warps along M through
+//   shared memory), then affine, residual (every load issued before the
+//   first store), relu and the float2 store.
+// Form (conv_stage_tile): the tile's Large (128 x 64, 4 warps, two
+// blocks an SM), which gives every one of the 20 shapes at batch 256 at
+// least 784 blocks and the Co = 64 stages a full tile.  It was the
+// fastest at all 20 (tools/gemm_forms.py --k6 times Large, Small and an
+// 8-warp 128 x 128 there, and the stem also with x padded to Ci = 4 for
+// the 16-byte gather, which lost).  Co must be a
+// multiple of 4 (16-byte copies of w, float2 epilogue accesses); any N,
+// H, W, Ci, kernel size, stride and padding.
 #include <cuda_runtime.h>
+
+#include "gemm_tile.cuh"
 
 namespace {
 
-constexpr int BM = 128;      // output pixels per block
-constexpr int BN = 128;      // output channels per block
-constexpr int BK = 8;        // K depth of a shared-memory tile
-constexpr int NT = 256;      // 16 x 16 threads, 8 x 8 outputs each
-constexpr int AP = BM + 4;   // padded row of the transposed A tile
-constexpr int SMEM = 2 * BK * AP + 2 * BK * BN;  // floats
+using gemm::Args;
 
+// x [N, H, W, Ci], w [KH, KW, Ci, Co], out [N, Ho, Wo, Co]
 struct Shape {
-  int N, H, W, Ci, Co, KH, KW, sh, sw, ph, pw, Ho, Wo, M, K;
+  int H, W, Ci, KH, KW, sh, sw, ph, pw, Ho, Wo;
 };
 
-// float4 of x at (image base, hi, wi, c .. c+3), zero outside the image
-__device__ __forceinline__ float4 gather4(const float* __restrict__ xim,
-                                          bool row_ok, int hi, int wi, int c,
-                                          const Shape& s) {
-  if (row_ok && (unsigned)hi < (unsigned)s.H && (unsigned)wi < (unsigned)s.W)
-    return *reinterpret_cast<const float4*>(
-        xim + ((size_t)hi * s.W + wi) * s.Ci + c);
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
+// The A policy of K6: row m of A is output pixel (n, ho, wo), column k
+// is tap (kh, kw) and channel ci, k = (kh * KW + kw) * Ci + ci, and
+// A[m, k] = x[n, ho * sh - ph + kh, wo * sw - pw + kw, ci], zero outside
+// the image.  V4: Ci % 4 == 0, 16-byte copies of 4 channels.
+template <bool V4>
+struct ConvA {
+  using Params = Shape;
+  // a row of the block's table: x's offset at (n, hi0, wi0, 0) from the
+  // block's base (its first row's image; make_call bounds the span),
+  // and the top-left tap's input position (hi0, wi0)
+  template <class C>
+  static constexpr int smem_bytes = C::BM * (int)sizeof(int4);
+  static constexpr int E = V4 ? 4 : 1;   // channels a copy
 
-// the four A values at k .. k+3 for any Ci (the stem): each k decomposed
-// into its (kh, kw, ci)
-__device__ __forceinline__ float4 gather1(const float* __restrict__ xim,
-                                          bool row_ok, int hi0, int wi0,
-                                          int k, const Shape& s) {
-  float v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    v[j] = 0.f;
-    const int kk = k + j;
-    if (row_ok && kk < s.K) {
-      const int tap = kk / s.Ci;
-      const int c = kk - tap * s.Ci;
-      const int kh = tap / s.KW;
-      const int hi = hi0 + kh, wi = wi0 + (tap - kh * s.KW);
-      if ((unsigned)hi < (unsigned)s.H && (unsigned)wi < (unsigned)s.W)
-        v[j] = xim[((size_t)hi * s.W + wi) * s.Ci + c];
-    }
+  const int4* rows;
+  const float* base;   // x at the block's first image
+  int kh, kw, ci;      // this thread's column in the next K tile
+
+  // one grid dimension (M can pass 65535 tiles), N tiles innermost
+  template <class C>
+  static bool grid(const Args& a, dim3& g) {
+    const long long b = ((long long)a.M + C::BM - 1) / C::BM *
+                        ((a.N + C::BN - 1) / C::BN);
+    g = dim3((unsigned)b);
+    return b <= 0x7fffffffLL;
   }
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ float4 load_w(const float* __restrict__ w, int k,
-                                         int n, const Shape& s) {
-  if (k < s.K && n < s.Co)
-    return *reinterpret_cast<const float4*>(w + (size_t)k * s.Co + n);
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// VEC: Ci % 8 == 0
-template <bool VEC>
-__global__ void __launch_bounds__(NT, 2)
-conv_stage_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ a, const float* __restrict__ b,
-                  const float* __restrict__ res, float* __restrict__ out,
-                  float* __restrict__ partials, Shape s, int act) {
-  __shared__ __align__(16) float smem[SMEM];
-  float(*As)[BK][AP] = reinterpret_cast<float(*)[BK][AP]>(smem);
-  float(*Bs)[BK][BN] = reinterpret_cast<float(*)[BK][BN]>(smem + 2 * BK * AP);
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;   // column group: tx*4 .. +3 and 64 + tx*4 ..
-  const int ty = tid / 16;   // row group: ty*4 .. +3 and 64 + ty*4 ..
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  // this thread's share of a tile load: one float4 of A (pixel a_r,
-  // depth a_k .. a_k+3) and one float4 of w (depth b_k, channels b_c ..)
-  const int a_r = tid >> 1, a_k = (tid & 1) * 4;
-  const int b_k = tid >> 5, b_c = (tid & 31) * 4;
-  const int gm_a = m0 + a_r;
-  const int gn_b = n0 + b_c;
-
-  // the output pixel this thread gathers for: image, top-left input tap
-  const bool row_ok = gm_a < s.M;
-  int hi0 = 0, wi0 = 0;
-  const float* xim = x;
-  if (row_ok) {
-    const int hw = s.Ho * s.Wo;
-    const int img = gm_a / hw;
-    const int r = gm_a - img * hw;
-    const int ho = r / s.Wo;
-    hi0 = ho * s.sh - s.ph;
-    wi0 = (r - ho * s.Wo) * s.sw - s.pw;
-    xim = x + (size_t)img * s.H * s.W * s.Ci;
+  template <class C>
+  __device__ __forceinline__ static void tile(const Args& a, int& m0,
+                                              int& n0) {
+    const int ntn = (a.N + C::BN - 1) / C::BN;
+    const int bm = blockIdx.x / ntn;
+    m0 = bm * C::BM;
+    n0 = (blockIdx.x - bm * ntn) * C::BN;
   }
-  // VEC: the (kh, kw, c) of the next K tile to load, the same in every
-  // thread of the block
-  int kh = 0, kw = 0, c0 = 0;
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  float4 ra, rb;
-  if (VEC) {
-    ra = gather4(xim, row_ok, hi0 + kh, wi0 + kw, c0 + a_k, s);
-    c0 += BK;
-    if (c0 == s.Ci) { c0 = 0; if (++kw == s.KW) { kw = 0; ++kh; } }
-  } else {
-    ra = gather1(xim, row_ok, hi0, wi0, a_k, s);
-  }
-  rb = load_w(w, b_k, gn_b, s);
-  As[0][a_k + 0][a_r] = ra.x;
-  As[0][a_k + 1][a_r] = ra.y;
-  As[0][a_k + 2][a_r] = ra.z;
-  As[0][a_k + 3][a_r] = ra.w;
-  *reinterpret_cast<float4*>(&Bs[0][b_k][b_c]) = rb;
-  __syncthreads();
-
-  int buf = 0;
-  for (int k0 = 0; k0 < s.K; k0 += BK) {
-    const bool more = k0 + BK < s.K;
-    if (more) {  // the next tile's loads are in flight during the FMAs
-      if (VEC) {
-        ra = gather4(xim, row_ok, hi0 + kh, wi0 + kw, c0 + a_k, s);
-        c0 += BK;
-        if (c0 == s.Ci) { c0 = 0; if (++kw == s.KW) { kw = 0; ++kh; } }
-      } else {
-        ra = gather1(xim, row_ok, hi0, wi0, k0 + BK + a_k, s);
+  template <class C>
+  __device__ __forceinline__ void init(const Args& a, const Shape& s,
+                                       char* tab, int m0) {
+    int4* r = reinterpret_cast<int4*>(tab);
+    const int hw = s.Ho * s.Wo, img0 = m0 / hw;
+    for (int i = threadIdx.x; i < C::BM; i += C::NT) {
+      const int gm = m0 + i;
+      int4 e = make_int4(0, -0x40000000, 0, 0);   // past M: no tap inside
+      if (gm < a.M) {
+        const int img = gm / hw, p = gm - img * hw, ho = p / s.Wo;
+        e.y = ho * s.sh - s.ph;
+        e.z = (p - ho * s.Wo) * s.sw - s.pw;
+        e.x = (((img - img0) * s.H + e.y) * s.W + e.z) * s.Ci;
       }
-      rb = load_w(w, k0 + BK + b_k, gn_b, s);
+      r[i] = e;
     }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      const float af[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bf[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(af[i], bf[j], acc[i][j]);
-    }
-    if (more) {  // the other buffer was last read before the barrier
-      const int nb = buf ^ 1;
-      As[nb][a_k + 0][a_r] = ra.x;
-      As[nb][a_k + 1][a_r] = ra.y;
-      As[nb][a_k + 2][a_r] = ra.z;
-      As[nb][a_k + 3][a_r] = ra.w;
-      *reinterpret_cast<float4*>(&Bs[nb][b_k][b_c]) = rb;
-    }
-    __syncthreads();
-    buf ^= 1;
+    rows = r;
+    base = a.x + (size_t)img0 * s.H * s.W * s.Ci;
+    // this thread's column of the first K tile; the only divides
+    const int k = E * (threadIdx.x % (C::BK / E));
+    const int tap = k / s.Ci;
+    ci = k - tap * s.Ci;
+    kh = tap / s.KW;
+    kw = tap - kh * s.KW;
+    __syncthreads();   // the table is read by other threads' copies
   }
 
-  if (partials) {
-    // per-channel partials of this M tile from the raw accumulator:
-    // each thread sums its valid rows, then thread c (c < 128) adds the
-    // 16 row groups' sums of channel c and thread 128 + c their squares,
-    // in a fixed order (the loop above ended on a barrier, so the tile
-    // buffers are free)
-    float* red_s = smem;             // [16][BN]
-    float* red_q = smem + 16 * BN;   // [16][BN]
+  template <class C>
+  __device__ __forceinline__ void load(float* dst, const Args& a,
+                                       const Shape& s, int, int) {
+    constexpr int CPR = C::BK / E, N_CH = C::BM * CPR;
+    static_assert(N_CH % C::NT == 0 && C::NT % CPR == 0,
+                  "A copies must split evenly, one column a thread");
+    const int c = threadIdx.x % CPR;
+    const int hk = kh < s.KH ? kh : -0x40000000;   // k >= K: no row inside
+    const int tap = (kh * s.W + kw) * s.Ci + ci;   // from a row's offset
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float sj = 0.f, qj = 0.f;
+    for (int it = 0; it < N_CH / C::NT; ++it) {
+      const int r = threadIdx.x / CPR + it * (C::NT / CPR);
+      const int4 e = rows[r];   // (offset, hi0, wi0)
+      const bool ok = (unsigned)(e.y + hk) < (unsigned)s.H &&
+                      (unsigned)(e.z + kw) < (unsigned)s.W;
+      const float* src = base + (ok ? e.x + tap : 0);
+      if (V4)
+        tc::cp16(dst + r * C::AS + 4 * c, src, ok);
+      else
+        tc::cp4(dst + r * C::AS + c, src, ok);
+    }
+    ci += C::BK;   // the next K tile's column
+    while (ci >= s.Ci) {
+      ci -= s.Ci;
+      if (++kw == s.KW) {
+        kw = 0;
+        ++kh;
+      }
+    }
+  }
+};
+
+// The epilogue of K6, from the accumulator fragments (element e of
+// fragment (i, j) holds row 16 i + g + 8 (e / 2), column 8 j + 2 t +
+// e % 2 of the warp tile).
+struct ConvEpi {
+  struct Params {
+    const float* scale;   // affine a [Co] or NULL
+    const float* shift;   // affine b [Co], with scale
+    float* partials;      // [ceil(M / BM), 2, Co] or NULL
+  };
+
+  // per-channel (sum, sum of squares) of the raw accumulator over the
+  // tile's valid rows, into partials row m0 / BM
+  template <class C>
+  __device__ __forceinline__ static void stats(
+      const float (&acc)[C::MI][C::NI][4], const Args& a, const Params& p,
+      char* smem, int m0, int n0) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int g = lane / 4, t = lane % 4, wm = warp / C::WN;
+    const int wm0 = wm * C::WTM, wn0 = (warp % C::WN) * C::WTN;
+    float s[C::NI][2], q[C::NI][2];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int gm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-        if (gm < s.M) {
-          sj += acc[i][j];
-          qj = fmaf(acc[i][j], acc[i][j], qj);
+    for (int j = 0; j < C::NI; ++j)
+      s[j][0] = s[j][1] = q[j][0] = q[j][1] = 0.f;
+    // my rows, g + 8 r in order (rows past M hold 0 and add nothing)
+#pragma unroll
+    for (int i = 0; i < C::MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool ok = m0 + wm0 + 16 * i + g + 8 * h < a.M;
+#pragma unroll
+        for (int j = 0; j < C::NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = ok ? acc[i][j][2 * h + e] : 0.f;
+            s[j][e] += v;
+            q[j][e] = fmaf(v, v, q[j][e]);
+          }
+      }
+    // the 8 row groups of the warp tile (lane bits 2..4), pairwise
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+      for (int j = 0; j < C::NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[j][e] += __shfl_xor_sync(0xffffffffu, s[j][e], off);
+          q[j][e] += __shfl_xor_sync(0xffffffffu, q[j][e], off);
         }
-      }
-      const int col = (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      red_s[ty * BN + col] = sj;
-      red_q[ty * BN + col] = qj;
+    // the WM warps along M, in order, through the stages' memory (free
+    // once every copy has landed and every warp has left the mainloop)
+    tc::cp_wait<0>();
+    __syncthreads();
+    float* red = reinterpret_cast<float*>(smem);   // [WM][2][BN]
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < C::NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = wn0 + 8 * j + 2 * t + e;
+          red[(2 * wm) * C::BN + col] = s[j][e];
+          red[(2 * wm + 1) * C::BN + col] = q[j][e];
+        }
     }
     __syncthreads();
-    const int col = tid % BN;
-    const float* red = tid < BN ? red_s : red_q;
-    float t = 0.f;
+    const size_t row = (size_t)(m0 / C::BM) * 2;
+    for (int i = threadIdx.x; i < 2 * C::BN; i += C::NT) {
+      const int which = i / C::BN, col = i - which * C::BN;
+      float v = 0.f;
 #pragma unroll
-    for (int g = 0; g < 16; ++g) t += red[g * BN + col];
-    if (n0 + col < s.Co)
-      partials[((size_t)blockIdx.x * 2 + (tid < BN ? 0 : 1)) * s.Co + n0 +
-               col] = t;
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (gm >= s.M) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gn = n0 + h * 64 + tx * 4;
-      if (gn >= s.Co) continue;
-      float4 v = make_float4(acc[i][h * 4], acc[i][h * 4 + 1],
-                             acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
-      const size_t off = (size_t)gm * s.Co + gn;
-      if (a) {
-        const float4 av = *reinterpret_cast<const float4*>(a + gn);
-        const float4 bv = *reinterpret_cast<const float4*>(b + gn);
-        v.x = v.x * av.x + bv.x;
-        v.y = v.y * av.y + bv.y;
-        v.z = v.z * av.z + bv.z;
-        v.w = v.w * av.w + bv.w;
-      }
-      if (res) {
-        const float4 r = *reinterpret_cast<const float4*>(res + off);
-        v.x += r.x;
-        v.y += r.y;
-        v.z += r.z;
-        v.w += r.w;
-      }
-      if (act) {
-        v.x = fmaxf(v.x, 0.f);
-        v.y = fmaxf(v.y, 0.f);
-        v.z = fmaxf(v.z, 0.f);
-        v.w = fmaxf(v.w, 0.f);
-      }
-      *reinterpret_cast<float4*>(out + off) = v;
+      for (int m = 0; m < C::WM; ++m) v += red[(2 * m + which) * C::BN + col];
+      if (n0 + col < a.N) p.partials[(row + which) * a.N + n0 + col] = v;
     }
   }
+
+  template <class C, bool VEC>
+  __device__ __forceinline__ static void apply(
+      const float (&acc)[C::MI][C::NI][4], const Args& a, const Params& p,
+      char* smem, int m0, int n0) {
+    static_assert(VEC, "K6 takes Co % 4 == 0");
+    if (p.partials) stats<C>(acc, a, p, smem, m0, n0);
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wm0 = (warp / C::WN) * C::WTM, wn0 = (warp % C::WN) * C::WTN;
+    auto row = [&](int i, int h) { return m0 + wm0 + 16 * i + g + 8 * h; };
+    auto col = [&](int j) { return n0 + wn0 + 8 * j + 2 * t; };   // + 1 < N
+    float y[C::MI][C::NI][4];
+#pragma unroll
+    for (int j = 0; j < C::NI; ++j) {
+      float2 sc = make_float2(1.f, 1.f), sh = make_float2(0.f, 0.f);
+      if (p.scale && col(j) < a.N) {
+        sc = __ldg(reinterpret_cast<const float2*>(p.scale + col(j)));
+        sh = __ldg(reinterpret_cast<const float2*>(p.shift + col(j)));
+      }
+#pragma unroll
+      for (int i = 0; i < C::MI; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y[i][j][e] = p.scale ? acc[i][j][e] * (e & 1 ? sc.y : sc.x) +
+                                     (e & 1 ? sh.y : sh.x)
+                               : acc[i][j][e];
+    }
+    // every residual load before the first store: res and out may
+    // alias, so a load after a store would wait for it
+    if (a.res) {
+#pragma unroll
+      for (int j = 0; j < C::NI; ++j)
+#pragma unroll
+        for (int i = 0; i < C::MI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (row(i, h) >= a.M || col(j) >= a.N) continue;
+            const float2 r = *reinterpret_cast<const float2*>(
+                a.res + (size_t)row(i, h) * a.N + col(j));
+            y[i][j][2 * h] += r.x;
+            y[i][j][2 * h + 1] += r.y;
+          }
+    }
+#pragma unroll
+    for (int j = 0; j < C::NI; ++j)
+#pragma unroll
+      for (int i = 0; i < C::MI; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (row(i, h) >= a.M || col(j) >= a.N) continue;
+          float v0 = y[i][j][2 * h], v1 = y[i][j][2 * h + 1];
+          if (a.act) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          *reinterpret_cast<float2*>(a.out + (size_t)row(i, h) * a.N +
+                                     col(j)) = make_float2(v0, v1);
+        }
+  }
+};
+
+// One launch's operands, checked.
+struct Call {
+  Args a;
+  Shape s;
+  ConvEpi::Params p;
+};
+
+// Fill `c`; cudaErrorInvalidValue for what K6 does not take.
+cudaError_t make_call(Call& c, const float* x, const float* w,
+                      const float* scale, const float* shift,
+                      const float* res, float* out, float* partials, int N,
+                      int H, int W, int Ci, int Co, int KH, int KW, int sh,
+                      int sw, int ph, int pw, int act) {
+  if (N <= 0 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 || Co % 4 ||
+      KH <= 0 || KW <= 0 || sh <= 0 || sw <= 0 || ph < 0 || pw < 0 ||
+      act < 0 || act > 1 || (scale == nullptr) != (shift == nullptr))
+    return cudaErrorInvalidValue;
+  const int Ho = (H + 2 * ph - KH) / sh + 1, Wo = (W + 2 * pw - KW) / sw + 1;
+  if (Ho <= 0 || Wo <= 0) return cudaErrorInvalidValue;
+  const long long m = (long long)N * Ho * Wo;
+  const long long k = (long long)KH * KW * Ci;
+  // a block's offsets into x are 32-bit from its first row's image:
+  // its rows span at most (BM - 1) / (Ho Wo) + 2 images, and a tap adds
+  // (kh W + kw) Ci + ci
+  const long long span =
+      ((gemm::Large::BM - 1) / ((long long)Ho * Wo) + 2) * H * W * Ci +
+      ((long long)KH * W + KW) * Ci;
+  if (m > 0x7fffffffLL || k > 0x7fffffffLL || span > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  c.a = Args{x, w, nullptr, nullptr, res, out, nullptr, (int)m, Co, (int)k,
+             0, act};
+  c.s = Shape{H, W, Ci, KH, KW, sh, sw, ph, pw, Ho, Wo};
+  c.p = ConvEpi::Params{scale, shift, partials};
+  return cudaSuccess;
+}
+
+template <class C>
+cudaError_t launch_form(const Call& c, cudaStream_t st) {
+  using gemm::F32W;
+  if (c.s.Ci % 4 == 0)
+    return gemm::launch<C, F32W, true, ConvA<true>, ConvEpi>(c.a, st, c.s,
+                                                             c.p);
+  return gemm::launch<C, F32W, true, ConvA<false>, ConvEpi>(c.a, st, c.s,
+                                                            c.p);
 }
 
 }  // namespace
 
 // x [N, H, W, Ci], w [KH, KW, Ci, Co], out [N, Ho, Wo, Co]; a, b [Co] or
-// both NULL; res [N, Ho, Wo, Co] or NULL; partials [ceil(M / 128), 2, Co]
-// or NULL (M = N * Ho * Wo).  All float32, contiguous, 16-byte aligned.
-// Co must be a multiple of 4.  act: 0 none, 1 relu.
+// both NULL; res [N, Ho, Wo, Co] or NULL; partials [ceil(M / BM), 2, Co]
+// or NULL (M = N * Ho * Wo, BM from conv_stage_tile).  All float32,
+// contiguous, 16-byte aligned.  Co must be a multiple of 4.  act: 0
+// none, 1 relu.
 extern "C" int conv_stage_f32(const float* x, const float* w, const float* a,
                               const float* b, const float* res, float* out,
                               float* partials, int N, int H, int W, int Ci,
                               int Co, int KH, int KW, int sh, int sw, int ph,
                               int pw, int act, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Shape s;
-  s.N = N; s.H = H; s.W = W; s.Ci = Ci; s.Co = Co; s.KH = KH; s.KW = KW;
-  s.sh = sh; s.sw = sw; s.ph = ph; s.pw = pw;
-  if (N <= 0 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 || Co % 4 ||
-      KH <= 0 || KW <= 0 || sh <= 0 || sw <= 0 || ph < 0 || pw < 0 ||
-      act < 0 || act > 1 || (a == nullptr) != (b == nullptr))
-    return (int)cudaErrorInvalidValue;
-  s.Ho = (H + 2 * ph - KH) / sh + 1;
-  s.Wo = (W + 2 * pw - KW) / sw + 1;
-  if (s.Ho <= 0 || s.Wo <= 0) return (int)cudaErrorInvalidValue;
-  const long long m = (long long)N * s.Ho * s.Wo;
-  const long long k = (long long)KH * KW * Ci;
-  if (m > 0x7fffffffLL || k > 0x7fffffffLL || (Co + BN - 1) / BN > 65535)
-    return (int)cudaErrorInvalidValue;
-  s.M = (int)m;
-  s.K = (int)k;
-  dim3 grid((s.M + BM - 1) / BM, (Co + BN - 1) / BN);
-  if (Ci % 8 == 0)
-    conv_stage_kernel<true><<<grid, NT, 0, st>>>(x, w, a, b, res, out,
-                                                 partials, s, act);
-  else
-    conv_stage_kernel<false><<<grid, NT, 0, st>>>(x, w, a, b, res, out,
-                                                  partials, s, act);
-  return (int)cudaGetLastError();
+  Call c;
+  const cudaError_t err = make_call(c, x, w, a, b, res, out, partials, N, H,
+                                    W, Ci, Co, KH, KW, sh, sw, ph, pw, act);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_form<gemm::Large>(c, static_cast<cudaStream_t>(stream));
+}
+
+// The tile (BM, BN) conv_stage_f32 runs for M output pixels and Co
+// channels: BM output pixels make one row of partials.
+extern "C" int conv_stage_tile(int M, int Co, int* bm, int* bn) {
+  if (M <= 0 || Co <= 0) return (int)cudaErrorInvalidValue;
+  *bm = gemm::Large::BM;
+  *bn = gemm::Large::BN;
+  return 0;
 }

@@ -1,27 +1,33 @@
-// The GEMM tile shared by K4 (matmul_fused.cu) and K8's prefill form
-// (matmul_int8.cu): out = epilogue(x @ W) in float32, the products in
-// split-TF32 on the tensor cores (tf32_mma.cuh).
+// The GEMM tile shared by K4 (matmul_fused.cu), K8's prefill form
+// (matmul_int8.cu) and K6 (conv_fused.cu): out = epilogue(A @ W) in
+// float32, the products in split-TF32 on the tensor cores
+// (tf32_mma.cuh).
 //
-// x is f32 [M, K]; W is [K, N] in one of two forms (the W policy):
-// - F32W, f32 weights: split like x, three MMAs a product (mma3);
-// - Int8W, int8 weights with one f32 scale per (K-chunk, column): the
-//   int8 values are exact in TF32, so two MMAs a product (x_lo q +
-//   x_hi q), and the scale multiplies each K tile's partial sum,
-//   acc += s[c, n] * sum_{k in tile} x_k q_kn -- the dequantized
-//   product's sum in another order.  A K tile lies inside one chunk.
-// The epilogue runs from the accumulator registers: + bias, the
-// optional pre-activation store (K4's `pre`), act ('' / relu /
-// tanh-gelu), + residual, the store.
+// Three policies make a kernel of the one mainloop:
+// - the W policy: F32W, f32 weights, split like A, three MMAs a
+//   product (mma3); Int8W, int8 weights with one f32 scale per
+//   (K-chunk, column): the int8 values are exact in TF32, so two MMAs a
+//   product (a_lo q + a_hi q), and the scale multiplies each K tile's
+//   partial sum, acc += s[c, n] * sum_{k in tile} a_k q_kn -- the
+//   dequantized product's sum in another order.  A K tile lies inside
+//   one chunk.  W is [K, N] row-major either way.
+// - the A policy, which fills a tile's A rows: DenseA copies rows of
+//   x [M, K] (K4, K8); K6's ConvA gathers them from an NHWC image.
+// - the epilogue policy, which runs from the accumulator registers:
+//   GemmEpi is + bias, the optional pre-activation store (K4's `pre`),
+//   act ('' / relu / tanh-gelu), + residual, the store; K6 has ConvEpi.
 //
 // A block owns a BM x BN output tile and loops over K in 32-deep tiles;
 // nothing carries between blocks and there are no atomics, so every
-// element is summed in one fixed order, whatever M is.  The block's
-// warps form a WM x WN grid, each owning a (BM / WM) x (BN / WN) warp
-// tile of m16n8k8 fragments.
+// element is summed in one fixed order, whatever M is and whichever
+// form runs.  The block's warps form a WM x WN grid, each owning a
+// (BM / WM) x (BN / WN) warp tile of m16n8k8 fragments.  Blocks are
+// numbered along N first, so the blocks that share an A tile run
+// together and find it in L2.
 //
 // Pipeline: STAGES shared-memory stages filled by cp.async (16-byte
 // copies, zero-filled past the ragged M, N and K edges; 4-byte copies
-// where W's rows are not 16-byte aligned), one barrier a K tile.  The
+// where rows are not 16-byte aligned), one barrier a K tile.  The
 // operands stay raw in shared memory and each fragment splits in
 // registers as it is loaded (cvt.rna + FSUB an element): a split kept
 // in shared memory would double the fragment loads, and shared-memory
@@ -39,7 +45,7 @@
 //
 // Fragments: a contraction may visit its index in any order as long as
 // both operands agree; here A-fragment column t holds k = 2t and t + 4
-// holds 2t + 1, so each A fragment is two float2 loads.  x rows are
+// holds 2t + 1, so each A fragment is two float2 loads.  A rows are
 // padded to BK + 8 floats (float2 loads on distinct banks), W rows to
 // BN + 4 (the B fragment's scalar loads on distinct banks).
 #pragma once
@@ -64,9 +70,10 @@ __device__ __forceinline__ float apply_act(float y, int act) {
   return y;
 }
 
-// One launch: out [M, N] = epilogue(x [M, K] @ W [K, N]).
+// One launch: out [M, N] = epilogue(A [M, K] @ W [K, N]), A's rows
+// read from x by the A policy.
 struct Args {
-  const float* x;
+  const float* x;       // DenseA: [M, K]; ConvA: the NHWC image
   const void* w;        // float [K, N] (F32W) or int8_t [K, N] (Int8W)
   const float* scales;  // Int8W: [K / chunk, N]
   const float* bias;    // [N] or NULL
@@ -108,16 +115,18 @@ struct Tile {
 using Large = Tile<128, 64, 2, 2, 3, 2>;
 using Small = Tile<64, 64, 2, 2, 4, 2>;
 
-// Dynamic shared memory: STAGES x (x tile, raw W tile), then for int8
-// W two slots of W as f32.
-template <class C, class W>
+// Dynamic shared memory: STAGES x (A tile, raw W tile), then for int8
+// W two slots of W as f32, then EXTRA bytes of the A policy's own.
+template <class C, class W, int EXTRA = 0>
 struct Smem {
   static constexpr int A = C::BM * C::AS * 4;
   static constexpr int B = W::INT8 ? C::BK * C::BN : C::BK * C::BS * 4;
   static constexpr int STAGE = A + B;
   static constexpr int SLOT = W::INT8 ? C::BK * C::BS * 4 : 0;
-  static constexpr int bytes = C::STAGES * STAGE + 2 * SLOT;
-  static_assert(A % 16 == 0 && B % 16 == 0, "16-byte copies");
+  static constexpr int OWN = C::STAGES * STAGE + 2 * SLOT;
+  static constexpr int bytes = OWN + EXTRA;
+  static_assert(A % 16 == 0 && B % 16 == 0 && OWN % 16 == 0,
+                "16-byte copies");
   // 227 KB a block; an SM's 228 KB hold MIN_BLOCKS blocks and their
   // 1 KB reserves
   static_assert(bytes <= 227 * 1024 &&
@@ -125,21 +134,51 @@ struct Smem {
                 "shared memory");
 };
 
-// x[m0 .., k0 ..] into an x tile, 16 bytes a copy (K % 4 == 0)
-template <class C>
-__device__ __forceinline__ void load_x(float* dst, const Args& a, int m0,
-                                       int k0) {
-  constexpr int CPR = C::BK / 4, N_CH = C::BM * CPR;
-  static_assert(N_CH % C::NT == 0, "x copies must split evenly");
-#pragma unroll
-  for (int it = 0; it < N_CH / C::NT; ++it) {
-    const int i = threadIdx.x + it * C::NT, r = i / CPR, c = i % CPR;
-    const int gm = m0 + r, gk = k0 + 4 * c;
-    const bool ok = gm < a.M && gk < a.K;
-    cp16(dst + r * C::AS + 4 * c, a.x + (ok ? (size_t)gm * a.K + gk : 0),
-         ok);
+// The A policy of K4 and K8: A is x [M, K] as stored.  An A policy has
+// Params (its kernel argument), smem_bytes (the shared memory it wants
+// beside the stages), grid and tile (how blocks are numbered: along N
+// first), init (once a block, before the first load; it may end on a
+// barrier) and load (one A tile; called for K tiles 0, 1, 2, ... in
+// that order).
+struct DenseA {
+  struct Params {};
+  template <class C>
+  static constexpr int smem_bytes = 0;
+
+  // N tiles on x, M tiles on y (at most 65535)
+  template <class C>
+  static bool grid(const Args& a, dim3& g) {
+    const int mt = (a.M + C::BM - 1) / C::BM;
+    g = dim3((a.N + C::BN - 1) / C::BN, mt);
+    return mt <= 65535;
   }
-}
+  template <class C>
+  __device__ __forceinline__ static void tile(const Args&, int& m0,
+                                              int& n0) {
+    m0 = blockIdx.y * C::BM;
+    n0 = blockIdx.x * C::BN;
+  }
+
+  template <class C>
+  __device__ __forceinline__ void init(const Args&, const Params&, char*,
+                                       int) {}
+
+  // x[m0 .., k0 ..] into an A tile, 16 bytes a copy (K % 4 == 0)
+  template <class C>
+  __device__ __forceinline__ void load(float* dst, const Args& a,
+                                       const Params&, int m0, int k0) {
+    constexpr int CPR = C::BK / 4, N_CH = C::BM * CPR;
+    static_assert(N_CH % C::NT == 0, "x copies must split evenly");
+#pragma unroll
+    for (int it = 0; it < N_CH / C::NT; ++it) {
+      const int i = threadIdx.x + it * C::NT, r = i / CPR, c = i % CPR;
+      const int gm = m0 + r, gk = k0 + 4 * c;
+      const bool ok = gm < a.M && gk < a.K;
+      cp16(dst + r * C::AS + 4 * c,
+           a.x + (ok ? (size_t)gm * a.K + gk : 0), ok);
+    }
+  }
+};
 
 // W rows k0 .. k0 + BK, columns n0 .. n0 + BN into a raw W tile: chunks
 // of 16 bytes (4 f32 or 16 int8 columns), one cp.async each (VEC: W's
@@ -205,10 +244,65 @@ __device__ __forceinline__ void store2(float* p, int gn, int N, float v0,
   }
 }
 
-template <class C, class W, bool VEC>
+// The epilogue policy of K4 and K8, from the accumulator registers:
+// + bias, the optional pre-activation store, act, + residual, the
+// store.  An epilogue policy has Params (its kernel argument) and
+// apply, which may reuse the stages' shared memory after
+// cp_wait<0>() and a barrier.
+struct GemmEpi {
+  struct Params {};
+
+  template <class C, bool VEC>
+  __device__ __forceinline__ static void apply(
+      const float (&acc)[C::MI][C::NI][4], const Args& a, const Params&,
+      char*, int m0, int n0) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wm0 = (warp / C::WN) * C::WTM, wn0 = (warp % C::WN) * C::WTN;
+    // C fragment: element e holds row g + 8 (e / 2), column 2t + e % 2
+#pragma unroll
+    for (int j = 0; j < C::NI; ++j) {
+      const int gn = n0 + wn0 + 8 * j + 2 * t;
+      if (gn >= a.N) continue;
+      float b0 = 0.f, b1 = 0.f;
+      if (a.bias) {
+        b0 = a.bias[gn];
+        if (gn + 1 < a.N) b1 = a.bias[gn + 1];
+      }
+#pragma unroll
+      for (int i = 0; i < C::MI; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gm = m0 + wm0 + 16 * i + g + 8 * h;
+          if (gm >= a.M) continue;
+          const size_t off = (size_t)gm * a.N + gn;
+          float v0 = acc[i][j][2 * h] + b0, v1 = acc[i][j][2 * h + 1] + b1;
+          if (a.pre) store2<VEC>(a.pre + off, gn, a.N, v0, v1);
+          v0 = apply_act(v0, a.act);
+          v1 = apply_act(v1, a.act);
+          if (a.res) {
+            if (VEC) {
+              const float2 r =
+                  *reinterpret_cast<const float2*>(a.res + off);
+              v0 += r.x;
+              v1 += r.y;
+            } else {
+              v0 += a.res[off];
+              if (gn + 1 < a.N) v1 += a.res[off + 1];
+            }
+          }
+          store2<VEC>(a.out + off, gn, a.N, v0, v1);
+        }
+      }
+    }
+  }
+};
+
+template <class C, class W, bool VEC, class AL, class EP>
 __global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
-gemm_kernel(const Args a) {
-  using L = Smem<C, W>;
+gemm_kernel(const Args a, const typename AL::Params ap,
+            const typename EP::Params ep) {
+  using L = Smem<C, W, AL::template smem_bytes<C>>;
   constexpr int BK = C::BK, AS = C::AS, BS = C::BS, STAGES = C::STAGES;
   constexpr int MI = C::MI, NI = C::NI;
   extern __shared__ float4 smem4[];
@@ -216,7 +310,8 @@ gemm_kernel(const Args a) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
   const int wm0 = (warp / C::WN) * C::WTM, wn0 = (warp % C::WN) * C::WTN;
-  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
+  int m0, n0;
+  AL::template tile<C>(a, m0, n0);
   const int nk = (a.K + BK - 1) / BK;
 
   auto stage_x = [&](int s) {
@@ -227,6 +322,9 @@ gemm_kernel(const Args a) {
     return reinterpret_cast<float*>(smem + STAGES * L::STAGE + s * L::SLOT);
   };
 
+  AL src;   // the A policy's state
+  src.template init<C>(a, ap, smem + L::OWN, m0);
+
   float acc[MI][NI][4];
 #pragma unroll
   for (int i = 0; i < MI; ++i) zero(acc[i]);
@@ -235,7 +333,7 @@ gemm_kernel(const Args a) {
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk) {
-      load_x<C>(stage_x(s), a, m0, s * BK);
+      src.template load<C>(stage_x(s), a, ap, m0, s * BK);
       load_w<C, W, VEC>(stage_w(s), a, n0, s * BK);
     }
     cp_commit();
@@ -249,7 +347,7 @@ gemm_kernel(const Args a) {
     {
       const int nt = kt + STAGES - 1;
       if (nt < nk) {
-        load_x<C>(stage_x(nt % STAGES), a, m0, nt * BK);
+        src.template load<C>(stage_x(nt % STAGES), a, ap, m0, nt * BK);
         load_w<C, W, VEC>(stage_w(nt % STAGES), a, n0, nt * BK);
       }
       cp_commit();
@@ -325,54 +423,22 @@ gemm_kernel(const Args a) {
     }
   }
 
-  // C fragment: element e holds row g + 8 (e / 2), column 2t + e % 2
-#pragma unroll
-  for (int j = 0; j < NI; ++j) {
-    const int gn = n0 + wn0 + 8 * j + 2 * t;
-    if (gn >= a.N) continue;
-    float b0 = 0.f, b1 = 0.f;
-    if (a.bias) {
-      b0 = a.bias[gn];
-      if (gn + 1 < a.N) b1 = a.bias[gn + 1];
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gm = m0 + wm0 + 16 * i + g + 8 * h;
-        if (gm >= a.M) continue;
-        const size_t off = (size_t)gm * a.N + gn;
-        float v0 = acc[i][j][2 * h] + b0, v1 = acc[i][j][2 * h + 1] + b1;
-        if (a.pre) store2<VEC>(a.pre + off, gn, a.N, v0, v1);
-        v0 = apply_act(v0, a.act);
-        v1 = apply_act(v1, a.act);
-        if (a.res) {
-          if (VEC) {
-            const float2 r = *reinterpret_cast<const float2*>(a.res + off);
-            v0 += r.x;
-            v1 += r.y;
-          } else {
-            v0 += a.res[off];
-            if (gn + 1 < a.N) v1 += a.res[off + 1];
-          }
-        }
-        store2<VEC>(a.out + off, gn, a.N, v0, v1);
-      }
-    }
-  }
+  EP::template apply<C, VEC>(acc, a, ep, smem, m0, n0);
 }
 
-template <class C, class W, bool VEC>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int bytes = Smem<C, W>::bytes;
+template <class C, class W, bool VEC, class AL = DenseA,
+          class EP = GemmEpi>
+cudaError_t launch(const Args& a, cudaStream_t stream,
+                   const typename AL::Params& ap = {},
+                   const typename EP::Params& ep = {}) {
+  constexpr int bytes = Smem<C, W, AL::template smem_bytes<C>>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<C, W, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      gemm_kernel<C, W, VEC, AL, EP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const int mt = (a.M + C::BM - 1) / C::BM;
-  if (mt > 65535) return cudaErrorInvalidValue;
-  dim3 grid((a.N + C::BN - 1) / C::BN, mt);
-  gemm_kernel<C, W, VEC><<<grid, C::NT, bytes, stream>>>(a);
+  dim3 grid;
+  if (!AL::template grid<C>(a, grid)) return cudaErrorInvalidValue;
+  gemm_kernel<C, W, VEC, AL, EP><<<grid, C::NT, bytes, stream>>>(a, ap, ep);
   return cudaGetLastError();
 }
 
@@ -396,9 +462,9 @@ inline cudaError_t tile_of(int M, int N, int* bm, int* bn) {
   return err;
 }
 
-// out = epilogue(x @ W) on the form use_large picks; vec: W's rows are
-// 16-byte aligned (N % 4 == 0 for F32W, N % 16 == 0 for Int8W) and N
-// is even.
+// K4's and K8's out = epilogue(x @ W) on the form use_large picks; vec:
+// W's rows are 16-byte aligned (N % 4 == 0 for F32W, N % 16 == 0 for
+// Int8W) and N is even.
 template <class W>
 cudaError_t run(const Args& a, bool vec, cudaStream_t stream) {
   bool large = false;

@@ -1,5 +1,5 @@
-"""Time tile forms of the split-TF32 GEMM tile (K4, K8's prefill form)
-at the same shapes on the card.
+"""Time tile forms of the split-TF32 GEMM tile (K4, K8's prefill form,
+K6) at the same shapes on the card.
 
 ``matmul_fused.cu`` (K4) and ``matmul_int8.cu`` (K8, M > 16) run
 ``gemm_tile.cuh``'s tile in one of two forms, picked inside the C
@@ -16,11 +16,17 @@ version at atol = rtol = 1e-4:
 - K4 at the fused LM step's five projections, M = 16 x 2048, with
   their epilogues (``chip_smoke.FUSED_MATMULS``);
 - K8 at the int8 tenant's four projections at prefill buckets M = 64,
-  256, 1024 (the largest the serve phase pads to) and 2048.
+  256, 1024 (the largest the serve phase pads to) and 2048;
+- K6 (``--k6``: ``conv_fused.cu``'s gather and epilogue on the tile,
+  which the exporter includes) at the 20 conv shapes of the ResNet-50
+  forward at batch 256, in the statistics form, in the forms of
+  ``K6_FORMS`` (the product runs Large at every shape); the stem also with x and w zero-padded to Ci = 4 on
+  the card (the pad's time included), so that it takes the 16-byte
+  gather.  Statistics are held to ``conv_fused.STATS_RTOL``.
 
 Run on a CUDA machine from the repository root:
 
-    python -m paddle_tpu_torch.tools.gemm_forms [--k8-only]
+    python -m paddle_tpu_torch.tools.gemm_forms [--k8-only | --k6]
 
 Prints one JSON line per shape (each form's ms and agreement, the form
 the launcher picks, the library call's ms), then the card's name and
@@ -39,6 +45,7 @@ import torch
 
 from .. import resolve_device
 from ..kernels import _build
+from ..kernels import conv_fused
 from ..kernels.matmul_fused import (dequantize_weight, matmul_epilogue,
                                     matmul_epilogue_reference,
                                     matmul_int8_reference, quantize_weight,
@@ -54,6 +61,9 @@ FORMS = (("large", "Large"),
          ("64x128", "Tile<64, 128, 2, 2, 4, 2>"),
          ("64x64k64", "Tile<64, 64, 2, 2, 3, 2, 64>"))
 _ACTS = {"": 0, "relu": 1, "gelu": 2}
+# the forms K6 is timed in, with their BM (the rows of a statistics
+# partial): the tile's two and the 8-warp 128 x 128
+K6_FORMS = {"large": 128, "small": 64, "128x128": 128}
 
 
 def _source():
@@ -61,8 +71,11 @@ def _source():
         "    case %d: return vec ? launch<%s, W, true>(a, s)\n"
         "                       : launch<%s, W, false>(a, s);"
         % (i, t, t) for i, (_, t) in enumerate(FORMS))
+    conv_cases = "\n".join(
+        "    case %d: return launch_form<gemm::%s>(c, s);" % (i, t)
+        for i, (name, t) in enumerate(FORMS) if name in K6_FORMS)
     return r'''
-#include "%s/gemm_tile.cuh"
+#include "%s/conv_fused.cu"
 using namespace gemm;
 template <class W>
 static cudaError_t run_form(int form, const Args& a, bool vec,
@@ -88,12 +101,27 @@ extern "C" int gemm_form_int8(int form, const float* x, const int8_t* w,
   return (int)run_form<Int8W>(form, a, N %% 16 == 0,
                               static_cast<cudaStream_t>(stream));
 }
-''' % (_build.CSRC, cases)
+extern "C" int conv_form_f32(int form, const float* x, const float* w,
+                             float* out, float* partials, int N, int H,
+                             int W, int Ci, int Co, int KH, int KW, int sh,
+                             int sw, int ph, int pw, void* stream) {
+  Call c;
+  const cudaError_t err =
+      make_call(c, x, w, nullptr, nullptr, nullptr, out, partials, N, H, W,
+                Ci, Co, KH, KW, sh, sw, ph, pw, 0);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (form) {
+%s
+  }
+  return (int)cudaErrorInvalidValue;
+}
+''' % (_build.CSRC, cases, conv_cases)
 
 
 def build():
     """Compile the form exporter into ``_build/forms/``; returns its
-    ctypes entries (f32, int8) and ptxas's summary per kernel."""
+    ctypes entries (f32, int8, conv) and ptxas's summary per kernel."""
     out = os.path.join(_build.BUILD_DIR, "forms")
     os.makedirs(out, exist_ok=True)
     src = os.path.join(out, "gemm_forms.cu")
@@ -106,13 +134,15 @@ def build():
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed:\n%s" % proc.stdout[-4000:])
     dll = ctypes.CDLL(lib)
-    f32, i8 = dll.gemm_form_f32, dll.gemm_form_int8
+    f32, i8, conv = dll.gemm_form_f32, dll.gemm_form_int8, dll.conv_form_f32
     f32.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     i8.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    f32.restype = i8.restype = ctypes.c_int
-    return f32, i8, _build._ptxas_summary(proc.stdout)
+    conv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                     + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    f32.restype = i8.restype = conv.restype = ctypes.c_int
+    return f32, i8, conv, _build._ptxas_summary(proc.stdout)
 
 
 class Timer:
@@ -144,24 +174,108 @@ def _close(got, want):
     return bool(torch.allclose(got, want, atol=TOL, rtol=TOL))
 
 
+def resnet50_conv_shapes():
+    """{(H, Ci, Co, k, stride, pad): launches a forward} of the fused
+    ResNet-50 program (flowers, 224 x 224), read off its desc."""
+    from .. import fluid
+    from ..models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        resnet.get_model(data_set="flowers", depth=50, is_test=True,
+                         data_format="NHWC", fused_stages=True)
+    block = main.desc.blocks[0]
+    shapes = {}
+    for op in block.ops:
+        if op.type == "fused_conv2d_bn_act":
+            _, h, _, ci = block.vars[op.input("Input")[0]].shape
+            k, _, _, co = block.vars[op.input("Filter")[0]].shape
+            key = (h, ci, co, k, op.attr("strides")[0],
+                   op.attr("paddings")[0])
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def conv_forms(conv, timer, batch=256):
+    """K6 in each of K6_FORMS at the ResNet-50 forward's conv shapes."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p = _build.ptr
+    shapes = resnet50_conv_shapes()
+    for shp, count in sorted(shapes.items()):
+        h, ci, co, k, s, pad = shp
+        ho = (h + 2 * pad - k) // s + 1
+        m = batch * ho * ho
+        x = torch.randn(batch, h, h, ci, device="cuda", generator=gen)
+        w = torch.randn(k, k, ci, co, device="cuda", generator=gen) * \
+            (k * k * ci) ** -0.5
+        want = conv_fused.conv2d_nhwc_reference(x, w, s, pad)
+        out = torch.empty(batch, ho, ho, co, device="cuda")
+        row = {"kernel": "conv_stage", "shape": list(shp), "launches": count,
+               "launcher_picks": "tile %dx%d"
+               % conv_fused.conv_stage_tile(m, co),
+               "product_ms": timer(lambda: conv_fused.conv2d_nhwc(
+                   x, w, s, pad, stats=True)),
+               "library_ms": timer(lambda: F.conv2d(
+                   x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), None, s,
+                   pad))}
+        variants = [(name, x, w) for name in K6_FORMS]
+        if ci % 4:
+            variants += [(name + "_pad4", None, None) for name in K6_FORMS]
+        for name, xv, wv in variants:
+            base = name.replace("_pad4", "")
+            form = [f for f, _ in FORMS].index(base)
+            parts = torch.empty(-(-m // K6_FORMS[base]), 2, co,
+                                device="cuda")
+
+            def call(xv=xv, wv=wv, form=form, parts=parts):
+                if xv is None:   # the pad is part of the call
+                    xv = F.pad(x, (0, 4 - ci % 4))
+                    wv = F.pad(w, (0, 0, 0, 4 - ci % 4))
+                _build.check(conv(
+                    form, p(xv), p(wv), p(out), p(parts), batch, h, h,
+                    xv.shape[3], co, k, k, s, s, pad, pad, st()),
+                    "conv_form_f32")
+            call()
+            row[name + "_ok"] = _close(out, want)
+            acc = out.reshape(-1, co).double()
+            rel = 0.0
+            for got, terms in ((parts[:, 0].sum(0), acc),
+                               (parts[:, 1].sum(0), acc.square())):
+                e = (got.double() - terms.sum(0)).abs()
+                rel = max(rel, float((e / terms.abs().sum(0)).max()))
+            row[name + "_stats_ok"] = rel <= conv_fused.STATS_RTOL
+            row[name + "_ms"] = timer(call)
+        print(json.dumps(row), flush=True)
+        del x, w, want, out
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k8-only", action="store_true")
+    ap.add_argument("--k6", action="store_true",
+                    help="time K6's forms only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gemm_forms needs a CUDA card")
     resolve_device("cuda")
-    f32, i8, ptxas = build()
+    f32, i8, conv, ptxas = build()
     for sym, line in sorted(ptxas.items()):
         print(json.dumps({"kernel": sym, "ptxas": line}), flush=True)
     timer = Timer()
+    if args.k6:
+        conv_forms(conv, timer)
     gen = torch.Generator(device="cuda").manual_seed(0)
     st = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     p = _build.ptr
     null = ctypes.c_void_p(None)
     rng = np.random.RandomState(0)
 
-    for kk, n in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
+    for kk, n in (() if args.k6 else
+                  ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))):
         w = (rng.randn(kk, n) * 0.1).astype(np.float32)
         qn, sn, chunk = quantize_weight(w)
         wq, sc = torch.from_numpy(qn).cuda(), torch.from_numpy(sn).cuda()
@@ -181,7 +295,7 @@ def main(argv=None):
                 row[name + "_ok"] = _close(out, want)
                 row[name + "_ms"] = timer(call)
             print(json.dumps(row), flush=True)
-    if not args.k8_only:
+    if not (args.k8_only or args.k6):
         m = 16 * 2048
         for what, kk, n, with_bias, act in (
                 ("qkv", 1024, 3072, False, ""),

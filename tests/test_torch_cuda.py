@@ -562,20 +562,23 @@ def test_executor_fused_step_on_card_runs_the_fused_kernels(cuda):
 
 
 # K6: every epilogue combination on ragged shapes -- M not a multiple of
-# the 128-pixel tile, the stem's scalar gather (Ci = 3, 7x7, stride 2,
-# padding 3), Co = 64 (half a tile), 3x3 and 1x1 stages with float4
-# gathers, a stride-2 1x1
+# the tile, the stem's 4-byte gather (Ci = 3, 7x7, stride 2, padding 3),
+# Co = 64, 3x3 and 1x1 stages with 16-byte gathers, Ci = 40 (K tiles
+# that span taps), a stride-2 1x1
 CONV_SHAPES = [(3, 23, 3, 64, 7, 2, 3), (2, 9, 64, 128, 3, 1, 1),
                (2, 7, 256, 68, 1, 2, 0), (1, 5, 40, 256, 3, 1, 1)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", CONV_SHAPES)
-def test_conv_stage_kernel_matches_plain_on_card(cuda, shape):
-    from paddle_tpu_torch.kernels import conv_fused as pcf
+# K6 at the widths of the ResNet-50 path: K = 4608 with M = 196 (ragged
+# against the 128-row tile), a Co = 64 3x3 stage at 56 x 56, the stem at
+# 224 x 224 (Ci = 3, K = 147: the 4-byte gather)
+CONV_WIDE_SHAPES = [(4, 7, 512, 512, 3, 1, 1), (2, 56, 64, 64, 3, 1, 1),
+                    (2, 224, 3, 64, 7, 2, 3)]
 
+
+def _conv_operands(cuda, shape, seed=3):
     n, h, ci, co, k, s, p = shape
-    g = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(n, h, h, ci, device=cuda, generator=g)
     w = torch.randn(k, k, ci, co, device=cuda, generator=g) * \
         (k * k * ci) ** -0.5
@@ -583,6 +586,26 @@ def test_conv_stage_kernel_matches_plain_on_card(cuda, shape):
     a = torch.rand(co, device=cuda, generator=g) + 0.5
     b = torch.randn(co, device=cuda, generator=g)
     r = torch.randn(n, ho, ho, co, device=cuda, generator=g)
+    return x, w, a, b, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_stage_kernel_matches_plain_on_card(cuda, shape):
+    _conv_every_epilogue(cuda, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV_WIDE_SHAPES)
+def test_conv_stage_kernel_at_path_widths_on_card(cuda, shape):
+    _conv_every_epilogue(cuda, shape)
+
+
+def _conv_every_epilogue(cuda, shape):
+    from paddle_tpu_torch.kernels import conv_fused as pcf
+
+    n, h, ci, co, k, s, p = shape
+    x, w, a, b, r = _conv_operands(cuda, shape)
     for stats in (False, True):
         for affine in (None, (a, b)):
             for res in (None, r):
@@ -599,6 +622,51 @@ def test_conv_stage_kernel_matches_plain_on_card(cuda, shape):
                         _, rel = pcf.stats_error(x, w, (s, s), (p, p),
                                                  got[1], got[2])
                         assert rel <= pcf.STATS_RTOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV_WIDE_SHAPES)
+def test_conv_stage_kernel_is_deterministic_on_card(cuda, shape):
+    """Two calls with stats give bit-identical outputs and sums: no
+    atomics, one summation order."""
+    from paddle_tpu_torch.kernels import conv_fused as pcf
+
+    _, _, _, _, _, s, p = shape
+    x, w, a, b, r = _conv_operands(cuda, shape, seed=4)
+    for kw in (dict(stats=True),
+               dict(stats=True, affine=(a, b), residual=r, act="relu")):
+        one = pcf.conv2d_nhwc(x, w, (s, s), (p, p), **kw)
+        two = pcf.conv2d_nhwc(x, w, (s, s), (p, p), **kw)
+        for u, v in zip(one, two):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV_SHAPES + CONV_WIDE_SHAPES)
+def test_conv_stage_tile_gives_the_partials_rows(cuda, shape):
+    """conv_stage_tile's BM is the M tile the kernel writes partials for:
+    it fills ceil(M / BM) rows and not one more, and their sums are the
+    output's."""
+    from paddle_tpu_torch.kernels import conv_fused as pcf
+
+    n, h, ci, co, k, s, p = shape
+    x, w, _, _, _ = _conv_operands(cuda, shape)
+    ho = (h + 2 * p - k) // s + 1
+    m = n * ho * ho
+    bm, bn = pcf.conv_stage_tile(m, co)
+    assert (bm, bn) == (128, 64)
+    rows = -(-m // bm)
+    parts = torch.full((rows + 1, 2, co), float("nan"), device=cuda)
+    out = torch.empty(n, ho, ho, co, device=cuda)
+    pcf._launch(x, w, (s, s), (p, p), None, None, "", out, parts)
+    torch.cuda.synchronize()
+    assert torch.isfinite(parts[:rows]).all()
+    assert torch.isnan(parts[rows]).all()
+    flat = out.reshape(-1, co).double()
+    torch.testing.assert_close(parts[:rows].double().sum(0),
+                               torch.stack([flat.sum(0),
+                                            flat.square().sum(0)]),
+                               rtol=1e-5, atol=1e-3)
 
 
 @pytest.mark.cuda
