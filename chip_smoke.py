@@ -92,7 +92,15 @@ stage at 56 x 56, the stem at 224 x 224); K9 at the ring's shard
 carry seeded by an earlier one, a half-masked and a wholly masked
 block, the last bit-identical to its carry); K2/K3 at that shape,
 non-causal and the causal diagonal; K10, which no path runs, at the
-LM's logits [32768, 8192].
+LM's logits [32768, 8192].  K7 (each row's live pages in spans of
+``paged_span_pages()`` pages, streamed through a cp.async ring, the spans
+folded in order by a second launch) at the decode batch B = 16, NB =
+128 over a 512-page pool with mixed lengths (its bytes bound counts a
+page that two rows share once), whose rows must be bit for
+bit the same computed alone in their own block-count bucket (a gate,
+``rows_invariant``), and on distinct pages (a pool of B x NB + 1) at
+B = 1 with 2048 tokens, B = 16 with 1024 each, B = 4 at NB = 64 with
+16-1024 and B = 16 at NB = 8 with at most 128 (one span a row).
 
 Then the kernels' summary line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -255,8 +263,7 @@ def check_kernels(torch, timer):
     from paddle_tpu_torch.kernels.flash_attention import (
         attention_reference, flash_attention_bwd,
         flash_attention_bwd_reference, flash_attention_fwd_lse,
-        flash_bwd_dkv, flash_bwd_dq, paged_attention,
-        paged_attention_reference)
+        flash_bwd_dkv, flash_bwd_dq)
     from paddle_tpu_torch.kernels.fused import (
         fused_softmax_cross_entropy, softmax_ce_reference)
     from paddle_tpu_torch.kernels.conv_fused import (
@@ -279,6 +286,7 @@ def check_kernels(torch, timer):
                      "bound_by": by, "ops_rate": rate_name})
         if not ok:
             bad.append("%s %s (max abs err %g)" % (name, shape, err))
+        return rows[-1]
 
     # K1: causal prefill attention [1, 8, S, 128] and the training
     # step's [16, 8, 2048, 128]
@@ -354,39 +362,9 @@ def check_kernels(torch, timer):
     del logits, labels
     torch.cuda.empty_cache()
 
-    # K7: paged decode, B=16, NB=128, bs=16 over a 512-block pool
-    b, nb, bs, n_pages = 16, 128, 16, 512
+    # K7: paged decode; K8 below draws from the same rng after it
     rng = np.random.RandomState(SEED)
-    q = torch.randn(b, h, d, device=dev, generator=gen)
-    kp = torch.randn(n_pages, bs, h, d, device=dev, generator=gen)
-    vp = torch.randn(n_pages, bs, h, d, device=dev, generator=gen)
-    tables = torch.from_numpy(
-        rng.randint(1, n_pages, size=(b, nb)).astype(np.int32)).to(dev)
-    lens_np = rng.randint(1, nb * bs + 1, size=b).astype(np.int32)
-    lens_np[0], lens_np[1] = 1, nb * bs       # a padding row, a full row
-    lens = torch.from_numpy(lens_np).to(dev)
-
-    def paged_library():
-        kc = kp[tables.long()].reshape(b, nb * bs, h, d).permute(0, 2, 3, 1)
-        vc = vp[tables.long()].reshape(b, nb * bs, h, d).transpose(1, 2)
-        sc = torch.matmul(q.unsqueeze(2), kc).squeeze(2) * scale
-        live = torch.arange(nb * bs, device=dev)[None, None] < \
-            lens.long()[:, None, None]
-        p = torch.softmax(sc.masked_fill(~live, -1e30), dim=-1)
-        return torch.matmul(p.unsqueeze(2), vc).squeeze(2)
-
-    out = paged_attention(q, kp, vp, tables, lens)
-    err, ok = compare(torch, out,
-                      paged_attention_reference(q, kp, vp, tables, lens,
-                                                scale))
-    live_pos = int(lens_np.sum())
-    record("paged_attention", "B=16 NB=128 bs=16 H=8 D=128", err, ok,
-           timer(lambda: paged_attention(q, kp, vp, tables, lens)),
-           timer(lambda: paged_attention_reference(q, kp, vp, tables,
-                                                   lens, scale)),
-           timer(paged_library),
-           4 * (2 * live_pos * h * d + 2 * b * h * d) + 4 * b * (nb + 1),
-           4 * live_pos * h * d)
+    check_paged(torch, timer, gen, rng, record, bad)
 
     # K8: int8-weight projections of the flagship layer, at every decode
     # batch bucket (M = 1..16, each its own instantiation), at the largest
@@ -710,6 +688,133 @@ def check_ring_kernels(torch, timer, gen, record, bad):
     torch.cuda.empty_cache()
 
 
+def check_paged(torch, timer, gen, rng, record, bad):
+    """K7 at the decode batch B = 16, NB = 128, bs = 16 over a 512-page
+    pool (q and pages drawn from ``gen``, tables and lengths from
+    ``rng``), with the batch-invariance gate; then the distinct-page
+    rows of check_paged_rows."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels.flash_attention import (
+        paged_attention, paged_attention_reference)
+
+    dev = "cuda"
+    h, d = 8, 128
+    scale = 1.0 / math.sqrt(d)
+    b, nb, bs, n_pages = 16, 128, 16, 512
+    q = torch.randn(b, h, d, device=dev, generator=gen)
+    kp = torch.randn(n_pages, bs, h, d, device=dev, generator=gen)
+    vp = torch.randn(n_pages, bs, h, d, device=dev, generator=gen)
+    tables_np = rng.randint(1, n_pages, size=(b, nb)).astype(np.int32)
+    tables = torch.from_numpy(tables_np).to(dev)
+    lens_np = rng.randint(1, nb * bs + 1, size=b).astype(np.int32)
+    lens_np[0], lens_np[1] = 1, nb * bs       # a padding row, a full row
+    lens = torch.from_numpy(lens_np).to(dev)
+
+    out = paged_attention(q, kp, vp, tables, lens)
+    err, ok = compare(torch, out,
+                      paged_attention_reference(q, kp, vp, tables, lens,
+                                                scale))
+    live_pos = int(lens_np.sum())
+    row = record("paged_attention", "B=16 NB=128 bs=16 H=8 D=128", err,
+                 ok, timer(lambda: paged_attention(q, kp, vp, tables, lens)),
+                 timer(lambda: paged_attention_reference(q, kp, vp, tables,
+                                                         lens, scale)),
+                 timer(lambda: paged_library(torch, q, kp, vp, tables, lens,
+                                             scale)),
+                 paged_bytes(tables_np, lens_np, h, d),
+                 4 * live_pos * h * d)
+    # a row's output is batch-invariant: alone, in its own block-count
+    # bucket, it is bit for bit its row of the B = 16, NB = 128 call
+    inv = True
+    for r0 in (0, 1, 7, 15):
+        pages = -(-int(lens_np[r0]) // bs)
+        nb_own = 1 << (pages - 1).bit_length()
+        alone = paged_attention(q[r0:r0 + 1].contiguous(), kp, vp,
+                                tables[r0:r0 + 1, :nb_own].contiguous(),
+                                lens[r0:r0 + 1].contiguous())
+        inv = inv and torch.equal(alone[0], out[r0])
+    row["rows_invariant"] = inv
+    if not inv:
+        bad.append("paged_attention: a row alone differs from its row of "
+                   "the B=16 NB=128 call")
+    del q, kp, vp, tables, lens, out
+    torch.cuda.empty_cache()
+    check_paged_rows(torch, timer, record)
+
+
+def paged_library(torch, q, kp, vp, tables, lens, scale):
+    """K7's yardstick: gather every table slot's pages, two batched
+    matmuls and a masked softmax."""
+    b, nb = tables.shape
+    _, bs, h, d = kp.shape
+    kc = kp[tables.long()].reshape(b, nb * bs, h, d).permute(0, 2, 3, 1)
+    vc = vp[tables.long()].reshape(b, nb * bs, h, d).transpose(1, 2)
+    sc = torch.matmul(q.unsqueeze(2), kc).squeeze(2) * scale
+    live = torch.arange(nb * bs, device=q.device)[None, None] < \
+        lens.long()[:, None, None]
+    p = torch.softmax(sc.masked_fill(~live, -1e30), dim=-1)
+    return torch.matmul(p.unsqueeze(2), vc).squeeze(2)
+
+
+def paged_bytes(tables_np, lens_np, h, d, bs=16):
+    """K7's bytes, each read once: the K/V rows of the distinct (page,
+    row in page) pairs that some row of the batch attends to (a page two
+    rows share counts once), q and out, the tables and lengths."""
+    b, nb = tables_np.shape
+    live = set()
+    for ids, n in zip(tables_np, lens_np):
+        for pos in range(int(n)):
+            live.add((int(ids[pos // bs]), pos % bs))
+    return 4 * (2 * len(live) * h * d + 2 * b * h * d) + 4 * b * (nb + 1)
+
+
+def check_paged_rows(torch, timer, record):
+    """K7 at the shapes its split over pages is for, every live page a
+    distinct page of a pool of B x NB + 1, so the bytes bound counts
+    bytes that come from device memory: one row of 2048 tokens (B = 1,
+    16 spans a head), profile_serve's batch (B = 16, 1024 tokens each),
+    a small ragged batch (B = 4, NB = 64, 16-1024 tokens) and one span a
+    row (B = 16, NB = 8, 1-128 tokens).  Its own seeds, so the other
+    kernels' inputs stay as they were."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels.flash_attention import (
+        paged_attention, paged_attention_reference)
+
+    rng = np.random.RandomState(SEED + 7)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    h, d, bs = 8, 128, 16
+    scale = d ** -0.5
+    for what, nb, lens_np in (
+            ("B=1 NB=128 2048 tokens", 128, np.array([2048])),
+            ("B=16 NB=128 1024 tokens", 128, np.full(16, 1024)),
+            ("B=4 NB=64 16-1024 tokens", 64, rng.randint(16, 1025, 4)),
+            ("B=16 NB=8 1-128 tokens", 8, rng.randint(1, 129, 16))):
+        b, n = len(lens_np), len(lens_np) * nb + 1
+        q = torch.randn(b, h, d, device="cuda", generator=gen)
+        kp = torch.randn(n, bs, h, d, device="cuda", generator=gen)
+        vp = torch.randn(n, bs, h, d, device="cuda", generator=gen)
+        ids = rng.permutation(np.arange(1, n)).reshape(b, nb)
+        live = np.arange(nb)[None] < -(-lens_np[:, None] // bs)
+        tables_np = np.where(live, ids, 0).astype(np.int32)
+        tables = torch.from_numpy(tables_np).cuda()
+        lens = torch.from_numpy(lens_np.astype(np.int32)).cuda()
+        err, ok = compare(torch, paged_attention(q, kp, vp, tables, lens),
+                          paged_attention_reference(q, kp, vp, tables, lens,
+                                                    scale))
+        record("paged_attention", what + ", distinct pages", err, ok,
+               timer(lambda: paged_attention(q, kp, vp, tables, lens)),
+               timer(lambda: paged_attention_reference(q, kp, vp, tables,
+                                                       lens, scale)),
+               timer(lambda: paged_library(torch, q, kp, vp, tables, lens,
+                                           scale)),
+               paged_bytes(tables_np, lens_np, h, d),
+               4 * int(lens_np.sum()) * h * d)
+        del q, kp, vp, tables, lens
+    torch.cuda.empty_cache()
+
+
 def conv_flops(n, shp):
     h, ci, co, k, s, p = shp
     ho = (h + 2 * p - k) // s + 1
@@ -756,8 +861,12 @@ def _pct(xs, q):
 
 def serve(torch, srv, name, prompts):
     """Generate for every prompt, the second half arriving while the
-    first half decodes; returns (results, seconds, launches)."""
+    first half decodes; returns (results, seconds, launches, calls).
+    ``calls`` lists the K7 call of every decode step (one a layer) as
+    [B, NB, context lengths of the real rows], B and NB the engine's
+    power-of-2 buckets; a padding row attends over one position."""
     from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.serving.engine import pow2_bucket
 
     eng = srv.engine(name)
     half = len(prompts) // 2
@@ -767,13 +876,27 @@ def serve(torch, srv, name, prompts):
     torch.cuda.synchronize()
     reset_launches()
     steps0, prefills0 = eng.decode_steps, eng.prefills
-    t0 = time.perf_counter()
-    futs = [srv.generate(name, p, MAX_NEW) for p in prompts[:half]]
-    while eng.decode_steps == steps0 and not futs[0].done():
-        time.sleep(0.001)
-    futs += [srv.generate(name, p, MAX_NEW) for p in prompts[half:]]
-    res = [f.result(600) for f in futs]
-    secs = time.perf_counter() - t0
+    calls, step = [], eng.decode_step
+
+    def logged(blocks_list, lens_list, *args, **kw):
+        cfg = eng.config
+        calls.append(
+            [pow2_bucket(len(blocks_list), cfg.max_batch),
+             pow2_bucket(max(map(len, blocks_list)), cfg.max_blocks)]
+            + [int(n) + 1 for n in lens_list])
+        return step(blocks_list, lens_list, *args, **kw)
+
+    eng.decode_step = logged
+    try:
+        t0 = time.perf_counter()
+        futs = [srv.generate(name, p, MAX_NEW) for p in prompts[:half]]
+        while eng.decode_steps == steps0 and not futs[0].done():
+            time.sleep(0.001)
+        futs += [srv.generate(name, p, MAX_NEW) for p in prompts[half:]]
+        res = [f.result(600) for f in futs]
+        secs = time.perf_counter() - t0
+    finally:
+        del eng.decode_step
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in KERNELS.items()}
     launches["prefills"] = eng.prefills - prefills0
@@ -783,7 +906,7 @@ def serve(torch, srv, name, prompts):
     if eng.pool.used_blocks != 0:
         raise AssertionError("pool not drained: %d blocks used"
                              % eng.pool.used_blocks)
-    return res, secs, launches
+    return res, secs, launches, calls
 
 
 def serve_summary(res, secs):
@@ -1436,14 +1559,16 @@ def main():
         srv = InferenceServer(device="cuda")
         try:
             eng = srv.load_generative("f32", cfg, params, kv_blocks=512)
-            res, secs, launches = serve(torch, srv, "f32", prompts)
+            res, secs, launches, calls = serve(torch, srv, "f32",
+                                               prompts)
             for k in ("flash_fwd", "paged_attention"):
                 if launches[k] <= 0:
                     raise AssertionError("%s never launched" % k)
             check = oracle_check(torch, eng, params, prompts[6],
                                  res[6]["tokens"])
             emit({"phase": "serve_f32", "launches": launches,
-                  **serve_summary(res, secs), "oracle": check})
+                  **serve_summary(res, secs), "oracle": check,
+                  "paged_calls": calls})
             if not check["ok"]:
                 raise AssertionError("f32 tenant disagrees with "
                                      "dense_forward")
@@ -1451,7 +1576,8 @@ def main():
             phase = "serve_int8"
             eng8 = srv.load_generative("int8", cfg, params, quant="int8",
                                        kv_blocks=512)
-            res8, secs8, launches8 = serve(torch, srv, "int8", prompts)
+            res8, secs8, launches8, calls8 = serve(torch, srv, "int8",
+                                                   prompts)
             if min(launches8[k] for k in SERVE_KERNELS) <= 0:
                 raise AssertionError("a kernel never launched on the int8 "
                                      "tenant: %r" % launches8)
@@ -1463,7 +1589,7 @@ def main():
                   **serve_summary(res8, secs8),
                   "token_agreement_with_f32": [agree,
                                                len(prompts) * MAX_NEW],
-                  "oracle": check8})
+                  "oracle": check8, "paged_calls": calls8})
             if not check8["ok"]:
                 raise AssertionError("int8 tenant disagrees with "
                                      "dense_forward over its own "

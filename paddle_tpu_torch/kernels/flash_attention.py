@@ -30,7 +30,7 @@ __all__ = ["flash_attention", "flash_attention_fwd_lse",
            "chunk_finalize", "flash_attention_chunk_bwd", "paged_attention",
            "attention_reference", "flash_attention_bwd_reference",
            "chunk_update_reference", "chunk_bwd_reference",
-           "paged_attention_reference", "NEG_INF"]
+           "paged_attention_reference", "paged_span_pages", "NEG_INF"]
 
 NEG_INF = -1e30
 # the shapes the kernels are built for: the flagship LM's head_dim and
@@ -457,7 +457,13 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
     ``v_pages`` [N, bs, H, D] — the block pool; ``block_tables`` [B, NB]
     int32 — each sequence's page ids (slots past its context are
     masked); ``context_lens`` [B] int32 — real context per sequence
-    (>= 1; a padding row uses 1)."""
+    (>= 1; a padding row uses 1).
+
+    On the card it runs K7 (``csrc/paged_attention.cu``): each row's
+    live pages split into spans of ``paged_span_pages()``, one block a
+    (span, head, sequence), the spans folded in order by a second
+    launch; table slots past a row's context are never read.
+    ``launches`` counts calls, not the kernels of a call."""
     where = route(q, k_pages, v_pages, block_tables, context_lens)
     require(q.dim() == 3 and k_pages.dim() == 4
             and v_pages.shape == k_pages.shape,
@@ -485,17 +491,31 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
     require(d == _HEAD_DIM and bs == _BLOCK_SIZE,
             "paged kernel is built for head_dim %d and block_size %d, not "
             "%d and %d" % (_HEAD_DIM, _BLOCK_SIZE, d, bs))
+    require(_aligned16(q, k_pages, v_pages), "paged attention kernel "
+            "needs q and the pages on 16-byte boundaries")
+    nb = block_tables.shape[1]
+    spans = -(-nb // paged_span_pages())
     out = torch.empty_like(q)
+    # each span's (acc, m, l) where a row has more than one live span
+    part = q.new_empty((b, h, spans, d + 2)) if spans > 1 else None
     fn = _build.function(
         "paged_attention", "paged_attention_f32",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(ptr(q), ptr(k_pages), ptr(v_pages), ptr(block_tables),
-            ptr(context_lens), ptr(out), b, h, d, bs,
-            block_tables.shape[1], float(scale), stream())
+            ptr(context_lens), ptr(out),
+            ptr(part) if part is not None else ctypes.c_void_p(None),
+            b, h, d, bs, nb, spans, float(scale), stream())
     _build.check(rc, "paged_attention")
     paged_attention.launches += 1
     return out
 
 
 paged_attention.launches = 0
+
+
+def paged_span_pages():
+    """K7's span length P in pages, as its launcher has it: a constant
+    of the library, never a function of the batch, the table width or
+    the lengths, so a row's result is batch-invariant."""
+    return _build.function("paged_attention", "paged_span_pages", [])()

@@ -10,8 +10,14 @@ Reports:
   synchronize (median over the batch);
 - ``step_ms``: host wall time of one decode step, ended by a
   synchronize (median);
-- from ``torch.profiler`` over the timed steps: device time per step,
-  the device's idle share of the step, and device time by kernel name;
+- from ``torch.profiler`` over the timed steps: device time per step
+  and the device's idle share of the step, from the union of the
+  device events' intervals (K7's combine is a programmatic dependent
+  launch: it is scheduled while the span kernel runs and waits for it,
+  so its own span includes that wait and the two overlap), device time
+  by kernel name (each kernel's own span, waits included), and K7's
+  device time per step (``paged_attention_ms_per_step``: the union of
+  its kernels' intervals);
 - from ``torch.profiler`` over one more CTX-token prefill: its device
   time by kernel name (``prefill_kernels``).
   Where the profiler records no device time these read "not measured".
@@ -51,6 +57,27 @@ def _by_kernel(prof, n):
             kernels[evt.key] = {"ms_per_step": dev_us / 1e3 / n,
                                 "calls_per_step": evt.count / n}
     return kernels
+
+
+def _device_intervals(prof):
+    """[(name, start us, end us)] of the profile's device events."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+def _union_ms(intervals):
+    """Milliseconds covered by the union of (start us, end us)
+    intervals: time in which at least one of them ran."""
+    total, reach = 0.0, None
+    for start, end in sorted(intervals):
+        if reach is None or start > reach:
+            total += end - start
+            reach = end
+        elif end > reach:
+            total += end - reach
+            reach = end
+    return total / 1e3
 
 
 def main(argv=None):
@@ -105,7 +132,10 @@ def main(argv=None):
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
     kernels = _by_kernel(prof, STEPS)
-    busy = sum(k["ms_per_step"] for k in kernels.values())
+    spans = _device_intervals(prof)
+    busy = _union_ms([(s, e) for _, s, e in spans]) / STEPS
+    paged = _union_ms([(s, e) for name, s, e in spans
+                       if "paged" in name]) / STEPS
     med = float(np.median(step_ms))
     top = dict(sorted(kernels.items(),
                       key=lambda kv: -kv[1]["ms_per_step"])[:12])
@@ -116,6 +146,8 @@ def main(argv=None):
         "step_ms_median": med,
         "device_ms_per_step": busy if kernels else "not measured",
         "device_idle_share": 1.0 - busy / med if kernels
+        else "not measured",
+        "paged_attention_ms_per_step": paged if kernels
         else "not measured",
         "kernels": top or "not measured",
         "prefill_kernels": prefill_kernels or "not measured"}))

@@ -290,6 +290,102 @@ def test_paged_kernel_matches_plain_on_card(cuda, b, nb):
     torch.testing.assert_close(out, ref, **TOL)
 
 
+def _paged_distinct(cuda, lens, nb, seed):
+    """q, pages and tables for ``lens`` at width ``nb``: every live
+    page a distinct id from a pool of B x NB + 1 (page 0 unused), slots
+    past the live pages 0, as the engine pads them."""
+    b, bs = len(lens), 16
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n = b * nb + 1
+    q = torch.randn(b, 8, 128, device=cuda, generator=g)
+    kp = torch.randn(n, bs, 8, 128, device=cuda, generator=g)
+    vp = torch.randn(n, bs, 8, 128, device=cuda, generator=g)
+    ids = torch.randperm(n - 1, device=cuda, generator=g).reshape(b, nb)
+    live = torch.arange(nb, device=cuda)[None] * bs < torch.tensor(
+        lens, device=cuda)[:, None]
+    tables = torch.where(live, ids + 1, 0).to(torch.int32)
+    return q, kp, vp, tables, torch.tensor(lens, dtype=torch.int32,
+                                           device=cuda)
+
+
+def _paged_check(q, kp, vp, tables, lens):
+    out = paged_attention(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, paged_attention_reference(
+        q, kp, vp, tables, lens, 128 ** -0.5), **TOL)
+    return out
+
+
+@pytest.mark.cuda
+def test_paged_kernel_one_long_row_on_card(cuda):
+    """B = 1 at NB = 128 with 2048 tokens on distinct pages: 16 spans
+    a head, folded by the second launch."""
+    _paged_check(*_paged_distinct(cuda, [2048], 128, 1))
+
+
+@pytest.mark.cuda
+def test_paged_kernel_at_span_boundaries_on_card(cuda):
+    """Contexts around the span length P x 16 tokens: one position, a
+    span short by one, one span, one past it, two spans, the table."""
+    from paddle_tpu_torch.kernels.flash_attention import paged_span_pages
+
+    t = paged_span_pages() * 16
+    lens = [1, 15, 16, 17, t - 1, t, t + 1, 2 * t, 2 * t + 1, 2048]
+    _paged_check(*_paged_distinct(cuda, lens, 128, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", [0, 1, 5, 15])
+def test_paged_kernel_rows_are_batch_invariant_on_card(cuda, row):
+    """A row alone, in its own block-count bucket, gives bit for bit its
+    row of a B = 16, NB = 128 call."""
+    lens = [2048, 1, 129, 700, 1024, 128, 16, 17, 1500, 300, 64, 2000,
+            5, 777, 1023, 1025]
+    q, kp, vp, tables, lens_t = _paged_distinct(cuda, lens, 128, 3)
+    wide = _paged_check(q, kp, vp, tables, lens_t)
+    pages = -(-lens[row] // 16)
+    nb_own = 1 << (pages - 1).bit_length()
+    alone = paged_attention(q[row:row + 1].contiguous(), kp, vp,
+                            tables[row:row + 1, :nb_own].contiguous(),
+                            lens_t[row:row + 1].contiguous())
+    assert torch.equal(alone[0], wide[row])
+
+
+@pytest.mark.cuda
+def test_paged_kernel_is_deterministic_on_card(cuda):
+    args = _paged_distinct(cuda, [2048, 5, 1000, 129], 128, 4)
+    assert torch.equal(paged_attention(*args), paged_attention(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hole", [-1, 2 ** 31 - 1])
+def test_paged_kernel_never_reads_slots_past_the_context_on_card(cuda,
+                                                                 hole):
+    """Table slots past each row's context hold an id no page has: the
+    kernel runs without a fault and gives the result of real pages."""
+    lens = [1, 16, 17, 128, 129, 1000, 2047]
+    q, kp, vp, tables, lens_t = _paged_distinct(cuda, lens, 128, 5)
+    live = torch.arange(128, device=cuda)[None] * 16 < lens_t[:, None]
+    holes = torch.where(live, tables, hole).to(torch.int32)
+    out = paged_attention(q, kp, vp, holes, lens_t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, paged_attention_reference(
+        q, kp, vp, tables, lens_t, 128 ** -0.5), **TOL)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_refuses_a_misaligned_q_on_card(cuda):
+    q, kp, vp, tables, lens = _paged_distinct(cuda, [40], 8, 6)
+    flat = torch.zeros(q.numel() + 1, device=cuda)
+    q1 = flat[1:].view_as(q)
+    q1.copy_(q)
+    launches = paged_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_attention(q1, kp, vp, tables, lens)
+    assert paged_attention.launches == launches
+    _paged_check(q, kp, vp, tables, lens)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 3, 8, 16, 100])
 def test_int8_kernel_matches_plain_on_card(cuda, m):
