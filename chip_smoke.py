@@ -74,7 +74,32 @@ Phases, each printed as one JSON line:
              the card against the same step on a 4-shard CPU mesh
              (ExecutorCore(CPUPlace(), mesh=[cpu] * 4)) and against the
              dense program's step on the card, from the same parameters,
-             at phase 8's bars.
+             at phase 8's bars;
+17. infer_resnet_fused_amp — phase 11's is_test fused program under bf16
+             AMP (Float16Transpiler, FLAGS_bn_bf16=1): K6's bf16 form 53
+             times a forward with its full epilogue, the f32 form never;
+             its softmax held against the f32 fused is_test program's on
+             the card from the same parameters to INFER_AMP_TOL;
+18. train_resnet_amp — phase 12 under bf16 AMP (FLAGS_bn_bf16=1): no K6
+             launch, every parameter still float32 after the steps;
+19. train_resnet_fused_amp — phase 13 under bf16 AMP: K6's bf16 form 53
+             times a step in its statistics form, the f32 form never;
+20. train_resnet_fused_amp_oracle — phase 14 under bf16 AMP: the card
+             against Executor(CPUPlace()), each fetched tensor (the loss,
+             every stage's output, every parameter gradient) held to
+             twice the CPU's own spread when every filter moves by one
+             bf16 ulp either way (AMP_ORACLE_*);
+21. bench — the port's bench entry (python3 -m
+             paddle_tpu_torch.tools.bench) at its default headline
+             (ResNet-50, bf16 AMP, NCHW, batch 256) and with
+             BENCH_LAYOUT=NHWC, each with BENCH_ITERS=10 and
+             BENCH_SECONDARY=0, then (information) at BENCH_AMP=0
+             BENCH_LAYOUT=NHWC beside phase 13's step; each must exit 0
+             with finite losses, the last below the first, float32
+             parameters and, under AMP, an mfu.
+
+Phases 18-21 each check that every loss is finite, the last below the
+first, and every parameter still float32.
 
 Phase 3 holds K8 against its plain version at the flagship layer's
 four projections at every decode bucket M = 1..16 (the decode kernel,
@@ -90,7 +115,13 @@ on ragged shapes and at the path's widths (K = 4608, a Co = 64 3x3
 stage at 56 x 56, the stem at 224 x 224); K9 at the ring's shard
 [16, 8, 512, 128] (the diagonal causal fold, a non-causal fold from a
 carry seeded by an earlier one, a half-masked and a wholly masked
-block, the last bit-identical to its carry); K2/K3 at that shape,
+block, the last bit-identical to its carry); K6's bf16 form
+(``conv_stage_bf16``, the same tile with one bf16 MMA a product, held
+to one bf16 ulp of its plain version on Y and to STATS_RTOL on the
+sums) at the same 20 shapes (statistics form; the five heaviest also
+with the full epilogue), against F.conv2d on channels_last bf16 (cuDNN)
+with the sums in torch, bound at the dense bf16 peak, and at every
+epilogue combination on ragged shapes; K2/K3 at that shape,
 non-causal and the causal diagonal; K10, which no path runs, at the
 LM's logits [32768, 8192].  K7 (each row's live pages in spans of
 ``paged_span_pages()`` pages, streamed through a cp.async ring, the spans
@@ -155,6 +186,26 @@ RESNET_ORACLE_SPREAD_MAX = 0.05
 # infer_resnet_fused: the fused program's softmax probabilities against
 # the NCHW program's on the card (K6 vs cuDNN, 53 f32 conv stages)
 INFER_TOL = 1e-4
+# infer_resnet_fused_amp: the AMP is_test softmax against the f32 one on
+# the card.  bf16 rounds every stage's activations to 2**-9, and 53
+# stages at the seeded initialization carry that to the probabilities:
+# on the CPU (paddle_tpu_torch/tools/amp_spread.py --infer-batch: depth
+# 50, the batch's own BN statistics) the AMP softmax sits 0.037 (batch
+# 4), 0.048 (batch 16) and 0.067 (batch 16, seed 1) from the f32 one at
+# most; the bar is twice the largest reading
+INFER_AMP_TOL = 0.13
+# train_resnet_fused_amp_oracle: under bf16 one ulp on every filter
+# moves the depth-50 step by percents at the first stages and by
+# O(100 %) at the last stages and in the gradients (amp_spread.py at
+# batch 2, seeds 0 and 1: loss 2.0-4.2 %, first stage 1.0 %, last 74-76
+# %, gradients 166-181 % at worst and 139-141 % at the median, in
+# relative Frobenius norm), so each
+# fetched tensor is held to AMP_ORACLE_SPREAD times its own CPU spread
+# (the larger of one ulp up and one ulp down), never below
+# ORACLE_GRAD_RTOL; a loss spread above AMP_ORACLE_LOSS_SPREAD_MAX fails
+# the phase
+AMP_ORACLE_SPREAD = 2.0
+AMP_ORACLE_LOSS_SPREAD_MAX = 0.05
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32, non-tensor-core peak
 # float32-accurate products on the tensor cores: split-TF32 spends three
@@ -168,6 +219,10 @@ PRODUCT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
 # K8's int8 weights are exact in TF32 (8 bits fit its 10-bit mantissa),
 # so only the f32 activations split: two MMAs (hi*w, lo*w) a product
 INT8W_SPLIT_TF32_FLOPS = 494.7e12 / 2
+# bf16 products on the tensor cores, dense (NVIDIA data sheet, H100 SXM)
+BF16_FLOPS = 989.4e12
+# the bf16 kernel forms, bound by BF16_FLOPS
+BF16_KERNELS = ("conv_stage_bf16",)
 SEED = 0
 
 
@@ -243,12 +298,28 @@ def ops_rate(name):
         return "split-tf32", SPLIT_TF32_FLOPS
     if name == "matmul_int8":
         return "split-tf32-int8w", INT8W_SPLIT_TF32_FLOPS
+    if name in BF16_KERNELS:
+        return "bf16", BF16_FLOPS
     return "f32", F32_FLOPS
 
 
 def compare(torch, got, want):
+    if got.dtype == torch.bfloat16:
+        return compare_bf16(torch, got, want)
     err = (got.double() - want.double()).abs()
     ok = bool((err <= ATOL + RTOL * want.double().abs()).all())
+    return float(err.max()), ok
+
+
+def compare_bf16(torch, got, want):
+    """A bf16 output against its plain version: each value is one
+    rounding of two f32 sums that differ only in order, so within one
+    bf16 ulp of the plain value, plus 1e-6 of max |plain|."""
+    from paddle_tpu_torch.kernels.conv_fused import bf16_ulp
+
+    want = want.float()
+    err = (got.float() - want).abs()
+    ok = bool((err <= bf16_ulp(want) + 1e-6 * want.abs().max()).all())
     return float(err.max()), ok
 
 
@@ -266,8 +337,6 @@ def check_kernels(torch, timer):
         flash_bwd_dkv, flash_bwd_dq)
     from paddle_tpu_torch.kernels.fused import (
         fused_softmax_cross_entropy, softmax_ce_reference)
-    from paddle_tpu_torch.kernels.conv_fused import (
-        conv2d_nhwc, conv2d_nhwc_reference, conv_stage_tile)
     from paddle_tpu_torch.kernels.matmul_fused import (
         add_ln, add_ln_reference, dequantize_weight, matmul_epilogue,
         matmul_epilogue_reference, matmul_int8_dequant,
@@ -476,29 +545,63 @@ def check_kernels(torch, timer):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # K6: every conv stage of the ResNet-50 forward at batch 256, in the
-    # training form (raw conv + per-channel sums); the five heaviest
-    # (launches x FLOPs) also in the inference form (BN affine +
-    # residual + relu).  The yardstick is F.conv2d on channels_last
-    # tensors (cuDNN, TF32 off) plus the same epilogue in torch; the
-    # bound counts the operations of conv_min_flops.
-    nb = RESNET_BATCH
+    check_conv(torch, timer, gen, record, bad, rows, torch.float32)
+    check_conv(torch, timer, gen, record, bad, rows, torch.bfloat16)
+    return rows, bad
+
+
+# K6's ragged shapes (N, H, Ci, Co, k, stride, pad), every epilogue
+# combination: M not a multiple of the tile, the stem (Ci = 3: f32's
+# 4-byte gather; bf16 padded to 4 channels for an 8-byte one), a
+# 16-byte-gather 3x3 stage, then the path's widths (K = 4608 with M =
+# 196, a Co = 64 3x3 stage, the full stem); bf16 also Ci = 12 (its
+# 8-byte gather) and Ci = 40 (a K tail)
+CONV_RAGGED = {"float32": ((3, 23, 3, 64, 7, 2, 3), (2, 9, 64, 128, 3, 1, 1),
+                           (4, 7, 512, 512, 3, 1, 1),
+                           (2, 56, 64, 64, 3, 1, 1),
+                           (2, 224, 3, 64, 7, 2, 3)),
+               "bfloat16": ((3, 23, 3, 64, 7, 2, 3), (2, 9, 12, 64, 3, 1, 1),
+                            (1, 5, 40, 256, 3, 1, 1),
+                            (4, 7, 512, 512, 3, 1, 1),
+                            (2, 224, 3, 64, 7, 2, 3))}
+
+
+def check_conv(torch, timer, gen, record, bad, rows, dtype):
+    """K6 in its ``dtype`` form (float32: split-TF32, ``conv_stage``;
+    bfloat16: ``conv_stage_bf16``) at every conv stage of the ResNet-50
+    forward at batch 256, in the training form (raw conv + per-channel
+    sums); the five heaviest (launches x FLOPs) also in the inference
+    form (BN affine + residual + relu); then every epilogue combination
+    on CONV_RAGGED.  The yardstick is F.conv2d on channels_last tensors
+    of ``dtype`` (cuDNN, TF32 off) plus the same epilogue and f32 sums in
+    torch; the bound counts ``dtype``'s bytes and conv_min_flops at
+    ``ops_rate``."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels.conv_fused import (
+        conv2d_nhwc, conv2d_nhwc_reference, conv_stage_tile)
+
+    bf16 = dtype == torch.bfloat16
+    name = "conv_stage_bf16" if bf16 else "conv_stage"
+    esize = 2 if bf16 else 4
+    dev, nb = "cuda", RESNET_BATCH
     shapes = conv_stage_shapes()
-    heavy = sorted(shapes, key=lambda c: -shapes[c] * conv_flops(nb, c))[:5]
+    order = sorted(shapes, key=lambda c: -shapes[c] * conv_flops(nb, c))
+    heavy = order[:5]
     fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    fwd_err = 0.0
-    for shp in sorted(shapes, key=lambda c: -shapes[c] * conv_flops(nb, c)):
+    fwd_err, bound_by = 0.0, {"bytes": 0.0, "operations": 0.0}
+    for shp in order:
         h, ci, co, k, s, p = shp
         ho = (h + 2 * p - k) // s + 1
-        x = torch.randn(nb, h, h, ci, device=dev, generator=gen)
-        w = torch.randn(k, k, ci, co, device=dev, generator=gen) * \
-            (k * k * ci) ** -0.5
+        x = torch.randn(nb, h, h, ci, device=dev, generator=gen).to(dtype)
+        w = (torch.randn(k, k, ci, co, device=dev, generator=gen) *
+             (k * k * ci) ** -0.5).to(dtype)
         xcl = x.permute(0, 3, 1, 2)                  # channels_last
         wcl = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         a = torch.rand(co, device=dev, generator=gen) + 0.5
         b = torch.randn(co, device=dev, generator=gen)
-        r = torch.randn(nb, ho, ho, co, device=dev, generator=gen)
+        r = torch.randn(nb, ho, ho, co, device=dev, generator=gen).to(dtype)
         rcl = r.permute(0, 3, 1, 2)
         modes = [("stats", dict(stats=True))]
         if shp in heavy:
@@ -508,10 +611,10 @@ def check_kernels(torch, timer):
             def lib(kw=kw):
                 y = F.conv2d(xcl, wcl, None, s, p)
                 if kw.get("stats"):
-                    return y, y.sum((0, 2, 3)), torch.square(y).sum(
-                        (0, 2, 3))
+                    return y, y.sum((0, 2, 3), dtype=torch.float32), \
+                        torch.square(y.float()).sum((0, 2, 3))
                 return torch.relu(y * a[:, None, None] + b[:, None, None]
-                                  + rcl)
+                                  + rcl).to(dtype)
 
             got = conv2d_nhwc(x, w, (s, s), (p, p), **kw)
             want = conv2d_nhwc_reference(x, w, (s, s), (p, p), **kw)
@@ -520,49 +623,45 @@ def check_kernels(torch, timer):
             # bytes: the rows of x the conv reads (a strided 1x1 skips
             # the rest), w, the output, and the sums or (a, b, residual)
             rows_x = min(h, ho * min(k, s) + max(k - s, 0))
-            out_b = 4 * nb * ho * ho * co
-            nbytes = 4 * (nb * rows_x * rows_x * ci + w.numel()) + out_b + (
-                8 * co if mode == "stats" else 8 * co + out_b)
+            out_b = esize * nb * ho * ho * co
+            nbytes = esize * (nb * rows_x * rows_x * ci + w.numel()) + \
+                out_b + (8 * co if mode == "stats" else 8 * co + out_b)
             row = {"ms": timer(lambda: conv2d_nhwc(x, w, (s, s), (p, p),
                                                    **kw)),
                    "plain_ms": timer(lambda: conv2d_nhwc_reference(
                        x, w, (s, s), (p, p), **kw)),
                    "library_ms": timer(lib)}
-            record("conv_stage", "%s x%d %s" % (conv_shape_str(shp),
-                                                shapes[shp], mode),
+            record(name, "%s x%d %s" % (conv_shape_str(shp), shapes[shp],
+                                        mode),
                    err, ok, row["ms"], row["plain_ms"], row["library_ms"],
                    nbytes, conv_min_flops(nb, shp))
             rows[-1]["stats_rel_err"] = rel
-            rows[-1]["form"] = "tile %dx%d" % conv_stage_tile(
-                nb * ho * ho, co)
+            rows[-1]["form"] = ("bf16 tile %dx%d" if bf16 else
+                                "tile %dx%d") % conv_stage_tile(
+                                    nb * ho * ho, co)
             if mode == "stats":
                 row["bound_ms"] = rows[-1]["bound_ms"]
                 for key in fwd:
                     fwd[key] += shapes[shp] * row[key]
                 fwd_err = max(fwd_err, err)
+                bound_by[rows[-1]["bound_by"]] += shapes[shp] * row[
+                    "bound_ms"]
         del x, w, xcl, wcl, r, rcl
         torch.cuda.empty_cache()
-    # the whole forward's K6 work: each shape's times by its launches
-    rows.append({"kernel": "conv_stage", "shape": CONV_FWD,
-                 "max_abs_err": fwd_err, "ok": True, **fwd,
-                 "bound_by": "operations",
-                 "ops_rate": ops_rate("conv_stage")[0]})
-    # every epilogue combination on ragged shapes: M not a multiple of
-    # the tile, the stem's 4-byte gather (Ci = 3, 7x7, stride 2, padding
-    # 3, Co = 64) and a 16-byte-gather 3x3 stage; then at the path's
-    # widths: K = 4608 with M = 196, a Co = 64 3x3 stage, the full stem
-    for n_, h, ci, co, k, s, p in ((3, 23, 3, 64, 7, 2, 3),
-                                   (2, 9, 64, 128, 3, 1, 1),
-                                   (4, 7, 512, 512, 3, 1, 1),
-                                   (2, 56, 64, 64, 3, 1, 1),
-                                   (2, 224, 3, 64, 7, 2, 3)):
+    # the whole forward's K6 work: each shape's times by its launches;
+    # its bound is bytes or operations as most of it is
+    rows.append({"kernel": name, "shape": CONV_FWD_BF16 if bf16
+                 else CONV_FWD, "max_abs_err": fwd_err, "ok": True, **fwd,
+                 "bound_by": max(bound_by, key=bound_by.get),
+                 "ops_rate": ops_rate(name)[0]})
+    for n_, h, ci, co, k, s, p in CONV_RAGGED[str(dtype)[6:]]:
         ho = (h + 2 * p - k) // s + 1
-        x = torch.randn(n_, h, h, ci, device=dev, generator=gen)
-        w = torch.randn(k, k, ci, co, device=dev, generator=gen) * \
-            (k * k * ci) ** -0.5
+        x = torch.randn(n_, h, h, ci, device=dev, generator=gen).to(dtype)
+        w = (torch.randn(k, k, ci, co, device=dev, generator=gen) *
+             (k * k * ci) ** -0.5).to(dtype)
         ab = (torch.rand(co, device=dev, generator=gen) + 0.5,
               torch.randn(co, device=dev, generator=gen))
-        r = torch.randn(n_, ho, ho, co, device=dev, generator=gen)
+        r = torch.randn(n_, ho, ho, co, device=dev, generator=gen).to(dtype)
         for stats in (False, True):
             for affine in (None, ab):
                 for res in (None, r):
@@ -575,15 +674,15 @@ def check_kernels(torch, timer):
                                                   **kw), x, w, s, p)
                         if not ok:
                             bad.append(
-                                "conv_stage N=%d %s stats=%s affine=%s "
+                                "%s N=%d %s stats=%s affine=%s "
                                 "residual=%s act=%r (max abs err %g, stats "
                                 "rel err %s)"
-                                % (n_, conv_shape_str((h, ci, co, k, s, p)),
+                                % (name, n_,
+                                   conv_shape_str((h, ci, co, k, s, p)),
                                    stats, affine is not None,
                                    res is not None, act, err, rel))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return rows, bad
 
 
 def check_ring_kernels(torch, timer, gen, record, bad):
@@ -827,7 +926,8 @@ def conv_shape_str(shp):
 
 def conv_compare(torch, got, want, x, w, s, p):
     """K6 against its plain version: the output elementwise (ATOL /
-    RTOL); with stats, the per-channel sums by conv_fused.stats_error.
+    RTOL; a bf16 output to one bf16 ulp, compare_bf16); with stats, the
+    per-channel sums by conv_fused.stats_error.
     Returns (max abs err, ok, worst stats error over sum |terms|)."""
     from paddle_tpu_torch.kernels.conv_fused import STATS_RTOL, stats_error
 
@@ -1254,10 +1354,13 @@ RESNET_STEPS = 5
 RESNET_CONVS = 53      # conv stages: K6 launches a fused step or forward
 RESNET_ORACLE_BATCH = 2
 RESNET_PATHS = ("infer_resnet_fused", "train_resnet", "train_resnet_fused")
+BENCH_ITERS = 10
 CONV_FWD = "ResNet-50 forward, batch 256, stats: 53 launches, 20 shapes"
+CONV_FWD_BF16 = ("ResNet-50 forward, batch 256, bf16, stats: 53 launches, "
+                 "20 shapes")
 
 
-def build_resnet(fluid, fused, is_test=False):
+def build_resnet(fluid, fused, is_test=False, amp=False):
     from paddle_tpu_torch.models import resnet
 
     main, startup = fluid.Program(), fluid.Program()
@@ -1265,7 +1368,32 @@ def build_resnet(fluid, fused, is_test=False):
         loss, _, _ = resnet.get_model(
             **RESNET, is_test=is_test,
             data_format="NHWC" if fused else "NCHW", fused_stages=fused)
+    if amp:
+        fluid.transpiler.Float16Transpiler().transpile(main)
     return main, startup, loss
+
+
+class bn_bf16:
+    """FLAGS.bn_bf16 set for the block (bench.py's AMP default), then
+    restored."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        from paddle_tpu_torch.core.flags import FLAGS
+
+        self.prev, FLAGS.bn_bf16 = FLAGS.bn_bf16, self.on
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.core.flags import FLAGS
+
+        FLAGS.bn_bf16 = self.prev
+
+
+def param_dtypes(main, scope):
+    return sorted({str(scope.find_var(p.name).dtype).replace("torch.", "")
+                   for p in main.all_parameters()})
 
 
 def conv_stage_shapes():
@@ -1316,21 +1444,13 @@ def _hwio_for(arrays, main):
     return out
 
 
-def infer_resnet(torch):
-    """The is_test fused forward at batch 256 against the NCHW is_test
-    forward on the card, from the NCHW startup's parameters with each
-    BN's running statistics set to this batch's own (fetched from one
-    step of the NCHW training program), so both normalize as training
-    does.  1 warm-up and RESNET_STEPS timed forwards of the fused
-    program."""
-    import numpy as np
-
+def infer_params(torch, exe, feed):
+    """The NCHW startup's parameters with each BN's running statistics
+    set to ``feed``'s own (fetched from one step of the NCHW training
+    program), so an is_test program normalizes as training does."""
     import paddle_tpu_torch.fluid as fluid
-    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
-    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.fluid.io import get_scope_arrays
 
-    exe = fluid.Executor(fluid.CUDAPlace(0))
-    feed = resnet_batch(RESNET_BATCH, SEED + 6)
     tmain, tstart, _ = build_resnet(fluid, False)
     scope = fluid.Scope()
     exe.run(tstart, scope=scope)
@@ -1346,6 +1466,24 @@ def infer_resnet(torch):
         params[op.input("Mean")[0]] = m
         params[op.input("Variance")[0]] = v
     torch.cuda.empty_cache()
+    return params
+
+
+def infer_resnet(torch):
+    """The is_test fused forward at batch 256 against the NCHW is_test
+    forward on the card, from the NCHW startup's parameters with each
+    BN's running statistics set to this batch's own (infer_params), so
+    both normalize as training does.  1 warm-up and RESNET_STEPS timed
+    forwards of the fused program."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = resnet_batch(RESNET_BATCH, SEED + 6)
+    params = infer_params(torch, exe, feed)
 
     probs = {}
     for fused in (False, True):
@@ -1383,14 +1521,73 @@ def infer_resnet(torch):
             "launches": launches, "ok": bool(ok)}
 
 
-def train_resnet(torch, fused):
+def infer_resnet_amp(torch):
+    """The is_test fused forward under bf16 AMP at batch 256 against the
+    f32 is_test fused forward on the card, both from infer_params' set;
+    1 warm-up and RESNET_STEPS timed AMP forwards."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = resnet_batch(RESNET_BATCH, SEED + 6)
+    params = infer_params(torch, exe, feed)
+    probs = {}
+    for amp in (False, True):
+        with bn_bf16(amp):
+            main, _, _ = build_resnet(fluid, True, is_test=True, amp=amp)
+            softmax = [op.output("Out")[0] for op in main.desc.blocks[0].ops
+                       if op.type == "softmax"]
+            scope = fluid.Scope()
+            set_scope_arrays(scope, _hwio_for(params, main), "cuda")
+            reset_launches()
+            probs[amp] = exe.run(main, feed=feed, fetch_list=softmax,
+                                 scope=scope)[0]
+            if amp:
+                first = KERNELS["conv_stage_bf16"].launches
+                fwd_ms = []
+                for _ in range(RESNET_STEPS):
+                    t0 = time.perf_counter()
+                    exe.run(main, feed=feed, fetch_list=softmax, scope=scope)
+                    fwd_ms.append((time.perf_counter() - t0) * 1e3)
+                launches = {k: fn.launches for k, fn in KERNELS.items()}
+                dtypes = param_dtypes(main, scope)
+        del scope
+        torch.cuda.empty_cache()
+    err = float(np.abs(probs[True] - probs[False]).max())
+    top1 = int((probs[True].argmax(1) == probs[False].argmax(1)).sum())
+    p50 = _pct(fwd_ms, 0.5)
+    ok = (np.isfinite(probs[True]).all() and err <= INFER_AMP_TOL
+          and first == RESNET_CONVS and dtypes == ["float32"]
+          and launches["conv_stage_bf16"] == RESNET_CONVS * (1 + RESNET_STEPS)
+          and all(launches[k] == 0 for k in KERNELS
+                  if k != "conv_stage_bf16"))
+    return {"phase": "infer_resnet_fused_amp", "batch": RESNET_BATCH,
+            **RESNET, "amp": True, "bn_bf16": True,
+            "forward_ms": fwd_ms, "forward_ms_p50": p50,
+            "images_per_s": RESNET_BATCH / p50 * 1e3,
+            "conv_stage_bf16_launches_per_forward": first,
+            "softmax_max_abs_err_vs_f32": err, "tolerance": INFER_AMP_TOL,
+            "top1_agree_vs_f32": [top1, RESNET_BATCH],
+            "param_dtypes": dtypes, "launches": launches, "ok": bool(ok)}
+
+
+def train_resnet(torch, fused, amp=False):
     """Startup, then 1 warm-up and RESNET_STEPS timed steps of ResNet-50
-    (the NHWC fused-stage program with ``fused``) on one fixed uint8
-    batch, through Executor(CUDAPlace(0))."""
+    (the NHWC fused-stage program with ``fused``; under bf16 AMP and
+    FLAGS_bn_bf16 with ``amp``) on one fixed uint8 batch, through
+    Executor(CUDAPlace(0))."""
+    with bn_bf16(amp):
+        return _train_resnet(torch, fused, amp)
+
+
+def _train_resnet(torch, fused, amp):
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.kernels import KERNELS, reset_launches
 
-    main, startup, loss = build_resnet(fluid, fused)
+    main, startup, loss = build_resnet(fluid, fused, amp=amp)
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     t0 = time.perf_counter()
@@ -1412,18 +1609,23 @@ def train_resnet(torch, fused):
     launches = {k: fn.launches for k, fn in KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
     p50 = _pct(step_ms, 0.5)
-    want = {"conv_stage": RESNET_CONVS} if fused else {}
+    want = {("conv_stage_bf16" if amp else "conv_stage"): RESNET_CONVS} \
+        if fused else {}
     per_step = {k: launches[k] / RESNET_STEPS for k in KERNELS}
+    dtypes = param_dtypes(main, scope)
     ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-          and all(per_step[k] == want.get(k, 0) for k in KERNELS))
-    return {"phase": "train_resnet_fused" if fused else "train_resnet",
-            "batch": RESNET_BATCH, **RESNET, "startup_s": startup_s,
+          and all(per_step[k] == want.get(k, 0) for k in KERNELS)
+          and dtypes == ["float32"])
+    return {"phase": ("train_resnet_fused" if fused else "train_resnet")
+            + ("_amp" if amp else ""),
+            "batch": RESNET_BATCH, **RESNET, "amp": amp, "bn_bf16": amp,
+            "startup_s": startup_s,
             "losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
             "images_per_s": RESNET_BATCH / p50 * 1e3,
             "max_memory_allocated_bytes": peak,
             "launches_per_step": per_step,
             "launches_per_step_wanted": want, "launches": launches,
-            "ok": ok}
+            "param_dtypes": dtypes, "ok": ok}
 
 
 def resnet_oracle(torch, seed=SEED):
@@ -1507,6 +1709,152 @@ def resnet_oracle(torch, seed=SEED):
             "grads": grads, "loss_tolerance": RESNET_ORACLE_LOSS_RTOL,
             "grad_tolerance": tol, "median_grad_tolerance": median_tol,
             "ok": ok}
+
+
+def resnet_oracle_amp(torch, seed=SEED):
+    """One step of the fused ResNet-50 under bf16 AMP (FLAGS_bn_bf16) at
+    depth 50, batch 2, on the card and, from the same parameters, on
+    Executor(CPUPlace()), then twice more on the CPU with every filter
+    moved by one bf16 ulp up and down (the step's own bf16 spread):
+    every fetched tensor (the loss, each fused stage's output Y, each
+    parameter gradient) is held to AMP_ORACLE_SPREAD times its own
+    spread, never below ORACLE_GRAD_RTOL, in relative Frobenius norm,
+    and the median gradient to that multiple of the median spread."""
+    with bn_bf16(True):
+        return _resnet_oracle_amp(torch, seed)
+
+
+def _resnet_oracle_amp(torch, seed):
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.kernels.conv_fused import bf16_ulp
+
+    main, startup, loss = build_resnet(fluid, True, amp=True)
+    startup.random_seed = seed
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    arrays = get_scope_arrays(card, persist)
+    params = sorted(p.name for p in main.all_parameters() if p.trainable)
+    ys = [op.output("Y")[0] for op in main.desc.blocks[0].ops
+          if op.type == "fused_conv2d_bn_act"]
+    grads = [p + "@GRAD" for p in params]
+    fetch = [loss.name] + ys + grads
+    feed = resnet_batch(RESNET_ORACLE_BATCH, seed + 7)
+    reset_launches()
+    got = fluid.Executor(fluid.CUDAPlace(0)).run(
+        main, feed=feed, fetch_list=fetch, scope=card, return_numpy=False)
+    k6 = {k: KERNELS[k].launches for k in ("conv_stage_bf16", "conv_stage")}
+    y_dtypes = sorted({str(t.dtype) for t in got[1:1 + len(ys)]})
+    grad_dtypes = sorted({str(t.dtype) for t in got[1 + len(ys):]})
+    got = [t.float().cpu().numpy() for t in got]
+
+    def nudged(v, step):
+        t = torch.from_numpy(v).to(torch.bfloat16).float()
+        return (t + step * bf16_ulp(t)).numpy()
+
+    cpu = []
+    for step in (0, 1, -1):
+        host = fluid.Scope()
+        set_scope_arrays(host, {k: nudged(v, step) if step and v.ndim == 4
+                                else v for k, v in arrays.items()}, "cpu")
+        cpu.append(fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch, scope=host))
+    want, up, down = cpu
+
+    def fro_rel(a, b):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    held = {}
+    for i, name in enumerate(fetch):
+        spread = max(fro_rel(up[i], want[i]), fro_rel(down[i], want[i]))
+        held[name] = {"fro_rel": fro_rel(got[i], want[i]),
+                      "cpu_ulp_fro_rel": spread,
+                      "tolerance": max(ORACLE_GRAD_RTOL,
+                                       AMP_ORACLE_SPREAD * spread)}
+    g = [held[n] for n in grads]
+    median = _pct([x["fro_rel"] for x in g], 0.5)
+    median_spread = _pct([x["cpu_ulp_fro_rel"] for x in g], 0.5)
+    median_tol = max(ORACLE_GRAD_RTOL, AMP_ORACLE_SPREAD * median_spread)
+    worst = max(held, key=lambda n: held[n]["fro_rel"] /
+                held[n]["tolerance"])
+    loss_spread = held[loss.name]["cpu_ulp_fro_rel"]
+    ok = (all(math.isfinite(x["fro_rel"]) and x["fro_rel"] <= x["tolerance"]
+              for x in held.values())
+          and median <= median_tol
+          and loss_spread <= AMP_ORACLE_LOSS_SPREAD_MAX
+          and k6 == {"conv_stage_bf16": RESNET_CONVS, "conv_stage": 0}
+          and grad_dtypes == ["torch.float32"]
+          and y_dtypes == ["torch.bfloat16"])
+    return {"phase": "train_resnet_fused_amp_oracle", "depth": 50,
+            "batch": RESNET_ORACLE_BATCH, "seed": seed, "amp": True,
+            "bn_bf16": True, "conv_stage_launches": k6,
+            "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
+            "loss": held[loss.name], "loss_spread_max":
+            AMP_ORACLE_LOSS_SPREAD_MAX,
+            "stage_y_first": held[ys[0]], "stage_y_last": held[ys[-1]],
+            "stage_y_worst_fro_rel": max(held[n]["fro_rel"] for n in ys),
+            "worst_vs_tolerance": [worst, held[worst]],
+            "median_grad_fro_rel": median,
+            "cpu_ulp_median_grad_fro_rel": median_spread,
+            "median_grad_tolerance": median_tol,
+            "y_dtypes": y_dtypes, "grad_dtypes": grad_dtypes,
+            "held": held, "ok": ok}
+
+
+def bench_runs(torch, fused_step_ms):
+    """The port's bench entry in a subprocess: the default headline,
+    BENCH_LAYOUT=NHWC, and (information, beside ``fused_step_ms``, phase
+    13's p50) BENCH_AMP=0 BENCH_LAYOUT=NHWC, each BENCH_ITERS and no
+    secondary.  Returns (the runs' JSON lines, the phase's summary)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = (("headline", {}), ("nhwc", {"BENCH_LAYOUT": "NHWC"}),
+            ("nhwc_f32", {"BENCH_LAYOUT": "NHWC", "BENCH_AMP": "0"}))
+    lines, summary, bad = {}, {}, []
+    for name, extra in runs:
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("BENCH_")}
+        env.update(BENCH_ITERS=str(BENCH_ITERS), BENCH_SECONDARY="0",
+                   **extra)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.tools.bench"],
+            cwd=root, env=env, capture_output=True, text=True, timeout=900)
+        secs = time.perf_counter() - t0
+        out = None
+        if proc.returncode == 0 and proc.stdout.strip():
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+        if out is None:
+            sys.stderr.write(proc.stderr[-4000:])
+            bad.append("%s: rc %d" % (name, proc.returncode))
+            continue
+        lines[name] = out
+        amp = extra.get("BENCH_AMP", "1") == "1"
+        losses = out["losses"]
+        ok = (out["losses_finite"] and losses[-1] < losses[0]
+              and out["param_dtypes"] == ["float32"] and out["amp"] is amp
+              and (out["mfu"] is not None) is amp
+              and out["prepared"] is False
+              and out["data_format"] == extra.get("BENCH_LAYOUT", "NCHW"))
+        if not ok:
+            bad.append("%s failed its checks" % name)
+        summary[name] = {k: out.get(k) for k in (
+            "metric", "value", "step_ms_p50", "step_ms_p90", "step_ms_p99",
+            "tflops", "mfu", "amp", "data_format", "fused_stages",
+            "device")}
+        summary[name].update(seconds=secs, ok=ok)
+    if "nhwc_f32" in lines:
+        summary["nhwc_f32"]["train_resnet_fused_step_ms_p50"] = fused_step_ms
+        summary["nhwc_f32"]["ratio_to_train_resnet_fused"] = \
+            lines["nhwc_f32"]["step_ms_p50"] / fused_step_ms
+    return lines, {"phase": "bench", "iters": BENCH_ITERS, "runs": summary,
+                   "failures": bad, "ok": not bad}
 
 
 def main():
@@ -1641,6 +1989,7 @@ def main():
             if not result["ok"]:
                 raise AssertionError("%s failed its checks" % phase)
             launches_train[phase] = result["launches"]
+            fused_step_ms = result["step_ms_p50"]
 
         phase = "train_resnet_fused_oracle"
         torch.cuda.empty_cache()
@@ -1649,6 +1998,31 @@ def main():
         if not oracle["ok"]:
             raise AssertionError("%s: the card's training step disagrees "
                                  "with the CPU one" % phase)
+
+        phase = "infer_resnet_fused_amp"
+        torch.cuda.empty_cache()
+        result = infer_resnet_amp(torch)
+        emit(result)
+        if not result["ok"]:
+            raise AssertionError("%s failed its checks" % phase)
+        launches_train[phase] = result["launches"]
+        for fused in (False, True):
+            phase = ("train_resnet_fused" if fused else "train_resnet") + \
+                "_amp"
+            torch.cuda.empty_cache()
+            result = train_resnet(torch, fused, amp=True)
+            emit(result)
+            if not result["ok"]:
+                raise AssertionError("%s failed its checks" % phase)
+            launches_train[phase] = result["launches"]
+
+        phase = "train_resnet_fused_amp_oracle"
+        torch.cuda.empty_cache()
+        oracle = resnet_oracle_amp(torch)
+        emit(oracle)
+        if not oracle["ok"]:
+            raise AssertionError("%s: the card's AMP step disagrees with "
+                                 "the CPU one past its spread" % phase)
 
         phase = "train_sp"
         torch.cuda.empty_cache()
@@ -1666,6 +2040,14 @@ def main():
             raise AssertionError("%s: the card's sp step disagrees with the "
                                  "CPU sp step or the dense card step"
                                  % phase)
+
+        phase = "bench"
+        lines, result = bench_runs(torch, fused_step_ms)
+        for line in lines.values():
+            emit(line)
+        emit(result)
+        if not result["ok"]:
+            raise AssertionError("bench: %s" % "; ".join(result["failures"]))
     except Exception as e:
         emit({"phase": phase, "ok": False,
               "error": "%s: %s" % (type(e).__name__, e)})
@@ -1679,9 +2061,10 @@ def main():
     # the training step's attention, K7 at the full decode batch, K8 at
     # the full decode batch on the slower of the two largest projections
     # (w1 and w2 move the same bytes and FLOPs), K4 at the slowest of the
-    # fused step's five projections, K5 at the fused step's seam, K6 as
-    # the sum of the ResNet-50 forward's 53 launches, K9 at the slower of
-    # the ring's diagonal and off-diagonal folds, K10 at the LM's logits
+    # fused step's five projections, K5 at the fused step's seam, K6 and
+    # its bf16 form as the sum of the ResNet-50 forward's 53 launches, K9
+    # at the slower of the ring's diagonal and off-diagonal folds, K10 at
+    # the LM's logits
     m = TRAIN_BATCH * TRAIN_LM["seq_len"]
     shard = "[%d,%d,%d,%d]" % (TRAIN_BATCH, TRAIN_LM["n_head"],
                                TRAIN_LM["seq_len"] // SP,
@@ -1695,6 +2078,7 @@ def main():
                                 for what, kk, n, _, _ in FUSED_MATMULS],
             "add_ln": ["[%d,%d] affine" % (m, TRAIN_LM["d_model"])],
             "conv_stage": [CONV_FWD],
+            "conv_stage_bf16": [CONV_FWD_BF16],
             "flash_chunk": [shard + " diagonal causal",
                             shard + " non-causal, seeded carry"],
             "fused_ce": ["[%d,%d]" % (m, TRAIN_LM["vocab_size"])]}
@@ -1716,19 +2100,23 @@ def main():
                        tpu + "matmul_fused.py:394"),
             "conv_stage": (csrc + "conv_fused.cu",
                            tpu + "conv_fused.py:73"),
+            "conv_stage_bf16": (csrc + "conv_fused.cu",
+                                tpu + "conv_fused.py:73"),
             "flash_chunk": (csrc + "flash_chunk.cu",
                             tpu + "flash_attention.py:795"),
             "fused_ce": (csrc + "fused_ce.cu", tpu + "fused.py:29")}
     # launches: each kernel's count on its main path (train_f32 for the
     # flash training kernels, train_fused for K4/K5, train_resnet_fused
-    # for K6, train_sp for K9, the int8 tenant's serve run, which runs
-    # all three serving kernels, for the rest; K10 is on no path, so 0);
-    # every path's count stands beside it
+    # for K6, train_resnet_fused_amp for K6's bf16 form, train_sp for K9,
+    # the int8 tenant's serve run, which runs all three serving kernels,
+    # for the rest; K10 is on no path, so 0); every path's count stands
+    # beside it
     summary = []
     for name in KERNELS:
         r = max((x for x in by_name[name] if x["shape"] in pick[name]),
                 key=lambda x: x["ms"])
         path = ("train_resnet_fused" if name == "conv_stage" else
+                "train_resnet_fused_amp" if name == "conv_stage_bf16" else
                 "train_sp" if name == "flash_chunk" else
                 None if name == "fused_ce" else
                 "train_fused" if name in FUSED_KERNELS else

@@ -374,8 +374,8 @@ class ProgramDesc:
         # name -> per-dim mesh-axis tuple (e.g. (None, "tp")); carried in
         # the desc for parity, no mesh consumes it in the port yet
         self.var_shardings = {}
-        # bf16 mixed-precision flag; carried in the desc, the port's
-        # lowering has no AMP casts yet
+        # bf16 mixed precision (Float16Transpiler): the lowering's
+        # autocast reads it (core/lowering.amp_cast_ins)
         self.amp_bf16 = False
 
     def bump_version(self):

@@ -87,3 +87,8 @@ define_flag("transformer_fuse", False,
             "explicit saved-activation grad lowerings).  Acts at PROGRAM "
             "BUILD time; the unfused program stays the default for "
             "bisection")
+define_flag("bn_bf16", False,
+            "under AMP, let batch_norm consume/produce bf16 (statistics "
+            "stay f32 internally, like layer_norm) instead of casting "
+            "its inputs to f32; halves BN-chain activation bytes on "
+            "HBM-bound conv nets")

@@ -7,17 +7,97 @@ the executor (``executor_impl``) moves values between that environment
 and the Scope.  The same lowerings also run on ``meta`` tensors for
 build-time shape inference (``infer_op_outputs``).
 
-Not ported yet: the bf16 AMP casts of the JAX package's lowering and its
-ragged-sequence ('@LEN') propagation.
+bf16 mixed precision (``Float16Transpiler`` sets ``amp_bf16`` on the
+desc): as each op runs, ``amp_cast_ins`` casts its inputs by the JAX
+package's white and black lists, and ``generic_grad_lower`` applies the
+same casts inside the forward it replays, so a white op's backward runs
+in bf16 too and autograd through the casts gives float32 gradients for
+the float32 parameters.
+
+Not ported yet: the JAX package's ragged-sequence ('@LEN') propagation.
 """
 from __future__ import annotations
 
 import torch
 
+from .flags import FLAGS
 from .registry import get_op_info
 from .types import proto_to_torch_dtype
 
 EMPTY_VAR = ""
+
+# ---------------------------------------------------------------------------
+# bf16 mixed precision: the JAX package's lists, member for member.
+# ---------------------------------------------------------------------------
+
+# matrix-product ops compute in bf16 (their f32 inputs cast to bf16);
+# elementwise_add for the bias and residual adds, so an f32 bias does
+# not promote every post-product activation back to f32
+AMP_WHITE = frozenset({
+    "mul", "matmul", "conv2d", "conv3d", "conv2d_transpose",
+    "depthwise_conv2d", "sequence_conv", "elementwise_add",
+})
+# numerically sensitive ops compute in f32 (bf16 inputs cast back);
+# FLAGS.bn_bf16 lets batch_norm pass bf16 through (its statistics are
+# f32 inside the lowering either way)
+AMP_BLACK = frozenset({
+    "softmax", "softmax_with_cross_entropy", "cross_entropy", "mean",
+    "reduce_mean", "reduce_sum", "sum", "batch_norm",
+    "exp", "log", "square_error_cost", "l2_normalize", "norm",
+    "sigmoid_cross_entropy_with_logits",
+})
+# the ops whose outputs are bf16 activations under AMP: the white list
+# and the fused ops that absorb white chains
+AMP_AUTOCAST_OPS = AMP_WHITE | frozenset({
+    "fused_conv2d_bn_act", "fused_matmul_bias_act",
+    "fused_qkv_matmul", "fused_add_ln",
+})
+
+_OPTIMIZE_ROLE = 0x0002  # framework.OpRole.Optimize
+# the fused ops' slots that take the casts: the conv stage's product
+# operands (its BN parameters keep their dtype), the residual add +
+# LayerNorm's two streams
+_AMP_SLOTS = {"fused_conv2d_bn_act": ("Input", "Filter", "Residual"),
+              "fused_add_ln": ("X", "Y")}
+
+
+def _to(dtype_from, dtype_to):
+    def conv(x):
+        if isinstance(x, torch.Tensor) and x.dtype == dtype_from:
+            return x.to(dtype_to)
+        return x
+    return conv
+
+
+def amp_cast_ins(op_type, ins, role=0):
+    """``ins`` with the AMP casts of ``op_type`` applied: white ops'
+    f32 inputs to bf16, black ops' bf16 inputs to f32, everything else
+    as it flows in."""
+    if role & _OPTIMIZE_ROLE:
+        # parameter updates and learning-rate arithmetic stay f32
+        return ins
+    slots = _AMP_SLOTS.get(op_type)
+    if slots is not None:
+        conv = _to(torch.float32, torch.bfloat16)
+        return Ins({s: [conv(v) if s in slots else v for v in vs]
+                    for s, vs in ins._d.items()})
+    if op_type in AMP_WHITE or op_type in ("fused_matmul_bias_act",
+                                           "fused_qkv_matmul"):
+        if op_type == "elementwise_add":
+            # only activation-shaped adds (bias, residual): scalar or [1]
+            # adds are learning-rate or counter arithmetic and stay f32
+            x = ins.get("X")
+            if x is None or x.dim() < 2:
+                return ins
+        conv = _to(torch.float32, torch.bfloat16)
+    elif op_type in AMP_BLACK:
+        if op_type == "batch_norm" and FLAGS.bn_bf16:
+            # statistics in f32 inside the lowering, output in x.dtype
+            return ins
+        conv = _to(torch.bfloat16, torch.float32)
+    else:
+        return ins
+    return Ins({s: [conv(v) for v in vs] for s, vs in ins._d.items()})
 
 
 class Ins:
@@ -68,6 +148,7 @@ class LoweringContext:
         self.device = device            # torch.device the block runs on
         self.seed = seed                # this run's random seed
         self.mesh = mesh                # parallel.Mesh of the run, or None
+        self.amp = bool(getattr(program, "amp_bf16", False))
         self._generator = None
 
     def generator(self, seed=0):
@@ -89,6 +170,8 @@ def run_op(ctx, op):
         return
     ins = _gather_inputs(ctx.env, op)
     attrs = {k: a.value for k, a in op.attrs.items()}
+    if ctx.amp:
+        ins = amp_cast_ins(op.type, ins, getattr(op, "role", 0))
     outs = info.lower(ctx, ins, attrs, op)
     _scatter_outputs(ctx.env, op, outs)
 
@@ -145,6 +228,12 @@ def generic_grad_lower(ctx, ins, attrs, op):
     zero, non-float outputs are skipped, and '' holes in the grad op's
     outputs stay holes.  The forward is recomputed: eager PyTorch has no
     dead-code elimination to drop it, as XLA does for the vjp.
+
+    Under AMP the replayed forward takes the forward op's casts, so a
+    white op's backward runs in bf16 and each leaf's gradient comes back
+    in the leaf's own dtype; a cotangent whose dtype differs from its
+    output's (f32 from a black consumer into a bf16 output) is cast.
+    Outside AMP such a mismatch is an error.
     """
     fwd_type = op.type[: -len("_grad")]
     info = get_op_info(fwd_type)
@@ -176,7 +265,10 @@ def generic_grad_lower(ctx, ins, attrs, op):
             leaf = merged[slot][i].detach().requires_grad_(True)
             merged[slot][i] = leaf
             leaves.append(leaf)
-        outs = info.lower(ctx, Ins(merged), dict(attrs), fwd_op_view)
+        fwd_ins = Ins(merged)
+        if ctx.amp:
+            fwd_ins = amp_cast_ins(fwd_type, fwd_ins, getattr(op, "role", 0))
+        outs = info.lower(ctx, fwd_ins, dict(attrs), fwd_op_view)
         outputs, cots = [], []
         for s in fwd_output_slots:
             if s in info.no_vjp_outputs:
@@ -189,6 +281,12 @@ def generic_grad_lower(ctx, ins, attrs, op):
                 g = gvals[i] if i < len(gvals) else None
                 if g is None or not _is_float(ov) or not ov.requires_grad:
                     continue
+                if g.dtype != ov.dtype:
+                    if not ctx.amp:
+                        raise TypeError(
+                            "%s: %s@GRAD is %s, the output %s" % (
+                                op.type, s, g.dtype, ov.dtype))
+                    g = g.to(ov.dtype)
                 outputs.append(ov)
                 cots.append(g)
         grads = (torch.autograd.grad(outputs, leaves, cots,

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version.  ``KERNELS`` maps each kernel's name to its wrapper, whose
-``launches`` attribute counts kernel launches."""
+version.  ``KERNELS`` maps each kernel's name (a kernel's bf16 form has
+its own) to its wrapper, whose ``launches`` attribute counts kernel
+launches."""
 from __future__ import annotations
 
 from .flash_attention import (chunk_finalize, flash_attention,
@@ -9,7 +10,7 @@ from .flash_attention import (chunk_finalize, flash_attention,
                               flash_attention_fwd_lse, flash_attention_train,
                               flash_bwd_dkv, flash_bwd_dq, paged_attention)
 from .matmul_fused import add_ln, matmul_epilogue, matmul_int8_dequant
-from .conv_fused import conv2d_nhwc
+from .conv_fused import conv2d_nhwc, conv2d_nhwc_bf16
 from .fused import fused_softmax_cross_entropy
 
 __all__ = ["KERNELS", "reset_launches", "flash_attention",
@@ -17,7 +18,7 @@ __all__ = ["KERNELS", "reset_launches", "flash_attention",
            "flash_attention_train", "flash_attention_chunk",
            "chunk_finalize", "flash_attention_chunk_bwd", "paged_attention",
            "matmul_epilogue", "add_ln", "matmul_int8_dequant",
-           "conv2d_nhwc", "fused_softmax_cross_entropy"]
+           "conv2d_nhwc", "conv2d_nhwc_bf16", "fused_softmax_cross_entropy"]
 
 KERNELS = {"flash_fwd": flash_attention_fwd_lse,
            "flash_bwd_dq": flash_bwd_dq,
@@ -27,6 +28,7 @@ KERNELS = {"flash_fwd": flash_attention_fwd_lse,
            "matmul_epilogue": matmul_epilogue,
            "add_ln": add_ln,
            "conv_stage": conv2d_nhwc,
+           "conv_stage_bf16": conv2d_nhwc_bf16,
            "flash_chunk": flash_attention_chunk,
            "fused_ce": fused_softmax_cross_entropy}
 

@@ -7,10 +7,13 @@ Counterpart of ``paddle_tpu/kernels/conv_fused.py``:
   w [KH, KW, Ci, Co] into an f32 accumulator, with the optional
   epilogue stats (per-channel sum and sum of squares, the training
   form), affine (y * a + b, the test-mode BatchNorm fold), + residual,
-  relu;
+  relu; float32 operands run the split-TF32 form, bfloat16 operands
+  (the ResNet program under AMP) the bf16 form, whose output is bf16
+  and whose statistics are still f32 sums of the f32 accumulator;
 - ``conv2d_nhwc_reference``: its plain version, the reference's
-  fallback branch (``F.conv2d`` on permuted views, f32, stats from the
-  f32 conv output, then the epilogue);
+  fallback branch (``F.conv2d`` on permuted views in f32, bf16 operands
+  widened exactly, stats from the f32 conv output, then the epilogue
+  and one rounding to x's dtype);
 - ``fused_conv_bn_act_reference``: the test-mode conv + BN (+ residual)
   (+ relu) stage from running statistics;
 - ``stats_error``: the rule K6's statistics are held to;
@@ -18,9 +21,10 @@ Counterpart of ``paddle_tpu/kernels/conv_fused.py``:
   statistics partials).
 
 A CPU tensor runs the plain version; a CUDA tensor launches K6 or
-raises (there is no fallback).  ``conv2d_nhwc.launches`` counts kernel
-launches.  The reference's ``force_xla`` / ``interpret`` knobs and its
-autotune cache have no counterpart here.
+raises (there is no fallback).  ``conv2d_nhwc.launches`` counts launches
+of the f32 form, ``conv2d_nhwc_bf16.launches`` those of the bf16 form.
+The reference's ``force_xla`` / ``interpret`` knobs and its autotune
+cache have no counterpart here.
 """
 from __future__ import annotations
 
@@ -33,8 +37,8 @@ from . import _build
 from ._build import ptr, require, route, stream
 
 __all__ = ["nchw_views", "conv_nhwc", "conv2d_nhwc_reference",
-           "conv2d_nhwc", "fused_conv_bn_act_reference", "stats_error",
-           "conv_stage_tile", "STATS_RTOL"]
+           "conv2d_nhwc", "conv2d_nhwc_bf16", "fused_conv_bn_act_reference",
+           "stats_error", "bf16_ulp", "conv_stage_tile", "STATS_RTOL"]
 
 # K6's per-channel sums over N*Ho*Wo pixels are sums of values near 0, so
 # each is held to STATS_RTOL of the sum of its terms' magnitudes, against
@@ -45,6 +49,9 @@ __all__ = ["nchw_views", "conv_nhwc", "conv2d_nhwc_reference",
 # (25,088 of them at batch 256) moves a sum by ~4e-5 of them
 STATS_RTOL = 1e-6
 _ACTS = {"": 0, "relu": 1}
+# the forms: operand dtype -> (C entry, the Co multiple it takes)
+_FORMS = {torch.float32: ("conv_stage_f32", 4),
+          torch.bfloat16: ("conv_stage_bf16", 8)}
 
 
 def _pair(v):
@@ -100,9 +107,12 @@ def conv2d_nhwc(x, w, strides=(1, 1), paddings=(0, 0), *, stats=False,
     ``stats``: also return per-channel (sum, sum_sq) f32 of the raw conv
     output (the fused-BN training form).  ``affine=(a, b)``: fuse
     ``y * a + b`` per channel.  ``residual``: fuse a same-shape add;
-    ``act``: '' | 'relu'.  The kernel takes float32, contiguous, 16-byte
-    aligned operands and Co a multiple of 4; any N, H, W, Ci, kernel
-    size, stride and padding."""
+    ``act``: '' | 'relu'.  The output has x's dtype.  On the card x, w
+    and residual are all float32 (the split-TF32 form, Co a multiple of
+    4) or all bfloat16 (the bf16 form, Co a multiple of 8; x and w are
+    padded to a multiple of 4 channels when Ci is not one), contiguous
+    and 16-byte aligned; any N, H, W, Ci, kernel size, stride and
+    padding."""
     extra = [t for t in (residual,) + tuple(affine or ()) if t is not None]
     where = route(x, w, *extra)
     require(x.dim() == 4 and w.dim() == 4,
@@ -125,24 +135,35 @@ def conv2d_nhwc(x, w, strides=(1, 1), paddings=(0, 0), *, stats=False,
         return conv2d_nhwc_reference(x, w, (sh, sw), (ph, pw), stats=stats,
                                      affine=affine, residual=residual,
                                      act=act)
+    streams = [x, w] + ([residual] if residual is not None else [])
+    require(x.dtype in _FORMS and all(t.dtype == x.dtype for t in streams),
+            "conv stage kernel takes x, w and residual all float32 or all "
+            "bfloat16, got %s" % [str(t.dtype) for t in streams])
+    co_mult = _FORMS[x.dtype][1]
+    if x.dtype == torch.bfloat16 and ci % 4:
+        # no cp.async takes a bf16 pixel row whose Ci is not a multiple
+        # of 4 (the stem's 6 bytes are 2-byte aligned): zero channels up
+        # to one add only zero products
+        x = F.pad(x, (0, 4 - ci % 4))
+        w = F.pad(w, (0, 0, 0, 4 - ci % 4))
     if affine is not None:
         affine = tuple(t.float().contiguous() for t in affine)
-    ops = [x, w] + list(affine or ()) + ([residual] if residual is not None
-                                          else [])
-    require(all(t.dtype == torch.float32 for t in ops),
-            "conv stage kernel takes float32")
+    ops = streams + list(affine or ())
     require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops),
             "conv stage kernel needs contiguous, 16-byte aligned operands")
-    require(co % 4 == 0, "conv stage kernel needs Co a multiple of 4, got %d"
-            % co)
-    out = torch.empty((n, ho, wo, co), dtype=torch.float32, device=x.device)
+    require(co % co_mult == 0, "conv stage kernel (%s) needs Co a multiple "
+            "of %d, got %d" % (x.dtype, co_mult, co))
+    out = torch.empty((n, ho, wo, co), dtype=x.dtype, device=x.device)
     partials = None
     if stats:
         bm, _ = conv_stage_tile(n * ho * wo, co)
         partials = torch.empty((-(-n * ho * wo // bm), 2, co),
                                dtype=torch.float32, device=x.device)
     _launch(x, w, (sh, sw), (ph, pw), affine, residual, act, out, partials)
-    conv2d_nhwc.launches += 1
+    if x.dtype == torch.bfloat16:
+        conv2d_nhwc_bf16.launches += 1
+    else:
+        conv2d_nhwc.launches += 1
     if not stats:
         return out
     sums = partials.sum(dim=0)
@@ -152,11 +173,24 @@ def conv2d_nhwc(x, w, strides=(1, 1), paddings=(0, 0), *, stats=False,
 conv2d_nhwc.launches = 0
 
 
+def conv2d_nhwc_bf16(*args, **kw):
+    """``conv2d_nhwc`` on bfloat16 operands (the form a ResNet AMP step
+    launches); its ``launches`` counts the bf16 form's launches, which
+    ``conv2d_nhwc`` makes for any bf16 call."""
+    require(args[0].dtype == torch.bfloat16 and
+            args[1].dtype == torch.bfloat16, "want bfloat16 x and w")
+    return conv2d_nhwc(*args, **kw)
+
+
+conv2d_nhwc_bf16.launches = 0
+
+
 def _launch(x, w, strides, paddings, affine, residual, act, out, partials):
-    """One launch of K6 on checked operands; ``partials`` (or None) has
-    ceil(M / BM) rows, BM from conv_stage_tile."""
+    """One launch of K6 (the form of x's dtype) on checked operands;
+    ``partials`` (or None) has ceil(M / BM) rows, BM from
+    conv_stage_tile."""
     fn = _build.function(
-        "conv_fused", "conv_stage_f32",
+        "conv_fused", _FORMS[x.dtype][0],
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     null = ctypes.c_void_p(None)
     n, h, wd, ci = x.shape
@@ -193,13 +227,30 @@ def fused_conv_bn_act_reference(x, w, scale, bias, mean, var, *, strides,
                                  residual=residual, act=act)
 
 
+def bf16_ulp(y):
+    """The spacing of bfloat16 numbers at each element of ``y`` (float):
+    2**(e - 7) for |y| in [2**e, 2**(e + 1)), the smallest normal's
+    below it."""
+    _, e = torch.frexp(y.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(y, dtype=torch.float32), e - 8)
+
+
 def stats_error(x, w, strides, paddings, s, ss):
     """How far per-channel (sum, sum_sq) from ``conv2d_nhwc(...,
-    stats=True)`` are from float64 sums of the raw conv output, which
-    ``conv2d_nhwc`` recomputes without epilogue (on the card, K6's same
-    accumulation, bit for bit): (max |err|, max |err| / sum |terms|).
-    Pass when the second is at most STATS_RTOL."""
-    acc = conv2d_nhwc(x, w, strides, paddings)
+    stats=True)`` are from float64 sums of the raw conv output: (max
+    |err|, max |err| / sum |terms|).  Pass when the second is at most
+    STATS_RTOL.  For float32 operands the raw output is recomputed by
+    ``conv2d_nhwc`` without epilogue (on the card, K6's same
+    accumulation, bit for bit); the bf16 form never writes its f32
+    accumulator, so for bf16 operands it is a float64 conv of the same
+    operands, widened exactly, which differs from the accumulator only
+    by the accumulator's own f32 rounding."""
+    if x.dtype == torch.bfloat16:
+        xv, wv = nchw_views(x.double(), w.double())
+        acc = F.conv2d(xv, wv, None, _pair(strides),
+                       _pair(paddings)).permute(0, 2, 3, 1)
+    else:
+        acc = conv2d_nhwc(x, w, strides, paddings)
     acc = acc.reshape(-1, acc.shape[-1]).double()
     err = rel = 0.0
     for got, terms in ((s, acc), (ss, acc.square())):

@@ -57,13 +57,28 @@
 // the 16-byte gather, which lost).  Co must be a
 // multiple of 4 (16-byte copies of w, float2 epilogue accesses); any N,
 // H, W, Ci, kernel size, stride and padding.
+//
+// The bf16 form (conv_stage_bf16; the fused ResNet step under AMP, where
+// the reference kernel takes bf16 x and w): the tile's bf16_kernel, one
+// bf16 MMA a product (989.4 TFLOP/s dense on the H100, against the
+// split form's 494.7 / 3) on the same gather, blocks and order.  x, w,
+// res and out are bf16; the statistics are still taken from the f32
+// accumulator before any rounding (as the reference does), a, b stay
+// f32, and each output is rounded once to bf16 after the f32 epilogue.
+// The gather copies 8 channels a 16-byte cp.async when Ci % 8 == 0, 4
+// channels an 8-byte one when Ci % 4 == 0.  The stem's Ci = 3 makes a
+// 6-byte pixel row, 2-byte aligned, which no cp.async takes: the
+// wrapper pads x and w to Ci = 4 with zero channels (the reference pads
+// in HBM too), which adds only zero products.  Co must be a multiple of
+// 8 (16-byte W copies, 4-byte bf16 pairs in the epilogue).
 #include <cuda_runtime.h>
 
 #include "gemm_tile.cuh"
 
 namespace {
 
-using gemm::Args;
+using gemm::ArgsT;
+using gemm::bf16;
 
 // x [N, H, W, Ci], w [KH, KW, Ci, Co], out [N, Ho, Wo, Co]
 struct Shape {
@@ -73,8 +88,10 @@ struct Shape {
 // The A policy of K6: row m of A is output pixel (n, ho, wo), column k
 // is tap (kh, kw) and channel ci, k = (kh * KW + kw) * Ci + ci, and
 // A[m, k] = x[n, ho * sh - ph + kh, wo * sw - pw + kw, ci], zero outside
-// the image.  V4: Ci % 4 == 0, 16-byte copies of 4 channels.
-template <bool V4>
+// the image.  T: x's type (float, bf16).  CB: the bytes of one copy
+// (cp.async of 16, 8 or 4), E = CB / sizeof(T) channels; Ci must be a
+// multiple of E.
+template <int CB, class T = float>
 struct ConvA {
   using Params = Shape;
   // a row of the block's table: x's offset at (n, hi0, wi0, 0) from the
@@ -82,22 +99,24 @@ struct ConvA {
   // and the top-left tap's input position (hi0, wi0)
   template <class C>
   static constexpr int smem_bytes = C::BM * (int)sizeof(int4);
-  static constexpr int E = V4 ? 4 : 1;   // channels a copy
+  static constexpr int E = CB / (int)sizeof(T);   // channels a copy
+  static_assert(CB == 16 || CB == 8 || CB == 4, "cp.async sizes");
+  static_assert(E >= 1, "a copy holds a channel");
 
   const int4* rows;
-  const float* base;   // x at the block's first image
+  const T* base;       // x at the block's first image
   int kh, kw, ci;      // this thread's column in the next K tile
 
   // one grid dimension (M can pass 65535 tiles), N tiles innermost
-  template <class C>
-  static bool grid(const Args& a, dim3& g) {
+  template <class C, class A>
+  static bool grid(const A& a, dim3& g) {
     const long long b = ((long long)a.M + C::BM - 1) / C::BM *
                         ((a.N + C::BN - 1) / C::BN);
     g = dim3((unsigned)b);
     return b <= 0x7fffffffLL;
   }
-  template <class C>
-  __device__ __forceinline__ static void tile(const Args& a, int& m0,
+  template <class C, class A>
+  __device__ __forceinline__ static void tile(const A& a, int& m0,
                                               int& n0) {
     const int ntn = (a.N + C::BN - 1) / C::BN;
     const int bm = blockIdx.x / ntn;
@@ -105,8 +124,8 @@ struct ConvA {
     n0 = (blockIdx.x - bm * ntn) * C::BN;
   }
 
-  template <class C>
-  __device__ __forceinline__ void init(const Args& a, const Shape& s,
+  template <class C, class A>
+  __device__ __forceinline__ void init(const A& a, const Shape& s,
                                        char* tab, int m0) {
     int4* r = reinterpret_cast<int4*>(tab);
     const int hw = s.Ho * s.Wo, img0 = m0 / hw;
@@ -132,9 +151,9 @@ struct ConvA {
     __syncthreads();   // the table is read by other threads' copies
   }
 
-  template <class C>
-  __device__ __forceinline__ void load(float* dst, const Args& a,
-                                       const Shape& s, int, int) {
+  template <class C, class A>
+  __device__ __forceinline__ void load(T* dst, const A&, const Shape& s,
+                                       int, int) {
     constexpr int CPR = C::BK / E, N_CH = C::BM * CPR;
     static_assert(N_CH % C::NT == 0 && C::NT % CPR == 0,
                   "A copies must split evenly, one column a thread");
@@ -147,11 +166,13 @@ struct ConvA {
       const int4 e = rows[r];   // (offset, hi0, wi0)
       const bool ok = (unsigned)(e.y + hk) < (unsigned)s.H &&
                       (unsigned)(e.z + kw) < (unsigned)s.W;
-      const float* src = base + (ok ? e.x + tap : 0);
-      if (V4)
-        tc::cp16(dst + r * C::AS + 4 * c, src, ok);
+      const T* src = base + (ok ? e.x + tap : 0);
+      if constexpr (CB == 16)
+        tc::cp16(dst + r * C::AS + E * c, src, ok);
+      else if constexpr (CB == 8)
+        tc::cp8(dst + r * C::AS + E * c, src, ok);
       else
-        tc::cp4(dst + r * C::AS + c, src, ok);
+        tc::cp4(dst + r * C::AS + E * c, src, ok);
     }
     ci += C::BK;   // the next K tile's column
     while (ci >= s.Ci) {
@@ -164,9 +185,24 @@ struct ConvA {
   }
 };
 
+// two adjacent outputs as float2, from float or bf16
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+// ... stored as float, or rounded once to bf16
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
 // The epilogue of K6, from the accumulator fragments (element e of
 // fragment (i, j) holds row 16 i + g + 8 (e / 2), column 8 j + 2 t +
-// e % 2 of the warp tile).
+// e % 2 of the warp tile), for float or bf16 res and out.
 struct ConvEpi {
   struct Params {
     const float* scale;   // affine a [Co] or NULL
@@ -176,9 +212,9 @@ struct ConvEpi {
 
   // per-channel (sum, sum of squares) of the raw accumulator over the
   // tile's valid rows, into partials row m0 / BM
-  template <class C>
+  template <class C, class A>
   __device__ __forceinline__ static void stats(
-      const float (&acc)[C::MI][C::NI][4], const Args& a, const Params& p,
+      const float (&acc)[C::MI][C::NI][4], const A& a, const Params& p,
       char* smem, int m0, int n0) {
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     const int g = lane / 4, t = lane % 4, wm = warp / C::WN;
@@ -238,9 +274,9 @@ struct ConvEpi {
     }
   }
 
-  template <class C, bool VEC>
+  template <class C, bool VEC, class A>
   __device__ __forceinline__ static void apply(
-      const float (&acc)[C::MI][C::NI][4], const Args& a, const Params& p,
+      const float (&acc)[C::MI][C::NI][4], const A& a, const Params& p,
       char* smem, int m0, int n0) {
     static_assert(VEC, "K6 takes Co % 4 == 0");
     if (p.partials) stats<C>(acc, a, p, smem, m0, n0);
@@ -275,8 +311,8 @@ struct ConvEpi {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             if (row(i, h) >= a.M || col(j) >= a.N) continue;
-            const float2 r = *reinterpret_cast<const float2*>(
-                a.res + (size_t)row(i, h) * a.N + col(j));
+            const float2 r = load2(a.res + (size_t)row(i, h) * a.N +
+                                   col(j));
             y[i][j][2 * h] += r.x;
             y[i][j][2 * h + 1] += r.y;
           }
@@ -293,26 +329,29 @@ struct ConvEpi {
             v0 = fmaxf(v0, 0.f);
             v1 = fmaxf(v1, 0.f);
           }
-          *reinterpret_cast<float2*>(a.out + (size_t)row(i, h) * a.N +
-                                     col(j)) = make_float2(v0, v1);
+          store2(a.out + (size_t)row(i, h) * a.N + col(j), v0, v1);
         }
   }
 };
 
-// One launch's operands, checked.
+// One launch's operands, checked; T: x, w, res and out's type.
+template <class T>
 struct Call {
-  Args a;
+  ArgsT<T> a;
   Shape s;
   ConvEpi::Params p;
 };
 
-// Fill `c`; cudaErrorInvalidValue for what K6 does not take.
-cudaError_t make_call(Call& c, const float* x, const float* w,
-                      const float* scale, const float* shift,
-                      const float* res, float* out, float* partials, int N,
-                      int H, int W, int Ci, int Co, int KH, int KW, int sh,
-                      int sw, int ph, int pw, int act) {
-  if (N <= 0 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 || Co % 4 ||
+// Fill `c`; cudaErrorInvalidValue for what K6 does not take (Co a
+// multiple of 4; in bf16 Co a multiple of 8 and Ci of 4).
+template <class T>
+cudaError_t make_call(Call<T>& c, const T* x, const T* w,
+                      const float* scale, const float* shift, const T* res,
+                      T* out, float* partials, int N, int H, int W, int Ci,
+                      int Co, int KH, int KW, int sh, int sw, int ph,
+                      int pw, int act) {
+  if (N <= 0 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 ||
+      Co % (16 / (int)sizeof(T)) || (sizeof(T) == 2 && Ci % 4) ||
       KH <= 0 || KW <= 0 || sh <= 0 || sw <= 0 || ph < 0 || pw < 0 ||
       act < 0 || act > 1 || (scale == nullptr) != (shift == nullptr))
     return cudaErrorInvalidValue;
@@ -328,21 +367,28 @@ cudaError_t make_call(Call& c, const float* x, const float* w,
       ((long long)KH * W + KW) * Ci;
   if (m > 0x7fffffffLL || k > 0x7fffffffLL || span > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  c.a = Args{x, w, nullptr, nullptr, res, out, nullptr, (int)m, Co, (int)k,
-             0, act};
+  c.a = ArgsT<T>{x, w, nullptr, nullptr, res, out, nullptr, (int)m, Co,
+                 (int)k, 0, act};
   c.s = Shape{H, W, Ci, KH, KW, sh, sw, ph, pw, Ho, Wo};
   c.p = ConvEpi::Params{scale, shift, partials};
   return cudaSuccess;
 }
 
 template <class C>
-cudaError_t launch_form(const Call& c, cudaStream_t st) {
+cudaError_t launch_form(const Call<float>& c, cudaStream_t st) {
   using gemm::F32W;
   if (c.s.Ci % 4 == 0)
-    return gemm::launch<C, F32W, true, ConvA<true>, ConvEpi>(c.a, st, c.s,
-                                                             c.p);
-  return gemm::launch<C, F32W, true, ConvA<false>, ConvEpi>(c.a, st, c.s,
-                                                            c.p);
+    return gemm::launch<C, F32W, true, ConvA<16>, ConvEpi>(c.a, st, c.s,
+                                                           c.p);
+  return gemm::launch<C, F32W, true, ConvA<4>, ConvEpi>(c.a, st, c.s, c.p);
+}
+
+template <class C>
+cudaError_t launch_form(const Call<bf16>& c, cudaStream_t st) {
+  if (c.s.Ci % 8 == 0)
+    return gemm::launch_bf16<C, ConvA<16, bf16>, ConvEpi>(c.a, st, c.s,
+                                                          c.p);
+  return gemm::launch_bf16<C, ConvA<8, bf16>, ConvEpi>(c.a, st, c.s, c.p);
 }
 
 }  // namespace
@@ -357,15 +403,30 @@ extern "C" int conv_stage_f32(const float* x, const float* w, const float* a,
                               float* partials, int N, int H, int W, int Ci,
                               int Co, int KH, int KW, int sh, int sw, int ph,
                               int pw, int act, void* stream) {
-  Call c;
+  Call<float> c;
   const cudaError_t err = make_call(c, x, w, a, b, res, out, partials, N, H,
                                     W, Ci, Co, KH, KW, sh, sw, ph, pw, act);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_form<gemm::Large>(c, static_cast<cudaStream_t>(stream));
 }
 
-// The tile (BM, BN) conv_stage_f32 runs for M output pixels and Co
-// channels: BM output pixels make one row of partials.
+// The bf16 form: x, w, res and out bf16 (a, b and partials float32);
+// Co must be a multiple of 8 and Ci of 4.  Otherwise as conv_stage_f32, on the same
+// tile, so conv_stage_tile sizes its partials too.
+extern "C" int conv_stage_bf16(const bf16* x, const bf16* w, const float* a,
+                               const float* b, const bf16* res, bf16* out,
+                               float* partials, int N, int H, int W, int Ci,
+                               int Co, int KH, int KW, int sh, int sw,
+                               int ph, int pw, int act, void* stream) {
+  Call<bf16> c;
+  const cudaError_t err = make_call(c, x, w, a, b, res, out, partials, N, H,
+                                    W, Ci, Co, KH, KW, sh, sw, ph, pw, act);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_form<gemm::Large>(c, static_cast<cudaStream_t>(stream));
+}
+
+// The tile (BM, BN) conv_stage_f32 and conv_stage_bf16 run for M output
+// pixels and Co channels: BM output pixels make one row of partials.
 extern "C" int conv_stage_tile(int M, int Co, int* bm, int* bn) {
   if (M <= 0 || Co <= 0) return (int)cudaErrorInvalidValue;
   *bm = gemm::Large::BM;

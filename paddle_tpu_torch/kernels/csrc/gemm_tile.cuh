@@ -1,7 +1,8 @@
 // The GEMM tile shared by K4 (matmul_fused.cu), K8's prefill form
 // (matmul_int8.cu) and K6 (conv_fused.cu): out = epilogue(A @ W) in
 // float32, the products in split-TF32 on the tensor cores
-// (tf32_mma.cuh).
+// (tf32_mma.cuh); and its bf16 form (bf16_kernel, at the end: K6 under
+// AMP), bf16 A and W with one bf16 MMA a product into float32.
 //
 // Three policies make a kernel of the one mainloop:
 // - the W policy: F32W, f32 weights, split like A, three MMAs a
@@ -50,6 +51,7 @@
 // BN + 4 (the B fragment's scalar loads on distinct banks).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -70,18 +72,23 @@ __device__ __forceinline__ float apply_act(float y, int act) {
   return y;
 }
 
+using bf16 = __nv_bfloat16;
+
 // One launch: out [M, N] = epilogue(A [M, K] @ W [K, N]), A's rows
-// read from x by the A policy.
-struct Args {
-  const float* x;       // DenseA: [M, K]; ConvA: the NHWC image
-  const void* w;        // float [K, N] (F32W) or int8_t [K, N] (Int8W)
+// read from x by the A policy; T is the type of x, res and out (float,
+// or bf16 in the bf16 form).
+template <class T>
+struct ArgsT {
+  const T* x;           // DenseA: [M, K]; ConvA: the NHWC image
+  const void* w;        // float [K, N] (F32W), int8_t (Int8W), bf16
   const float* scales;  // Int8W: [K / chunk, N]
   const float* bias;    // [N] or NULL
-  const float* res;     // [M, N] or NULL
-  float* out;
+  const T* res;         // [M, N] or NULL
+  T* out;
   float* pre;           // [M, N] or NULL: x @ W + bias
   int M, N, K, chunk, act;
 };
+using Args = ArgsT<float>;
 
 struct F32W {
   using T = float;
@@ -475,6 +482,202 @@ cudaError_t run(const Args& a, bool vec, cudaStream_t stream) {
                : launch<Large, W, false>(a, stream);
   return vec ? launch<Small, W, true>(a, stream)
              : launch<Small, W, false>(a, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 form: A and W bf16 in shared memory, one
+// mma.sync.m16n8k16.bf16 a 16-deep product into float32 fragments (no
+// split: a bf16 product is exact in float32).  The same Tile, A policy
+// and epilogue policy interfaces as gemm_kernel, the same block
+// numbering, cp.async stage ring and fixed summation order (each K tile
+// in a fresh fragment added by float32 adds, as the split form does);
+// only the operand layout in shared memory and the fragments differ:
+// - rows of 2-byte elements, A padded to BK + 8 (80 bytes) and W to
+//   BN + 8 (144 bytes), so the 8 rows an ldmatrix phase reads start 16
+//   bytes apart modulo 128 and fall on distinct banks;
+// - fragments by ldmatrix: A's m16k16 fragment by one .x4 (matrices:
+//   rows 0-7 / 8-15 x k 0-7 / 8-15), W's two k16n8 fragments of 16
+//   columns by one .x4.trans from its row-major [k][n] rows, in the
+//   natural k order of the m16n8k16 layout (a0: row g, k 2t, 2t + 1;
+//   a2: k + 8; b0: k 2t, 2t + 1, column g; b1: k + 8).
+// The C fragment layout is the m16n8k8 one, so the epilogue policies
+// read the accumulator as they do in the split form.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 matrices of 16-bit elements from shared memory; lanes 8 i
+// .. 8 i + 7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// Dynamic shared memory of the bf16 form: STAGES x (A tile, W tile),
+// then EXTRA bytes of the A policy's own.
+template <class C, int EXTRA = 0>
+struct SmemBf16 {
+  static constexpr int AS = C::BK + 8;   // A row stride, elements
+  static constexpr int BS = C::BN + 8;   // W row stride, elements
+  static constexpr int A = C::BM * AS * 2;
+  static constexpr int B = C::BK * BS * 2;
+  static constexpr int STAGE = A + B;
+  static constexpr int OWN = C::STAGES * STAGE;
+  static constexpr int bytes = OWN + EXTRA;
+  // the A policies address A rows by C::AS
+  static_assert(AS == C::AS, "A row stride");
+  static_assert((AS * 2) % 32 == 16 && (BS * 2) % 32 == 16,
+                "ldmatrix rows on distinct banks");
+  static_assert(A % 16 == 0 && B % 16 == 0 && OWN % 16 == 0,
+                "16-byte copies");
+  static_assert(bytes <= 227 * 1024 &&
+                    (bytes + 1024) * C::MIN_BLOCKS <= 228 * 1024,
+                "shared memory");
+};
+
+// W rows k0 .. k0 + BK, columns n0 .. n0 + BN (bf16, N % 8 == 0) into
+// a W tile, 8 columns a 16-byte cp.async; past K or N zero.
+template <class C>
+__device__ __forceinline__ void load_w_bf16(bf16* dst, const ArgsT<bf16>& a,
+                                            int n0, int k0) {
+  constexpr int CPR = C::BN / 8, N_CH = C::BK * CPR;
+  constexpr int BS = SmemBf16<C>::BS;
+  static_assert(N_CH % C::NT == 0, "W copies must split evenly");
+  const bf16* w = static_cast<const bf16*>(a.w);
+#pragma unroll
+  for (int it = 0; it < N_CH / C::NT; ++it) {
+    const int i = threadIdx.x + it * C::NT, r = i / CPR, c = i % CPR;
+    const int gk = k0 + r, gn = n0 + 8 * c;
+    const bool ok = gk < a.K && gn < a.N;
+    cp16(dst + r * BS + 8 * c, w + (ok ? (size_t)gk * a.N + gn : 0), ok);
+  }
+}
+
+template <class C, class AL, class EP>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
+bf16_kernel(const ArgsT<bf16> a, const typename AL::Params ap,
+            const typename EP::Params ep) {
+  using L = SmemBf16<C, AL::template smem_bytes<C>>;
+  constexpr int BK = C::BK, AS = L::AS, BS = L::BS, STAGES = C::STAGES;
+  constexpr int MI = C::MI, NI = C::NI;
+  static_assert(BK % 16 == 0 && NI % 2 == 0, "bf16 fragments");
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm0 = (warp / C::WN) * C::WTM, wn0 = (warp % C::WN) * C::WTN;
+  int m0, n0;
+  AL::template tile<C>(a, m0, n0);
+  const int nk = (a.K + BK - 1) / BK;
+
+  auto stage_a = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + s * L::STAGE);
+  };
+  auto stage_w = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + s * L::STAGE + L::A);
+  };
+
+  AL src;   // the A policy's state
+  src.template init<C>(a, ap, smem + L::OWN, m0);
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) zero(acc[i]);
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) {
+      src.template load<C>(stage_a(s), a, ap, m0, s * BK);
+      load_w_bf16<C>(stage_w(s), a, n0, s * BK);
+    }
+    cp_commit();
+  }
+
+  // this lane's ldmatrix row: A rows 0-15 at k 0 / 8; W k rows 0-7 /
+  // 8-15 at columns 0 / 8
+  const int a_row = lane % 16, a_col = (lane / 16) * 8;
+  const int b_row = lane % 8 + ((lane / 8) % 2) * 8, b_col = (lane / 16) * 8;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % STAGES;
+    cp_wait<STAGES - 2>();          // this thread's copies of tile kt
+    __syncthreads();                // tile kt landed; tile kt - 1 consumed
+    {
+      const int nt = kt + STAGES - 1;
+      if (nt < nk) {
+        src.template load<C>(stage_a(nt % STAGES), a, ap, m0, nt * BK);
+        load_w_bf16<C>(stage_w(nt % STAGES), a, n0, nt * BK);
+      }
+      cp_commit();
+    }
+    const bf16* as = stage_a(st);
+    const bf16* ws = stage_w(st);
+
+    float fr[MI][NI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) zero(fr[i]);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t af[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        ldsm4(af[i], as + (wm0 + 16 * i + a_row) * AS + 16 * kk + a_col);
+#pragma unroll
+      for (int jj = 0; jj < NI / 2; ++jj) {
+        uint32_t b[4];
+        ldsm4_t(b, ws + (16 * kk + b_row) * BS + wn0 + 16 * jj + b_col);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma_bf16(fr[i][2 * jj], af[i], b[0], b[1]);
+          mma_bf16(fr[i][2 * jj + 1], af[i], b[2], b[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += fr[i][j][e];
+  }
+
+  EP::template apply<C, true>(acc, a, ep, smem, m0, n0);
+}
+
+// one launch of the bf16 form; W's rows must be 16-byte aligned and N a
+// multiple of 8
+template <class C, class AL, class EP>
+cudaError_t launch_bf16(const ArgsT<bf16>& a, cudaStream_t stream,
+                        const typename AL::Params& ap,
+                        const typename EP::Params& ep) {
+  constexpr int bytes = SmemBf16<C, AL::template smem_bytes<C>>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      bf16_kernel<C, AL, EP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  if (!AL::template grid<C>(a, grid)) return cudaErrorInvalidValue;
+  bf16_kernel<C, AL, EP><<<grid, C::NT, bytes, stream>>>(a, ap, ep);
+  return cudaGetLastError();
 }
 
 }  // namespace gemm

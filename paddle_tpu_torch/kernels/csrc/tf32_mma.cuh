@@ -68,6 +68,14 @@ __device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
                :: "r"(s), "l"(src), "r"(ok ? 16 : 0) : "memory");
 }
 
+// 8 bytes global -> shared, zero-filled when !ok (rows with 8-byte
+// alignment only)
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
+               :: "r"(s), "l"(src), "r"(ok ? 8 : 0) : "memory");
+}
+
 // 4 bytes global -> shared, zero-filled when !ok (rows with no 16-byte
 // alignment)
 __device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {

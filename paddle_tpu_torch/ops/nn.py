@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.core.lowering import amp_cast_ins
 from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.kernels import conv_fused
 
@@ -63,7 +64,12 @@ def _conv2d(ctx, ins, attrs, op):
 def _conv2d_grad(ctx, ins, attrs, op):
     """dInput and dFilter from Output@GRAD, in the op's own layouts.
     Explicit, so the backward does not re-run the forward conv (the
-    generic autograd lowering would)."""
+    generic autograd lowering would).  Under AMP the grad convs run in
+    bf16, as the forward did (its casts, Output@GRAD's too), and each
+    gradient comes back in its operand's own dtype."""
+    x_dtype, w_dtype = ins["Input"].dtype, ins["Filter"].dtype
+    if ctx.amp:
+        ins = amp_cast_ins("conv2d", ins, getattr(op, "role", 0))
     x, w = ins["Input"], ins["Filter"]
     xv, wv, nhwc, hwio = _conv_views(x, w, attrs)
     dy = ins["Output@GRAD"]
@@ -75,10 +81,11 @@ def _conv2d_grad(ctx, ins, attrs, op):
                             attrs.get("groups", 1), want)
     out = {}
     if dx is not None:
-        out["Input@GRAD"] = dx.permute(0, 2, 3, 1) if nhwc else dx
+        out["Input@GRAD"] = (dx.permute(0, 2, 3, 1) if nhwc
+                             else dx).to(x_dtype)
     if dw is not None:
         out["Filter@GRAD"] = (dw.permute(2, 3, 1, 0).contiguous() if hwio
-                              else dw)
+                              else dw).to(w_dtype)
     return out
 
 
@@ -294,8 +301,9 @@ register_op("fused_conv2d_bn_act", lower=_fused_conv_bn_lower,
 def _fused_conv_bn_grad(ctx, ins, attrs, op):
     """Backward from saved residuals only (no forward re-execution):
     relu mask from the reconstructed pre-activation, batch-statistics BN
-    gradient from (ConvOut, SavedMean, SavedInvStd), and the two conv
-    gradients in the pinned NHWC / HWIO layout."""
+    gradient from (ConvOut, SavedMean, SavedInvStd) in f32, and the two
+    conv gradients in the pinned NHWC / HWIO layout, in bf16 under AMP
+    (the reference's ``cdt``), each gradient in its operand's dtype."""
     x, w = ins["Input"], ins["Filter"]
     scale = ins["Scale"]
     conv_out = ins["ConvOut"]
@@ -327,7 +335,9 @@ def _fused_conv_bn_grad(ctx, ins, attrs, op):
         dconv = a * (dyf - dbias / m - xhat * dscale / m)
     del xhat, cf
 
-    xv, wv = conv_fused.nchw_views(x, w)
+    cdt = torch.bfloat16 if ctx.amp else torch.promote_types(x.dtype,
+                                                             w.dtype)
+    xv, wv = conv_fused.nchw_views(x.to(cdt), w.to(cdt))
     dx, dw = _conv_backward(
         dconv.permute(0, 3, 1, 2), xv, wv, strides, paddings, [1, 1], 1,
         [_wanted(op, "Input@GRAD"), _wanted(op, "Filter@GRAD")])

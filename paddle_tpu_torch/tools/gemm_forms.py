@@ -105,10 +105,10 @@ extern "C" int conv_form_f32(int form, const float* x, const float* w,
                              float* out, float* partials, int N, int H,
                              int W, int Ci, int Co, int KH, int KW, int sh,
                              int sw, int ph, int pw, void* stream) {
-  Call c;
+  Call<float> c;
   const cudaError_t err =
-      make_call(c, x, w, nullptr, nullptr, nullptr, out, partials, N, H, W,
-                Ci, Co, KH, KW, sh, sw, ph, pw, 0);
+      make_call<float>(c, x, w, nullptr, nullptr, nullptr, out, partials,
+                       N, H, W, Ci, Co, KH, KW, sh, sw, ph, pw, 0);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (form) {

@@ -11,7 +11,9 @@ Builds one of two models as a fluid Program:
 - ``--model resnet50``: ResNet-50 (``models/resnet`` get_model:
   flowers, 224 x 224, 102 classes, uint8 images, Momentum 0.9 at lr
   0.01; ``--batch`` images, default 256; ``--fuse`` for the NHWC
-  fused-stage program, ``FLAGS_conv_layout=NHWC``);
+  fused-stage program, ``FLAGS_conv_layout=NHWC``; ``--amp`` for bf16
+  mixed precision, ``Float16Transpiler`` with ``FLAGS_bn_bf16``, as
+  ``bench.py`` trains it on an accelerator);
 
 runs its startup program and 2 untimed steps on one fixed batch drawn
 from ``--seed``, then:
@@ -31,7 +33,7 @@ Where the profiler records no device time these read "not measured".
 Run on a CUDA machine from the repository root:
 
     python -m paddle_tpu_torch.tools.profile_train [--model resnet50]
-        [--batch N] [--fuse] [--sp P]
+        [--batch N] [--fuse] [--amp] [--sp P]
 
 Prints one JSON line.
 """
@@ -48,6 +50,7 @@ from torch.autograd import DeviceType
 
 from .. import fluid
 from ..core import executor_impl
+from ..core.flags import FLAGS
 from ..models import resnet, transformer
 from ..parallel import make_mesh
 
@@ -97,9 +100,15 @@ def main(argv=None):
     ap.add_argument("--sp", type=int, default=0,
                     help="lm: the sequence-parallel program on a mesh of "
                     "this many ring shards laid on the one card")
+    ap.add_argument("--amp", action="store_true",
+                    help="resnet50: bf16 mixed precision (bn_bf16 on)")
     args = ap.parse_args(argv)
     if args.sp and args.model != "lm":
         ap.error("--sp applies to --model lm")
+    if args.amp and args.model != "resnet50":
+        ap.error("--amp applies to --model resnet50 (the LM's bf16 forms "
+                 "are not ported)")
+    FLAGS.bn_bf16 = args.amp
 
     rng = np.random.RandomState(args.seed)
     main_prog, startup = fluid.Program(), fluid.Program()
@@ -123,6 +132,8 @@ def main(argv=None):
                     "label": rng.randint(0, 102, (batch, 1))
                     .astype(np.int64)}
             per_step, unit = batch, "images_per_s"
+    if args.amp:
+        fluid.transpiler.Float16Transpiler().transpile(main_prog)
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     exe.run(startup, scope=scope)
@@ -176,7 +187,7 @@ def main(argv=None):
         executor_impl.OP_HOOK = None
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "model": args.model,
-        "batch": batch, **config, "steps": args.steps,
+        "batch": batch, **config, "amp": args.amp, "steps": args.steps,
         "step_ms_median": med, unit: per_step / med * 1e3,
         "device_ms_per_step": busy if kernels else "not measured",
         "device_idle_share": 1.0 - busy / med if kernels

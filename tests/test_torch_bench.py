@@ -1,0 +1,128 @@
+"""The port's bench entry (``python3 -m paddle_tpu_torch.tools.bench``) on
+the CPU at tiny dims, in subprocesses: ResNet depth 8 on cifar10, batch
+4, 2 iterations, AMP off and on, NCHW and NHWC fused, and the LM with
+AMP off.  Each run exits 0 and prints one parseable JSON last line with
+``bench.py``'s fields; each refusal exits non-zero with its reason.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT = 300
+FIELDS = ("metric", "value", "unit", "vs_baseline", "tflops", "mfu", "amp",
+          "prepared", "step_ms_p50", "step_ms_p90", "step_ms_p99",
+          "device", "secondary", "fused_stages", "losses", "param_dtypes")
+RESNET = {"BENCH_DEPTH": "8", "BENCH_DATASET": "cifar10",
+          "BENCH_BATCH": "4", "BENCH_ITERS": "2"}
+RUNS = {("resnet50", amp, layout): dict(RESNET, BENCH_AMP=amp,
+                                        BENCH_LAYOUT=layout)
+        for amp in ("0", "1") for layout in ("NCHW", "NHWC")}
+RUNS[("transformer", "0", None)] = {"BENCH_MODEL": "transformer",
+                                    "BENCH_ITERS": "2"}
+
+
+def _env(extra):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_DEVICE="cpu", OMP_NUM_THREADS="2",
+               PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""))
+    env.update(extra)
+    return env
+
+
+def _start(extra):
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.bench"], cwd=REPO,
+        env=_env(extra), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Every run started at once, then waited for: {key: (rc, stdout,
+    stderr)}."""
+    procs = {key: _start(extra) for key, extra in RUNS.items()}
+    out = {}
+    try:
+        for key, p in procs.items():
+            stdout, stderr = p.communicate(timeout=TIMEOUT)
+            out[key] = (p.returncode, stdout, stderr)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    return out
+
+
+def _last_json(stdout):
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("key", list(RUNS), ids=lambda k: "-".join(
+    str(x) for x in k))
+def test_bench_prints_one_json_line(runs, key):
+    rc, stdout, stderr = runs[key]
+    assert rc == 0, stderr[-2000:]
+    out = _last_json(stdout)
+    assert all(f in out for f in FIELDS), sorted(set(FIELDS) - set(out))
+    model, amp, layout = key
+    assert out["amp"] is (amp == "1")
+    assert out["prepared"] is False and out["device"] == "cpu"
+    assert out["value"] > 0 and out["secondary"] is None
+    # no device metric from a CPU run
+    assert out["tflops"] is None and out["mfu"] is None
+    assert out["losses_finite"] and out["param_dtypes"] == ["float32"]
+    assert out["step_ms_p50"] <= out["step_ms_p90"] <= out["step_ms_p99"]
+    if model == "resnet50":
+        assert out["unit"] == "images/sec"
+        assert out["metric"] == "resnet50_cifar10_train_bs4" + (
+            "_bf16" if amp == "1" else "")
+        assert out["vs_baseline"] == pytest.approx(out["value"] / 81.69)
+        assert out["data_format"] == layout
+        assert out["fused_stages"] == (9 if layout == "NHWC" else 0)
+        assert out["bn_bf16"] is (amp == "1")
+        assert len(out["losses"]) == 3
+    else:
+        assert out["unit"] == "tokens/sec"
+        assert out["metric"] == "transformer_lm_d64_L2_train_bs2_seq128"
+
+
+@pytest.mark.parametrize("extra,reason", [
+    ({"BENCH_MODEL": "vgg"}, "ROADMAP queue 1 items 2 and 3e"),
+    ({"BENCH_MODEL": "resnet32"}, "ROADMAP queue 1 item 3e"),
+    ({"BENCH_MODEL": "transformer", "BENCH_AMP": "1"},
+     "ROADMAP queue 1 item 3d"),
+    ({"BENCH_PREPARED": "1"}, "ROADMAP queue 1 item 4"),
+    ({"BENCH_FAKE": "0"}, "no flowers reader")])
+def test_bench_refusals_raise(monkeypatch, extra, reason):
+    from paddle_tpu_torch.tools import bench
+
+    for k in [k for k in os.environ if k.startswith("BENCH_")]:
+        monkeypatch.delenv(k)
+    for k, v in dict(extra, BENCH_DEVICE="cpu").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(NotImplementedError, match=reason):
+        bench.main()
+
+
+def test_a_refusal_exits_non_zero():
+    p = _start({"BENCH_MODEL": "lstm"})
+    stdout, stderr = p.communicate(timeout=TIMEOUT)
+    assert p.returncode != 0 and stdout.strip() == ""
+    assert "NotImplementedError" in stderr and "ROADMAP" in stderr
+
+
+def test_no_card_and_no_cpu_request_fails():
+    """A measurement that finds no card fails; the CPU runs only when
+    asked for."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    p = _start({"BENCH_DEVICE": "cuda"})
+    stdout, stderr = p.communicate(timeout=TIMEOUT)
+    assert p.returncode != 0 and stdout.strip() == ""
+    assert "no CUDA card" in stderr

@@ -780,6 +780,153 @@ def test_conv_stage_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
                                                 dtype=torch.float64))
 
 
+# K6's bf16 form: the stem (Ci = 3, padded to 4 channels for the 8-byte
+# gather) at a ragged size and at 224 x 224, Ci = 12 (the 8-byte gather
+# unpadded), Ci = 5 (padded to 8: the 16-byte gather), a ragged K tail
+# (Ci = 40: K = 360, a quarter tile past 11 K tiles), a Co = 64 3x3
+# stage at 56 x 56, Co = 2048 (the last 1x1 expansion)
+CONV_BF16_SHAPES = [(3, 23, 3, 64, 7, 2, 3), (2, 224, 3, 64, 7, 2, 3),
+                    (2, 9, 12, 64, 3, 1, 1), (2, 9, 5, 64, 3, 1, 1),
+                    (1, 5, 40, 256, 3, 1, 1), (2, 56, 64, 64, 3, 1, 1),
+                    (4, 7, 512, 2048, 1, 1, 0)]
+
+
+def _assert_within_one_bf16_ulp(got, want):
+    """Each value one rounding of two f32 sums that differ in order:
+    within one bf16 ulp of the plain value, plus 1e-6 of max |Y|."""
+    from paddle_tpu_torch.kernels.conv_fused import bf16_ulp
+
+    assert got.dtype == want.dtype == torch.bfloat16
+    want = want.float()
+    err = (got.float() - want).abs()
+    bound = bf16_ulp(want) + 1e-6 * want.abs().max()
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV_BF16_SHAPES)
+def test_conv_stage_bf16_kernel_matches_plain_on_card(cuda, shape):
+    from paddle_tpu_torch.kernels import conv_fused as pcf
+
+    n, h, ci, co, k, s, p = shape
+    x, w, a, b, r = _conv_operands(cuda, shape, seed=6)
+    x, w, r = (t.to(torch.bfloat16) for t in (x, w, r))
+    for stats in (False, True):
+        for affine in (None, (a, b)):
+            for res in (None, r):
+                for act in ("", "relu"):
+                    kw = dict(stats=stats, affine=affine, residual=res,
+                              act=act)
+                    got = pcf.conv2d_nhwc(x, w, (s, s), (p, p), **kw)
+                    want = pcf.conv2d_nhwc_reference(x, w, (s, s), (p, p),
+                                                     **kw)
+                    if not stats:
+                        got, want = (got,), (want,)
+                    _assert_within_one_bf16_ulp(got[0], want[0])
+                    if stats:
+                        assert got[1].dtype == got[2].dtype == torch.float32
+                        _, rel = pcf.stats_error(x, w, (s, s), (p, p),
+                                                 got[1], got[2])
+                        assert rel <= pcf.STATS_RTOL, rel
+
+
+@pytest.mark.cuda
+def test_conv_stage_forms_count_their_own_launches_on_card(cuda):
+    """float32 operands launch the split-TF32 form, bf16 operands the
+    bf16 form, each counted on its own wrapper."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.kernels import conv_fused as pcf
+
+    x, w, _, _, _ = _conv_operands(cuda, (2, 9, 64, 128, 3, 1, 1))
+    reset_launches()
+    pcf.conv2d_nhwc(x, w, (1, 1), (1, 1), stats=True)
+    assert (KERNELS["conv_stage"].launches,
+            KERNELS["conv_stage_bf16"].launches) == (1, 0)
+    y = pcf.conv2d_nhwc(x.bfloat16(), w.bfloat16(), (1, 1), (1, 1))
+    pcf.conv2d_nhwc_bf16(x.bfloat16(), w.bfloat16(), (1, 1), (1, 1))
+    assert y.dtype == torch.bfloat16
+    assert (KERNELS["conv_stage"].launches,
+            KERNELS["conv_stage_bf16"].launches) == (1, 2)
+
+
+@pytest.mark.cuda
+def test_conv_stage_bf16_form_refuses_mixed_dtypes_on_card(cuda):
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.kernels import conv_fused as pcf
+
+    x, w, a, b, r = _conv_operands(cuda, (2, 9, 64, 128, 3, 1, 1))
+    xb, wb, rb = x.bfloat16(), w.bfloat16(), r.bfloat16()
+    reset_launches()
+    for args, kw in (((xb, w), {}), ((x, wb), {}),
+                     ((xb, wb), dict(residual=r)),
+                     ((x, w), dict(residual=rb))):
+        with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+            pcf.conv2d_nhwc(*args, (1, 1), (1, 1), **kw)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pcf.conv2d_nhwc(xb, torch.randn(3, 3, 64, 12, device=cuda,
+                                        dtype=torch.bfloat16))
+    assert KERNELS["conv_stage"].launches == 0
+    assert KERNELS["conv_stage_bf16"].launches == 0
+    # bf16 x and w with the f32 affine (a, b) is the form's own input
+    y = pcf.conv2d_nhwc(xb, wb, (1, 1), (1, 1), affine=(a, b),
+                        residual=rb, act="relu")
+    _assert_within_one_bf16_ulp(y, pcf.conv2d_nhwc_reference(
+        xb, wb, (1, 1), (1, 1), affine=(a, b), residual=rb, act="relu"))
+
+
+@pytest.mark.cuda
+def test_conv_stage_bf16_kernel_is_deterministic_on_card(cuda):
+    from paddle_tpu_torch.kernels import conv_fused as pcf
+
+    x, w, a, b, r = _conv_operands(cuda, (4, 7, 512, 512, 3, 1, 1), seed=4)
+    x, w, r = x.bfloat16(), w.bfloat16(), r.bfloat16()
+    for kw in (dict(stats=True),
+               dict(stats=True, affine=(a, b), residual=r, act="relu")):
+        one = pcf.conv2d_nhwc(x, w, (1, 1), (1, 1), **kw)
+        two = pcf.conv2d_nhwc(x, w, (1, 1), (1, 1), **kw)
+        for u, v in zip(one, two):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_executor_fused_resnet_amp_step_on_card_runs_the_bf16_form(cuda):
+    """One Momentum step of the fused cifar10 ResNet, depth 8, batch 4,
+    under Float16Transpiler: K6's bf16 form once per conv stage (9), the
+    f32 form never; the loss is the CPU executor's to bf16 resolution
+    and the parameter gradients stay float32."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = resnet.get_model(data_set="cifar10", depth=8,
+                                      data_format="NHWC", fused_stages=True)
+    fluid.transpiler.Float16Transpiler().transpile(main)
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = [n for n, v in main.desc.blocks[0].vars.items()
+               if v.persistable]
+    host = fluid.Scope()
+    set_scope_arrays(host, get_scope_arrays(card, persist), "cpu")
+    fetch = [loss.name] + sorted(p.name + "@GRAD"
+                                 for p in main.all_parameters()
+                                 if p.trainable)
+    rng = np.random.RandomState(0)
+    feed = {"data": rng.rand(4, 3, 32, 32).astype(np.float32),
+            "label": rng.randint(0, 10, (4, 1)).astype(np.int64)}
+    reset_launches()
+    got = fluid.Executor(fluid.CUDAPlace(0)).run(
+        main, feed=feed, fetch_list=fetch, scope=card, return_numpy=False)
+    assert KERNELS["conv_stage_bf16"].launches == 9
+    assert KERNELS["conv_stage"].launches == 0
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=host)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0], rtol=1e-2)
+
+
 @pytest.mark.cuda
 def test_executor_fused_resnet_step_on_card_runs_the_conv_stage(cuda):
     """One Momentum step of the fused cifar10 ResNet, depth 8, batch 4
