@@ -89,16 +89,31 @@ Phases, each printed as one JSON line:
              every stage's output, every parameter gradient) held to
              twice the CPU's own spread when every filter moves by one
              bf16 ulp either way (AMP_ORACLE_*);
-21. bench — the port's bench entry (python3 -m
+21. train_amp — phase 7 under bf16 AMP (Float16Transpiler): the flash
+             kernels' bf16 forms K1/K2/K3 6 times a step each, their f32
+             forms never; every parameter still float32;
+22. train_amp_oracle — one AMP step at full width, depth 1, batch 1 on
+             the card against Executor(CPUPlace()) from the same
+             parameters, each fetched tensor (the loss, the block's
+             output, every parameter gradient) held to twice the CPU's
+             own spread when every weight matrix moves by one bf16 ulp
+             either way (AMP_ORACLE_*), as phase 20;
+23. train_fused_amp — phase 9 under bf16 AMP: K1/K2/K3's bf16 forms 6
+             times a step each, K4's bf16 form 25 times, K5's 12 times,
+             no f32 form of K1-K5;
+24. train_fused_amp_oracle — phase 22 for the fused-block program;
+25. bench — the port's bench entry (python3 -m
              paddle_tpu_torch.tools.bench) at its default headline
-             (ResNet-50, bf16 AMP, NCHW, batch 256) and with
-             BENCH_LAYOUT=NHWC, each with BENCH_ITERS=10 and
-             BENCH_SECONDARY=0, then (information) at BENCH_AMP=0
-             BENCH_LAYOUT=NHWC beside phase 13's step; each must exit 0
-             with finite losses, the last below the first, float32
-             parameters and, under AMP, an mfu.
+             (ResNet-50, bf16 AMP, NCHW, batch 256, with its secondary,
+             the flagship LM, which must be the bf16 LM) and with
+             BENCH_LAYOUT=NHWC (no secondary), each with BENCH_ITERS=10,
+             then (information) at BENCH_AMP=0 BENCH_LAYOUT=NHWC beside
+             phase 13's step, then BENCH_MODEL=transformer at its card
+             default (bf16), unfused and BENCH_FUSED_TRANSFORMER=1; each
+             must exit 0 with finite losses, the last below the first,
+             float32 parameters and, under AMP, an mfu.
 
-Phases 18-21 each check that every loss is finite, the last below the
+Phases 18-25 each check that every loss is finite, the last below the
 first, and every parameter still float32.
 
 Phase 3 holds K8 against its plain version at the flagship layer's
@@ -123,7 +138,14 @@ with the full epilogue), against F.conv2d on channels_last bf16 (cuDNN)
 with the sums in torch, bound at the dense bf16 peak, and at every
 epilogue combination on ragged shapes; K2/K3 at that shape,
 non-causal and the causal diagonal; K10, which no path runs, at the
-LM's logits [32768, 8192].  K7 (each row's live pages in spans of
+LM's logits [32768, 8192]; the bf16 forms of K1/K2/K3 at [1, 8, 256,
+128] and [16, 8, 2048, 128] causal (out and the gradients within one
+bf16 ulp of the plain value plus 2**-12 of the tensor's max |plain|, the
+LSE at ATOL / RTOL), K4's at the five projections at M = 16 x 2048 and
+at every epilogue on ragged shapes (out and pre within one ulp plus 1e-6
+of max |Y| of the plain version that rounds once), K5's at [32768,
+1024] (Sum exact, out, mean and var within one ulp), all bound at the
+dense bf16 peak with 2-byte elements.  K7 (each row's live pages in spans of
 ``paged_span_pages()`` pages, streamed through a cp.async ring, the spans
 folded in order by a second launch) at the decode batch B = 16, NB =
 128 over a 512-page pool with mixed lengths (its bytes bound counts a
@@ -222,7 +244,14 @@ INT8W_SPLIT_TF32_FLOPS = 494.7e12 / 2
 # bf16 products on the tensor cores, dense (NVIDIA data sheet, H100 SXM)
 BF16_FLOPS = 989.4e12
 # the bf16 kernel forms, bound by BF16_FLOPS
-BF16_KERNELS = ("conv_stage_bf16",)
+BF16_KERNELS = ("conv_stage_bf16", "flash_fwd_bf16", "flash_bwd_dq_bf16",
+                "flash_bwd_dkv_bf16", "matmul_epilogue_bf16", "add_ln_bf16")
+# the flash kernels' bf16 forms against their plain versions: one bf16
+# rounding of two f32 results that differ in summation order (and in
+# the bf16 hi + lo split of P and dS, 2**-17 relative a term), so
+# within one bf16 ulp of the plain value, plus 2**-12 of the tensor's
+# max |plain| for values that are small sums of large terms
+FLASH_BF16_FLOOR = 2.0 ** -12
 SEED = 0
 
 
@@ -311,15 +340,15 @@ def compare(torch, got, want):
     return float(err.max()), ok
 
 
-def compare_bf16(torch, got, want):
+def compare_bf16(torch, got, want, floor=1e-6):
     """A bf16 output against its plain version: each value is one
     rounding of two f32 sums that differ only in order, so within one
-    bf16 ulp of the plain value, plus 1e-6 of max |plain|."""
+    bf16 ulp of the plain value, plus ``floor`` of max |plain|."""
     from paddle_tpu_torch.kernels.conv_fused import bf16_ulp
 
     want = want.float()
     err = (got.float() - want).abs()
-    ok = bool((err <= bf16_ulp(want) + 1e-6 * want.abs().max()).all())
+    ok = bool((err <= bf16_ulp(want) + floor * want.abs().max()).all())
     return float(err.max()), ok
 
 
@@ -547,7 +576,172 @@ def check_kernels(torch, timer):
 
     check_conv(torch, timer, gen, record, bad, rows, torch.float32)
     check_conv(torch, timer, gen, record, bad, rows, torch.bfloat16)
+    check_lm_bf16(torch, timer, gen, record, bad)
     return rows, bad
+
+
+def check_lm_bf16(torch, timer, gen, record, bad):
+    """The bf16 forms of K1-K5 (the LM under AMP) at K1-K5's f32 rows'
+    shapes: K1/K2/K3 at [1, 8, 256, 128] and [16, 8, 2048, 128] causal
+    against SDPA in bf16 (and its backward); K4 at the fused step's five
+    projections at M = 16 x 2048 against torch.addmm in bf16 plus the
+    tail, and every epilogue on ragged shapes; K5 at [16 x 2048, 1024]
+    against x + y and F.layer_norm in bf16.  The library calls are timed
+    only."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels.flash_attention import (
+        attention_reference, flash_attention_bwd,
+        flash_attention_bwd_reference, flash_bwd_dkv_bf16, flash_bwd_dq_bf16,
+        flash_delta, flash_fwd_bf16)
+    from paddle_tpu_torch.kernels.matmul_fused import (
+        add_ln_bf16, add_ln_reference, apply_act, matmul_epilogue_bf16,
+        matmul_epilogue_f32acc_reference)
+    from paddle_tpu_torch.kernels.conv_fused import bf16_ulp
+
+    dev, bf = "cuda", torch.bfloat16
+    h, d = 8, 128
+    scale = 1.0 / math.sqrt(d)
+
+    def flash_cmp(got, want):
+        return compare_bf16(torch, got, want, FLASH_BF16_FLOOR)
+
+    for b_, s in ((1, 256), (16, 2048)):
+        shape = "[%d,8,%d,128] causal" % (b_, s)
+        q, k, v, do = (torch.randn(b_, h, s, d, device=dev, generator=gen)
+                       .to(bf) for _ in range(4))
+        out, lse = flash_fwd_bf16(q, k, v, causal=True)
+        ref_out, ref_lse = attention_reference(q, k, v, scale, True)
+        e1, ok1 = flash_cmp(out, ref_out)
+        e2, ok2 = compare(torch, lse, ref_lse)
+        record("flash_fwd_bf16", shape, max(e1, e2), ok1 and ok2,
+               timer(lambda: flash_fwd_bf16(q, k, v, causal=True)),
+               timer(lambda: attention_reference(q, k, v, scale, True)),
+               timer(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True)),
+               2 * b_ * 4 * h * s * d + 4 * b_ * h * s,
+               4 * b_ * h * d * s * (s + 1) // 2)
+        del out, lse
+        delta = flash_delta(do, ref_out)
+        want = flash_attention_bwd_reference(q, k, v, ref_out, ref_lse, do,
+                                             scale, True)
+        got = flash_attention_bwd(q, k, v, ref_out, ref_lse, do,
+                                  causal=True)
+        errs = [flash_cmp(a, w) for a, w in zip(got, want)]
+        plain_ms = timer(lambda: flash_attention_bwd_reference(
+            q, k, v, ref_out, ref_lse, do, scale, True), iters=5)
+        del got, want
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        lib_ms = timer(lambda: torch.autograd.grad(
+            o_lib, (qg, kg, vg), do, retain_graph=True))
+        del o_lib, qg, kg, vg
+        tile = b_ * h * d * s * (s + 1) // 2 * 2     # one causal product
+        io = 2 * b_ * h * s * d
+        record("flash_bwd_dq_bf16", shape, errs[0][0], errs[0][1],
+               timer(lambda: flash_bwd_dq_bf16(q, k, v, do, ref_lse, delta,
+                                               scale, True)),
+               plain_ms, lib_ms, 5 * io + 8 * b_ * h * s, 3 * tile)
+        record("flash_bwd_dkv_bf16", shape, max(errs[1][0], errs[2][0]),
+               errs[1][1] and errs[2][1],
+               timer(lambda: flash_bwd_dkv_bf16(q, k, v, do, ref_lse, delta,
+                                                scale, True)),
+               plain_ms, lib_ms, 6 * io + 8 * b_ * h * s, 4 * tile)
+        del q, k, v, do, ref_out, ref_lse, delta
+    torch.cuda.empty_cache()
+
+    # K4: the fused step's five projections at M = 16 * 2048, bf16
+    m = TRAIN_BATCH * TRAIN_LM["seq_len"]
+    for what, kk, n, with_bias, act in FUSED_MATMULS:
+        x = torch.randn(m, kk, device=dev, generator=gen).to(bf)
+        w = (torch.randn(kk, n, device=dev, generator=gen)
+             * kk ** -0.5).to(bf)
+        bias = torch.randn(n, device=dev, generator=gen).to(bf) \
+            if with_bias else None
+        got = matmul_epilogue_bf16(x, w, bias, None, act)
+        err, ok = compare_bf16(torch, got, matmul_epilogue_f32acc_reference(
+            x, w, bias, None, act)[0])
+        del got
+
+        def lib(x=x, w=w, bias=bias, act=act):
+            y = torch.addmm(bias, x, w) if bias is not None else \
+                torch.matmul(x, w)
+            return apply_act(y, act)
+
+        record("matmul_epilogue_bf16", "%s M=%d K=%d N=%d" % (what, m, kk, n),
+               err, ok,
+               timer(lambda: matmul_epilogue_bf16(x, w, bias, None, act)),
+               timer(lambda: matmul_epilogue_f32acc_reference(
+                   x, w, bias, None, act)),
+               timer(lib),
+               2 * (m * kk + kk * n + m * n + (n if with_bias else 0)),
+               2 * m * kk * n)
+        del x, w, bias
+    torch.cuda.empty_cache()
+    # every epilogue (act x bias x residual, out and pre) on ragged M
+    # and N (K and N multiples of 8 but not of the tile)
+    for m_, kk, n in ((1000, 1024, 1000), (333, 264, 1000), (17, 72, 24)):
+        x = torch.randn(m_, kk, device=dev, generator=gen).to(bf)
+        w = (torch.randn(kk, n, device=dev, generator=gen)
+             * kk ** -0.5).to(bf)
+        bias = torch.randn(n, device=dev, generator=gen).to(bf)
+        res = torch.randn(m_, n, device=dev, generator=gen).to(bf)
+        for act in ("", "relu", "gelu"):
+            for b_, r_ in ((None, None), (bias, None), (bias, res),
+                           (None, res)):
+                got = matmul_epilogue_bf16(x, w, b_, r_, act,
+                                           save_preact=True)
+                want = matmul_epilogue_f32acc_reference(x, w, b_, r_, act)
+                for got_, want_, part in zip(got, want, ("out", "pre")):
+                    err, ok = compare_bf16(torch, got_, want_)
+                    if not ok:
+                        bad.append("matmul_epilogue_bf16 M=%d K=%d N=%d "
+                                   "act=%r bias=%s residual=%s %s (max abs "
+                                   "err %g)" % (m_, kk, n, act,
+                                                b_ is not None,
+                                                r_ is not None, part, err))
+
+    # K5: [16 * 2048, 1024] with scale and bias; Sum exact, the rest
+    # within one bf16 ulp
+    d = TRAIN_LM["d_model"]
+    x, y = (torch.randn(m, d, device=dev, generator=gen).to(bf)
+            for _ in range(2))
+    scale = torch.rand(d, device=dev, generator=gen) + 0.5
+    bias = torch.randn(d, device=dev, generator=gen)
+    got = add_ln_bf16(x, y, scale, bias)
+    want = add_ln_reference(x, y, scale, bias)
+    err = max(float((a.float() - b_.float()).abs().max())
+              for a, b_ in zip(got, want))
+    ok = torch.equal(got[1], want[1]) and all(
+        bool(((a.float() - b_.float()).abs() <= bf16_ulp(b_)).all())
+        for a, b_ in zip((got[0], got[2], got[3]),
+                         (want[0], want[2], want[3])))
+    del got, want
+    sb, bb = scale.to(bf), bias.to(bf)
+    record("add_ln_bf16", "[%d,%d] affine" % (m, d), err, ok,
+           timer(lambda: add_ln_bf16(x, y, scale, bias)),
+           timer(lambda: add_ln_reference(x, y, scale, bias)),
+           timer(lambda: F.layer_norm(x + y, (d,), sb, bb)),
+           2 * (4 * m * d + 2 * m) + 4 * 2 * d, 8 * m * d)
+    # ragged rows and D = 8 .. 1024
+    for m_, d_ in ((77, 8), (50, 264), (1000, 1024)):
+        x, y = (torch.randn(m_, d_, device=dev, generator=gen).to(bf)
+                for _ in range(2))
+        sc = torch.rand(d_, device=dev, generator=gen) + 0.5
+        bi = torch.randn(d_, device=dev, generator=gen)
+        for s_, b_ in ((sc, bi), (None, None)):
+            got = add_ln_bf16(x, y, s_, b_)
+            want = add_ln_reference(x, y, s_, b_)
+            if not (torch.equal(got[1], want[1]) and all(
+                    bool(((a.float() - w.float()).abs()
+                          <= bf16_ulp(w)).all())
+                    for a, w in zip((got[0], got[2], got[3]),
+                                    (want[0], want[2], want[3])))):
+                bad.append("add_ln_bf16 [%d,%d] affine=%s" % (
+                    m_, d_, s_ is not None))
+    del x, y
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 # K6's ragged shapes (N, H, Ci, Co, k, stride, pad), every epilogue
@@ -1072,6 +1266,8 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the fused program's kernels besides those: K4 for every projection,
 # K5 for every residual add + LayerNorm seam
 FUSED_KERNELS = ("matmul_epilogue", "add_ln")
+# under bf16 AMP: each kernel's bf16 form instead
+BF16_FORM = {k: k + "_bf16" for k in TRAIN_KERNELS + FUSED_KERNELS}
 # the fused program's projections (name, K, N, bias, act), each one K4
 # launch per layer, lm_head once a step
 # the sequence-parallel path: 4 ring shards on the one card; per layer
@@ -1088,21 +1284,29 @@ FUSED_MATMULS = (("qkv", 1024, 3072, False, ""),
                  ("lm_head", 1024, 8192, True, ""))
 
 
-def train_launches_per_step(fuse):
-    """{kernel: launches a training step must make}."""
-    n = TRAIN_LM["n_layers"]
+def train_launches_per_step(fuse, amp=False, n=None):
+    """{kernel: launches a training step of ``n`` layers (TRAIN_LM's by
+    default) must make} (under AMP the bf16 forms, and no f32 form)."""
+    n = n or TRAIN_LM["n_layers"]
     want = {k: n for k in TRAIN_KERNELS}
     if fuse:
         want.update(matmul_epilogue=4 * n + 1, add_ln=2 * n)
-    return want
+    return {BF16_FORM[k]: v for k, v in want.items()} if amp else want
 
 
-def build_lm(fluid, **overrides):
+def train_phase(fuse, amp):
+    return ("train_fused" if fuse else "train_f32" if not amp
+            else "train") + ("_amp" if amp else "")
+
+
+def build_lm(fluid, amp=False, **overrides):
     from paddle_tpu_torch.models import transformer
 
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         loss, _, _ = transformer.get_model(**{**TRAIN_LM, **overrides})
+    if amp:
+        fluid.transpiler.Float16Transpiler().transpile(main)
     return main, startup, loss
 
 
@@ -1116,14 +1320,14 @@ def lm_batch(batch, seed):
     return {"src": toks[:, :-1], "label": toks[:, 1:, None]}
 
 
-def train(torch, fuse):
+def train(torch, fuse, amp=False):
     """Startup, then 1 warm-up and TRAIN_STEPS timed steps of the
-    flagship LM (the fused-block program with ``fuse``) on one fixed
-    batch, through Executor(CUDAPlace(0))."""
+    flagship LM (the fused-block program with ``fuse``; under bf16 AMP
+    with ``amp``) on one fixed batch, through Executor(CUDAPlace(0))."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.kernels import KERNELS, reset_launches
 
-    main, startup, loss = build_lm(fluid, fuse_transformer=fuse)
+    main, startup, loss = build_lm(fluid, amp=amp, fuse_transformer=fuse)
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     t0 = time.perf_counter()
@@ -1146,18 +1350,118 @@ def train(torch, fuse):
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_LM["seq_len"]
     p50 = _pct(step_ms, 0.5)
-    want = train_launches_per_step(fuse)
+    want = train_launches_per_step(fuse, amp)
     per_step = {k: launches[k] / TRAIN_STEPS for k in KERNELS}
+    dtypes = param_dtypes(main, scope)
     ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-          and all(per_step[k] == want.get(k, 0) for k in KERNELS))
-    return {"phase": "train_fused" if fuse else "train_f32",
+          and all(per_step[k] == want.get(k, 0) for k in KERNELS)
+          and dtypes == ["float32"])
+    return {"phase": train_phase(fuse, amp), "amp": amp,
             "batch": TRAIN_BATCH, **TRAIN_LM,
             "startup_s": startup_s, "losses": losses, "step_ms": step_ms,
             "step_ms_p50": p50, "tokens_per_s": tokens / p50 * 1e3,
             "max_memory_allocated_bytes": peak,
             "launches_per_step": per_step,
             "launches_per_step_wanted": want, "launches": launches,
-            "ok": ok}
+            "param_dtypes": dtypes, "ok": ok}
+
+
+def train_amp_oracle(torch, fuse):
+    """One step of the LM under bf16 AMP (the fused-block program with
+    ``fuse``) at full width, depth 1, batch 1 on the card and, from the
+    same parameters, on Executor(CPUPlace()), then twice more on the CPU
+    with every weight matrix moved by one bf16 ulp up and down (the
+    step's own bf16 spread, paddle_tpu_torch/tools/amp_spread.py
+    --model transformer): the loss, the block's output and every
+    parameter gradient are each held to AMP_ORACLE_SPREAD times their
+    own spread, never below ORACLE_GRAD_RTOL, in relative Frobenius
+    norm, and the median gradient to that multiple of the median
+    spread; a loss spread above AMP_ORACLE_LOSS_SPREAD_MAX fails."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.tools.amp_spread import (lm_block_output,
+                                                   nudge_weights)
+
+    main, startup, loss = build_lm(fluid, amp=True, n_layers=1,
+                                   fuse_transformer=fuse)
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    arrays = get_scope_arrays(card, persist)
+    params = [p.name for p in main.all_parameters()]
+    grads = [p + "@GRAD" for p in params]
+    block_out = lm_block_output(main)
+    fetch = [loss.name, block_out] + grads
+    feed = lm_batch(1, SEED + 4)
+    reset_launches()
+    got = fluid.Executor(fluid.CUDAPlace(0)).run(
+        main, feed=feed, fetch_list=fetch, scope=card, return_numpy=False)
+    launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+    grad_dtypes = sorted({str(t.dtype) for t in got[2:]})
+    out_dtype = str(got[1].dtype)
+    got = [t.float().cpu().numpy() for t in got]
+    cpu = []
+    for step in (0, 1, -1):
+        host = fluid.Scope()
+        set_scope_arrays(host, nudge_weights(arrays, step, params), "cpu")
+        cpu.append(fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch, scope=host))
+    want, up, down = cpu
+    return {"phase": train_phase(fuse, True) + "_oracle", "n_layers": 1,
+            "batch": 1, "amp": True, "launches": launches,
+            "loss_card": float(got[0].ravel()[0]),
+            "loss_cpu": float(want[0].ravel()[0]),
+            "block_output": block_out, "block_output_dtype": out_dtype,
+            "grad_dtypes": grad_dtypes,
+            **amp_agreement(got, want, up, down, fetch, grads, {
+                "launches": launches == train_launches_per_step(
+                    fuse, True, 1),
+                "grad_dtypes": grad_dtypes == ["torch.float32"],
+                "block_output_dtype": out_dtype == "torch.bfloat16"})}
+
+
+def amp_agreement(got, want, up, down, fetch, grads, checks):
+    """Each fetched tensor of a card step (``got``) against the CPU's
+    (``want``) in relative Frobenius norm, held to AMP_ORACLE_SPREAD
+    times the larger of its CPU spreads (``up``, ``down``: the CPU step
+    with every weight one bf16 ulp up / down), never below
+    ORACLE_GRAD_RTOL; the median gradient to that multiple of the median
+    spread; the loss spread at most AMP_ORACLE_LOSS_SPREAD_MAX; and
+    ``checks`` ({name: bool}) all true."""
+    import numpy as np
+
+    def fro_rel(a, b):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    held = {}
+    for i, name in enumerate(fetch):
+        spread = max(fro_rel(up[i], want[i]), fro_rel(down[i], want[i]))
+        held[name] = {"fro_rel": fro_rel(got[i], want[i]),
+                      "cpu_ulp_fro_rel": spread,
+                      "tolerance": max(ORACLE_GRAD_RTOL,
+                                       AMP_ORACLE_SPREAD * spread)}
+    g = [held[n] for n in grads]
+    median = _pct([x["fro_rel"] for x in g], 0.5)
+    median_spread = _pct([x["cpu_ulp_fro_rel"] for x in g], 0.5)
+    median_tol = max(ORACLE_GRAD_RTOL, AMP_ORACLE_SPREAD * median_spread)
+    worst = max(held, key=lambda n: held[n]["fro_rel"] /
+                held[n]["tolerance"])
+    loss_spread = held[fetch[0]]["cpu_ulp_fro_rel"]
+    ok = (all(math.isfinite(x["fro_rel"]) and x["fro_rel"] <= x["tolerance"]
+              for x in held.values())
+          and median <= median_tol
+          and loss_spread <= AMP_ORACLE_LOSS_SPREAD_MAX
+          and all(checks.values()))
+    return {"loss": held[fetch[0]], "loss_spread_max":
+            AMP_ORACLE_LOSS_SPREAD_MAX,
+            "worst_vs_tolerance": [worst, held[worst]],
+            "median_grad_fro_rel": median,
+            "cpu_ulp_median_grad_fro_rel": median_spread,
+            "median_grad_tolerance": median_tol, "checks": checks,
+            "held": held, "ok": ok}
 
 
 def train_oracle(torch, fuse):
@@ -1808,19 +2112,26 @@ def _resnet_oracle_amp(torch, seed):
 
 
 def bench_runs(torch, fused_step_ms):
-    """The port's bench entry in a subprocess: the default headline,
-    BENCH_LAYOUT=NHWC, and (information, beside ``fused_step_ms``, phase
-    13's p50) BENCH_AMP=0 BENCH_LAYOUT=NHWC, each BENCH_ITERS and no
-    secondary.  Returns (the runs' JSON lines, the phase's summary)."""
+    """The port's bench entry in a subprocess: the default headline with
+    its secondary (the flagship LM, which must be the bf16 LM),
+    BENCH_LAYOUT=NHWC, (information, beside ``fused_step_ms``, phase
+    13's p50) BENCH_AMP=0 BENCH_LAYOUT=NHWC, and BENCH_MODEL=transformer
+    at its card default (bf16), unfused and fused-block, each
+    BENCH_ITERS, no secondary but the headline's.  Returns (the runs'
+    JSON lines, the phase's summary)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    runs = (("headline", {}), ("nhwc", {"BENCH_LAYOUT": "NHWC"}),
-            ("nhwc_f32", {"BENCH_LAYOUT": "NHWC", "BENCH_AMP": "0"}))
+    runs = (("headline", {"BENCH_SECONDARY": "1"}),
+            ("nhwc", {"BENCH_LAYOUT": "NHWC"}),
+            ("nhwc_f32", {"BENCH_LAYOUT": "NHWC", "BENCH_AMP": "0"}),
+            ("lm", {"BENCH_MODEL": "transformer"}),
+            ("lm_fused", {"BENCH_MODEL": "transformer",
+                          "BENCH_FUSED_TRANSFORMER": "1"}))
     lines, summary, bad = {}, {}, []
     for name, extra in runs:
         env = {k: v for k, v in os.environ.items()
                if not k.startswith("BENCH_")}
-        env.update(BENCH_ITERS=str(BENCH_ITERS), BENCH_SECONDARY="0",
-                   **extra)
+        env.update(BENCH_ITERS=str(BENCH_ITERS), BENCH_SECONDARY="0")
+        env.update(extra)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -1836,18 +2147,35 @@ def bench_runs(torch, fused_step_ms):
             continue
         lines[name] = out
         amp = extra.get("BENCH_AMP", "1") == "1"
-        losses = out["losses"]
-        ok = (out["losses_finite"] and losses[-1] < losses[0]
-              and out["param_dtypes"] == ["float32"] and out["amp"] is amp
-              and (out["mfu"] is not None) is amp
-              and out["prepared"] is False
-              and out["data_format"] == extra.get("BENCH_LAYOUT", "NCHW"))
+        checks = bench_checks(out, amp)
+        if "BENCH_MODEL" in extra:
+            fused = "BENCH_FUSED_TRANSFORMER" in extra
+            checks.update(
+                metric=out["metric"] ==
+                "transformer_lm_d1024_L6_train_bs16_seq2048_bf16",
+                fused_stages=out["fused_stages"] ==
+                (6 * TRAIN_LM["n_layers"] + 1 if fused else 0))
+        else:
+            checks["data_format"] = out["data_format"] == extra.get(
+                "BENCH_LAYOUT", "NCHW")
+            sec = out["secondary"]
+            if name == "headline":
+                checks["secondary_bf16_lm"] = (
+                    sec is not None and sec["amp"] is True
+                    and sec["metric"] ==
+                    "transformer_lm_d1024_L6_train_bs16_seq2048_bf16"
+                    and all(bench_checks(sec, True).values()))
+        ok = all(checks.values())
         if not ok:
-            bad.append("%s failed its checks" % name)
+            bad.append("%s failed its checks: %s" % (
+                name, sorted(k for k, v in checks.items() if not v)))
         summary[name] = {k: out.get(k) for k in (
             "metric", "value", "step_ms_p50", "step_ms_p90", "step_ms_p99",
             "tflops", "mfu", "amp", "data_format", "fused_stages",
             "device")}
+        if out.get("secondary"):
+            summary[name]["secondary"] = {k: out["secondary"].get(k) for k in (
+                "metric", "value", "step_ms_p50", "tflops", "mfu", "amp")}
         summary[name].update(seconds=secs, ok=ok)
     if "nhwc_f32" in lines:
         summary["nhwc_f32"]["train_resnet_fused_step_ms_p50"] = fused_step_ms
@@ -1855,6 +2183,18 @@ def bench_runs(torch, fused_step_ms):
             lines["nhwc_f32"]["step_ms_p50"] / fused_step_ms
     return lines, {"phase": "bench", "iters": BENCH_ITERS, "runs": summary,
                    "failures": bad, "ok": not bad}
+
+
+def bench_checks(out, amp):
+    """The checks every bench entry run must pass: finite losses, the
+    last below the first, float32 parameters, ``amp`` as asked and an
+    mfu exactly under AMP, no prepared step."""
+    losses = out["losses"]
+    return {"losses": out["losses_finite"] and losses[-1] < losses[0],
+            "param_dtypes": out["param_dtypes"] == ["float32"],
+            "amp": out["amp"] is amp,
+            "mfu": (out["mfu"] is not None) is amp,
+            "prepared": out["prepared"] is False}
 
 
 def main():
@@ -2041,7 +2381,26 @@ def main():
                                  "CPU sp step or the dense card step"
                                  % phase)
 
+        for fuse in (False, True):
+            phase = train_phase(fuse, True)
+            torch.cuda.empty_cache()
+            result = train(torch, fuse, amp=True)
+            emit(result)
+            if not result["ok"]:
+                raise AssertionError("%s failed its checks" % phase)
+            launches_train[phase] = result["launches"]
+
+            phase += "_oracle"
+            torch.cuda.empty_cache()
+            oracle = train_amp_oracle(torch, fuse)
+            emit(oracle)
+            if not oracle["ok"]:
+                raise AssertionError("%s: the card's AMP step disagrees "
+                                     "with the CPU one past its spread"
+                                     % phase)
+
         phase = "bench"
+        torch.cuda.empty_cache()
         lines, result = bench_runs(torch, fused_step_ms)
         for line in lines.values():
             emit(line)
@@ -2061,7 +2420,8 @@ def main():
     # the training step's attention, K7 at the full decode batch, K8 at
     # the full decode batch on the slower of the two largest projections
     # (w1 and w2 move the same bytes and FLOPs), K4 at the slowest of the
-    # fused step's five projections, K5 at the fused step's seam, K6 and
+    # fused step's five projections, K5 at the fused step's seam (each
+    # bf16 form of K1-K5 as its f32 form), K6 and
     # its bf16 form as the sum of the ResNet-50 forward's 53 launches, K9
     # at the slower of the ring's diagonal and off-diagonal folds, K10 at
     # the LM's logits
@@ -2072,11 +2432,17 @@ def main():
     pick = {"flash_fwd": ["[16,8,2048,128] causal"],
             "flash_bwd_dq": ["[16,8,2048,128] causal"],
             "flash_bwd_dkv": ["[16,8,2048,128] causal"],
+            "flash_fwd_bf16": ["[16,8,2048,128] causal"],
+            "flash_bwd_dq_bf16": ["[16,8,2048,128] causal"],
+            "flash_bwd_dkv_bf16": ["[16,8,2048,128] causal"],
             "paged_attention": ["B=16 NB=128 bs=16 H=8 D=128"],
             "matmul_int8": ["M=16 K=1024 N=4096", "M=16 K=4096 N=1024"],
             "matmul_epilogue": ["%s M=%d K=%d N=%d" % (what, m, kk, n)
                                 for what, kk, n, _, _ in FUSED_MATMULS],
             "add_ln": ["[%d,%d] affine" % (m, TRAIN_LM["d_model"])],
+            "matmul_epilogue_bf16": ["%s M=%d K=%d N=%d" % (what, m, kk, n)
+                                     for what, kk, n, _, _ in FUSED_MATMULS],
+            "add_ln_bf16": ["[%d,%d] affine" % (m, TRAIN_LM["d_model"])],
             "conv_stage": [CONV_FWD],
             "conv_stage_bf16": [CONV_FWD_BF16],
             "flash_chunk": [shard + " diagonal causal",
@@ -2090,6 +2456,12 @@ def main():
                              tpu + "flash_attention.py:284"),
             "flash_bwd_dkv": (csrc + "flash_bwd.cu",
                               tpu + "flash_attention.py:307"),
+            "flash_fwd_bf16": (csrc + "flash_fwd.cu",
+                               tpu + "flash_attention.py:68"),
+            "flash_bwd_dq_bf16": (csrc + "flash_bwd.cu",
+                                  tpu + "flash_attention.py:284"),
+            "flash_bwd_dkv_bf16": (csrc + "flash_bwd.cu",
+                                   tpu + "flash_attention.py:307"),
             "paged_attention": (csrc + "paged_attention.cu",
                                 tpu + "flash_attention.py:496"),
             "matmul_int8": (csrc + "matmul_int8.cu",
@@ -2098,6 +2470,10 @@ def main():
                                 tpu + "matmul_fused.py:105"),
             "add_ln": (csrc + "matmul_fused.cu",
                        tpu + "matmul_fused.py:394"),
+            "matmul_epilogue_bf16": (csrc + "matmul_fused.cu",
+                                     tpu + "matmul_fused.py:105"),
+            "add_ln_bf16": (csrc + "matmul_fused.cu",
+                            tpu + "matmul_fused.py:394"),
             "conv_stage": (csrc + "conv_fused.cu",
                            tpu + "conv_fused.py:73"),
             "conv_stage_bf16": (csrc + "conv_fused.cu",
@@ -2106,17 +2482,22 @@ def main():
                             tpu + "flash_attention.py:795"),
             "fused_ce": (csrc + "fused_ce.cu", tpu + "fused.py:29")}
     # launches: each kernel's count on its main path (train_f32 for the
-    # flash training kernels, train_fused for K4/K5, train_resnet_fused
-    # for K6, train_resnet_fused_amp for K6's bf16 form, train_sp for K9,
-    # the int8 tenant's serve run, which runs all three serving kernels,
-    # for the rest; K10 is on no path, so 0); every path's count stands
+    # flash training kernels, train_fused for K4/K5, train_amp and
+    # train_fused_amp for their bf16 forms, train_resnet_fused for K6,
+    # train_resnet_fused_amp for K6's bf16 form, train_sp for K9, the
+    # int8 tenant's serve run, which runs all three serving kernels, for
+    # the rest; K10 is on no path, so 0); every path's count stands
     # beside it
+    bf16_path = {BF16_FORM[k]: "train_amp" for k in TRAIN_KERNELS}
+    bf16_path.update({BF16_FORM[k]: "train_fused_amp"
+                      for k in FUSED_KERNELS})
     summary = []
     for name in KERNELS:
         r = max((x for x in by_name[name] if x["shape"] in pick[name]),
                 key=lambda x: x["ms"])
         path = ("train_resnet_fused" if name == "conv_stage" else
                 "train_resnet_fused_amp" if name == "conv_stage_bf16" else
+                bf16_path[name] if name in bf16_path else
                 "train_sp" if name == "flash_chunk" else
                 None if name == "fused_ce" else
                 "train_fused" if name in FUSED_KERNELS else

@@ -23,8 +23,10 @@ ring attention op under an ``sp`` axis) place their shards on the
 mesh's devices; every other op runs on the place's device.
 
 Under bf16 AMP (``program.amp_bf16``) the lowering casts each op's
-inputs (``lowering.amp_cast_ins``); the LM's attention and fused ops have
-no bf16 forms yet, so a program that holds one is refused.
+inputs (``lowering.amp_cast_ins``).  Two AMP programs are refused, each
+naming its ROADMAP item: one run on a mesh whose sp axis the ring
+attention shards over (the ring's chunk kernel K9 has no bf16 form), and
+one holding ``moe_ffn`` (its dense dispatch has no test under AMP).
 
 Not ported yet: the compile cache and ``PreparedProgram``, GSPMD's
 partition of the whole step over a mesh, the numerics bisect machinery,
@@ -42,11 +44,10 @@ from .types import proto_to_np_dtype
 _INT32_MAX = 2 ** 31 - 1
 _INT32_MIN = -(2 ** 31)
 
-# ops whose bf16 forms are not ported: an AMP program that holds one
-# (or its grad) is refused rather than run on f32-only kernels and casts
-# no test holds against the reference
-AMP_UNPORTED = frozenset({"ring_attention", "fused_matmul_bias_act",
-                          "fused_qkv_matmul", "fused_add_ln"})
+# ops not ported under bf16 AMP, with the ROADMAP item that brings
+# each: an AMP program that holds one (or its grad) is refused rather
+# than run on casts no test holds against the reference
+AMP_UNPORTED = {"moe_ffn": "ROADMAP queue 1 item 3h, moe_ffn under AMP"}
 
 # a callable op -> context manager that every op runs inside, e.g. CUDA
 # events around it for its device time (tools/profile_train.py); None,
@@ -74,15 +75,7 @@ class ExecutorCore:
                 "host ops %s are not ported to paddle_tpu_torch yet"
                 % sorted(set(host)))
         if getattr(program, "amp_bf16", False):
-            unported = sorted({op.type[:-len("_grad")]
-                               if op.type.endswith("_grad") else op.type
-                               for op in block.ops} & AMP_UNPORTED)
-            if unported:
-                raise NotImplementedError(
-                    "bf16 AMP (Float16Transpiler) is ported for the "
-                    "ResNet programs only; %s have no bf16 form yet "
-                    "(ROADMAP queue 1 item 3d, the LM under AMP)"
-                    % unported)
+            _refuse_unported_amp(block, self.mesh)
         fetch_list = list(fetch_list or [])
         env = {name: self._feed_tensor(block, name, val)
                for name, val in (feed or {}).items()}
@@ -139,6 +132,31 @@ class ExecutorCore:
         if isinstance(val, torch.Tensor) and val.device != self.device:
             val = val.to(self.device)
         return val
+
+
+def _refuse_unported_amp(block, mesh):
+    """Raise NotImplementedError for an AMP block the port cannot run:
+    one that holds an ``AMP_UNPORTED`` op, or a ``ring_attention`` whose
+    sp axis has size > 1 on ``mesh`` (the ring under AMP)."""
+    types = {op.type[:-len("_grad")] if op.type.endswith("_grad")
+             else op.type for op in block.ops}
+    unported = sorted(types & set(AMP_UNPORTED))
+    if unported:
+        raise NotImplementedError(
+            "bf16 AMP (Float16Transpiler): %s not ported under AMP (%s)"
+            % (unported, "; ".join(AMP_UNPORTED[t] for t in unported)))
+    if mesh is None:
+        return
+    for op in block.ops:
+        if op.type != "ring_attention":
+            continue
+        axis = op.attr("sp_axis", "sp")
+        if axis in mesh.axis_names and mesh.shape[axis] > 1:
+            raise NotImplementedError(
+                "bf16 AMP (Float16Transpiler) on a mesh whose %r axis has "
+                "size %d: the ring attention's chunk kernel K9 has no bf16 "
+                "form yet (ROADMAP queue 1 item 3g, the sp program under "
+                "AMP)" % (axis, mesh.shape[axis]))
 
 
 def _check_int32_range(name, arr):

@@ -20,7 +20,10 @@ def resolve_device(device=None):
     On CUDA this also pins float32 matmuls to full float32: the
     reference engine computes in f32 and the parity checks assume it,
     so TF32 (three decimal digits) is switched off explicitly for
-    cuBLAS matmuls and cuDNN rather than left to PyTorch's defaults."""
+    cuBLAS matmuls and cuDNN rather than left to PyTorch's defaults.
+    And bf16 cuBLAS matmuls sum in float32 throughout, as the
+    reference's bf16 dots do: PyTorch's default lets cuBLAS reduce a
+    bf16 product's split-K partials in bf16."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -29,6 +32,8 @@ def resolve_device(device=None):
                 "port on the host")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
     elif dev.type != "cpu":
         raise ValueError("unsupported device %r (want cuda or cpu)"
                          % (device,))

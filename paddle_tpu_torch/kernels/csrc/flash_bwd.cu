@@ -74,6 +74,28 @@
 // warp skips a tile wholly before its keys.
 // Causal K2 blocks launch heaviest first, as K1's; K3's heaviest (the
 // first K tiles) launch first in plain order.
+//
+// The bf16 forms (flash_bwd_dq_bf16, flash_bwd_dkv_bf16; the LM under
+// AMP): bf16 Q, K, V and dO (dO cast to O's dtype by the caller), f32
+// lse and delta, the same function, the same mask, the same two-kernel
+// split and k_offset argument, no atomics.  S = Q K^T and dP = dO V^T
+// are single exact bf16 MMAs (mma.sync.m16n8k16, f32 sums); P and dS =
+// P (dP - delta) stay f32, and the three products that take them (dV +=
+// P^T dO, dQ += dS K, dK += dS^T Q) take them split into bf16 hi + lo
+// (bf16_mma.cuh), two exact MMAs a product, so the gradients keep f32's
+// accuracy until their one rounding to bf16.  Products on the causal
+// training shape: K2 1.5 x 68.7 GFLOP worth of MMAs, K3 2 x; at the
+// card's dense bf16 rate the operations, not the bytes, bound both.
+// Design, a simple one: a block of 4 warps owns 64 resident rows
+// (K2: Q and dO; K3: K and V) in shared memory, a warp 16 of them, and
+// streams tiles of the other two (K2: 32 keys of K and V; K3: 16
+// queries of Q and dO with their lse and delta), double-buffered by
+// cp.async; A fragments by ldmatrix from the resident rows, B fragments
+// by ldmatrix (the k = d products) or ldmatrix.trans (the k = row
+// products) from the streamed tile; P / dS go from C to A layout in
+// registers; each tile's terms sum in fresh fragments added to the
+// long-lived accumulators in f32.  Rows padded to 136 elements.
+#include "bf16_mma.cuh"
 #include "flash_tile.cuh"
 
 namespace {
@@ -511,6 +533,353 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// ----------------------------------------------------------- bf16 forms
+
+namespace b16 {
+
+using tc::bf16;
+
+constexpr int D = 128;        // head_dim
+constexpr int BR = 64;        // resident rows a block: 4 warps of 16
+constexpr int NT = BR / 16 * 32;
+constexpr int S = D + 8;      // row stride, elements (272 bytes)
+constexpr int KD = D / 16;    // k16 steps over d
+
+// rows [r0, r0 + R) of a [n, D] bf16 matrix into shared rows of stride
+// S, 16 bytes a copy, rows past n zero-filled
+template <int R>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
+                                          int n) {
+  constexpr int C = D / 8;
+  static_assert(R * C % NT == 0, "tile copies must split evenly");
+#pragma unroll
+  for (int it = 0; it < R * C / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    const int r = i / C, c = i % C;
+    const bool ok = r0 + r < n;
+    cp16(dst + r * S + 8 * c, src + (size_t)(ok ? r0 + r : 0) * D + 8 * c,
+         ok);
+  }
+}
+
+// c[16 x 8 NJ] = R[16 x D] X^T for the warp's resident rows Rw and the
+// streamed tile's rows X (8 NJ of them), exact bf16 products summed in
+// f32
+template <int NJ>
+__device__ __forceinline__ void scores(const bf16* Rw, const bf16* X,
+                                       float (&c)[NJ][4]) {
+  static_assert(NJ % 2 == 0, "an ldmatrix.x4 holds two 8-row groups");
+  const int lane = threadIdx.x % 32;
+  const int a_row = lane % 16, a_col = (lane / 16) * 8;
+  const int b_row = lane % 8 + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;
+  zero(c);
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    uint32_t a[4];
+    tc::ldsm4(a, Rw + a_row * S + 16 * kk + a_col);
+#pragma unroll
+    for (int jj = 0; jj < NJ / 2; ++jj) {
+      uint32_t b[4];
+      tc::ldsm4(b, X + (16 * jj + b_row) * S + 16 * kk + b_col);
+      tc::mma_bf16(c[2 * jj], a, b[0], b[1]);
+      tc::mma_bf16(c[2 * jj + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc[16 x D] += P[16 x 8 NJ] X[8 NJ x D]: P in C fragments (f32), split
+// into bf16 hi + lo in A layout; X the streamed tile's rows.  Each
+// output n-tile pair sums the tile's terms in fresh fragments, then
+// adds them to acc in f32.
+template <int NJ>
+__device__ __forceinline__ void accumulate(const float (&p)[NJ][4],
+                                           const bf16* X,
+                                           float (&acc)[D / 8][4]) {
+  constexpr int KS = NJ / 2;
+  const int lane = threadIdx.x % 32;
+  const int b_row = lane % 8 + ((lane / 8) % 2) * 8, b_col = (lane / 16) * 8;
+  uint32_t ph[KS][4], pl[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    split_bf16(p[2 * ks][0], p[2 * ks][1], ph[ks][0], pl[ks][0]);
+    split_bf16(p[2 * ks][2], p[2 * ks][3], ph[ks][1], pl[ks][1]);
+    split_bf16(p[2 * ks + 1][0], p[2 * ks + 1][1], ph[ks][2], pl[ks][2]);
+    split_bf16(p[2 * ks + 1][2], p[2 * ks + 1][3], ph[ks][3], pl[ks][3]);
+  }
+#pragma unroll
+  for (int dn = 0; dn < D / 16; ++dn) {
+    float x0[4] = {0.f, 0.f, 0.f, 0.f}, x1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t b[4];
+      tc::ldsm4_t(b, X + (16 * ks + b_row) * S + 16 * dn + b_col);
+      tc::mma_bf16(x0, pl[ks], b[0], b[1]);
+      tc::mma_bf16(x0, ph[ks], b[0], b[1]);
+      tc::mma_bf16(x1, pl[ks], b[2], b[3]);
+      tc::mma_bf16(x1, ph[ks], b[2], b[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * dn][e] += x0[e];
+      acc[2 * dn + 1][e] += x1[e];
+    }
+  }
+}
+
+// a warp's 16 x D accumulator times mul, rounded once to bf16, to rows
+// r and r + 8 of out (rows at or past n are not written)
+__device__ __forceinline__ void store_rows(bf16* out, int r, int n, float mul,
+                                           const float (&acc)[D / 8][4]) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (r + 8 * i >= n) continue;
+    uint32_t* row = reinterpret_cast<uint32_t*>(out + (size_t)(r + 8 * i) * D);
+#pragma unroll
+    for (int m = 0; m < D / 8; ++m)
+      row[4 * m + t] = pack_bf16(acc[m][2 * i] * mul, acc[m][2 * i + 1] * mul);
+  }
+}
+
+// ------------------------------------------------------------- K2: dQ
+constexpr int BT2 = 32;       // keys a streamed K/V tile
+constexpr int NJ2 = BT2 / 8;
+constexpr int TILE2 = BT2 * S;
+constexpr int bytes_dq = (2 * BR * S + 4 * TILE2) * (int)sizeof(bf16);
+
+__global__ void __launch_bounds__(NT, 2)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          bf16* __restrict__ dq, int T, int Tk, float scale, int causal,
+          int k_offset) {
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);   // [BR][S]
+  bf16* Os = Qs + BR * S;                      // [BR][S] dO
+  bf16* KV = Os + BR * S;                      // two buffers: K, V tiles
+  const int bh = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rw = 16 * warp;
+  const bf16* kb = k + (size_t)bh * Tk * D;
+  const bf16* vb = v + (size_t)bh * Tk * D;
+
+  // this thread's rows q0 + rw + g and + 8: lse in log2 units (+inf
+  // where dead or past T, so p = 2^-inf = 0) and delta
+  const float sl2 = scale * LOG2E;
+  float lr[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + rw + g + 8 * i;
+    const float l = r < T ? lse[(size_t)bh * T + r] : NEG_INF;
+    lr[i] = l <= 0.5f * NEG_INF ? INFINITY : l * LOG2E;
+    dl[i] = r < T ? delta[(size_t)bh * T + r] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  int n_k = (Tk + BT2 - 1) / BT2;
+  if (causal) {
+    const int last = q0 + BR - 1 - k_offset;
+    n_k = last < 0 ? 0 : min(n_k, last / BT2 + 1);
+  }
+  if (n_k > 0) {
+    load_rows<BR>(Qs, q + (size_t)bh * T * D, q0, T);
+    load_rows<BR>(Os, dout + (size_t)bh * T * D, q0, T);
+    load_rows<BT2>(KV, kb, 0, Tk);
+    load_rows<BT2>(KV + TILE2, vb, 0, Tk);
+    cp_commit();
+  }
+  const int wlast = q0 + rw + 15;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * BT2;
+    const bf16* Ks = KV + (kt & 1) * 2 * TILE2;
+    const bf16* Vs = Ks + TILE2;
+    if (kt + 1 < n_k) {
+      bf16* nk = KV + ((kt + 1) & 1) * 2 * TILE2;
+      load_rows<BT2>(nk, kb, k0 + BT2, Tk);
+      load_rows<BT2>(nk + TILE2, vb, k0 + BT2, Tk);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();               // tile kt; the resident rows landed
+    if (q0 + rw < T && (!causal || wlast >= k_offset + k0)) {
+      float c1[NJ2][4], c2[NJ2][4];
+      scores<NJ2>(Qs + rw * S, Ks, c1);      // s
+      scores<NJ2>(Os + rw * S, Vs, c2);      // dp
+      const bool edge = k0 + BT2 > Tk ||
+                        (causal && q0 + rw < k_offset + k0 + BT2 - 1);
+#pragma unroll
+      for (int j = 0; j < NJ2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e / 2;
+          float p = ex2(c1[j][e] * sl2 - lr[i]);
+          if (edge) {
+            const int kc = k0 + 8 * j + 2 * t + (e & 1);
+            const int r = q0 + rw + g + 8 * i;
+            if (kc >= Tk || (causal && r < k_offset + kc)) p = 0.f;
+          }
+          c1[j][e] = p * (c2[j][e] - dl[i]);   // ds
+        }
+      accumulate<NJ2>(c1, Ks, acc);          // dq += ds k
+    }
+    __syncthreads();               // tile kt's buffer is consumed
+  }
+  store_rows(dq + (size_t)bh * T * D, q0 + rw + g, T, scale, acc);
+}
+
+// --------------------------------------------------------- K3: dK, dV
+constexpr int BT3 = 16;       // queries a streamed Q/dO tile
+constexpr int NJ3 = BT3 / 8;
+constexpr int TILE3 = BT3 * S;
+// a buffer: Q tile, dO tile, then the tile's lse and delta (f32)
+constexpr int BUF3 = 2 * TILE3 * (int)sizeof(bf16) + 2 * BT3 * 4;
+constexpr int bytes_dkv = 2 * BR * S * (int)sizeof(bf16) + 2 * BUF3;
+static_assert(BUF3 % 16 == 0, "16-byte copies");
+
+__global__ void __launch_bounds__(NT, 2)
+dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Tk,
+           float scale, int causal, int k_offset) {
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);   // [BR][S]
+  bf16* Vs = Ks + BR * S;                      // [BR][S]
+  char* QO = reinterpret_cast<char*>(Vs + BR * S);   // two buffers
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rw = 16 * warp;
+  const int kw = k0 + rw;                      // the warp's first key
+  const bf16* qb = q + (size_t)bh * T * D;
+  const bf16* ob = dout + (size_t)bh * T * D;
+  const float* lb = lse + (size_t)bh * T;
+  const float* db = delta + (size_t)bh * T;
+  const float sl2 = scale * LOG2E;
+  auto buf_q = [&](int i) { return reinterpret_cast<bf16*>(QO + i * BUF3); };
+  auto buf_s = [&](int i) {
+    return reinterpret_cast<float*>(QO + i * BUF3 + 2 * TILE3 * 2);
+  };
+  auto load = [&](int i, int r0) {
+    load_rows<BT3>(buf_q(i), qb, r0, T);
+    load_rows<BT3>(buf_q(i) + TILE3, ob, r0, T);
+    const int j = threadIdx.x;
+    if (j < 2 * BT3) {
+      const int r = j % BT3;
+      const bool ok = r0 + r < T;
+      cp4(buf_s(i) + j, (j < BT3 ? lb : db) + (ok ? r0 + r : 0), ok);
+    }
+  };
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
+    acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
+  }
+
+  const int n_q = (T + BT3 - 1) / BT3;
+  // causal: the first Q tile whose last row sees the block's first key
+  const int first = k_offset + k0;
+  const int q_start = causal ? (first <= 0 ? 0 : min(n_q, first / BT3)) : 0;
+  if (q_start < n_q) {
+    load_rows<BR>(Ks, k + (size_t)bh * Tk * D, k0, Tk);
+    load_rows<BR>(Vs, v + (size_t)bh * Tk * D, k0, Tk);
+    load(0, q_start * BT3);
+    cp_commit();
+  }
+  for (int qt = q_start; qt < n_q; ++qt) {
+    const int q0 = qt * BT3;
+    const int cur = (qt - q_start) & 1;
+    if (qt + 1 < n_q) load(cur ^ 1, q0 + BT3);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();               // tile qt; the resident rows landed
+    const bf16* Qt = buf_q(cur);
+    const bf16* Ot = Qt + TILE3;
+    const float* Ls = buf_s(cur);
+    const float* Ds = Ls + BT3;
+    if (kw < Tk && (!causal || q0 + BT3 - 1 >= k_offset + kw)) {
+      float c1[NJ3][4], c2[NJ3][4];
+      scores<NJ3>(Ks + rw * S, Qt, c1);      // s^T
+      scores<NJ3>(Vs + rw * S, Ot, c2);      // dp^T
+      // the columns' lse in log2 units, +inf for a query past T or a
+      // dead row (p = 2^-inf = 0); only a tile on the warp's diagonal
+      // has other dead scores
+      float lq[NJ3][2], dlt[NJ3][2];
+#pragma unroll
+      for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;
+          const float l = Ls[c];
+          lq[j][e] = q0 + c >= T || l <= 0.5f * NEG_INF ? INFINITY
+                                                        : l * LOG2E;
+          dlt[j][e] = Ds[c];
+        }
+      const bool edge = causal && q0 < k_offset + kw + 15;
+#pragma unroll
+      for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(c1[j][e] * sl2 - lq[j][e & 1]);
+          if (edge) {
+            const int qc = q0 + 8 * j + 2 * t + (e & 1);
+            const int kr = kw + g + 8 * (e / 2);
+            if (qc < k_offset + kr) p = 0.f;
+          }
+          c1[j][e] = p;                                  // p^T
+          c2[j][e] = p * (c2[j][e] - dlt[j][e & 1]);     // ds^T
+        }
+      accumulate<NJ3>(c1, Ot, acc_v);        // dv += p^T do
+      accumulate<NJ3>(c2, Qt, acc_k);        // dk += ds^T q
+    }
+    __syncthreads();               // tile qt's buffer is consumed
+  }
+  store_rows(dk + (size_t)bh * Tk * D, kw + g, Tk, scale, acc_k);
+  store_rows(dv + (size_t)bh * Tk * D, kw + g, Tk, 1.f, acc_v);
+}
+
+cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
+                      const bf16* dout, const float* lse, const float* delta,
+                      bf16* dq, int bh, int t, int tk, float scale,
+                      int causal, int k_offset, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes_dq);
+  if (err != cudaSuccess) return err;
+  const int n_q = (t + BR - 1) / BR;
+  if (n_q > 65535) return cudaErrorInvalidValue;
+  dim3 grid(bh, n_q);
+  dq_kernel<<<grid, NT, bytes_dq, stream>>>(q, k, v, dout, lse, delta, dq, t,
+                                            tk, scale, causal, k_offset);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
+                       const bf16* dout, const float* lse, const float* delta,
+                       bf16* dk, bf16* dv, int bh, int t, int tk, float scale,
+                       int causal, int k_offset, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes_dkv);
+  if (err != cudaSuccess) return err;
+  const int n_k = (tk + BR - 1) / BR;
+  if (n_k > 65535) return cudaErrorInvalidValue;
+  dim3 grid(bh, n_k);
+  dkv_kernel<<<grid, NT, bytes_dkv, stream>>>(q, k, v, dout, lse, delta, dk,
+                                              dv, t, tk, scale, causal,
+                                              k_offset);
+  return cudaGetLastError();
+}
+
+}  // namespace b16
+
 }  // namespace
 
 // q/dout [bh, t, d], k/v [bh, tk, d], lse/delta [bh, t], dq [bh, t, d];
@@ -542,4 +911,32 @@ extern "C" int flash_bwd_dkv_f32(const float* q, const float* k,
   return (int)launch_dkv<B128>(q, k, v, dout, lse, delta, dk, dv, bh, t, tk,
                                scale, causal, k_offset,
                                static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 forms: q, k, v, dout and the gradients bf16, lse and delta
+// float32; otherwise as flash_bwd_dq_f32 / flash_bwd_dkv_f32.
+extern "C" int flash_bwd_dq_bf16(const tc::bf16* q, const tc::bf16* k,
+                                 const tc::bf16* v, const tc::bf16* dout,
+                                 const float* lse, const float* delta,
+                                 tc::bf16* dq, int bh, int t, int tk, int d,
+                                 float scale, int causal, int k_offset,
+                                 void* stream) {
+  if (bh <= 0 || t <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
+  if (d != b16::D) return (int)cudaErrorInvalidValue;
+  return (int)b16::launch_dq(q, k, v, dout, lse, delta, dq, bh, t, tk, scale,
+                             causal, k_offset,
+                             static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_bwd_dkv_bf16(const tc::bf16* q, const tc::bf16* k,
+                                  const tc::bf16* v, const tc::bf16* dout,
+                                  const float* lse, const float* delta,
+                                  tc::bf16* dk, tc::bf16* dv, int bh, int t,
+                                  int tk, int d, float scale, int causal,
+                                  int k_offset, void* stream) {
+  if (bh <= 0 || t <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
+  if (d != b16::D) return (int)cudaErrorInvalidValue;
+  return (int)b16::launch_dkv(q, k, v, dout, lse, delta, dk, dv, bh, t, tk,
+                              scale, causal, k_offset,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
 // The GEMM tile shared by K4 (matmul_fused.cu), K8's prefill form
 // (matmul_int8.cu) and K6 (conv_fused.cu): out = epilogue(A @ W) in
 // float32, the products in split-TF32 on the tensor cores
-// (tf32_mma.cuh); and its bf16 form (bf16_kernel, at the end: K6 under
-// AMP), bf16 A and W with one bf16 MMA a product into float32.
+// (tf32_mma.cuh); and its bf16 form (bf16_kernel, at the end: K4 and K6
+// under AMP), bf16 A and W with one bf16 MMA a product into float32
+// (bf16_mma.cuh).
 //
 // Three policies make a kernel of the one mainloop:
 // - the W policy: F32W, f32 weights, split like A, three MMAs a
@@ -13,10 +14,13 @@
 //   dequantized product's sum in another order.  A K tile lies inside
 //   one chunk.  W is [K, N] row-major either way.
 // - the A policy, which fills a tile's A rows: DenseA copies rows of
-//   x [M, K] (K4, K8); K6's ConvA gathers them from an NHWC image.
+//   x [M, K] (K4, K8; float or bf16); K6's ConvA gathers them from an
+//   NHWC image.
 // - the epilogue policy, which runs from the accumulator registers:
 //   GemmEpi is + bias, the optional pre-activation store (K4's `pre`),
-//   act ('' / relu / tanh-gelu), + residual, the store; K6 has ConvEpi.
+//   act ('' / relu / tanh-gelu), + residual, the store, all in float32
+//   from the accumulator (bias and residual widened from bf16 in the
+//   bf16 form, pre and out rounded to bf16 once each); K6 has ConvEpi.
 //
 // A block owns a BM x BN output tile and loops over K in 32-deep tiles;
 // nothing carries between blocks and there are no atomics, so every
@@ -56,6 +60,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace gemm {
@@ -75,17 +80,17 @@ __device__ __forceinline__ float apply_act(float y, int act) {
 using bf16 = __nv_bfloat16;
 
 // One launch: out [M, N] = epilogue(A [M, K] @ W [K, N]), A's rows
-// read from x by the A policy; T is the type of x, res and out (float,
-// or bf16 in the bf16 form).
+// read from x by the A policy; T is the type of x, bias, res, pre and
+// out (float, or bf16 in the bf16 form).
 template <class T>
 struct ArgsT {
   const T* x;           // DenseA: [M, K]; ConvA: the NHWC image
   const void* w;        // float [K, N] (F32W), int8_t (Int8W), bf16
   const float* scales;  // Int8W: [K / chunk, N]
-  const float* bias;    // [N] or NULL
+  const T* bias;        // [N] or NULL
   const T* res;         // [M, N] or NULL
   T* out;
-  float* pre;           // [M, N] or NULL: x @ W + bias
+  T* pre;               // [M, N] or NULL: x @ W + bias
   int M, N, K, chunk, act;
 };
 using Args = ArgsT<float>;
@@ -141,47 +146,48 @@ struct Smem {
                 "shared memory");
 };
 
-// The A policy of K4 and K8: A is x [M, K] as stored.  An A policy has
-// Params (its kernel argument), smem_bytes (the shared memory it wants
-// beside the stages), grid and tile (how blocks are numbered: along N
-// first), init (once a block, before the first load; it may end on a
-// barrier) and load (one A tile; called for K tiles 0, 1, 2, ... in
-// that order).
+// The A policy of K4 and K8: A is x [M, K] as stored, float or bf16.
+// An A policy has Params (its kernel argument), smem_bytes (the shared
+// memory it wants beside the stages), grid and tile (how blocks are
+// numbered: along N first), init (once a block, before the first load;
+// it may end on a barrier) and load (one A tile; called for K tiles 0,
+// 1, 2, ... in that order).
 struct DenseA {
   struct Params {};
   template <class C>
   static constexpr int smem_bytes = 0;
 
   // N tiles on x, M tiles on y (at most 65535)
-  template <class C>
-  static bool grid(const Args& a, dim3& g) {
+  template <class C, class A>
+  static bool grid(const A& a, dim3& g) {
     const int mt = (a.M + C::BM - 1) / C::BM;
     g = dim3((a.N + C::BN - 1) / C::BN, mt);
     return mt <= 65535;
   }
-  template <class C>
-  __device__ __forceinline__ static void tile(const Args&, int& m0,
-                                              int& n0) {
+  template <class C, class A>
+  __device__ __forceinline__ static void tile(const A&, int& m0, int& n0) {
     m0 = blockIdx.y * C::BM;
     n0 = blockIdx.x * C::BN;
   }
 
-  template <class C>
-  __device__ __forceinline__ void init(const Args&, const Params&, char*,
+  template <class C, class A>
+  __device__ __forceinline__ void init(const A&, const Params&, char*,
                                        int) {}
 
-  // x[m0 .., k0 ..] into an A tile, 16 bytes a copy (K % 4 == 0)
-  template <class C>
-  __device__ __forceinline__ void load(float* dst, const Args& a,
+  // x[m0 .., k0 ..] into an A tile, 16 bytes (E elements) a copy; K is
+  // a multiple of E (4 floats, 8 bf16)
+  template <class C, class T>
+  __device__ __forceinline__ void load(T* dst, const ArgsT<T>& a,
                                        const Params&, int m0, int k0) {
-    constexpr int CPR = C::BK / 4, N_CH = C::BM * CPR;
+    constexpr int E = 16 / (int)sizeof(T);
+    constexpr int CPR = C::BK / E, N_CH = C::BM * CPR;
     static_assert(N_CH % C::NT == 0, "x copies must split evenly");
 #pragma unroll
     for (int it = 0; it < N_CH / C::NT; ++it) {
       const int i = threadIdx.x + it * C::NT, r = i / CPR, c = i % CPR;
-      const int gm = m0 + r, gk = k0 + 4 * c;
+      const int gm = m0 + r, gk = k0 + E * c;
       const bool ok = gm < a.M && gk < a.K;
-      cp16(dst + r * C::AS + 4 * c,
+      cp16(dst + r * C::AS + E * c,
            a.x + (ok ? (size_t)gm * a.K + gk : 0), ok);
     }
   }
@@ -250,18 +256,39 @@ __device__ __forceinline__ void store2(float* p, int gn, int N, float v0,
     if (gn + 1 < N) p[1] = v1;
   }
 }
+// ... rounded once to bf16 (the bf16 form: N % 8 == 0, always VEC)
+template <bool VEC>
+__device__ __forceinline__ void store2(bf16* p, int, int, float v0,
+                                       float v1) {
+  static_assert(VEC, "the bf16 form takes N % 8 == 0");
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
+}
+
+// one float / bf16 value widened to float
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) {
+  return __bfloat162float(v);
+}
+// two adjacent values (VEC: aligned as a pair) widened to float
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 
 // The epilogue policy of K4 and K8, from the accumulator registers:
 // + bias, the optional pre-activation store, act, + residual, the
-// store.  An epilogue policy has Params (its kernel argument) and
-// apply, which may reuse the stages' shared memory after
-// cp_wait<0>() and a barrier.
+// store, in float32 whatever A's type (the bf16 form widens its bf16
+// bias and residual and rounds pre and out once each).  An epilogue
+// policy has Params (its kernel argument) and apply, which may reuse
+// the stages' shared memory after cp_wait<0>() and a barrier.
 struct GemmEpi {
   struct Params {};
 
-  template <class C, bool VEC>
+  template <class C, bool VEC, class A>
   __device__ __forceinline__ static void apply(
-      const float (&acc)[C::MI][C::NI][4], const Args& a, const Params&,
+      const float (&acc)[C::MI][C::NI][4], const A& a, const Params&,
       char*, int m0, int n0) {
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     const int g = lane / 4, t = lane % 4;
@@ -273,8 +300,8 @@ struct GemmEpi {
       if (gn >= a.N) continue;
       float b0 = 0.f, b1 = 0.f;
       if (a.bias) {
-        b0 = a.bias[gn];
-        if (gn + 1 < a.N) b1 = a.bias[gn + 1];
+        b0 = to_f32(a.bias[gn]);
+        if (gn + 1 < a.N) b1 = to_f32(a.bias[gn + 1]);
       }
 #pragma unroll
       for (int i = 0; i < C::MI; ++i) {
@@ -289,13 +316,12 @@ struct GemmEpi {
           v1 = apply_act(v1, a.act);
           if (a.res) {
             if (VEC) {
-              const float2 r =
-                  *reinterpret_cast<const float2*>(a.res + off);
+              const float2 r = load_pair(a.res + off);
               v0 += r.x;
               v1 += r.y;
             } else {
-              v0 += a.res[off];
-              if (gn + 1 < a.N) v1 += a.res[off + 1];
+              v0 += to_f32(a.res[off]);
+              if (gn + 1 < a.N) v1 += to_f32(a.res[off + 1]);
             }
           }
           store2<VEC>(a.out + off, gn, a.N, v0, v1);
@@ -485,9 +511,9 @@ cudaError_t run(const Args& a, bool vec, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 form: A and W bf16 in shared memory, one
-// mma.sync.m16n8k16.bf16 a 16-deep product into float32 fragments (no
-// split: a bf16 product is exact in float32).  The same Tile, A policy
+// The bf16 form (K4 and K6 under AMP): A and W bf16 in shared memory,
+// one mma.sync.m16n8k16.bf16 a 16-deep product into float32 fragments
+// (no split: a bf16 product is exact in float32).  The same Tile, A policy
 // and epilogue policy interfaces as gemm_kernel, the same block
 // numbering, cp.async stage ring and fixed summation order (each K tile
 // in a fresh fragment added by float32 adds, as the split form does);
@@ -504,34 +530,7 @@ cudaError_t run(const Args& a, bool vec, cudaStream_t stream) {
 // read the accumulator as they do in the split form.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8 x 8 matrices of 16-bit elements from shared memory; lanes 8 i
-// .. 8 i + 7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// the same, each matrix transposed
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
+// (mma_bf16, ldsm4 and ldsm4_t: bf16_mma.cuh)
 
 // Dynamic shared memory of the bf16 form: STAGES x (A tile, W tile),
 // then EXTRA bytes of the A policy's own.

@@ -8,6 +8,11 @@ backward, ``q [B, H, D]`` with pages ``[N, bs, H, D]`` for paged decode.
 Each entry is a wrapper around a hand-written CUDA kernel
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_chunk.cu``,
 ``csrc/paged_attention.cu``) with its plain PyTorch version beside it.
+The flash forward and backward (K1, K2, K3) take float32 or bfloat16
+q/k/v/out/dO (the LM under bf16 AMP), with the LSE and delta float32
+either way; a bf16 call launches the kernel's bf16 form, whose launches
+``flash_fwd_bf16``, ``flash_bwd_dq_bf16`` and ``flash_bwd_dkv_bf16``
+count.
 The ring-step chunk form (``flash_attention_chunk`` and its backward)
 threads an explicit online-softmax carry for ``parallel/ring.py``.
 The wrapper checks device, dtype, shape and contiguity; for a tensor on
@@ -28,7 +33,8 @@ __all__ = ["flash_attention", "flash_attention_fwd_lse",
            "flash_attention_bwd", "flash_attention_train",
            "flash_bwd_dq", "flash_bwd_dkv", "flash_attention_chunk",
            "chunk_finalize", "flash_attention_chunk_bwd", "paged_attention",
-           "attention_reference", "flash_attention_bwd_reference",
+           "flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
+           "flash_delta", "attention_reference", "flash_attention_bwd_reference",
            "chunk_update_reference", "chunk_bwd_reference",
            "paged_attention_reference", "paged_span_pages", "NEG_INF"]
 
@@ -37,6 +43,9 @@ NEG_INF = -1e30
 # the serving block size (flags.serve_kv_block_size)
 _HEAD_DIM = 128
 _BLOCK_SIZE = 16
+# the dtypes of the flash forward and backward's q/k/v/out/dO, and the
+# suffix of each form's C entries
+_FLASH_FORMS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 # ---------------------------------------------------------------------------
@@ -49,6 +58,16 @@ def _aligned16(*tensors):
     contiguous view at an offset that is not a multiple of 4 floats
     does not)."""
     return all(x.data_ptr() % 16 == 0 for x in tensors)
+
+
+def _one_dtype(tensors, what):
+    """The one dtype of ``tensors``, float32 or bfloat16; raises on any
+    other dtype or a mix."""
+    dt = tensors[0].dtype
+    require(dt in _FLASH_FORMS and all(x.dtype == dt for x in tensors),
+            "%s takes all float32 or all bfloat16, got %s"
+            % (what, [str(x.dtype) for x in tensors]))
+    return dt
 
 
 def attention_reference(q, k, v, scale, causal):
@@ -70,8 +89,9 @@ def attention_reference(q, k, v, scale, causal):
 
 def flash_attention_fwd_lse(q, k, v, scale=None, causal=False):
     """softmax(Q K^T scale [causal]) V and its per-row log-sum-exp:
-    ``q`` [B, H, T, D], ``k``/``v`` [B, H, Tk, D], float32; returns
-    ``(out [B, H, T, D], lse f32 [B, H, T])``."""
+    ``q`` [B, H, T, D], ``k``/``v`` [B, H, Tk, D], all float32 or all
+    bfloat16; returns ``(out [B, H, T, D] in q's dtype, lse f32 [B, H,
+    T])``.  The scores, softmax and sums are float32 in both forms."""
     where = route(q, k, v)
     require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
             "q/k/v must be [B, H, T, D]")
@@ -80,8 +100,7 @@ def flash_attention_fwd_lse(q, k, v, scale=None, causal=False):
             and v.shape == k.shape,
             "shape mismatch q %s k %s v %s"
             % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
-    require(all(x.dtype == torch.float32 for x in (q, k, v)),
-            "flash attention takes float32")
+    dt = _one_dtype((q, k, v), "flash attention")
     require(t > 0 and k.shape[2] > 0, "empty sequence")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -96,17 +115,32 @@ def flash_attention_fwd_lse(q, k, v, scale=None, causal=False):
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     fn = _build.function(
-        "flash_fwd", "flash_fwd_f32",
+        "flash_fwd", "flash_fwd_" + _FLASH_FORMS[dt],
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     rc = fn(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), b * h, t,
             k.shape[2], d, float(scale), int(bool(causal)), stream())
     _build.check(rc, "flash_fwd")
-    flash_attention_fwd_lse.launches += 1
+    if dt == torch.bfloat16:
+        flash_fwd_bf16.launches += 1
+    else:
+        flash_attention_fwd_lse.launches += 1
     return out, lse
 
 
 flash_attention_fwd_lse.launches = 0
+
+
+def flash_fwd_bf16(q, k, v, scale=None, causal=False):
+    """``flash_attention_fwd_lse`` on bfloat16 q/k/v (the LM under AMP);
+    its ``launches`` counts the bf16 form's launches, which
+    ``flash_attention_fwd_lse`` makes for any bf16 call."""
+    require(all(x.dtype == torch.bfloat16 for x in (q, k, v)),
+            "want bfloat16 q/k/v")
+    return flash_attention_fwd_lse(q, k, v, scale, causal)
+
+
+flash_fwd_bf16.launches = 0
 
 
 def flash_attention(q, k, v, scale=None, causal=False):
@@ -141,8 +175,18 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, scale, causal):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_delta(do, out):
+    """delta = rowsum(dO * O) [B, H, T] for the backward kernels: the
+    cotangent cast to O's dtype first, then the products and the sum in
+    float32 (the JAX package's ``flash_attention_bwd`` kernel branch),
+    whatever the operands' dtype."""
+    return (do.to(out.dtype).float() * out.float()).sum(-1)
+
+
 def _bwd_args(q, k, v, out, lse, do):
-    """Check the backward's operands; returns the device route."""
+    """Check the backward's operands (q/k/v/out of one dtype, float32 or
+    bfloat16, dO float32 or bfloat16, lse float32); returns the device
+    route."""
     where = route(q, k, v, out, lse, do)
     require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
             "q/k/v must be [B, H, T, D]")
@@ -153,8 +197,9 @@ def _bwd_args(q, k, v, out, lse, do):
             "shape mismatch q %s k %s out %s lse %s do %s"
             % (tuple(q.shape), tuple(k.shape), tuple(out.shape),
                tuple(lse.shape), tuple(do.shape)))
-    require(all(x.dtype == torch.float32 for x in (q, k, v, out, lse, do)),
-            "flash attention backward takes float32")
+    _one_dtype((q, k, v, out), "flash attention backward")
+    require(lse.dtype == torch.float32, "lse must be float32")
+    require(do.dtype in _FLASH_FORMS, "dO must be float32 or bfloat16")
     if where == "cuda":
         require(all(x.is_contiguous() for x in (q, k, v, out, lse, do)),
                 "flash backward kernels need contiguous inputs")
@@ -172,59 +217,103 @@ def _require_aligned(*tensors):
             "on 16-byte boundaries (copy an offset view with .clone())")
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, k_offset=0):
-    """K2 on the card: dQ ``[B, H, T, D]`` from contiguous float32 CUDA
-    operands and ``delta = rowsum(dO * O)`` [B, H, T]; ``causal`` masks
-    q_pos < k_offset + k_pos."""
+def _kernel_form(q, k, v, do, lse, delta):
+    """The C entries' suffix for the backward kernels' operands: q/k/v/dO
+    of one dtype (float32 or bfloat16), lse and delta float32, all
+    16-byte aligned."""
+    dt = _one_dtype((q, k, v, do), "flash backward kernels")
+    require(lse.dtype == torch.float32 and delta.dtype == torch.float32,
+            "flash backward kernels take float32 lse and delta")
     _require_aligned(q, k, v, do)
+    return _FLASH_FORMS[dt]
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, k_offset=0):
+    """K2 on the card: dQ ``[B, H, T, D]`` from contiguous CUDA operands
+    (q/k/v/dO all float32 or all bfloat16, dQ in their dtype) and
+    ``delta = rowsum(dO * O)`` [B, H, T] (float32, ``flash_delta``);
+    ``causal`` masks q_pos < k_offset + k_pos."""
+    form = _kernel_form(q, k, v, do, lse, delta)
     b, h, t, d = q.shape
     dq = torch.empty_like(q)
-    fn = _build.function("flash_bwd", "flash_bwd_dq_f32", _BWD_ARGTYPES)
+    fn = _build.function("flash_bwd", "flash_bwd_dq_" + form, _BWD_ARGTYPES)
     rc = fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
             b * h, t, k.shape[2], d, float(scale), int(bool(causal)),
             int(k_offset), stream())
     _build.check(rc, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    if form == "bf16":
+        flash_bwd_dq_bf16.launches += 1
+    else:
+        flash_bwd_dq.launches += 1
     return dq
 
 
 flash_bwd_dq.launches = 0
 
 
+def flash_bwd_dq_bf16(q, k, v, do, lse, delta, scale, causal, k_offset=0):
+    """``flash_bwd_dq`` on bfloat16 q/k/v/dO; its ``launches`` counts the
+    bf16 form's launches, which ``flash_bwd_dq`` makes for any bf16
+    call."""
+    require(q.dtype == torch.bfloat16, "want bfloat16 q/k/v/dO")
+    return flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, k_offset)
+
+
+flash_bwd_dq_bf16.launches = 0
+
+
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, k_offset=0):
-    """K3 on the card: ``(dK, dV)`` ``[B, H, Tk, D]``, operands as for
-    ``flash_bwd_dq``."""
-    _require_aligned(q, k, v, do)
+    """K3 on the card: ``(dK, dV)`` ``[B, H, Tk, D]`` in k/v's dtype,
+    operands as for ``flash_bwd_dq``."""
+    form = _kernel_form(q, k, v, do, lse, delta)
     b, h, t, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _build.function("flash_bwd", "flash_bwd_dkv_f32",
+    fn = _build.function("flash_bwd", "flash_bwd_dkv_" + form,
                          [ctypes.c_void_p] + _BWD_ARGTYPES)
     rc = fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dk),
             ptr(dv), b * h, t, k.shape[2], d, float(scale),
             int(bool(causal)), int(k_offset), stream())
     _build.check(rc, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    if form == "bf16":
+        flash_bwd_dkv_bf16.launches += 1
+    else:
+        flash_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
 
 
+def flash_bwd_dkv_bf16(q, k, v, do, lse, delta, scale, causal, k_offset=0):
+    """``flash_bwd_dkv`` on bfloat16 q/k/v/dO; its ``launches`` counts
+    the bf16 form's launches, which ``flash_bwd_dkv`` makes for any bf16
+    call."""
+    require(q.dtype == torch.bfloat16, "want bfloat16 q/k/v/dO")
+    return flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, k_offset)
+
+
+flash_bwd_dkv_bf16.launches = 0
+
+
 def flash_attention_bwd(q, k, v, out, lse, do, scale=None, causal=False):
     """Backward of ``flash_attention_fwd_lse`` from its residuals: P is
     rebuilt tile by tile from the saved ``lse`` (no forward re-run, no
-    [T, T] matrix).  All operands float32, ``lse`` [B, H, T]; returns
-    ``(dq, dk, dv)``.  On the card: ``delta = rowsum(dO * O)`` in
-    PyTorch (the JAX package also computes it outside its kernels), then
-    K2 (dQ) and K3 (dK, dV)."""
+    [T, T] matrix).  q/k/v/out all float32 or all bfloat16, ``lse`` [B,
+    H, T] float32; returns ``(dq, dk, dv)`` in q/k/v's dtype.  On the
+    card: dO cast to out's dtype and ``delta = rowsum(dO * O)`` summed
+    in float32 in PyTorch (``flash_delta``; the JAX package also
+    computes it outside its kernels), then K2 (dQ) and K3 (dK, dV).  A
+    CPU tensor takes the plain version, as the reference's XLA branch
+    does."""
     where = _bwd_args(q, k, v, out, lse, do)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
     if where == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, do, scale,
                                              causal)
-    delta = (do * out).sum(-1)
+    do = do.to(out.dtype).contiguous()
+    delta = flash_delta(do, out)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
     return dq, dk, dv
@@ -246,8 +335,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), ctx.scale,
-                                         ctx.causal)
+                                         dout.to(out.dtype).contiguous(),
+                                         ctx.scale, ctx.causal)
         return dq, dk, dv, None, None
 
 
@@ -410,6 +499,8 @@ def flash_attention_chunk_bwd(q, k, v, do, lse, delta, scale=None,
     kernels (its causal off-diagonal offsets go to ``_chunk_bwd_xla``,
     the same math); a CPU tensor takes ``chunk_bwd_reference``."""
     where = _bwd_args(q, k, v, do, lse, do)    # no O: dO stands in
+    require(q.dtype == torch.float32, "the chunk backward takes float32 "
+            "(its bf16 form comes with K9's)")
     require(tuple(delta.shape) == tuple(lse.shape)
             and delta.device == q.device,
             "delta must be [B, H, Sq] beside q")

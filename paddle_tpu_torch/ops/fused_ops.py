@@ -15,15 +15,19 @@ emits, backed by the kernels in ``kernels/matmul_fused.py``:
 Each has an EXPLICIT grad lowering consuming the forward's saved
 activations (MulOut / Sum): the backward never re-executes the forward
 matmul or activation chain.  Its two products are plain large matmuls
-(``torch.matmul``), as the reference leaves them to XLA.  Each forward
+(``torch.matmul``, or cuBLAS through ``torch.mm(..., out_dtype=)``), as
+the reference leaves them to XLA.  Under bf16 AMP the grads take the
+reference's casts (``_compute_dtype``): both products run on bf16
+operands with float32 sums, dX in X's dtype and dW in W's (float32),
+as the reference's ``preferred_element_type`` names them.  Each forward
 op registers an ``infer_shape``: build-time shape inference runs on
 ``meta`` tensors, which the kernel wrappers do not take.
 
 Not ported: the dropout branch of ``fused_matmul_bias_act``
 (``dropout_prob > 0``) needs the ``dropout`` op and its random stream,
-and raises NotImplementedError; the bf16 AMP casts of the grads.  The
-reference's ``force_xla`` / ``interpret`` attrs select its XLA branch or
-the Pallas interpreter; they are accepted and ignored.
+and raises NotImplementedError.  The reference's ``force_xla`` /
+``interpret`` attrs select its XLA branch or the Pallas interpreter;
+they are accepted and ignored.
 """
 from __future__ import annotations
 
@@ -37,6 +41,31 @@ from paddle_tpu_torch.kernels import matmul_fused
 def _flat2(x, num_col_dims):
     lead = tuple(x.shape[:num_col_dims])
     return x.reshape(int(np.prod(lead)), -1), lead
+
+
+def _compute_dtype(ctx, *vals):
+    """The grads' product dtype: bf16 under AMP, else the operands'
+    promoted dtype (the reference's ``_compute_dtype``)."""
+    if getattr(ctx, "amp", False):
+        return torch.bfloat16
+    dt = vals[0].dtype
+    for v in vals[1:]:
+        dt = torch.promote_types(dt, v.dtype)
+    return dt
+
+
+def _dot(a, b, out_dtype):
+    """``a @ b`` of two operands of one dtype, the products summed in
+    float32 and the result in ``out_dtype`` (``jnp.dot``'s
+    ``preferred_element_type``): bf16 operands into a float32 result
+    without a bf16 rounding between."""
+    if a.dtype == out_dtype:
+        return torch.matmul(a, b)
+    if a.dtype == torch.bfloat16 and out_dtype == torch.float32:
+        if a.is_cuda:
+            return torch.mm(a, b, out_dtype=out_dtype)
+        return torch.matmul(a.float(), b.float())
+    return torch.matmul(a, b).to(out_dtype)
 
 
 def _meta(shape, like):
@@ -85,13 +114,16 @@ def _qkv_grad(ctx, ins, attrs, op):
     ws = list(ins.list("W"))
     x2, _ = _flat2(x, attrs.get("x_num_col_dims", 1))
     m = x2.shape[0]
-    d2s = [torch.zeros((m, w.shape[1]), dtype=x2.dtype, device=x2.device)
+    d2s = [torch.zeros((m, w.shape[1]), device=x2.device,
+                       dtype=torch.promote_types(x2.dtype, w.dtype))
            if dy is None else dy.reshape(m, w.shape[1])
            for w, dy in zip(ws, ins.list("Out@GRAD"))]
     dcat = torch.cat(d2s, dim=1)
     wcat = torch.cat(ws, dim=1)
-    dx2 = torch.matmul(dcat, wcat.t())
-    dwcat = torch.matmul(x2.t(), dcat)
+    cdt = _compute_dtype(ctx, x2, wcat)
+    dcat = dcat.to(cdt)
+    dx2 = _dot(dcat, wcat.to(cdt).t(), x2.dtype)
+    dwcat = _dot(x2.to(cdt).t(), dcat, wcat.dtype)
     dws = []
     off = 0
     for w in ws:
@@ -186,8 +218,10 @@ def _mba_grad(ctx, ins, attrs, op):
 
     if bias is not None:
         out_grads["Bias@GRAD"] = dpre.sum(dim=0).to(bias.dtype)
-    dx2 = torch.matmul(dpre, w.t())
-    dw = torch.matmul(x2.t(), dpre)
+    cdt = _compute_dtype(ctx, x2, w)
+    dpre = dpre.to(cdt)
+    dx2 = _dot(dpre, w.to(cdt).t(), x2.dtype)
+    dw = _dot(x2.to(cdt).t(), dpre, w.dtype)
     out_grads["X@GRAD"] = dx2.reshape(x.shape).to(x.dtype)
     out_grads["W@GRAD"] = dw.to(w.dtype)
     return out_grads
@@ -241,7 +275,8 @@ def _add_ln_grad(ctx, ins, attrs, op):
         if bias is not None:
             bi = bias.detach().requires_grad_(True)
             leaves.append(bi)
-        replay = matmul_fused.ln_from_sum(leaves[0], sc, bi, eps)
+        replay = matmul_fused.ln_from_sum(leaves[0], sc, bi, eps,
+                                          stats64=False)
         outputs, cots = [replay[0]], [
             ins["Out@GRAD"].reshape(-1, d).to(s2.dtype)]
         for val, slot in zip(replay[1:], ("Mean@GRAD", "Variance@GRAD")):

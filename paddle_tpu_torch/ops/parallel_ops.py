@@ -7,7 +7,10 @@ axis with size > 1, and the dense flash path (K1 forward, K2/K3
 backward) otherwise: no mesh, no such axis, or size 1.  The op cuts
 Q/K/V along S into the ring's shards and joins ``Out`` and ``LSE`` back,
 as ``shard_map``'s in/out specs do in the JAX package.  Batch (``dp``)
-and head (``tp``) axes of size > 1 are not ported and raise.
+and head (``tp``) axes of size > 1 are not ported and raise.  Under bf16
+AMP the dense path carries bf16 Q/K/V through the flash kernels' bf16
+forms (Out in bf16, LSE in f32); the ring has no bf16 form yet, and the
+executor refuses an AMP program on an sp mesh.
 ``moe_ffn`` is the top-1 mixture-of-experts FFN in its dense-dispatch
 form; an ``ep`` axis of size > 1 (expert parallelism) raises.
 """
@@ -102,8 +105,12 @@ def _ring_attention_grad_lower(ctx, ins, attrs, op=None):
     lse = ins.get("LSE")
     if lse is None:
         return core_lowering.generic_grad_lower(ctx, ins, attrs, op)
-    args = [ins[s].contiguous() for s in ("Q", "K", "V", "Out")] + [
-        lse.contiguous(), ins["Out@GRAD"].contiguous()]
+    out = ins["Out"]
+    # the cotangent in Out's dtype, as the reference's kernel branch
+    # casts it (an f32 cotangent of a bf16 Out under AMP)
+    args = [ins[s].contiguous() for s in ("Q", "K", "V")] + [
+        out.contiguous(), lse.contiguous(),
+        ins["Out@GRAD"].to(out.dtype).contiguous()]
     causal = bool(attrs.get("causal", True))
     if sp_axis is not None:
         from paddle_tpu_torch.parallel.ring import ring_attention_bwd

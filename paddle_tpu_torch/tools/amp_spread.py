@@ -1,7 +1,18 @@
-"""How far bf16 rounding alone moves a ResNet step under AMP, on the CPU:
-the calibration of ``chip_smoke.py``'s AMP bars.
+"""How far bf16 rounding alone moves a training step under AMP, on the
+CPU: the calibration of ``chip_smoke.py``'s AMP bars.
 
-- ``train``: one step of the fused ResNet (``--data-set``, ``--depth``,
+- ``--model transformer``: one step of the flagship LM under
+  ``Float16Transpiler`` (full width: vocab 8192, d_model 1024, 8 heads,
+  d_ff 4096, sequence 2048; ``--depth`` layers, default 1, at
+  ``--batch``, default 1: the card-vs-CPU oracle's step), unfused and
+  fused-block, from the startup drawn with ``--seed``, then twice more
+  with every weight matrix moved by one bf16 ulp up and down: the
+  relative Frobenius distance of the loss, of the first block's output
+  and of each parameter gradient from the first step's
+  (``train_amp_oracle`` and ``train_fused_amp_oracle`` hold the card to
+  twice each);
+- ``train`` (``--model resnet50``, the default): one step of the fused
+  ResNet (``--data-set``, ``--depth``,
   ``--batch``) under ``Float16Transpiler`` and ``FLAGS_bn_bf16`` from
   the startup drawn with ``--seed``, then twice more with every filter
   moved by one bf16 ulp up and down: the relative Frobenius distance of
@@ -16,6 +27,8 @@ Run from the repository root:
 
     python -m paddle_tpu_torch.tools.amp_spread [--depth 50] [--batch 2]
         [--seed 0] [--data-set flowers] [--infer-batch 4]
+    python -m paddle_tpu_torch.tools.amp_spread --model transformer
+        [--depth 1] [--batch 1] [--seed 0]
 
 Prints one JSON line.
 """
@@ -31,7 +44,11 @@ from .. import fluid
 from ..core.flags import FLAGS
 from ..fluid.io import get_scope_arrays, set_scope_arrays
 from ..kernels.conv_fused import bf16_ulp
-from ..models import resnet
+from ..models import resnet, transformer
+
+# the flagship LM at full width (chip_smoke.py's TRAIN_LM)
+LM = dict(vocab_size=8192, seq_len=2048, d_model=1024, n_head=8, d_ff=4096,
+          learning_rate=1e-3)
 
 
 def _build(data_set, depth, fused, is_test=False, amp=False):
@@ -62,6 +79,84 @@ def _fro(a, b):
 def _nudged(v, step):
     t = torch.from_numpy(v).to(torch.bfloat16).float()
     return (t + step * bf16_ulp(t)).numpy()
+
+
+def build_lm(n_layers, fuse, amp=True):
+    """The flagship LM program at full width and ``n_layers``, the
+    fused-block program with ``fuse``, under AMP with ``amp``."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = transformer.get_model(n_layers=n_layers,
+                                           fuse_transformer=fuse, **LM)
+    if amp:
+        fluid.transpiler.Float16Transpiler().transpile(main)
+    return main, startup, loss
+
+
+def lm_feed(batch, seed):
+    """One batch of next-token pairs at the LM's sequence length."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, LM["vocab_size"],
+                       (batch, LM["seq_len"] + 1)).astype(np.int64)
+    return {"src": toks[:, :-1], "label": toks[:, 1:, None]}
+
+
+def lm_block_output(main):
+    """The name of the first block's output, the residual stream after
+    its FFN.  Unfused, the input of the third layer_norm (the next
+    block's, or the final one); fused, the Sum of the second
+    fused_add_ln, which fuses that residual add with the layer_norm."""
+    ops = [op for op in main.desc.blocks[0].ops if not op.role]
+    seams = [op.output("Sum")[0] for op in ops if op.type == "fused_add_ln"]
+    if seams:
+        return seams[1]
+    return [op.input("X")[0] for op in ops if op.type == "layer_norm"][2]
+
+
+def nudge_weights(arrays, step, params):
+    """``arrays`` with every weight matrix (a 2-D array named in
+    ``params``) rounded to bf16 and moved by ``step`` bf16 ulps (0:
+    unchanged)."""
+    return {k: _nudged(v, step) if step and v.ndim == 2 and k in params
+            else v for k, v in arrays.items()}
+
+
+def lm_spread(n_layers, batch, seed, fuse):
+    """The relative Frobenius distance one bf16 ulp on every weight
+    matrix, up or down (the larger), moves the LM's AMP step on the CPU:
+    {name: spread} for the loss, the block output and each gradient."""
+    main, startup, loss = build_lm(n_layers, fuse)
+    startup.random_seed = seed
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    arrays = get_scope_arrays(scope, persist)
+    params = [p.name for p in main.all_parameters()]
+    grads = [p + "@GRAD" for p in params]
+    fetch = [loss.name, lm_block_output(main)] + grads
+    feed = lm_feed(batch, seed + 4)
+    runs = []
+    for step in (0, 1, -1):
+        host = fluid.Scope()
+        set_scope_arrays(host, nudge_weights(arrays, step, params), "cpu")
+        runs.append(exe.run(main, feed=feed, fetch_list=fetch, scope=host))
+    base, up, down = runs
+    return {n: max(_fro(u, b), _fro(d, b))
+            for n, b, u, d in zip(fetch, base, up, down)}, fetch
+
+
+def lm_train_spread(n_layers, batch, seed):
+    out = {}
+    for fuse in (False, True):
+        spread, fetch = lm_spread(n_layers, batch, seed, fuse)
+        g = [spread[n] for n in fetch[2:]]
+        out["fused" if fuse else "unfused"] = {
+            "loss": spread[fetch[0]], "block_output": spread[fetch[1]],
+            "grad_worst": max(g), "grad_median": float(np.median(g)),
+            "grad_worst_name": max(fetch[2:], key=spread.get)}
+    return out
 
 
 def train_spread(data_set, depth, batch, seed):
@@ -139,15 +234,28 @@ def infer_gap(batch, seed):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=("resnet50", "transformer"),
+                    default="resnet50")
     ap.add_argument("--data-set", choices=("flowers", "cifar10"),
                     default="flowers")
-    ap.add_argument("--depth", type=int, default=50)
-    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--depth", type=int, default=None,
+                    help="ResNet depth (50) or LM layers (1)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="ResNet 2, LM 1")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--infer-batch", type=int, default=0,
                     help="flowers: also the AMP-vs-f32 inference gap at "
                     "this batch (0: skip)")
     args = ap.parse_args(argv)
+    if args.model == "transformer":
+        depth, batch = args.depth or 1, args.batch or 1
+        print(json.dumps({"model": "transformer", "depth": depth,
+                          "batch": batch, "seed": args.seed, **LM,
+                          "train_spread": lm_train_spread(depth, batch,
+                                                          args.seed)}))
+        return
+    args.depth = args.depth or 50
+    args.batch = args.batch or 2
     prev = FLAGS.bn_bf16
     try:
         FLAGS.bn_bf16 = True

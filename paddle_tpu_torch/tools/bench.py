@@ -18,18 +18,17 @@ without a card):
   ``BENCH_BN_BF16`` (follows AMP);
 - LM: ``BENCH_BATCH`` (16; 2), ``BENCH_SEQ`` (2048; 128),
   ``BENCH_ITERS`` (30; 3), ``BENCH_DMODEL`` (1024; 64),
-  ``BENCH_LAYERS`` (6; 2), ``BENCH_HEADS`` (8; 4),
-  ``BENCH_FUSED_TRANSFORMER``;
+  ``BENCH_LAYERS`` (6; 2), ``BENCH_HEADS`` (8; 4), ``BENCH_AMP`` (1 on
+  the card; 0), ``BENCH_FUSED_TRANSFORMER`` (the fused-block program);
 - ``BENCH_SECONDARY`` (1 on the card; 0): after the ResNet headline,
-  the flagship LM as ``bench.py``'s secondary metric;
+  the flagship LM as ``bench.py``'s secondary metric, at
+  ``BENCH_AMP``'s accelerator default as ``bench.py``'s (bf16 on the
+  card);
 - ``BENCH_PEAK_TFLOPS``: the peak ``mfu`` is taken against (989.4, an
   H100 SXM's dense bf16 rate).
 
 Where it departs from ``bench.py`` (each visible in the JSON):
 
-- the LM trains float32 (``amp`` false) until its bf16 kernels land:
-  ``BENCH_AMP=1`` with the LM raises (ROADMAP queue 1 item 3d), and the
-  secondary LM runs float32;
 - there is no prepared (captured) step yet: ``prepared`` is false and
   ``BENCH_PREPARED=1`` raises (ROADMAP queue 1 item 4), where
   ``bench.py`` falls back quietly;
@@ -42,7 +41,8 @@ Each timed step ends with the loss fetch, which waits for the card, so
 output is one JSON object: ``metric``, ``value``, ``unit``,
 ``vs_baseline`` (ResNet: value / 81.69, ``bench.py``'s baseline),
 ``tflops`` (ResNet at 224 x 224: ``bench.py``'s 12.3e9 FLOPs a training
-image) and ``mfu`` (on the card under AMP only; else null), ``amp``,
+image; the LM: ``bench.py``'s 6 N_params + 6 L d_model T FLOPs a token)
+and ``mfu`` (on the card under AMP only; else null), ``amp``,
 ``data_format``, ``fused_stages``, ``prepared``, the step
 percentiles, ``device`` (the card's name and power limit from
 nvidia-smi, or "cpu"), ``secondary``, and the run's losses and
@@ -147,6 +147,17 @@ def _common(losses, step_ms, dtypes, amp, on_card):
             "param_dtypes": dtypes, "device": device_line(on_card)}
 
 
+def lm_amp(on_card):
+    """Whether the LM trains under bf16 AMP: ``BENCH_AMP``, by default on
+    the card and off on the CPU (``bench.py``'s ``transformer_bench``,
+    its secondary included)."""
+    return _flag("BENCH_AMP", on_card)
+
+
+def _peak_tflops():
+    return float(os.environ.get("BENCH_PEAK_TFLOPS", DEFAULT_PEAK_TFLOPS))
+
+
 def transformer_bench(place, on_card, secondary=False):
     """The transformer LM, bench.py's ``transformer_bench``: tokens/s."""
     import paddle_tpu_torch.fluid as fluid
@@ -155,7 +166,6 @@ def transformer_bench(place, on_card, secondary=False):
 
     if secondary:
         bs, seq, iters, d_model, n_layers, n_head = 16, 2048, 10, 1024, 6, 8
-        amp = False
     else:
         bs = int(_env("BENCH_BATCH", "16", "2", on_card))
         seq = int(_env("BENCH_SEQ", "2048", "128", on_card))
@@ -163,11 +173,7 @@ def transformer_bench(place, on_card, secondary=False):
         d_model = int(_env("BENCH_DMODEL", "1024", "64", on_card))
         n_layers = int(_env("BENCH_LAYERS", "6", "2", on_card))
         n_head = int(_env("BENCH_HEADS", "8", "4", on_card))
-        amp = _flag("BENCH_AMP", False)
-        if amp:
-            raise NotImplementedError(
-                "BENCH_AMP=1 with the LM: its bf16 kernel forms are not "
-                "ported yet (ROADMAP queue 1 item 3d)")
+    amp = lm_amp(on_card)
     if os.environ.get("BENCH_FUSED_TRANSFORMER") is not None:
         FLAGS.transformer_fuse = os.environ["BENCH_FUSED_TRANSFORMER"] == "1"
     vocab = 8192
@@ -176,6 +182,8 @@ def transformer_bench(place, on_card, secondary=False):
         loss, (src, label), _ = transformer.get_model(
             vocab_size=vocab, seq_len=seq, d_model=d_model, n_head=n_head,
             n_layers=n_layers, d_ff=4 * d_model)
+    if amp:
+        fluid.transpiler.Float16Transpiler().transpile(main)
     rng = np.random.RandomState(SEED)
     feed = {src.name: rng.randint(0, vocab, (bs, seq)).astype(np.int64),
             label.name: rng.randint(0, vocab, (bs, seq, 1)).astype(np.int64)}
@@ -199,6 +207,9 @@ def transformer_bench(place, on_card, secondary=False):
         flops_tok = 6.0 * n_params + 6.0 * n_layers * d_model * seq
         out["params_m"] = n_params / 1e6
         out["tflops"] = tokens_per_s * flops_tok / 1e12
+        if amp:     # against the bf16 peak the run targets
+            out["mfu"] = out["tflops"] / _peak_tflops()
+            out["peak_tflops"] = _peak_tflops()
     return out
 
 
@@ -252,10 +263,8 @@ def resnet_bench(place, on_card):
     if on_card and data_set in ("flowers", "imagenet") and depth in (0, 50):
         out["tflops"] = images_per_s * TRAIN_FLOPS_PER_IMG_224 / 1e12
         if amp:     # against the bf16 peak the run targets
-            peak = float(os.environ.get("BENCH_PEAK_TFLOPS",
-                                        DEFAULT_PEAK_TFLOPS))
-            out["mfu"] = out["tflops"] / peak
-            out["peak_tflops"] = peak
+            out["mfu"] = out["tflops"] / _peak_tflops()
+            out["peak_tflops"] = _peak_tflops()
     return out
 
 

@@ -13,7 +13,8 @@
   within rtol 1e-2 of the reference's AMP losses, the dtypes of a set
   of fetched activations the reference's, every parameter and
   parameter gradient float32;
-- an AMP program holding the LM's ops is refused.
+- an AMP program on an sp mesh is refused (the LM's other AMP programs
+  are held to the reference in ``test_torch_lm_amp.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -32,10 +33,12 @@ from paddle_tpu.core.scope import Scope as JScope
 from paddle_tpu.models import resnet as jresnet
 from paddle_tpu_torch.core import desc as tdesc
 from paddle_tpu_torch.core import lowering as tlowering
+from paddle_tpu_torch.core.executor_impl import ExecutorCore
 from paddle_tpu_torch.core.flags import FLAGS as TFLAGS
 from paddle_tpu_torch.fluid.io import set_scope_arrays
 from paddle_tpu_torch.models import resnet as tresnet
 from paddle_tpu_torch.models import transformer as ttransformer
+from paddle_tpu_torch.parallel import make_mesh
 
 TOL = 2 ** -7          # two bf16 ulps, relative and absolute
 LOSS_RTOL = 1e-2
@@ -569,22 +572,24 @@ def test_amp_parameters_and_gradients_stay_float32(amp_runs, fmt, bn):
     assert amp_runs[("jax", fmt, bn)][2] == grads
 
 
-def test_lm_under_amp_is_refused():
-    """The LM's attention and fused ops have no bf16 form yet: an AMP
-    program that holds them is refused before any op runs."""
-    for fuse in (False, True):
-        main, startup = tfluid.Program(), tfluid.Program()
-        with tfluid.program_guard(main, startup), \
-                tfluid.unique_name.guard():
-            loss, _, _ = ttransformer.get_model(
-                vocab_size=16, seq_len=8, d_model=8, n_head=2, n_layers=1,
-                d_ff=16, fuse_transformer=fuse)
-        tfluid.transpiler.Float16Transpiler().transpile(main)
-        exe = tfluid.Executor(tfluid.CPUPlace())
-        scope = tfluid.Scope()
-        exe.run(startup, scope=scope)
-        toks = np.random.RandomState(0).randint(0, 16, (2, 9))
-        with pytest.raises(NotImplementedError, match="item 3d"):
-            exe.run(main, feed={"src": toks[:, :-1],
-                                "label": toks[:, 1:, None]},
-                    fetch_list=[loss], scope=scope)
+def test_amp_on_an_sp_mesh_is_refused():
+    """The ring's chunk kernel K9 has no bf16 form yet: an AMP program
+    run on a mesh whose sp axis is > 1 is refused before any op runs,
+    naming its ROADMAP item; the same program runs dense under AMP."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        loss, _, _ = ttransformer.get_model(
+            vocab_size=16, seq_len=8, d_model=8, n_head=2, n_layers=1,
+            d_ff=16, sp=True)
+    tfluid.transpiler.Float16Transpiler().transpile(main)
+    scope = tfluid.Scope()
+    tfluid.Executor(tfluid.CPUPlace()).run(startup, scope=scope)
+    toks = np.random.RandomState(0).randint(0, 16, (2, 9))
+    feed = {"src": toks[:, :-1], "label": toks[:, 1:, None]}
+    mesh = make_mesh({"sp": 2}, [torch.device("cpu")] * 2)
+    with pytest.raises(NotImplementedError, match="item 3g"):
+        ExecutorCore(tfluid.CPUPlace(), mesh=mesh).run(
+            main.desc, scope, 0, feed, [loss.name])
+    out = tfluid.Executor(tfluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=[loss], scope=scope)
+    assert np.isfinite(out[0]).all()

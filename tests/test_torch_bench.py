@@ -1,8 +1,11 @@
 """The port's bench entry (``python3 -m paddle_tpu_torch.tools.bench``) on
 the CPU at tiny dims, in subprocesses: ResNet depth 8 on cifar10, batch
 4, 2 iterations, AMP off and on, NCHW and NHWC fused, and the LM with
-AMP off.  Each run exits 0 and prints one parseable JSON last line with
-``bench.py``'s fields; each refusal exits non-zero with its reason.
+AMP off and on, the fused-block program under AMP too.  Each run exits 0
+and prints one parseable JSON last line with ``bench.py``'s fields; each
+refusal exits non-zero with its reason.  The LM, the secondary metric
+included, takes ``BENCH_AMP`` with ``bench.py``'s default: on on the
+card, off on the CPU.
 """
 import json
 import os
@@ -23,6 +26,11 @@ RUNS = {("resnet50", amp, layout): dict(RESNET, BENCH_AMP=amp,
         for amp in ("0", "1") for layout in ("NCHW", "NHWC")}
 RUNS[("transformer", "0", None)] = {"BENCH_MODEL": "transformer",
                                     "BENCH_ITERS": "2"}
+RUNS[("transformer", "1", None)] = {"BENCH_MODEL": "transformer",
+                                    "BENCH_ITERS": "2", "BENCH_AMP": "1"}
+RUNS[("transformer", "1", "fused")] = {
+    "BENCH_MODEL": "transformer", "BENCH_ITERS": "2", "BENCH_AMP": "1",
+    "BENCH_FUSED_TRANSFORMER": "1"}
 
 
 def _env(extra):
@@ -87,14 +95,16 @@ def test_bench_prints_one_json_line(runs, key):
         assert len(out["losses"]) == 3
     else:
         assert out["unit"] == "tokens/sec"
-        assert out["metric"] == "transformer_lm_d64_L2_train_bs2_seq128"
+        assert out["metric"] == "transformer_lm_d64_L2_train_bs2_seq128" + (
+            "_bf16" if amp == "1" else "")
+        # the fused-block program: L QKV, 3L + 1 matmul stages, 2L seams
+        assert out["fused_stages"] == (2 + 7 + 4 if layout == "fused"
+                                       else 0)
 
 
 @pytest.mark.parametrize("extra,reason", [
     ({"BENCH_MODEL": "vgg"}, "ROADMAP queue 1 items 2 and 3e"),
     ({"BENCH_MODEL": "resnet32"}, "ROADMAP queue 1 item 3e"),
-    ({"BENCH_MODEL": "transformer", "BENCH_AMP": "1"},
-     "ROADMAP queue 1 item 3d"),
     ({"BENCH_PREPARED": "1"}, "ROADMAP queue 1 item 4"),
     ({"BENCH_FAKE": "0"}, "no flowers reader")])
 def test_bench_refusals_raise(monkeypatch, extra, reason):
@@ -126,3 +136,44 @@ def test_no_card_and_no_cpu_request_fails():
     stdout, stderr = p.communicate(timeout=TIMEOUT)
     assert p.returncode != 0 and stdout.strip() == ""
     assert "no CUDA card" in stderr
+
+
+@pytest.mark.parametrize("env,on_card,want", [
+    ({}, True, True), ({}, False, False), ({"BENCH_AMP": "0"}, True, False),
+    ({"BENCH_AMP": "1"}, False, True)])
+def test_lm_amp_is_bench_py_default(monkeypatch, env, on_card, want):
+    """bench.py's ``transformer_bench`` reads BENCH_AMP with the
+    accelerator default: bf16 on the card unless BENCH_AMP=0."""
+    from paddle_tpu_torch.tools import bench
+
+    for k in [k for k in os.environ if k.startswith("BENCH_")]:
+        monkeypatch.delenv(k)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert bench.lm_amp(on_card) is want
+
+
+@pytest.mark.parametrize("amp", ["0", "1"])
+def test_secondary_lm_takes_bench_amp(monkeypatch, amp):
+    """The secondary metric (the flagship LM after the ResNet headline)
+    trains under AMP as BENCH_AMP says, as bench.py's does; the steps
+    themselves are stubbed out (the flagship does not fit a CPU test)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.tools import bench
+
+    for k in [k for k in os.environ if k.startswith("BENCH_")]:
+        monkeypatch.delenv(k)
+    monkeypatch.setenv("BENCH_AMP", amp)
+    seen = {}
+
+    def train(fluid_, place, main, startup, loss, feed, iters):
+        seen["amp_bf16"] = bool(main.desc.amp_bf16)
+        seen["batch"] = feed[sorted(feed)[0]].shape
+        return [2.0, 1.0], [1.0] * iters, ["float32"]
+
+    monkeypatch.setattr(bench, "_train", train)
+    out = bench.transformer_bench(fluid.CPUPlace(), False, secondary=True)
+    assert out["amp"] is (amp == "1") and seen["amp_bf16"] is (amp == "1")
+    assert out["metric"] == "transformer_lm_d1024_L6_train_bs16_seq2048" + (
+        "_bf16" if amp == "1" else "")
+    assert seen["batch"][0] == 16

@@ -1227,3 +1227,234 @@ def test_parallel_executor_lays_its_mesh_on_the_cards(cuda):
         np.testing.assert_allclose(got, want, rtol=rtol)
     assert KERNELS["flash_fwd"].launches == 2
     assert KERNELS["flash_chunk"].launches == 0
+
+
+# The bf16 forms of K1-K5 (the LM under AMP), each against its plain
+# version (K4: the one that rounds once from the f32 accumulator) on the
+# same bf16 inputs, at the training step's shapes and at ragged ones,
+# under the bars chip_smoke.py holds them to: K1's out and K2/K3's
+# gradients within one bf16 ulp of the plain value plus 2**-12 of the
+# tensor's max |plain|, K1's LSE at TOL; K4's out and pre within one ulp
+# plus 1e-6 of max |Y|; K5's Sum exact, its out, mean and var within
+# one ulp.  (T = 1 is left to the forward: with one key, dS = P (dP -
+# delta) is a difference of two equal f32 sums, exactly 0, whose
+# reordering noise no bar relative to the gradients' 0 can hold.)
+
+def _within_ulp(got, want, floor):
+    from paddle_tpu_torch.kernels.conv_fused import bf16_ulp
+
+    want = want.float()
+    err = (got.float() - want).abs()
+    return bool((err <= bf16_ulp(want) + floor * want.abs().max()).all())
+
+
+FLASH_BF16_SHAPES = [(16, 8, 2048, 2048, True), (1, 8, 256, 256, True),
+                     (2, 3, 200, 200, True), (1, 2, 77, 130, False),
+                     (1, 2, 130, 77, False), (2, 8, 100, 100, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,tk,causal", FLASH_BF16_SHAPES)
+def test_flash_bf16_forms_match_plain_on_card(cuda, b, h, t, tk, causal):
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    g = torch.Generator(device=cuda).manual_seed(t + tk)
+    q = torch.randn(b, h, t, 128, device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn(b, h, tk, 128, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    do = torch.randn(b, h, t, 128, device=cuda, generator=g).bfloat16()
+    reset_launches()
+    out, lse = flash_attention_fwd_lse(q, k, v, causal=causal)
+    ro, rl = attention_reference(q, k, v, 128 ** -0.5, causal)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert _within_ulp(out, ro, 2 ** -12)
+    torch.testing.assert_close(lse, rl, **TOL)
+    got = flash_attention_bwd(q, k, v, ro, rl, do, causal=causal)
+    want = flash_attention_bwd_reference(q, k, v, ro, rl, do, 128 ** -0.5,
+                                         causal)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and _within_ulp(a, w, 2 ** -12)
+    assert {k_: f.launches for k_, f in KERNELS.items() if f.launches} == {
+        "flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1,
+        "flash_bwd_dkv_bf16": 1}
+
+
+@pytest.mark.cuda
+def test_flash_bf16_forward_at_one_query_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(1, 1, 1, 128, device=cuda, generator=g)
+               .bfloat16() for _ in range(3))
+    out, lse = flash_attention_fwd_lse(q, k, v, causal=True)
+    ro, rl = attention_reference(q, k, v, 128 ** -0.5, True)
+    assert torch.equal(out, ro)
+    torch.testing.assert_close(lse, rl, **TOL)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_backward_casts_the_cotangent_on_card(cuda):
+    """An f32 dO of a bf16 O: the card backward rounds it to bf16 first
+    and sums delta in f32 (``flash_delta``), as the reference's kernel
+    branch does; the result is the bf16 dO's."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(2, 8, 256, 128, device=cuda, generator=g)
+               .bfloat16() for _ in range(3))
+    do = torch.randn(2, 8, 256, 128, device=cuda, generator=g)
+    out, lse = flash_attention_fwd_lse(q, k, v, causal=True)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = flash_attention_bwd(q, k, v, out, lse, do.bfloat16(),
+                               causal=True)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_forms_are_deterministic_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(2, 8, 300, 128, device=cuda, generator=g)
+                   .bfloat16() for _ in range(4))
+    out, lse = flash_attention_fwd_lse(q, k, v, causal=True)
+    again = flash_attention_fwd_lse(q, k, v, causal=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    one = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    two = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_refuse_mixed_dtypes_on_card(cuda):
+    from paddle_tpu_torch.kernels.flash_attention import flash_bwd_dq
+
+    q = torch.randn(1, 2, 64, 128, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        flash_attention_fwd_lse(q, q.float(), q)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        flash_bwd_dq(q, q, q.float(), q, lse, lse, 0.1, True)
+
+
+# (M, K, N): the fused step's five projections at M = 16 x 2048, then
+# ragged M and N, K and N multiples of 8 but not of the tile
+MATMUL_BF16_SHAPES = [(32768, 1024, 3072), (32768, 1024, 1024),
+                      (32768, 1024, 4096), (32768, 4096, 1024),
+                      (32768, 1024, 8192), (1000, 1024, 1000),
+                      (333, 264, 1000), (17, 72, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MATMUL_BF16_SHAPES)
+def test_matmul_epilogue_bf16_form_matches_plain_on_card(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(k, n, device=cuda, generator=g) * k ** -0.5).bfloat16()
+    bias = torch.randn(n, device=cuda, generator=g).bfloat16()
+    res = torch.randn(m, n, device=cuda, generator=g).bfloat16()
+    cases = [("relu", bias, None)] if m == 32768 else [
+        (act, b, r) for act in ("", "relu", "gelu")
+        for b, r in ((None, None), (bias, None), (bias, res), (None, res))]
+    for act, b, r in cases:
+        out, pre = pmm.matmul_epilogue(x, w, b, r, act, save_preact=True)
+        want, want_pre = pmm.matmul_epilogue_f32acc_reference(x, w, b, r,
+                                                              act)
+        assert out.dtype == pre.dtype == torch.bfloat16
+        assert _within_ulp(out, want, 1e-6), (act, b is None, r is None)
+        assert _within_ulp(pre, want_pre, 1e-6), (act, b is None, r is None)
+
+
+@pytest.mark.cuda
+def test_matmul_epilogue_bf16_form_counts_and_refuses_on_card(cuda):
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    x = torch.randn(64, 64, device=cuda).bfloat16()
+    reset_launches()
+    pmm.matmul_epilogue(x, x)
+    pmm.matmul_epilogue(x.float(), x.float())
+    assert KERNELS["matmul_epilogue_bf16"].launches == 1
+    assert KERNELS["matmul_epilogue"].launches == 1
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        pmm.matmul_epilogue(x, x.float())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pmm.matmul_epilogue(x[:, :60].contiguous(), x[:60])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pmm.matmul_epilogue(x, x[:, :60].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(32768, 1024), (1000, 1024), (77, 8),
+                                 (50, 264), (33, 512)])
+def test_add_ln_bf16_form_matches_plain_on_card(cuda, m, d):
+    from paddle_tpu_torch.kernels.conv_fused import bf16_ulp
+
+    g = torch.Generator(device=cuda).manual_seed(m + d)
+    x, y = (torch.randn(m, d, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    scale = torch.rand(d, device=cuda, generator=g) + 0.5
+    bias = torch.randn(d, device=cuda, generator=g)
+    for s_, b_ in ((scale, bias), (None, None), (scale.bfloat16(), None)):
+        got = pmm.add_ln(x, y, s_, b_)
+        want = pmm.add_ln_reference(x, y, s_, b_)
+        assert all(a.dtype == torch.bfloat16 for a in got)
+        assert torch.equal(got[1], want[1])
+        for a, w in zip((got[0], got[2], got[3]),
+                        (want[0], want[2], want[3])):
+            assert bool(((a.float() - w.float()).abs()
+                         <= bf16_ulp(w)).all())
+
+
+@pytest.mark.cuda
+def test_add_ln_bf16_form_counts_and_refuses_on_card(cuda):
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    x = torch.randn(16, 64, device=cuda).bfloat16()
+    reset_launches()
+    pmm.add_ln(x, x)
+    assert KERNELS["add_ln_bf16"].launches == 1
+    assert KERNELS["add_ln"].launches == 0
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        pmm.add_ln(x, x.float())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pmm.add_ln(x[:, :60].contiguous(), x[:, :60].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [False, True])
+def test_executor_lm_amp_step_on_card_runs_the_bf16_forms(cuda, fuse):
+    """One Adam step of a small LM (d_model 256, 2 heads of 128, 2
+    layers, sequence 128, batch 2) under Float16Transpiler: the bf16
+    forms of K1-K3 (and K4/K5 fused) as often as the f32 program runs
+    its f32 forms, the f32 forms never; the loss is the CPU executor's
+    to bf16 resolution and the parameter gradients stay float32."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = transformer.get_model(
+            vocab_size=64, seq_len=128, d_model=256, n_head=2, n_layers=2,
+            d_ff=512, fuse_transformer=fuse)
+    fluid.transpiler.Float16Transpiler().transpile(main)
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = [n for n, v in main.desc.blocks[0].vars.items()
+               if v.persistable]
+    host = fluid.Scope()
+    set_scope_arrays(host, get_scope_arrays(card, persist), "cpu")
+    fetch = [loss.name] + sorted(p.name + "@GRAD"
+                                 for p in main.all_parameters())
+    toks = np.random.RandomState(0).randint(0, 64, (2, 129))
+    feed = {"src": toks[:, :-1], "label": toks[:, 1:, None]}
+    reset_launches()
+    got = fluid.Executor(fluid.CUDAPlace(0)).run(
+        main, feed=feed, fetch_list=fetch, scope=card, return_numpy=False)
+    want_launches = {"flash_fwd_bf16": 2, "flash_bwd_dq_bf16": 2,
+                     "flash_bwd_dkv_bf16": 2}
+    if fuse:
+        want_launches.update(matmul_epilogue_bf16=9, add_ln_bf16=4)
+    assert {k: f.launches for k, f in KERNELS.items() if f.launches} == \
+        want_launches
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=host)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0], rtol=1e-2)
