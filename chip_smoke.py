@@ -141,11 +141,14 @@ non-causal and the causal diagonal; K10, which no path runs, at the
 LM's logits [32768, 8192]; the bf16 forms of K1/K2/K3 at [1, 8, 256,
 128] and [16, 8, 2048, 128] causal (out and the gradients within one
 bf16 ulp of the plain value plus 2**-12 of the tensor's max |plain|, the
-LSE at ATOL / RTOL), K4's at the five projections at M = 16 x 2048 and
-at every epilogue on ragged shapes (out and pre within one ulp plus 1e-6
-of max |Y| of the plain version that rounds once), K5's at [32768,
-1024] (Sum exact, out, mean and var within one ulp), all bound at the
-dense bf16 peak with 2-byte elements.  K7 (each row's live pages in spans of
+LSE at ATOL / RTOL; K1's bf16 form is the wgmma kernel of
+flash_fwd.cu), K4's (the wgmma tile of csrc/wgmma_gemm.cuh) at the five
+projections at M = 16 x 2048 and at every epilogue on ragged M, N and K
+and at K = 4096 (out and pre within one ulp plus 1e-6 of max |Y| of the
+plain version that rounds once), K5's at [32768, 1024] (Sum exact, out,
+mean and var within one ulp), all bound at the dense bf16 peak with
+2-byte elements.  The build phase fails if ptxas reports a spill in a
+wgmma kernel (WGMMA_KERNELS).  K7 (each row's live pages in spans of
 ``paged_span_pages()`` pages, streamed through a cp.async ring, the spans
 folded in order by a second launch) at the decode batch B = 16, NB =
 128 over a 512-page pool with mixed lengths (its bytes bound counts a
@@ -164,6 +167,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -252,6 +256,9 @@ BF16_KERNELS = ("conv_stage_bf16", "flash_fwd_bf16", "flash_bwd_dq_bf16",
 # within one bf16 ulp of the plain value, plus 2**-12 of the tensor's
 # max |plain| for values that are small sums of large terms
 FLASH_BF16_FLOOR = 2.0 ** -12
+# the symbols of the wgmma kernels (K4's and K1's bf16 forms), whose
+# accumulators must stay in registers: ptxas may report no spill
+WGMMA_KERNELS = ("gemm_bf16_kernel", "flash_fwd_bf16_kernel")
 SEED = 0
 
 
@@ -678,9 +685,11 @@ def check_lm_bf16(torch, timer, gen, record, bad):
                2 * m * kk * n)
         del x, w, bias
     torch.cuda.empty_cache()
-    # every epilogue (act x bias x residual, out and pre) on ragged M
-    # and N (K and N multiples of 8 but not of the tile)
-    for m_, kk, n in ((1000, 1024, 1000), (333, 264, 1000), (17, 72, 24)):
+    # every epilogue (act x bias x residual, out and pre) on ragged M, N
+    # and K (multiples of 8 but not of the 128 x 256 tile or the 64-deep
+    # K tile), and at K = 4096
+    for m_, kk, n in ((1000, 1024, 1000), (333, 264, 1000), (17, 72, 24),
+                      (129, 72, 136), (255, 4096, 136)):
         x = torch.randn(m_, kk, device=dev, generator=gen).to(bf)
         w = (torch.randn(kk, n, device=dev, generator=gen)
              * kk ** -0.5).to(bf)
@@ -2230,6 +2239,12 @@ def main():
         report = _build.build_all()
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "kernels": report})
+        spills = {sym: line for lib in report.values()
+                  for sym, line in lib["ptxas"].items()
+                  if any(k in sym for k in WGMMA_KERNELS)
+                  and re.search(r"[1-9]\d* bytes spill", line)}
+        if spills:
+            raise AssertionError("a wgmma kernel spills: %s" % spills)
 
         phase = "kernels"
         timer = Timer(torch)
@@ -2470,7 +2485,7 @@ def main():
                                 tpu + "matmul_fused.py:105"),
             "add_ln": (csrc + "matmul_fused.cu",
                        tpu + "matmul_fused.py:394"),
-            "matmul_epilogue_bf16": (csrc + "matmul_fused.cu",
+            "matmul_epilogue_bf16": (csrc + "wgmma_gemm.cuh",
                                      tpu + "matmul_fused.py:105"),
             "add_ln_bf16": (csrc + "matmul_fused.cu",
                             tpu + "matmul_fused.py:394"),

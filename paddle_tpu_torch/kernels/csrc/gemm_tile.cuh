@@ -1,9 +1,10 @@
 // The GEMM tile shared by K4 (matmul_fused.cu), K8's prefill form
 // (matmul_int8.cu) and K6 (conv_fused.cu): out = epilogue(A @ W) in
 // float32, the products in split-TF32 on the tensor cores
-// (tf32_mma.cuh); and its bf16 form (bf16_kernel, at the end: K4 and K6
-// under AMP), bf16 A and W with one bf16 MMA a product into float32
-// (bf16_mma.cuh).
+// (tf32_mma.cuh); and its bf16 form (bf16_kernel, at the end: K6 under
+// AMP), bf16 A and W with one bf16 MMA a product into float32
+// (bf16_mma.cuh).  K4's bf16 form runs wgmma_gemm.cuh's tile, with
+// GemmEpi's arithmetic.
 //
 // Three policies make a kernel of the one mainloop:
 // - the W policy: F32W, f32 weights, split like A, three MMAs a
@@ -14,7 +15,7 @@
 //   dequantized product's sum in another order.  A K tile lies inside
 //   one chunk.  W is [K, N] row-major either way.
 // - the A policy, which fills a tile's A rows: DenseA copies rows of
-//   x [M, K] (K4, K8; float or bf16); K6's ConvA gathers them from an
+//   x [M, K] (K4, K8; float); K6's ConvA gathers them from an
 //   NHWC image.
 // - the epilogue policy, which runs from the accumulator registers:
 //   GemmEpi is + bias, the optional pre-activation store (K4's `pre`),
@@ -256,19 +257,6 @@ __device__ __forceinline__ void store2(float* p, int gn, int N, float v0,
     if (gn + 1 < N) p[1] = v1;
   }
 }
-// ... rounded once to bf16 (the bf16 form: N % 8 == 0, always VEC)
-template <bool VEC>
-__device__ __forceinline__ void store2(bf16* p, int, int, float v0,
-                                       float v1) {
-  static_assert(VEC, "the bf16 form takes N % 8 == 0");
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
-}
-
-// one float / bf16 value widened to float
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) {
-  return __bfloat162float(v);
-}
 // two adjacent values (VEC: aligned as a pair) widened to float
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -279,8 +267,8 @@ __device__ __forceinline__ float2 load_pair(const bf16* p) {
 
 // The epilogue policy of K4 and K8, from the accumulator registers:
 // + bias, the optional pre-activation store, act, + residual, the
-// store, in float32 whatever A's type (the bf16 form widens its bf16
-// bias and residual and rounds pre and out once each).  An epilogue
+// store, in float32 (wgmma_gemm.cuh's epilogue is its bf16 form: bf16
+// bias and residual widened, pre and out rounded once each).  An epilogue
 // policy has Params (its kernel argument) and apply, which may reuse
 // the stages' shared memory after cp_wait<0>() and a barrier.
 struct GemmEpi {
@@ -300,8 +288,8 @@ struct GemmEpi {
       if (gn >= a.N) continue;
       float b0 = 0.f, b1 = 0.f;
       if (a.bias) {
-        b0 = to_f32(a.bias[gn]);
-        if (gn + 1 < a.N) b1 = to_f32(a.bias[gn + 1]);
+        b0 = a.bias[gn];
+        if (gn + 1 < a.N) b1 = a.bias[gn + 1];
       }
 #pragma unroll
       for (int i = 0; i < C::MI; ++i) {
@@ -320,8 +308,8 @@ struct GemmEpi {
               v0 += r.x;
               v1 += r.y;
             } else {
-              v0 += to_f32(a.res[off]);
-              if (gn + 1 < a.N) v1 += to_f32(a.res[off + 1]);
+              v0 += a.res[off];
+              if (gn + 1 < a.N) v1 += a.res[off + 1];
             }
           }
           store2<VEC>(a.out + off, gn, a.N, v0, v1);
@@ -511,7 +499,7 @@ cudaError_t run(const Args& a, bool vec, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 form (K4 and K6 under AMP): A and W bf16 in shared memory,
+// The bf16 form (K6 under AMP): A and W bf16 in shared memory,
 // one mma.sync.m16n8k16.bf16 a 16-deep product into float32 fragments
 // (no split: a bf16 product is exact in float32).  The same Tile, A policy
 // and epilogue policy interfaces as gemm_kernel, the same block

@@ -25,16 +25,25 @@
 // accesses, else 4-byte copies and scalar ones.
 //
 // K4's bf16 form (the fused LM under AMP, where the reference kernel
-// takes bf16 x, w, bias and residual): gemm_tile.cuh's bf16_kernel with
-// DenseA and GemmEpi, one mma.sync.m16n8k16 bf16 MMA a product into
-// float32 (989.4 TFLOP/s dense on the H100, against the split form's
-// 494.7 / 3), x by 16-byte copies and W by ldmatrix.trans from its
-// [k][n] rows, on the same Large / Small tiles, block numbering and
-// fixed summation order.  The epilogue runs in float32 from the
-// accumulator, as _matmul_kernel's does: + bias (bf16, widened), pre =
-// bf16(y) (one rounding), act, + residual (bf16, widened), out = bf16(y)
-// (one rounding).  At fc1 (K 1024, N 4096, M 32768) that is 0.28 ms of
-// products against 0.35 ms of bytes.  K and N must be multiples of 8.
+// takes bf16 x, w, bias and residual): wgmma_gemm.cuh's tile, the same
+// function from bf16 operands.  What bounds it on the H100: at the
+// fused step's projections (M = 32768, K 1024 or 4096, N 1024..8192)
+// its products on the tensor cores, 989.4 TFLOP/s dense in bf16 (fc1,
+// K 1024, N 4096: 0.28 ms of products against 0.35 ms of bytes with
+// both pre and out; the others are further from their bytes).  Only
+// wgmma reaches that rate, and only when a block keeps it fed: so TMA
+// fills a 5-stage ring of 64-deep K tiles in 128-byte-swizzled shared
+// memory from a producer warpgroup, two consumer warpgroups issue the
+// wgmmas of a 128 x 128 output tile with its accumulator in registers
+// over the whole K range (every 4 K tiles' products summed in a fresh
+// fragment and added in float32, so that the tensor cores' truncating
+// sums never run over K = 4096), and one block an SM walks its tiles so
+// that the next tile's loads and first products overlap this one's
+// epilogue, whose stores go out by TMA.  The epilogue runs in float32
+// from the accumulator, as _matmul_kernel's does: + bias (bf16,
+// widened), pre = bf16(y) (one rounding), act, + residual (bf16,
+// widened), out = bf16(y) (one rounding).  K and N must be multiples of
+// 8, x, w, out and pre 16-byte aligned (TMA).
 //
 // K5 replaces paddle_tpu/kernels/matmul_fused.py _add_ln_kernel
 // (launched by add_ln): s = x + y per row of D, mean and variance in
@@ -62,6 +71,7 @@
 #include <math.h>
 
 #include "gemm_tile.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -322,22 +332,14 @@ extern "C" int matmul_epilogue_bf16(const gemm::bf16* x, const gemm::bf16* w,
                                     const gemm::bf16* res, gemm::bf16* out,
                                     gemm::bf16* pre, int M, int N, int K,
                                     int act, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 8 || N % 8 || act < 0 || act > 2)
-    return (int)cudaErrorInvalidValue;
+  if (act < 0 || act > 2) return (int)cudaErrorInvalidValue;
   const gemm::ArgsT<gemm::bf16> a{x, w, nullptr, bias, res, out, pre,
                                   M, N, K, 0, act};
-  bool large = false;
-  const cudaError_t err = gemm::use_large(M, N, &large);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(large ? gemm::launch_bf16<gemm::Large, gemm::DenseA,
-                                         gemm::GemmEpi>(a, s, {}, {})
-                     : gemm::launch_bf16<gemm::Small, gemm::DenseA,
-                                         gemm::GemmEpi>(a, s, {}, {}));
+  return (int)wg::gemm_bf16<wg::GemmBf16>(a,
+                                          static_cast<cudaStream_t>(stream));
 }
 
-// The tile (BM, BN) matmul_epilogue_f32 and matmul_epilogue_bf16 run for
-// an [M, N] output.
+// The tile (BM, BN) matmul_epilogue_f32 runs for an [M, N] output.
 extern "C" int matmul_epilogue_tile(int M, int N, int* bm, int* bn) {
   return (int)gemm::tile_of(M, N, bm, bn);
 }

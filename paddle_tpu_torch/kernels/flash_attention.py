@@ -12,7 +12,7 @@ The flash forward and backward (K1, K2, K3) take float32 or bfloat16
 q/k/v/out/dO (the LM under bf16 AMP), with the LSE and delta float32
 either way; a bf16 call launches the kernel's bf16 form, whose launches
 ``flash_fwd_bf16``, ``flash_bwd_dq_bf16`` and ``flash_bwd_dkv_bf16``
-count.
+count (K1's bf16 form runs on ``wgmma`` with TMA, ``csrc/wgmma.cuh``).
 The ring-step chunk form (``flash_attention_chunk`` and its backward)
 threads an explicit online-softmax carry for ``parallel/ring.py``.
 The wrapper checks device, dtype, shape and contiguity; for a tensor on

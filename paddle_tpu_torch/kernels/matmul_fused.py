@@ -20,7 +20,9 @@ Each kernel's wrapper has its plain PyTorch version beside it
 tensor launches the kernel or raises.  ``<wrapper>.launches`` counts
 kernel launches.  K4 and K5 take float32 or bfloat16 operands (the
 fused LM under bf16 AMP); a bf16 call launches the kernel's bf16 form,
-whose launches ``matmul_epilogue_bf16`` and ``add_ln_bf16`` count.  K4
+whose launches ``matmul_epilogue_bf16`` and ``add_ln_bf16`` count (K4's
+bf16 form is the wgmma tile of ``csrc/wgmma_gemm.cuh``, which TMA
+feeds: its operands must start on 16-byte boundaries).  K4
 has two plain versions, as the reference has two numerics: the CPU path
 ``matmul_epilogue_reference`` rounds after every op (the reference's XLA
 branch), the card's yardstick ``matmul_epilogue_f32acc_reference``

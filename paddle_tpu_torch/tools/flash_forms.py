@@ -1,4 +1,5 @@
-"""Time the two tile forms of K1 and K9 at the same shapes on the card.
+"""Time the tile forms of K1 (f32 and bf16) and K9 at the same shapes on
+the card.
 
 ``flash_fwd.cu`` and ``flash_chunk.cu`` each pick one of two tile
 forms from the grid, inside their C launcher: Small (64 x 16 tiles,
@@ -15,16 +16,24 @@ and holds each against the plain version at atol = rtol = 1e-4:
   sweep of head counts at T = 2048 around the switch (bh x 16 Large
   blocks against the SM count: 8 heads take Small, 12 Large);
 - K9 at the ring's shard [16, 8, 512, 128], diagonal (causal,
-  k_offset 0) and non-causal.
+  k_offset 0) and non-causal;
+- K1's bf16 form (``--bf16``, the wgmma kernel of ``flash_fwd.cu``'s
+  ``f16``: Wide, 128 query rows a block, when its blocks give every SM
+  one, else Narrow, 64) in both forms at [1, 8, 256, 128], [1, 8, 2048, 128]
+  and [16, 8, 2048, 128] causal, each held within one bf16 ulp plus
+  2**-12 of max |plain| on O and at atol = rtol = 1e-4 on the LSE,
+  beside SDPA in bf16 and the time of the ``mma.sync`` form it replaced
+  (``REPLACED_BF16_MS``, PERF.md).
 
 Run on a CUDA machine from the repository root:
 
-    python -m paddle_tpu_torch.tools.flash_forms
+    python -m paddle_tpu_torch.tools.flash_forms [--bf16]
 
 Prints one JSON line per shape, then the card's name and power limit.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import math
@@ -55,6 +64,29 @@ extern "C" int flash_fwd_form(const float* q, const float* k,
                                           scale, causal, s));
 }
 '''
+# K1's bf16 forms (name, f16 form): Wide (128 query rows a block, two
+# warpgroups taking turns) and Narrow (64)
+BF16_FORMS = (("wide", "Wide"), ("narrow", "Narrow"))
+# K1's bf16 form on mma.sync, which the wgmma kernel replaced (PERF.md
+# section 6, chip_smoke.py's phase 3; NVIDIA H100 80GB HBM3, 700 W)
+REPLACED_BF16_MS = {(1, 8, 256): 0.0158, (16, 8, 2048): 0.8332}
+
+_K1_BF16 = r'''
+#include "%%s/flash_fwd.cu"
+extern "C" int flash_fwd_bf16_form(int form, const tc::bf16* q,
+                                   const tc::bf16* k, const tc::bf16* v,
+                                   tc::bf16* out, float* lse, int bh, int t,
+                                   int tk, float scale, int causal,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (form) {
+%s
+  }
+  return (int)cudaErrorInvalidValue;
+}
+''' % "\n".join(
+    "    case %d: return (int)f16::launch<f16::%s>(q, k, v, out, lse, bh, "
+    "t, tk, scale, causal, s);" % (i, f) for i, (_, f) in enumerate(BF16_FORMS))
 _K9 = r'''
 #include "%s/flash_chunk.cu"
 extern "C" int flash_chunk_form(const float* q, const float* k,
@@ -76,13 +108,14 @@ extern "C" int flash_chunk_form(const float* q, const float* k,
 
 
 def build():
-    """Compile both form exporters (two nvcc, started together) into
-    ``_build/forms/``; returns their ctypes entries."""
+    """Compile the form exporters (one nvcc each, started together) into
+    ``_build/forms/``; returns their ctypes entries (K1, K9, K1 bf16)
+    and ptxas's summary per kernel."""
     out = os.path.join(_build.BUILD_DIR, "forms")
     os.makedirs(out, exist_ok=True)
     nvcc = _build.nvcc_path()
     procs = {}
-    for name, text in (("k1", _K1), ("k9", _K9)):
+    for name, text in (("k1", _K1), ("k9", _K9), ("k1_bf16", _K1_BF16)):
         src = os.path.join(out, name + "_forms.cu")
         with open(src, "w") as f:
             f.write(text % _build.CSRC)
@@ -90,19 +123,25 @@ def build():
         procs[name] = (subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    fns = {}
+    fns, ptxas = {}, {}
     for name, (proc, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed for %s:\n%s" % (name, log[-4000:]))
         fns[name] = ctypes.CDLL(lib)
+        ptxas.update(_build._ptxas_summary(log))
     k1, k9 = fns["k1"].flash_fwd_form, fns["k9"].flash_chunk_form
+    k1b = fns["k1_bf16"].flash_fwd_bf16_form
+    k1b.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_void_p])
+    k1b.restype = ctypes.c_int
     k1.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     k9.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     k1.restype = k9.restype = ctypes.c_int
-    return k1, k9
+    return k1, k9, k1b, ptxas
 
 
 class Timer:
@@ -134,12 +173,50 @@ def _close(got, want):
     return bool(torch.allclose(got, want, atol=TOL, rtol=TOL))
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("flash_forms needs a CUDA card")
-    k1, k9 = build()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    timer = Timer()
+def bf16_forms(k1b, timer, sms):
+    """K1's bf16 form in each of BF16_FORMS at the LM's shapes."""
+    import torch.nn.functional as F
+
+    from ..kernels.conv_fused import bf16_ulp
+    from ..kernels.flash_attention import flash_fwd_bf16
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p = _build.ptr
+    d = 128
+    scale = 1.0 / math.sqrt(d)
+    for b, h, t in ((1, 8, 256), (1, 8, 2048), (16, 8, 2048)):
+        bh = b * h
+        q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+                   .bfloat16() for _ in range(3))
+        out = torch.empty_like(q)
+        lse = torch.empty(b, h, t, device="cuda")
+        ro, rl = attention_reference(q, k, v, scale, True)
+        bar = bf16_ulp(ro.float()) + 2.0 ** -12 * ro.float().abs().max()
+        row = {"kernel": "flash_fwd_bf16", "shape": [b, h, t, d],
+               "causal": True,
+               "launcher_picks": ("wide" if bh * -(-t // LARGE_BQ) >= sms
+                                  else "narrow"),
+               "replaced_ms": REPLACED_BF16_MS.get((b, h, t)),
+               "product_ms": timer(lambda: flash_fwd_bf16(q, k, v,
+                                                          causal=True)),
+               "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True))}
+        for f, (name, _) in enumerate(BF16_FORMS):
+            call = lambda: _build.check(k1b(
+                f, p(q), p(k), p(v), p(out), p(lse), bh, t, t, scale, 1,
+                st()), "flash_fwd_bf16_form")
+            call()
+            row[name + "_ok"] = bool(
+                ((out.float() - ro.float()).abs() <= bar).all()) and \
+                _close(lse, rl)
+            row[name + "_ms"] = timer(call)
+        print(json.dumps(row), flush=True)
+        del q, k, v, out, lse, ro, rl, bar
+
+
+def f32_forms(k1, k9, timer, sms):
+    """K1's and K9's float32 forms at their path's shapes."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     st = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     p = _build.ptr
@@ -196,6 +273,24 @@ def main():
             row[form + "_ms"] = timer(call)
             row[form + "_ok"] = ok
         print(json.dumps(row), flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--bf16", action="store_true",
+                    help="time K1's bf16 (wgmma) forms only")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_forms needs a CUDA card")
+    k1, k9, k1b, ptxas = build()
+    for sym, line in sorted(ptxas.items()):
+        print(json.dumps({"kernel": sym, "ptxas": line}), flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    timer = Timer()
+    if args.bf16:
+        bf16_forms(k1b, timer, sms)
+    else:
+        f32_forms(k1, k9, timer, sms)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

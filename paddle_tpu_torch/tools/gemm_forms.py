@@ -1,5 +1,6 @@
 """Time tile forms of the split-TF32 GEMM tile (K4, K8's prefill form,
-K6) at the same shapes on the card.
+K6), and of the wgmma tile (K4's bf16 form), at the same shapes on the
+card.
 
 ``matmul_fused.cu`` (K4) and ``matmul_int8.cu`` (K8, M > 16) run
 ``gemm_tile.cuh``'s tile in one of two forms, picked inside the C
@@ -22,11 +23,18 @@ version at atol = rtol = 1e-4:
   forward at batch 256, in the statistics form, in the forms of
   ``K6_FORMS`` (the product runs Large at every shape); the stem also with x and w zero-padded to Ci = 4 on
   the card (the pad's time included), so that it takes the 16-byte
-  gather.  Statistics are held to ``conv_fused.STATS_RTOL``.
+  gather.  Statistics are held to ``conv_fused.STATS_RTOL``;
+- K4's bf16 form (``--bf16``: ``wgmma_gemm.cuh``, which the exporter
+  includes too) at the five projections in the forms of ``BF16_FORMS``
+  (the product runs ``GemmBf16``), each held within one bf16 ulp plus
+  1e-6 of max |Y| of ``matmul_epilogue_f32acc_reference``, beside the
+  library call (``torch.addmm`` / ``matmul`` in bf16, then the
+  activation) and the time of the ``mma.sync`` form it replaced
+  (``REPLACED_BF16_MS``, PERF.md).
 
 Run on a CUDA machine from the repository root:
 
-    python -m paddle_tpu_torch.tools.gemm_forms [--k8-only | --k6]
+    python -m paddle_tpu_torch.tools.gemm_forms [--k8-only | --k6 | --bf16]
 
 Prints one JSON line per shape (each form's ms and agreement, the form
 the launcher picks, the library call's ms), then the card's name and
@@ -61,6 +69,22 @@ FORMS = (("large", "Large"),
          ("64x128", "Tile<64, 128, 2, 2, 4, 2>"),
          ("64x64k64", "Tile<64, 64, 2, 2, 3, 2, 64>"))
 _ACTS = {"": 0, "relu": 1, "gelu": 2}
+# (name, wg::GemmTile<STAGES, K tiles a fragment>) of K4's bf16 form;
+# the first is the product's
+BF16_FORMS = (("s5pi4", "GemmBf16"), ("s4pi2", "GemmTile<4, 2>"),
+              ("s4pi1", "GemmTile<4, 1>"))
+# the fused LM step's five projections at M = 16 x 2048: (what, K, N,
+# bias, act), as chip_smoke.FUSED_MATMULS
+PROJECTIONS = (("qkv", 1024, 3072, False, ""),
+               ("out_proj", 1024, 1024, True, ""),
+               ("fc1", 1024, 4096, True, "relu"),
+               ("fc2", 4096, 1024, True, ""),
+               ("lm_head", 1024, 8192, True, ""))
+# the time of K4's bf16 form on gemm_tile.cuh's mma.sync bf16_kernel,
+# which the wgmma tile replaced, at each projection (PERF.md section 6,
+# chip_smoke.py's phase 3; NVIDIA H100 80GB HBM3, 700 W)
+REPLACED_BF16_MS = {"qkv": 1.0735, "out_proj": 0.3748, "fc1": 1.4468,
+                    "fc2": 1.3080, "lm_head": 2.9464}
 # the forms K6 is timed in, with their BM (the rows of a statistics
 # partial): the tile's two and the 8-warp 128 x 128
 K6_FORMS = {"large": 128, "small": 64, "128x128": 128}
@@ -71,11 +95,15 @@ def _source():
         "    case %d: return vec ? launch<%s, W, true>(a, s)\n"
         "                       : launch<%s, W, false>(a, s);"
         % (i, t, t) for i, (_, t) in enumerate(FORMS))
+    bf16_cases = "\n".join(
+        "    case %d: return (int)wg::gemm_bf16<wg::%s>(a, s);" % (i, t)
+        for i, (_, t) in enumerate(BF16_FORMS))
     conv_cases = "\n".join(
         "    case %d: return launch_form<gemm::%s>(c, s);" % (i, t)
         for i, (name, t) in enumerate(FORMS) if name in K6_FORMS)
     return r'''
 #include "%s/conv_fused.cu"
+#include "%s/wgmma_gemm.cuh"
 using namespace gemm;
 template <class W>
 static cudaError_t run_form(int form, const Args& a, bool vec,
@@ -116,12 +144,24 @@ extern "C" int conv_form_f32(int form, const float* x, const float* w,
   }
   return (int)cudaErrorInvalidValue;
 }
-''' % (_build.CSRC, cases, conv_cases)
+extern "C" int gemm_form_bf16(int form, const bf16* x, const bf16* w,
+                              const bf16* bias, const bf16* res, bf16* out,
+                              bf16* pre, int M, int N, int K, int act,
+                              void* stream) {
+  const ArgsT<bf16> a{x, w, nullptr, bias, res, out, pre, M, N, K, 0, act};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (form) {
+%s
+  }
+  return (int)cudaErrorInvalidValue;
+}
+''' % (_build.CSRC, _build.CSRC, cases, conv_cases, bf16_cases)
 
 
 def build():
     """Compile the form exporter into ``_build/forms/``; returns its
-    ctypes entries (f32, int8, conv) and ptxas's summary per kernel."""
+    ctypes entries (f32, int8, conv, bf16) and ptxas's summary per
+    kernel."""
     out = os.path.join(_build.BUILD_DIR, "forms")
     os.makedirs(out, exist_ok=True)
     src = os.path.join(out, "gemm_forms.cu")
@@ -135,14 +175,15 @@ def build():
         raise RuntimeError("nvcc failed:\n%s" % proc.stdout[-4000:])
     dll = ctypes.CDLL(lib)
     f32, i8, conv = dll.gemm_form_f32, dll.gemm_form_int8, dll.conv_form_f32
-    f32.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    bf16 = dll.gemm_form_bf16
+    f32.argtypes = bf16.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     i8.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     conv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                      + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-    f32.restype = i8.restype = conv.restype = ctypes.c_int
-    return f32, i8, conv, _build._ptxas_summary(proc.stdout)
+    f32.restype = i8.restype = conv.restype = bf16.restype = ctypes.c_int
+    return f32, i8, conv, bf16, _build._ptxas_summary(proc.stdout)
 
 
 class Timer:
@@ -253,28 +294,77 @@ def conv_forms(conv, timer, batch=256):
         torch.cuda.empty_cache()
 
 
+def bf16_forms(bf16, timer):
+    """K4's bf16 form in each of BF16_FORMS at the five projections."""
+    from ..kernels.matmul_fused import (apply_act, matmul_epilogue_bf16,
+                                        matmul_epilogue_f32acc_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p = _build.ptr
+    null = ctypes.c_void_p(None)
+    bf = torch.bfloat16
+    m = 16 * 2048
+    for what, kk, n, with_bias, act in PROJECTIONS:
+        x = torch.randn(m, kk, device="cuda", generator=gen).to(bf)
+        w = (torch.randn(kk, n, device="cuda", generator=gen)
+             * kk ** -0.5).to(bf)
+        bias = (torch.randn(n, device="cuda", generator=gen).to(bf)
+                if with_bias else None)
+        out = torch.empty(m, n, device="cuda", dtype=bf)
+        want = matmul_epilogue_f32acc_reference(x, w, bias, None, act)[0]
+        bar = conv_fused.bf16_ulp(want.float()) + 1e-6 * \
+            want.float().abs().max()
+
+        def lib():
+            y = torch.addmm(bias, x, w) if with_bias else torch.matmul(x, w)
+            return apply_act(y, act)
+
+        row = {"kernel": "matmul_epilogue_bf16", "shape": [m, kk, n],
+               "what": what, "replaced_ms": REPLACED_BF16_MS[what],
+               "product_ms": timer(lambda: matmul_epilogue_bf16(
+                   x, w, bias, None, act)),
+               "library_ms": timer(lib)}
+        for f, (name, _) in enumerate(BF16_FORMS):
+            call = lambda: _build.check(bf16(
+                f, p(x), p(w), p(bias) if bias is not None else null,
+                null, p(out), null, m, n, kk, _ACTS[act], st()),
+                "gemm_form_bf16")
+            call()
+            row[name + "_ok"] = bool(
+                ((out.float() - want.float()).abs() <= bar).all())
+            row[name + "_ms"] = timer(call)
+        print(json.dumps(row), flush=True)
+        del x, w, bias, out, want, bar
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k8-only", action="store_true")
     ap.add_argument("--k6", action="store_true",
                     help="time K6's forms only")
+    ap.add_argument("--bf16", action="store_true",
+                    help="time K4's bf16 (wgmma) forms only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gemm_forms needs a CUDA card")
     resolve_device("cuda")
-    f32, i8, conv, ptxas = build()
+    f32, i8, conv, bf16, ptxas = build()
     for sym, line in sorted(ptxas.items()):
         print(json.dumps({"kernel": sym, "ptxas": line}), flush=True)
     timer = Timer()
     if args.k6:
         conv_forms(conv, timer)
+    if args.bf16:
+        bf16_forms(bf16, timer)
     gen = torch.Generator(device="cuda").manual_seed(0)
     st = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     p = _build.ptr
     null = ctypes.c_void_p(None)
     rng = np.random.RandomState(0)
 
-    for kk, n in (() if args.k6 else
+    for kk, n in (() if args.k6 or args.bf16 else
                   ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))):
         w = (rng.randn(kk, n) * 0.1).astype(np.float32)
         qn, sn, chunk = quantize_weight(w)
@@ -295,14 +385,9 @@ def main(argv=None):
                 row[name + "_ok"] = _close(out, want)
                 row[name + "_ms"] = timer(call)
             print(json.dumps(row), flush=True)
-    if not (args.k8_only or args.k6):
+    if not (args.k8_only or args.k6 or args.bf16):
         m = 16 * 2048
-        for what, kk, n, with_bias, act in (
-                ("qkv", 1024, 3072, False, ""),
-                ("out_proj", 1024, 1024, True, ""),
-                ("fc1", 1024, 4096, True, "relu"),
-                ("fc2", 4096, 1024, True, ""),
-                ("lm_head", 1024, 8192, True, "")):
+        for what, kk, n, with_bias, act in PROJECTIONS:
             x = torch.randn(m, kk, device="cuda", generator=gen)
             w = torch.randn(kk, n, device="cuda", generator=gen) * kk ** -0.5
             bias = (torch.randn(n, device="cuda", generator=gen)

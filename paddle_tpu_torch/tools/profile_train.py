@@ -23,7 +23,9 @@ from ``--seed``, then:
 - ``--steps`` steps (default 3) under ``torch.profiler``: host wall
   time of a step, ended by the loss fetch (median), device time per
   step (the sum of kernel, memcpy and memset times), the device's idle
-  share of the step, and device time by kernel name;
+  share of the step, device time by kernel name, and by kernel of the
+  port's (``KERNEL_GROUPS``: each one's launches under its symbol,
+  whatever their template form);
 - as many steps with CUDA events recorded on the current stream around
   every op of the program (``executor_impl.OP_HOOK``): device time per
   step by op type.  The events bracket everything the op enqueued,
@@ -60,6 +62,10 @@ LM = dict(vocab_size=8192, seq_len=2048, d_model=1024, n_head=8,
           n_layers=6, d_ff=4096, learning_rate=1e-3)
 RESNET50 = dict(data_set="flowers", depth=50, learning_rate=0.01,
                 input_dtype="uint8")
+# {name: the substring of its kernel symbols}: the wgmma kernels' device
+# ms a step, summed over their forms and call sites
+KERNEL_GROUPS = {"matmul_epilogue_bf16": "gemm_bf16_kernel",
+                 "flash_fwd_bf16": "flash_fwd_bf16_kernel"}
 
 
 class OpTimer:
@@ -176,6 +182,11 @@ def main(argv=None):
             kernels[evt.key] = {"ms_per_step": us / 1e3 / args.steps,
                                 "calls_per_step": evt.count / args.steps}
     busy = sum(k["ms_per_step"] for k in kernels.values())
+    groups = {name: {"ms_per_step": sum(
+        v["ms_per_step"] for k, v in kernels.items() if sym in k),
+        "calls_per_step": sum(
+        v["calls_per_step"] for k, v in kernels.items() if sym in k)}
+        for name, sym in KERNEL_GROUPS.items()}
     med = float(np.median(step_ms))
     top = dict(sorted(kernels.items(),
                       key=lambda kv: -kv[1]["ms_per_step"])[:15])
@@ -195,6 +206,7 @@ def main(argv=None):
         "device_idle_share": 1.0 - busy / med if kernels
         else "not measured",
         "by_op_type": timer.by_type(args.steps),
+        "by_port_kernel": groups if kernels else "not measured",
         "kernels": top or "not measured"}))
 
 

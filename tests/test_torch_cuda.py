@@ -1291,6 +1291,18 @@ def test_flash_bf16_forward_at_one_query_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_flash_bf16_forward_one_query_over_many_keys_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(1, 2, 1, 128, device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn(1, 2, 300, 128, device=cuda, generator=g)
+            .bfloat16() for _ in range(2))
+    out, lse = flash_attention_fwd_lse(q, k, v, causal=False)
+    ro, rl = attention_reference(q, k, v, 128 ** -0.5, False)
+    assert _within_ulp(out, ro, 2 ** -12)
+    torch.testing.assert_close(lse, rl, **TOL)
+
+
+@pytest.mark.cuda
 def test_flash_bf16_backward_casts_the_cotangent_on_card(cuda):
     """An f32 dO of a bf16 O: the card backward rounds it to bf16 first
     and sums delta in f32 (``flash_delta``), as the reference's kernel
@@ -1334,11 +1346,13 @@ def test_flash_wrappers_refuse_mixed_dtypes_on_card(cuda):
 
 
 # (M, K, N): the fused step's five projections at M = 16 x 2048, then
-# ragged M and N, K and N multiples of 8 but not of the tile
+# ragged M, N and K, multiples of 8 but not of the wgmma tile's 128 x 256
+# or its 64-deep K tile, and K = 4096
 MATMUL_BF16_SHAPES = [(32768, 1024, 3072), (32768, 1024, 1024),
                       (32768, 1024, 4096), (32768, 4096, 1024),
                       (32768, 1024, 8192), (1000, 1024, 1000),
-                      (333, 264, 1000), (17, 72, 24)]
+                      (333, 264, 1000), (17, 72, 24), (129, 72, 136),
+                      (255, 72, 136), (129, 4096, 136)]
 
 
 @pytest.mark.cuda
@@ -1377,6 +1391,61 @@ def test_matmul_epilogue_bf16_form_counts_and_refuses_on_card(cuda):
         pmm.matmul_epilogue(x[:, :60].contiguous(), x[:60])
     with pytest.raises(ValueError, match="multiple of 8"):
         pmm.matmul_epilogue(x, x[:, :60].contiguous())
+
+
+@pytest.mark.cuda
+def test_matmul_epilogue_bf16_form_refuses_a_misaligned_base_on_card(cuda):
+    """TMA reads x and w from 16-byte boundaries: a contiguous view 8
+    bytes off one is refused, never run another way."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    buf = torch.randn(64 * 64 + 4, device=cuda).bfloat16()
+    off = buf[4:].view(64, 64)
+    ok = buf[:64 * 64].view(64, 64)
+    assert off.data_ptr() % 16 == 8 and off.is_contiguous()
+    reset_launches()
+    for x, w in ((off, ok), (ok, off)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            pmm.matmul_epilogue(x, w)
+    assert KERNELS["matmul_epilogue_bf16"].launches == 0
+
+
+def _kernel_names(fn):
+    """The CUDA kernels ``fn()`` launches, by the profiler's names (a
+    first call outside the profiler builds and loads the kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+@pytest.mark.cuda
+def test_bf16_calls_reach_the_wgmma_kernels_on_card(cuda):
+    """A bf16 matmul_epilogue runs the wgmma tile and no mma.sync
+    bf16_kernel; a bf16 conv stage (K6) still runs bf16_kernel; a bf16
+    flash forward runs its one wgmma kernel."""
+    from paddle_tpu_torch.kernels.conv_fused import conv2d_nhwc
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(256, 128, device=cuda, generator=g).bfloat16()
+    w = torch.randn(128, 256, device=cuda, generator=g).bfloat16()
+    names = _kernel_names(lambda: pmm.matmul_epilogue(x, w, act="relu"))
+    assert any("gemm_bf16_kernel" in n for n in names), names
+    assert not any("bf16_kernel" in n and "gemm_bf16_kernel" not in n
+                   for n in names), names
+    xi = torch.randn(2, 8, 8, 16, device=cuda, generator=g).bfloat16()
+    wi = torch.randn(3, 3, 16, 32, device=cuda, generator=g).bfloat16()
+    names = _kernel_names(lambda: conv2d_nhwc(xi, wi, (1, 1), (1, 1)))
+    assert any("bf16_kernel" in n and "gemm_bf16_kernel" not in n
+               for n in names), names
+    assert not any("gemm_bf16_kernel" in n for n in names), names
+    q = torch.randn(1, 2, 64, 128, device=cuda, generator=g).bfloat16()
+    names = _kernel_names(lambda: flash_attention_fwd_lse(q, q, q,
+                                                          causal=True))
+    assert any("flash_fwd_bf16_kernel" in n for n in names), names
 
 
 @pytest.mark.cuda
