@@ -142,7 +142,10 @@ LM's logits [32768, 8192]; the bf16 forms of K1/K2/K3 at [1, 8, 256,
 128] and [16, 8, 2048, 128] causal (out and the gradients within one
 bf16 ulp of the plain value plus 2**-12 of the tensor's max |plain|, the
 LSE at ATOL / RTOL; K1's bf16 form is the wgmma kernel of
-flash_fwd.cu), K4's (the wgmma tile of csrc/wgmma_gemm.cuh) at the five
+flash_fwd.cu, K2's and K3's those of flash_bwd.cu; their bounds count
+the function's products, and bound_split_ms those run with P and dS
+split into hi + lo: K1 3, K2 4, K3 6), K4's
+(the wgmma tile of csrc/wgmma_gemm.cuh) at the five
 projections at M = 16 x 2048 and at every epilogue on ragged M, N and K
 and at K = 4096 (out and pre within one ulp plus 1e-6 of max |Y| of the
 plain version that rounds once), K5's at [32768, 1024] (Sum exact, out,
@@ -256,9 +259,11 @@ BF16_KERNELS = ("conv_stage_bf16", "flash_fwd_bf16", "flash_bwd_dq_bf16",
 # within one bf16 ulp of the plain value, plus 2**-12 of the tensor's
 # max |plain| for values that are small sums of large terms
 FLASH_BF16_FLOOR = 2.0 ** -12
-# the symbols of the wgmma kernels (K4's and K1's bf16 forms), whose
-# accumulators must stay in registers: ptxas may report no spill
-WGMMA_KERNELS = ("gemm_bf16_kernel", "flash_fwd_bf16_kernel")
+# the symbols of the wgmma kernels (the bf16 forms of K4, K1, K2 and
+# K3), whose accumulators must stay in registers: ptxas may report no
+# spill
+WGMMA_KERNELS = ("gemm_bf16_kernel", "flash_fwd_bf16_kernel",
+                 "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
 SEED = 0
 
 
@@ -351,12 +356,9 @@ def compare_bf16(torch, got, want, floor=1e-6):
     """A bf16 output against its plain version: each value is one
     rounding of two f32 sums that differ only in order, so within one
     bf16 ulp of the plain value, plus ``floor`` of max |plain|."""
-    from paddle_tpu_torch.kernels.conv_fused import bf16_ulp
+    from paddle_tpu_torch.kernels.conv_fused import within_bf16_ulp
 
-    want = want.float()
-    err = (got.float() - want).abs()
-    ok = bool((err <= bf16_ulp(want) + floor * want.abs().max()).all())
-    return float(err.max()), ok
+    return within_bf16_ulp(got, want, floor)
 
 
 # ---------------------------------------------------------------------------
@@ -382,13 +384,20 @@ def check_kernels(torch, timer):
     dev = "cuda"
     rows, bad = [], []
 
-    def record(name, shape, err, ok, ms, plain_ms, lib_ms, nbytes, flops):
+    def record(name, shape, err, ok, ms, plain_ms, lib_ms, nbytes, flops,
+               split_flops=None):
+        # split_flops: the operations as run where the kernel splits an
+        # f32 operand into bf16 hi + lo, for bound_split_ms beside the
+        # function's bound_ms
         rate_name, rate = ops_rate(name)
         b_ms, by = bound_ms(nbytes, flops, rate)
         rows.append({"kernel": name, "shape": shape, "max_abs_err": err,
                      "ok": ok, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "bound_ms": b_ms,
                      "bound_by": by, "ops_rate": rate_name})
+        if split_flops is not None:
+            rows[-1]["bound_split_ms"] = bound_ms(nbytes, split_flops,
+                                                  rate)[0]
         if not ok:
             bad.append("%s %s (max abs err %g)" % (name, shape, err))
         return rows[-1]
@@ -627,7 +636,8 @@ def check_lm_bf16(torch, timer, gen, record, bad):
                timer(lambda: F.scaled_dot_product_attention(
                    q, k, v, is_causal=True)),
                2 * b_ * 4 * h * s * d + 4 * b_ * h * s,
-               4 * b_ * h * d * s * (s + 1) // 2)
+               4 * b_ * h * d * s * (s + 1) // 2,
+               6 * b_ * h * d * s * (s + 1) // 2)   # S, P_hi V, P_lo V
         del out, lse
         delta = flash_delta(do, ref_out)
         want = flash_attention_bwd_reference(q, k, v, ref_out, ref_lse, do,
@@ -645,15 +655,18 @@ def check_lm_bf16(torch, timer, gen, record, bad):
         del o_lib, qg, kg, vg
         tile = b_ * h * d * s * (s + 1) // 2 * 2     # one causal product
         io = 2 * b_ * h * s * d
+        # the function's products (K2: S, dP, dS K; K3: S^T, dP^T, P^T dO,
+        # dS^T Q), and as run, where P and dS split into bf16 hi + lo
+        # take two exact products each
         record("flash_bwd_dq_bf16", shape, errs[0][0], errs[0][1],
                timer(lambda: flash_bwd_dq_bf16(q, k, v, do, ref_lse, delta,
                                                scale, True)),
-               plain_ms, lib_ms, 5 * io + 8 * b_ * h * s, 3 * tile)
+               plain_ms, lib_ms, 5 * io + 8 * b_ * h * s, 3 * tile, 4 * tile)
         record("flash_bwd_dkv_bf16", shape, max(errs[1][0], errs[2][0]),
                errs[1][1] and errs[2][1],
                timer(lambda: flash_bwd_dkv_bf16(q, k, v, do, ref_lse, delta,
                                                 scale, True)),
-               plain_ms, lib_ms, 6 * io + 8 * b_ * h * s, 4 * tile)
+               plain_ms, lib_ms, 6 * io + 8 * b_ * h * s, 4 * tile, 6 * tile)
         del q, k, v, do, ref_out, ref_lse, delta
     torch.cuda.empty_cache()
 
@@ -2529,6 +2542,8 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "ops_rate": r["ops_rate"],
+            **({"bound_split_ms": r["bound_split_ms"]}
+               if "bound_split_ms" in r else {}),
             "library_ms": r["library_ms"], "shape": r["shape"]})
     emit({"kernels": summary})
     print(smi, flush=True)

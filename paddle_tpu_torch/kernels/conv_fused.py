@@ -38,7 +38,8 @@ from ._build import ptr, require, route, stream
 
 __all__ = ["nchw_views", "conv_nhwc", "conv2d_nhwc_reference",
            "conv2d_nhwc", "conv2d_nhwc_bf16", "fused_conv_bn_act_reference",
-           "stats_error", "bf16_ulp", "conv_stage_tile", "STATS_RTOL"]
+           "stats_error", "bf16_ulp", "within_bf16_ulp", "conv_stage_tile",
+           "STATS_RTOL"]
 
 # K6's per-channel sums over N*Ho*Wo pixels are sums of values near 0, so
 # each is held to STATS_RTOL of the sum of its terms' magnitudes, against
@@ -233,6 +234,17 @@ def bf16_ulp(y):
     below it."""
     _, e = torch.frexp(y.float().abs().clamp_min(2.0 ** -126))
     return torch.ldexp(torch.ones_like(y, dtype=torch.float32), e - 8)
+
+
+def within_bf16_ulp(got, want, floor):
+    """(max |got - want|, whether every element of ``got`` is within one
+    bf16 ulp of ``want`` plus ``floor`` of max |want|): the bar of a
+    bf16 output that is one rounding of f32 sums taken in another order
+    than the plain version's."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    ok = bool((err <= bf16_ulp(want) + floor * want.abs().max()).all())
+    return float(err.max()), ok
 
 
 def stats_error(x, w, strides, paddings, s, ss):

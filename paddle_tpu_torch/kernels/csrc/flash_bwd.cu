@@ -79,24 +79,55 @@
 // AMP): bf16 Q, K, V and dO (dO cast to O's dtype by the caller), f32
 // lse and delta, the same function, the same mask, the same two-kernel
 // split and k_offset argument, no atomics.  S = Q K^T and dP = dO V^T
-// are single exact bf16 MMAs (mma.sync.m16n8k16, f32 sums); P and dS =
-// P (dP - delta) stay f32, and the three products that take them (dV +=
-// P^T dO, dQ += dS K, dK += dS^T Q) take them split into bf16 hi + lo
-// (bf16_mma.cuh), two exact MMAs a product, so the gradients keep f32's
-// accuracy until their one rounding to bf16.  Products on the causal
-// training shape: K2 1.5 x 68.7 GFLOP worth of MMAs, K3 2 x; at the
-// card's dense bf16 rate the operations, not the bytes, bound both.
-// Design, a simple one: a block of 4 warps owns 64 resident rows
-// (K2: Q and dO; K3: K and V) in shared memory, a warp 16 of them, and
-// streams tiles of the other two (K2: 32 keys of K and V; K3: 16
-// queries of Q and dO with their lse and delta), double-buffered by
-// cp.async; A fragments by ldmatrix from the resident rows, B fragments
-// by ldmatrix (the k = d products) or ldmatrix.trans (the k = row
-// products) from the streamed tile; P / dS go from C to A layout in
-// registers; each tile's terms sum in fresh fragments added to the
-// long-lived accumulators in f32.  Rows padded to 136 elements.
+// are exact bf16 products summed in f32; P and dS = P (dP - delta) stay
+// f32, and the products that take them (K2: dQ += dS K; K3: dV += P^T
+// dO, dK += dS^T Q) take them split into bf16 hi + lo (bf16_mma.cuh),
+// two exact products each, so the gradients keep f32's accuracy until
+// their one rounding to bf16.
+//
+// What bounds them on the H100: the tensor cores' dense bf16 rate,
+// 989.4 TFLOP/s.  One causal product at [16, 8, 2048, 128] is 6.875e10
+// FLOPs, 0.0695 ms.  The function needs three (K2: S, dP, dS K; 0.2085
+// ms) and four (K3: S^T, dP^T, P^T dO, dS^T Q; 0.2780 ms); as run, with
+// the hi + lo split, K2 runs four (0.278 ms) and K3 six (0.417 ms).  The
+// bytes (q, k, v, dO, lse, delta read once, the
+// gradients written once) take 0.10 ms (K2) and 0.12 ms (K3) at 3.35
+// TB/s, so the products bound both, and only wgmma drives the tensor
+// cores at that rate.
+// Recomputing S and dP in both kernels (10 products where an atomic
+// dQ would need 7) is the price of the deterministic split.
+//
+// Design (as K1's bf16 form, flash_fwd.cu): a block per (head, 128
+// resident rows; 64 on a grid short of a block an SM), one consumer
+// warpgroup a 64 rows and a producer warpgroup, which gives its
+// registers to the consumers (setmaxnreg).  The producer's first thread
+// asks TMA for the resident rows once (K2: Q and dO; K3: K and V) and
+// for 64-row tiles of the streamed pair (K2: K and V; K3: Q and dO)
+// through a 3-stage ring of mbarriers, all by 3-D tensor maps [BH, T,
+// D] (a box past a head's last row reads zeros, never the next head),
+// each 64-wide half of D a 128-byte-swizzled box; in K3 a second
+// producer warp writes each tile's lse (in log2 units) and delta to
+// shared memory and arrives on the same barrier.  A consumer
+// warpgroup issues its two 64 x 64 score tiles (wgmma m64n64k16, both
+// operands K-major in shared memory) into f32 registers, masks them
+// with one warp-uniform branch a tile and selects inside it, makes p
+// with one ex2 a score and dS beside it, splits them into hi + lo in
+// registers (the C layout is the A-fragment layout, no shuffle), and
+// adds them into its accumulators (K2: dQ, 64 registers; K3: dK and
+// dV, 128) by wgmma m64n128k16 with A from registers and the streamed
+// tile itself read MN-major (the transpose bit): no transposed copy.
+// The warpgroups run free of each other: K1's turns (named barriers)
+// measured 29 % slower in K2 and only 1.7 % faster in K3, too little
+// for a second synchronisation path (PERF.md section 6).
+// Each accumulator sums its terms in one fixed order (tile by tile,
+// k16 step by k16 step, lo before hi) whatever form runs.  Under the
+// causal mask K2's heaviest Q tiles launch first and a block stops at
+// its diagonal; K3's first K tiles, its heaviest, launch first and a
+// block starts at the first Q tile that sees its keys; a warpgroup
+// skips a tile that none of its rows sees.
 #include "bf16_mma.cuh"
 #include "flash_tile.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -539,343 +570,541 @@ namespace b16 {
 
 using tc::bf16;
 
-constexpr int D = 128;        // head_dim
-constexpr int BR = 64;        // resident rows a block: 4 warps of 16
-constexpr int NT = BR / 16 * 32;
-constexpr int S = D + 8;      // row stride, elements (272 bytes)
-constexpr int KD = D / 16;    // k16 steps over d
+constexpr int D = 128;   // head_dim: two 64-wide (128-byte) boxes a row
 
-// rows [r0, r0 + R) of a [n, D] bf16 matrix into shared rows of stride
-// S, 16 bytes a copy, rows past n zero-filled
-template <int R>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
-                                          int n) {
-  constexpr int C = D / 8;
-  static_assert(R * C % NT == 0, "tile copies must split evenly");
-#pragma unroll
-  for (int it = 0; it < R * C / NT; ++it) {
-    const int i = threadIdx.x + it * NT;
-    const int r = i / C, c = i % C;
-    const bool ok = r0 + r < n;
-    cp16(dst + r * S + 8 * c, src + (size_t)(ok ? r0 + r : 0) * D + 8 * c,
-         ok);
-  }
+// the streamed tiles' rows and the ring's stages, in every form
+constexpr int BS = 64;
+constexpr int STAGES = 3;
+
+// A block owns BR resident rows of two operands (K2: Q and dO; K3: K
+// and V), a consumer warpgroup 64 of them, and streams tiles of BS rows
+// of the other two (K2: K and V; K3: Q and dO) through STAGES stages.
+template <int BR_>
+struct Form {
+  static constexpr int BR = BR_;
+  static constexpr int NWG = BR / 64;
+  static constexpr int NT = (NWG + 1) * 128;   // + the producer's
+  static constexpr int R_BOX = BR * 128;       // BR rows x 64 d, bytes
+  static constexpr int S_BOX = BS * 128;       // BS rows x 64 d
+  static constexpr int S_TILE = 2 * S_BOX;     // one streamed operand
+  static constexpr int STAGE = 2 * S_TILE;     // both streamed operands
+  // the resident operands, the stages (1024-byte aligned), K3's lse and
+  // delta of each stage's rows, the barriers (at most 1 + 4 a stage) and
+  // the alignment's slack
+  static constexpr int bytes = 4 * R_BOX + STAGES * STAGE +
+                               STAGES * 2 * BS * 4 +
+                               8 * (1 + 4 * STAGES) + 1024;
+  static_assert(BR == 64 || BR == 128, "resident rows");
+  static_assert(bytes <= 227 * 1024, "shared memory");
+};
+
+// 128 resident rows on a grid that gives every SM a block, else 64
+using Wide = Form<128>;
+using Narrow = Form<64>;
+
+// the tiles of B rows up to and including row `last` of n tiles: none
+// when last < 0
+__device__ __forceinline__ int tiles_to(int last, int n, int B) {
+  return last < 0 ? 0 : min(n, last / B + 1);
 }
 
-// c[16 x 8 NJ] = R[16 x D] X^T for the warp's resident rows Rw and the
-// streamed tile's rows X (8 NJ of them), exact bf16 products summed in
-// f32
-template <int NJ>
-__device__ __forceinline__ void scores(const bf16* Rw, const bf16* X,
-                                       float (&c)[NJ][4]) {
-  static_assert(NJ % 2 == 0, "an ldmatrix.x4 holds two 8-row groups");
-  const int lane = threadIdx.x % 32;
-  const int a_row = lane % 16, a_col = (lane / 16) * 8;
-  const int b_row = lane % 8 + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;
-  zero(c);
+// lse in log2 units: +inf for a dead row (lse NEG_INF) or one past the
+// edge, so that p = 2^(s - inf) = 0
+__device__ __forceinline__ float lse2(const float* lse, int r, int n) {
+  const float l = r < n ? lse[r] : NEG_INF;
+  return l <= 0.5f * NEG_INF ? INFINITY : l * LOG2E;
+}
+
+// the k16 steps' A fragments of a 64 x 16 KS f32 tile in C layout
+// (register 4 j + e: row g + 8 (e / 2), column 8 j + 2 t + e % 2), split
+// into bf16 hi + lo: k16 step ks is n8 chunks 2 ks and 2 ks + 1
+template <int KS>
+__device__ __forceinline__ void split_a(const float (&c)[8 * KS],
+                                        uint32_t (&hi)[KS][4],
+                                        uint32_t (&lo)[KS][4]) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    uint32_t a[4];
-    tc::ldsm4(a, Rw + a_row * S + 16 * kk + a_col);
+  for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-    for (int jj = 0; jj < NJ / 2; ++jj) {
-      uint32_t b[4];
-      tc::ldsm4(b, X + (16 * jj + b_row) * S + 16 * kk + b_col);
-      tc::mma_bf16(c[2 * jj], a, b[0], b[1]);
-      tc::mma_bf16(c[2 * jj + 1], a, b[2], b[3]);
+    for (int r = 0; r < 4; ++r) {
+      const int i = 4 * (2 * ks + r / 2) + 2 * (r % 2);
+      split_bf16(c[i], c[i + 1], hi[ks][r], lo[ks][r]);
     }
+}
+
+// x[64 x 64] = A B^T, A the warpgroup's 64 resident rows and B a
+// streamed tile's 64 rows, both K-major over d in two 128-byte-swizzled
+// boxes (A's R_BOX, B's S_BOX bytes apart); issued, not waited for
+template <class F>
+__device__ __forceinline__ void scores(float (&x)[32], const uint8_t* A,
+                                       const uint8_t* B) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int half = kk / 4, at = 32 * (kk % 4);
+    wg::mma_ss<0>(x, wg::desc(A + half * F::R_BOX + at, 16, 1024),
+                  wg::desc(B + half * F::S_BOX + at, 16, 1024), kk > 0);
   }
 }
 
-// acc[16 x D] += P[16 x 8 NJ] X[8 NJ x D]: P in C fragments (f32), split
-// into bf16 hi + lo in A layout; X the streamed tile's rows.  Each
-// output n-tile pair sums the tile's terms in fresh fragments, then
-// adds them to acc in f32.
-template <int NJ>
-__device__ __forceinline__ void accumulate(const float (&p)[NJ][4],
-                                           const bf16* X,
-                                           float (&acc)[D / 8][4]) {
-  constexpr int KS = NJ / 2;
-  const int lane = threadIdx.x % 32;
-  const int b_row = lane % 8 + ((lane / 8) % 2) * 8, b_col = (lane / 16) * 8;
-  uint32_t ph[KS][4], pl[KS][4];
+// acc[64 x D] += (hi + lo)[64 x BS] X[BS x D], X a streamed tile read
+// MN-major (the transpose bit): the k16 step ks is rows 16 ks .., 2048
+// bytes on, its second 64 columns S_BOX bytes on; lo first, the small
+// terms; issued, not waited for
+template <class F, int KS>
+__device__ __forceinline__ void accumulate(float (&acc)[64],
+                                           const uint32_t (&hi)[KS][4],
+                                           const uint32_t (&lo)[KS][4],
+                                           const uint8_t* X) {
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
-    split_bf16(p[2 * ks][0], p[2 * ks][1], ph[ks][0], pl[ks][0]);
-    split_bf16(p[2 * ks][2], p[2 * ks][3], ph[ks][1], pl[ks][1]);
-    split_bf16(p[2 * ks + 1][0], p[2 * ks + 1][1], ph[ks][2], pl[ks][2]);
-    split_bf16(p[2 * ks + 1][2], p[2 * ks + 1][3], ph[ks][3], pl[ks][3]);
-  }
-#pragma unroll
-  for (int dn = 0; dn < D / 16; ++dn) {
-    float x0[4] = {0.f, 0.f, 0.f, 0.f}, x1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t b[4];
-      tc::ldsm4_t(b, X + (16 * ks + b_row) * S + 16 * dn + b_col);
-      tc::mma_bf16(x0, pl[ks], b[0], b[1]);
-      tc::mma_bf16(x0, ph[ks], b[0], b[1]);
-      tc::mma_bf16(x1, pl[ks], b[2], b[3]);
-      tc::mma_bf16(x1, ph[ks], b[2], b[3]);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[2 * dn][e] += x0[e];
-      acc[2 * dn + 1][e] += x1[e];
-    }
+    const uint64_t dx = wg::desc(X + ks * 2048, F::S_BOX, 1024);
+    wg::mma_rs<1>(acc, lo[ks], dx, 1);
+    wg::mma_rs<1>(acc, hi[ks], dx, 1);
   }
 }
 
-// a warp's 16 x D accumulator times mul, rounded once to bf16, to rows
-// r and r + 8 of out (rows at or past n are not written)
-__device__ __forceinline__ void store_rows(bf16* out, int r, int n, float mul,
-                                           const float (&acc)[D / 8][4]) {
+// a warpgroup's 64 x D accumulator times mul, rounded once to bf16, to
+// the rows r0 (registers 4 j, 4 j + 1) and r0 + 8 (4 j + 2, 4 j + 3) of
+// out, columns 8 j + 2 t; rows at or past n are not written
+__device__ __forceinline__ void store_rows(bf16* out, int r0, int n,
+                                           float mul,
+                                           const float (&acc)[64]) {
   const int t = threadIdx.x % 4;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (r + 8 * i >= n) continue;
-    uint32_t* row = reinterpret_cast<uint32_t*>(out + (size_t)(r + 8 * i) * D);
+    if (r0 + 8 * i >= n) continue;
+    bf16* row = out + (size_t)(r0 + 8 * i) * D;
 #pragma unroll
-    for (int m = 0; m < D / 8; ++m)
-      row[4 * m + t] = pack_bf16(acc[m][2 * i] * mul, acc[m][2 * i + 1] * mul);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
+          pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
   }
 }
 
-// ------------------------------------------------------------- K2: dQ
-constexpr int BT2 = 32;       // keys a streamed K/V tile
-constexpr int NJ2 = BT2 / 8;
-constexpr int TILE2 = BT2 * S;
-constexpr int bytes_dq = (2 * BR * S + 4 * TILE2) * (int)sizeof(bf16);
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
 
-__global__ void __launch_bounds__(NT, 2)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          bf16* __restrict__ dq, int T, int Tk, float scale, int causal,
-          int k_offset) {
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);   // [BR][S]
-  bf16* Os = Qs + BR * S;                      // [BR][S] dO
-  bf16* KV = Os + BR * S;                      // two buffers: K, V tiles
+// ------------------------------------------------------------- K2: dQ
+template <class F>
+__global__ void __launch_bounds__(F::NT, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int T, int Tk, float scale,
+                         int causal, int k_offset) {
+  constexpr int BR = F::BR, BKV = BS;
+  constexpr int NJ = BKV / 8, KS = BKV / 16;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = smem_raw + ((1024 - wg::smem_u32(smem_raw) % 1024) % 1024);
+  uint8_t* Os = Qs + 2 * F::R_BOX;
+  uint8_t* KVs = Os + 2 * F::R_BOX;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      KVs + STAGES * F::STAGE + STAGES * 2 * BKV * 4);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
   const int bh = blockIdx.x;
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qt * BR;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int rw = 16 * warp;
-  const bf16* kb = k + (size_t)bh * Tk * D;
-  const bf16* vb = v + (size_t)bh * Tk * D;
+  // the K/V tiles the block sees: under the causal mask, up to its last
+  // row's diagonal
+  int n_k = (Tk + BKV - 1) / BKV;
+  if (causal) n_k = tiles_to(q0 + BR - 1 - k_offset, n_k, BKV);
 
-  // this thread's rows q0 + rw + g and + 8: lse in log2 units (+inf
-  // where dead or past T, so p = 2^-inf = 0) and delta
+  if (threadIdx.x == 0) {
+    wg::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(&k_full[s], 1);
+      wg::mbar_init(&v_full[s], 1);
+      wg::mbar_init(&k_empty[s], F::NWG * 4);   // one arrival a warp
+      wg::mbar_init(&v_empty[s], F::NWG * 4);
+    }
+    wg::fence_init();
+  }
+  __syncthreads();
+
+  if (warp / 4 == F::NWG) {   // the producer warpgroup; it never rejoins
+    if (F::NWG > 1) wg::regs_dec<40>();
+    if (warp % 4 == 0 && lane == 0) {
+      wg::mbar_expect(q_full, 4 * F::R_BOX);
+      wg::tma_load(Qs, &tq, q_full, 0, q0, bh);
+      wg::tma_load(Qs + F::R_BOX, &tq, q_full, 64, q0, bh);
+      wg::tma_load(Os, &tdo, q_full, 0, q0, bh);
+      wg::tma_load(Os + F::R_BOX, &tdo, q_full, 64, q0, bh);
+      // V goes back once dP is done, K once dQ += dS K is
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % STAGES, k0 = kt * BKV;
+        const uint32_t free_ph = ((kt / STAGES) & 1) ^ 1;
+        uint8_t* st = KVs + s * F::STAGE;
+        wg::mbar_wait(&k_empty[s], free_ph);
+        wg::mbar_expect(&k_full[s], F::S_TILE);
+        wg::tma_load(st, &tk, &k_full[s], 0, k0, bh);
+        wg::tma_load(st + F::S_BOX, &tk, &k_full[s], 64, k0, bh);
+        wg::mbar_wait(&v_empty[s], free_ph);
+        wg::mbar_expect(&v_full[s], F::S_TILE);
+        wg::tma_load(st + F::S_TILE, &tv, &v_full[s], 0, k0, bh);
+        wg::tma_load(st + F::S_TILE + F::S_BOX, &tv, &v_full[s], 64, k0, bh);
+      }
+    }
+    return;
+  }
+
+  if (F::NWG > 1) wg::regs_inc<232>();
+  const int wgi = warp / 4, g = lane / 4, t = lane % 4;
+  const int wfirst = q0 + 64 * wgi;                   // the warpgroup's rows
+  const int wrow = wfirst + 16 * (warp % 4);          // the warp's
+  const int row0 = wrow + g;                          // + 0 and + 8
+  const uint8_t* Qw = Qs + wgi * 64 * 128;
+  const uint8_t* Ow = Os + wgi * 64 * 128;
   const float sl2 = scale * LOG2E;
   float lr[2], dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = q0 + rw + g + 8 * i;
-    const float l = r < T ? lse[(size_t)bh * T + r] : NEG_INF;
-    lr[i] = l <= 0.5f * NEG_INF ? INFINITY : l * LOG2E;
+    const int r = row0 + 8 * i;
+    lr[i] = lse2(lse + (size_t)bh * T, r, T);
     dl[i] = r < T ? delta[(size_t)bh * T + r] : 0.f;
   }
-  float acc[D / 8][4];
+  // the warpgroup's live tiles: none past T, under the causal mask none
+  // wholly in its rows' future
+  int n_live = wfirst < T ? n_k : 0;
+  if (causal) n_live = min(n_live, tiles_to(wfirst + 63 - k_offset, n_k, BKV));
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  auto release = [&](uint64_t* bar, int kt) {
+    if (lane == 0) wg::mbar_arrive(&bar[kt % STAGES]);
+  };
+  wg::mbar_wait(q_full, 0);
 
-  int n_k = (Tk + BT2 - 1) / BT2;
-  if (causal) {
-    const int last = q0 + BR - 1 - k_offset;
-    n_k = last < 0 ? 0 : min(n_k, last / BT2 + 1);
-  }
-  if (n_k > 0) {
-    load_rows<BR>(Qs, q + (size_t)bh * T * D, q0, T);
-    load_rows<BR>(Os, dout + (size_t)bh * T * D, q0, T);
-    load_rows<BT2>(KV, kb, 0, Tk);
-    load_rows<BT2>(KV + TILE2, vb, 0, Tk);
-    cp_commit();
-  }
-  const int wlast = q0 + rw + 15;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * BT2;
-    const bf16* Ks = KV + (kt & 1) * 2 * TILE2;
-    const bf16* Vs = Ks + TILE2;
-    if (kt + 1 < n_k) {
-      bf16* nk = KV + ((kt + 1) & 1) * 2 * TILE2;
-      load_rows<BT2>(nk, kb, k0 + BT2, Tk);
-      load_rows<BT2>(nk + TILE2, vb, k0 + BT2, Tk);
-    }
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();               // tile kt; the resident rows landed
-    if (q0 + rw < T && (!causal || wlast >= k_offset + k0)) {
-      float c1[NJ2][4], c2[NJ2][4];
-      scores<NJ2>(Qs + rw * S, Ks, c1);      // s
-      scores<NJ2>(Os + rw * S, Vs, c2);      // dp
-      const bool edge = k0 + BT2 > Tk ||
-                        (causal && q0 + rw < k_offset + k0 + BT2 - 1);
+  for (int kt = 0; kt < n_live; ++kt) {
+    const int s = kt % STAGES, k0 = kt * BKV;
+    const uint32_t ph = (kt / STAGES) & 1;
+    const uint8_t* Ks = KVs + s * F::STAGE;
+    const uint8_t* Vs = Ks + F::S_TILE;
+    float sc[BKV / 2], dp[BKV / 2];
+    wg::mbar_wait(&k_full[s], ph);
+    wg::fence();
+    scores<F>(sc, Qw, Ks);                 // S = Q K^T
+    wg::commit();
+    wg::mbar_wait(&v_full[s], ph);
+    scores<F>(dp, Ow, Vs);                 // dP = dO V^T
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(sc);
+    wg::fence_operand(dp);
+    release(v_empty, kt);
+    // the masks: one warp-uniform branch, selects inside (only a tile on
+    // the Tk edge or the warp's diagonal has a dead score; rows past T
+    // or dead carry lr = +inf)
+    if (k0 + BKV > Tk || (causal && wrow < k_offset + k0 + BKV - 1)) {
 #pragma unroll
-      for (int j = 0; j < NJ2; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int i = e / 2;
-          float p = ex2(c1[j][e] * sl2 - lr[i]);
-          if (edge) {
-            const int kc = k0 + 8 * j + 2 * t + (e & 1);
-            const int r = q0 + rw + g + 8 * i;
-            if (kc >= Tk || (causal && r < k_offset + kc)) p = 0.f;
-          }
-          c1[j][e] = p * (c2[j][e] - dl[i]);   // ds
+          const int kc = k0 + 8 * j + 2 * t + (e & 1);
+          const int r = row0 + 8 * (e / 2);
+          const bool dead = (kc >= Tk) | ((causal != 0) & (r < k_offset + kc));
+          sc[4 * j + e] = dead ? -INFINITY : sc[4 * j + e];
         }
-      accumulate<NJ2>(c1, Ks, acc);          // dq += ds k
     }
-    __syncthreads();               // tile kt's buffer is consumed
+    // p = 2^(s scale log2(e) - lse log2(e)); dS = p (dP - delta), in sc
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      const int e = (i % 4) / 2;
+      sc[i] = ex2(fmaf(sc[i], sl2, -lr[e])) * (dp[i] - dl[e]);
+    }
+    uint32_t hi[KS][4], lo[KS][4];
+    split_a<KS>(sc, hi, lo);
+    wg::fence();
+    accumulate<F, KS>(acc, hi, lo, Ks);    // dQ += dS K, K MN-major
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+    release(k_empty, kt);
   }
-  store_rows(dq + (size_t)bh * T * D, q0 + rw + g, T, scale, acc);
+  // tiles wholly in the warpgroup's future: land, then release
+  for (int kt = n_live; kt < n_k; ++kt) {
+    const uint32_t ph = (kt / STAGES) & 1;
+    wg::mbar_wait(&k_full[kt % STAGES], ph);
+    wg::mbar_wait(&v_full[kt % STAGES], ph);
+    release(v_empty, kt);
+    release(k_empty, kt);
+  }
+  store_rows(dq + (size_t)bh * T * D, row0, T, scale, acc);
 }
 
 // --------------------------------------------------------- K3: dK, dV
-constexpr int BT3 = 16;       // queries a streamed Q/dO tile
-constexpr int NJ3 = BT3 / 8;
-constexpr int TILE3 = BT3 * S;
-// a buffer: Q tile, dO tile, then the tile's lse and delta (f32)
-constexpr int BUF3 = 2 * TILE3 * (int)sizeof(bf16) + 2 * BT3 * 4;
-constexpr int bytes_dkv = 2 * BR * S * (int)sizeof(bf16) + 2 * BUF3;
-static_assert(BUF3 % 16 == 0, "16-byte copies");
-
-__global__ void __launch_bounds__(NT, 2)
-dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Tk,
-           float scale, int causal, int k_offset) {
-  extern __shared__ float4 smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem4);   // [BR][S]
-  bf16* Vs = Ks + BR * S;                      // [BR][S]
-  char* QO = reinterpret_cast<char*>(Vs + BR * S);   // two buffers
+template <class F>
+__global__ void __launch_bounds__(F::NT, 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          int T, int Tk, float scale, int causal,
+                          int k_offset) {
+  constexpr int BK = F::BR, BQ = BS;
+  constexpr int NJ = BQ / 8, KS = BQ / 16;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = smem_raw + ((1024 - wg::smem_u32(smem_raw) % 1024) % 1024);
+  uint8_t* Vs = Ks + 2 * F::R_BOX;
+  uint8_t* QOs = Vs + 2 * F::R_BOX;
+  // a stage's lse (log2 units, +inf where p = 0) and delta, BQ each
+  float* stats = reinterpret_cast<float*>(QOs + STAGES * F::STAGE);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + STAGES * 2 * BQ);
+  uint64_t* qo_full = kv_full + 1;
+  uint64_t* qo_empty = qo_full + STAGES;
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * BR;
+  const int k0 = blockIdx.y * BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int rw = 16 * warp;
-  const int kw = k0 + rw;                      // the warp's first key
-  const bf16* qb = q + (size_t)bh * T * D;
-  const bf16* ob = dout + (size_t)bh * T * D;
-  const float* lb = lse + (size_t)bh * T;
-  const float* db = delta + (size_t)bh * T;
-  const float sl2 = scale * LOG2E;
-  auto buf_q = [&](int i) { return reinterpret_cast<bf16*>(QO + i * BUF3); };
-  auto buf_s = [&](int i) {
-    return reinterpret_cast<float*>(QO + i * BUF3 + 2 * TILE3 * 2);
-  };
-  auto load = [&](int i, int r0) {
-    load_rows<BT3>(buf_q(i), qb, r0, T);
-    load_rows<BT3>(buf_q(i) + TILE3, ob, r0, T);
-    const int j = threadIdx.x;
-    if (j < 2 * BT3) {
-      const int r = j % BT3;
-      const bool ok = r0 + r < T;
-      cp4(buf_s(i) + j, (j < BT3 ? lb : db) + (ok ? r0 + r : 0), ok);
-    }
-  };
-
-  float acc_k[D / 8][4], acc_v[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
-    acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
-  }
-
-  const int n_q = (T + BT3 - 1) / BT3;
+  const int n_q = (T + BQ - 1) / BQ;
   // causal: the first Q tile whose last row sees the block's first key
   const int first = k_offset + k0;
-  const int q_start = causal ? (first <= 0 ? 0 : min(n_q, first / BT3)) : 0;
-  if (q_start < n_q) {
-    load_rows<BR>(Ks, k + (size_t)bh * Tk * D, k0, Tk);
-    load_rows<BR>(Vs, v + (size_t)bh * Tk * D, k0, Tk);
-    load(0, q_start * BT3);
-    cp_commit();
+  const int q_start = causal ? (first <= 0 ? 0 : min(n_q, first / BQ)) : 0;
+
+  if (threadIdx.x == 0) {
+    wg::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      // the TMA thread's arrival and the statistics warp's 32
+      wg::mbar_init(&qo_full[s], 1 + 32);
+      wg::mbar_init(&qo_empty[s], F::NWG * 4);
+    }
+    wg::fence_init();
   }
-  for (int qt = q_start; qt < n_q; ++qt) {
-    const int q0 = qt * BT3;
-    const int cur = (qt - q_start) & 1;
-    if (qt + 1 < n_q) load(cur ^ 1, q0 + BT3);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();               // tile qt; the resident rows landed
-    const bf16* Qt = buf_q(cur);
-    const bf16* Ot = Qt + TILE3;
-    const float* Ls = buf_s(cur);
-    const float* Ds = Ls + BT3;
-    if (kw < Tk && (!causal || q0 + BT3 - 1 >= k_offset + kw)) {
-      float c1[NJ3][4], c2[NJ3][4];
-      scores<NJ3>(Ks + rw * S, Qt, c1);      // s^T
-      scores<NJ3>(Vs + rw * S, Ot, c2);      // dp^T
-      // the columns' lse in log2 units, +inf for a query past T or a
-      // dead row (p = 2^-inf = 0); only a tile on the warp's diagonal
-      // has other dead scores
-      float lq[NJ3][2], dlt[NJ3][2];
+  __syncthreads();
+
+  if (warp / 4 == F::NWG) {   // the producer warpgroup; it never rejoins
+    if (F::NWG > 1) wg::regs_dec<40>();
+    if (warp % 4 == 0 && lane == 0) {
+      wg::mbar_expect(kv_full, 4 * F::R_BOX);
+      wg::tma_load(Ks, &tk, kv_full, 0, k0, bh);
+      wg::tma_load(Ks + F::R_BOX, &tk, kv_full, 64, k0, bh);
+      wg::tma_load(Vs, &tv, kv_full, 0, k0, bh);
+      wg::tma_load(Vs + F::R_BOX, &tv, kv_full, 64, k0, bh);
+      for (int qt = q_start; qt < n_q; ++qt) {
+        const int i = qt - q_start, s = i % STAGES, q0 = qt * BQ;
+        uint8_t* st = QOs + s * F::STAGE;
+        wg::mbar_wait(&qo_empty[s], ((i / STAGES) & 1) ^ 1);
+        wg::mbar_expect(&qo_full[s], F::STAGE);
+        wg::tma_load(st, &tq, &qo_full[s], 0, q0, bh);
+        wg::tma_load(st + F::S_BOX, &tq, &qo_full[s], 64, q0, bh);
+        wg::tma_load(st + F::S_TILE, &tdo, &qo_full[s], 0, q0, bh);
+        wg::tma_load(st + F::S_TILE + F::S_BOX, &tdo, &qo_full[s], 64, q0,
+                     bh);
+      }
+    } else if (warp % 4 == 1) {   // the statistics warp
+      const float* lb = lse + (size_t)bh * T;
+      const float* db = delta + (size_t)bh * T;
+      for (int qt = q_start; qt < n_q; ++qt) {
+        const int i = qt - q_start, s = i % STAGES, q0 = qt * BQ;
+        float* st = stats + s * 2 * BQ;
+        wg::mbar_wait(&qo_empty[s], ((i / STAGES) & 1) ^ 1);
 #pragma unroll
-      for (int j = 0; j < NJ3; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * j + 2 * t + e;
-          const float l = Ls[c];
-          lq[j][e] = q0 + c >= T || l <= 0.5f * NEG_INF ? INFINITY
-                                                        : l * LOG2E;
-          dlt[j][e] = Ds[c];
+        for (int c = 0; c < BQ / 32; ++c) {
+          const int r = lane + 32 * c;
+          st[r] = lse2(lb, q0 + r, T);
+          st[BQ + r] = q0 + r < T ? db[q0 + r] : 0.f;
         }
-      const bool edge = causal && q0 < k_offset + kw + 15;
+        wg::mbar_arrive(&qo_full[s]);   // releases the stores above
+      }
+    }
+    return;
+  }
+
+  if (F::NWG > 1) wg::regs_inc<232>();
+  const int wgi = warp / 4, g = lane / 4, t = lane % 4;
+  const int kwg = k0 + 64 * wgi;                  // the warpgroup's keys
+  const int kw = kwg + 16 * (warp % 4);           // the warp's
+  const int row0 = kw + g;                        // + 0 and + 8
+  const uint8_t* Kw = Ks + wgi * 64 * 128;
+  const uint8_t* Vw = Vs + wgi * 64 * 128;
+  const float sl2 = scale * LOG2E;
+  // a warpgroup's first live Q tile: none past Tk, under the causal
+  // mask the first whose last row sees its first key
+  const int fw = k_offset + kwg;
+  const int q_live = kwg >= Tk ? n_q
+                     : causal  ? (fw <= 0 ? 0 : min(n_q, fw / BQ))
+                               : 0;
+  float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
-      for (int j = 0; j < NJ3; ++j)
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  wg::mbar_wait(kv_full, 0);
+
+  for (int qt = q_start; qt < n_q; ++qt) {
+    const int i = qt - q_start, s = i % STAGES, q0 = qt * BQ;
+    wg::mbar_wait(&qo_full[s], (i / STAGES) & 1);
+    if (qt >= q_live) {
+      const uint8_t* Qt = QOs + s * F::STAGE;
+      const uint8_t* Ot = Qt + F::S_TILE;
+      const float* st = stats + s * 2 * BQ;
+      float sc[BQ / 2], dp[BQ / 2];
+      wg::fence();
+      scores<F>(sc, Kw, Qt);               // S^T = K Q^T
+      wg::commit();
+      scores<F>(dp, Vw, Ot);               // dP^T = V dO^T
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_operand(sc);
+      wg::fence_operand(dp);
+      // the causal mask: one warp-uniform branch, selects inside (queries
+      // past T and dead rows carry lse = +inf)
+      if (causal && q0 < k_offset + kw + 15) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = q0 + 8 * j + 2 * t + (e & 1);
+            const bool dead = qc < k_offset + row0 + 8 * (e / 2);
+            sc[4 * j + e] = dead ? -INFINITY : sc[4 * j + e];
+          }
+      }
+      // p^T = 2^(s^T scale log2(e) - lse[q] log2(e)) in sc, dS^T = p^T
+      // (dP^T - delta[q]) in dp; a column's lse and delta are a float2
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(st + 8 * j + 2 * t);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(st + BQ + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float p = ex2(c1[j][e] * sl2 - lq[j][e & 1]);
-          if (edge) {
-            const int qc = q0 + 8 * j + 2 * t + (e & 1);
-            const int kr = kw + g + 8 * (e / 2);
-            if (qc < k_offset + kr) p = 0.f;
-          }
-          c1[j][e] = p;                                  // p^T
-          c2[j][e] = p * (c2[j][e] - dlt[j][e & 1]);     // ds^T
+          const int i = 4 * j + e;
+          const float p = ex2(fmaf(sc[i], sl2, (e & 1) ? -l2.y : -l2.x));
+          sc[i] = p;
+          dp[i] = p * (dp[i] - ((e & 1) ? d2.y : d2.x));
         }
-      accumulate<NJ3>(c1, Ot, acc_v);        // dv += p^T do
-      accumulate<NJ3>(c2, Qt, acc_k);        // dk += ds^T q
+      }
+      uint32_t ph[KS][4], pl[KS][4], dh[KS][4], dl[KS][4];
+      split_a<KS>(sc, ph, pl);
+      split_a<KS>(dp, dh, dl);
+      wg::fence();
+      accumulate<F, KS>(acc_v, ph, pl, Ot);   // dV += P^T dO
+      accumulate<F, KS>(acc_k, dh, dl, Qt);   // dK += dS^T Q
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_operand(acc_v);
+      wg::fence_operand(acc_k);
+      fence_regs(ph);
+      fence_regs(pl);
+      fence_regs(dh);
+      fence_regs(dl);
     }
-    __syncthreads();               // tile qt's buffer is consumed
+    if (lane == 0) wg::mbar_arrive(&qo_empty[s]);
   }
-  store_rows(dk + (size_t)bh * Tk * D, kw + g, Tk, scale, acc_k);
-  store_rows(dv + (size_t)bh * Tk * D, kw + g, Tk, 1.f, acc_v);
+  store_rows(dk + (size_t)bh * Tk * D, row0, Tk, scale, acc_k);
+  store_rows(dv + (size_t)bh * Tk * D, row0, Tk, 1.f, acc_v);
 }
 
+// the tensor maps of q, dO [bh, t, D] and k, v [bh, tk, D] in boxes of
+// q_rows and k_rows rows by 64 d
+inline cudaError_t maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
+                        CUtensorMap* mo, const bf16* q, const bf16* k,
+                        const bf16* v, const bf16* dout, int bh, int t,
+                        int tk, int q_rows, int k_rows) {
+  const cuuint64_t qd[3] = {D, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t qs[2] = {D * 2, (cuuint64_t)t * D * 2};
+  const cuuint32_t qb[3] = {64, (cuuint32_t)q_rows, 1};
+  const cuuint64_t kd[3] = {D, (cuuint64_t)tk, (cuuint64_t)bh};
+  const cuuint64_t ks[2] = {D * 2, (cuuint64_t)tk * D * 2};
+  const cuuint32_t kb[3] = {64, (cuuint32_t)k_rows, 1};
+  cudaError_t err = wg::bf16_map(mq, q, 3, qd, qs, qb);
+  if (err == cudaSuccess) err = wg::bf16_map(mo, dout, 3, qd, qs, qb);
+  if (err == cudaSuccess) err = wg::bf16_map(mk, k, 3, kd, ks, kb);
+  if (err == cudaSuccess) err = wg::bf16_map(mv, v, 3, kd, ks, kb);
+  return err;
+}
+
+template <class F>
 cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
                       const bf16* dout, const float* lse, const float* delta,
                       bf16* dq, int bh, int t, int tk, float scale,
                       int causal, int k_offset, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes_dq);
-  if (err != cudaSuccess) return err;
-  const int n_q = (t + BR - 1) / BR;
+  const int n_q = (t + F::BR - 1) / F::BR;
   if (n_q > 65535) return cudaErrorInvalidValue;
-  dim3 grid(bh, n_q);
-  dq_kernel<<<grid, NT, bytes_dq, stream>>>(q, k, v, dout, lse, delta, dq, t,
-                                            tk, scale, causal, k_offset);
+  CUtensorMap mq, mk, mv, mo;
+  cudaError_t err = maps(&mq, &mk, &mv, &mo, q, k, v, dout, bh, t, tk,
+                         F::BR, BS);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<F>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             F::bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, n_q);   // heads first: the heaviest causal Q tiles of
+                        // every head launch before any lighter one
+  flash_bwd_dq_bf16_kernel<F><<<grid, F::NT, F::bytes, stream>>>(
+      mq, mk, mv, mo, lse, delta, dq, t, tk, scale, causal, k_offset);
   return cudaGetLastError();
 }
 
+template <class F>
 cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
-                       const bf16* dout, const float* lse, const float* delta,
-                       bf16* dk, bf16* dv, int bh, int t, int tk, float scale,
-                       int causal, int k_offset, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes_dkv);
-  if (err != cudaSuccess) return err;
-  const int n_k = (tk + BR - 1) / BR;
+                       const bf16* dout, const float* lse,
+                       const float* delta, bf16* dk, bf16* dv, int bh, int t,
+                       int tk, float scale, int causal, int k_offset,
+                       cudaStream_t stream) {
+  const int n_k = (tk + F::BR - 1) / F::BR;
   if (n_k > 65535) return cudaErrorInvalidValue;
-  dim3 grid(bh, n_k);
-  dkv_kernel<<<grid, NT, bytes_dkv, stream>>>(q, k, v, dout, lse, delta, dk,
-                                              dv, t, tk, scale, causal,
-                                              k_offset);
+  CUtensorMap mq, mk, mv, mo;
+  cudaError_t err = maps(&mq, &mk, &mv, &mo, q, k, v, dout, bh, t, tk,
+                         BS, F::BR);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<F>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             F::bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, n_k);   // the first K tiles, the heaviest under the
+                        // causal mask, of every head launch first
+  flash_bwd_dkv_bf16_kernel<F><<<grid, F::NT, F::bytes, stream>>>(
+      mq, mk, mv, mo, lse, delta, dk, dv, t, tk, scale, causal, k_offset);
   return cudaGetLastError();
+}
+
+// Wide when its blocks give every SM one, else Narrow (as K1's bf16
+// form); both sum every element in the same order
+inline cudaError_t wide(int bh, int rows, bool* w) {
+  const SmCount& c = sm_count();
+  *w = (long long)bh * ((rows + Wide::BR - 1) / Wide::BR) >= c.sms;
+  return c.err;
+}
+
+inline cudaError_t run_dq(const bf16* q, const bf16* k, const bf16* v,
+                          const bf16* dout, const float* lse,
+                          const float* delta, bf16* dq, int bh, int t,
+                          int tk, float scale, int causal, int k_offset,
+                          cudaStream_t stream) {
+  bool w = false;
+  const cudaError_t err = wide(bh, t, &w);
+  if (err != cudaSuccess) return err;
+  return w ? launch_dq<Wide>(q, k, v, dout, lse, delta, dq, bh, t, tk, scale,
+                             causal, k_offset, stream)
+           : launch_dq<Narrow>(q, k, v, dout, lse, delta, dq, bh, t, tk,
+                               scale, causal, k_offset, stream);
+}
+
+inline cudaError_t run_dkv(const bf16* q, const bf16* k, const bf16* v,
+                           const bf16* dout, const float* lse,
+                           const float* delta, bf16* dk, bf16* dv, int bh,
+                           int t, int tk, float scale, int causal,
+                           int k_offset, cudaStream_t stream) {
+  bool w = false;
+  const cudaError_t err = wide(bh, tk, &w);
+  if (err != cudaSuccess) return err;
+  return w ? launch_dkv<Wide>(q, k, v, dout, lse, delta, dk, dv, bh, t, tk,
+                              scale, causal, k_offset, stream)
+           : launch_dkv<Narrow>(q, k, v, dout, lse, delta, dk, dv, bh, t,
+                                tk, scale, causal, k_offset, stream);
 }
 
 }  // namespace b16
@@ -923,9 +1152,9 @@ extern "C" int flash_bwd_dq_bf16(const tc::bf16* q, const tc::bf16* k,
                                  void* stream) {
   if (bh <= 0 || t <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
   if (d != b16::D) return (int)cudaErrorInvalidValue;
-  return (int)b16::launch_dq(q, k, v, dout, lse, delta, dq, bh, t, tk, scale,
-                             causal, k_offset,
-                             static_cast<cudaStream_t>(stream));
+  return (int)b16::run_dq(q, k, v, dout, lse, delta, dq, bh, t, tk, scale,
+                          causal, k_offset,
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dkv_bf16(const tc::bf16* q, const tc::bf16* k,
@@ -936,7 +1165,7 @@ extern "C" int flash_bwd_dkv_bf16(const tc::bf16* q, const tc::bf16* k,
                                   int k_offset, void* stream) {
   if (bh <= 0 || t <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
   if (d != b16::D) return (int)cudaErrorInvalidValue;
-  return (int)b16::launch_dkv(q, k, v, dout, lse, delta, dk, dv, bh, t, tk,
-                              scale, causal, k_offset,
-                              static_cast<cudaStream_t>(stream));
+  return (int)b16::run_dkv(q, k, v, dout, lse, delta, dk, dv, bh, t, tk,
+                           scale, causal, k_offset,
+                           static_cast<cudaStream_t>(stream));
 }

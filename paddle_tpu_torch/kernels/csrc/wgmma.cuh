@@ -3,8 +3,9 @@
 // 128-byte-swizzled shared memory, the shared-memory matrix descriptor,
 // TMA stores, named barriers, setmaxnreg, and wgmma.mma_async m64n128k16
 // (bf16 operands, float32 accumulator) with A from shared memory or from
-// registers.  Shared by K4's bf16 form (wgmma_gemm.cuh) and K1's bf16
-// form (flash_fwd.cu).  sm_90a only.
+// registers, and m64n64k16 with both from shared memory.  Shared by K4's
+// bf16 form (wgmma_gemm.cuh), K1's (flash_fwd.cu) and K2's and K3's
+// (flash_bwd.cu).  sm_90a only.
 //
 // Layouts.  A TMA box whose inner extent is 64 bf16 (128 bytes) lands
 // as rows of 128 bytes, each row's eight 16-byte chunks permuted by
@@ -223,6 +224,31 @@ __device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// the m64n64k16 form, A and B from shared memory: d (+)= A B for one k16
+// step of a 64 x 64 tile (the flash backward's score tiles, flash_bwd.cu);
+// its accumulator layout is the m64n128k16 one cut to 8 fragments
+template <int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
+                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 

@@ -1,5 +1,5 @@
-"""Time the tile forms of K1 (f32 and bf16) and K9 at the same shapes on
-the card.
+"""Time the tile forms of K1 (f32 and bf16), K9, and K2 and K3 (bf16) at
+the same shapes on the card.
 
 ``flash_fwd.cu`` and ``flash_chunk.cu`` each pick one of two tile
 forms from the grid, inside their C launcher: Small (64 x 16 tiles,
@@ -23,11 +23,18 @@ and holds each against the plain version at atol = rtol = 1e-4:
   and [16, 8, 2048, 128] causal, each held within one bf16 ulp plus
   2**-12 of max |plain| on O and at atol = rtol = 1e-4 on the LSE,
   beside SDPA in bf16 and the time of the ``mma.sync`` form it replaced
-  (``REPLACED_BF16_MS``, PERF.md).
+  (``REPLACED_BF16_MS``, PERF.md);
+- K2's and K3's bf16 forms (``--bwd``, the wgmma kernels of
+  ``flash_bwd.cu``'s ``b16``: Wide, 128 resident rows a block, when its
+  blocks give every SM one, else Narrow, 64) in both forms at
+  [1, 8, 256, 128] and [16, 8, 2048, 128] causal, each gradient held
+  within one bf16 ulp plus 2**-12 of max |plain|, beside SDPA's bf16
+  backward (the whole backward, dQ, dK and dV) and the times of the
+  ``mma.sync`` forms they replaced (``REPLACED_BWD_MS``, PERF.md).
 
 Run on a CUDA machine from the repository root:
 
-    python -m paddle_tpu_torch.tools.flash_forms [--bf16]
+    python -m paddle_tpu_torch.tools.flash_forms [--bf16 | --bwd]
 
 Prints one JSON line per shape, then the card's name and power limit.
 """
@@ -50,6 +57,11 @@ FORMS = ("small", "large")
 TOL = 1e-4
 # Large<128>::BQ, the rows a Large block owns
 LARGE_BQ = 128
+# the rows a Wide block owns: f16::Wide::BQ (K1's bf16 form) and
+# b16::Wide::BR (K2's and K3's)
+WIDE_ROWS = 128
+# the bf16 bar's floor, of max |plain| (chip_smoke.py's FLASH_BF16_FLOOR)
+BF16_FLOOR = 2.0 ** -12
 
 _K1 = r'''
 #include "%s/flash_fwd.cu"
@@ -87,6 +99,47 @@ extern "C" int flash_fwd_bf16_form(int form, const tc::bf16* q,
 ''' % "\n".join(
     "    case %d: return (int)f16::launch<f16::%s>(q, k, v, out, lse, bh, "
     "t, tk, scale, causal, s);" % (i, f) for i, (_, f) in enumerate(BF16_FORMS))
+# K2's and K3's bf16 forms on mma.sync, which the wgmma kernels
+# replaced (PERF.md section 6, chip_smoke.py's phase 3; NVIDIA H100 80GB
+# HBM3, 700 W): {(b, h, t): (dq ms, dkv ms)}
+REPLACED_BWD_MS = {(1, 8, 256): (0.0165, 0.0231),
+                   (16, 8, 2048): (0.9376, 1.4432)}
+
+_BWD_BF16 = r'''
+#include "%%s/flash_bwd.cu"
+extern "C" int flash_bwd_dq_bf16_form(int form, const tc::bf16* q,
+                                      const tc::bf16* k, const tc::bf16* v,
+                                      const tc::bf16* dout, const float* lse,
+                                      const float* delta, tc::bf16* dq,
+                                      int bh, int t, int tk, float scale,
+                                      int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (form) {
+%s
+  }
+  return (int)cudaErrorInvalidValue;
+}
+extern "C" int flash_bwd_dkv_bf16_form(int form, const tc::bf16* q,
+                                       const tc::bf16* k,
+                                       const tc::bf16* v,
+                                       const tc::bf16* dout,
+                                       const float* lse, const float* delta,
+                                       tc::bf16* dk, tc::bf16* dv, int bh,
+                                       int t, int tk, float scale,
+                                       int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (form) {
+%s
+  }
+  return (int)cudaErrorInvalidValue;
+}
+''' % ("\n".join(
+    "    case %d: return (int)b16::launch_dq<b16::%s>(q, k, v, dout, lse, "
+    "delta, dq, bh, t, tk, scale, causal, 0, s);" % (i, f)
+    for i, (_, f) in enumerate(BF16_FORMS)), "\n".join(
+    "    case %d: return (int)b16::launch_dkv<b16::%s>(q, k, v, dout, lse, "
+    "delta, dk, dv, bh, t, tk, scale, causal, 0, s);" % (i, f)
+    for i, (_, f) in enumerate(BF16_FORMS)))
 _K9 = r'''
 #include "%s/flash_chunk.cu"
 extern "C" int flash_chunk_form(const float* q, const float* k,
@@ -115,7 +168,8 @@ def build():
     os.makedirs(out, exist_ok=True)
     nvcc = _build.nvcc_path()
     procs = {}
-    for name, text in (("k1", _K1), ("k9", _K9), ("k1_bf16", _K1_BF16)):
+    for name, text in (("k1", _K1), ("k9", _K9), ("k1_bf16", _K1_BF16),
+                       ("bwd_bf16", _BWD_BF16)):
         src = os.path.join(out, name + "_forms.cu")
         with open(src, "w") as f:
             f.write(text % _build.CSRC)
@@ -141,7 +195,14 @@ def build():
     k9.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     k1.restype = k9.restype = ctypes.c_int
-    return k1, k9, k1b, ptxas
+    lib = fns["bwd_bf16"]
+    k23b = lib.flash_bwd_dq_bf16_form, lib.flash_bwd_dkv_bf16_form
+    for n_out, fn in zip((1, 2), k23b):
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (6 + n_out)
+                       + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return k1, k9, k1b, k23b, ptxas
 
 
 class Timer:
@@ -177,7 +238,7 @@ def bf16_forms(k1b, timer, sms):
     """K1's bf16 form in each of BF16_FORMS at the LM's shapes."""
     import torch.nn.functional as F
 
-    from ..kernels.conv_fused import bf16_ulp
+    from ..kernels.conv_fused import within_bf16_ulp
     from ..kernels.flash_attention import flash_fwd_bf16
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -192,10 +253,9 @@ def bf16_forms(k1b, timer, sms):
         out = torch.empty_like(q)
         lse = torch.empty(b, h, t, device="cuda")
         ro, rl = attention_reference(q, k, v, scale, True)
-        bar = bf16_ulp(ro.float()) + 2.0 ** -12 * ro.float().abs().max()
         row = {"kernel": "flash_fwd_bf16", "shape": [b, h, t, d],
                "causal": True,
-               "launcher_picks": ("wide" if bh * -(-t // LARGE_BQ) >= sms
+               "launcher_picks": ("wide" if bh * -(-t // WIDE_ROWS) >= sms
                                   else "narrow"),
                "replaced_ms": REPLACED_BF16_MS.get((b, h, t)),
                "product_ms": timer(lambda: flash_fwd_bf16(q, k, v,
@@ -207,12 +267,73 @@ def bf16_forms(k1b, timer, sms):
                 f, p(q), p(k), p(v), p(out), p(lse), bh, t, t, scale, 1,
                 st()), "flash_fwd_bf16_form")
             call()
-            row[name + "_ok"] = bool(
-                ((out.float() - ro.float()).abs() <= bar).all()) and \
-                _close(lse, rl)
+            row[name + "_ok"] = within_bf16_ulp(out, ro, BF16_FLOOR)[1] \
+                and _close(lse, rl)
             row[name + "_ms"] = timer(call)
         print(json.dumps(row), flush=True)
-        del q, k, v, out, lse, ro, rl, bar
+        del q, k, v, out, lse, ro, rl
+
+
+def bwd_forms(k23b, timer, sms):
+    """K2's and K3's bf16 forms in each of BF16_FORMS at the LM's
+    shapes."""
+    import torch.nn.functional as F
+
+    from ..kernels.conv_fused import within_bf16_ulp
+    from ..kernels.flash_attention import (flash_attention_bwd_reference,
+                                           flash_bwd_dkv_bf16,
+                                           flash_bwd_dq_bf16, flash_delta)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p = _build.ptr
+    d = 128
+    scale = 1.0 / math.sqrt(d)
+
+    def within(got, want):
+        return within_bf16_ulp(got, want, BF16_FLOOR)[1]
+
+    for b, h, t in ((1, 8, 256), (16, 8, 2048)):
+        bh = b * h
+        q, k, v, do = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+                       .bfloat16() for _ in range(4))
+        out, lse = attention_reference(q, k, v, scale, True)
+        delta = flash_delta(do, out)
+        want = flash_attention_bwd_reference(q, k, v, out, lse, do, scale,
+                                             True)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        lib_ms = timer(lambda: torch.autograd.grad(
+            o_lib, (qg, kg, vg), do, retain_graph=True))
+        del o_lib, qg, kg, vg
+        picks = ("wide" if bh * -(-t // WIDE_ROWS) >= sms else "narrow")
+        replaced = REPLACED_BWD_MS.get((b, h, t), (None, None))
+        dq = torch.empty_like(q)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        rows = (
+            ("flash_bwd_dq_bf16", replaced[0],
+             lambda: flash_bwd_dq_bf16(q, k, v, do, lse, delta, scale, True),
+             lambda f: k23b[0](f, p(q), p(k), p(v), p(do), p(lse), p(delta),
+                               p(dq), bh, t, t, scale, 1, st()),
+             lambda: within(dq, want[0])),
+            ("flash_bwd_dkv_bf16", replaced[1],
+             lambda: flash_bwd_dkv_bf16(q, k, v, do, lse, delta, scale,
+                                        True),
+             lambda f: k23b[1](f, p(q), p(k), p(v), p(do), p(lse), p(delta),
+                               p(dk), p(dv), bh, t, t, scale, 1, st()),
+             lambda: within(dk, want[1]) and within(dv, want[2])))
+        for name, replaced_ms, product, form_call, ok in rows:
+            row = {"kernel": name, "shape": [b, h, t, d], "causal": True,
+                   "launcher_picks": picks, "replaced_ms": replaced_ms,
+                   "product_ms": timer(product),
+                   "sdpa_backward_ms": lib_ms}
+            for f, (form, _) in enumerate(BF16_FORMS):
+                call = lambda: _build.check(form_call(f), name + "_form")
+                call()
+                row[form + "_ok"] = ok()
+                row[form + "_ms"] = timer(call)
+            print(json.dumps(row), flush=True)
+        del q, k, v, do, out, lse, delta, want, dq, dk, dv
 
 
 def f32_forms(k1, k9, timer, sms):
@@ -279,15 +400,19 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bf16", action="store_true",
                     help="time K1's bf16 (wgmma) forms only")
+    ap.add_argument("--bwd", action="store_true",
+                    help="time K2's and K3's bf16 (wgmma) forms only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_forms needs a CUDA card")
-    k1, k9, k1b, ptxas = build()
+    k1, k9, k1b, k23b, ptxas = build()
     for sym, line in sorted(ptxas.items()):
         print(json.dumps({"kernel": sym, "ptxas": line}), flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     timer = Timer()
-    if args.bf16:
+    if args.bwd:
+        bwd_forms(k23b, timer, sms)
+    elif args.bf16:
         bf16_forms(k1b, timer, sms)
     else:
         f32_forms(k1, k9, timer, sms)

@@ -65,7 +65,9 @@ RESNET50 = dict(data_set="flowers", depth=50, learning_rate=0.01,
 # {name: the substring of its kernel symbols}: the wgmma kernels' device
 # ms a step, summed over their forms and call sites
 KERNEL_GROUPS = {"matmul_epilogue_bf16": "gemm_bf16_kernel",
-                 "flash_fwd_bf16": "flash_fwd_bf16_kernel"}
+                 "flash_fwd_bf16": "flash_fwd_bf16_kernel",
+                 "flash_bwd_dq_bf16": "flash_bwd_dq_bf16_kernel",
+                 "flash_bwd_dkv_bf16": "flash_bwd_dkv_bf16_kernel"}
 
 
 class OpTimer:

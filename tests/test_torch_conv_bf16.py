@@ -19,7 +19,8 @@ import torch
 
 from paddle_tpu.kernels import conv_fused as jconv
 from paddle_tpu_torch.kernels import conv_fused as tconv
-from paddle_tpu_torch.kernels.conv_fused import STATS_RTOL, bf16_ulp
+from paddle_tpu_torch.kernels.conv_fused import (STATS_RTOL, bf16_ulp,
+                                                 within_bf16_ulp)
 
 # (N, H, Ci, Co, k, stride, pad)
 SHAPES = {"stem": (2, 30, 3, 64, 7, 2, 3),
@@ -127,3 +128,14 @@ def test_bf16_ulp_is_the_spacing_of_bf16_numbers(v):
     above = (b.view(torch.int16) + 1).view(torch.bfloat16)
     assert float(bf16_ulp(b.float())[0]) == float(above.float() - b.float())
     assert float(bf16_ulp(-b.float())[0]) == float(above.float() - b.float())
+
+
+@pytest.mark.parametrize("floor", [0.0, 2.0 ** -12])
+def test_within_bf16_ulp_holds_one_ulp_plus_the_floor(floor):
+    want = torch.tensor([1.0, -3.0, 0.5, 0.0])
+    slack = floor * 3.0
+    ulp = bf16_ulp(want)
+    err, ok = within_bf16_ulp(want + ulp + slack, want, floor)
+    assert ok and err == float((ulp + slack).max())
+    err, ok = within_bf16_ulp(want + 2 * ulp + slack, want, floor)
+    assert not ok and err == float((2 * ulp + slack).max())

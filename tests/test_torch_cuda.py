@@ -1250,7 +1250,8 @@ def _within_ulp(got, want, floor):
 
 FLASH_BF16_SHAPES = [(16, 8, 2048, 2048, True), (1, 8, 256, 256, True),
                      (2, 3, 200, 200, True), (1, 2, 77, 130, False),
-                     (1, 2, 130, 77, False), (2, 8, 100, 100, True)]
+                     (1, 2, 130, 77, False), (2, 8, 100, 100, True),
+                     (2, 3, 129, 129, True), (1, 2, 129, 129, False)]
 
 
 @pytest.mark.cuda
@@ -1331,6 +1332,128 @@ def test_flash_bf16_forms_are_deterministic_on_card(cuda):
     two = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
     for a, b in zip(one, two):
         assert torch.equal(a, b)
+
+
+def _bf16_bwd_operands(cuda, b, h, t, tk, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(b, h, t, 128, device=cuda, generator=g).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, h, tk, 128, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+def test_flash_bf16_backward_at_one_query_on_card(cuda):
+    """T = Tk = 1: p = 1, so dV = dO within one ulp; dS = dP - delta is a
+    difference of two equal f32 sums taken in different orders, 0 up to
+    their rounding, so dQ and dK are held to 2**-12 of the terms that
+    cancel (scale |dO . V| |K| and |Q|), not of their 0."""
+    q, k, v, do = _bf16_bwd_operands(cuda, 1, 2, 1, 1, 11)
+    scale = 128 ** -0.5
+    out, lse = attention_reference(q, k, v, scale, True)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do, scale, True)
+    assert _within_ulp(got[2], want[2], 2 ** -12)
+    dot = (do.float() * v.float()).abs().sum(-1, keepdim=True)
+    for a, w, x in ((got[0], want[0], k), (got[1], want[1], q)):
+        terms = scale * dot * x.float().abs()
+        err = (a.float() - w.float()).abs()
+        assert bool((err <= 2 ** -12 * terms.max()).all()), float(err.max())
+
+
+# (T, Tk, causal, k_offset): a ring step's K2/K3 call, the mask q_pos <
+# k_offset + k_pos: on the diagonal, a block partly above and partly
+# below it from either side (ragged), a block wholly visible and one
+# wholly masked, and non-causal
+K_OFFSET_CASES = [(256, 256, True, 0), (200, 130, True, 37),
+                  (130, 200, True, -50), (256, 256, True, -256),
+                  (128, 128, True, 200), (129, 300, False, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,tk,causal,k_offset", K_OFFSET_CASES)
+def test_flash_bwd_bf16_kernels_at_a_k_offset_on_card(cuda, t, tk, causal,
+                                                     k_offset):
+    """The bf16 K2/K3 called directly with k_offset (the chunk backward
+    still refuses bf16) against chunk_bwd_reference, from the lse of the
+    masked block itself (NEG_INF where a row sees no key)."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        chunk_bwd_reference, flash_bwd_dkv_bf16, flash_bwd_dq_bf16)
+
+    q, k, v, do = _bf16_bwd_operands(cuda, 2, 3, t, tk, t + tk)
+    scale = 128 ** -0.5
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * scale
+    if causal:
+        pos = torch.arange(t, device=cuda)[:, None]
+        dead = pos < k_offset + torch.arange(tk, device=cuda)[None, :]
+        s = s.masked_fill(dead, float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse[..., None]).nan_to_num(0.0)
+    out = torch.einsum("bhts,bhsd->bhtd", p, v.float()).bfloat16()
+    delta = (do.float() * out.float()).sum(-1)
+    got = (flash_bwd_dq_bf16(q, k, v, do, lse, delta, scale, causal,
+                             k_offset),
+           *flash_bwd_dkv_bf16(q, k, v, do, lse, delta, scale, causal,
+                               k_offset))
+    want = chunk_bwd_reference(q, k, v, do, lse, delta, scale, causal,
+                               k_offset)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and _within_ulp(a, w, 2 ** -12)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_bf16_forms_sum_in_one_order_on_card(cuda):
+    """A head's gradients are bit-identical whether its blocks run in the
+    128-row form (64 heads of 512 rows fill the card) or the 64-row one
+    (the head alone), and from call to call."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_bwd_dkv_bf16, flash_bwd_dq_bf16)
+
+    q, k, v, do = _bf16_bwd_operands(cuda, 8, 8, 500, 500, 12)
+    scale = 128 ** -0.5
+    out, lse = attention_reference(q, k, v, scale, True)
+    delta = (do.float() * out.float()).sum(-1)
+
+    def grads(sl):
+        args = [x[sl].contiguous() for x in (q, k, v, do, lse, delta)]
+        return (flash_bwd_dq_bf16(*args, scale, True),
+                *flash_bwd_dkv_bf16(*args, scale, True))
+
+    every = grads(slice(None))
+    assert all(torch.equal(a, b) for a, b in zip(every,
+                                                 grads(slice(None))))
+    one = grads(slice(3, 4))
+    for a, b in zip(every, one):
+        assert torch.equal(a[3:4], b)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_bf16_kernels_refuse_a_misaligned_view_on_card(cuda):
+    """TMA reads q, k, v and dO from 16-byte boundaries: a bf16 view one
+    element into its storage raises ValueError before any launch, and
+    the card still works afterwards."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    n = 2 * 64 * 128
+    base = torch.randn(n + 1, device=cuda).bfloat16()
+    bad = base[1:].view(1, 2, 64, 128)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 != 0
+    q, k, v, do = _bf16_bwd_operands(cuda, 1, 2, 64, 64, 13)
+    out, lse = attention_reference(q, k, v, 128 ** -0.5, True)
+    reset_launches()
+    for i in (0, 5):                     # q, do
+        args = [q, k, v, out, lse, do]
+        args[i] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_bwd(*args, causal=True)
+    assert KERNELS["flash_bwd_dq_bf16"].launches == 0
+    assert KERNELS["flash_bwd_dkv_bf16"].launches == 0
+    got = flash_attention_bwd(q, k, v, out, lse, bad.clone(), causal=True)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, bad,
+                                         128 ** -0.5, True)
+    for a, w in zip(got, want):
+        assert _within_ulp(a, w, 2 ** -12)
 
 
 @pytest.mark.cuda
@@ -1446,6 +1569,20 @@ def test_bf16_calls_reach_the_wgmma_kernels_on_card(cuda):
     names = _kernel_names(lambda: flash_attention_fwd_lse(q, q, q,
                                                           causal=True))
     assert any("flash_fwd_bf16_kernel" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_bf16_flash_backward_reaches_the_wgmma_kernels_on_card(cuda):
+    """A bf16 flash backward runs K2's and K3's wgmma kernels, one
+    launch each, and no other kernel of flash_bwd.cu."""
+    q, k, v, do = _bf16_bwd_operands(cuda, 1, 2, 64, 64, 14)
+    out, lse = attention_reference(q, k, v, 128 ** -0.5, True)
+    names = _kernel_names(lambda: flash_attention_bwd(q, k, v, out, lse, do,
+                                                      causal=True))
+    ours = sorted(n for n in names if "flash_bwd" in n)
+    assert len(ours) == 2, names
+    assert any("flash_bwd_dq_bf16_kernel" in n for n in ours), names
+    assert any("flash_bwd_dkv_bf16_kernel" in n for n in ours), names
 
 
 @pytest.mark.cuda
