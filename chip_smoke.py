@@ -123,21 +123,24 @@ split-TF32 GEMM tile of csrc/gemm_tile.cuh: "tile 128x64" where its
 blocks give every SM one, else "tile 64x64"), and checks that prefill
 rows are batch-invariant (64-row calls give the M = 1024 call's rows
 bit for bit); K4 at the fused step's five projections at M = 16 x 2048
-(all "tile 128x64"); K6 (an implicit GEMM on the same tile, all "tile
-128x64") against its plain version at each of the path's 20 conv shapes at batch 256 (statistics form; the five heaviest
-also with affine + residual + relu) and at every epilogue combination
+(all "tile 128x64"); K6 (an implicit GEMM on the same tile, all
+"mma.sync 128x64") against its plain version at each of the path's 20
+conv shapes at batch 256 (statistics form; the five heaviest also with
+affine + residual + relu) and at every epilogue combination
 on ragged shapes and at the path's widths (K = 4608, a Co = 64 3x3
 stage at 56 x 56, the stem at 224 x 224); K9 at the ring's shard
 [16, 8, 512, 128] (the diagonal causal fold, a non-causal fold from a
 carry seeded by an earlier one, a half-masked and a wholly masked
 block, the last bit-identical to its carry); K6's bf16 form
-(``conv_stage_bf16``, the same tile with one bf16 MMA a product, held
-to one bf16 ulp of its plain version on Y and to STATS_RTOL on the
-sums) at the same 20 shapes (statistics form; the five heaviest also
-with the full epilogue), against F.conv2d on channels_last bf16 (cuDNN)
-with the sums in torch, bound at the dense bf16 peak, and at every
-epilogue combination on ragged shapes; K2/K3 at that shape,
-non-causal and the causal diagonal; K10, which no path runs, at the
+(``conv_stage_bf16``: for Ci % 8 == 0 the wgmma tile of
+csrc/wgmma_gemm.cuh with x loaded by TMA's im2col mode, ``form``
+"wgmma 128x128" or "wgmma 128x64"; the stem on the mma.sync tile,
+"mma.sync 128x64"; held to one bf16 ulp of its plain version on Y and
+to STATS_RTOL on the sums) at the same 20 shapes (statistics form; the
+five heaviest also with the full epilogue), against F.conv2d on
+channels_last bf16 (cuDNN) with the sums in torch, bound at the dense
+bf16 peak, and at every epilogue combination on ragged shapes; K2/K3
+at that shape, non-causal and the causal diagonal; K10, which no path runs, at the
 LM's logits [32768, 8192]; the bf16 forms of K1/K2/K3 at [1, 8, 256,
 128] and [16, 8, 2048, 128] causal (out and the gradients within one
 bf16 ulp of the plain value plus 2**-12 of the tensor's max |plain|, the
@@ -259,11 +262,12 @@ BF16_KERNELS = ("conv_stage_bf16", "flash_fwd_bf16", "flash_bwd_dq_bf16",
 # within one bf16 ulp of the plain value, plus 2**-12 of the tensor's
 # max |plain| for values that are small sums of large terms
 FLASH_BF16_FLOOR = 2.0 ** -12
-# the symbols of the wgmma kernels (the bf16 forms of K4, K1, K2 and
-# K3), whose accumulators must stay in registers: ptxas may report no
-# spill
-WGMMA_KERNELS = ("gemm_bf16_kernel", "flash_fwd_bf16_kernel",
-                 "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
+# the symbols of the wgmma kernels (the bf16 forms of K4, K6, K1, K2
+# and K3), whose accumulators must stay in registers: ptxas may report
+# no spill
+WGMMA_KERNELS = ("gemm_bf16_kernel", "conv_wgmma_kernel",
+                 "flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                 "flash_bwd_dkv_bf16_kernel")
 SEED = 0
 
 
@@ -768,10 +772,12 @@ def check_lm_bf16(torch, timer, gen, record, bad):
 
 # K6's ragged shapes (N, H, Ci, Co, k, stride, pad), every epilogue
 # combination: M not a multiple of the tile, the stem (Ci = 3: f32's
-# 4-byte gather; bf16 padded to 4 channels for an 8-byte one), a
+# 4-byte gather; bf16 padded to 4 channels for mma.sync's 8-byte one), a
 # 16-byte-gather 3x3 stage, then the path's widths (K = 4608 with M =
 # 196, a Co = 64 3x3 stage, the full stem); bf16 also Ci = 12 (its
-# 8-byte gather) and Ci = 40 (a K tail)
+# 8-byte gather), Ci = 40 (each tap's 64-channel im2col box past Ci), a
+# strided 1x1 at ragged M, a 7 x 7 3x3 at K = 4608 and M = 98, and a
+# Co = 64 1x1 at ragged M (the wgmma form's 128 x 64 tile)
 CONV_RAGGED = {"float32": ((3, 23, 3, 64, 7, 2, 3), (2, 9, 64, 128, 3, 1, 1),
                            (4, 7, 512, 512, 3, 1, 1),
                            (2, 56, 64, 64, 3, 1, 1),
@@ -779,7 +785,10 @@ CONV_RAGGED = {"float32": ((3, 23, 3, 64, 7, 2, 3), (2, 9, 64, 128, 3, 1, 1),
                "bfloat16": ((3, 23, 3, 64, 7, 2, 3), (2, 9, 12, 64, 3, 1, 1),
                             (1, 5, 40, 256, 3, 1, 1),
                             (4, 7, 512, 512, 3, 1, 1),
-                            (2, 224, 3, 64, 7, 2, 3))}
+                            (2, 224, 3, 64, 7, 2, 3),
+                            (3, 9, 256, 512, 1, 2, 0),
+                            (2, 7, 512, 512, 3, 1, 1),
+                            (3, 11, 256, 64, 1, 1, 0))}
 
 
 def check_conv(torch, timer, gen, record, bad, rows, dtype):
@@ -795,7 +804,7 @@ def check_conv(torch, timer, gen, record, bad, rows, dtype):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels.conv_fused import (
-        conv2d_nhwc, conv2d_nhwc_reference, conv_stage_tile)
+        conv2d_nhwc, conv2d_nhwc_reference, conv_stage_form)
 
     bf16 = dtype == torch.bfloat16
     name = "conv_stage_bf16" if bf16 else "conv_stage"
@@ -852,9 +861,9 @@ def check_conv(torch, timer, gen, record, bad, rows, dtype):
                    err, ok, row["ms"], row["plain_ms"], row["library_ms"],
                    nbytes, conv_min_flops(nb, shp))
             rows[-1]["stats_rel_err"] = rel
-            rows[-1]["form"] = ("bf16 tile %dx%d" if bf16 else
-                                "tile %dx%d") % conv_stage_tile(
-                                    nb * ho * ho, co)
+            # the form the launcher ran (bf16 x is padded to 4 channels)
+            rows[-1]["form"] = conv_stage_form(
+                ci + (-ci) % 4 if bf16 else ci, co, dtype)
             if mode == "stats":
                 row["bound_ms"] = rows[-1]["bound_ms"]
                 for key in fwd:

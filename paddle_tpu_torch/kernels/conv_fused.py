@@ -8,8 +8,10 @@ Counterpart of ``paddle_tpu/kernels/conv_fused.py``:
   epilogue stats (per-channel sum and sum of squares, the training
   form), affine (y * a + b, the test-mode BatchNorm fold), + residual,
   relu; float32 operands run the split-TF32 form, bfloat16 operands
-  (the ResNet program under AMP) the bf16 form, whose output is bf16
-  and whose statistics are still f32 sums of the f32 accumulator;
+  (the ResNet program under AMP) the bf16 form (on ``wgmma`` with x
+  loaded by TMA's im2col mode when Ci % 8 == 0, else on ``mma.sync``),
+  whose output is bf16 and whose statistics are still f32 sums of the
+  f32 accumulator;
 - ``conv2d_nhwc_reference``: its plain version, the reference's
   fallback branch (``F.conv2d`` on permuted views in f32, bf16 operands
   widened exactly, stats from the f32 conv output, then the epilogue
@@ -17,8 +19,9 @@ Counterpart of ``paddle_tpu/kernels/conv_fused.py``:
 - ``fused_conv_bn_act_reference``: the test-mode conv + BN (+ residual)
   (+ relu) stage from running statistics;
 - ``stats_error``: the rule K6's statistics are held to;
-- ``conv_stage_tile``: the tile K6 runs for a shape (its rows of
-  statistics partials).
+- ``conv_stage_tile``, ``conv_stage_form``: the form K6 runs for a
+  shape's channels and dtype (its rows of statistics partials, its
+  name).
 
 A CPU tensor runs the plain version; a CUDA tensor launches K6 or
 raises (there is no fallback).  ``conv2d_nhwc.launches`` counts launches
@@ -39,15 +42,16 @@ from ._build import ptr, require, route, stream
 __all__ = ["nchw_views", "conv_nhwc", "conv2d_nhwc_reference",
            "conv2d_nhwc", "conv2d_nhwc_bf16", "fused_conv_bn_act_reference",
            "stats_error", "bf16_ulp", "within_bf16_ulp", "conv_stage_tile",
-           "STATS_RTOL"]
+           "conv_stage_form", "STATS_RTOL"]
 
 # K6's per-channel sums over N*Ho*Wo pixels are sums of values near 0, so
 # each is held to STATS_RTOL of the sum of its terms' magnitudes, against
 # a float64 sum of K6's own raw conv output (which the output check holds
 # to the plain conv).  What that leaves is the f32 reduction: a thread's
-# 8 rows, 8 row groups, the 2 warps along M, then the tiles' partials,
-# worst ~3e-7 of the magnitudes; one lost 128-pixel partial of the stem
-# (25,088 of them at batch 256) moves a sum by ~4e-5 of them
+# rows, 8 row groups, the warps along M, then the partials (of 128
+# pixels, or 64 on the bf16 wgmma tile), worst ~3e-7 of the magnitudes;
+# one lost 128-pixel partial of the stem (25,088 of them at batch 256)
+# moves a sum by ~4e-5 of them
 STATS_RTOL = 1e-6
 _ACTS = {"": 0, "relu": 1}
 # the forms: operand dtype -> (C entry, the Co multiple it takes)
@@ -113,7 +117,9 @@ def conv2d_nhwc(x, w, strides=(1, 1), paddings=(0, 0), *, stats=False,
     4) or all bfloat16 (the bf16 form, Co a multiple of 8; x and w are
     padded to a multiple of 4 channels when Ci is not one), contiguous
     and 16-byte aligned; any N, H, W, Ci, kernel size, stride and
-    padding."""
+    padding, except that the bf16 form's wgmma tile (Ci % 8 == 0) takes
+    strides up to 8 and paddings and kernels within TMA's im2col box
+    corners (-p and p - (k - 1) in [-128, 127])."""
     extra = [t for t in (residual,) + tuple(affine or ()) if t is not None]
     where = route(x, w, *extra)
     require(x.dim() == 4 and w.dim() == 4,
@@ -147,6 +153,12 @@ def conv2d_nhwc(x, w, strides=(1, 1), paddings=(0, 0), *, stats=False,
         # to one add only zero products
         x = F.pad(x, (0, 4 - ci % 4))
         w = F.pad(w, (0, 0, 0, 4 - ci % 4))
+    if x.dtype == torch.bfloat16 and x.shape[3] % 8 == 0:
+        corners = (-ph, -pw, ph - (kh - 1), pw - (kw - 1))
+        require(max(sh, sw) <= 8 and all(-128 <= c <= 127 for c in corners),
+                "conv stage kernel (bf16, Ci %% 8 == 0) takes strides up to "
+                "8 and box corners -p, p - (k - 1) in [-128, 127], got "
+                "strides %r, corners %r" % ((sh, sw), corners))
     if affine is not None:
         affine = tuple(t.float().contiguous() for t in affine)
     ops = streams + list(affine or ())
@@ -157,8 +169,8 @@ def conv2d_nhwc(x, w, strides=(1, 1), paddings=(0, 0), *, stats=False,
     out = torch.empty((n, ho, wo, co), dtype=x.dtype, device=x.device)
     partials = None
     if stats:
-        bm, _ = conv_stage_tile(n * ho * wo, co)
-        partials = torch.empty((-(-n * ho * wo // bm), 2, co),
+        rows, _ = conv_stage_tile(x.shape[3], co, x.dtype)
+        partials = torch.empty((-(-n * ho * wo // rows), 2, co),
                                dtype=torch.float32, device=x.device)
     _launch(x, w, (sh, sw), (ph, pw), affine, residual, act, out, partials)
     if x.dtype == torch.bfloat16:
@@ -186,13 +198,20 @@ def conv2d_nhwc_bf16(*args, **kw):
 conv2d_nhwc_bf16.launches = 0
 
 
-def _launch(x, w, strides, paddings, affine, residual, act, out, partials):
+def _launch(x, w, strides, paddings, affine, residual, act, out, partials,
+            blocks=0):
     """One launch of K6 (the form of x's dtype) on checked operands;
-    ``partials`` (or None) has ceil(M / BM) rows, BM from
-    conv_stage_tile."""
-    fn = _build.function(
-        "conv_fused", _FORMS[x.dtype][0],
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+    ``partials`` (or None) has ceil(M / rows) rows, rows from
+    conv_stage_tile.  ``blocks`` > 0 caps the bf16 wgmma form's
+    persistent grid (a test's: the grid changes no sum)."""
+    entry = _FORMS[x.dtype][0]
+    args = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+    extra = ()
+    if blocks:
+        require(x.dtype == torch.bfloat16, "a grid cap is the bf16 form's")
+        entry, args, extra = (entry + "_capped", args + [ctypes.c_int],
+                              (blocks,))
+    fn = _build.function("conv_fused", entry, args + [ctypes.c_void_p])
     null = ctypes.c_void_p(None)
     n, h, wd, ci = x.shape
     kh, kw, _, co = w.shape
@@ -202,21 +221,38 @@ def _launch(x, w, strides, paddings, affine, residual, act, out, partials):
             ptr(residual) if residual is not None else null,
             ptr(out), ptr(partials) if partials is not None else null,
             n, h, wd, ci, co, kh, kw, *strides, *paddings, _ACTS[act],
-            stream())
+            *extra, stream())
     _build.check(rc, "conv2d_nhwc")
 
 
-def conv_stage_tile(m, co):
-    """The output tile (BM, BN) K6 runs for ``m`` output pixels and
-    ``co`` channels, as its launcher decides: each BM pixels give one
-    row of statistics partials."""
+def _form(ci, co, dtype):
+    """(BM, BN, rows of a partial, wgmma?) of the form K6's launcher
+    runs for ``ci`` (after the bf16 pad) and ``co`` channels."""
     fn = _build.function(
         "conv_fused", "conv_stage_tile",
-        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
-    bm, bn = ctypes.c_int(), ctypes.c_int()
-    _build.check(fn(m, co, ctypes.byref(bm), ctypes.byref(bn)),
-                 "conv_stage_tile")
-    return bm.value, bn.value
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4)
+    out = [ctypes.c_int() for _ in range(4)]
+    _build.check(fn(ci, co, int(dtype == torch.bfloat16),
+                    *map(ctypes.byref, out)), "conv_stage_tile")
+    return tuple(v.value for v in out[:3]) + (bool(out[3].value),)
+
+
+def conv_stage_tile(ci, co, dtype=torch.float32):
+    """(rows, BN) of the form K6 runs for ``ci`` input channels (as
+    launched: bf16 x is padded to a multiple of 4) and ``co`` output
+    channels in ``dtype``, as its launcher decides: each ``rows`` output
+    pixels give one row of statistics partials, BN is the output tile's
+    width."""
+    _, bn, rows, _ = _form(int(ci), int(co), dtype)
+    return rows, bn
+
+
+def conv_stage_form(ci, co, dtype=torch.float32):
+    """The name of that form: 'wgmma 128x128' or 'wgmma 128x64' (bf16,
+    Ci % 8 == 0), else 'mma.sync 128x64' (float32's split-TF32 tile and
+    the bf16 stem's)."""
+    bm, bn, _, wgmma = _form(int(ci), int(co), dtype)
+    return "%s %dx%d" % ("wgmma" if wgmma else "mma.sync", bm, bn)
 
 
 def fused_conv_bn_act_reference(x, w, scale, bias, mean, var, *, strides,

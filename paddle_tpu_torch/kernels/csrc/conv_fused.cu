@@ -7,10 +7,11 @@
 // convolved with w f32 [KH, KW, Ci, Co] (HWIO) at stride (sh, sw) and
 // zero padding (ph, pw) into an f32 accumulator, then, from the
 // accumulator and in this order:
-//   stats    per-channel partial (sum acc, sum acc^2), written per M tile
-//            to partials [ceil(M / BM), 2, Co] before any other epilogue
-//            (the wrapper reduces them in a fixed order: deterministic,
-//            no atomics; conv_stage_tile gives BM);
+//   stats    per-channel partial (sum acc, sum acc^2), written per
+//            `rows` output pixels (an M tile, or a wgmma warpgroup's 64
+//            rows) to partials [ceil(M / rows), 2, Co] before any other
+//            epilogue (the wrapper reduces them in a fixed order:
+//            deterministic, no atomics; conv_stage_tile gives rows);
 //   affine   y = acc * a[c] + b[c] (the test-mode BatchNorm fold);
 //   residual y += r;
 //   act      relu.
@@ -59,21 +60,48 @@
 // H, W, Ci, kernel size, stride and padding.
 //
 // The bf16 form (conv_stage_bf16; the fused ResNet step under AMP, where
-// the reference kernel takes bf16 x and w): the tile's bf16_kernel, one
-// bf16 MMA a product (989.4 TFLOP/s dense on the H100, against the
-// split form's 494.7 / 3) on the same gather, blocks and order.  x, w,
-// res and out are bf16; the statistics are still taken from the f32
-// accumulator before any rounding (as the reference does), a, b stay
-// f32, and each output is rounded once to bf16 after the f32 epilogue.
-// The gather copies 8 channels a 16-byte cp.async when Ci % 8 == 0, 4
-// channels an 8-byte one when Ci % 4 == 0.  The stem's Ci = 3 makes a
-// 6-byte pixel row, 2-byte aligned, which no cp.async takes: the
-// wrapper pads x and w to Ci = 4 with zero channels (the reference pads
-// in HBM too), which adds only zero products.  Co must be a multiple of
-// 8 (16-byte W copies, 4-byte bf16 pairs in the epilogue).
+// the reference kernel takes bf16 x and w).  x, w, res and out are
+// bf16; the statistics are still taken from the f32 accumulator before
+// any rounding (as the reference does), a, b stay f32, and each output
+// is rounded once to bf16 after the f32 epilogue.  Co must be a
+// multiple of 8 (TMA's 16-byte rows, 4-byte bf16 pairs).  Two forms, by
+// a rule of the launcher (bf16_form):
+// - Ci % 8 == 0 (every stage but the stem): the wgmma tile of
+//   wgmma_gemm.cuh (K4's bf16 mainloop: a producer warpgroup, a ring of
+//   64-deep K tiles, two consumer warpgroups on wgmma, every 4 K tiles'
+//   products added in f32, a persistent grid), with two policies of its
+//   own.  Im2colLoad loads A by TMA's im2col mode straight from NHWC x:
+//   K tile kt is tap (kh, kw) = kt / ceil(Ci / 64) and channels c0 ..
+//   c0 + 63, c0 = 64 (kt mod ceil(Ci / 64)); its box is the tile's 128
+//   output pixels' input pixels at that tap, walked from the first
+//   pixel's top-left tap (wo sw - pw, ho sh - ph, n) through the
+//   bounding box of top-left taps by the strides, across rows and
+//   images, padding and channels past Ci read as zeros -- the 128 x 128
+//   byte, 128B-swizzled K-major A box K4 reads.  W [KH KW, Ci, Co] by a
+//   rank-3 map in boxes of 64 ci x 64 co of one tap (channels past Ci
+//   zero, never the next tap's), MN-major as K4's W.  ConvWgEpi is
+//   ConvEpi's arithmetic in wgmma's accumulator layout: each warpgroup's
+//   statistics of its 64 rows (one row of partials each, so the two
+//   never wait for each other), then affine, residual, relu, one
+//   rounding into the swizzled out tile and a TMA store.  BN = 128 for
+//   Co >= 128, BN = 64 (m64n64k16) below: the Co = 64 stages fill the
+//   tile.  TMA takes a rank-4 map's box corners in [-128, 127] and
+//   element strides up to 8, so this form takes strides <= 8 and
+//   paddings and kernels whose corners fit.  At the 20 shapes at batch
+//   256 the bf16 products bound the 3x3 stages (989.4 TFLOP/s dense) and
+//   the bytes the 1x1 stages with K <= 256 (the output is most of them);
+//   the persistent tile overlaps one tile's epilogue with the next
+//   tile's first products and the producer's loads.
+// - Ci % 8 != 0 (the stem's Ci = 3, which the wrapper pads to 4: TMA
+//   needs 16-byte pixel rows): gemm_tile.cuh's bf16_kernel, one
+//   mma.sync.m16n8k16 bf16 MMA a product on the 128 x 64 tile, ConvA's
+//   gather of 4 channels an 8-byte cp.async, and ConvEpi.  Padding the
+//   stem to 8 channels for the wgmma form would make each tap a 64-deep
+//   K tile with 8 real channels: 8x the products.
 #include <cuda_runtime.h>
 
 #include "gemm_tile.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -90,7 +118,7 @@ struct Shape {
 // A[m, k] = x[n, ho * sh - ph + kh, wo * sw - pw + kw, ci], zero outside
 // the image.  T: x's type (float, bf16).  CB: the bytes of one copy
 // (cp.async of 16, 8 or 4), E = CB / sizeof(T) channels; Ci must be a
-// multiple of E.
+// multiple of E.  (f32: ConvA<16> and ConvA<4>; bf16: ConvA<8, bf16>.)
 template <int CB, class T = float>
 struct ConvA {
   using Params = Shape;
@@ -334,6 +362,185 @@ struct ConvEpi {
   }
 };
 
+// ------------------------------------------------------ the wgmma form
+
+// The wgmma form's operands beyond its tensor maps
+struct ConvWg {
+  const float* scale;   // affine a [Co] or NULL
+  const float* shift;   // affine b [Co], with scale
+  const bf16* res;      // [M, Co] or NULL
+  float* partials;      // [ceil(M / 64), 2, Co] or NULL
+  int M, N, nk;         // output pixels, Co, K tiles a tile
+  int cit, KW;          // K tiles a tap (ceil(Ci / 64)), filter width
+  int Ho, Wo, sh, sw, ph, pw, act;
+};
+
+// A by TMA's im2col mode, W by its rank-3 map (header)
+template <class C>
+struct Im2colLoad {
+  const CUtensorMap* tx;
+  const CUtensorMap* tw;
+  const ConvWg* p;
+  int n, h, w;   // the tile's first pixel: image, top-left tap
+
+  __device__ __forceinline__ void start(int m0) {
+    const int hw = p->Ho * p->Wo;
+    n = m0 / hw;
+    const int q = m0 - n * hw, ho = q / p->Wo;
+    h = ho * p->sh - p->ph;
+    w = (q - ho * p->Wo) * p->sw - p->pw;
+  }
+  __device__ __forceinline__ void load(uint8_t* st, uint64_t* bar, int n0,
+                                       int kt) const {
+    const int tap = kt / p->cit, c0 = (kt - tap * p->cit) * C::BK;
+    const int kh = tap / p->KW, kw = tap - kh * p->KW;
+    wg::tma_load_im2col(st, tx, bar, c0, w, h, n, (uint16_t)kw,
+                        (uint16_t)kh);
+#pragma unroll
+    for (int i = 0; i < C::BN / 64; ++i)
+      wg::tma_load(st + C::A_BYTES + i * C::B_BOX, tw, bar, n0 + 64 * i, c0,
+                   tap);
+  }
+};
+
+// ConvEpi's arithmetic on a warpgroup's m64nBN accumulator: rows r0 ..
+// r0 + 63 of the output (warp w of the warpgroup rows 16 w + g, + 8;
+// register 4 j + 2 h + c column 8 j + 2 t + c), columns n0 .. n0 + BN - 1
+template <class C>
+struct ConvWgEpi {
+  const ConvWg* p;
+  const CUtensorMap* tout;
+
+  __device__ __forceinline__ void begin(int) {}
+
+  // per-channel (sum, sum of squares) of the raw accumulator over the
+  // warpgroup's rows below M, into partials row r0 / 64: a thread's 2
+  // rows, then the 8 row groups of a warp (lane bits 4, 3, 2) by a
+  // reduce-scatter -- at each bit the pair of lanes splits its live
+  // values in halves, each keeps one and adds its partner's, so 7 BN / 16
+  // shuffles a thread where a full butterfly takes 3 BN / 2 -- then the 4
+  // warps in order through `red` (the pre tile's memory, which K6 does
+  // not store).  Each sum is one fixed tree whatever the grid.
+  __device__ __forceinline__ void stats(const float (&acc)[C::BN / 2],
+                                        float* red, int r0, int n0,
+                                        int bar_id) const {
+    static_assert(8 * C::BN * 4 <= C::OUT / C::NWG, "red fits the pre tile");
+    constexpr int NV = C::BN / 4;   // (column, e) pairs a thread holds
+    const int lane = threadIdx.x % 32, t = lane % 4;
+    const int wr = (threadIdx.x / 32) % 4, rw = 16 * wr + lane / 4;
+    const bool ok0 = r0 + rw < p->M, ok1 = r0 + rw + 8 < p->M;
+    const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+    // lane bit 4: the sums stay with b4 = 0, the squares with b4 = 1;
+    // v[o] is then column 8 (o / 2) + 2 t + o % 2's
+    float v[NV];
+#pragma unroll
+    for (int o = 0; o < NV; ++o) {
+      const float a0 = ok0 ? acc[4 * (o / 2) + o % 2] : 0.f;
+      const float a1 = ok1 ? acc[4 * (o / 2) + 2 + o % 2] : 0.f;
+      const float sum = a0 + a1, sq = fmaf(a1, a1, a0 * a0);
+      v[o] = (b4 ? sq : sum) +
+             __shfl_xor_sync(0xffffffffu, b4 ? sum : sq, 16);
+    }
+    // lane bits 3 and 2: keep the upper half of v with the bit set
+#pragma unroll
+    for (int o = 0; o < NV / 2; ++o)
+      v[o] = (b3 ? v[o + NV / 2] : v[o]) +
+             __shfl_xor_sync(0xffffffffu, b3 ? v[o] : v[o + NV / 2], 8);
+#pragma unroll
+    for (int o = 0; o < NV / 4; ++o)
+      v[o] = (b2 ? v[o + NV / 4] : v[o]) +
+             __shfl_xor_sync(0xffffffffu, b2 ? v[o] : v[o + NV / 4], 4);
+    // v[i] is now pair o = (b3 NV / 2 + b2 NV / 4 + i) of the warp's
+    // sums (b4 = 0) or squares (b4 = 1)
+#pragma unroll
+    for (int i = 0; i < NV / 4; ++i) {
+      const int o = (b3 ? NV / 2 : 0) + (b2 ? NV / 4 : 0) + i;
+      red[(2 * wr + (b4 ? 1 : 0)) * C::BN + 8 * (o / 2) + 2 * t + o % 2] =
+          v[i];
+    }
+    wg::bar_sync(bar_id, 128);
+    if (r0 >= p->M) return;   // a half-tile wholly past M has no row
+    const size_t row = (size_t)(r0 / 64) * 2;
+    for (int i = threadIdx.x % 128; i < 2 * C::BN; i += 128) {
+      const int which = i / C::BN, col = i - which * C::BN;
+      float sum = 0.f;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) sum += red[(2 * m + which) * C::BN + col];
+      if (n0 + col < p->N) p->partials[(row + which) * p->N + n0 + col] = sum;
+    }
+  }
+
+  __device__ __forceinline__ void apply(float (&acc)[C::BN / 2], uint8_t* so,
+                                        uint8_t* sp, int r0, int n0,
+                                        int bar_id, bool lead) const {
+    constexpr int NJ = C::BN / 8;
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int rw = 16 * ((threadIdx.x / 32) % 4) + g;
+    if (p->partials) stats(acc, reinterpret_cast<float*>(sp), r0, n0, bar_id);
+    if (p->scale) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int gn = n0 + 8 * j + 2 * t;   // Co % 8 == 0: gn + 1 < Co too
+        float2 sc = make_float2(1.f, 1.f), sh = make_float2(0.f, 0.f);
+        if (gn < p->N) {
+          sc = __ldg(reinterpret_cast<const float2*>(p->scale + gn));
+          sh = __ldg(reinterpret_cast<const float2*>(p->shift + gn));
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[4 * j + e] = acc[4 * j + e] * (e % 2 ? sc.y : sc.x) +
+                           (e % 2 ? sh.y : sh.x);
+      }
+    }
+    if (p->res) {   // every load issued before the first store
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gn = n0 + 8 * j + 2 * t, gm = r0 + rw + 8 * h;
+          unsigned r = 0u;
+          if (gn < p->N && gm < p->M)
+            r = __ldg(reinterpret_cast<const unsigned*>(
+                p->res + (size_t)gm * p->N + gn));
+          const float2 rf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&r));
+          acc[4 * j + 2 * h] += rf.x;
+          acc[4 * j + 2 * h + 1] += rf.y;
+        }
+    }
+    if (p->act) {
+#pragma unroll
+      for (int i = 0; i < C::BN / 2; ++i) acc[i] = fmaxf(acc[i], 0.f);
+    }
+    if (lead) wg::store_wait_read();   // the last tile's store read so
+    wg::bar_sync(bar_id, 128);
+    wg::store_tile<C>(acc, so);
+    wg::fence_async_smem();
+    wg::bar_sync(bar_id, 128);
+    if (lead) {
+#pragma unroll
+      for (int b = 0; b < C::BN / 64; ++b)
+        wg::tma_store(tout, so + b * C::OUT_BOX, n0 + 64 * b, r0);
+      wg::store_commit();
+    }
+  }
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::NT, 1)
+conv_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap tw,
+                  const __grid_constant__ CUtensorMap tout,
+                  const __grid_constant__ ConvWg p) {
+  Im2colLoad<C> prod{&tx, &tw, &p, 0, 0, 0};
+  ConvWgEpi<C> epi{&p, &tout};
+  wg::run<C>(prod, epi, p.M, p.N, p.nk);
+}
+
+// the forms: 5 stages of 128 x 128 (K4's), 8 of 128 x 64
+using ConvWide = wg::GemmTile<5, 4, 128>;
+using ConvNarrow = wg::GemmTile<8, 4, 64>;
+
 // One launch's operands, checked; T: x, w, res and out's type.
 template <class T>
 struct Call {
@@ -341,6 +548,16 @@ struct Call {
   Shape s;
   ConvEpi::Params p;
 };
+
+// K6's bf16 form for a shape (header): the wgmma tile when TMA can map
+// x's pixel rows (Ci % 8 == 0), 128 x 128 for Co >= 128 and 128 x 64
+// below; else the mma.sync tile
+enum class Bf16Form { MMA_SYNC, WGMMA_WIDE, WGMMA_NARROW };
+
+inline Bf16Form bf16_form(int Ci, int Co) {
+  if (Ci % 8) return Bf16Form::MMA_SYNC;
+  return Co >= 128 ? Bf16Form::WGMMA_WIDE : Bf16Form::WGMMA_NARROW;
+}
 
 // Fill `c`; cudaErrorInvalidValue for what K6 does not take (Co a
 // multiple of 4; in bf16 Co a multiple of 8 and Ci of 4).
@@ -359,13 +576,17 @@ cudaError_t make_call(Call<T>& c, const T* x, const T* w,
   if (Ho <= 0 || Wo <= 0) return cudaErrorInvalidValue;
   const long long m = (long long)N * Ho * Wo;
   const long long k = (long long)KH * KW * Ci;
-  // a block's offsets into x are 32-bit from its first row's image:
-  // its rows span at most (BM - 1) / (Ho Wo) + 2 images, and a tap adds
-  // (kh W + kw) Ci + ci
+  if (m > 0x7fffffffLL || k > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // the gather forms' offsets into x are 32-bit from a block's first
+  // row's image: its rows span at most (BM - 1) / (Ho Wo) + 2 images, and
+  // a tap adds (kh W + kw) Ci + ci (TMA's coordinates are int32 a
+  // dimension, and N, H, W and Ci are ints; bf16_im2col_map checks the
+  // wgmma form's corners and strides)
   const long long span =
       ((gemm::Large::BM - 1) / ((long long)Ho * Wo) + 2) * H * W * Ci +
       ((long long)KH * W + KW) * Ci;
-  if (m > 0x7fffffffLL || k > 0x7fffffffLL || span > 0x7fffffffLL)
+  if ((sizeof(T) == 4 || bf16_form(Ci, Co) == Bf16Form::MMA_SYNC) &&
+      span > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   c.a = ArgsT<T>{x, w, nullptr, nullptr, res, out, nullptr, (int)m, Co,
                  (int)k, 0, act};
@@ -383,21 +604,66 @@ cudaError_t launch_form(const Call<float>& c, cudaStream_t st) {
   return gemm::launch<C, F32W, true, ConvA<4>, ConvEpi>(c.a, st, c.s, c.p);
 }
 
+// One launch of the wgmma form C: x's im2col map, W's rank-3 map, out's
+// 2-D map, then a persistent grid (`cap` blocks at most if cap > 0)
 template <class C>
-cudaError_t launch_form(const Call<bf16>& c, cudaStream_t st) {
-  if (c.s.Ci % 8 == 0)
-    return gemm::launch_bf16<C, ConvA<16, bf16>, ConvEpi>(c.a, st, c.s,
-                                                          c.p);
-  return gemm::launch_bf16<C, ConvA<8, bf16>, ConvEpi>(c.a, st, c.s, c.p);
+cudaError_t launch_wgmma(const Call<bf16>& c, cudaStream_t st, int cap) {
+  const Shape& s = c.s;
+  const int M = c.a.M, Co = c.a.N;
+  const int N = M / (s.Ho * s.Wo), cit = (s.Ci + C::BK - 1) / C::BK;
+  CUtensorMap tx, tw, tout;
+  const cuuint64_t xd[4] = {(cuuint64_t)s.Ci, (cuuint64_t)s.W,
+                            (cuuint64_t)s.H, (cuuint64_t)N};
+  const cuuint64_t xs[3] = {(cuuint64_t)s.Ci * 2, (cuuint64_t)s.W * s.Ci * 2,
+                            (cuuint64_t)s.H * s.W * s.Ci * 2};
+  const int lower[2] = {-s.pw, -s.ph};
+  const int upper[2] = {s.pw - (s.KW - 1), s.ph - (s.KH - 1)};
+  const cuuint32_t es[4] = {1, (cuuint32_t)s.sw, (cuuint32_t)s.sh, 1};
+  const cuuint64_t wd[3] = {(cuuint64_t)Co, (cuuint64_t)s.Ci,
+                            (cuuint64_t)s.KH * s.KW};
+  const cuuint64_t ws[2] = {(cuuint64_t)Co * 2, (cuuint64_t)s.Ci * Co * 2};
+  const cuuint32_t wb[3] = {64, C::BK, 1};
+  const cuuint64_t od[2] = {(cuuint64_t)Co, (cuuint64_t)M};
+  const cuuint64_t os[1] = {(cuuint64_t)Co * 2};
+  const cuuint32_t ob[2] = {64, 64};
+  cudaError_t err = wg::bf16_im2col_map(&tx, c.a.x, xd, xs, lower, upper,
+                                        C::BK, C::BM, es);
+  if (err == cudaSuccess) err = wg::bf16_map(&tw, c.a.w, 3, wd, ws, wb);
+  if (err == cudaSuccess) err = wg::bf16_map(&tout, c.a.out, 2, od, os, ob);
+  if (err != cudaSuccess) return err;
+  const ConvWg p{c.p.scale, c.p.shift, c.a.res, c.p.partials,
+                 M, Co, s.KH * s.KW * cit, cit, s.KW, s.Ho, s.Wo,
+                 s.sh, s.sw, s.ph, s.pw, c.a.act};
+  err = cudaFuncSetAttribute(conv_wgmma_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::bytes);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = wg::persistent_grid<C>(M, Co, cap, &grid);
+  if (err != cudaSuccess) return err;
+  conv_wgmma_kernel<C><<<grid, C::NT, C::bytes, st>>>(tx, tw, tout, p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_stage_bf16(const Call<bf16>& c, cudaStream_t st,
+                              int cap) {
+  switch (bf16_form(c.s.Ci, c.a.N)) {
+    case Bf16Form::WGMMA_WIDE:
+      return launch_wgmma<ConvWide>(c, st, cap);
+    case Bf16Form::WGMMA_NARROW:
+      return launch_wgmma<ConvNarrow>(c, st, cap);
+    default:
+      return gemm::launch_bf16<gemm::Large, ConvA<8, bf16>, ConvEpi>(
+          c.a, st, c.s, c.p);
+  }
 }
 
 }  // namespace
 
 // x [N, H, W, Ci], w [KH, KW, Ci, Co], out [N, Ho, Wo, Co]; a, b [Co] or
-// both NULL; res [N, Ho, Wo, Co] or NULL; partials [ceil(M / BM), 2, Co]
-// or NULL (M = N * Ho * Wo, BM from conv_stage_tile).  All float32,
-// contiguous, 16-byte aligned.  Co must be a multiple of 4.  act: 0
-// none, 1 relu.
+// both NULL; res [N, Ho, Wo, Co] or NULL; partials [rows, 2, Co] or NULL
+// (rows from conv_stage_tile).  All float32, contiguous, 16-byte
+// aligned.  Co must be a multiple of 4.  act: 0 none, 1 relu.
 extern "C" int conv_stage_f32(const float* x, const float* w, const float* a,
                               const float* b, const float* res, float* out,
                               float* partials, int N, int H, int W, int Ci,
@@ -411,8 +677,9 @@ extern "C" int conv_stage_f32(const float* x, const float* w, const float* a,
 }
 
 // The bf16 form: x, w, res and out bf16 (a, b and partials float32);
-// Co must be a multiple of 8 and Ci of 4.  Otherwise as conv_stage_f32, on the same
-// tile, so conv_stage_tile sizes its partials too.
+// Co must be a multiple of 8 and Ci of 4.  Otherwise as conv_stage_f32,
+// on the form bf16_form picks (conv_stage_tile names it and its rows
+// of partials).
 extern "C" int conv_stage_bf16(const bf16* x, const bf16* w, const float* a,
                                const float* b, const bf16* res, bf16* out,
                                float* partials, int N, int H, int W, int Ci,
@@ -422,14 +689,39 @@ extern "C" int conv_stage_bf16(const bf16* x, const bf16* w, const float* a,
   const cudaError_t err = make_call(c, x, w, a, b, res, out, partials, N, H,
                                     W, Ci, Co, KH, KW, sh, sw, ph, pw, act);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_form<gemm::Large>(c, static_cast<cudaStream_t>(stream));
+  return (int)launch_stage_bf16(c, static_cast<cudaStream_t>(stream), 0);
 }
 
-// The tile (BM, BN) conv_stage_f32 and conv_stage_bf16 run for M output
-// pixels and Co channels: BM output pixels make one row of partials.
-extern "C" int conv_stage_tile(int M, int Co, int* bm, int* bn) {
-  if (M <= 0 || Co <= 0) return (int)cudaErrorInvalidValue;
-  *bm = gemm::Large::BM;
-  *bn = gemm::Large::BN;
+// conv_stage_bf16 on a grid of at most `blocks` blocks (the wgmma form;
+// the mma.sync form's grid is its tiles'): for a test that the grid
+// changes no sum
+extern "C" int conv_stage_bf16_capped(const bf16* x, const bf16* w,
+                                      const float* a, const float* b,
+                                      const bf16* res, bf16* out,
+                                      float* partials, int N, int H, int W,
+                                      int Ci, int Co, int KH, int KW, int sh,
+                                      int sw, int ph, int pw, int act,
+                                      int blocks, void* stream) {
+  Call<bf16> c;
+  const cudaError_t err = make_call(c, x, w, a, b, res, out, partials, N, H,
+                                    W, Ci, Co, KH, KW, sh, sw, ph, pw, act);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_stage_bf16(c, static_cast<cudaStream_t>(stream), blocks);
+}
+
+// The form conv_stage_f32 (is_bf16 = 0) or conv_stage_bf16 (1) runs
+// for Ci and Co channels: its output tile (bm, bn), the output pixels
+// of one row of statistics partials (rows: 128 on the mma.sync tiles, a
+// warpgroup's 64 on the wgmma tile), and whether it is the wgmma form.
+extern "C" int conv_stage_tile(int Ci, int Co, int is_bf16, int* bm, int* bn,
+                               int* rows, int* wgmma) {
+  if (Ci <= 0 || Co <= 0) return (int)cudaErrorInvalidValue;
+  const Bf16Form f = is_bf16 ? bf16_form(Ci, Co) : Bf16Form::MMA_SYNC;
+  *wgmma = f != Bf16Form::MMA_SYNC;
+  *bm = *wgmma ? ConvWide::BM : gemm::Large::BM;
+  *bn = f == Bf16Form::WGMMA_WIDE     ? ConvWide::BN
+        : f == Bf16Form::WGMMA_NARROW ? ConvNarrow::BN
+                                      : gemm::Large::BN;
+  *rows = *wgmma ? 64 : gemm::Large::BM;
   return 0;
 }

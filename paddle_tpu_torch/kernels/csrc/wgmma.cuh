@@ -1,6 +1,7 @@
 // Hopper's asynchronous copy and product primitives, as inline PTX:
 // the mbarrier stage ring, TMA tile loads from a tensor map into
-// 128-byte-swizzled shared memory, the shared-memory matrix descriptor,
+// 128-byte-swizzled shared memory (and im2col loads of a conv's pixels),
+// the shared-memory matrix descriptor,
 // TMA stores, named barriers, setmaxnreg, and wgmma.mma_async m64n128k16
 // (bf16 operands, float32 accumulator) with A from shared memory or from
 // registers, and m64n64k16 with both from shared memory.  Shared by K4's
@@ -105,6 +106,27 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// im2col mode, a rank-4 map over NHWC x (bf16_im2col_map): the box of
+// the map's pixelsPerColumn pixels x channelsPerPixel channels that
+// starts at channel c, input pixel (w, h) of image n -- the top-left tap
+// of an output pixel, which may lie in the padding -- and walks on by
+// the map's element strides through the bounding box (its corners),
+// row by row and image by image, each pixel read at (w + ow, h + oh):
+// the filter tap.  Pixels and channels past x's edges land as zeros.
+__device__ __forceinline__ void tma_load_im2col(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int c, int w,
+                                                int h, int n, uint16_t ow,
+                                                uint16_t oh) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier"
+      "::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};" ::
+          "r"(smem_u32(dst)),
+      "l"(map), "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(h), "r"(n), "h"(ow),
+      "h"(oh)
       : "memory");
 }
 
@@ -290,29 +312,40 @@ __device__ __forceinline__ void mma_rs(float (&d)[64],
 
 // ----------------------------------------------------------- host side
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (so that a
-// library needs no -lcuda)
+// A function of libcuda, looked up by name through the CUDA runtime (so
+// that a library needs no -lcuda); nullptr if there is none
+inline void* cuda_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err =
+      cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
+#else
+  const cudaError_t err =
+      cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
+#endif
+  return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? p : nullptr;
+}
+
 using EncodeTiled = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
     const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
+using EncodeIm2col = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const int*, const int*, cuuint32_t, cuuint32_t,
+    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
+  static const EncodeTiled fn =
+      reinterpret_cast<EncodeTiled>(cuda_entry("cuTensorMapEncodeTiled"));
+  return fn;
+}
+inline EncodeIm2col encode_im2col() {
+  static const EncodeIm2col fn =
+      reinterpret_cast<EncodeIm2col>(cuda_entry("cuTensorMapEncodeIm2col"));
   return fn;
 }
 
@@ -337,6 +370,41 @@ inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+
+// The im2col map of contiguous NHWC bf16 x [N, H, W, C] (dims {C, W, H,
+// N}, strides in bytes of W, H and N steps) for tma_load_im2col: boxes
+// of `pixels` pixels x `channels` channels, 128-byte swizzle, zeros past
+// its edges.  The bounding box of a walk's top-left taps runs from
+// (W, H) corner `lower` to (W - 1, H - 1) + `upper` ({-pw, -ph} and
+// {pw - (KW - 1), ph - (KH - 1)} for a conv's padding and filter), in
+// steps of `estride` {1, sw, sh, 1}.  A rank-4 map takes corners in
+// [-128, 127] and element strides in [1, 8]; TMA needs the base on a
+// 16-byte boundary and every stride a multiple of 16 bytes (C % 8 == 0).
+inline cudaError_t bf16_im2col_map(CUtensorMap* map, const void* base,
+                                   const cuuint64_t (&dims)[4],
+                                   const cuuint64_t (&strides)[3],
+                                   const int (&lower)[2],
+                                   const int (&upper)[2], int channels,
+                                   int pixels, const cuuint32_t (&estride)[4]) {
+  const EncodeIm2col fn = encode_im2col();
+  if (!fn) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % 16) return cudaErrorInvalidValue;
+  for (int i = 0; i < 3; ++i)
+    if (strides[i] % 16) return cudaErrorInvalidValue;
+  for (int i = 0; i < 2; ++i)
+    if (lower[i] < -128 || lower[i] > 127 || upper[i] < -128 ||
+        upper[i] > 127)
+      return cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i)
+    if (estride[i] < 1 || estride[i] > 8) return cudaErrorInvalidValue;
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, strides, lower, upper, (cuuint32_t)channels, (cuuint32_t)pixels,
+      estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -3,19 +3,35 @@
 // Hopper's wgmma into float32 registers, and gemm_tile.cuh's GemmEpi
 // arithmetic from those registers (+ bias, pre = bf16(y), act,
 // + residual, out = bf16(y): the epilogue in float32, pre and out each
-// rounded once).
+// rounded once); and the mainloop of K6's bf16 form (conv_fused.cu),
+// which brings its own producer and epilogue policies.
+//
+// Policies.  run() is the block with a producer policy P and an
+// epilogue policy E: the ring, the producer's loop over tiles and K
+// tiles, and the consumers' loop.  P gives a tile's boxes: P::start(m0)
+// once a tile, then P::load(stage, bar, n0, kt) asks TMA for K tile
+// kt's A box (BM rows x 64 k, K-major, at the stage) and its BN / 64 W
+// boxes (64 k x 64 n, MN-major, after A), which complete C::STAGE bytes
+// on `bar`.  E works on a warpgroup's accumulator: E::begin(n0) when
+// its tile starts, E::apply(acc, so, sp, r0, n0, bar_id, lead) when its
+// products are in.  K6's bf16 form runs on run() (conv_fused.cu).  K4's
+// kernel, gemm_bf16_kernel, is the same block written out with its
+// loads and epilogue in place: run() with K4's loads and epilogue as
+// policies computed the same bits, but its QKV projection ran 1.7-2.5 %
+// slower on an H100 in turns with this kernel (PERF.md section 6), so K4
+// keeps its own.
 //
 // Block: two consumer warpgroups and a producer warpgroup, one block
-// an SM.  A block owns a BM x BN = 128 x 128 output tile at a time,
-// each consumer 64 rows of it, and walks the tiles t = blockIdx.x,
-// + gridDim.x, ... (numbered along N first, so that the blocks in
-// flight share their A rows in L2).  The producer gives its registers
-// to the consumers (setmaxnreg) and its first thread, per 64-deep K
-// tile, waits for a free stage of the ring (its `empty` barrier), then
-// asks TMA for x's 128 x 64 box and W's two 64 k x 64 n boxes, which
-// complete on the stage's `full` barrier.  The ring runs on across
-// output tiles, so the producer loads the next tile's first stages
-// while the consumers run this one's epilogue.
+// an SM.  A block owns a BM x BN = 128 x 128 output tile at a time (or
+// 128 x 64, on m64n64k16), each consumer 64 rows of it, and walks the
+// tiles t = blockIdx.x, + gridDim.x, ... (numbered along N first, so
+// that the blocks in flight share their A rows in L2).  The producer
+// gives its registers to the consumers (setmaxnreg) and its first
+// thread, per 64-deep K tile, waits for a free stage of the ring (its
+// `empty` barrier), then asks TMA for x's 128 x 64 box and W's BN / 64
+// boxes of 64 k x 64 n, which complete on the stage's `full` barrier.
+// The ring runs on across output tiles, so the producer loads the next
+// tile's first stages while the consumers run this one's epilogue.
 //
 // Accuracy: the tensor cores sum a wgmma chain with truncation, which
 // over K = 4096 (256 k16 steps) drifts past one bf16 ulp of small
@@ -44,9 +60,9 @@ namespace wg {
 
 using bf16 = __nv_bfloat16;
 
-template <int STAGES_, int PI_>
+template <int STAGES_, int PI_, int BN_ = 128>
 struct GemmTile {
-  static constexpr int BM = 128, BN = 128, BK = 64;
+  static constexpr int BM = 128, BN = BN_, BK = 64;
   static constexpr int NWG = 2;                // consumer warpgroups
   static constexpr int NT = (NWG + 1) * 128;   // + the producer's
   // registers a thread: 384 threads start at 168 (65536 / 384); the
@@ -62,6 +78,7 @@ struct GemmTile {
   // the stages, the out and pre tiles (1024-byte aligned: the swizzle's
   // period), a full and an empty barrier a stage, the alignment's slack
   static constexpr int bytes = STAGES * STAGE + 2 * OUT + 16 * STAGES + 1024;
+  static_assert(BN == 128 || BN == 64, "m64n128k16 or m64n64k16");
   static_assert(STAGE % 1024 == 0, "stages on the swizzle period");
   static_assert(PI >= 1 && PI < STAGES,
                 "a group's stages, and one more, in the ring");
@@ -277,6 +294,141 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tx,
                 1 + wgi, lead);
   }
   if (lead) store_wait();
+}
+
+// A warpgroup's m64nBN accumulator, rounded once to bf16, into the
+// 128-byte-swizzled tile: register 4 j + 2 h + c (row rw + 8 h, column
+// 8 j + 2 t + c) at row rw + 8 h of box j / 8, its 16-byte chunk j % 8
+// swizzled by the row (rw + 8 h = g mod 8); conflict-free 4-byte writes
+template <class C>
+__device__ __forceinline__ void store_tile(const float (&acc)[C::BN / 2],
+                                           uint8_t* tile) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int rw = 16 * ((threadIdx.x / 32) % 4) + g;
+#pragma unroll
+  for (int j = 0; j < C::BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(tile + (j / 8) * C::OUT_BOX +
+                                   (rw + 8 * h) * 128 + ((j % 8) ^ g) * 16 +
+                                   4 * t) =
+          tc::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+}
+
+// The block, for a grid of `tiles` BM x BN output tiles over M rows and
+// N columns and nk K tiles each (one fixed order of products and adds
+// per output, whatever the grid): the producer warpgroup feeds the ring
+// through P, the consumer warpgroups run the products and hand each
+// finished accumulator to E.
+template <class C, class P, class E>
+__device__ __forceinline__ void run(P& prod, E& epi, int M, int N, int nk) {
+  constexpr int BM = C::BM, BN = C::BN, BK = C::BK, STAGES = C::STAGES;
+  constexpr int PI = C::PI;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  uint8_t* out_tiles = smem + STAGES * C::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_tiles + 2 * C::OUT);
+  uint64_t* empty = full + STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int tiles = (M + BM - 1) / BM * n_tiles;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::NWG * 4);   // one arrival a consumer warp
+    }
+    fence_init();
+  }
+  __syncthreads();
+
+  if (warp / 4 == C::NWG) {   // the producer warpgroup; it never rejoins
+    regs_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x == C::NWG * 128) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n0 = tile % n_tiles * BN;
+        prod.start(tile / n_tiles * BM);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect(&full[s], C::STAGE);
+          prod.load(smem + s * C::STAGE, &full[s], n0, kt);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<C::CONSUMER_REGS>();
+  const int wgi = warp / 4;   // this warpgroup's 64 rows of the tile
+  const bool lead = threadIdx.x % 128 == 0;
+  uint8_t* so = out_tiles + wgi * (C::OUT / C::NWG);
+  uint8_t* sp = so + C::OUT;
+  float acc[BN / 2], f[BN / 2];
+  int it = 0, done = 0;   // K tiles issued / released, over all tiles
+  // the wgmmas of the next n K tiles into f, each once its stage lands
+  auto issue = [&](int n) {
+    fence();
+#pragma unroll
+    for (int i = 0; i < PI; ++i) {
+      if (i < n) {
+        const int s = (it + i) % STAGES;
+        mbar_wait(&full[s], ((it + i) / STAGES) & 1);
+        const uint8_t* st = smem + s * C::STAGE;
+        // A K-major at this warpgroup's rows, W MN-major
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          mma_ss<1>(f, desc(st + wgi * 64 * 128 + 32 * kk, 16, 1024),
+                    desc(st + C::A_BYTES + kk * 2048, C::B_BOX, 1024),
+                    i > 0 || kk > 0);
+      }
+    }
+    commit();
+    it += n;
+  };
+  const int ng = (nk + PI - 1) / PI;   // groups a tile; the last may be short
+  auto size = [&](int g) { return min(PI, nk - g * PI); };
+  if (blockIdx.x < tiles) issue(size(0));
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
+    epi.begin(n0);
+    for (int g = 0; g < ng; ++g) {
+      // group g done: its fragment into acc, its stages released, and
+      // the next group issued -- at a tile's last, the next tile's
+      // first, which runs during this tile's epilogue
+      wait<0>();
+      fence_operand(f);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = g ? acc[i] + f[i] : f[i];
+      if (lane == 0)
+        for (int i = 0; i < size(g); ++i)
+          mbar_arrive(&empty[(done + i) % STAGES]);
+      done += size(g);
+      if (g + 1 < ng)
+        issue(size(g + 1));
+      else if (tile + (int)gridDim.x < tiles)
+        issue(size(0));
+    }
+    epi.apply(acc, so, sp, m0 + 64 * wgi, n0, 1 + wgi, lead);
+  }
+  if (lead) store_wait();
+}
+
+// The grid of a persistent launch: one block an SM, or a tile if fewer,
+// or `cap` blocks if cap > 0 (a test's, to show that the grid does not
+// change a sum); cudaErrorInvalidValue if the tiles pass int
+template <class C>
+inline cudaError_t persistent_grid(int M, int N, int cap, int* grid) {
+  const tc::SmCount& sms = tc::sm_count();
+  if (sms.err != cudaSuccess) return sms.err;
+  const long long tiles = (long long)((M + C::BM - 1) / C::BM) *
+                          ((N + C::BN - 1) / C::BN);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  long long g = tiles < sms.sms ? tiles : sms.sms;
+  if (cap > 0 && cap < g) g = cap;
+  *grid = (int)g;
+  return cudaSuccess;
 }
 
 // One launch of the C form for a.x [M, K], a.w [K, N], a.out and a.pre

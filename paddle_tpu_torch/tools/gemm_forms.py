@@ -24,6 +24,18 @@ version at atol = rtol = 1e-4:
   ``K6_FORMS`` (the product runs Large at every shape); the stem also with x and w zero-padded to Ci = 4 on
   the card (the pad's time included), so that it takes the 16-byte
   gather.  Statistics are held to ``conv_fused.STATS_RTOL``;
+- K6's bf16 form (``--k6 --bf16``) at the same 20 shapes in the
+  statistics form, in the forms of ``K6_BF16_FORMS``: the product's
+  (``conv2d_nhwc``: the wgmma tile with x by TMA's im2col mode for Ci %
+  8 == 0, 128 x 128 for Co >= 128 and 128 x 64 below; the stem on the
+  mma.sync tile), each wgmma width and a shorter fragment chain, and the
+  mma.sync form the wgmma tile replaced (``ConvA<16, bf16>`` on
+  ``gemm_tile.cuh``'s bf16_kernel, which only this tool instantiates),
+  each held within one bf16 ulp plus 1e-6 of max |Y| and to
+  ``STATS_RTOL``; beside them the replaced form's time before it was
+  replaced (``REPLACED_K6_BF16_MS``), cuDNN bf16 alone (F.conv2d on
+  channels_last bf16) and cuDNN plus the sums in torch (chip_smoke.py's
+  yardstick);
 - K4's bf16 form (``--bf16``: ``wgmma_gemm.cuh``, which the exporter
   includes too) at the five projections in the forms of ``BF16_FORMS``
   (the product runs ``GemmBf16``), each held within one bf16 ulp plus
@@ -34,7 +46,8 @@ version at atol = rtol = 1e-4:
 
 Run on a CUDA machine from the repository root:
 
-    python -m paddle_tpu_torch.tools.gemm_forms [--k8-only | --k6 | --bf16]
+    python -m paddle_tpu_torch.tools.gemm_forms [--k8-only | --k6 | --bf16 |
+                                                 --k6 --bf16]
 
 Prints one JSON line per shape (each form's ms and agreement, the form
 the launcher picks, the library call's ms), then the card's name and
@@ -88,6 +101,33 @@ REPLACED_BF16_MS = {"qkv": 1.0735, "out_proj": 0.3748, "fc1": 1.4468,
 # the forms K6 is timed in, with their BM (the rows of a statistics
 # partial): the tile's two and the 8-warp 128 x 128
 K6_FORMS = {"large": 128, "small": 64, "128x128": 128}
+# (name, launch in conv_fused.cu's terms, rows of a statistics partial)
+# of K6's bf16 form; "product" is the launcher's own pick, "mma_sync" the
+# form the wgmma tile replaced (needs Ci % 8 == 0)
+K6_BF16_FORMS = (
+    ("product", "launch_stage_bf16(c, s, 0)", None),
+    ("wgmma_128x128", "launch_wgmma<ConvWide>(c, s, 0)", 64),
+    ("wgmma_128x64", "launch_wgmma<ConvNarrow>(c, s, 0)", 64),
+    ("wgmma_128x128_pi2", "launch_wgmma<wg::GemmTile<5, 2, 128>>(c, s, 0)",
+     64),
+    ("mma_sync", "gemm::launch_bf16<gemm::Large, ConvA<16, bf16>, ConvEpi>"
+     "(c.a, s, c.s, c.p)", 128))
+# the time of K6's bf16 form on gemm_tile.cuh's mma.sync bf16_kernel,
+# which the wgmma form replaced, at each conv shape (H, Ci, Co, k,
+# stride, pad) of the forward at batch 256, statistics form
+# (chip_smoke.py's phase 3 before the replacement, PERF.md section 6;
+# NVIDIA H100 80GB HBM3, 700 W)
+REPLACED_K6_BF16_MS = {
+    (14, 256, 256, 3, 1, 1): 0.3482, (28, 128, 128, 3, 1, 1): 0.3662,
+    (7, 512, 512, 3, 1, 1): 0.3257, (55, 64, 64, 3, 1, 1): 0.4027,
+    (14, 256, 1024, 1, 1, 0): 0.2404, (14, 1024, 256, 1, 1, 0): 0.1828,
+    (28, 128, 512, 1, 1, 0): 0.3180, (55, 64, 256, 1, 1, 0): 0.5218,
+    (28, 512, 128, 1, 1, 0): 0.2090, (7, 512, 2048, 1, 1, 0): 0.1914,
+    (224, 3, 64, 7, 2, 3): 1.1815, (55, 256, 512, 1, 2, 0): 0.4480,
+    (28, 512, 1024, 1, 2, 0): 0.3719, (14, 1024, 2048, 1, 2, 0): 0.3297,
+    (7, 2048, 512, 1, 1, 0): 0.1619, (55, 256, 64, 1, 1, 0): 0.2706,
+    (55, 256, 128, 1, 2, 0): 0.1382, (28, 512, 256, 1, 2, 0): 0.1157,
+    (14, 1024, 512, 1, 2, 0): 0.0942, (55, 64, 64, 1, 1, 0): 0.1528}
 
 
 def _source():
@@ -101,6 +141,9 @@ def _source():
     conv_cases = "\n".join(
         "    case %d: return launch_form<gemm::%s>(c, s);" % (i, t)
         for i, (name, t) in enumerate(FORMS) if name in K6_FORMS)
+    conv_bf16_cases = "\n".join(
+        "    case %d: return (int)%s;" % (i, t)
+        for i, (_, t, _) in enumerate(K6_BF16_FORMS))
     return r'''
 #include "%s/conv_fused.cu"
 #include "%s/wgmma_gemm.cuh"
@@ -144,6 +187,21 @@ extern "C" int conv_form_f32(int form, const float* x, const float* w,
   }
   return (int)cudaErrorInvalidValue;
 }
+extern "C" int conv_form_bf16(int form, const bf16* x, const bf16* w,
+                              bf16* out, float* partials, int N, int H,
+                              int W, int Ci, int Co, int KH, int KW, int sh,
+                              int sw, int ph, int pw, void* stream) {
+  Call<bf16> c;
+  const cudaError_t err =
+      make_call<bf16>(c, x, w, nullptr, nullptr, nullptr, out, partials,
+                      N, H, W, Ci, Co, KH, KW, sh, sw, ph, pw, 0);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (form) {
+%s
+  }
+  return (int)cudaErrorInvalidValue;
+}
 extern "C" int gemm_form_bf16(int form, const bf16* x, const bf16* w,
                               const bf16* bias, const bf16* res, bf16* out,
                               bf16* pre, int M, int N, int K, int act,
@@ -155,13 +213,14 @@ extern "C" int gemm_form_bf16(int form, const bf16* x, const bf16* w,
   }
   return (int)cudaErrorInvalidValue;
 }
-''' % (_build.CSRC, _build.CSRC, cases, conv_cases, bf16_cases)
+''' % (_build.CSRC, _build.CSRC, cases, conv_cases, conv_bf16_cases,
+       bf16_cases)
 
 
 def build():
     """Compile the form exporter into ``_build/forms/``; returns its
-    ctypes entries (f32, int8, conv, bf16) and ptxas's summary per
-    kernel."""
+    ctypes entries (f32, int8, conv, bf16, conv_bf16) and ptxas's
+    summary per kernel."""
     out = os.path.join(_build.BUILD_DIR, "forms")
     os.makedirs(out, exist_ok=True)
     src = os.path.join(out, "gemm_forms.cu")
@@ -180,10 +239,14 @@ def build():
                                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     i8.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    conv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                     + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-    f32.restype = i8.restype = conv.restype = bf16.restype = ctypes.c_int
-    return f32, i8, conv, bf16, _build._ptxas_summary(proc.stdout)
+    conv_bf16 = dll.conv_form_bf16
+    conv.argtypes = conv_bf16.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+        + [ctypes.c_void_p])
+    for fn in (f32, i8, conv, bf16, conv_bf16):
+        fn.restype = ctypes.c_int
+    return (f32, i8, conv, bf16, conv_bf16,
+            _build._ptxas_summary(proc.stdout))
 
 
 class Timer:
@@ -255,8 +318,7 @@ def conv_forms(conv, timer, batch=256):
         want = conv_fused.conv2d_nhwc_reference(x, w, s, pad)
         out = torch.empty(batch, ho, ho, co, device="cuda")
         row = {"kernel": "conv_stage", "shape": list(shp), "launches": count,
-               "launcher_picks": "tile %dx%d"
-               % conv_fused.conv_stage_tile(m, co),
+               "launcher_picks": conv_fused.conv_stage_form(ci, co),
                "product_ms": timer(lambda: conv_fused.conv2d_nhwc(
                    x, w, s, pad, stats=True)),
                "library_ms": timer(lambda: F.conv2d(
@@ -291,6 +353,78 @@ def conv_forms(conv, timer, batch=256):
             row[name + "_ms"] = timer(call)
         print(json.dumps(row), flush=True)
         del x, w, want, out
+        torch.cuda.empty_cache()
+
+
+def conv_bf16_forms(conv_bf16, timer, batch=256):
+    """K6's bf16 form in each of K6_BF16_FORMS at the ResNet-50
+    forward's conv shapes, statistics form, beside cuDNN."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p = _build.ptr
+    bf = torch.bfloat16
+    for shp, count in sorted(resnet50_conv_shapes().items()):
+        h, ci, co, k, s, pad = shp
+        ho = (h + 2 * pad - k) // s + 1
+        m = batch * ho * ho
+        x = torch.randn(batch, h, h, ci, device="cuda", generator=gen).to(bf)
+        w = (torch.randn(k, k, ci, co, device="cuda", generator=gen)
+             * (k * k * ci) ** -0.5).to(bf)
+        xcl = x.permute(0, 3, 1, 2)
+        wcl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        want = conv_fused.conv2d_nhwc_reference(x, w, s, pad).float()
+        bar = conv_fused.bf16_ulp(want) + 1e-6 * want.abs().max()
+        # float64 sums of the raw conv of the same operands
+        acc = F.conv2d(xcl.double(), wcl.double(), None, s, pad)
+        acc = acc.permute(0, 2, 3, 1).reshape(-1, co)
+        exact = (acc.sum(0), acc.square().sum(0))
+        mags = (acc.abs().sum(0), acc.square().sum(0))
+        del acc
+
+        def lib_sums():
+            y = F.conv2d(xcl, wcl, None, s, pad)
+            return y, y.sum((0, 2, 3), dtype=torch.float32), \
+                torch.square(y.float()).sum((0, 2, 3))
+
+        cil = ci + (-ci) % 4
+        row = {"kernel": "conv_stage_bf16", "shape": list(shp),
+               "launches": count,
+               "launcher_picks": conv_fused.conv_stage_form(cil, co, bf),
+               "replaced_ms": REPLACED_K6_BF16_MS.get(shp),
+               "product_ms": timer(lambda: conv_fused.conv2d_nhwc(
+                   x, w, s, pad, stats=True)),
+               "library_ms": timer(lambda: F.conv2d(xcl, wcl, None, s,
+                                                    pad)),
+               "library_sums_ms": timer(lib_sums)}
+        out = torch.empty(batch, ho, ho, co, device="cuda", dtype=bf)
+        for f, (name, _, rows) in enumerate(K6_BF16_FORMS):
+            if name != "product" and ci % 8:
+                continue   # TMA and ConvA<16> need 8-channel pixel rows
+            if rows is None:
+                rows = conv_fused.conv_stage_tile(cil, co, bf)[0]
+            parts = torch.empty(-(-m // rows), 2, co, device="cuda")
+            xv, wv = x, w
+            if ci % 4:   # as the wrapper launches the stem
+                xv = F.pad(x, (0, cil - ci))
+                wv = F.pad(w, (0, 0, 0, cil - ci))
+
+            def call(f=f, xv=xv, wv=wv, parts=parts):
+                _build.check(conv_bf16(
+                    f, p(xv), p(wv), p(out), p(parts), batch, h, h, cil,
+                    co, k, k, s, s, pad, pad, st()), "conv_form_bf16")
+            call()
+            sums = parts.sum(0).double()
+            rel = max(float(((sums[i] - exact[i]).abs() / mags[i]).max())
+                      for i in range(2))
+            row[name + "_ok"] = bool(
+                ((out.float() - want).abs() <= bar).all()) and \
+                rel <= conv_fused.STATS_RTOL
+            row[name + "_ms"] = timer(call)
+        print(json.dumps(row), flush=True)
+        del x, w, xcl, wcl, want, bar, out, exact, mags
         torch.cuda.empty_cache()
 
 
@@ -343,20 +477,24 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k8-only", action="store_true")
     ap.add_argument("--k6", action="store_true",
-                    help="time K6's forms only")
+                    help="time K6's forms only (with --bf16: its bf16 "
+                         "forms)")
     ap.add_argument("--bf16", action="store_true",
-                    help="time K4's bf16 (wgmma) forms only")
+                    help="time K4's bf16 (wgmma) forms only (with --k6: "
+                         "K6's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gemm_forms needs a CUDA card")
     resolve_device("cuda")
-    f32, i8, conv, bf16, ptxas = build()
+    f32, i8, conv, bf16, conv_bf16, ptxas = build()
     for sym, line in sorted(ptxas.items()):
         print(json.dumps({"kernel": sym, "ptxas": line}), flush=True)
     timer = Timer()
-    if args.k6:
+    if args.k6 and args.bf16:
+        conv_bf16_forms(conv_bf16, timer)
+    elif args.k6:
         conv_forms(conv, timer)
-    if args.bf16:
+    elif args.bf16:
         bf16_forms(bf16, timer)
     gen = torch.Generator(device="cuda").manual_seed(0)
     st = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)

@@ -63,8 +63,11 @@ LM = dict(vocab_size=8192, seq_len=2048, d_model=1024, n_head=8,
 RESNET50 = dict(data_set="flowers", depth=50, learning_rate=0.01,
                 input_dtype="uint8")
 # {name: the substring of its kernel symbols}: the wgmma kernels' device
-# ms a step, summed over their forms and call sites
+# ms a step, summed over their forms and call sites, and K6's bf16 stem
+# on mma.sync's bf16_kernel (the one kernel of that tile a step runs)
 KERNEL_GROUPS = {"matmul_epilogue_bf16": "gemm_bf16_kernel",
+                 "conv_stage_bf16": "conv_wgmma_kernel",
+                 "conv_stage_bf16_stem": "gemm::bf16_kernel",
                  "flash_fwd_bf16": "flash_fwd_bf16_kernel",
                  "flash_bwd_dq_bf16": "flash_bwd_dq_bf16_kernel",
                  "flash_bwd_dkv_bf16": "flash_bwd_dkv_bf16_kernel"}

@@ -740,17 +740,18 @@ def test_conv_stage_kernel_is_deterministic_on_card(cuda, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", CONV_SHAPES + CONV_WIDE_SHAPES)
 def test_conv_stage_tile_gives_the_partials_rows(cuda, shape):
-    """conv_stage_tile's BM is the M tile the kernel writes partials for:
-    it fills ceil(M / BM) rows and not one more, and their sums are the
-    output's."""
+    """conv_stage_tile's rows are the output pixels the kernel writes a
+    row of partials for (its M tile, 128): it fills ceil(M / rows) rows
+    and not one more, and their sums are the output's."""
     from paddle_tpu_torch.kernels import conv_fused as pcf
 
     n, h, ci, co, k, s, p = shape
     x, w, _, _, _ = _conv_operands(cuda, shape)
     ho = (h + 2 * p - k) // s + 1
     m = n * ho * ho
-    bm, bn = pcf.conv_stage_tile(m, co)
+    bm, bn = pcf.conv_stage_tile(ci, co)
     assert (bm, bn) == (128, 64)
+    assert pcf.conv_stage_form(ci, co) == "mma.sync 128x64"
     rows = -(-m // bm)
     parts = torch.full((rows + 1, 2, co), float("nan"), device=cuda)
     out = torch.empty(n, ho, ho, co, device=cuda)
@@ -780,15 +781,19 @@ def test_conv_stage_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
                                                 dtype=torch.float64))
 
 
-# K6's bf16 form: the stem (Ci = 3, padded to 4 channels for the 8-byte
-# gather) at a ragged size and at 224 x 224, Ci = 12 (the 8-byte gather
-# unpadded), Ci = 5 (padded to 8: the 16-byte gather), a ragged K tail
-# (Ci = 40: K = 360, a quarter tile past 11 K tiles), a Co = 64 3x3
-# stage at 56 x 56, Co = 2048 (the last 1x1 expansion)
+# K6's bf16 form: on mma.sync the stem (Ci = 3, padded to 4 channels for
+# the 8-byte gather) at a ragged size and at 224 x 224 and Ci = 12 (the
+# 8-byte gather unpadded); on wgmma (x by TMA's im2col mode) Ci = 5
+# (padded to 8), a ragged K tail (Ci = 40: each tap's 64-channel box
+# past Ci), a Co = 64 3x3 stage at 56 x 56 (the 128 x 64 tile), Co =
+# 2048 (the last 1x1 expansion), a strided 1x1 at ragged M (M = 75), a
+# 7 x 7 3x3 stage at Ci = Co = 512 (K = 4608, M = 98) and a Co = 64 1x1
+# at ragged M (M = 363)
 CONV_BF16_SHAPES = [(3, 23, 3, 64, 7, 2, 3), (2, 224, 3, 64, 7, 2, 3),
                     (2, 9, 12, 64, 3, 1, 1), (2, 9, 5, 64, 3, 1, 1),
                     (1, 5, 40, 256, 3, 1, 1), (2, 56, 64, 64, 3, 1, 1),
-                    (4, 7, 512, 2048, 1, 1, 0)]
+                    (4, 7, 512, 2048, 1, 1, 0), (3, 9, 256, 512, 1, 2, 0),
+                    (2, 7, 512, 512, 3, 1, 1), (3, 11, 256, 64, 1, 1, 0)]
 
 
 def _assert_within_one_bf16_ulp(got, want):
@@ -886,6 +891,152 @@ def test_conv_stage_bf16_kernel_is_deterministic_on_card(cuda):
         two = pcf.conv2d_nhwc(x, w, (1, 1), (1, 1), **kw)
         for u, v in zip(one, two):
             assert torch.equal(u, v)
+
+
+# K6's bf16 wgmma form on windows that are not square: x [N, H, W, Ci],
+# w [KH, KW, Ci, Co], strides and paddings (h, w), where TMA's im2col
+# corners and offsets {W, H} would show a swap
+CONV_BF16_RECT = [(2, 9, 11, 16, 64, 1, 3, (2, 1), (0, 1)),
+                  (3, 7, 5, 24, 128, 3, 1, (1, 2), (1, 0)),
+                  (2, 12, 10, 8, 64, 5, 3, (2, 3), (2, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV_BF16_RECT)
+def test_conv_stage_bf16_rectangular_windows_on_card(cuda, shape):
+    from paddle_tpu_torch.kernels import conv_fused as pcf
+
+    n, h, wd, ci, co, kh, kw, s, p = shape
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(n, h, wd, ci, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(kh, kw, ci, co, device=cuda, generator=g)
+         * (kh * kw * ci) ** -0.5).bfloat16()
+    ho, wo = (h + 2 * p[0] - kh) // s[0] + 1, (wd + 2 * p[1] - kw) // s[1] + 1
+    a = torch.rand(co, device=cuda, generator=g) + 0.5
+    b = torch.randn(co, device=cuda, generator=g)
+    r = torch.randn(n, ho, wo, co, device=cuda, generator=g).bfloat16()
+    assert pcf.conv_stage_form(ci, co, torch.bfloat16).startswith("wgmma")
+    for kw_ in (dict(stats=True),
+                dict(stats=True, affine=(a, b), residual=r, act="relu")):
+        got = pcf.conv2d_nhwc(x, w, s, p, **kw_)
+        want = pcf.conv2d_nhwc_reference(x, w, s, p, **kw_)
+        _assert_within_one_bf16_ulp(got[0], want[0])
+        _, rel = pcf.stats_error(x, w, s, p, got[1], got[2])
+        assert rel <= pcf.STATS_RTOL, rel
+
+
+def _bf16_launch(x, w, s, p, blocks=0, **kw):
+    """One launch of K6's bf16 form through its launcher, the grid
+    capped to ``blocks`` if > 0: (out, partials)."""
+    from paddle_tpu_torch.kernels import conv_fused as pcf
+
+    n, h, _, ci = x.shape
+    k, _, _, co = w.shape
+    ho = (h + 2 * p - k) // s + 1
+    rows, _ = pcf.conv_stage_tile(ci, co, torch.bfloat16)
+    out = torch.empty(n, ho, ho, co, device=x.device, dtype=torch.bfloat16)
+    parts = torch.empty(-(-n * ho * ho // rows), 2, co, device=x.device)
+    pcf._launch(x, w, (s, s), (p, p), kw.get("affine"), kw.get("residual"),
+                kw.get("act", ""), out, parts, blocks=blocks)
+    return out, parts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 7, 512, 512, 3, 1, 1),
+                                   (3, 11, 256, 64, 1, 1, 0),
+                                   (3, 9, 256, 512, 1, 2, 0)])
+def test_conv_stage_bf16_wgmma_sums_in_one_order_on_card(cuda, shape):
+    """The wgmma form's outputs and partials are bit-identical across
+    calls and on a persistent grid capped to 1 or 3 blocks: each tile
+    walks its K tiles and groups in one order whatever the grid."""
+    _, _, ci, co, _, s, p = shape
+    x, w, a, b, r = _conv_operands(cuda, shape, seed=7)
+    x, w, r = x.bfloat16(), w.bfloat16(), r.bfloat16()
+    kw = dict(affine=(a, b), residual=r, act="relu")
+    one = _bf16_launch(x, w, s, p, **kw)
+    for blocks in (0, 1, 3):
+        two = _bf16_launch(x, w, s, p, blocks, **kw)
+        assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV_BF16_SHAPES)
+def test_conv_stage_bf16_tile_gives_the_partials_rows(cuda, shape):
+    """conv_stage_tile for bf16 names the rows of partials the running
+    form writes -- a warpgroup's 64 on the wgmma tile, 128 on mma.sync --
+    and the tile's width: it fills ceil(M / rows) rows and not one more,
+    and their sums are the raw conv's."""
+    from paddle_tpu_torch.kernels import conv_fused as pcf
+
+    n, h, ci, co, k, s, p = shape
+    x, w, _, _, _ = _conv_operands(cuda, shape, seed=8)
+    x, w = x.bfloat16(), w.bfloat16()
+    cil = ci + (-ci) % 4   # as launched: the wrapper pads Ci to 4
+    rows, bn = pcf.conv_stage_tile(cil, co, torch.bfloat16)
+    if cil % 8 == 0:
+        assert (rows, bn) == (64, 128 if co >= 128 else 64)
+        assert pcf.conv_stage_form(cil, co, torch.bfloat16) == \
+            "wgmma 128x%d" % bn
+    else:
+        assert (rows, bn) == (128, 64)
+        assert pcf.conv_stage_form(cil, co, torch.bfloat16) == \
+            "mma.sync 128x64"
+    if cil != ci:
+        x = torch.nn.functional.pad(x, (0, cil - ci))
+        w = torch.nn.functional.pad(w, (0, 0, 0, cil - ci))
+    ho = (h + 2 * p - k) // s + 1
+    m = n * ho * ho
+    used = -(-m // rows)
+    parts = torch.full((used + 1, 2, co), float("nan"), device=cuda)
+    out = torch.empty(n, ho, ho, co, device=cuda, dtype=torch.bfloat16)
+    pcf._launch(x, w, (s, s), (p, p), None, None, "", out, parts)
+    torch.cuda.synchronize()
+    assert torch.isfinite(parts[:used]).all()
+    assert torch.isnan(parts[used]).all()
+    sums = parts[:used].sum(0)
+    _, rel = pcf.stats_error(x, w, (s, s), (p, p), sums[0], sums[1])
+    assert rel <= pcf.STATS_RTOL, rel
+
+
+def _conv_kernel_names(x, w, s=1, p=1):
+    from paddle_tpu_torch.kernels.conv_fused import conv2d_nhwc
+
+    names = _kernel_names(lambda: conv2d_nhwc(x, w, (s, s), (p, p),
+                                              stats=True))
+    wgmma = any("conv_wgmma_kernel" in n for n in names)
+    mma_sync = any("gemm::bf16_kernel" in n for n in names)
+    return wgmma, mma_sync, names
+
+
+@pytest.mark.cuda
+def test_conv_stage_bf16_forms_reach_their_kernels_on_card(cuda):
+    """A bf16 conv stage with Ci % 8 == 0 runs the wgmma kernel (either
+    width) and not mma.sync's bf16_kernel; the stem (Ci = 3) and Ci = 12
+    run bf16_kernel and not the wgmma kernel; the wgmma form refuses a
+    stride past TMA's 8."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.kernels.conv_fused import conv2d_nhwc
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+
+    def ops(n, h, ci, co, k):
+        return (torch.randn(n, h, h, ci, device=cuda,
+                            generator=g).bfloat16(),
+                torch.randn(k, k, ci, co, device=cuda,
+                            generator=g).bfloat16())
+
+    for ci, co in ((16, 32), (64, 64), (256, 128), (40, 256)):
+        wgmma, mma_sync, names = _conv_kernel_names(*ops(2, 8, ci, co, 3))
+        assert wgmma and not mma_sync, names
+    for ci, k, s, p in ((3, 7, 2, 3), (12, 3, 1, 1)):
+        wgmma, mma_sync, names = _conv_kernel_names(*ops(2, 23, ci, 64, k),
+                                                    s, p)
+        assert mma_sync and not wgmma, names
+    x, w = ops(1, 20, 16, 32, 1)
+    reset_launches()
+    with pytest.raises(ValueError, match="strides up to 8"):
+        conv2d_nhwc(x, w, (9, 9), (0, 0))
+    assert KERNELS["conv_stage_bf16"].launches == 0
 
 
 @pytest.mark.cuda
@@ -1548,8 +1699,9 @@ def _kernel_names(fn):
 @pytest.mark.cuda
 def test_bf16_calls_reach_the_wgmma_kernels_on_card(cuda):
     """A bf16 matmul_epilogue runs the wgmma tile and no mma.sync
-    bf16_kernel; a bf16 conv stage (K6) still runs bf16_kernel; a bf16
-    flash forward runs its one wgmma kernel."""
+    bf16_kernel; a bf16 conv stage (K6) at Ci = 16 runs its own wgmma
+    kernel on the same mainloop, and neither K4's kernel nor mma.sync's
+    bf16_kernel; a bf16 flash forward runs its one wgmma kernel."""
     from paddle_tpu_torch.kernels.conv_fused import conv2d_nhwc
 
     g = torch.Generator(device=cuda).manual_seed(5)
@@ -1562,9 +1714,8 @@ def test_bf16_calls_reach_the_wgmma_kernels_on_card(cuda):
     xi = torch.randn(2, 8, 8, 16, device=cuda, generator=g).bfloat16()
     wi = torch.randn(3, 3, 16, 32, device=cuda, generator=g).bfloat16()
     names = _kernel_names(lambda: conv2d_nhwc(xi, wi, (1, 1), (1, 1)))
-    assert any("bf16_kernel" in n and "gemm_bf16_kernel" not in n
-               for n in names), names
-    assert not any("gemm_bf16_kernel" in n for n in names), names
+    assert any("conv_wgmma_kernel" in n for n in names), names
+    assert not any("bf16_kernel" in n for n in names), names
     q = torch.randn(1, 2, 64, 128, device=cuda, generator=g).bfloat16()
     names = _kernel_names(lambda: flash_attention_fwd_lse(q, q, q,
                                                           causal=True))
