@@ -102,18 +102,38 @@ Phases, each printed as one JSON line:
              times a step each, K4's bf16 form 25 times, K5's 12 times,
              no f32 form of K1-K5;
 24. train_fused_amp_oracle — phase 22 for the fused-block program;
-25. bench — the port's bench entry (python3 -m
-             paddle_tpu_torch.tools.bench) at its default headline
-             (ResNet-50, bf16 AMP, NCHW, batch 256, with its secondary,
-             the flagship LM, which must be the bf16 LM) and with
-             BENCH_LAYOUT=NHWC (no secondary), each with BENCH_ITERS=10,
-             then (information) at BENCH_AMP=0 BENCH_LAYOUT=NHWC beside
-             phase 13's step, then BENCH_MODEL=transformer at its card
-             default (bf16), unfused and BENCH_FUSED_TRANSFORMER=1; each
-             must exit 0 with finite losses, the last below the first,
-             float32 parameters and, under AMP, an mfu.
+25-28. train_resnet_amp_prepared, train_resnet_fused_amp_prepared,
+             train_fused_amp_prepared, train_amp_prepared — phases 18,
+             19, 23 and 21 through Executor.prepare / run_prepared, the
+             step captured as one CUDA graph (core/step_graph.py) at the
+             first step and replayed once a step: startup, prepare with
+             the batch, 1 warm-up and the timed steps; each launches
+             the kernels of its run() phase as often a step (the
+             wrappers' calls recorded at capture and added per replay,
+             and the launches TRACED_REPLAYS replays make, read from a
+             torch.profiler trace by kernel symbol), and from
+             one copied scope its 3 prepared steps agree with 3 run()
+             steps on the losses and every persistable, bit for bit
+             where run() is bit-identical run to run, else each tensor
+             within twice run()'s own run-to-run spread (never below
+             ORACLE_GRAD_RTOL); the step p50 and peak memory beside
+             the run() phase's;
+29. bench — the port's bench entry (python3 -m
+             paddle_tpu_torch.tools.bench), prepared by default, at its
+             default headline (ResNet-50, bf16 AMP, NCHW, batch 256,
+             with its secondary, the flagship LM, which must be the bf16
+             LM), then (information) with BENCH_PREPARED=0 (run()), and
+             with BENCH_LAYOUT=NHWC (no secondary), each with
+             BENCH_ITERS=10, then (information) at BENCH_AMP=0
+             BENCH_LAYOUT=NHWC beside phase 13's step, then
+             BENCH_MODEL=transformer at its card default (bf16),
+             unfused and BENCH_FUSED_TRANSFORMER=1; each must exit 0
+             with finite losses, the last below the first, float32
+             parameters, under AMP an mfu, and every timed step
+             prepared (``prepared`` true) but in the BENCH_PREPARED=0
+             run.
 
-Phases 18-25 each check that every loss is finite, the last below the
+Phases 18-29 each check that every loss is finite, the last below the
 first, and every parameter still float32.
 
 Phase 3 holds K8 against its plain version at the flagship layer's
@@ -2142,6 +2162,201 @@ def _resnet_oracle_amp(torch, seed):
             "held": held, "ok": ok}
 
 
+# ---------------------------------------------------------------------------
+# phases 25-28: the prepared step, captured as one CUDA graph
+# ---------------------------------------------------------------------------
+
+# (run() phase, model, fused): the four bf16 programs, the bench
+# headline (NCHW ResNet-50 under AMP) first
+PREPARED_PATHS = (("train_resnet_amp", "resnet", False),
+                  ("train_resnet_fused_amp", "resnet", True),
+                  ("train_fused_amp", "lm", True),
+                  ("train_amp", "lm", False))
+# prepared steps held against as many run() steps from one scope
+AGREE_STEPS = 3
+TRACED_REPLAYS = 2     # replays traced for the launches they make
+
+
+def train_prepared(torch, path, kind, fused, run_result):
+    """Phase ``path``_prepared: ``path``'s program, batch and steps
+    through Executor.prepare / run_prepared (one CUDA graph replay a
+    step): startup, prepare with the batch, 1 warm-up step (it captures)
+    and the timed steps; ``path``'s checks, its launches a step, and
+    AGREE_STEPS prepared steps against as many run() steps from one
+    copied scope (``prepared_agreement``).  ``run_result`` is
+    ``path``'s own result, from this process."""
+    with bn_bf16(kind == "resnet"):
+        return _train_prepared(torch, path, kind, fused, run_result)
+
+
+def _train_prepared(torch, path, kind, fused, run_result):
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    if kind == "resnet":
+        main, startup, loss = build_resnet(fluid, fused, amp=True)
+        feed, steps = resnet_batch(RESNET_BATCH, SEED + 5), RESNET_STEPS
+        want = {"conv_stage_bf16": RESNET_CONVS} if fused else {}
+        batch = RESNET_BATCH
+    else:
+        main, startup, loss = build_lm(fluid, amp=True,
+                                       fuse_transformer=fused)
+        feed, steps = lm_batch(TRAIN_BATCH, SEED + 3), TRAIN_STEPS
+        want = train_launches_per_step(fused, True)
+        batch = TRAIN_BATCH
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    agreement = prepared_agreement(torch, fluid, main, loss, feed, persist,
+                                   get_scope_arrays(scope, persist))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prep = exe.prepare(main, feed_specs=feed, fetch_list=[loss], scope=scope)
+    losses = [float(prep.run_prepared(feed, return_numpy=True)[0][0])]
+    capture_s = time.perf_counter() - t0    # warm-ups, capture, replay
+    reset_launches()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = prep.run_prepared(feed, return_numpy=True)
+        step_ms.append((time.perf_counter() - t0) * 1e3)   # the fetch syncs
+        losses.append(float(out[0][0]))
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    # the peak from prepare() on: the warm-up steps, the capture and
+    # the replays; between replays the graph's private pool keeps the
+    # step's activations reserved, not allocated
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    # the counts above are the wrappers' calls recorded at capture, added
+    # per replay; the launches a replay makes are read from a trace
+    traced = traced_launches(torch, lambda: prep.run_prepared(feed),
+                             TRACED_REPLAYS)
+    prep.sync_scope()
+    p50 = _pct(step_ms, 0.5)
+    per_step = {k: launches[k] / steps for k in KERNELS}
+    dtypes = param_dtypes(main, scope)
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and all(per_step[k] == want.get(k, 0) for k in KERNELS)
+          and per_step == run_result["launches_per_step"]
+          and traced is not None
+          and all(n == per_step[k] for k, n in traced.items())
+          and dtypes == ["float32"] and agreement["ok"])
+    unit = "images_per_s" if kind == "resnet" else "tokens_per_s"
+    per = batch if kind == "resnet" else batch * TRAIN_LM["seq_len"]
+    return {"phase": path + "_prepared", "batch": batch, "amp": True,
+            "captured": True, "losses": losses, "step_ms": step_ms,
+            "step_ms_p50": p50, "run_step_ms_p50": run_result["step_ms_p50"],
+            "ratio_to_run": p50 / run_result["step_ms_p50"],
+            unit: per / p50 * 1e3,
+            "first_step_s": capture_s,
+            "max_memory_allocated_bytes": peak,
+            "memory_reserved_bytes": reserved,
+            "run_max_memory_allocated_bytes":
+                run_result["max_memory_allocated_bytes"],
+            "device_idle_share": "not measured here (profile_train "
+                                 "--prepared)",
+            "launches_per_step": per_step,
+            "launches_per_step_wanted": want, "launches": launches,
+            "replay_launches_traced_per_step":
+                traced if traced is not None else "not measured",
+            "param_dtypes": dtypes, "agreement": agreement, "ok": ok}
+
+
+def traced_launches(torch, step, n):
+    """{kernel: launches a step} of the bf16 kernels a captured step
+    runs, read from a ``torch.profiler`` trace of ``n`` calls of
+    ``step`` (each one replay) by the kernels' symbols
+    (``profile_train.KERNEL_GROUPS``; K6 bf16's stem form counts with
+    its wgmma form, as its wrapper counts them); None when the trace
+    holds no device event."""
+    from paddle_tpu_torch.tools.profile_train import (device_kernels,
+                                                      port_kernel_groups)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof, n)
+    if not kernels:
+        return None
+    out = {k: g["calls_per_step"]
+           for k, g in port_kernel_groups(kernels).items()}
+    out["conv_stage_bf16"] += out.pop("conv_stage_bf16_stem")
+    return out
+
+
+def prepared_agreement(torch, fluid, main, loss, feed, persist, init):
+    """AGREE_STEPS prepared steps against AGREE_STEPS run() steps, each
+    from a copy of ``init`` on the card: the losses and every
+    persistable after sync_scope.  run() goes twice first: where its two
+    runs are bit-identical, the prepared step must be too; where they
+    are not (cuDNN's grad convs sum with atomics), each tensor is held
+    as the oracles hold the card against the CPU, to AMP_ORACLE_SPREAD
+    times its own spread (here: run() against run(), relative Frobenius
+    norm), never below ORACLE_GRAD_RTOL."""
+    import numpy as np
+
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+
+    def steps(prepared):
+        scope = fluid.Scope()
+        set_scope_arrays(scope, init, "cuda")
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        if prepared:
+            with exe.prepare(main, feed_specs=feed, fetch_list=[loss],
+                             scope=scope) as prep:
+                losses = [prep.run_prepared(feed, return_numpy=True)[0]
+                          for _ in range(AGREE_STEPS)]
+        else:
+            losses = [exe.run(main, feed=feed, fetch_list=[loss],
+                              scope=scope)[0] for _ in range(AGREE_STEPS)]
+        out = {"loss": np.concatenate([np.ravel(x) for x in losses])}
+        out.update(get_scope_arrays(scope, persist))
+        return out
+
+    run_a, run_b = steps(False), steps(False)
+    torch.cuda.empty_cache()
+    got = steps(True)
+
+    def fro_rel(a, b):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        d = float(np.linalg.norm(a - b))
+        return d / max(float(np.linalg.norm(b)), 1e-30) if d else 0.0
+
+    deterministic = all(np.array_equal(run_a[n], run_b[n]) for n in run_a)
+    identical = all(np.array_equal(got[n], run_a[n]) for n in run_a)
+    held = {}
+    for n in run_a:
+        spread = fro_rel(run_b[n], run_a[n])
+        held[n] = {"fro_rel": fro_rel(got[n], run_a[n]),
+                   "run_spread_fro_rel": spread,
+                   "tolerance": max(ORACLE_GRAD_RTOL,
+                                    AMP_ORACLE_SPREAD * spread),
+                   "max_abs_diff": float(np.abs(
+                       got[n].astype(np.float64) - run_a[n]).max())
+                   if got[n].size else 0.0}
+    worst = max(held, key=lambda n: held[n]["fro_rel"] /
+                held[n]["tolerance"])
+    ok = identical if deterministic else all(
+        math.isfinite(h["fro_rel"]) and h["fro_rel"] <= h["tolerance"]
+        for h in held.values())
+    return {"steps": AGREE_STEPS, "tensors": len(held),
+            "run_bit_identical_run_to_run": deterministic,
+            "bit_identical_to_run": identical,
+            "losses_prepared": got["loss"].tolist(),
+            "losses_run": run_a["loss"].tolist(),
+            "max_abs_diff": max(h["max_abs_diff"] for h in held.values()),
+            "loss": held["loss"], "worst_vs_tolerance": [worst, held[worst]],
+            "ok": bool(ok)}
+
+
 def bench_runs(torch, fused_step_ms):
     """The port's bench entry in a subprocess: the default headline with
     its secondary (the flagship LM, which must be the bf16 LM),
@@ -2152,6 +2367,7 @@ def bench_runs(torch, fused_step_ms):
     JSON lines, the phase's summary)."""
     root = os.path.dirname(os.path.abspath(__file__))
     runs = (("headline", {"BENCH_SECONDARY": "1"}),
+            ("headline_run", {"BENCH_PREPARED": "0"}),
             ("nhwc", {"BENCH_LAYOUT": "NHWC"}),
             ("nhwc_f32", {"BENCH_LAYOUT": "NHWC", "BENCH_AMP": "0"}),
             ("lm", {"BENCH_MODEL": "transformer"}),
@@ -2178,7 +2394,7 @@ def bench_runs(torch, fused_step_ms):
             continue
         lines[name] = out
         amp = extra.get("BENCH_AMP", "1") == "1"
-        checks = bench_checks(out, amp)
+        checks = bench_checks(out, amp, extra.get("BENCH_PREPARED") != "0")
         if "BENCH_MODEL" in extra:
             fused = "BENCH_FUSED_TRANSFORMER" in extra
             checks.update(
@@ -2195,7 +2411,7 @@ def bench_runs(torch, fused_step_ms):
                     sec is not None and sec["amp"] is True
                     and sec["metric"] ==
                     "transformer_lm_d1024_L6_train_bs16_seq2048_bf16"
-                    and all(bench_checks(sec, True).values()))
+                    and all(bench_checks(sec, True, True).values()))
         ok = all(checks.values())
         if not ok:
             bad.append("%s failed its checks: %s" % (
@@ -2203,10 +2419,11 @@ def bench_runs(torch, fused_step_ms):
         summary[name] = {k: out.get(k) for k in (
             "metric", "value", "step_ms_p50", "step_ms_p90", "step_ms_p99",
             "tflops", "mfu", "amp", "data_format", "fused_stages",
-            "device")}
+            "prepared", "prepared_steps", "device")}
         if out.get("secondary"):
             summary[name]["secondary"] = {k: out["secondary"].get(k) for k in (
-                "metric", "value", "step_ms_p50", "tflops", "mfu", "amp")}
+                "metric", "value", "step_ms_p50", "tflops", "mfu", "amp",
+                "prepared", "prepared_steps")}
         summary[name].update(seconds=secs, ok=ok)
     if "nhwc_f32" in lines:
         summary["nhwc_f32"]["train_resnet_fused_step_ms_p50"] = fused_step_ms
@@ -2216,16 +2433,19 @@ def bench_runs(torch, fused_step_ms):
                    "failures": bad, "ok": not bad}
 
 
-def bench_checks(out, amp):
+def bench_checks(out, amp, prepared):
     """The checks every bench entry run must pass: finite losses, the
     last below the first, float32 parameters, ``amp`` as asked and an
-    mfu exactly under AMP, no prepared step."""
+    mfu exactly under AMP, and with ``prepared`` every timed step
+    through the prepared step (without, none)."""
     losses = out["losses"]
     return {"losses": out["losses_finite"] and losses[-1] < losses[0],
             "param_dtypes": out["param_dtypes"] == ["float32"],
             "amp": out["amp"] is amp,
             "mfu": (out["mfu"] is not None) is amp,
-            "prepared": out["prepared"] is False}
+            "prepared": out["prepared"] is prepared
+            and out["prepared_steps"] == (len(out["step_ms"]) if prepared
+                                          else 0)}
 
 
 def main():
@@ -2383,6 +2603,7 @@ def main():
         if not result["ok"]:
             raise AssertionError("%s failed its checks" % phase)
         launches_train[phase] = result["launches"]
+        run_results = {}
         for fused in (False, True):
             phase = ("train_resnet_fused" if fused else "train_resnet") + \
                 "_amp"
@@ -2392,6 +2613,7 @@ def main():
             if not result["ok"]:
                 raise AssertionError("%s failed its checks" % phase)
             launches_train[phase] = result["launches"]
+            run_results[phase] = result
 
         phase = "train_resnet_fused_amp_oracle"
         torch.cuda.empty_cache()
@@ -2426,6 +2648,7 @@ def main():
             if not result["ok"]:
                 raise AssertionError("%s failed its checks" % phase)
             launches_train[phase] = result["launches"]
+            run_results[phase] = result
 
             phase += "_oracle"
             torch.cuda.empty_cache()
@@ -2435,6 +2658,16 @@ def main():
                 raise AssertionError("%s: the card's AMP step disagrees "
                                      "with the CPU one past its spread"
                                      % phase)
+
+        for path, kind, fused in PREPARED_PATHS:
+            phase = path + "_prepared"
+            torch.cuda.empty_cache()
+            result = train_prepared(torch, path, kind, fused,
+                                    run_results[path])
+            emit(result)
+            if not result["ok"]:
+                raise AssertionError("%s failed its checks" % phase)
+            launches_train[phase] = result["launches"]
 
         phase = "bench"
         torch.cuda.empty_cache()
@@ -2524,7 +2757,8 @@ def main():
     # train_resnet_fused_amp for K6's bf16 form, train_sp for K9, the
     # int8 tenant's serve run, which runs all three serving kernels, for
     # the rest; K10 is on no path, so 0); every path's count stands
-    # beside it
+    # beside it (the *_prepared phases': the wrappers' calls recorded at
+    # capture, held against a trace of the replays)
     bf16_path = {BF16_FORM[k]: "train_amp" for k in TRAIN_KERNELS}
     bf16_path.update({BF16_FORM[k]: "train_fused_amp"
                       for k in FUSED_KERNELS})

@@ -1,10 +1,9 @@
 """Core Executor: runs a block of a ProgramDesc against a Scope.
 
-Counterpart of the part of ``paddle_tpu/core/executor_impl.py``
-(``ExecutorCore.run``) that a training step of a fluid Program needs.
-Where the JAX package functionalizes the block into one jitted XLA
-computation, this runs the block's ops eagerly, in order, on the place's
-device (``lowering.run_op``):
+Counterpart of ``paddle_tpu/core/executor_impl.py``'s ``ExecutorCore``
+and ``PreparedProgram``.  Where the JAX package functionalizes the block
+into one jitted XLA computation, this runs the block's ops eagerly, in
+order, on the place's device (``lowering.run_op``):
 
 - feeds become tensors on the device (int64 ids stay int64, after the
   JAX package's out-of-range check);
@@ -18,6 +17,21 @@ device (``lowering.run_op``):
 - everything runs under ``torch.no_grad()``: gradients come from the
   program's own ``*_grad`` ops.
 
+The block's plan (its core ops, the names it reads from outside in
+order, the persistables it writes, the fetches and the free plan) is the
+port's analog of the JAX package's compiled entry: ``_CacheEntry``,
+shared by ``run()`` and ``prepare()``.  Unlike a compiled executable it
+depends on no feed shape and no flag (the lowering reads the flags each
+time it runs), so it is keyed on the program's uid and version, the
+block, the fetch list and AMP alone.
+
+``prepare()`` returns a ``PreparedProgram``: the block's inputs that are
+not fed and the persistables it writes stay device-resident from step
+to step in a ``step_graph.StepGraph``, which on a card captures the
+step as one CUDA graph (the analog of ``jax.jit`` with donated
+parameters); ``sync_scope`` writes them back to the scope, and every
+read of the scope flushes them first.
+
 With a ``mesh`` (``parallel.Mesh``), the ops that shard over it (the
 ring attention op under an ``sp`` axis) place their shards on the
 mesh's devices; every other op runs on the place's device.
@@ -28,15 +42,17 @@ naming its ROADMAP item: one run on a mesh whose sp axis the ring
 attention shards over (the ring's chunk kernel K9 has no bf16 form), and
 one holding ``moe_ffn`` (its dense dispatch has no test under AMP).
 
-Not ported yet: the compile cache and ``PreparedProgram``, GSPMD's
-partition of the whole step over a mesh, the numerics bisect machinery,
-host ops and ragged (LoD) feeds.
+Not ported yet: GSPMD's partition of the whole step over a mesh, host
+ops and ragged (LoD) feeds, and the prepared step's numerics twin
+(``entry_health``, bisect snapshots), buffer sanitizer and telemetry
+spans and counters (no observability module is ported).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .flags import FLAGS
 from .lowering import LoweringContext, run_op
 from .registry import get_op_info
 from .types import proto_to_np_dtype
@@ -55,6 +71,251 @@ AMP_UNPORTED = {"moe_ffn": "ROADMAP queue 1 item 3h, moe_ffn under AMP"}
 OP_HOOK = None
 
 
+class PreparedShapeMismatch(ValueError):
+    """A feed's shape differs from the one the prepared step was built
+    (on a card: captured) for; the caller should run() this batch or
+    prepare again."""
+
+
+class Uncapturable(NotImplementedError):
+    """prepare() on a card refuses a block whose step a CUDA graph replay
+    cannot reproduce; ParallelExecutor runs such a program through
+    run()."""
+
+
+class _CacheEntry:
+    """A block's plan: ``ops`` (the core ops), ``input_names`` (the names
+    read before the block writes them, in order: feeds and scope
+    values), ``persist_outs`` (the persistables it writes, sorted),
+    ``fetch_names`` and ``free_after`` (``_free_plan``)."""
+
+    __slots__ = ("ops", "input_names", "persist_outs", "fetch_names",
+                 "free_after")
+
+    def __init__(self, ops, input_names, persist_outs, fetch_names,
+                 free_after):
+        self.ops = ops
+        self.input_names = input_names
+        self.persist_outs = persist_outs
+        self.fetch_names = fetch_names
+        self.free_after = free_after
+
+
+def _cache_key(program, block_id, fetch_list):
+    """The one plan-cache key, shared by run() and prepare(): what the
+    plan depends on.  (The flags the lowering reads are read as it runs;
+    a prepared step holds those it was prepared with, step_graph.)"""
+    return (program.uid, program.version, block_id, tuple(fetch_list),
+            bool(getattr(program, "amp_bf16", False)))
+
+
+def run_block(ctx, entry):
+    """Run ``entry``'s ops over ``ctx.env`` under no_grad, dropping each
+    value after its last reader; ``ctx.op`` names the op running."""
+    env = ctx.env
+    free_after = entry.free_after
+    with torch.no_grad():
+        for i, op in enumerate(entry.ops):
+            ctx.op = op
+            if OP_HOOK is None:
+                run_op(ctx, op)
+            else:
+                with OP_HOOK(op):
+                    run_op(ctx, op)
+            for name in free_after.get(i, ()):
+                env.pop(name, None)
+    ctx.op = None
+
+
+def flush_prepared(scope, exclude=None):
+    """sync_scope() every dirty prepared program attached to ``scope``
+    or an ancestor."""
+    s = scope
+    while s is not None:
+        if s._prepared_registry:
+            s.flush_prepared(exclude)
+        s = s._parent
+
+
+def seen_entry(scope, name):
+    """(owning scope, write version) of ``name``: recorded when a value
+    is read or installed, compared later to tell one's own writes from
+    someone else's."""
+    s = scope.find_scope_of(name)
+    return (s, s._write_versions.get(name) if s is not None else None)
+
+
+def seen_changed(scope, name, seen):
+    """True when ``name`` was written since ``seen`` was recorded (or
+    never recorded): the scope's value wins over device state."""
+    if seen is None:
+        return True
+    cur = seen_entry(scope, name)
+    return cur[0] is not seen[0] or cur[1] != seen[1]
+
+
+class PreparedProgram:
+    """Reference Executor::Prepare + RunPreparedContext: the block's plan
+    is made once, and its state (every input that is not fed, and every
+    persistable it writes) stays on the device from step to step in a
+    ``step_graph.StepGraph``.  ``run_prepared`` stages the feeds and runs
+    one step (on a card, one CUDA graph replay) and returns the fetches
+    as tensors; ``sync_scope`` writes the state back to the scope (on
+    every run()'s and every scope read's flush, and on context exit).
+
+    A write to the scope bumps its version, so the next step re-stages
+    the state from the scope; the per-name write versions tell this
+    program's own write-backs from external writes, and a name someone
+    else wrote always wins over the device copy."""
+
+    def __init__(self, core, program, block_id, entry, scope, feed_names,
+                 fixed_shapes):
+        from .step_graph import StepGraph
+
+        self._core = core
+        self._program = program
+        self._block_id = block_id
+        self._entry = entry
+        self._scope = scope
+        self._feed_names = frozenset(feed_names)
+        self._program_version = program.version
+        block = program.blocks[block_id]
+        self._state_names = [n for n in entry.input_names
+                             if n not in self._feed_names]
+        written = set(entry.persist_outs)
+        self._read_only = [n for n in self._state_names if n not in written]
+        self._seen = {}   # name -> (owning scope, write version) we saw
+        self._step = StepGraph(core, program, block_id, entry,
+                               self._state_names, fixed_shapes)
+        self._block = block
+        # another prepared program may hold newer values of our state
+        flush_prepared(scope)
+        self._refresh_from_scope()
+        self._dirty = False
+        self._scope_epoch = scope.chain_version()
+        # register on every scope that owns a resident name too: a
+        # reader rooted at an ancestor never walks down to ``scope``
+        owners = {id(scope): scope}
+        for name in self._state_names + list(entry.persist_outs):
+            s = scope.find_scope_of(name)
+            if s is not None:
+                owners.setdefault(id(s), s)
+        for s in owners.values():
+            s.attach_prepared(self)
+
+    @property
+    def fetch_names(self):
+        return self._entry.fetch_names
+
+    @property
+    def is_stale(self):
+        """True once the program changed after prepare() (its version
+        moved): sync_scope and prepare again."""
+        return self._program.version != self._program_version
+
+    def _refresh_from_scope(self):
+        """Re-stage the resident inputs from the scope (after a run() or
+        an external write), reading each owning scope's storage (other
+        prepared programs were flushed already) and recording its write
+        version."""
+        scope = self._scope
+        for name in self._state_names:
+            s = scope.find_scope_of(name)
+            if s is None:
+                raise KeyError(
+                    "variable %r is neither fed nor in the scope (run the "
+                    "startup program first?)" % name)
+            self._step.load_state(name, s._vars[name])
+            self._seen[name] = (s, s._write_versions.get(name))
+        # write-only persistables are rebuilt by the next step: drop the
+        # old output, keep a baseline to catch an external write
+        for name in self._entry.persist_outs:
+            if name not in self._step.state:
+                self._step.outs.pop(name, None)
+                self._seen[name] = seen_entry(scope, name)
+
+    def run_prepared(self, feed=None):
+        """Stage ``feed`` and run one step; returns the fetch list as
+        tensors (fresh ones, which the next step leaves alone)."""
+        if self.is_stale:
+            raise RuntimeError(
+                "program mutated since prepare() (version %d -> %d): the "
+                "prepared step is stale; prepare again" %
+                (self._program_version, self._program.version))
+        scope = self._scope
+        flush_prepared(scope, exclude=self)
+        if scope.chain_version() != self._scope_epoch:
+            # someone wrote the scope since our last sync: install our
+            # updates first, so the re-stage reads a whole scope
+            if self._dirty:
+                self.sync_scope()
+            self._refresh_from_scope()
+            self._scope_epoch = scope.chain_version()
+        feed = dict(feed or {})
+        if feed.keys() != self._feed_names:
+            self._check_feed_names(feed)
+        staged = {name: self._core._feed_host(self._block, name, feed[name])
+                  for name in self._feed_names}
+        # a refused step draws no seed: the run() that takes its batch
+        # draws the one this step would have
+        self._step.check(staged)
+        fetches = self._step.run(staged, _run_seed(self._program, scope))
+        self._dirty = True
+        return fetches
+
+    def _check_feed_names(self, feed):
+        missing = self._feed_names - feed.keys()
+        if missing:
+            raise KeyError(
+                "prepared program expects feed(s) %s (prepared "
+                "signature: %s)" % (sorted(missing),
+                                    sorted(self._feed_names)))
+        resident = feed.keys() & set(self._state_names)
+        if resident:
+            raise ValueError(
+                "feed(s) %s are device-resident state of this prepared "
+                "program; sync_scope() + run(), or prepare again with them "
+                "in feed_specs" % sorted(resident))
+        # extra feeds the block never reads are ignored, like run()
+
+    def sync_scope(self):
+        """Write the written persistables back to the scope, each as a
+        copy of the device state (the next step updates the state in
+        place).  A name written externally since we last read or
+        installed it wins: our copy is dropped and re-staged from the
+        scope before the next step."""
+        scope = self._scope
+        stale = False
+        for name in self._entry.persist_outs:
+            val = self._step.current(name)
+            if val is None:
+                continue
+            if seen_changed(scope, name, self._seen.get(name)):
+                self._step.outs.pop(name, None)
+                self._seen.pop(name, None)
+                stale = True
+                continue
+            s = scope.find_scope_of(name) or scope
+            s.set(name, val.clone())
+            self._seen[name] = (s, s._write_versions[name])
+        # an external write to read-only state (a learning rate) must
+        # be caught here: installing our outputs moves the epoch past it
+        if not stale:
+            stale = any(seen_changed(scope, name, self._seen.get(name))
+                        for name in self._read_only)
+        self._dirty = False
+        self._scope_epoch = None if stale else scope.chain_version()
+
+    # ``with exe.prepare(...) as prep:`` syncs on exit
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._dirty:
+            self.sync_scope()
+        return False
+
+
 class ExecutorCore:
     """place: the device every op runs on.  mesh: an optional
     ``parallel.Mesh`` that the sharded ops lay their shards over."""
@@ -63,9 +324,76 @@ class ExecutorCore:
         self.place = place
         self.device = place.torch_device()
         self.mesh = mesh
+        self._cache = {}
 
     def run(self, program, scope, block_id=0, feed=None, fetch_list=None,
             return_numpy=True):
+        # device-resident prepared state lands in the scope first
+        flush_prepared(scope)
+        block = program.blocks[block_id]
+        fetch_list = list(fetch_list or [])
+        env = {name: self._feed_host(block, name, val).to(self.device)
+               for name, val in (feed or {}).items()}
+        entry = self._entry(program, block_id, fetch_list)
+        for name in entry.input_names:
+            if name not in env:
+                env[name] = self._scope_tensor(scope, name)
+        ctx = LoweringContext(program, block_id, env, self.device,
+                              seed=_run_seed(program, scope), mesh=self.mesh)
+        run_block(ctx, entry)
+        for name in entry.persist_outs:
+            (scope.find_scope_of(name) or scope).set(name, env[name])
+        fetches = [env[name] for name in fetch_list]
+        if return_numpy:
+            fetches = fetches_to_host(fetches)
+        return fetches
+
+    def prepare(self, program, feed_specs, fetch_list, scope=None,
+                block_id=0):
+        """Reference Executor::Prepare: make the block's plan once and
+        return a PreparedProgram whose step is feed staging and one
+        dispatch (on a card, one CUDA graph replay).
+
+        ``feed_specs`` is a sample feed dict (the first batch: its
+        shapes fix the step's, and a batch of another shape raises
+        PreparedShapeMismatch) or an iterable of feed names (on a card
+        the first run_prepared's feed fixes the shapes).  Raises
+        ValueError for a block holding host ops, so that callers fall
+        back to run()."""
+        if scope is None:
+            raise ValueError(
+                "prepare() requires the scope holding the program's "
+                "persistables (run the startup program into it first)")
+        if feed_specs is None:      # a block fed from the scope alone
+            feed_specs = {}
+        fetch_list = list(fetch_list or [])
+        block = program.blocks[block_id]
+        prelude, _, postlude, mixed = _segment(block)
+        if mixed or prelude or postlude:
+            host = sorted({op.type for op in block.ops
+                           if get_op_info(op.type).host_op})
+            raise ValueError(
+                "block %d has host op(s) %s; the prepared step runs the "
+                "whole block on the device: use run()" % (block_id, host))
+        fixed = None
+        if hasattr(feed_specs, "keys"):
+            fixed = {name: tuple(self._feed_host(block, name, val).shape)
+                     for name, val in feed_specs.items()}
+        entry = self._entry(program, block_id, fetch_list)
+        if self.device.type == "cuda":
+            self._refuse_uncapturable(entry)
+        return PreparedProgram(self, program, block_id, entry, scope,
+                               feed_specs, fixed)
+
+    def _entry(self, program, block_id, fetch_list):
+        key = _cache_key(program, block_id, fetch_list)
+        entry = self._cache.get(key)
+        if entry is None:
+            entry = self._build(program, block_id, fetch_list)
+            self._cache[key] = entry
+        return entry
+
+    def _build(self, program, block_id, fetch_list):
         block = program.blocks[block_id]
         prelude, core_ops, postlude, mixed = _segment(block)
         host = [op.type for op in prelude + postlude] if not mixed else \
@@ -76,41 +404,53 @@ class ExecutorCore:
                 % sorted(set(host)))
         if getattr(program, "amp_bf16", False):
             _refuse_unported_amp(block, self.mesh)
-        fetch_list = list(fetch_list or [])
-        env = {name: self._feed_tensor(block, name, val)
-               for name, val in (feed or {}).items()}
-        ctx = LoweringContext(program, block_id, env, self.device,
-                              seed=_run_seed(program, scope), mesh=self.mesh)
-        written = set()
-        free_after = _free_plan(block, core_ops, set(fetch_list))
-        with torch.no_grad():
-            for i, op in enumerate(core_ops):
-                for name in op.input_arg_names():
-                    if name and name not in env:
-                        env[name] = self._scope_tensor(scope, name)
-                if OP_HOOK is None:
-                    run_op(ctx, op)
-                else:
-                    with OP_HOOK(op):
-                        run_op(ctx, op)
-                written.update(n for n in op.output_arg_names() if n)
-                for name in free_after.get(i, ()):
-                    env.pop(name, None)
-        for name in sorted(written):
-            vd = block.find_var_recursive(name)
-            if vd is not None and vd.persistable and name in env:
-                (scope.find_scope_of(name) or scope).set(name, env[name])
-        fetches = []
+        written, external, seen = set(), [], set()
+        for op in core_ops:
+            for name in op.input_arg_names():
+                if name and name not in written and name not in seen:
+                    seen.add(name)
+                    external.append(name)
+            written.update(n for n in op.output_arg_names() if n)
+        # fetching a name the block does not write reads it
         for name in fetch_list:
-            val = env[name] if name in env else scope.find_var(name)
-            fetches.append(val)
-        if return_numpy:
-            fetches = fetches_to_host(fetches)
-        return fetches
+            if name not in written and name not in seen:
+                seen.add(name)
+                external.append(name)
+        persist_outs = sorted(
+            n for n in written
+            if (vd := block.find_var_recursive(n)) is not None
+            and vd.persistable)
+        return _CacheEntry(list(core_ops), external, persist_outs,
+                           list(fetch_list),
+                           _free_plan(block, core_ops, set(fetch_list)))
 
-    def _feed_tensor(self, block, name, val):
+    def _refuse_uncapturable(self, entry):
+        """A card captures the prepared step as one CUDA graph; refuse
+        (Uncapturable) what a replay cannot reproduce."""
+        random = sorted({op.type for op in entry.ops if _draws(op)})
+        if random:
+            raise Uncapturable(
+                "prepare() on a card: random op(s) %s would draw the same "
+                "numbers at every replay of the captured step (ROADMAP "
+                "queue 1 item 2, dropout and its random stream); use "
+                "run()" % random)
+        if any(op.type == "assign_value" for op in entry.ops):
+            raise Uncapturable(
+                "prepare() on a card: assign_value copies its values from "
+                "host memory at every step, which a CUDA graph cannot "
+                "capture (ROADMAP queue 1 item 4, what it leaves); use run()")
+        if self.mesh is not None and any(
+                d != self.device for d in map(_indexed, self.mesh.devices)):
+            raise Uncapturable(
+                "prepare() on a mesh over distinct cards %s: the captured "
+                "step runs on one card (ROADMAP queue 1 item 10)"
+                % sorted({str(d) for d in self.mesh.devices}))
+
+    def _feed_host(self, block, name, val):
+        """A feed as a tensor, as given (a tensor) or from the host
+        value in the variable's dtype, int64 range-checked."""
         if isinstance(val, torch.Tensor):
-            return val.to(self.device)
+            return val
         vd = block.find_var_recursive(name)
         if vd is not None and not hasattr(val, "dtype"):
             arr = np.asarray(val, dtype=proto_to_np_dtype(vd.dtype))
@@ -118,7 +458,7 @@ class ExecutorCore:
             arr = np.asarray(val)
         if arr.dtype.kind in "iu" and arr.dtype.itemsize == 8 and arr.size:
             _check_int32_range(name, arr)
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(arr))
 
     def _scope_tensor(self, scope, name):
         try:
@@ -127,11 +467,31 @@ class ExecutorCore:
             raise KeyError(
                 "variable %r is neither fed nor in the scope (run the "
                 "startup program first?)" % name) from None
-        if isinstance(val, np.ndarray):
-            val = torch.from_numpy(val)
-        if isinstance(val, torch.Tensor) and val.device != self.device:
-            val = val.to(self.device)
-        return val
+        return to_device(val, self.device)
+
+
+def _draws(op):
+    """Whether ``op`` draws random numbers: a stateful op, but not one
+    whose only random part is a dropout it runs at probability 0 (the
+    fused matmul; its dropout is refused anyway, ROADMAP item 2)."""
+    return get_op_info(op.type).stateful and \
+        float(op.attr("dropout_prob", 1.0)) > 0.0
+
+
+def to_device(val, device):
+    """A scope value as a tensor on ``device`` (numpy converted)."""
+    if isinstance(val, np.ndarray):
+        val = torch.from_numpy(val)
+    if isinstance(val, torch.Tensor) and val.device != device:
+        val = val.to(device)
+    return val
+
+
+def _indexed(device):
+    """``device`` with its index filled in (``cuda`` -> ``cuda:N``)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _refuse_unported_amp(block, mesh):
@@ -174,7 +534,8 @@ def _check_int32_range(name, arr):
 
 def _run_seed(program, scope):
     """Seed of this run's random ops: the program's random_seed and a
-    per-scope run counter (the JAX package's ``_rng_counter``)."""
+    per-scope run counter (the JAX package's ``_rng_counter``), which
+    run() and run_prepared both advance."""
     counter = getattr(scope, "_rng_counter", 0)
     scope._rng_counter = counter + 1
     seed = getattr(program, "random_seed", 0) or 0

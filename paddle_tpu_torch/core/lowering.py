@@ -149,6 +149,7 @@ class LoweringContext:
         self.seed = seed                # this run's random seed
         self.mesh = mesh                # parallel.Mesh of the run, or None
         self.amp = bool(getattr(program, "amp_bf16", False))
+        self.op = None                  # the op running (executor_impl)
         self._generator = None
 
     def generator(self, seed=0):

@@ -10,9 +10,21 @@ ring attention op under an ``sp`` axis) lay their shards over all of it.
 Ported: ``mesh_axes`` with an ``sp`` axis (``dp`` 1).  Data and tensor
 parallelism (``dp``, ``tp`` > 1), the other axes and multi-host
 training (``num_trainers`` > 1) raise NotImplementedError.
-The eager executor has no op scheduling to tune and keeps no
-temporaries in the scope to drop, so it has no ``BuildStrategy`` or
-``ExecutionStrategy``: passing one raises NotImplementedError.
+
+``run`` goes through the prepared step (``Executor.prepare``; on a card
+one CUDA graph replay a step), one per (fetch, feed) signature, as the
+JAX package's does: a program with host ops is remembered, per program
+version, as needing ``run()``, and so is one whose step a CUDA graph
+cannot replay (``Uncapturable``: a random op, ``assign_value``, a mesh
+over distinct cards); a program that changed since it was
+prepared is synced and prepared again; a batch whose shape differs from
+the prepared one runs through ``run()``.
+
+The executor has no op scheduling to tune and keeps no temporaries in
+the scope to drop, so it has no ``BuildStrategy`` or
+``ExecutionStrategy`` (nor the latter's ``num_iteration_per_drop_scope``
+sync cadence: every read of the scope flushes the prepared state):
+passing one raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -21,7 +33,10 @@ import math
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.executor_impl import ExecutorCore
+from paddle_tpu_torch.core.executor_impl import (ExecutorCore,
+                                                 PreparedShapeMismatch,
+                                                 Uncapturable,
+                                                 fetches_to_host)
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace
 from paddle_tpu_torch.parallel.mesh import make_mesh
 
@@ -85,6 +100,10 @@ class ParallelExecutor:
                                                  "/".join(_PORTED_AXES)))
         self.mesh = make_mesh(axes, devices)
         self._core = ExecutorCore(place, mesh=self.mesh)
+        # the prepared step per (fetch names, feed names); signatures
+        # that need run() (host ops), per program version
+        self._prepared = {}
+        self._unpreparable = {}
 
     @property
     def device_count(self):
@@ -96,8 +115,39 @@ class ParallelExecutor:
             # per-device feed dicts (the reference API): concat on batch
             feed = {k: np.concatenate([np.asarray(d[k]) for d in feed],
                                       axis=0) for k in feed[0]}
+        feed = dict(feed or {})
         names = [f.name if isinstance(f, Variable) else f
                  for f in fetch_list]
-        return self._core.run(self._program.desc, self._scope, 0,
-                              dict(feed or {}), names,
-                              return_numpy=return_numpy)
+        prep = self._prepared_for(names, feed)
+        if prep is not None:
+            try:
+                outs = prep.run_prepared(feed)
+            except PreparedShapeMismatch:
+                pass    # a drifted batch: run() flushes the state first
+            else:
+                return fetches_to_host(outs) if return_numpy else outs
+        return self._core.run(self._program.desc, self._scope, 0, feed,
+                              names, return_numpy=return_numpy)
+
+    def _prepared_for(self, names, feed):
+        """The prepared step of this (fetch, feed) signature, made on
+        first use from the live feed; None when the program needs run()
+        (host ops; on a card, a step a graph cannot replay).  A changed
+        program is synced and prepared again."""
+        desc = self._program.desc
+        key = (tuple(names), tuple(sorted(feed)))
+        prep = self._prepared.get(key)
+        if prep is not None and prep.is_stale:
+            if prep._dirty:
+                prep.sync_scope()
+            del self._prepared[key]
+            prep = None
+        if prep is None and self._unpreparable.get(key) != desc.version:
+            try:
+                prep = self._core.prepare(desc, feed, names,
+                                          scope=self._scope)
+            except (ValueError, Uncapturable):
+                self._unpreparable[key] = desc.version
+            else:
+                self._prepared[key] = prep
+        return prep

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version.  ``KERNELS`` maps each kernel's name (a kernel's bf16 form has
 its own) to its wrapper, whose ``launches`` attribute counts kernel
-launches."""
+launches.  A wrapper called while a CUDA graph is captured records a
+launch instead of making one: ``core/step_graph.py`` takes those counts
+back with ``add_launches`` and adds them again at every replay."""
 from __future__ import annotations
 
 from .flash_attention import (chunk_finalize, flash_attention,
@@ -16,7 +18,8 @@ from .matmul_fused import (add_ln, add_ln_bf16, matmul_epilogue,
 from .conv_fused import conv2d_nhwc, conv2d_nhwc_bf16
 from .fused import fused_softmax_cross_entropy
 
-__all__ = ["KERNELS", "reset_launches", "flash_attention",
+__all__ = ["KERNELS", "reset_launches", "launch_counts", "add_launches",
+           "flash_attention",
            "flash_attention_fwd_lse", "flash_attention_bwd",
            "flash_attention_train", "flash_attention_chunk",
            "chunk_finalize", "flash_attention_chunk_bwd", "paged_attention",
@@ -46,3 +49,14 @@ KERNELS = {"flash_fwd": flash_attention_fwd_lse,
 def reset_launches():
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def launch_counts():
+    """{kernel name: launches so far}."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def add_launches(counts):
+    """Add ``counts`` ({kernel name: n}) to the kernels' counts."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n

@@ -71,7 +71,9 @@ def apply_act(y, act):
     if act == "gelu":
         if y.dtype in (torch.float32, torch.float64):
             return F.gelu(y, approximate="tanh")
-        c = torch.tensor(_SQRT_2_OVER_PI, dtype=y.dtype, device=y.device)
+        # torch.full, not torch.tensor: a fill on the device, where a
+        # copy from the host could not be captured in a CUDA graph
+        c = torch.full((), _SQRT_2_OVER_PI, dtype=y.dtype, device=y.device)
         return y * (0.5 * (1.0 + torch.tanh(c * (y + 0.044715 * y ** 3))))
     if act:
         raise ValueError("unsupported fused activation %r" % (act,))

@@ -27,11 +27,16 @@ without a card):
 - ``BENCH_PEAK_TFLOPS``: the peak ``mfu`` is taken against (989.4, an
   H100 SXM's dense bf16 rate).
 
+The timed loop is ``bench.py``'s: with ``BENCH_PREPARED`` (default 1)
+it trains through ``Executor.prepare`` / ``run_prepared`` (on the card
+one CUDA graph replay a step), falling back to ``run()`` for a program
+with host ops (``ValueError``) and, after ``sync_scope()``, for a batch
+whose shape differs from the prepared one (``PreparedShapeMismatch``);
+``BENCH_PREPARED=0`` times ``run()``.  The JSON's ``prepared`` is true
+when every timed step was prepared, and ``prepared_steps`` counts them.
+
 Where it departs from ``bench.py`` (each visible in the JSON):
 
-- there is no prepared (captured) step yet: ``prepared`` is false and
-  ``BENCH_PREPARED=1`` raises (ROADMAP queue 1 item 4), where
-  ``bench.py`` falls back quietly;
 - data is synthetic, drawn from a seed at ``bench.py``'s shapes (uint8
   images for ResNet, as in its real-data mode), fed from the host each
   step: ``BENCH_FAKE=0`` raises, since the port has no flowers reader.
@@ -43,7 +48,8 @@ output is one JSON object: ``metric``, ``value``, ``unit``,
 ``tflops`` (ResNet at 224 x 224: ``bench.py``'s 12.3e9 FLOPs a training
 image; the LM: ``bench.py``'s 6 N_params + 6 L d_model T FLOPs a token)
 and ``mfu`` (on the card under AMP only; else null), ``amp``,
-``data_format``, ``fused_stages``, ``prepared``, the step
+``data_format``, ``fused_stages``, ``prepared``, ``prepared_steps``,
+the step
 percentiles, ``device`` (the card's name and power limit from
 nvidia-smi, or "cpu"), ``secondary``, and the run's losses and
 parameter dtypes.
@@ -117,28 +123,55 @@ def _place():
     return fluid.CUDAPlace(0), True
 
 
-def _train(fluid, place, main, startup, loss, feed, iters):
-    """Startup, 1 warm-up step and ``iters`` timed steps on one fixed
-    batch; each step ends with the loss fetch.  Returns (losses, step
-    ms, parameter dtypes)."""
+def _train(fluid, place, main, startup, loss, feeds, iters):
+    """Startup, 1 warm-up step and ``iters`` timed steps, step ``i`` on
+    ``feeds[i % len(feeds)]`` (the warm-up on ``feeds[0]``), through the
+    prepared step unless ``BENCH_PREPARED=0`` (``bench.py``'s loop);
+    each step ends with the loss fetch.  Returns (losses, step ms,
+    parameter dtypes, timed steps that were prepared)."""
+    from paddle_tpu_torch.core.executor_impl import PreparedShapeMismatch
+
     scope = fluid.Scope()
     exe = fluid.Executor(place)
     exe.run(startup, scope=scope)
-    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
-                            scope=scope)[0].ravel()[0])]
-    step_ms = []
-    for _ in range(iters):
+    prepared = None
+    if os.environ.get("BENCH_PREPARED", "1") == "1":
+        try:
+            prepared = exe.prepare(main, feed_specs=feeds[0],
+                                   fetch_list=[loss], scope=scope)
+        except ValueError:
+            prepared = None     # host ops in the block: run()
+
+    def step(feed):
+        nonlocal prepared
+        if prepared is not None:
+            try:
+                return prepared.run_prepared(feed, return_numpy=True), 1
+            except PreparedShapeMismatch:
+                # a batch of another shape: the state goes back to the
+                # scope, and run() takes the rest of the loop
+                prepared.sync_scope()
+                prepared = None
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope), 0
+
+    losses = [float(step(feeds[0])[0][0].ravel()[0])]
+    step_ms, prepared_steps = [], 0
+    for i in range(iters):
         t0 = time.perf_counter()
-        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        out, was_prepared = step(feeds[i % len(feeds)])
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(out[0].ravel()[0]))
+        prepared_steps += was_prepared
+    if prepared is not None:
+        prepared.sync_scope()
     dtypes = sorted({str(scope.find_var(p.name).dtype).replace(
         "torch.", "") for p in main.all_parameters()})
-    return losses, step_ms, dtypes
+    return losses, step_ms, dtypes, prepared_steps
 
 
-def _common(losses, step_ms, dtypes, amp, on_card):
-    return {"amp": amp, "prepared": False, "fake_data": True,
+def _common(losses, step_ms, dtypes, prepared_steps, amp, on_card):
+    return {"amp": amp, "prepared": prepared_steps == len(step_ms),
+            "prepared_steps": prepared_steps, "fake_data": True,
             "step_ms_p50": _pct(step_ms, 0.5),
             "step_ms_p90": _pct(step_ms, 0.9),
             "step_ms_p99": _pct(step_ms, 0.99),
@@ -187,8 +220,8 @@ def transformer_bench(place, on_card, secondary=False):
     rng = np.random.RandomState(SEED)
     feed = {src.name: rng.randint(0, vocab, (bs, seq)).astype(np.int64),
             label.name: rng.randint(0, vocab, (bs, seq, 1)).astype(np.int64)}
-    losses, step_ms, dtypes = _train(fluid, place, main, startup, loss, feed,
-                                     iters)
+    losses, step_ms, dtypes, prepared = _train(fluid, place, main, startup,
+                                               loss, [feed], iters)
     fused = [op.type for op in main.desc.blocks[0].ops
              if op.type.startswith("fused_") and not op.type.endswith("_grad")]
     counts = {t: fused.count(t) for t in sorted(set(fused))}
@@ -197,7 +230,7 @@ def transformer_bench(place, on_card, secondary=False):
                d_model, n_layers, bs, seq, "_bf16" if amp else ""),
            "value": tokens_per_s, "unit": "tokens/sec",
            "vs_baseline": 0.0,      # bench.py has no LM baseline
-           **_common(losses, step_ms, dtypes, amp, on_card),
+           **_common(losses, step_ms, dtypes, prepared, amp, on_card),
            "fused_stages": len(fused), "fused_stage_counts": counts,
            "tflops": None, "mfu": None}
     if on_card:
@@ -242,15 +275,15 @@ def resnet_bench(place, on_card):
     feed = {data.name: rng.randint(0, 256, [batch] + list(data.shape[1:]))
             .astype(np.uint8),
             label.name: rng.randint(0, classes, (batch, 1)).astype(np.int64)}
-    losses, step_ms, dtypes = _train(fluid, place, main, startup, loss, feed,
-                                     iters)
+    losses, step_ms, dtypes, prepared = _train(fluid, place, main, startup,
+                                               loss, [feed], iters)
     images_per_s = batch * iters / (sum(step_ms) / 1e3)
     ops = main.desc.blocks[0].ops
     out = {"metric": "resnet50_%s_train_bs%d%s" % (
                data_set, batch, "_bf16" if amp else ""),
            "value": images_per_s, "unit": "images/sec",
            "vs_baseline": images_per_s / RESNET50_BASELINE,
-           **_common(losses, step_ms, dtypes, amp, on_card),
+           **_common(losses, step_ms, dtypes, prepared, amp, on_card),
            "bn_bf16": bool(FLAGS.bn_bf16),
            "data_format": "NHWC" if any(
                op.attr("data_format", op.attr("data_layout", "NCHW"))
@@ -277,10 +310,6 @@ def main():
     if model not in ("resnet50", "transformer"):
         raise SystemExit("BENCH_MODEL must be resnet50|transformer, got %r"
                          % model)
-    if os.environ.get("BENCH_PREPARED") == "1":
-        raise NotImplementedError(
-            "BENCH_PREPARED=1: the port has no prepared (captured) step "
-            "yet (ROADMAP queue 1 item 4)")
     if os.environ.get("BENCH_FAKE", "1") != "1":
         raise NotImplementedError(
             "BENCH_FAKE=0: the port has no flowers reader, and nothing "

@@ -1,9 +1,11 @@
 """The port's bench entry (``python3 -m paddle_tpu_torch.tools.bench``) on
 the CPU at tiny dims, in subprocesses: ResNet depth 8 on cifar10, batch
 4, 2 iterations, AMP off and on, NCHW and NHWC fused, and the LM with
-AMP off and on, the fused-block program under AMP too.  Each run exits 0
-and prints one parseable JSON last line with ``bench.py``'s fields; each
-refusal exits non-zero with its reason.  The LM, the secondary metric
+AMP off and on, the fused-block program under AMP too, each through the
+prepared step (``bench.py``'s default), and the ResNet and the LM once
+with ``BENCH_PREPARED=0`` (``run()``).  Each run exits 0 and prints one
+parseable JSON last line with ``bench.py``'s fields; each refusal exits
+non-zero with its reason.  The LM, the secondary metric
 included, takes ``BENCH_AMP`` with ``bench.py``'s default: on on the
 card, off on the CPU.
 """
@@ -31,6 +33,12 @@ RUNS[("transformer", "1", None)] = {"BENCH_MODEL": "transformer",
 RUNS[("transformer", "1", "fused")] = {
     "BENCH_MODEL": "transformer", "BENCH_ITERS": "2", "BENCH_AMP": "1",
     "BENCH_FUSED_TRANSFORMER": "1"}
+# run() instead of the prepared step
+RUNS[("resnet50", "0", "NCHW", "run")] = dict(RESNET, BENCH_AMP="0",
+                                             BENCH_LAYOUT="NCHW",
+                                             BENCH_PREPARED="0")
+RUNS[("transformer", "0", None, "run")] = {
+    "BENCH_MODEL": "transformer", "BENCH_ITERS": "2", "BENCH_PREPARED": "0"}
 
 
 def _env(extra):
@@ -76,9 +84,11 @@ def test_bench_prints_one_json_line(runs, key):
     assert rc == 0, stderr[-2000:]
     out = _last_json(stdout)
     assert all(f in out for f in FIELDS), sorted(set(FIELDS) - set(out))
-    model, amp, layout = key
+    model, amp, layout = key[:3]
+    prepared = key[3:] != ("run",)
     assert out["amp"] is (amp == "1")
-    assert out["prepared"] is False and out["device"] == "cpu"
+    assert out["prepared"] is prepared and out["device"] == "cpu"
+    assert out["prepared_steps"] == (2 if prepared else 0)
     assert out["value"] > 0 and out["secondary"] is None
     # no device metric from a CPU run
     assert out["tflops"] is None and out["mfu"] is None
@@ -105,7 +115,6 @@ def test_bench_prints_one_json_line(runs, key):
 @pytest.mark.parametrize("extra,reason", [
     ({"BENCH_MODEL": "vgg"}, "ROADMAP queue 1 items 2 and 3e"),
     ({"BENCH_MODEL": "resnet32"}, "ROADMAP queue 1 item 3e"),
-    ({"BENCH_PREPARED": "1"}, "ROADMAP queue 1 item 4"),
     ({"BENCH_FAKE": "0"}, "no flowers reader")])
 def test_bench_refusals_raise(monkeypatch, extra, reason):
     from paddle_tpu_torch.tools import bench
@@ -166,10 +175,10 @@ def test_secondary_lm_takes_bench_amp(monkeypatch, amp):
     monkeypatch.setenv("BENCH_AMP", amp)
     seen = {}
 
-    def train(fluid_, place, main, startup, loss, feed, iters):
+    def train(fluid_, place, main, startup, loss, feeds, iters):
         seen["amp_bf16"] = bool(main.desc.amp_bf16)
-        seen["batch"] = feed[sorted(feed)[0]].shape
-        return [2.0, 1.0], [1.0] * iters, ["float32"]
+        seen["batch"] = feeds[0][sorted(feeds[0])[0]].shape
+        return [2.0, 1.0], [1.0] * iters, ["float32"], iters
 
     monkeypatch.setattr(bench, "_train", train)
     out = bench.transformer_bench(fluid.CPUPlace(), False, secondary=True)

@@ -1340,9 +1340,10 @@ def test_parallel_executor_lays_its_mesh_on_the_cards(cuda):
     """ParallelExecutor with no use_cuda runs on the cards: a mesh wider
     than the visible cards raises; an sp=1 mesh cut by num_devices runs
     Adam steps on the card from per-device feed dicts, its losses those
-    of the same steps on the CPU.  (An sp > 1 ring under
-    ParallelExecutor needs as many cards; the one-card ring is driven
-    through ExecutorCore above.)"""
+    of the same steps on the CPU, through the prepared (captured) step:
+    the second step launches K1 once, by its replay.  (An sp > 1 ring
+    under ParallelExecutor needs as many cards; the one-card ring is
+    driven through ExecutorCore above.)"""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
     from paddle_tpu_torch.kernels import KERNELS, reset_launches
@@ -1368,16 +1369,18 @@ def test_parallel_executor_lays_its_mesh_on_the_cards(cuda):
     cpu_pe = fluid.ParallelExecutor(use_cuda=False, main_program=main,
                                     scope=host, mesh_axes={"sp": 1})
     rng = np.random.RandomState(1)
-    reset_launches()
     for rtol in (1e-5, 1e-4):    # the first step, then one after Adam's
+        # the first step captures (its warm-up steps launch too)
+        reset_launches()
         toks = rng.randint(0, 64, (2, 129))
         halves = [{"src": toks[i:i + 1, :-1],
                    "label": toks[i:i + 1, 1:, None]} for i in range(2)]
         got, = pe.run([loss.name], feed=halves)
         want, = cpu_pe.run([loss.name], feed=halves)
         np.testing.assert_allclose(got, want, rtol=rtol)
-    assert KERNELS["flash_fwd"].launches == 2
+    assert KERNELS["flash_fwd"].launches == 1
     assert KERNELS["flash_chunk"].launches == 0
+    assert len(pe._prepared) == 1
 
 
 # The bf16 forms of K1-K5 (the LM under AMP), each against its plain
@@ -1815,3 +1818,299 @@ def test_executor_lm_amp_step_on_card_runs_the_bf16_forms(cuda, fuse):
     want = fluid.Executor(fluid.CPUPlace()).run(
         main, feed=feed, fetch_list=fetch, scope=host)
     np.testing.assert_allclose(got[0].cpu().numpy(), want[0], rtol=1e-2)
+
+
+# The prepared step captured as one CUDA graph (core/step_graph.py): a
+# small LM (d_model 256, 2 heads of 128, 2 layers, sequence 128, batch
+# 2; the fused-block program) and the fused cifar10 ResNet (depth 8,
+# batch 4), both under Float16Transpiler.
+
+def _prepared_program(kind):
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import resnet, transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if kind == "lm":
+            loss, _, _ = transformer.get_model(
+                vocab_size=64, seq_len=128, d_model=256, n_head=2,
+                n_layers=2, d_ff=512, fuse_transformer=True)
+        else:
+            loss, _, _ = resnet.get_model(data_set="cifar10", depth=8,
+                                          data_format="NHWC",
+                                          fused_stages=True)
+    fluid.transpiler.Float16Transpiler().transpile(main)
+    return main, startup, loss
+
+
+def _prepared_feeds(kind, n):
+    rng = np.random.RandomState(3)
+    out = []
+    for _ in range(n):
+        if kind == "lm":
+            toks = rng.randint(0, 64, (2, 129))
+            out.append({"src": toks[:, :-1], "label": toks[:, 1:, None]})
+        else:
+            out.append({"data": rng.rand(4, 3, 32, 32).astype(np.float32),
+                        "label": rng.randint(0, 10, (4, 1))
+                        .astype(np.int64)})
+    return out
+
+
+# a step's launches: K1-K3 and K4/K5's bf16 forms (LM), K6's (ResNet)
+PREPARED_LAUNCHES = {
+    "lm": {"flash_fwd_bf16": 2, "flash_bwd_dq_bf16": 2,
+           "flash_bwd_dkv_bf16": 2, "matmul_epilogue_bf16": 9,
+           "add_ln_bf16": 4},
+    "resnet": {"conv_stage_bf16": 9}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lm", "resnet"])
+def test_captured_step_matches_run_on_card(cuda, kind):
+    """From one starting scope, 3 prepared (captured) steps against 3
+    run() steps: bit for bit where run() is bit-identical run to run,
+    else losses within rtol 1e-2 (bf16 resolution) and persistables
+    within 1e-2 of their largest magnitude; a replay launches each
+    kernel as often as a run() step does, and the held loss of one
+    step is not overwritten by the next."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    main, startup, loss = _prepared_program(kind)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    start = fluid.Scope()
+    exe.run(startup, scope=start)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    init = get_scope_arrays(start, persist)
+    feeds = _prepared_feeds(kind, 3)
+
+    def by_run():
+        scope = fluid.Scope()
+        set_scope_arrays(scope, init, "cuda")
+        losses = [exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0]
+                  for f in feeds]
+        return losses, get_scope_arrays(scope, persist)
+
+    run_a, run_b = by_run(), by_run()
+    scope = fluid.Scope()
+    set_scope_arrays(scope, init, "cuda")
+    held = []
+    with exe.prepare(main, feed_specs=feeds[0], fetch_list=[loss],
+                     scope=scope) as prep:
+        for i, f in enumerate(feeds):
+            if i == 1:
+                reset_launches()
+            held.append(prep.run_prepared(f)[0])
+        copies = [h.clone() for h in held]
+        prep.run_prepared(feeds[0])         # a fourth step
+    launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+    want = {k: 3 * n for k, n in PREPARED_LAUNCHES[kind].items()}
+    assert launches == want
+    for h, c in zip(held, copies):
+        assert torch.equal(h, c)
+    got_l = [h.float().cpu().numpy() for h in held]
+    # the state after three steps: a fresh prepared run of three
+    scope = fluid.Scope()
+    set_scope_arrays(scope, init, "cuda")
+    with exe.prepare(main, feed_specs=feeds[0], fetch_list=[loss],
+                     scope=scope) as prep:
+        for f in feeds:
+            prep.run_prepared(f)
+    got_p = get_scope_arrays(scope, persist)
+    deterministic = (
+        all(np.array_equal(a, b) for a, b in zip(run_a[0], run_b[0]))
+        and all(np.array_equal(run_a[1][n], run_b[1][n]) for n in persist))
+    if deterministic:
+        for g, w in zip(got_l, run_a[0]):
+            np.testing.assert_array_equal(g, w)
+        for n in persist:
+            np.testing.assert_array_equal(got_p[n], run_a[1][n], err_msg=n)
+    else:
+        np.testing.assert_allclose(np.ravel(got_l), np.ravel(run_a[0]),
+                                   rtol=1e-2)
+        for n in persist:
+            w = run_a[1][n].astype(np.float64)
+            scale = max(float(np.abs(w).max()), 1e-6)
+            assert float(np.abs(got_p[n] - w).max()) <= 1e-2 * scale, n
+
+
+@pytest.mark.cuda
+def test_captured_step_copies_feeds_and_keeps_its_addresses_on_card(cuda):
+    """A feed is copied into the graph's static buffer, never rebound:
+    a source tensor changed after a step is read anew by the next one,
+    and the static feed and state tensors keep their addresses (the
+    kernels' tensor maps were encoded with them at capture), across an
+    external write to the scope too."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays
+
+    main, startup, loss = _prepared_program("lm")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    f1, f2 = _prepared_feeds("lm", 2)
+    src = torch.from_numpy(f1["src"]).to(cuda)
+    feed = {"src": src, "label": f1["label"]}
+    prep = exe.prepare(main, feed_specs=feed, fetch_list=[loss, "src"],
+                       scope=scope)
+    _, got = prep.run_prepared(feed)
+    assert torch.equal(got, src)
+    step = prep._prep._step
+    feed_ptr = step._feeds["src"].data_ptr()
+    state_ptrs = {n: t.data_ptr() for n, t in step.state.items()}
+    assert feed_ptr != src.data_ptr()
+    src.copy_(torch.from_numpy(f2["src"]))
+    _, got = prep.run_prepared(feed)
+    assert torch.equal(got.cpu(), torch.from_numpy(f2["src"]))
+    w = main.all_parameters()[0].name
+    new = get_scope_arrays(scope, [w])[w] * 0.5          # flushes
+    scope.set(w, torch.from_numpy(new).to(cuda))         # external write
+    prep.run_prepared(feed)
+    assert step._feeds["src"].data_ptr() == feed_ptr
+    assert {n: t.data_ptr() for n, t in step.state.items()} == state_ptrs
+
+
+@pytest.mark.cuda
+def test_prepare_refuses_a_random_op_on_card(cuda):
+    """A replay would draw the same numbers every step: prepare() on a
+    card refuses a block with a random op (ROADMAP item 2)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.types import DataType
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        w = fluid.layers.create_global_var([4], 0.0, "float32",
+                                           persistable=True, name="rw")
+        block = main.global_block()
+        noise = block.create_var(name="noise", shape=[4], dtype="float32")
+        block.append_op(type="uniform_random", outputs={"Out": [noise]},
+                        attrs={"shape": [4], "dtype": DataType.FP32})
+        block.append_op(type="elementwise_add",
+                        inputs={"X": [w], "Y": [noise]},
+                        outputs={"Out": [w]})
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    with pytest.raises(NotImplementedError, match="item 2"):
+        exe.prepare(main, fetch_list=[w], scope=scope)
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_runtime_error_on_card(cuda, monkeypatch):
+    """An op that waits for the host (``.item()``) cannot be captured:
+    the prepared step raises RuntimeError naming the op -- not a
+    ValueError, which the bench entry and ParallelExecutor would take
+    as their cue to fall back to run()."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core import registry
+
+    def lower(ctx, ins, attrs, op):
+        x = ins["X"]
+        return {"Out": x * float(x.sum().item())}
+
+    monkeypatch.setitem(registry._registry, "host_sync_probe",
+                        registry.OpInfo("host_sync_probe", lower=lower,
+                                        grad_maker=None))
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        block = main.global_block()
+        out = block.create_var(name="probe_out", shape=[-1, 4],
+                               dtype="float32")
+        block.append_op(type="host_sync_probe", inputs={"X": [x]},
+                        outputs={"Out": [out]}, infer_shape=False)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    feed = {"x": np.ones((2, 4), np.float32)}
+    prep = exe.prepare(main, feed_specs=feed, fetch_list=[out], scope=scope)
+    with pytest.raises(RuntimeError, match="host_sync_probe") as err:
+        prep.run_prepared(feed)
+    assert not isinstance(err.value, ValueError)
+    torch.cuda.synchronize()
+    # the card is usable after the failed capture
+    got, = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+    np.testing.assert_array_equal(got, np.full((2, 4), 8.0, np.float32))
+
+
+def _probe_program():
+    """A fed block writing a persistable it never reads: probe = mean(x)."""
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        probe = fluid.layers.create_global_var([1], 0.0, "float32",
+                                               persistable=True,
+                                               name="probe")
+        m = fluid.layers.mean(x)
+        main.global_block().append_op(type="assign", inputs={"X": [m]},
+                                      outputs={"Out": [probe]})
+    return main, startup
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("between", ["external_write", "run"])
+def test_captured_step_keeps_write_only_persistables_on_card(cuda,
+                                                             between):
+    """A persistable the step writes and never reads still reaches the
+    scope after a re-stage (an external write, or a run() between two
+    replays): each replay puts the graph's output back."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays
+
+    main, startup = _probe_program()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    prep = exe.prepare(main, feed_specs=["x"], fetch_list=[], scope=scope)
+    prep.run_prepared({"x": np.ones((2, 4), np.float32)})   # captures
+    prep.run_prepared({"x": np.full((2, 4), 2.0, np.float32)})
+    if between == "run":
+        exe.run(main, feed={"x": np.full((2, 4), 3.0, np.float32)},
+                scope=scope)
+        seen = 3.0
+    else:
+        scope.set("probe", torch.full((1,), 123.0, device=cuda))
+        seen = 123.0
+    assert get_scope_arrays(scope, ["probe"])["probe"][0] == seen
+    prep.run_prepared({"x": np.full((2, 4), 8.0, np.float32)})
+    prep.sync_scope()
+    assert get_scope_arrays(scope, ["probe"])["probe"][0] == 8.0
+
+
+@pytest.mark.cuda
+def test_prepare_refuses_assign_value_and_parallel_executor_runs_it_on_card(
+        cuda):
+    """assign_value copies from host memory each step: prepare() on a
+    card refuses it (Uncapturable), and ParallelExecutor takes the
+    refusal as its cue to run the program through run()."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.executor_impl import Uncapturable
+    from paddle_tpu_torch.core.types import DataType
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        w = fluid.layers.create_global_var([3], 0.0, "float32",
+                                           persistable=True, name="av_w")
+        block = main.global_block()
+        c = block.create_var(name="av_c", shape=[3], dtype="float32")
+        block.append_op(type="assign_value", outputs={"Out": [c]},
+                        attrs={"shape": [3], "dtype": DataType.FP32,
+                               "fp32_values": [1.0, 2.0, 3.0]})
+        block.append_op(type="elementwise_add",
+                        inputs={"X": [w], "Y": [c]}, outputs={"Out": [w]})
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    with pytest.raises(Uncapturable, match="assign_value"):
+        exe.prepare(main, fetch_list=[w], scope=scope)
+    pe = fluid.ParallelExecutor(main_program=main, scope=scope,
+                                num_devices=1)
+    for step in (1, 2):
+        got, = pe.run([w.name])
+        np.testing.assert_array_equal(
+            got, step * np.array([1.0, 2.0, 3.0], np.float32))
+    assert not pe._prepared and len(pe._unpreparable) == 1
