@@ -23,7 +23,20 @@ Phases, each printed as one JSON line:
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
              arriving mid-decode; tokens and final logits checked
-             against dense_forward (no paging, no kernels);
+             against dense_forward (no paging, no kernels).  The load
+             captures every warm bucket as a CUDA graph (5 decode
+             buckets (B, 128), 8 prefill buckets 16..2048; ``load``: its
+             seconds, the capture's, the memory reserved before and
+             after, the warm keys); every prefill and decode step of
+             the run must be a graph replay (a miss runs on a covering
+             bucket while its own captures in the background), and
+             ``paged_calls`` logs the bucket each decode step ran at.
+             ``buckets``: one prefill replay at (256,) and one decode
+             replay at (8, 128), their launches read from a
+             torch.profiler trace by kernel symbol equal to those
+             recorded at capture and to the path's (6 K1 a prefill, 6
+             K7 calls a decode step, 24 K8 each under int8), and each
+             replay equal to its step run eagerly, bit for bit;
 5. serve_int8 — the same with quant='int8';
 6. batch_invariance — one prompt solo vs inside a batch of 16
              (information, not a gate);
@@ -190,6 +203,7 @@ without that line; so does a run without CUDA or outside the repository.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -1208,28 +1222,31 @@ def serve(torch, srv, name, prompts):
     """Generate for every prompt, the second half arriving while the
     first half decodes; returns (results, seconds, launches, calls).
     ``calls`` lists the K7 call of every decode step (one a layer) as
-    [B, NB, context lengths of the real rows], B and NB the engine's
-    power-of-2 buckets; a padding row attends over one position."""
+    [B, NB, context lengths of the real rows], (B, NB) the bucket the
+    step ran at (a covering bucket while its own is captured); a
+    padding row attends over one position.  ``launches`` also holds
+    the prefills, the decode steps and the graph replays: every one of
+    them must be a replay."""
     from paddle_tpu_torch.kernels import KERNELS, reset_launches
-    from paddle_tpu_torch.serving.engine import pow2_bucket
 
     eng = srv.engine(name)
     half = len(prompts) // 2
     # one short request first: CUDA/cuBLAS first-call set-up is load
-    # time, not any measured request's TTFT
+    # time, not any measured request's TTFT; so is the capture its
+    # decode bucket's miss starts in the background
     srv.generate(name, prompts[0][:16], 2).result(600)
+    eng.drain()
     torch.cuda.synchronize()
     reset_launches()
     steps0, prefills0 = eng.decode_steps, eng.prefills
+    replays0 = eng.replays
     calls, step = [], eng.decode_step
 
     def logged(blocks_list, lens_list, *args, **kw):
-        cfg = eng.config
-        calls.append(
-            [pow2_bucket(len(blocks_list), cfg.max_batch),
-             pow2_bucket(max(map(len, blocks_list)), cfg.max_blocks)]
-            + [int(n) + 1 for n in lens_list])
-        return step(blocks_list, lens_list, *args, **kw)
+        out = step(blocks_list, lens_list, *args, **kw)
+        calls.append(list(eng.last_decode_key)
+                     + [int(n) + 1 for n in lens_list])
+        return out
 
     eng.decode_step = logged
     try:
@@ -1246,12 +1263,115 @@ def serve(torch, srv, name, prompts):
     launches = {k: fn.launches for k, fn in KERNELS.items()}
     launches["prefills"] = eng.prefills - prefills0
     launches["decode_steps"] = eng.decode_steps - steps0
+    launches["replays"] = eng.replays - replays0
+    if launches["replays"] != launches["prefills"] + launches["decode_steps"]:
+        raise AssertionError("a step ran outside a graph replay: %r"
+                             % launches)
     if any(len(r["tokens"]) != MAX_NEW for r in res):
         raise AssertionError("a request did not get %d tokens" % MAX_NEW)
     if eng.pool.used_blocks != 0:
         raise AssertionError("pool not drained: %d blocks used"
                              % eng.pool.used_blocks)
     return res, secs, launches, calls
+
+
+def load_tenant(torch, srv, name, cfg, params, quant=""):
+    """``srv.load_generative`` with its default warm (every warm bucket
+    captured); returns (engine, what the load cost: seconds, seconds
+    spent capturing, memory reserved before and after, the warm
+    keys)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    eng = srv.load_generative(name, cfg, params, quant=quant,
+                              kv_blocks=512)
+    torch.cuda.synchronize()
+    return eng, {"load_s": time.perf_counter() - t0,
+                 "capture_s": eng.capture_seconds,
+                 "memory_reserved_before_bytes": before,
+                 "memory_reserved_bytes": torch.cuda.memory_reserved(),
+                 "warm_decode_keys": eng.warm_decode_buckets,
+                 "warm_prefill_keys": eng._prefill.warm_keys}
+
+
+# a prefill at the (256,) bucket and a decode of 7 rows of 65 blocks
+# each, the (8, nb_top) bucket: the bucket steps checked on their own
+BUCKET_PROMPT, BUCKET_ROWS, BUCKET_ROW_BLOCKS = 200, 7, 65
+
+
+def bucket_checks(torch, eng, seed):
+    """One prefill and one decode of warm buckets on the idle tenant:
+    the launches a replay makes, read from a ``torch.profiler`` trace by
+    kernel symbol (profile_serve.SERVE_SYMBOLS), against the launches
+    the wrappers recorded at the capture and the path's own (6 K1 a
+    prefill, 6 K7 calls a decode step, 24 K8 each under int8); then
+    each replay against its step function run eagerly on the card from
+    the same pages: tokens and every page but the scratch block bit
+    for bit."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving.engine import pow2_bucket
+    from paddle_tpu_torch.tools.profile_serve import (SERVE_SYMBOLS,
+                                                      traced_launches)
+
+    cfg = eng.config
+    layers, int8 = cfg.n_layers, 4 * cfg.n_layers if eng.quant else 0
+    rng = np.random.RandomState(seed)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    eng.drain()               # no capture of the serve run in flight
+    blocks = [eng.pool.alloc(BUCKET_ROW_BLOCKS) for _ in range(BUCKET_ROWS)]
+    out = {}
+    try:
+        prompt = rng.randint(0, cfg.vocab, BUCKET_PROMPT).tolist()
+        lens = [BUCKET_ROW_BLOCKS * cfg.block_size - 1 - i
+                for i in range(BUCKET_ROWS)]
+        toks = rng.randint(0, cfg.vocab, BUCKET_ROWS).tolist()
+        runs = (("prefill", lambda: eng.prefill_tokens(prompt, blocks[0]),
+                 {"flash_fwd": layers, "matmul_int8": int8}),
+                ("decode", lambda: eng.decode_step(blocks, lens, toks),
+                 {"paged_attention": layers, "matmul_int8": int8}))
+        for kind, run, want in runs:
+            with torch.profiler.profile(activities=acts) as prof:
+                run()
+                torch.cuda.synchronize()
+            if kind == "prefill":
+                key = (pow2_bucket(BUCKET_PROMPT, cfg.max_seq),)
+                step = eng._prefill.get(key)
+            else:
+                key = eng.last_decode_key
+                step = eng._decode.get(key)
+            traced = traced_launches(prof, 1)
+            recorded = {k: step.launches.get(k, 0) for k in SERVE_SYMBOLS}
+            want = {k: want.get(k, 0) for k in SERVE_SYMBOLS}
+            # the replay against the step function run eagerly, from the
+            # same pages and the inputs the replay was given
+            pages = [t.clone() for t in (eng._kp, eng._vp)]
+            with eng._lock, torch.no_grad():
+                for t, p in zip((eng._kp, eng._vp), pages):
+                    t.copy_(p)
+                step.graph.replay()
+                got = [t.clone() for t in step.outputs]
+                got_pages = [t[:, 1:].clone() for t in (eng._kp, eng._vp)]
+                for t, p in zip((eng._kp, eng._vp), pages):
+                    t.copy_(p)
+                eager = step.fn()
+                # past block 0, the scratch block a prefill's padding
+                # positions all write at once, in no defined order
+                same = (all(torch.equal(a, b) for a, b in zip(got, eager))
+                        and all(torch.equal(a, b[:, 1:]) for a, b in
+                                zip(got_pages, (eng._kp, eng._vp))))
+            del pages, got_pages
+            out[kind] = {"key": list(key), "recorded": recorded,
+                         "traced": traced if traced is not None
+                         else "not measured", "wanted": want,
+                         "replay_equals_eager_bit_for_bit": same,
+                         "ok": traced == recorded == want and same}
+    finally:
+        for b in blocks:
+            eng.pool.free(b)
+    out["ok"] = all(v["ok"] for v in out.values())
+    return out
 
 
 def serve_summary(res, secs):
@@ -1262,7 +1382,9 @@ def serve_summary(res, secs):
             "tokens_per_s": n_tok / secs, "seconds": secs,
             "ttft_ms_p50": _pct(ttft, 0.5), "ttft_ms_p90": _pct(ttft, 0.9),
             "itl_ms_p50": _pct(itl, 0.5), "itl_ms_p90": _pct(itl, 0.9),
-            "preempted": sum(r["preempted"] for r in res)}
+            "preempted": sum(r["preempted"] for r in res),
+            "tokens_sha1": hashlib.sha1(json.dumps(
+                [r["tokens"] for r in res]).encode()).hexdigest()}
 
 
 def oracle_check(torch, eng, params, prompt, tokens):
@@ -2503,7 +2625,7 @@ def main():
         prompts = _prompts(cfg, SEED + 1, lengths)
         srv = InferenceServer(device="cuda")
         try:
-            eng = srv.load_generative("f32", cfg, params, kv_blocks=512)
+            eng, load = load_tenant(torch, srv, "f32", cfg, params)
             res, secs, launches, calls = serve(torch, srv, "f32",
                                                prompts)
             for k in ("flash_fwd", "paged_attention"):
@@ -2511,16 +2633,21 @@ def main():
                     raise AssertionError("%s never launched" % k)
             check = oracle_check(torch, eng, params, prompts[6],
                                  res[6]["tokens"])
+            buckets = bucket_checks(torch, eng, SEED + 3)
             emit({"phase": "serve_f32", "launches": launches,
                   **serve_summary(res, secs), "oracle": check,
+                  "load": load, "buckets": buckets,
                   "paged_calls": calls})
             if not check["ok"]:
                 raise AssertionError("f32 tenant disagrees with "
                                      "dense_forward")
+            if not buckets["ok"]:
+                raise AssertionError("f32 tenant's bucket steps: %r"
+                                     % buckets)
 
             phase = "serve_int8"
-            eng8 = srv.load_generative("int8", cfg, params, quant="int8",
-                                       kv_blocks=512)
+            eng8, load8 = load_tenant(torch, srv, "int8", cfg, params,
+                                      quant="int8")
             res8, secs8, launches8, calls8 = serve(torch, srv, "int8",
                                                    prompts)
             if min(launches8[k] for k in SERVE_KERNELS) <= 0:
@@ -2530,15 +2657,20 @@ def main():
                         for a, b in zip(r["tokens"], r8["tokens"]))
             check8 = oracle_check(torch, eng8, eng8._params, prompts[6],
                                   res8[6]["tokens"])
+            buckets8 = bucket_checks(torch, eng8, SEED + 3)
             emit({"phase": "serve_int8", "launches": launches8,
                   **serve_summary(res8, secs8),
                   "token_agreement_with_f32": [agree,
                                                len(prompts) * MAX_NEW],
-                  "oracle": check8, "paged_calls": calls8})
+                  "oracle": check8, "load": load8, "buckets": buckets8,
+                  "paged_calls": calls8})
             if not check8["ok"]:
                 raise AssertionError("int8 tenant disagrees with "
                                      "dense_forward over its own "
                                      "dequantized weights")
+            if not buckets8["ok"]:
+                raise AssertionError("int8 tenant's bucket steps: %r"
+                                     % buckets8)
 
             phase = "batch_invariance"
             solo = srv.generate("f32", prompts[3], MAX_NEW).result(600)

@@ -42,12 +42,17 @@ The kernels' launch counts made while capturing
 are taken back and added again at every replay.  A capture that fails
 raises RuntimeError naming the op being captured; nothing falls back to
 running the step eagerly.
+
+``capture`` is that warm-up and capture alone, for any step function:
+the serving engine (``serving/generative.py``) captures each prefill
+and decode bucket with it.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import kernels
+from ..kernels import _build
 from .executor_impl import PreparedShapeMismatch, run_block, to_device
 from .flags import FLAGS
 from .lowering import LoweringContext
@@ -195,36 +200,69 @@ class StepGraph:
     def _build_graph(self, seed):
         env = {**self.state, **self._feeds}
         saved = {n: self.state[n].clone() for n in self.write_back}
-        side = torch.cuda.Stream(self._device)
-        side.wait_stream(torch.cuda.current_stream(self._device))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self._step(self._ctx(dict(env), seed))
-        torch.cuda.current_stream(self._device).wait_stream(side)
-        for name, val in saved.items():
-            self.state[name].copy_(val)
-        del saved
-        graph = torch.cuda.CUDAGraph()
-        ctx = self._ctx(dict(env), seed)
-        before = kernels.launch_counts()
+        ctxs = [None]      # the latest step's context, and no other
+
+        def step():
+            ctxs[0] = None
+            ctxs[0] = self._ctx(dict(env), seed)
+            return self._step(ctxs[0])
+
+        def restore():
+            for name, val in saved.items():
+                self.state[name].copy_(val)
+            saved.clear()
+
+        def at_op():
+            op = ctxs[0].op
+            return " at op %s" % (op.type if op is not None
+                                  else "(after the ops)")
+
+        graph, (fetches, outs), launches = capture(
+            step, "the prepared step", at_op, restore=restore)
+        self._graph, self._fetch_out, self._launches = graph, fetches, \
+            launches
+        self._graph_outs = outs
+
+
+def capture(step, what, where=None, restore=None,
+            capture_error_mode="global", stream=None):
+    """Capture one call of ``step()`` as a CUDA graph; returns (graph,
+    what that call returned, {kernel name: launches one replay makes}).
+
+    ``WARMUP_STEPS`` calls run first on a side stream (``stream``, else
+    a new one): they build the kernels and let cuBLAS and cuDNN choose
+    their algorithms; ``restore()`` then undoes what they wrote.  The
+    capture runs on ``stream`` (else ``torch.cuda.graph``'s own) into a
+    private memory pool.  The launches the wrappers count
+    while this thread captures are taken back: recording a launch is
+    not making one, so the caller adds them at each replay.  A capture
+    that fails raises RuntimeError naming ``what`` (and ``where()``, the
+    place it failed); nothing runs in its place."""
+    dev = torch.cuda.current_stream().device
+    side = stream if stream is not None else torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP_STEPS):
+            step()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    if restore is not None:
+        restore()
+    graph = torch.cuda.CUDAGraph()
+    with _build.recording() as rec:
         try:
-            with torch.cuda.graph(graph, capture_error_mode="global"):
-                fetches, outs = self._step(ctx)
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode=capture_error_mode):
+                out = step()
         except Exception as e:
             cause = e.__context__
             raise RuntimeError(
-                "capturing the prepared step as a CUDA graph failed at op "
-                "%s: %s: %s%s" % (
-                    ctx.op.type if ctx.op is not None else "(after the "
-                    "ops)", type(e).__name__, e,
+                "capturing %s as a CUDA graph failed%s: %s: %s%s" % (
+                    what, where() if where is not None else "",
+                    type(e).__name__, e,
                     "" if cause is None else " (after %s: %s)" % (
                         type(cause).__name__, cause))) from e
         finally:
-            after = kernels.launch_counts()
-            captured = {k: after[k] - before[k] for k in after
-                        if after[k] != before[k]}
-            # recording a launch is not making one: each replay counts
-            kernels.add_launches({k: -n for k, n in captured.items()})
-        self._graph, self._fetch_out, self._launches = graph, fetches, \
-            captured
-        self._graph_outs = outs
+            launches = {name: rec[fn] for name, fn in kernels.KERNELS.items()
+                        if fn in rec}
+            kernels.add_launches({k: -n for k, n in launches.items()})
+    return graph, out, launches

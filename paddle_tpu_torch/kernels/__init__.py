@@ -2,10 +2,12 @@
 version.  ``KERNELS`` maps each kernel's name (a kernel's bf16 form has
 its own) to its wrapper, whose ``launches`` attribute counts kernel
 launches.  A wrapper called while a CUDA graph is captured records a
-launch instead of making one: ``core/step_graph.py`` takes those counts
-back with ``add_launches`` and adds them again at every replay."""
+launch instead of making one: ``core/step_graph.py`` takes the counts
+the capturing thread recorded (``_build.recording``) back with
+``add_launches`` and adds them again at every replay."""
 from __future__ import annotations
 
+from . import _build
 from .flash_attention import (chunk_finalize, flash_attention,
                               flash_attention_bwd, flash_attention_chunk,
                               flash_attention_chunk_bwd,
@@ -47,8 +49,9 @@ KERNELS = {"flash_fwd": flash_attention_fwd_lse,
 
 
 def reset_launches():
-    for fn in KERNELS.values():
-        fn.launches = 0
+    with _build.COUNT_LOCK:
+        for fn in KERNELS.values():
+            fn.launches = 0
 
 
 def launch_counts():
@@ -58,5 +61,6 @@ def launch_counts():
 
 def add_launches(counts):
     """Add ``counts`` ({kernel name: n}) to the kernels' counts."""
-    for name, n in counts.items():
-        KERNELS[name].launches += n
+    with _build.COUNT_LOCK:
+        for name, n in counts.items():
+            KERNELS[name].launches += n

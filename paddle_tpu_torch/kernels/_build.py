@@ -13,6 +13,7 @@ launch, and ``check`` raises on a non-zero code.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +24,8 @@ import threading
 import time
 
 __all__ = ["SOURCES", "build_all", "load", "function", "check",
-           "nvcc_path", "route", "require", "ptr", "stream"]
+           "nvcc_path", "route", "require", "ptr", "stream", "count",
+           "recording", "COUNT_LOCK"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -36,6 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _LIBS = {}
 _FUNCS = {}
+# guards every wrapper's ``launches``: the serving tenants launch and
+# replay from their own threads
+COUNT_LOCK = threading.Lock()
+_RECORDING = threading.local()
 
 
 def nvcc_path():
@@ -182,3 +188,26 @@ def stream():
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def count(fn):
+    """One launch by wrapper ``fn``: add it to ``fn.launches`` and, while
+    this thread captures a CUDA graph (``recording``), to the capture's
+    own counts."""
+    with COUNT_LOCK:
+        fn.launches += 1
+    rec = getattr(_RECORDING, "counts", None)
+    if rec is not None:
+        rec[fn] = rec.get(fn, 0) + 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Yield {wrapper: launches} counting the launches this thread makes
+    inside the block, whatever other threads launch meanwhile."""
+    prev = getattr(_RECORDING, "counts", None)
+    _RECORDING.counts = {}
+    try:
+        yield _RECORDING.counts
+    finally:
+        _RECORDING.counts = prev

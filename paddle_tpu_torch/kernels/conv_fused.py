@@ -174,9 +174,9 @@ def conv2d_nhwc(x, w, strides=(1, 1), paddings=(0, 0), *, stats=False,
                                dtype=torch.float32, device=x.device)
     _launch(x, w, (sh, sw), (ph, pw), affine, residual, act, out, partials)
     if x.dtype == torch.bfloat16:
-        conv2d_nhwc_bf16.launches += 1
+        _build.count(conv2d_nhwc_bf16)
     else:
-        conv2d_nhwc.launches += 1
+        _build.count(conv2d_nhwc)
     if not stats:
         return out
     sums = partials.sum(dim=0)

@@ -122,9 +122,9 @@ def flash_attention_fwd_lse(q, k, v, scale=None, causal=False):
             k.shape[2], d, float(scale), int(bool(causal)), stream())
     _build.check(rc, "flash_fwd")
     if dt == torch.bfloat16:
-        flash_fwd_bf16.launches += 1
+        _build.count(flash_fwd_bf16)
     else:
-        flash_attention_fwd_lse.launches += 1
+        _build.count(flash_attention_fwd_lse)
     return out, lse
 
 
@@ -242,9 +242,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, k_offset=0):
             int(k_offset), stream())
     _build.check(rc, "flash_bwd_dq")
     if form == "bf16":
-        flash_bwd_dq_bf16.launches += 1
+        _build.count(flash_bwd_dq_bf16)
     else:
-        flash_bwd_dq.launches += 1
+        _build.count(flash_bwd_dq)
     return dq
 
 
@@ -276,9 +276,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, k_offset=0):
             int(bool(causal)), int(k_offset), stream())
     _build.check(rc, "flash_bwd_dkv")
     if form == "bf16":
-        flash_bwd_dkv_bf16.launches += 1
+        _build.count(flash_bwd_dkv_bf16)
     else:
-        flash_bwd_dkv.launches += 1
+        _build.count(flash_bwd_dkv)
     return dk, dv
 
 
@@ -442,7 +442,7 @@ def flash_attention_chunk(q, k, v, m, l, acc, scale=None, causal=False,
             ptr(l2), ptr(acc2), b * h, t, k.shape[2], d, float(scale),
             int(bool(causal)), k_offset, stream())
     _build.check(rc, "flash_chunk")
-    flash_attention_chunk.launches += 1
+    _build.count(flash_attention_chunk)
     return m2, l2, acc2
 
 
@@ -598,7 +598,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
             ptr(part) if part is not None else ctypes.c_void_p(None),
             b, h, d, bs, nb, spans, float(scale), stream())
     _build.check(rc, "paged_attention")
-    paged_attention.launches += 1
+    _build.count(paged_attention)
     return out
 
 

@@ -57,7 +57,7 @@ def fused_softmax_cross_entropy(logits, labels):
                          + [ctypes.c_void_p])
     rc = fn(ptr(logits), ptr(lab), ptr(out), n, c, stream())
     _build.check(rc, "fused_ce")
-    fused_softmax_cross_entropy.launches += 1
+    _build.count(fused_softmax_cross_entropy)
     return out
 
 

@@ -180,9 +180,9 @@ def matmul_epilogue(x2, w, bias=None, residual=None, act="", *,
             m, n, k, _ACTS[act], stream())
     _build.check(rc, "matmul_epilogue")
     if dt == torch.bfloat16:
-        matmul_epilogue_bf16.launches += 1
+        _build.count(matmul_epilogue_bf16)
     else:
-        matmul_epilogue.launches += 1
+        _build.count(matmul_epilogue)
     return (out, pre) if save_preact else out
 
 
@@ -299,9 +299,9 @@ def add_ln(x2, y2, scale=None, bias=None, eps=1e-5):
             stream())
     _build.check(rc, "add_ln")
     if dt == torch.bfloat16:
-        add_ln_bf16.launches += 1
+        _build.count(add_ln_bf16)
     else:
-        add_ln.launches += 1
+        _build.count(add_ln)
     return out, sm, mean, var
 
 
@@ -411,7 +411,7 @@ def matmul_int8_dequant(x2, wq, scales, chunk, bias=None, residual=None,
             ptr(residual) if residual is not None else null,
             ptr(out), m, n, k, chunk, _ACTS[act], stream())
     _build.check(rc, "matmul_int8")
-    matmul_int8_dequant.launches += 1
+    _build.count(matmul_int8_dequant)
     return out
 
 

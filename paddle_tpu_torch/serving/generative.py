@@ -7,10 +7,18 @@ cache layout ``[L, N, bs, H, D]``, the same power-of-2 prefill and
 same Orca-style ``DecodeLoop``.  So both packages compute the same
 function on the same shapes.
 
-The JAX engine AOT-compiles one step per bucket and donates the page
-arrays through each dispatch.  Here the steps run eagerly, and K/V
-pages are written IN PLACE (``kp[l, blk, off] = k``), which replaces
-JAX's donated functional ``.at[].set``.  On the path:
+The JAX engine AOT-compiles one step per bucket, kept in a
+``StepCache`` ladder, and donates the page arrays through each
+dispatch.  Here each bucket's step reads static device buffers (the
+tokens, block ids or tables, lengths), which the host fills before it
+runs, and writes K/V pages IN PLACE (``kp[l, blk, off] = k``), which
+replaces JAX's donated functional ``.at[].set``.  On a card each step
+is captured once as a CUDA graph (``core/step_graph.capture``) and
+replayed; on the CPU the same step function runs eagerly.  The
+reference's three step caches (decode, decode with logits, prefill)
+pick the bucket: an exact hit runs, a miss runs on the smallest
+covering bucket while one background thread captures the exact one,
+and with nothing covering the capture runs inline.  On the path:
 
 - prefill attention is ``kernels.flash_attention`` (causal),
 - decode attention is ``kernels.paged_attention`` through the block
@@ -23,10 +31,17 @@ engine leaves them to XLA.  Everything is float32.
 ``dense_forward`` is the test oracle: the same LM over a whole token
 list with plain dense causal attention — no paging, no kernels.
 
+Captures and replays of one engine hold its ``_lock``, so they never
+overlap, and a warm-up step before a capture runs on the padding row
+(lengths 0, block ids and tables 0): its K/V writes land in the
+reserved scratch block 0, never in a live sequence's page.  A capture
+runs in ``thread_local`` error mode, so another tenant's thread may
+replay, copy or allocate meanwhile; the launches it records are this
+thread's alone (``kernels._build.recording``).
+
 Not in this slice: prefix caching, speculative decoding, KV block
-export/import for the fleet, per-bucket compiled steps, and the
-metrics/trace/sanitizer hooks.  Arguments that would turn them on
-raise NotImplementedError.
+export/import for the fleet, and the metrics/trace/sanitizer hooks.
+Arguments that would turn them on raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -38,6 +53,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
+from ..core import step_graph
 from ..core.flags import FLAGS
 from ..device import resolve_device
 from ..kernels import _build
@@ -46,7 +63,7 @@ from ..kernels.flash_attention import NEG_INF, flash_attention, \
 from ..kernels.matmul_fused import dequantize_weight, \
     matmul_int8_dequant, quantize_weight
 from .batcher import TokenScheduler
-from .engine import pow2_bucket
+from .engine import StepCache, bucket_ladder, pow2_bucket
 from .kv_cache import BlockPool
 
 __all__ = ["LMConfig", "GenerativeEngine", "GenRequest", "DecodeLoop",
@@ -231,6 +248,33 @@ class GenRequest:
 # The engine: device pages + bucketed prefill/decode steps
 # ---------------------------------------------------------------------------
 
+class _BucketStep:
+    """One bucket's step: its static device inputs, the step function
+    over them and, on a card, the CUDA graph captured from it (with its
+    outputs and the kernel launches one replay makes)."""
+
+    __slots__ = ("inputs", "fn", "graph", "outputs", "launches")
+
+    def __init__(self, inputs, fn, graph=None, outputs=None, launches=None):
+        self.inputs = inputs
+        self.fn = fn
+        self.graph = graph
+        self.outputs = outputs
+        self.launches = launches or {}
+
+    def run(self, **host):
+        """Copy the host arrays ``host`` into the static inputs, then run
+        the step: one replay on a card, the function on the CPU.  The
+        outputs of a replay are the graph's: read them before the next."""
+        for name, arr in host.items():
+            self.inputs[name].copy_(torch.from_numpy(arr))
+        if self.graph is None:
+            return self.fn()
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        return self.outputs
+
+
 class GenerativeEngine:
     """One generative tenant: params and KV pages on the device, and the
     bucketed prefill/decode steps over them."""
@@ -258,16 +302,50 @@ class GenerativeEngine:
                                device=self.device)
         self._vp = torch.zeros(page_shape, dtype=torch.float32,
                                device=self.device)
+        # held by every capture and every step of this engine
         self._lock = threading.Lock()
+        # the engine's captures run on their own stream: two tenants
+        # may capture at once
+        self._stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
         # step counters: prefills, decode steps and the live rows they
-        # carried (occupancy = decode_rows / decode_steps)
+        # carried (occupancy = decode_rows / decode_steps); graph
+        # replays, seconds spent capturing (warm-up steps included), and
+        # the bucket the latest decode step ran at
         self.prefills = 0
         self.decode_steps = 0
         self.decode_rows = 0
-        if warm and self.device.type == "cuda":
-            # the counterpart of warming compiled buckets: build the
-            # kernels now, so no request's TTFT pays for nvcc
-            _build.build_all()
+        self.replays = 0
+        self.capture_seconds = 0.0
+        self.last_decode_key = None
+        # bucket ladders
+        self.batch_ladder = bucket_ladder(cfg.max_batch)
+        self.nb_top = cfg.max_blocks
+        self.prefill_ladder = []
+        s = cfg.block_size
+        while s < cfg.max_seq:
+            self.prefill_ladder.append(s)
+            s *= 2
+        self.prefill_ladder.append(cfg.max_seq)
+        self._decode = StepCache(self._compile_decode,
+                                 name=self.name + ".decode")
+        self._decode_logits = StepCache(
+            lambda key: self._compile_decode(key, with_logits=True),
+            name=self.name + ".decode_logits")
+        self._prefill = StepCache(self._compile_prefill,
+                                  name=self.name + ".prefill")
+        if warm:
+            if self.device.type == "cuda":
+                # every kernel's nvcc at once, before the captures
+                _build.build_all()
+            # decode: the whole batch ladder at the top block-count
+            # bucket (covering every narrower request; tighter buckets
+            # capture in the background on their first miss); prefill:
+            # the whole ladder, which has no covering fallback wider
+            # than a prompt's own bucket
+            self._decode.warm([(b, self.nb_top)
+                               for b in self.batch_ladder])
+            self._prefill.warm([(s,) for s in self.prefill_ladder])
 
     @staticmethod
     def params_from_numpy(params, quant="", device=None):
@@ -308,6 +386,122 @@ class GenerativeEngine:
         h = _layer_norm(h, p["lnf.scale"], p["lnf.bias"])
         return torch.matmul(h, p["lm_head"])
 
+    # -- bucket steps ---------------------------------------------------
+
+    def _bucket_step(self, kind, key, padding, fn):
+        """The ``_BucketStep`` of cache ``kind`` at ``key``:
+        ``fn(**inputs)`` over static inputs that start as ``padding``
+        ({name: numpy array}, the padding row's values); on a card
+        captured under the engine's lock (the warm-up steps run on
+        those padding inputs)."""
+        with self._lock, torch.no_grad():
+            inputs = {name: torch.from_numpy(a).to(self.device)
+                      for name, a in padding.items()}
+
+            def step():
+                return fn(**inputs)
+
+            if self.device.type != "cuda":
+                return _BucketStep(inputs, step)
+            t0 = time.perf_counter()
+            graph, outputs, launches = step_graph.capture(
+                step, "%s %r of tenant %r" % (kind, key, self.name),
+                capture_error_mode="thread_local", stream=self._stream)
+            self.capture_seconds += time.perf_counter() - t0
+            return _BucketStep(inputs, step, graph, outputs, launches)
+
+    def _compile_decode(self, key, with_logits=False):
+        """The decode step at bucket ``(B, NB)``: one token per row in,
+        K/V written through the block table, paged attention over each
+        row's pages, greedy next token (and the f32 logits) out.
+        Padding rows have ``lens = 0`` and tables pointing at block 0,
+        and attend over ``lens + 1`` positions."""
+        cfg = self.config
+        bs = cfg.block_size
+        bb, nbb = key
+        p = self._params
+        dev = self.device
+
+        def step(tables, lens, toks):
+            lens_l = lens.long()
+            h = p["embed"][toks] + p["pos"][lens_l]            # [B, D]
+            new_lens = lens + 1
+            rows = torch.arange(bb, device=dev)
+            blk = tables[rows, lens_l // bs].long()
+            off = lens_l % bs
+
+            def attend(l, qkv):
+                q, k, v = self._split_heads(qkv, bb)
+                # in place: replaces the donated kp.at[l, blk, off].set
+                self._kp[l, blk, off] = k
+                self._vp[l, blk, off] = v
+                att = paged_attention(q.contiguous(), self._kp[l],
+                                      self._vp[l], tables, new_lens)
+                return att.reshape(bb, cfg.d_model)
+
+            for l in range(cfg.n_layers):
+                h = _block_fwd(self._mm, p, l, h, attend)
+            logits = self._head(h)                              # [B, V]
+            nxt = torch.argmax(logits, dim=-1)
+            return (nxt, logits) if with_logits else (nxt,)
+
+        return self._bucket_step(
+            "decode_logits" if with_logits else "decode", key,
+            {"tables": np.zeros((bb, nbb), np.int32),
+             "lens": np.zeros(bb, np.int32),
+             "toks": np.zeros(bb, np.int64)}, step)
+
+    def _compile_prefill(self, key):
+        """The prefill step at bucket ``(S,)``: the whole padded prompt
+        forward, causal flash attention over the in-flight K/V, every
+        position's K/V written into the sequence's blocks (positions at
+        or past ``length`` to scratch block 0), the greedy first token
+        from position ``length - 1``.  ``length`` is a device tensor, so
+        one capture serves every prompt length of the bucket."""
+        cfg = self.config
+        bs = cfg.block_size
+        (s_len,) = key
+        p = self._params
+        dev = self.device
+
+        def step(toks, length, ids):
+            pos = torch.arange(s_len, device=dev)
+            h = p["embed"][toks] + p["pos"][pos]               # [S, D]
+            blk = torch.where(pos < length, ids[pos // bs], 0)
+            off = pos % bs
+
+            def attend(l, qkv):
+                q, k, v = self._split_heads(qkv, s_len)
+                # in-place page writes replace the reference's donated
+                # functional kp.at[l, blk, off].set(k)
+                self._kp[l, blk, off] = k
+                self._vp[l, blk, off] = v
+                # causal attention over the in-flight K/V (the values
+                # just written): rows < length see only real columns
+                q4, k4, v4 = (t.transpose(0, 1).unsqueeze(0).contiguous()
+                              for t in (q, k, v))
+                att = flash_attention(q4, k4, v4, causal=True)[0]
+                return att.transpose(0, 1).reshape(s_len, cfg.d_model)
+
+            for l in range(cfg.n_layers):
+                h = _block_fwd(self._mm, p, l, h, attend)
+            last = h.index_select(0, length - 1)[0]             # [D]
+            return (torch.argmax(self._head(last)),)
+
+        # the warm-up's padding prompt: one token, block ids all 0
+        return self._bucket_step(
+            "prefill", key,
+            {"toks": np.zeros(s_len, np.int64),
+             "length": np.ones(1, np.int64),
+             "ids": np.zeros(max(1, s_len // bs), np.int64)}, step)
+
+    def _run(self, step, **host):
+        """``step.run(**host)``; call under ``self._lock``."""
+        out = step.run(**host)
+        if step.graph is not None:
+            self.replays += 1
+        return out
+
     # -- prefill --------------------------------------------------------
 
     def prefill(self, seq):
@@ -329,43 +523,24 @@ class GenerativeEngine:
     def prefill_tokens(self, tokens, blocks):
         """Write K/V for every position of ``tokens`` into ``blocks``
         and return the greedy next token.  The prompt is padded to the
-        power-of-2 bucket; pad positions write to scratch block 0."""
+        bucket ``pick`` returns (its power-of-2 bucket, or a covering
+        one while that one is captured); pad positions write to
+        scratch block 0."""
         cfg = self.config
-        bs = cfg.block_size
         n = len(tokens)
-        s_len = pow2_bucket(max(n, bs), cfg.max_seq)
+        want = pow2_bucket(max(n, cfg.block_size), cfg.max_seq)
+        key, step = self._prefill.pick((want,))
+        (s_len,) = key
         toks = np.zeros(s_len, np.int64)
         toks[:n] = tokens
-        ids = np.zeros(max(1, s_len // bs), np.int64)
+        ids = np.zeros(max(1, s_len // cfg.block_size), np.int64)
+        # the sequence may hold more blocks than the bucket's slots
         m = min(len(blocks), len(ids))
         ids[:m] = blocks[:m]
-        dev = self.device
-        p = self._params
         with self._lock, torch.no_grad():
-            toks_t = torch.from_numpy(toks).to(dev)
-            ids_t = torch.from_numpy(ids).to(dev)
-            pos = torch.arange(s_len, device=dev)
-            h = p["embed"][toks_t] + p["pos"][pos]           # [S, D]
-            blk = torch.where(pos < n, ids_t[pos // bs], 0)
-            off = pos % bs
-
-            def attend(l, qkv):
-                q, k, v = self._split_heads(qkv, s_len)
-                # in-place page writes replace the reference's donated
-                # functional kp.at[l, blk, off].set(k)
-                self._kp[l, blk, off] = k
-                self._vp[l, blk, off] = v
-                # causal attention over the in-flight K/V (the values
-                # just written): rows < n see only real columns
-                q4, k4, v4 = (t.transpose(0, 1).unsqueeze(0).contiguous()
-                              for t in (q, k, v))
-                att = flash_attention(q4, k4, v4, causal=True)[0]
-                return att.transpose(0, 1).reshape(s_len, cfg.d_model)
-
-            for l in range(cfg.n_layers):
-                h = _block_fwd(self._mm, p, l, h, attend)
-            logits = self._head(h[n - 1])                     # [V]
-            return int(torch.argmax(logits))
+            nxt, = self._run(step, toks=toks,
+                             length=np.array([n], np.int64), ids=ids)
+            return int(nxt)
 
     # -- decode ---------------------------------------------------------
 
@@ -386,16 +561,19 @@ class GenerativeEngine:
     def decode_step(self, blocks_list, lens_list, toks_list,
                     with_logits=False):
         """Raw single-token decode over parallel lists (one entry per
-        row).  Pads to the power-of-2 ``(batch, block-count)`` bucket:
-        padding rows have ``lens=0``, tables pointing at block 0, and
-        attend over ``lens + 1`` positions.  Returns the next tokens
-        (numpy) and, with ``with_logits``, the f32 logits."""
+        row).  Pads to the ``(batch, block-count)`` bucket ``pick``
+        returns (``last_decode_key``): the power-of-2 bucket, or a
+        covering one while that one is captured.  Padding rows have
+        ``lens=0`` and tables pointing at block 0.  Returns the next
+        tokens (numpy) and, with ``with_logits``, the f32 logits."""
         cfg = self.config
-        bs = cfg.block_size
         b = len(blocks_list)
         nb = max(len(bl) for bl in blocks_list)
-        bb = pow2_bucket(b, cfg.max_batch)
-        nbb = pow2_bucket(nb, cfg.max_blocks)
+        want = (pow2_bucket(b, cfg.max_batch),
+                pow2_bucket(nb, self.nb_top))
+        cache = self._decode_logits if with_logits else self._decode
+        key, step = cache.pick(want)
+        bb, nbb = key
         tables = np.zeros((bb, nbb), np.int32)
         lens = np.zeros(bb, np.int32)
         toks = np.zeros(bb, np.int64)
@@ -403,44 +581,51 @@ class GenerativeEngine:
             tables[i, :len(bl)] = bl
             lens[i] = lens_list[i]
             toks[i] = toks_list[i]
-        dev = self.device
-        p = self._params
         with self._lock, torch.no_grad():
-            tables_t = torch.from_numpy(tables).to(dev)
-            lens_t = torch.from_numpy(lens).to(dev)
-            toks_t = torch.from_numpy(toks).to(dev)
-            lens_l = lens_t.long()
-            h = p["embed"][toks_t] + p["pos"][lens_l]        # [B, D]
-            new_lens = lens_t + 1
-            rows = torch.arange(bb, device=dev)
-            blk = tables_t[rows, lens_l // bs].long()
-            off = lens_l % bs
-
-            def attend(l, qkv):
-                q, k, v = self._split_heads(qkv, bb)
-                # in place: replaces the donated kp.at[l, blk, off].set
-                self._kp[l, blk, off] = k
-                self._vp[l, blk, off] = v
-                att = paged_attention(q.contiguous(), self._kp[l],
-                                      self._vp[l], tables_t, new_lens)
-                return att.reshape(bb, cfg.d_model)
-
-            for l in range(cfg.n_layers):
-                h = _block_fwd(self._mm, p, l, h, attend)
-            logits = self._head(h)                            # [B, V]
-            nxt = torch.argmax(logits, dim=-1)[:b].cpu().numpy()
+            out = self._run(step, tables=tables, lens=lens, toks=toks)
+            self.last_decode_key = key
+            nxt = out[0][:b].cpu().numpy()
             if with_logits:
-                return nxt, logits[:b].cpu().numpy()
+                return nxt, out[1][:b].cpu().numpy()
             return nxt
+
+    def warm_role(self, role):
+        """Warm one side of the ladder: ``'prefill'`` the prefill
+        ladder; ``'decode'`` the whole ``(batch, block-count)`` grid and
+        the prefill ladder (a decode worker also serves whole
+        requests)."""
+        if role == "prefill":
+            self._prefill.warm([(s,) for s in self.prefill_ladder])
+        elif role == "decode":
+            self._decode.warm([(b, nb)
+                               for b in self.batch_ladder
+                               for nb in bucket_ladder(self.nb_top)])
+            self._prefill.warm([(s,) for s in self.prefill_ladder])
+        else:
+            raise ValueError("unknown role %r" % (role,))
+
+    @property
+    def warm_decode_buckets(self):
+        return self._decode.warm_keys
 
     def free_sequence(self, seq):
         seq_blocks, seq.blocks = seq.blocks, []
         if seq_blocks:
             self.pool.free(seq_blocks)
 
+    def drain(self):
+        """Join the background captures in flight."""
+        for cache in (self._decode, self._decode_logits, self._prefill):
+            cache.drain()
+
     def close(self):
+        """Join the background captures, then drop the steps (their
+        graphs write the pages) before the pages and the params."""
+        self.drain()
         self.pool.close()
         with self._lock:
+            for cache in (self._decode, self._decode_logits, self._prefill):
+                cache.clear()
             self._params = {}
             self._kp = self._vp = None
 

@@ -4,7 +4,11 @@
 One InferenceServer hosts any number of generative tenants in one
 process; each owns a GenerativeEngine, a request queue and a
 DecodeLoop thread.  ``generate`` returns a Future of
-``{"tokens", "ttft_ms", "itl_ms", "preempted"}``.  The predict tier
+``{"tokens", "ttft_ms", "itl_ms", "preempted"}``.  On a card a tenant's
+warm buckets are captured as CUDA graphs when it loads
+(``load_generative(warm=True)``, the default); ``unload`` and ``close``
+stop its loop, then close the engine, which joins its background
+captures and drops the graphs before the pages.  The predict tier
 (``load``/``submit``/``swap``, the socket endpoint) is not part of this
 slice.
 """
@@ -54,6 +58,8 @@ class InferenceServer:
         """Load a generative (greedy decode) tenant built from
         ``(config, params)`` — e.g. ``tiny_lm`` output — with int8
         weight quantization gated per tenant via ``quant='int8'``.
+        ``warm`` builds the warm buckets now (on a card: the kernels,
+        then one CUDA graph a bucket), so no request pays for them.
         ``prefix_cache``, ``spec_k`` and ``draft`` are not ported yet
         and raise NotImplementedError when given."""
         with self._lock:

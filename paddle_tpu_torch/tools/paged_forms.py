@@ -39,6 +39,15 @@ and its rows' lengths), in the product's combine on distinct pages,
 each held to the plain version; it prints one JSON line per (B, NB)
 bucket and one of the totals, each form's ms summed over the logged
 steps, fastest first.
+
+    python -m paddle_tpu_torch.tools.paged_forms --replay
+
+times the product wrapper alone (no forms are built) at the grid's
+shapes as the serving engine runs it: REPLAY_CALLS calls captured as
+one CUDA graph and replayed (``replayed_ms``: a call's share of a
+replay, no host launch between the calls), beside single calls with
+the inputs left in L2 (``product_warm_ms``), and the timer's floor
+(the elementwise kernel on the lengths) timed both ways.
 """
 from __future__ import annotations
 
@@ -220,6 +229,60 @@ def warm(fn, iters=15):
     return sorted(times)[iters // 2]
 
 
+REPLAY_CALLS = 20
+
+
+def replayed(fn, calls=REPLAY_CALLS, iters=15):
+    """Median CUDA-event time of one call of ``fn`` when ``calls`` calls
+    run back to back as one captured CUDA graph: the inputs left in L2
+    by the call before, and no host launch in between."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return sorted(times)[iters // 2]
+
+
+def time_replay(gen):
+    """The product wrapper at B x contexts, replayed and single; one
+    JSON line a shape."""
+    rng = np.random.RandomState(0)
+    for context in CONTEXTS:
+        for b in BATCHES:
+            lens = lengths(b, context, rng)
+            q, kp, vp, tables, lens_t = case(b, lens, gen)
+            nb = tables.shape[1]
+
+            def call():
+                return paged_attention(q, kp, vp, tables, lens_t)
+
+            def floor():
+                return lens_t + 1
+
+            print(json.dumps({
+                "kernel": "paged_attention", "B": b, "context": context,
+                "NB": nb, "bound_ms": bound_ms(lens, b, nb),
+                "replay_calls": REPLAY_CALLS,
+                "replayed_ms": replayed(call),
+                "product_warm_ms": warm(call),
+                "floor_replayed_ms": replayed(floor),
+                "floor_warm_ms": warm(floor)}), flush=True)
+            del q, kp, vp, tables, lens_t
+            torch.cuda.empty_cache()
+
+
 def serve_calls(path):
     """{(B, NB, lengths of all B rows): decode steps} from the
     ``paged_calls`` that chip_smoke.py's serve phases print; a padding
@@ -286,14 +349,17 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("paged_forms needs a CUDA card")
     resolve_device("cuda")
-    fn, ptxas = build()
-    for sym, line in sorted(ptxas.items()):
-        print(json.dumps({"kernel": sym, "ptxas": line}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if argv[:1] == ["--calls"]:
-        time_calls(fn, Timer(), serve_calls(argv[1]), gen)
+    if argv[:1] == ["--replay"]:
+        time_replay(gen)
     else:
-        time_grid(fn, Timer(), gen)
+        fn, ptxas = build()
+        for sym, line in sorted(ptxas.items()):
+            print(json.dumps({"kernel": sym, "ptxas": line}), flush=True)
+        if argv[:1] == ["--calls"]:
+            time_calls(fn, Timer(), serve_calls(argv[1]), gen)
+        else:
+            time_grid(fn, Timer(), gen)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)

@@ -2,24 +2,33 @@
 
 Builds the flagship LM tenant (vocab 8192, d_model 1024, 8 heads,
 6 layers, d_ff 4096, block 16, max_seq 2048; random weights from
-``--seed``), prefills BATCH = 16 sequences of CTX = 1024 tokens, then
-times STEPS = 8 decode steps over all of them (after 2 untimed ones).
-Reports:
+``--seed``) with its default warm (on a card: one CUDA graph captured
+per warm prefill and decode bucket), prefills BATCH = 16 sequences of
+CTX = 1024 tokens, then runs decode steps over all of them: 2 untimed,
+STEPS = 8 timed, STEPS profiled.  Reports:
 
+- ``load_s``: the engine's construction (weights staged, kernels built,
+  buckets captured), ended by a synchronize; ``capture_s``, the part
+  spent warming up and capturing; ``memory_reserved_bytes`` after it;
 - ``prefill_ms``: host wall time of one CTX-token prefill, ended by a
-  synchronize (median over the batch);
-- ``step_ms``: host wall time of one decode step, ended by a
-  synchronize (median);
-- from ``torch.profiler`` over the timed steps: device time per step
-  and the device's idle share of the step, from the union of the
-  device events' intervals (K7's combine is a programmatic dependent
-  launch: it is scheduled while the span kernel runs and waits for it,
-  so its own span includes that wait and the two overlap), device time
-  by kernel name (each kernel's own span, waits included), and K7's
-  device time per step (``paged_attention_ms_per_step``: the union of
-  its kernels' intervals);
+  synchronize (median over the batch), unprofiled;
+- ``step_ms``: host wall time of one decode step, which ends in the
+  device-to-host copy of its tokens (median), unprofiled;
+- from ``torch.profiler`` over STEPS more steps: device time per step
+  and the device's idle share of the unprofiled step
+  (``device_idle_share``) and of the profiled one, from the union of
+  the device events' intervals (K7's combine is a programmatic
+  dependent launch: it is scheduled while the span kernel runs and
+  waits for it, so its own span includes that wait and the two
+  overlap), device time by kernel name (each kernel's own span, waits
+  included), K7's and K8's device time per step (the union of each
+  one's kernels' intervals: ``paged_attention_ms_per_step``,
+  ``matmul_int8_ms_per_step``) and the launches of each port kernel a
+  step, read by kernel symbol (``traced_launches``);
+- ``tokens_sha1``: a digest of every sequence's greedy tokens, to hold
+  two builds' tokens equal;
 - from ``torch.profiler`` over one more CTX-token prefill: its device
-  time by kernel name (``prefill_kernels``).
+  time, by kernel name (``prefill_kernels``), and its launches.
   Where the profiler records no device time these read "not measured".
 
 Run on a CUDA machine from the repository root:
@@ -31,6 +40,7 @@ Prints one JSON line.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import time
 
@@ -40,6 +50,13 @@ from torch.autograd import DeviceType
 
 from ..serving import FLAGSHIP_LM, GenerativeEngine, GenRequest, tiny_lm
 BATCH, CTX, STEPS = 16, 1024, 8
+# the serving kernels' symbols in a trace: K1's f32 form, K7's span
+# kernel (one a call; its combine follows when a row has more than one
+# span), K8's decode and prefill forms (the prefill form is the
+# split-TF32 GEMM tile K4 shares, which no serving step runs for K4)
+SERVE_SYMBOLS = {"flash_fwd": ("flash_fwd_kernel",),
+                 "paged_attention": ("span_kernel",),
+                 "matmul_int8": ("mm_int8_skinny", "gemm::gemm_kernel")}
 
 
 def _by_kernel(prof, n):
@@ -80,6 +97,24 @@ def _union_ms(intervals):
     return total / 1e3
 
 
+def traced_launches(prof, n):
+    """{serving kernel: launches a step} over ``n`` steps of a profile,
+    by kernel symbol (``SERVE_SYMBOLS``); None when the trace holds no
+    device event."""
+    events = [e for e in prof.events()
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not events:
+        return None
+    return {name: sum(any(sym in e.name for sym in syms)
+                      for e in events) / n
+            for name, syms in SERVE_SYMBOLS.items()}
+
+
+def _kernel_ms(spans, syms):
+    return _union_ms([(s, e) for name, s, e in spans
+                      if any(sym in name for sym in syms)])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quant", default="")
@@ -87,17 +122,22 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg, params = tiny_lm(args.seed, **FLAGSHIP_LM)
-    per_seq = -(-(CTX + STEPS + 4) // cfg.block_size)
+    per_seq = -(-(CTX + 2 * STEPS + 4) // cfg.block_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     eng = GenerativeEngine(cfg, params, quant=args.quant,
                            kv_blocks=(BATCH + 1) * per_seq + 1,
                            device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    reserved = torch.cuda.memory_reserved()
     rng = np.random.RandomState(args.seed + 1)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
 
     def request():
         req = GenRequest(rng.randint(0, cfg.vocab, CTX).tolist(),
-                         STEPS + 4, None, None)
+                         2 * STEPS + 4, None, None)
         req.blocks = eng.pool.alloc(per_seq)
         return req
 
@@ -115,6 +155,8 @@ def main(argv=None):
         extra.out.append(eng.prefill(extra))
         torch.cuda.synchronize()
     prefill_kernels = _by_kernel(prof, 1)
+    prefill_spans = _device_intervals(prof)
+    prefill_launches = traced_launches(prof, 1)
     eng.free_sequence(extra)
 
     def step():
@@ -125,32 +167,56 @@ def main(argv=None):
         step()
     torch.cuda.synchronize()
     step_ms = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        step()            # ends in a device-to-host copy of tokens
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    prof_ms = []
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(STEPS):
             t0 = time.perf_counter()
-            step()            # ends in a device-to-host copy of tokens
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step()
+            prof_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
     kernels = _by_kernel(prof, STEPS)
     spans = _device_intervals(prof)
     busy = _union_ms([(s, e) for _, s, e in spans]) / STEPS
-    paged = _union_ms([(s, e) for name, s, e in spans
-                       if "paged" in name]) / STEPS
-    med = float(np.median(step_ms))
+    med, prof_med = float(np.median(step_ms)), float(np.median(prof_ms))
     top = dict(sorted(kernels.items(),
                       key=lambda kv: -kv[1]["ms_per_step"])[:12])
+    launches = traced_launches(prof, STEPS)
+    measured = bool(kernels)
+
+    def dev(value):
+        return value if measured else "not measured"
+
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "quant": args.quant,
         "batch": BATCH, "ctx": CTX, "steps": STEPS,
+        "load_s": load_s,
+        "capture_s": getattr(eng, "capture_seconds", "not captured"),
+        "memory_reserved_bytes": reserved,
+        "replays": getattr(eng, "replays", "not captured"),
         "prefill_ms_median": float(np.median(prefill_ms)),
         "step_ms_median": med,
-        "device_ms_per_step": busy if kernels else "not measured",
-        "device_idle_share": 1.0 - busy / med if kernels
-        else "not measured",
-        "paged_attention_ms_per_step": paged if kernels
-        else "not measured",
+        "profiled_step_ms_median": prof_med,
+        "device_ms_per_step": dev(busy),
+        "device_idle_share": dev(1.0 - busy / med),
+        "device_idle_share_profiled": dev(1.0 - busy / prof_med),
+        "paged_attention_ms_per_step": dev(
+            _kernel_ms(spans, SERVE_SYMBOLS["paged_attention"]) / STEPS),
+        "matmul_int8_ms_per_step": dev(
+            _kernel_ms(spans, SERVE_SYMBOLS["matmul_int8"]) / STEPS),
+        "traced_launches_per_step": launches or "not measured",
         "kernels": top or "not measured",
-        "prefill_kernels": prefill_kernels or "not measured"}))
+        "prefill_device_ms": dev(_union_ms(
+            [(s, e) for _, s, e in prefill_spans])),
+        "prefill_matmul_int8_ms": dev(
+            _kernel_ms(prefill_spans, SERVE_SYMBOLS["matmul_int8"])),
+        "prefill_traced_launches": prefill_launches or "not measured",
+        "prefill_kernels": prefill_kernels or "not measured",
+        "tokens_sha1": hashlib.sha1(json.dumps(
+            [s.out for s in seqs]).encode()).hexdigest()}))
     for s in seqs:
         eng.free_sequence(s)
     eng.close()

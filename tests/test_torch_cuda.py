@@ -8,6 +8,8 @@ paddle_tpu, so it also runs where only the port is installed:
 Tolerance atol = rtol = 1e-4: both sides accumulate in float32, in a
 different order.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -2114,3 +2116,212 @@ def test_prepare_refuses_assign_value_and_parallel_executor_runs_it_on_card(
         np.testing.assert_array_equal(
             got, step * np.array([1.0, 2.0, 3.0], np.float32))
     assert not pe._prepared and len(pe._unpreparable) == 1
+
+
+# The serving engine's bucket steps, each captured as one CUDA graph
+# (serving/generative.py over core/step_graph.capture), at a narrow
+# config the kernels take: head_dim 128, 16-token blocks.
+
+SERVE_LM = dict(vocab=512, d_model=256, n_heads=2, n_layers=2, d_ff=512,
+                block_size=16)
+
+
+def _serve_engine(quant="", warm=False, max_batch=4, max_blocks=16,
+                  kv_blocks=64, name=""):
+    from paddle_tpu_torch.serving import GenerativeEngine, tiny_lm
+
+    cfg, params = tiny_lm(3, max_batch=max_batch, max_blocks=max_blocks,
+                          **SERVE_LM)
+    return GenerativeEngine(cfg, params, quant=quant, kv_blocks=kv_blocks,
+                            device="cuda", warm=warm, name=name)
+
+
+def _fill_pages(eng, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for t in (eng._kp, eng._vp):
+        t.copy_(torch.randn(t.shape, device="cuda", generator=g))
+
+
+def _replay_vs_eager(eng, step, host):
+    """(replay outputs, pages after) and (eager outputs, pages after)
+    of ``step`` on ``host`` inputs, both from the same pages.  The pages
+    are those past the scratch block 0, into which a prefill's padding
+    positions write at once, in no defined order."""
+    pages = [t.clone() for t in (eng._kp, eng._vp)]
+    with torch.no_grad():
+        got = [t.clone() for t in step.run(**host)]
+        after = [t[:, 1:].clone() for t in (eng._kp, eng._vp)]
+        for t, p in zip((eng._kp, eng._vp), pages):
+            t.copy_(p)
+        want = step.fn()
+    return (got, after), (list(want), [eng._kp[:, 1:], eng._vp[:, 1:]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["", "int8"])
+def test_captured_bucket_steps_match_the_eager_step_on_card(cuda, quant):
+    """A captured decode bucket and a captured prefill bucket against the
+    same step function run eagerly on the card, bit for bit (tokens,
+    logits and every page but the scratch block), at two lengths inside
+    each bucket: the lengths are device buffers, not values baked into
+    the graph."""
+    eng = _serve_engine(quant)
+    try:
+        _fill_pages(eng, 0)
+        dec = eng._compile_decode((4, 8), with_logits=True)
+        pre = eng._compile_prefill((64,))
+        assert dec.graph is not None and pre.graph is not None
+        assert dec.launches.get("paged_attention") == 2
+        assert pre.launches.get("flash_fwd") == 2
+        assert dec.launches.get("matmul_int8", 0) == (8 if quant else 0)
+        rng = np.random.RandomState(1)
+        for lens in ([5, 70, 127, 0], [100, 3, 16, 64]):
+            tables = np.zeros((4, 8), np.int32)
+            tables[:3] = rng.choice(np.arange(1, 64), (3, 8), replace=False)
+            host = dict(tables=tables, lens=np.array(lens, np.int32),
+                        toks=rng.randint(0, 512, 4).astype(np.int64))
+            (got, gp), (want, wp) = _replay_vs_eager(eng, dec, host)
+            for a, b in zip(got + gp, want + wp):
+                assert torch.equal(a, b)
+        for n in (17, 50):
+            ids = np.zeros(4, np.int64)
+            ids[:-(-n // 16)] = rng.choice(np.arange(1, 64), -(-n // 16),
+                                           replace=False)
+            toks = np.zeros(64, np.int64)
+            toks[:n] = rng.randint(0, 512, n)
+            host = dict(toks=toks, length=np.array([n], np.int64), ids=ids)
+            (got, gp), (want, wp) = _replay_vs_eager(eng, pre, host)
+            for a, b in zip(got + gp, want + wp):
+                assert torch.equal(a, b)
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_decode_rows_same_bits_at_any_table_width_on_card(cuda):
+    """K7 gives a row the same bits at any table width: one decode step
+    at (16, 64) and at (16, 128), the same 16 rows (at most 40 blocks
+    each), gives the same tokens, logits and pages bit for bit, so a
+    covering bucket changes nothing a row computes."""
+    eng = _serve_engine(max_batch=16, max_blocks=128, kv_blocks=16 * 40 + 1)
+    try:
+        _fill_pages(eng, 2)
+        rng = np.random.RandomState(3)
+        blocks = rng.permutation(np.arange(1, 16 * 40 + 1)).reshape(16, 40)
+        nbs = rng.randint(1, 41, 16)
+        blocks_list = [list(b[:n]) for b, n in zip(blocks, nbs)]
+        lens = [int(rng.randint(16 * (n - 1), 16 * n)) for n in nbs]
+        toks = rng.randint(0, 512, 16).tolist()
+        out = {}
+        pages = [t.clone() for t in (eng._kp, eng._vp)]
+        for key in ((16, 64), (16, 128)):
+            for t, p in zip((eng._kp, eng._vp), pages):
+                t.copy_(p)
+            eng._decode_logits.warm([key])
+            nxt, logits = eng.decode_step(blocks_list, lens, toks,
+                                          with_logits=True)
+            assert eng.last_decode_key == key
+            out[key] = (nxt, logits, eng._kp.clone(), eng._vp.clone())
+            # (16, 128) covered the miss of (16, 64), captured meanwhile
+            eng._decode_logits.drain()
+            eng._decode_logits.clear()
+        a, b = out[(16, 64)], out[(16, 128)]
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+        assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_a_miss_captures_in_the_background_while_a_tenant_serves_on_card(
+        cuda):
+    """Tenant A's decode misses its bucket: the covering graph answers at
+    once and the exact bucket captures in a background thread (thread-
+    local capture mode), while tenant B's thread replays its own
+    decode step the whole time.  B's tokens equal those of the same
+    steps run alone, A's exact bucket lands with no failure, and A's
+    rows get the same bits from both buckets."""
+    import threading
+
+    a = _serve_engine(warm=True, name="a")
+    b = _serve_engine(quant="int8", warm=True, name="b")
+    try:
+        for eng, seed in ((a, 4), (b, 5)):
+            _fill_pages(eng, seed)
+        rows = ([[1, 2], [3], [4, 5]], [20, 5, 17], [7, 8, 9])
+        a._decode_logits.warm([(4, 16)])
+        b._decode.warm([(4, 2)])             # B replays its exact bucket
+        b_pages = [t.clone() for t in (b._kp, b._vp)]
+
+        def b_steps(n):
+            for t, p in zip((b._kp, b._vp), b_pages):
+                t.copy_(p)
+            return [b.decode_step(*rows).tolist() for _ in range(n)]
+
+        alone = b_steps(40)
+        during, stop = [], threading.Event()
+        a_pages = [t.clone() for t in (a._kp, a._vp)]
+
+        def serve_b():
+            while not stop.is_set():
+                during.append(b_steps(40))
+
+        t = threading.Thread(target=serve_b)
+        t.start()
+        try:
+            while not during:
+                time.sleep(0.01)
+            covered = a.decode_step(*rows, with_logits=True)
+            assert a.last_decode_key == (4, 16)
+            a._decode_logits.drain()
+        finally:
+            stop.set()
+            t.join(120)
+        assert a._decode_logits.warm_keys == [(4, 2), (4, 16)]
+        assert a._decode_logits.compile_failures == 0
+        assert all(d == alone for d in during) and len(during) >= 2
+        for x, p in zip((a._kp, a._vp), a_pages):
+            x.copy_(p)
+        exact = a.decode_step(*rows, with_logits=True)
+        assert a.last_decode_key == (4, 2)
+        np.testing.assert_array_equal(covered[0], exact[0])
+        np.testing.assert_array_equal(covered[1], exact[1])
+    finally:
+        a.close()
+        b.close()
+
+
+@pytest.mark.cuda
+def test_a_failed_bucket_capture_runs_nothing_eagerly_on_card(
+        cuda, monkeypatch):
+    """A step that waits for the host cannot be captured.  With nothing
+    covering, the decode raises RuntimeError naming the bucket and the
+    row's page is untouched (the step never ran on it; the warm-ups
+    wrote block 0 only).  With a covering bucket warm, the background
+    capture fails, warns, and traffic stays on the covering graph."""
+    eng = _serve_engine()
+    try:
+        eng._decode.warm([(4, 16)])
+        head = eng._head
+
+        def host_sync(h):
+            return head(h) * float(h.sum().item() * 0 + 1)
+
+        monkeypatch.setattr(eng, "_head", host_sync)
+        blocks = eng.pool.alloc(2)
+        pages = eng._kp[:, blocks].clone()
+        with pytest.raises(RuntimeError, match=r"decode_logits \(1, 2\)") \
+                as err:
+            eng.decode_step([blocks], [20], [7], with_logits=True)
+        assert not isinstance(err.value, ValueError)
+        assert torch.equal(eng._kp[:, blocks], pages)
+        assert eng._decode_logits.warm_keys == [] and eng.replays == 0
+        with pytest.warns(UserWarning, match="traffic stays on covering"):
+            eng.decode_step([blocks], [20], [7])
+            assert eng.last_decode_key == (4, 16)
+            eng._decode.drain()
+        assert eng._decode.compile_failures == 1
+        assert eng._decode.warm_keys == [(4, 16)] and eng.replays == 1
+    finally:
+        eng.close()
