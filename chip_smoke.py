@@ -40,6 +40,39 @@ Phases, each printed as one JSON line:
 5. serve_int8 — the same with quant='int8';
 6. batch_invariance — one prompt solo vs inside a batch of 16
              (information, not a gate);
+6a. serve_prefix — phase 4's LM, f32 and int8, each loaded again with
+             prefix_cache=True (the suffix-prefill ladder 16..2048
+             captured too) and served 12 prompts, the second six
+             arriving mid-decode: eight share a 768-token system prefix
+             (suffixes of 16-512 tokens), two share one of those up to a
+             point inside a block (a COW copy), two are unrelated; phase
+             4's tenant of the same quant serves the same traffic cold.
+             Records the prefix hits, cached tokens, COW copies, index
+             nodes, TTFT of both tenants, a suffix prefill's host ms
+             (48 and 512 fresh tokens after the system prefix) beside
+             the cold prefill of its prompt, the load and the reserved
+             memory the ladder added.  Gates: every step a replay and
+             some hit ran a suffix prefill; one suffix-prefill replay's
+             traced launches (6 K7, no K1, 24 K8 under int8) equal to
+             those recorded at capture, and the replay equal to its step
+             run eagerly, bit for bit past the scratch block 0; the
+             tokens the cold tenant's, where they differ a near-tie (the
+             cold path's top-2 margin at that step under the largest
+             |delta logit| between the two paths there: else a fault);
+             the dense oracle on a hit request;
+6b. serve_spec — phase 4's prompts through a speculative tenant (the
+             reference's construction, profile_serve.spec_lm: the LM
+             with layers 1-5's wo and w2 scaled by 0.002, an f32 draft
+             of its layer 0, k = 8), f32 and int8 targets, each beside a
+             plain tenant of the same target.  Records rounds, the accept
+             rate, draft and verify seconds, tokens/s and ITL of both,
+             one propose and one verify replay's ms at (8, 128, k) /
+             (8, 128, k + 1).  Gates: every target and draft step a
+             replay; the tokens the plain tenant's under the near-tie
+             rule; per request, delivered <= 1 + sum(m_i + 1) <=
+             delivered + k; a propose replay's traced launches (k K7)
+             and a verify replay's (6 K7, 24 K8 under int8) equal to the
+             recorded ones, each replay equal to its eager step;
 7. train_f32 — the same LM as a fluid Program (models/transformer
              get_model: Adam lr 1e-3, sequence 2048, batch 16) built by
              paddle_tpu_torch.fluid and run by Executor(CUDAPlace(0)):
@@ -195,7 +228,10 @@ page that two rows share once), whose rows must be bit for
 bit the same computed alone in their own block-count bucket (a gate,
 ``rows_invariant``), and on distinct pages (a pool of B x NB + 1) at
 B = 1 with 2048 tokens, B = 16 with 1024 each, B = 4 at NB = 64 with
-16-1024 and B = 16 at NB = 8 with at most 128 (one span a row).
+16-1024 and B = 16 at NB = 8 with at most 128 (one span a row); at the
+suffix prefill's shape (256 rows of one sequence over 645-900
+positions) and the verify's (144 rows, 16 sequences of ~1,030, 9 rows
+each); K8 also at M = 64 and 256 (the suffix and verify buckets).
 
 Then the kernels' summary line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -561,6 +597,7 @@ def check_kernels(torch, timer):
         bad.append("matmul_int8 epilogue (max abs err %g)" % err)
     del x, bias, res, wq, sc, wd
     torch.cuda.empty_cache()
+    check_slice18_rows(torch, timer, record)
 
     # K4: the fused training step's five projections at M = 16 * 2048
     # tokens, each with its epilogue; the yardstick is torch.addmm
@@ -1101,6 +1138,81 @@ def check_paged(torch, timer, gen, rng, record, bad):
     check_paged_rows(torch, timer, record)
 
 
+def check_slice18_rows(torch, timer, record):
+    """K7 and K8 at the call shapes of the suffix prefill and the
+    speculative verify: K7 with 256 rows of one sequence of 900
+    positions (row i attends over 645 + i of them: a suffix of 256
+    after a cached prefix of 644), and with the verify's 144 rows, 16
+    sequences of 1,000-1,059 positions with k + 1 = 9 rows each (row j
+    over c + j + 1); the tables are each row's sequence's, 128 slots
+    wide, in one pool of 16 x 128 + 1 pages.  K8 at M = 64 and 256 for
+    the flagship layer's four (K, N).  Its own seeds, so the other
+    kernels' inputs stay as they were."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels.flash_attention import (
+        paged_attention, paged_attention_reference)
+    from paddle_tpu_torch.kernels.matmul_fused import (
+        dequantize_weight, matmul_int8_dequant, matmul_int8_reference,
+        quantize_weight, tile_form)
+
+    rng = np.random.RandomState(SEED + 18)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    h, d, bs, nb = 8, 128, 16, 128
+    scale = d ** -0.5
+    n_pages = 16 * nb + 1
+    kp = torch.randn(n_pages, bs, h, d, device="cuda", generator=gen)
+    vp = torch.randn(n_pages, bs, h, d, device="cuda", generator=gen)
+    ids = rng.permutation(np.arange(1, n_pages)).reshape(16, nb)
+    suffix = np.full(256, 0)
+    verify = rng.randint(1000, 1060, 16)
+    for what, seq_of_row, lens_np in (
+            ("suffix prefill S=256 of one sequence, 645-900 positions",
+             suffix, 645 + np.arange(256)),
+            ("verify B=16 k+1=9, 144 rows, 1,001-1,068 positions",
+             np.repeat(np.arange(16), 9),
+             np.repeat(verify, 9) + np.tile(np.arange(1, 10), 16))):
+        ctx = np.zeros(16, np.int64)
+        np.maximum.at(ctx, seq_of_row, lens_np)
+        live = np.arange(nb)[None] < -(-ctx[:, None] // bs)
+        tables_np = np.where(live, ids, 0).astype(np.int32)[seq_of_row]
+        tables = torch.from_numpy(tables_np).cuda()
+        lens = torch.from_numpy(lens_np.astype(np.int32)).cuda()
+        q = torch.randn(len(lens_np), h, d, device="cuda", generator=gen)
+        err, ok = compare(torch, paged_attention(q, kp, vp, tables, lens),
+                          paged_attention_reference(q, kp, vp, tables, lens,
+                                                    scale))
+        record("paged_attention", what, err, ok,
+               timer(lambda: paged_attention(q, kp, vp, tables, lens)),
+               timer(lambda: paged_attention_reference(q, kp, vp, tables,
+                                                       lens, scale)),
+               timer(lambda: paged_library(torch, q, kp, vp, tables, lens,
+                                           scale)),
+               paged_bytes(tables_np, lens_np, h, d),
+               4 * int(lens_np.sum()) * h * d)
+        del q, tables, lens
+        torch.cuda.empty_cache()
+    del kp, vp
+    for kk, n in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
+        w = (rng.randn(kk, n) * 0.1).astype(np.float32)
+        qn, sn, chunk = quantize_weight(w)
+        wq = torch.from_numpy(qn).cuda()
+        sc = torch.from_numpy(sn).cuda()
+        wd = dequantize_weight(wq, sc, chunk)
+        for m in (64, 256):
+            x = torch.randn(m, kk, device="cuda", generator=gen)
+            err, ok = compare(torch, matmul_int8_dequant(x, wq, sc, chunk),
+                              matmul_int8_reference(x, wq, sc, chunk))
+            record("matmul_int8", "M=%d K=%d N=%d" % (m, kk, n), err, ok,
+                   timer(lambda: matmul_int8_dequant(x, wq, sc, chunk)),
+                   timer(lambda: matmul_int8_reference(x, wq, sc, chunk)),
+                   timer(lambda: torch.matmul(x, wd)),
+                   4 * m * kk + kk * n + 4 * (kk // chunk) * n + 4 * m * n,
+                   2 * m * kk * n)["form"] = tile_form("matmul_int8", m, n)
+        del x, wq, sc, wd
+    torch.cuda.empty_cache()
+
+
 def paged_library(torch, q, kp, vp, tables, lens, scale):
     """K7's yardstick: gather every table slot's pages, two batched
     matmuls and a masked softmax."""
@@ -1218,15 +1330,36 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
 
 
+# engine attributes whose change over a serve run serve() reports
+ENGINE_COUNTERS = ("prefills", "decode_steps", "decode_rows", "steps",
+                   "replays", "capture_seconds", "spec_rounds",
+                   "spec_proposed", "spec_accepted", "spec_draft_s",
+                   "spec_verify_s")
+POOL_COUNTERS = ("prefix_hits", "prefix_tokens", "prefix_tokens_cached",
+                 "cow_copies", "preemptions")
+
+
+def engine_counters(eng):
+    out = {k: getattr(eng, k) for k in ENGINE_COUNTERS}
+    out.update({k: getattr(eng.pool, k) for k in POOL_COUNTERS})
+    if eng.draft is not None:
+        out.update({"draft_steps": eng.draft.steps,
+                    "draft_replays": eng.draft.replays,
+                    "draft_capture_seconds": eng.draft.capture_seconds})
+    return out
+
+
 def serve(torch, srv, name, prompts):
     """Generate for every prompt, the second half arriving while the
-    first half decodes; returns (results, seconds, launches, calls).
+    first half decodes; returns (results, seconds, launches, calls,
+    counters), ``counters`` the change of ``engine_counters`` over the
+    run.
     ``calls`` lists the K7 call of every decode step (one a layer) as
     [B, NB, context lengths of the real rows], (B, NB) the bucket the
     step ran at (a covering bucket while its own is captured); a
     padding row attends over one position.  ``launches`` also holds
-    the prefills, the decode steps and the graph replays: every one of
-    them must be a replay."""
+    the prefills, the decode steps and the graph replays: every step of
+    the tenant's engine (and of its draft's) must be a replay."""
     from paddle_tpu_torch.kernels import KERNELS, reset_launches
 
     eng = srv.engine(name)
@@ -1238,8 +1371,8 @@ def serve(torch, srv, name, prompts):
     eng.drain()
     torch.cuda.synchronize()
     reset_launches()
-    steps0, prefills0 = eng.decode_steps, eng.prefills
-    replays0 = eng.replays
+    steps0 = eng.decode_steps
+    counters0 = engine_counters(eng)
     calls, step = [], eng.decode_step
 
     def logged(blocks_list, lens_list, *args, **kw):
@@ -1261,37 +1394,52 @@ def serve(torch, srv, name, prompts):
         del eng.decode_step
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in KERNELS.items()}
-    launches["prefills"] = eng.prefills - prefills0
-    launches["decode_steps"] = eng.decode_steps - steps0
-    launches["replays"] = eng.replays - replays0
-    if launches["replays"] != launches["prefills"] + launches["decode_steps"]:
+    counters = {k: v - counters0[k]
+                for k, v in engine_counters(eng).items()}
+    launches.update({k: counters[k]
+                     for k in ("prefills", "decode_steps", "replays")})
+    if counters["replays"] != counters["steps"] or \
+            counters.get("draft_replays") != counters.get("draft_steps"):
         raise AssertionError("a step ran outside a graph replay: %r"
-                             % launches)
+                             % counters)
     if any(len(r["tokens"]) != MAX_NEW for r in res):
         raise AssertionError("a request did not get %d tokens" % MAX_NEW)
     if eng.pool.used_blocks != 0:
         raise AssertionError("pool not drained: %d blocks used"
                              % eng.pool.used_blocks)
-    return res, secs, launches, calls
+    return res, secs, launches, calls, counters
 
 
-def load_tenant(torch, srv, name, cfg, params, quant=""):
+def load_tenant(torch, srv, name, cfg, params, quant="", **kw):
     """``srv.load_generative`` with its default warm (every warm bucket
-    captured); returns (engine, what the load cost: seconds, seconds
-    spent capturing, memory reserved before and after, the warm
-    keys)."""
+    captured; ``kw``: prefix_cache, spec_k, draft); returns (engine,
+    what the load cost: seconds, seconds spent capturing (the draft's
+    included), memory reserved before (the allocator's cache emptied
+    first: an unloaded tenant's graph pools may be released meanwhile)
+    and after, the warm keys)."""
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     before = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     eng = srv.load_generative(name, cfg, params, quant=quant,
-                              kv_blocks=512)
+                              kv_blocks=512, **kw)
     torch.cuda.synchronize()
-    return eng, {"load_s": time.perf_counter() - t0,
-                 "capture_s": eng.capture_seconds,
-                 "memory_reserved_before_bytes": before,
-                 "memory_reserved_bytes": torch.cuda.memory_reserved(),
-                 "warm_decode_keys": eng.warm_decode_buckets,
-                 "warm_prefill_keys": eng._prefill.warm_keys}
+    load = {"load_s": time.perf_counter() - t0,
+            "capture_s": eng.capture_seconds,
+            "memory_reserved_before_bytes": before,
+            "memory_reserved_bytes": torch.cuda.memory_reserved(),
+            "warm_decode_keys": eng.warm_decode_buckets,
+            "warm_prefill_keys": eng._prefill.warm_keys}
+    if eng.prefix_cache is not None:
+        load["warm_prefill_cached_keys"] = eng._prefill_cached.warm_keys
+    if eng.draft is not None:
+        load["capture_s"] += eng.draft.capture_seconds
+        load["warm_verify_keys"] = eng._verify.warm_keys
+        load["warm_draft_keys"] = {
+            "decode": eng.draft._decode.warm_keys,
+            "propose": eng.draft._propose.warm_keys,
+            "prefill": eng.draft._prefill.warm_keys}
+    return eng, load
 
 
 # a prefill at the (256,) bucket and a decode of 7 rows of 65 blocks
@@ -1311,14 +1459,10 @@ def bucket_checks(torch, eng, seed):
     import numpy as np
 
     from paddle_tpu_torch.serving.engine import pow2_bucket
-    from paddle_tpu_torch.tools.profile_serve import (SERVE_SYMBOLS,
-                                                      traced_launches)
 
     cfg = eng.config
     layers, int8 = cfg.n_layers, 4 * cfg.n_layers if eng.quant else 0
     rng = np.random.RandomState(seed)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     eng.drain()               # no capture of the serve run in flight
     blocks = [eng.pool.alloc(BUCKET_ROW_BLOCKS) for _ in range(BUCKET_ROWS)]
     out = {}
@@ -1332,46 +1476,60 @@ def bucket_checks(torch, eng, seed):
                 ("decode", lambda: eng.decode_step(blocks, lens, toks),
                  {"paged_attention": layers, "matmul_int8": int8}))
         for kind, run, want in runs:
-            with torch.profiler.profile(activities=acts) as prof:
-                run()
-                torch.cuda.synchronize()
             if kind == "prefill":
                 key = (pow2_bucket(BUCKET_PROMPT, cfg.max_seq),)
-                step = eng._prefill.get(key)
+                cache = eng._prefill
             else:
-                key = eng.last_decode_key
-                step = eng._decode.get(key)
-            traced = traced_launches(prof, 1)
-            recorded = {k: step.launches.get(k, 0) for k in SERVE_SYMBOLS}
-            want = {k: want.get(k, 0) for k in SERVE_SYMBOLS}
-            # the replay against the step function run eagerly, from the
-            # same pages and the inputs the replay was given
-            pages = [t.clone() for t in (eng._kp, eng._vp)]
-            with eng._lock, torch.no_grad():
-                for t, p in zip((eng._kp, eng._vp), pages):
-                    t.copy_(p)
-                step.graph.replay()
-                got = [t.clone() for t in step.outputs]
-                got_pages = [t[:, 1:].clone() for t in (eng._kp, eng._vp)]
-                for t, p in zip((eng._kp, eng._vp), pages):
-                    t.copy_(p)
-                eager = step.fn()
-                # past block 0, the scratch block a prefill's padding
-                # positions all write at once, in no defined order
-                same = (all(torch.equal(a, b) for a, b in zip(got, eager))
-                        and all(torch.equal(a, b[:, 1:]) for a, b in
-                                zip(got_pages, (eng._kp, eng._vp))))
-            del pages, got_pages
-            out[kind] = {"key": list(key), "recorded": recorded,
-                         "traced": traced if traced is not None
-                         else "not measured", "wanted": want,
-                         "replay_equals_eager_bit_for_bit": same,
-                         "ok": traced == recorded == want and same}
+                key, cache = None, eng._decode
+            out[kind] = replay_check(torch, eng, cache, key, run, want)
     finally:
         for b in blocks:
             eng.pool.free(b)
     out["ok"] = all(v["ok"] for v in out.values())
     return out
+
+
+def replay_check(torch, eng, cache, key, run, want):
+    """``run()`` (one replay of ``cache``'s step at ``key``, else at
+    ``eng.last_decode_key``) under ``torch.profiler``: the launches it
+    makes, read by kernel symbol, against those the wrappers recorded at
+    the capture and ``want``, the path's; then the replay against the
+    step function run eagerly on the card from the same pages and the
+    inputs the replay was given: outputs and every page but the scratch
+    block 0 bit for bit.  ``eng`` owns the pages the step writes."""
+    from paddle_tpu_torch.tools.profile_serve import (SERVE_SYMBOLS,
+                                                      traced_launches)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    key = key if key is not None else eng.last_decode_key
+    step = cache.get(key)
+    traced = traced_launches(prof, 1)
+    recorded = {k: step.launches.get(k, 0) for k in SERVE_SYMBOLS}
+    want = {k: want.get(k, 0) for k in SERVE_SYMBOLS}
+    pages = [t.clone() for t in (eng._kp, eng._vp)]
+    with eng._lock, torch.no_grad():
+        for t, p in zip((eng._kp, eng._vp), pages):
+            t.copy_(p)
+        step.graph.replay()
+        got = [t.clone() for t in step.outputs]
+        got_pages = [t[:, 1:].clone() for t in (eng._kp, eng._vp)]
+        for t, p in zip((eng._kp, eng._vp), pages):
+            t.copy_(p)
+        eager = step.fn()
+        # past block 0, the scratch block a prefill's padding positions
+        # all write at once, in no defined order
+        same = (all(torch.equal(a, b) for a, b in zip(got, eager))
+                and all(torch.equal(a, b[:, 1:]) for a, b in
+                        zip(got_pages, (eng._kp, eng._vp))))
+    del pages, got_pages
+    return {"key": list(key), "recorded": recorded,
+            "traced": traced if traced is not None else "not measured",
+            "wanted": want, "replay_equals_eager_bit_for_bit": same,
+            "ok": traced == recorded == want and same}
 
 
 def serve_summary(res, secs):
@@ -1423,6 +1581,381 @@ def oracle_check(torch, eng, params, prompt, tokens):
             "max_logit_gap_to_dense_argmax": gap,
             "final_logits_max_abs_err": err, "tolerance": LOGIT_TOL,
             "ok": ok}
+
+
+# ---------------------------------------------------------------------------
+# serve_prefix and serve_spec: prefix caching and speculative decoding
+# ---------------------------------------------------------------------------
+
+SYSTEM_PREFIX = 768     # the shared "system" prompt: 48 blocks
+TIMED = 5               # prefills timed a prompt (median)
+
+
+def prefix_prompts(cfg, seed):
+    """serve_prefix's 12 prompts (the second six arrive mid-decode):
+    eight share a 768-token system prefix, with suffixes of 16-512
+    tokens; two share one of those prompts up to a point inside a block
+    (a COW); two are unrelated."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+
+    def tok(n):
+        return rng.randint(0, cfg.vocab, n).tolist()
+
+    system = tok(SYSTEM_PREFIX)
+    hits = [system + tok(n) for n in (100, 300, 16, 512, 48, 200, 33, 400)]
+    cold = [tok(600), tok(64)]
+    cow = [hits[0][:SYSTEM_PREFIX + 24] + tok(40),
+           hits[1][:SYSTEM_PREFIX + 40] + tok(90)]
+    return [hits[0], cold[0], hits[1], hits[2], hits[3], cold[1],
+            hits[4], cow[0], hits[5], cow[1], hits[6], hits[7]]
+
+
+def token_certificate(prompts, want, got, plain_logits, tenant_logits):
+    """A tenant's greedy tokens (``got``) against the plain path's
+    (``want``), request by request.  Where they first differ, at step
+    t, the plain path's top-2 margin there against the largest |delta
+    logit| between the two paths' logits at that step
+    (``plain_logits`` / ``tenant_logits``(prompt, the t tokens before);
+    a tenant_logits of None: the tenant ran the plain path's own step
+    there, delta 0).  A difference with the margin above the delta is a
+    fault; one under it a near-tie, after which the two contexts differ
+    and the request is compared no further."""
+    import numpy as np
+
+    diffs, faults = [], 0
+    for i, (p, a, b) in enumerate(zip(prompts, want, got)):
+        t = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is None:
+            continue
+        lp = plain_logits(p, a[:t])
+        lt = tenant_logits(p, a[:t])
+        top = np.sort(lp)[::-1]
+        margin = float(top[0] - top[1])
+        delta = float(np.abs(lp - lt).max()) if lt is not None else 0.0
+        diffs.append({"request": i, "step": t, "plain": a[t],
+                      "tenant": b[t], "top2_margin": margin,
+                      "max_abs_logit_delta": delta,
+                      "near_tie": margin <= delta})
+        faults += margin > delta
+    return {"identical_requests": sum(a == b for a, b in zip(want, got)),
+            "of": len(want), "differences": diffs, "ok": faults == 0}
+
+
+def plain_step_logits(eng, prompt, prev):
+    """The plain path's f32 logits for the token after prompt + prev:
+    a decode step with logits after a prefill of all but the last of
+    those tokens; for the first token, dense_forward's last row (the
+    prefill step returns no logits)."""
+    from paddle_tpu_torch.serving import dense_forward
+
+    if not prev:
+        return dense_forward(eng.config, eng._params, prompt,
+                             device=eng.device)[-1].cpu().numpy()
+    ctx = prompt + prev[:-1]
+    blocks = eng.pool.alloc(eng.pool.blocks_for(len(ctx) + 1))
+    try:
+        eng.prefill_tokens(ctx, blocks)
+        _, logits = eng.decode_step([blocks], [len(ctx)], [prev[-1]],
+                                    with_logits=True)
+    finally:
+        eng.pool.free(blocks)
+    return logits[0]
+
+
+def prefix_step_logits(eng, prompt, prev):
+    """The prefix tenant's f32 logits for the token after prompt + prev:
+    the prompt admitted through its prefix cache (a hit runs the suffix
+    prefill, which gives the first token's logits), then decode steps
+    with logits over prev.  None for the first token of a miss."""
+    from paddle_tpu_torch.serving import GenRequest
+
+    req = GenRequest(prompt, MAX_NEW, None, None)
+    if not eng.prefix_cache.acquire(req):
+        raise AssertionError("the prefix tenant's pool is full")
+    logits = None
+    try:
+        more = eng.pool.blocks_for(len(prompt) + len(prev) + 1) - \
+            len(req.blocks)
+        if more > 0:
+            req.blocks += eng.pool.alloc(more)
+        if 0 < req.cached_len < len(prompt):
+            _, logits = eng._prefill_suffix(prompt, req.blocks,
+                                            req.cached_len,
+                                            with_logits=True)
+        else:
+            eng.prefill_tokens(prompt, req.blocks)
+        for i, tok in enumerate(prev):
+            _, lg = eng.decode_step([req.blocks], [len(prompt) + i], [tok],
+                                    with_logits=True)
+            logits = lg[0]
+    finally:
+        eng.free_sequence(req)
+    return logits
+
+
+def verify_step_logits(eng, prompt, prev):
+    """The spec tenant's f32 logits for the token after prompt + prev: a
+    prefill of all but the last of those tokens, then a verify step with
+    logits, whose row 0 feeds the last.  None for the first token (a
+    spec tenant's comes from the plain prefill)."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import GenRequest
+
+    if not prev:
+        return None
+    ctx = prompt + prev[:-1]
+    req = GenRequest(prompt, MAX_NEW, None, None)
+    req.blocks = eng.pool.alloc(eng.pool.blocks_for(len(ctx) + eng.spec_k
+                                                    + 1))
+    try:
+        eng.prefill_tokens(ctx, req.blocks)
+        req.context_len, req.out = len(ctx), list(prev)
+        _, logits = eng.verify_step(
+            [req], np.zeros((1, eng.spec_k), np.int64), with_logits=True)
+    finally:
+        eng.free_sequence(req)
+    return logits[0, 0]
+
+
+def host_ms(torch, fn):
+    """Median host ms of TIMED calls of ``fn``, a synchronize at each
+    end."""
+    ms = []
+    for _ in range(TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ms)[TIMED // 2]
+
+
+def reserved_added(load, base):
+    """Reserved memory a tenant's load added beyond ``base``'s (a
+    tenant of the same LM without the feature): its extra ladders."""
+    return ((load["memory_reserved_bytes"]
+             - load["memory_reserved_before_bytes"])
+            - (base["memory_reserved_bytes"]
+               - base["memory_reserved_before_bytes"]))
+
+
+def serve_prefix_phase(torch, srv, cfg, params, prompts, cold_tenants):
+    """The prefix tenants (f32 and int8): each loaded with
+    prefix_cache=True, served ``prompts``, and the same traffic served
+    by the cold tenant of its quant (``cold_tenants``: (quant, name,
+    load)).  Returns (the phase's line, launches summed over the prefix
+    tenants' runs)."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import GenRequest
+    from paddle_tpu_torch.serving.engine import pow2_bucket
+
+    out, failures, launches_sum = {"phase": "serve_prefix"}, [], {}
+    # the timed prompts: the system prefix with a fresh suffix of 48
+    # and of 512 tokens (the served prompts have indexed themselves)
+    rng = np.random.RandomState(SEED + 6)
+    timed = [prompts[0][:SYSTEM_PREFIX]
+             + rng.randint(0, cfg.vocab, n).tolist() for n in (48, 512)]
+    for quant, cold_name, cold_load in cold_tenants:
+        tag = quant or "f32"
+        name = tag + "_prefix"
+        cold = srv.engine(cold_name)
+        eng, load = load_tenant(torch, srv, name, cfg, params, quant=quant,
+                                prefix_cache=True)
+        suffix, n_suffix = eng._prefill_suffix, [0]
+
+        def counted(*args, **kw):
+            n_suffix[0] += 1
+            return suffix(*args, **kw)
+
+        eng._prefill_suffix = counted
+        try:
+            res, secs, launches, _, counters = serve(torch, srv, name,
+                                                     prompts)
+        finally:
+            del eng._prefill_suffix
+        res_c, secs_c, _, _, _ = serve(torch, srv, cold_name, prompts)
+        for k, v in launches.items():
+            launches_sum[k] = launches_sum.get(k, 0) + v
+        cert = token_certificate(
+            prompts, [r["tokens"] for r in res_c],
+            [r["tokens"] for r in res],
+            lambda p, prev: plain_step_logits(cold, p, prev),
+            lambda p, prev: prefix_step_logits(eng, p, prev))
+        hit = prompts[6]
+        oracle = oracle_check(torch, eng, eng._params, hit,
+                              res[6]["tokens"])
+        # one suffix prefill (a 48-token and a 512-token suffix of the
+        # system prefix) beside the cold prefill of its prompt, and the
+        # first one's replay traced and held to its eager step
+        timing, replay = [], None
+        for prompt in timed:
+            req = GenRequest(prompt, 1, None, None)
+            if not eng.prefix_cache.acquire(req):
+                raise AssertionError("the prefix tenant's pool is full")
+            try:
+                start = req.cached_len
+                key = (pow2_bucket(max(len(prompt) - start, cfg.block_size),
+                                   cfg.max_seq),)
+                ms = host_ms(torch, lambda: eng._prefill_suffix(
+                    prompt, req.blocks, start))
+                if replay is None:
+                    replay = replay_check(
+                        torch, eng, eng._prefill_cached, key,
+                        lambda: eng._prefill_suffix(prompt, req.blocks,
+                                                    start),
+                        {"paged_attention": cfg.n_layers,
+                         "matmul_int8": 4 * cfg.n_layers if quant else 0})
+            finally:
+                eng.free_sequence(req)
+            blocks = cold.pool.alloc(cold.pool.blocks_for(len(prompt)))
+            try:
+                cold_ms = host_ms(torch, lambda: cold.prefill_tokens(
+                    prompt, blocks))
+            finally:
+                cold.pool.free(blocks)
+            timing.append({"prompt_tokens": len(prompt), "cached": start,
+                           "suffix_bucket": key[0], "suffix_prefill_ms": ms,
+                           "cold_prefill_ms": cold_ms})
+        load["ladders_added_reserved_bytes"] = reserved_added(load,
+                                                              cold_load)
+        out[tag] = {"launches": launches, "counters": counters,
+                    "suffix_prefills": n_suffix[0],
+                    "index_nodes": eng.prefix_cache.nodes,
+                    "tenant": serve_summary(res, secs),
+                    "cold_tenant": serve_summary(res_c, secs_c),
+                    "certificate": cert, "oracle": oracle,
+                    "prefill_ms": timing, "replay": replay, "load": load}
+        if not n_suffix[0] or not counters["prefix_hits"]:
+            failures.append("%s: no prefix hit ran a suffix prefill" % tag)
+        for what, ok in (("certificate", cert["ok"]),
+                         ("oracle", oracle["ok"]), ("replay", replay["ok"])):
+            if not ok:
+                failures.append("%s: %s" % (tag, what))
+        srv.unload(name)
+    out["failures"] = failures
+    out["ok"] = not failures
+    return out, launches_sum
+
+
+def serve_spec_phase(torch, srv, timer, cfg, params, prompts):
+    """The speculative tenants (f32 and int8 targets, an f32 draft of
+    layer 0, k = SPEC_K; profile_serve.spec_lm, the reference's
+    construction), each beside a plain tenant of the same target, all
+    serving ``prompts``.  Returns (the phase's line, launches summed
+    over the spec tenants' runs)."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import GenRequest
+    from paddle_tpu_torch.tools.profile_serve import (SPEC_DAMP, SPEC_K,
+                                                      spec_lm)
+
+    target, dcfg, dparams = spec_lm(params)
+    out, failures, launches_sum = {"phase": "serve_spec", "k": SPEC_K,
+                                   "damp": SPEC_DAMP}, [], {}
+    k = SPEC_K
+    for quant in ("", "int8"):
+        tag = quant or "f32"
+        plain, load_p = load_tenant(torch, srv, "spec_plain_" + tag, cfg,
+                                    target, quant=quant)
+        res_p, secs_p, _, _, _ = serve(torch, srv, "spec_plain_" + tag,
+                                       prompts)
+        eng, load = load_tenant(torch, srv, "spec_" + tag, cfg, target,
+                                quant=quant, spec_k=k, draft=(dcfg, dparams))
+        spec_decode, tally = eng.spec_decode, {}
+
+        def tallied(seqs):
+            before = [len(s.out) for s in seqs]
+            emitted = spec_decode(seqs)
+            for s, n, toks in zip(seqs, before, emitted):
+                key = tuple(s.prompt)
+                # a round right after the prefill starts the request's
+                # tally (again, after a preemption)
+                tally[key] = (0 if n == 1 else tally[key]) + len(toks)
+            return emitted
+
+        eng.spec_decode = tallied
+        try:
+            res, secs, launches, _, counters = serve(torch, srv,
+                                                     "spec_" + tag, prompts)
+        finally:
+            del eng.spec_decode
+        for key, v in launches.items():
+            launches_sum[key] = launches_sum.get(key, 0) + v
+        # delivered <= 1 + sum(m_i + 1) <= delivered + k, request by
+        # request (the last round's tokens past max_new are dropped)
+        accounting = [(len(r["tokens"]), 1 + tally.get(tuple(p), 0))
+                      for p, r in zip(prompts, res)]
+        accounting_ok = all(d <= e <= d + k for d, e in accounting)
+        cert = token_certificate(
+            prompts, [r["tokens"] for r in res_p],
+            [r["tokens"] for r in res],
+            lambda p, prev: plain_step_logits(plain, p, prev),
+            lambda p, prev: verify_step_logits(eng, p, prev))
+        # one propose and one verify replay at (8, 128, k) / (8, 128,
+        # k + 1): 7 rows of 65 blocks, traced, timed and held to their
+        # eager steps
+        rng = np.random.RandomState(SEED + 5)
+        blocks = [eng.pool.alloc(BUCKET_ROW_BLOCKS)
+                  for _ in range(BUCKET_ROWS)]
+        lens = [BUCKET_ROW_BLOCKS * cfg.block_size - k - 1 - i
+                for i in range(BUCKET_ROWS)]
+        toks = rng.randint(0, cfg.vocab, BUCKET_ROWS).tolist()
+        seqs = []
+        for bl, n, t in zip(blocks, lens, toks):
+            seq = GenRequest([t], 1, None, None)
+            seq.blocks, seq.context_len, seq.out = bl, n, [t]
+            seqs.append(seq)
+        props = rng.randint(0, cfg.vocab, (BUCKET_ROWS, k))
+        d = eng.draft
+        try:
+            replays = {
+                "propose": replay_check(
+                    torch, d, d._propose, (8, d.nb_top, k),
+                    lambda: d.propose_step(blocks, lens, toks, k),
+                    {"paged_attention": k * dcfg.n_layers}),
+                "verify": replay_check(
+                    torch, eng, eng._verify, (8, eng.nb_top, k + 1),
+                    lambda: eng.verify_step(seqs, props),
+                    {"paged_attention": cfg.n_layers,
+                     "matmul_int8": 4 * cfg.n_layers if quant else 0})}
+            steps = {"propose": d._propose.get((8, d.nb_top, k)),
+                     "verify": eng._verify.get((8, eng.nb_top, k + 1))}
+            replay_ms = {kind: timer(lambda: step.graph.replay())
+                         for kind, step in steps.items()}
+        finally:
+            for bl in blocks:
+                eng.pool.free(bl)
+        load["ladders_added_reserved_bytes"] = reserved_added(load, load_p)
+        rounds = counters["spec_rounds"]
+        out[tag] = {
+            "launches": launches, "counters": counters,
+            "accept_rate": counters["spec_accepted"]
+            / max(1, counters["spec_proposed"]),
+            "tenant": serve_summary(res, secs),
+            "plain_tenant": serve_summary(res_p, secs_p),
+            "certificate": cert,
+            "accounting": {"delivered_emitted": accounting,
+                           "ok": accounting_ok},
+            "replay": replays,
+            "replay_ms_at_8x128": replay_ms, "load": load,
+            "plain_load": load_p}
+        if not rounds:
+            failures.append("%s: no speculative round ran" % tag)
+        for what, ok in (("certificate", cert["ok"]),
+                         ("accounting", accounting_ok),
+                         ("propose replay", replays["propose"]["ok"]),
+                         ("verify replay", replays["verify"]["ok"])):
+            if not ok:
+                failures.append("%s: %s" % (tag, what))
+        srv.unload("spec_" + tag)
+        srv.unload("spec_plain_" + tag)
+    out["failures"] = failures
+    out["ok"] = not failures
+    return out, launches_sum
 
 
 # ---------------------------------------------------------------------------
@@ -2626,8 +3159,8 @@ def main():
         srv = InferenceServer(device="cuda")
         try:
             eng, load = load_tenant(torch, srv, "f32", cfg, params)
-            res, secs, launches, calls = serve(torch, srv, "f32",
-                                               prompts)
+            res, secs, launches, calls, _ = serve(torch, srv, "f32",
+                                                  prompts)
             for k in ("flash_fwd", "paged_attention"):
                 if launches[k] <= 0:
                     raise AssertionError("%s never launched" % k)
@@ -2648,8 +3181,8 @@ def main():
             phase = "serve_int8"
             eng8, load8 = load_tenant(torch, srv, "int8", cfg, params,
                                       quant="int8")
-            res8, secs8, launches8, calls8 = serve(torch, srv, "int8",
-                                                   prompts)
+            res8, secs8, launches8, calls8, _ = serve(torch, srv, "int8",
+                                                      prompts)
             if min(launches8[k] for k in SERVE_KERNELS) <= 0:
                 raise AssertionError("a kernel never launched on the int8 "
                                      "tenant: %r" % launches8)
@@ -2682,6 +3215,25 @@ def main():
                   "identical": solo["tokens"] == in_batch["tokens"],
                   "solo": solo["tokens"], "in_batch_of_16":
                   in_batch["tokens"]})
+
+            phase = "serve_prefix"
+            result, launches_prefix = serve_prefix_phase(
+                torch, srv, cfg, params, prefix_prompts(cfg, SEED + 4),
+                (("", "f32", load), ("int8", "int8", load8)))
+            emit(result)
+            if not result["ok"]:
+                raise AssertionError("serve_prefix: %s"
+                                     % "; ".join(result["failures"]))
+
+            phase = "serve_spec"
+            srv.unload("f32")
+            srv.unload("int8")
+            result, launches_spec = serve_spec_phase(torch, srv, timer, cfg,
+                                                     params, prompts)
+            emit(result)
+            if not result["ok"]:
+                raise AssertionError("serve_spec: %s"
+                                     % "; ".join(result["failures"]))
         finally:
             srv.close()
 
@@ -2907,6 +3459,8 @@ def main():
                 "train_f32" if name in TRAIN_KERNELS else "serve_int8")
         by_path = {"serve_f32": launches.get(name, 0),
                    "serve_int8": launches8.get(name, 0),
+                   "serve_prefix": launches_prefix.get(name, 0),
+                   "serve_spec": launches_spec.get(name, 0),
                    **{p: c.get(name, 0) for p, c in launches_train.items()}}
         summary.append({
             "name": name, "route": "cuda", "source": meta[name][0],

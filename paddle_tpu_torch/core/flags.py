@@ -61,6 +61,28 @@ define_flag("serve_kv_block_size", 16,
 define_flag("serve_kv_blocks", 512,
             "generative serving: KV cache blocks in a tenant's paged "
             "pool (block 0 is the reserved padding scratch block)")
+define_flag("serve_prefix_cache", False,
+            "generative serving: copy-on-write prefix KV reuse.  On, a "
+            "tenant keeps a radix index over prompt token ids at block "
+            "granularity: admission shares the cached prefix blocks by "
+            "refcount (the pool's shared_blocks), prefill computes and "
+            "stores ONLY the un-cached suffix (prefix_hits / "
+            "prefix_tokens / prefix_tokens_cached), a shared block "
+            "written mid-block is copied first (COW, cow_copies), and "
+            "finished prompts' blocks park in a refcount-zero LRU "
+            "instead of the free list — evicted only under allocation "
+            "pressure.  Per-tenant override: "
+            "load_generative(prefix_cache=...)")
+define_flag("serve_spec_k", 0,
+            "generative serving: speculative decoding draft depth.  "
+            "k > 0 makes the decode loop propose k tokens per iteration "
+            "from the tenant's draft LM (a load_generative(draft=...) "
+            "requirement) and verify all k in ONE batched target step — "
+            "greedy acceptance keeps the longest matching prefix plus "
+            "the target's correction token, so output stays identical "
+            "to non-speculative greedy decode.  0 (default) is plain "
+            "one-token decode.  Per-tenant override: "
+            "load_generative(spec_k=...)")
 define_flag("conv_layout", "NCHW",
             "convnet pipeline layout: 'NCHW' (reference contract; the "
             "default) or 'NHWC' — models that honor the flag (e.g. "

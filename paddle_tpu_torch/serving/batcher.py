@@ -65,11 +65,19 @@ class TokenScheduler:
     at the first request the pool cannot hold whole (it stays at the
     queue front).  A running sequence that cannot grow preempts the
     YOUNGEST running sequence, never an older one; a lone sequence that
-    cannot grow out of an empty pool is reported to the caller."""
+    cannot grow out of an empty pool is reported to the caller.
 
-    def __init__(self, pool, max_batch):
+    With a prefix index attached (generative.PrefixCache), admission
+    takes the PARTIALLY-CACHED branch: the index shares the prompt's
+    already-resident prefix blocks by refcount and allocates only the
+    rest, so a mostly-cached prompt admits under pressure that would
+    requeue a cold one (``seq.cached_len`` carries the boundary to the
+    engine's suffix prefill)."""
+
+    def __init__(self, pool, max_batch, prefix_cache=None):
         self.pool = pool
         self.max_batch = int(max_batch)
+        self.prefix_cache = prefix_cache
 
     def try_admit(self, queue, n_running):
         """Pop and return the requests admissible RIGHT NOW (their
@@ -79,6 +87,12 @@ class TokenScheduler:
             req = queue.get(timeout=0)
             if req is None:
                 break
+            if self.prefix_cache is not None:
+                if not self.prefix_cache.acquire(req):
+                    queue.put_front([req])  # keeps its arrival stamp
+                    break
+                admitted.append(req)
+                continue
             blocks = self.pool.alloc(self.pool.blocks_for(
                 len(req.prompt)))
             if blocks is None:

@@ -8,7 +8,9 @@ DecodeLoop thread.  ``generate`` returns a Future of
 warm buckets are captured as CUDA graphs when it loads
 (``load_generative(warm=True)``, the default); ``unload`` and ``close``
 stop its loop, then close the engine, which joins its background
-captures and drops the graphs before the pages.  The predict tier
+captures and drops the graphs before the pages.  A tenant may keep a
+prefix cache and speculate with a draft LM (``load_generative``'s
+``prefix_cache``, ``spec_k`` and ``draft``).  The predict tier
 (``load``/``submit``/``swap``, the socket endpoint) is not part of this
 slice.
 """
@@ -60,8 +62,11 @@ class InferenceServer:
         weight quantization gated per tenant via ``quant='int8'``.
         ``warm`` builds the warm buckets now (on a card: the kernels,
         then one CUDA graph a bucket), so no request pays for them.
-        ``prefix_cache``, ``spec_k`` and ``draft`` are not ported yet
-        and raise NotImplementedError when given."""
+        ``prefix_cache=True`` turns on copy-on-write prefix KV reuse
+        for this tenant; ``spec_k > 0`` turns on speculative decoding,
+        which needs ``draft=(config, params)``: a small LM with the
+        same vocab and paging geometry (both default to
+        FLAGS_serve_prefix_cache / FLAGS_serve_spec_k)."""
         with self._lock:
             self._check_loadable(name)
         engine = GenerativeEngine(config, params, quant=quant,

@@ -31,9 +31,29 @@ STEPS = 8 timed, STEPS profiled.  Reports:
   time, by kernel name (``prefill_kernels``), and its launches.
   Where the profiler records no device time these read "not measured".
 
+``--prefix`` measures one suffix prefill instead: the tenant built with
+``prefix_cache=True``, a SYSTEM = 768-token prompt prefix indexed (48
+blocks), then the prompt of that prefix and SUFFIX = 256 fresh tokens
+admitted through the cache, whose suffix prefill (256 K7 rows over
+769..1024 positions a layer) runs STEPS times unprofiled (host ms, a
+synchronize at each end, median) and STEPS times profiled: device ms,
+idle share, K7 / K8 ms and traced launches a step; beside it the cold
+prefill of the same prompt, measured the same way.
+
+``--spec`` measures one speculative round instead: the target is the
+flagship LM with layers 1-5's ``wo`` and ``w2`` scaled by SPEC_DAMP,
+the draft its layer 0 (``spec_lm``), k = SPEC_K; BATCH sequences of CTX
+tokens prefilled, 2 rounds untimed (the first re-prefills the draft),
+then STEPS rounds unprofiled and STEPS profiled (``spec_decode``: the
+draft's catch-up steps, its fused k-step proposal, the target's verify
+of B x (k + 1) rows): host ms a round, device ms, idle share, K7 / K8 ms
+and traced launches a round, the accept rate and tokens a round; then
+one proposal and one verify profiled alone.
+
 Run on a CUDA machine from the repository root:
 
-    python -m paddle_tpu_torch.tools.profile_serve [--quant int8]
+    python -m paddle_tpu_torch.tools.profile_serve [--quant int8] \
+        [--prefix | --spec]
 
 Prints one JSON line.
 """
@@ -42,14 +62,22 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import re
 import time
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-from ..serving import FLAGSHIP_LM, GenerativeEngine, GenRequest, tiny_lm
+from ..serving import (FLAGSHIP_LM, GenerativeEngine, GenRequest, LMConfig,
+                       tiny_lm)
+
 BATCH, CTX, STEPS = 16, 1024, 8
+SYSTEM, SUFFIX = 768, 256
+# the speculative construction of the reference's serving bench
+# (tools/serve_bench.py), at the flagship's width: a draft of the
+# target's layer 0 predicts its greedy tokens most of the time
+SPEC_K, SPEC_DAMP = 8, 0.002
 # the serving kernels' symbols in a trace: K1's f32 form, K7's span
 # kernel (one a call; its combine follows when a row has more than one
 # span), K8's decode and prefill forms (the prefill form is the
@@ -115,11 +143,183 @@ def _kernel_ms(spans, syms):
                       if any(sym in name for sym in syms)])
 
 
+def spec_lm(params, damp=SPEC_DAMP):
+    """(target params, draft config, draft params) over the flagship's
+    ``params``: the target's layers 1.. have ``wo`` and ``w2`` scaled
+    by ``damp``; the draft is layer 0 with the shared embeddings, final
+    LayerNorm and head."""
+    target = dict(params)
+    for l in range(1, FLAGSHIP_LM["n_layers"]):
+        for w in ("wo", "w2"):
+            target["l%d.%s" % (l, w)] = target["l%d.%s" % (l, w)] * damp
+    draft = {k: v for k, v in target.items()
+             if not re.match(r"l[0-9]+\.", k) or k.startswith("l0.")}
+    return target, LMConfig(**dict(FLAGSHIP_LM, n_layers=1)), draft
+
+
+def _acts():
+    return [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+
+def _profiled(fn, n):
+    """Device numbers of ``n`` calls of ``fn`` under torch.profiler:
+    ({device ms, K7 ms, K8 ms a call, traced launches a call}, the top
+    kernels), "not measured" where the trace holds no device time."""
+    with torch.profiler.profile(activities=_acts()) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = _by_kernel(prof, n)
+    spans = _device_intervals(prof)
+    if not kernels:
+        return {"device_ms": "not measured"}, "not measured"
+    top = dict(sorted(kernels.items(),
+                      key=lambda kv: -kv[1]["ms_per_step"])[:12])
+    return {"device_ms": _union_ms([(s, e) for _, s, e in spans]) / n,
+            "paged_attention_ms": _kernel_ms(
+                spans, SERVE_SYMBOLS["paged_attention"]) / n,
+            "matmul_int8_ms": _kernel_ms(
+                spans, SERVE_SYMBOLS["matmul_int8"]) / n,
+            "traced_launches": traced_launches(prof, n)}, top
+
+
+def _measured(fn, n):
+    """``fn`` n times unprofiled (host ms, a synchronize at each end,
+    median), then n times profiled (``_profiled``); the idle share is
+    of the unprofiled call."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(ms))
+    dev, top = _profiled(fn, n)
+    if dev["device_ms"] != "not measured":
+        dev["device_idle_share"] = 1.0 - dev["device_ms"] / med
+    return dict(host_ms_median=med, **dev), top
+
+
+def prefix_main(args, cfg, params):
+    """The --prefix measurement: one suffix prefill beside the cold
+    prefill of its prompt."""
+    rng = np.random.RandomState(args.seed + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = GenerativeEngine(cfg, params, quant=args.quant, kv_blocks=512,
+                           device="cuda", prefix_cache=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    system = rng.randint(0, cfg.vocab, SYSTEM).tolist()
+    seed = GenRequest(system + rng.randint(0, cfg.vocab, 16).tolist(), 1,
+                      None, None)
+    assert eng.prefix_cache.acquire(seed)
+    eng.prefill(seed)
+    eng.prefix_cache.insert(seed)
+    eng.free_sequence(seed)
+    prompt = system + rng.randint(0, cfg.vocab, SUFFIX).tolist()
+    req = GenRequest(prompt, 1, None, None)
+    assert eng.prefix_cache.acquire(req)
+    start = req.cached_len
+    suffix, suffix_top = _measured(
+        lambda: eng._prefill_suffix(prompt, req.blocks, start), STEPS)
+    blocks = eng.pool.alloc(eng.pool.blocks_for(len(prompt)))
+    cold, cold_top = _measured(
+        lambda: eng.prefill_tokens(prompt, blocks), STEPS)
+    out = {"device": torch.cuda.get_device_name(0), "quant": args.quant,
+           "mode": "prefix", "prompt_tokens": len(prompt), "cached": start,
+           "suffix_rows": len(prompt) - start, "load_s": load_s,
+           "capture_s": eng.capture_seconds,
+           "memory_reserved_bytes": torch.cuda.memory_reserved(),
+           "suffix_prefill": suffix, "cold_prefill": cold,
+           "suffix_kernels": suffix_top, "cold_kernels": cold_top,
+           "same_first_token": eng._prefill_suffix(prompt, req.blocks,
+                                                   start)
+           == eng.prefill_tokens(prompt, blocks)}
+    eng.free_sequence(req)
+    eng.pool.free(blocks)
+    eng.close()
+    return out
+
+
+def spec_main(args, cfg, params):
+    """The --spec measurement: speculative rounds over BATCH sequences,
+    then one proposal and one verify alone."""
+    target, dcfg, dparams = spec_lm(params)
+    k = SPEC_K
+    rounds = 2 + 2 * STEPS
+    per_seq = -(-(CTX + (rounds + 2) * (k + 1)) // cfg.block_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = GenerativeEngine(cfg, target, quant=args.quant,
+                           kv_blocks=BATCH * per_seq + 1, device="cuda",
+                           spec_k=k, draft=(dcfg, dparams))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rng = np.random.RandomState(args.seed + 1)
+    seqs = []
+    for _ in range(BATCH):
+        req = GenRequest(rng.randint(0, cfg.vocab, CTX).tolist(), 1 << 10,
+                         None, None)
+        req.blocks = eng.pool.alloc(per_seq)
+        req.out.append(eng.prefill(req))
+        seqs.append(req)
+    emitted = []
+
+    def spec_round():
+        out = eng.spec_decode(seqs)
+        for s, toks in zip(seqs, out):
+            s.out.extend(toks)
+        emitted.append(sum(len(t) for t in out))
+
+    for _ in range(2):
+        spec_round()
+    acc0, prop0 = eng.spec_accepted, eng.spec_proposed
+    del emitted[:]
+    round_, round_top = _measured(spec_round, STEPS)
+    d = eng.draft
+    props = d.propose_step([s.blocks for s in seqs],
+                           [s.draft_len for s in seqs],
+                           [s.out[-1] for s in seqs], k)
+    propose, _ = _profiled(lambda: d.propose_step(
+        [s.blocks for s in seqs], [s.draft_len for s in seqs],
+        [s.out[-1] for s in seqs], k), 1)
+    verify, _ = _profiled(lambda: eng.verify_step(seqs, props), 1)
+    out = {"device": torch.cuda.get_device_name(0), "quant": args.quant,
+           "mode": "spec", "k": k, "damp": SPEC_DAMP, "batch": BATCH,
+           "ctx": CTX, "load_s": load_s,
+           "capture_s": eng.capture_seconds + d.capture_seconds,
+           "memory_reserved_bytes": torch.cuda.memory_reserved(),
+           "round": round_, "round_kernels": round_top,
+           "accept_rate": (eng.spec_accepted - acc0)
+           / (eng.spec_proposed - prop0),
+           "tokens_per_round": float(np.mean(emitted)),
+           "propose": propose, "verify": verify,
+           "tokens_sha1": hashlib.sha1(json.dumps(
+               [s.out for s in seqs]).encode()).hexdigest()}
+    for s in seqs:
+        eng.free_sequence(s)
+    eng.close()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quant", default="")
     ap.add_argument("--seed", type=int, default=0)
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--prefix", action="store_true",
+                      help="one suffix prefill beside the cold prefill")
+    mode.add_argument("--spec", action="store_true",
+                      help="one speculative round (propose + verify)")
     args = ap.parse_args(argv)
+    if args.prefix or args.spec:
+        cfg, params = tiny_lm(args.seed, **FLAGSHIP_LM)
+        run = prefix_main if args.prefix else spec_main
+        print(json.dumps(run(args, cfg, params)))
+        return
 
     cfg, params = tiny_lm(args.seed, **FLAGSHIP_LM)
     per_seq = -(-(CTX + 2 * STEPS + 4) // cfg.block_size)

@@ -2127,13 +2127,20 @@ SERVE_LM = dict(vocab=512, d_model=256, n_heads=2, n_layers=2, d_ff=512,
 
 
 def _serve_engine(quant="", warm=False, max_batch=4, max_blocks=16,
-                  kv_blocks=64, name=""):
+                  kv_blocks=64, name="", **kw):
     from paddle_tpu_torch.serving import GenerativeEngine, tiny_lm
 
     cfg, params = tiny_lm(3, max_batch=max_batch, max_blocks=max_blocks,
                           **SERVE_LM)
     return GenerativeEngine(cfg, params, quant=quant, kv_blocks=kv_blocks,
-                            device="cuda", warm=warm, name=name)
+                            device="cuda", warm=warm, name=name, **kw)
+
+
+def _draft(max_batch=4, max_blocks=16):
+    from paddle_tpu_torch.serving import tiny_lm
+
+    return tiny_lm(4, max_batch=max_batch, max_blocks=max_blocks,
+                   **dict(SERVE_LM, n_layers=1))
 
 
 def _fill_pages(eng, seed):
@@ -2325,3 +2332,114 @@ def test_a_failed_bucket_capture_runs_nothing_eagerly_on_card(
         assert eng._decode.warm_keys == [(4, 16)] and eng.replays == 1
     finally:
         eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["", "int8"])
+def test_captured_prefix_and_spec_steps_match_the_eager_step_on_card(
+        cuda, quant):
+    """A captured suffix-prefill bucket, verify bucket and (the draft's)
+    propose bucket against the same step function run eagerly on the
+    card, bit for bit (tokens, logits and every page but the scratch
+    block), at two inputs each: the starts, counts and lengths are
+    device buffers, not values baked into the graph.  Each graph records
+    K7 once a layer and step (K8 four times a layer under int8) and no
+    K1."""
+    eng = _serve_engine(quant, prefix_cache=True, spec_k=3,
+                        draft=_draft())
+    d = eng.draft
+    try:
+        _fill_pages(eng, 6)
+        _fill_pages(d, 7)
+        pre = eng._compile_prefill_cached((64,))
+        ver = eng._compile_verify((4, 8, 4), with_logits=True)
+        pro = d._compile_propose((4, 8, 3))
+        int8 = 8 if quant else 0
+        assert pre.launches.get("paged_attention") == 2
+        assert ver.launches.get("paged_attention") == 2
+        assert pro.launches.get("paged_attention") == 3
+        assert pre.launches.get("flash_fwd", 0) == 0
+        assert pre.launches.get("matmul_int8", 0) == int8
+        assert ver.launches.get("matmul_int8", 0) == int8
+        assert pro.launches.get("matmul_int8", 0) == 0
+        rng = np.random.RandomState(2)
+        ids = np.zeros(16, np.int32)
+        ids[:8] = rng.choice(np.arange(1, 64), 8, replace=False)
+        for start, count in ((40, 50), (100, 3)):
+            toks = np.zeros(64, np.int64)
+            toks[:count] = rng.randint(0, 512, count)
+            host = dict(toks=toks, start=np.array([start], np.int64),
+                        count=np.array([count], np.int64), ids=ids)
+            (got, gp), (want, wp) = _replay_vs_eager(eng, pre, host)
+            for a, b in zip(got + gp, want + wp):
+                assert torch.equal(a, b)
+        for lens in ([5, 70, 100, 0], [30, 3, 16, 64]):
+            tables = np.zeros((4, 8), np.int32)
+            tables[:3] = rng.choice(np.arange(1, 64), (3, 8), replace=False)
+            for step, e, toks in (
+                    (ver, eng, rng.randint(0, 512, (4, 4))),
+                    (pro, d, rng.randint(0, 512, 4))):
+                host = dict(tables=tables, lens=np.array(lens, np.int32),
+                            toks=toks.astype(np.int64))
+                (got, gp), (want, wp) = _replay_vs_eager(e, step, host)
+                for a, b in zip(got + gp, want + wp):
+                    assert torch.equal(a, b)
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_copy_block_matches_a_host_copy_on_card(cuda):
+    """copy_block (the COW copy) moves one block's K/V across all layers
+    and touches no other page: the pages equal a host copy of them."""
+    eng = _serve_engine(prefix_cache=True)
+    try:
+        _fill_pages(eng, 8)
+        want = [t.cpu() for t in (eng._kp, eng._vp)]
+        for t in want:
+            t[:, 9] = t[:, 5]
+        eng.copy_block(5, 9)
+        for t, w in zip((eng._kp, eng._vp), want):
+            assert torch.equal(t.cpu(), w)
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_prefix_and_spec_certificate_at_a_small_width_on_card(cuda):
+    """The captured tenants on the card, at a small width: the prefix
+    tenant's and the speculative tenant's greedy tokens equal the plain
+    tenant's, the prefix tenant shares blocks, and the speculative
+    accounting closes (proposed = k x rows, the tokens emitted within k
+    of those delivered a request).  Every step of each tenant, the
+    draft's included, is a replay."""
+    from paddle_tpu_torch.serving import InferenceServer, tiny_lm
+
+    cfg, params = tiny_lm(3, max_batch=4, max_blocks=16, **SERVE_LM)
+    rng = np.random.RandomState(9)
+    system = rng.randint(0, 512, 70).tolist()
+    prompts = [system + rng.randint(0, 512, n).tolist()
+               for n in (5, 30, 17, 60)] + [rng.randint(0, 512, 40).tolist()]
+    out = {}
+    with InferenceServer(device="cuda") as srv:
+        for name, kw in (("plain", {}), ("prefix", {"prefix_cache": True}),
+                         ("spec", {"spec_k": 3, "draft": _draft()})):
+            eng = srv.load_generative(name, cfg, params, kv_blocks=128, **kw)
+            res = [srv.generate(name, p, 20).result(300) for p in prompts[:2]]
+            res += [f.result(300) for f in [srv.generate(name, p, 20)
+                                            for p in prompts[2:]]]
+            out[name] = [r["tokens"] for r in res]
+            eng.drain()
+            for e in (eng, eng.draft):
+                if e is not None:
+                    assert e.replays == e.steps > 0
+            if name == "prefix":
+                assert eng.pool.prefix_hits > 0
+            if name == "spec":
+                assert eng.spec_rounds > 0
+                assert eng.spec_proposed == 3 * eng.decode_rows
+                emitted = eng.prefills + eng.spec_accepted + eng.decode_rows
+                delivered = sum(len(t) for t in out[name])
+                assert delivered <= emitted <= delivered + 3 * len(prompts)
+    assert out["prefix"] == out["plain"]
+    assert out["spec"] == out["plain"]

@@ -215,13 +215,22 @@ def test_generate_eos_stops_early():
     assert res == ref[:ref.index(eos) + 1]
 
 
-@pytest.mark.parametrize("kw", [{"prefix_cache": True}, {"spec_k": 2},
-                                {"draft": ("cfg", {})}])
+@pytest.mark.parametrize("kw", [{"spec_k": 2}, {"spec_k": -1},
+                                {"spec_k": 2, "draft": {"block_size": 16}}])
 def test_deferred_features_raise(kw):
+    """The reference's argument errors of the speculative tenant: spec_k
+    without a draft, a negative spec_k, a draft of another block size."""
     cfg, params = tiny_lm(7, **CFG_KW)
+    kw = dict(kw)
+    if "draft" in kw:
+        kw["draft"] = tiny_lm(8, **dict(CFG_KW, n_layers=1, **kw["draft"]))
+    match = ("block_size mismatch" if "draft" in kw else
+             "needs a draft model" if kw["spec_k"] > 0 else
+             "spec_k must be >= 0")
     with InferenceServer(device="cpu") as srv:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match=match):
             srv.load_generative("g", cfg, params, warm=False, **kw)
+        assert srv.models() == []
 
 
 def test_unsupported_quant_rejected():
