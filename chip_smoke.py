@@ -73,6 +73,36 @@ Phases, each printed as one JSON line:
              delivered + k; a propose replay's traced launches (k K7)
              and a verify replay's (6 K7, 24 K8 under int8) equal to the
              recorded ones, each replay equal to its eager step;
+6c. serve_fleet — phase 4's LM on the disaggregated fleet: one prefill
+             worker p0 and two decode workers d0, d1 (FleetWorker, f32,
+             512 blocks each, warm: p0's prefill ladder, each decode
+             worker's whole (B, NB) grid and prefill ladder captured),
+             sharing the card over a LocalTransport behind a
+             FleetRouter.  Phase 4's 12 prompts (the second six
+             arriving mid-decode): p0 prefills (K1), exports the pages,
+             and migrates them (MigrateKV) to a decode worker, which
+             imports them in place and decodes (K7).  Records tokens/s,
+             router TTFT p50 / p90 beside serve_f32's, migrations, dups
+             and failures, bytes a migration, export and import ms
+             (each synchronised), send-to-ack ms, each worker's load,
+             capture seconds and reserved memory, and the copies alone
+             on idle engines (export, join, import, staging).  Gates: tokens
+             identical to serve_f32's, request by request; every step a
+             replay; every request migrated; d0's prefill and decode
+             replays and a prefill replay on p0 traced by kernel symbol
+             equal to the recorded launches and the path's, each equal
+             to its eager step; a prompt's pages imported into d0 after
+             its graphs were captured are read by those graphs' replays
+             (tokens those of a local prefill, the page tensors' storage
+             unchanged); one request over FleetEndpoint /
+             SocketTransport on 127.0.0.1 identical; a torn migration
+             (fleet_migrate_tear) named kv_migration:<id> and rolled
+             back, the request completed by the decode worker's local
+             generate, identical, no block stranded; the kill drill: d1
+             killed while requests it owns are held in their prompt
+             pass (a fleet_prefill delay past the router's lease), every
+             request completed with identical tokens, one eviction, at
+             least one re-prefill.  Every worker closed after;
 7. train_f32 — the same LM as a fluid Program (models/transformer
              get_model: Adam lr 1e-3, sequence 2048, batch 16) built by
              paddle_tpu_torch.fluid and run by Executor(CUDAPlace(0)):
@@ -1959,6 +1989,506 @@ def serve_spec_phase(torch, srv, timer, cfg, params, prompts):
 
 
 # ---------------------------------------------------------------------------
+# serve_fleet: the disaggregated fleet, one prefill and two decode workers
+# ---------------------------------------------------------------------------
+
+FLEET = (("p0", "prefill"), ("d0", "decode"), ("d1", "decode"))
+FLEET_LEASE_S = 0.5          # the kill drill's router lease
+FLEET_HOLD_S = 1.5           # the drill's prefill delay, past the lease
+FLEET_STEPS = 8              # decode steps of the import check
+FLEET_COPY_BLOCKS = (1, 16, 64)  # block counts of the copies timed alone
+FLEET_COPY_REPS = 3
+
+
+def _fleet_call(tr, name, head):
+    from paddle_tpu_torch.serving.fleet import M_CALL, decode_call, \
+        encode_call
+
+    return decode_call(tr.call("local:" + name, M_CALL, encode_call(head)))
+
+
+def _fleet_load(torch, name, role, cfg, params, tr):
+    """One warm FleetWorker (its role's ladders captured) and its load:
+    seconds, capture seconds, memory reserved before and after (the
+    allocator's cache emptied first), the warm keys."""
+    from paddle_tpu_torch.serving import FleetWorker
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    w = FleetWorker(name, role, cfg, params, kv_blocks=512, warm=True,
+                    transport=tr)
+    torch.cuda.synchronize()
+    tr.register(w)
+    return w, {"load_s": time.perf_counter() - t0,
+               "capture_s": w.engine.capture_seconds,
+               "memory_reserved_before_bytes": before,
+               "memory_reserved_bytes": torch.cuda.memory_reserved(),
+               "warm_decode_keys": len(w.engine._decode.warm_keys),
+               "warm_prefill_keys": len(w.engine._prefill.warm_keys)}
+
+
+def _timed(rec, fn, size=len):
+    """``fn`` wrapped to append (``size`` of its first argument, host ms
+    of the call) to ``rec``: prefill returns the first token (a host
+    read), export_blocks and import_blocks synchronise the engine's
+    stream before they return."""
+    def wrapped(arg, *args):
+        t0 = time.perf_counter()
+        out = fn(arg, *args)
+        rec.append((size(arg), (time.perf_counter() - t0) * 1e3))
+        return out
+    return wrapped
+
+
+class _WireLog:
+    """A LocalTransport's ``call`` wrapped to log each MigrateKV frame:
+    (bytes, ms from send to ack)."""
+
+    def __init__(self, tr):
+        from paddle_tpu_torch.serving.fleet import M_MIGRATE
+
+        self.frames, call = [], tr.call
+
+        def logged(addr, method, payload, timeout=None):
+            t0 = time.perf_counter()
+            out = call(addr, method, payload, timeout=timeout)
+            if method == M_MIGRATE:
+                self.frames.append((sum(len(p) for p in payload),
+                                    (time.perf_counter() - t0) * 1e3))
+            return out
+
+        tr.call = logged
+
+
+def fleet_import_check(torch, p0, d0, prompt):
+    """Trouble spot of an in-place import, on the card: d0's decode
+    bucket graphs were captured at its load; p0 prefills ``prompt`` and
+    exports its pages, d0 imports them into fresh blocks, and
+    FLEET_STEPS decode steps (graph replays) run over those blocks.
+    Their tokens must equal those of the same prompt prefilled locally
+    on d0 and decoded the same way, and the page tensors must keep their
+    storage."""
+    eng, cfg = d0.engine, d0.engine.config
+    n = len(prompt)
+    nb = eng.pool.blocks_for(n + FLEET_STEPS)
+    src = p0.engine.pool.alloc(p0.engine.pool.blocks_for(n))
+    try:
+        first = p0.engine.prefill_tokens(prompt, src)
+        k, v, _ = p0.engine.export_blocks(src)
+    finally:
+        p0.engine.pool.free(src)
+    ptrs = [t.untyped_storage().data_ptr() for t in (eng._kp, eng._vp)]
+    replays0 = eng.replays
+    out = {}
+    for how in ("imported", "local"):
+        blocks = eng.pool.alloc(nb)
+        try:
+            if how == "imported":
+                eng.import_blocks(blocks[:k.shape[1]], k, v)
+                tok = first
+            else:
+                tok = eng.prefill_tokens(prompt, blocks)
+            toks = [tok]
+            for i in range(FLEET_STEPS):
+                nxt = eng.decode_step([blocks], [n + i], [toks[-1]])
+                toks.append(int(nxt[0]))
+            out[how] = toks
+            if how == "imported":
+                pages = [t[:, blocks[:k.shape[1]]].clone()
+                         for t in (eng._kp, eng._vp)]
+            else:
+                diff = max(float((t[:, blocks[:k.shape[1]]] - p).abs().max())
+                           for t, p in zip((eng._kp, eng._vp), pages))
+        finally:
+            eng.pool.free(blocks)
+    same_storage = ptrs == [t.untyped_storage().data_ptr()
+                            for t in (eng._kp, eng._vp)]
+    replayed = eng.replays - replays0
+    return {"prompt_tokens": n, "steps": FLEET_STEPS,
+            "tokens_imported": out["imported"], "tokens_local": out["local"],
+            "identical": out["imported"] == out["local"],
+            "page_max_abs_diff_imported_vs_local": diff,
+            "page_storage_unchanged": same_storage,
+            "replays": replayed,
+            "ok": (out["imported"] == out["local"] and same_storage
+                   and replayed == 2 * FLEET_STEPS + 1)}
+
+
+def _migrate_ms(prefills, exports, imports, frames, acks):
+    """The logged host ms of a run's migrations, in completion order:
+    p0's prefill (prompt tokens, ms) and export (blocks, ms), the
+    frame's send to ack (bytes, ms), the decode worker's import (blocks,
+    ms); medians and maxima of each, and p0's own send-to-ack list."""
+    out = {}
+    for name, log in (("prefill_ms", prefills), ("export_ms", exports),
+                      ("send_to_ack_ms", frames), ("import_ms", imports)):
+        ms = [x for _, x in log]
+        out[name] = [[a, x] for a, x in log]
+        out[name + "_p50"] = _pct(ms, 0.5)
+        out[name + "_max"] = max(ms)
+    out["p0_migrate_ms"] = list(acks)
+    return out
+
+
+def fleet_summary(res, secs, prompts):
+    ttft = [r["router_ttft_ms"] for r in res]
+    itl = [x for r in res for x in r["itl_ms"]]
+    n_tok = sum(len(r["tokens"]) for r in res)
+    return {"requests": len(res), "tokens": n_tok,
+            "tokens_per_s": n_tok / secs, "seconds": secs,
+            "router_ttft_ms_p50": _pct(ttft, 0.5),
+            "router_ttft_ms_p90": _pct(ttft, 0.9),
+            "itl_ms_p50": _pct(itl, 0.5), "itl_ms_p90": _pct(itl, 0.9),
+            "router_ttft_ms_by_prompt": [[len(p), r["router_ttft_ms"],
+                                          r["worker"]]
+                                         for p, r in zip(prompts, res)],
+            "tokens_sha1": hashlib.sha1(json.dumps(
+                [r["tokens"] for r in res]).encode()).hexdigest()}
+
+
+def fleet_serve(torch, router, workers, prompts, tag):
+    """Every prompt through the router (the second half arriving while
+    the first decodes), MAX_NEW tokens each; returns (results, seconds,
+    the engines' counter deltas)."""
+    from paddle_tpu_torch.kernels import reset_launches
+
+    half = len(prompts) // 2
+    steps0 = sum(w.engine.decode_steps for w in workers.values())
+    torch.cuda.synchronize()
+    reset_launches()
+    counters0 = {n: engine_counters(w.engine) for n, w in workers.items()}
+    t0 = time.perf_counter()
+    futs = [router.generate(p, MAX_NEW, req_id="%s%02d" % (tag, i))
+            for i, p in enumerate(prompts[:half])]
+    while sum(w.engine.decode_steps for w in workers.values()) == steps0 \
+            and not futs[0].done():
+        time.sleep(0.001)
+    futs += [router.generate(p, MAX_NEW, req_id="%s%02d" % (tag, i + half))
+             for i, p in enumerate(prompts[half:])]
+    res = [f.result(600) for f in futs]
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counters = {n: {k: v - counters0[n][k]
+                    for k, v in engine_counters(w.engine).items()}
+                for n, w in workers.items()}
+    return res, secs, counters
+
+
+def fleet_kill_drill(torch, tr, workers, prompts, want):
+    """The kill drill: a router with a FLEET_LEASE_S lease serves the
+    prompts; once the first half is prefilled and migrated (some on d1),
+    a FLEET_HOLD_S delay at the ``fleet_prefill`` injection point holds
+    the next prompt passes (as many as p0 has slots), the second half
+    arrives, and d1 is killed while those prompts are held.  d1 misses
+    its lease and is evicted while requests it owns are still in their
+    prompt pass, so they are re-prefilled on d0.  Every request must
+    complete with ``want``'s tokens (zero lost), with one eviction."""
+    from paddle_tpu_torch.core.flags import FLAGS
+    from paddle_tpu_torch.distributed.resilience import (get_injector,
+                                                         install_faults)
+    from paddle_tpu_torch.serving import FleetRouter
+
+    p0, d1 = workers["p0"], workers["d1"]
+    half = len(prompts) // 2
+    slots = int(FLAGS.fleet_prefill_slots)
+    router = FleetRouter(tr, [(n, "local:" + n, r) for n, r in FLEET],
+                         lease_s=FLEET_LEASE_S, lease_interval_s=0.05,
+                         deadline_s=600)
+    try:
+        t0 = time.perf_counter()
+        base, d1_base = len(p0.migrate_ms), d1.migrations
+        futs = [router.generate(p, MAX_NEW, req_id="k%02d" % i)
+                for i, p in enumerate(prompts[:half])]
+        while len(p0.migrate_ms) < base + half:
+            time.sleep(0.001)
+        admitted_d1 = d1.migrations - d1_base
+        install_faults("fleet_prefill:delay:%g:%d" % (FLEET_HOLD_S, slots))
+        futs += [router.generate(p, MAX_NEW, req_id="k%02d" % (i + half))
+                 for i, p in enumerate(prompts[half:])]
+        while get_injector().stats.get("fleet_prefill", 0) < slots:
+            time.sleep(0.001)
+        owned = [r.rid for r in router._recs.values()
+                 if r.owner == "d1" and not r.done_evt.is_set()]
+        t_kill = time.perf_counter() - t0
+        tr.kill("d1")
+        res, lost = [], []
+        for f in futs:
+            try:
+                res.append(f.result(600))
+            except Exception as e:
+                lost.append("%s: %s" % (type(e).__name__, e))
+        secs = time.perf_counter() - t0
+    finally:
+        install_faults("")
+        router.close()
+    identical = sum(r["tokens"] == w for r, w in zip(res, want))
+    out = {"requests": len(futs), "lost": len(lost), "errors": lost,
+           "identical": identical, "admitted_on_d1_before_kill":
+           admitted_d1, "owned_by_d1_at_kill": owned,
+           "killed_at_s": t_kill, "seconds": secs,
+           "evictions": router.evictions,
+           "reprefills": router.reprefills,
+           "workers": [r["worker"] for r in res],
+           "migration_failures": router.migration_failures,
+           "availability": router.availability}
+    out["ok"] = (not lost and identical == len(futs) and admitted_d1 > 0
+                 and [e["reason"] for e in router.evictions]
+                 == ["fleet:eviction:d1"] and router.reprefills >= 1)
+    return out
+
+
+def fleet_torn_drill(router, decoders, prompt, want):
+    """One request with ``fleet_migrate_tear:drop:1:1`` installed: p0
+    sends a frame cut mid-payload; the decode worker rolls its blocks
+    back and answers BufferLifetimeError naming kv_migration:<id>; the
+    router falls back to that worker's local generate, which must give
+    ``want``.  Every decode worker's free-block count is the same after
+    the request as before, and one sanitizer trip is counted."""
+    from paddle_tpu_torch.core import sanitizer
+    from paddle_tpu_torch.distributed.resilience import install_faults
+
+    def free():
+        return {w.name: w.engine.pool.free_blocks for w in decoders}
+
+    free0, trips0 = free(), sanitizer.trips
+    install_faults("fleet_migrate_tear:drop:1:1")
+    try:
+        res = router.generate(prompt, MAX_NEW, req_id="tear").result(600)
+    finally:
+        install_faults("")
+    errors = [e for e in router._recs["tear"].migrate_errors if e]
+    named = [e for e in errors
+             if e.get("kind") == "BufferLifetimeError"
+             and "kv_migration:tear" in e.get("error", "")
+             and "rolled back" in e.get("error", "")]
+    out = {"worker": res["worker"], "migrate_errors": errors,
+           "identical": res["tokens"] == want,
+           "free_blocks_before": free0, "free_blocks_after": free(),
+           "sanitizer_trips": sanitizer.trips - trips0}
+    out["ok"] = (len(named) == 1 and res["tokens"] == want
+                 and free() == free0 and out["sanitizer_trips"] == 1)
+    return out
+
+
+def fleet_socket_round(p0, d0, prompt, want):
+    """p0 and d0 behind FleetEndpoints on 127.0.0.1, one request through
+    a router over SocketTransport (p0 migrates over a socket too): its
+    tokens must equal ``want``."""
+    from paddle_tpu_torch.serving import (FleetEndpoint, FleetRouter,
+                                          SocketTransport)
+
+    sock = SocketTransport(timeout=120.0)
+    eps = [FleetEndpoint(p0), FleetEndpoint(d0)]
+    local, p0.transport = p0.transport, sock
+    router = FleetRouter(sock, [("p0", eps[0].addr, "prefill"),
+                                ("d0", eps[1].addr, "decode")],
+                         deadline_s=600)
+    try:
+        migrations0 = d0.migrations
+        res = router.generate(prompt, MAX_NEW, req_id="sock").result(600)
+        migrated = d0.migrations - migrations0
+    finally:
+        router.close()
+        p0.transport = local
+        for ep in eps:
+            ep.stop()
+        sock.close()
+    return {"addrs": [ep.addr for ep in eps], "migrated": migrated,
+            "router_ttft_ms": res["router_ttft_ms"],
+            "identical": res["tokens"] == want,
+            "ok": res["tokens"] == want and migrated == 1}
+
+
+def fleet_copies_alone(torch, p0, d0):
+    """A migration's host copies timed on idle engines, FLEET_COPY_REPS
+    times at each of FLEET_COPY_BLOCKS: p0's export (gather, copy to
+    page-locked memory, synchronised), the ``b"".join`` a LocalTransport
+    makes of the frame's parts, d0's import (page-locked staging, copy to
+    the card, ``index_copy_``, synchronised), and apart from it the copy
+    of the K pages alone into page-locked staging; host ms each."""
+    from paddle_tpu_torch.serving.fleet import _byte_view, encode_migrate
+
+    def ms(t0):
+        return (time.perf_counter() - t0) * 1e3
+
+    rows = []
+    for nb in FLEET_COPY_BLOCKS:
+        for _ in range(FLEET_COPY_REPS):
+            src = p0.engine.pool.alloc(nb)
+            dst = d0.engine.pool.alloc(nb)
+            if src is None or dst is None:
+                raise RuntimeError("copies alone: no %d free blocks" % nb)
+            try:
+                t0 = time.perf_counter()
+                k, v, _ = p0.engine.export_blocks(src)
+                row = {"blocks": nb, "bytes": k.nbytes + v.nbytes,
+                       "export_ms": ms(t0)}
+                t0 = time.perf_counter()
+                frame = b"".join(encode_migrate(
+                    {"blocks": src}, _byte_view(k), _byte_view(v)))
+                row["join_ms"] = ms(t0)
+                t0 = time.perf_counter()
+                d0.engine.import_blocks(dst, k, v)
+                row["import_ms"] = ms(t0)
+                staged = torch.empty(k.shape, dtype=torch.float32,
+                                     pin_memory=True)
+                t0 = time.perf_counter()
+                staged.numpy()[...] = k
+                row["copy_k_to_page_locked_ms"] = ms(t0)
+                del frame, staged
+            finally:
+                p0.engine.pool.free(src)
+                d0.engine.pool.free(dst)
+            rows.append(row)
+    return rows
+
+
+def serve_fleet_phase(torch, cfg, params, prompts, f32_res, f32_secs):
+    """The flagship LM on a fleet of one prefill worker and two decode
+    workers (f32, 512 blocks each, every role's ladder captured at load)
+    sharing the card, over a LocalTransport behind a FleetRouter: the
+    serve_f32 prompts, the launches and replays of the path, the import
+    under captured graphs, a socket round, the torn migration and the
+    kill drill.  Returns (the phase's line, launches of the serve run)."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import KERNELS
+    from paddle_tpu_torch.serving import FleetRouter, LocalTransport
+    from paddle_tpu_torch.serving.engine import pow2_bucket
+
+    out, failures = {"phase": "serve_fleet"}, []
+    want = [r["tokens"] for r in f32_res]
+    tr = LocalTransport()
+    workers, loads = {}, {}
+    try:
+        for name, role in FLEET:
+            workers[name], loads[name] = _fleet_load(torch, name, role, cfg,
+                                                     params, tr)
+        p0, d0, d1 = (workers[n] for n, _ in FLEET)
+        wire = _WireLog(tr)
+        prefills, exports, imports = [], [], []
+        p0.engine.prefill = _timed(prefills, p0.engine.prefill,
+                                   lambda seq: len(seq.prompt))
+        p0.engine.export_blocks = _timed(exports, p0.engine.export_blocks)
+        for d in (d0, d1):
+            d.engine.import_blocks = _timed(imports, d.engine.import_blocks)
+        router = FleetRouter(tr, [(n, "local:" + n, r) for n, r in FLEET],
+                             deadline_s=600)
+        try:
+            # CUDA and cuBLAS first-call set-up is load time: one short
+            # request on each decode worker, one through p0
+            for d in ("d0", "d1"):
+                _fleet_call(tr, d, {"op": "generate", "req": {
+                    "id": "warm-" + d, "prompt": prompts[0][:16],
+                    "max_new": 2, "eos": None}})
+                _fleet_call(tr, d, {"op": "wait", "id": "warm-" + d,
+                                    "timeout": 600})
+            router.generate(prompts[0][:16], 2, req_id="warm").result(600)
+            # a first run of the prompts fills the page-locked host pools
+            # (the first copy at each size allocates) and the host
+            # memory the frames land in; the second is the one measured
+            res1, secs1, _ = fleet_serve(torch, router, workers, prompts,
+                                         "f")
+            logs = (prefills, exports, imports, wire.frames, p0.migrate_ms)
+            first = {"fleet": fleet_summary(res1, secs1, prompts),
+                     "migrate_ms": _migrate_ms(*logs)}
+            for log in logs:
+                del log[:]
+            res, secs, counters = fleet_serve(torch, router, workers,
+                                              prompts, "s")
+            launches = {k: fn.launches for k, fn in KERNELS.items()}
+            launches.update({k: sum(c[k] for c in counters.values())
+                             for k in ("prefills", "decode_steps",
+                                       "replays")})
+            identical = sum(r["tokens"] == w for r, w in zip(res, want))
+            identical1 = sum(r["tokens"] == w for r, w in zip(res1, want))
+            steps_ok = all(c["replays"] == c["steps"]
+                           for c in counters.values())
+            frames = [b for b, _ in wire.frames]
+            migration = {
+                "migrations": {n: workers[n].migrations
+                               for n in ("d0", "d1")},
+                "dups": {n: workers[n].migration_dups
+                         for n in ("d0", "d1")},
+                "failures": router.migration_failures,
+                "bytes_per_migration": [min(frames), max(frames)],
+                "bytes_total": sum(frames),
+                **_migrate_ms(*logs)}
+            f32 = serve_summary(f32_res, f32_secs)
+            out.update({
+                "fleet": fleet_summary(res, secs, prompts),
+                "serve_f32": {k: f32[k] for k in (
+                    "tokens_per_s", "ttft_ms_p50", "ttft_ms_p90",
+                    "itl_ms_p50", "itl_ms_p90", "tokens_sha1")},
+                "identical_to_serve_f32": [identical, len(res)],
+                "first_run": dict(first, identical_to_serve_f32=[
+                    identical1, len(res1)]),
+                "launches": launches, "counters": counters,
+                "every_step_a_replay": steps_ok,
+                "migration": migration, "load": loads})
+            if identical != len(res) or identical1 != len(res1):
+                failures.append("tokens differ from serve_f32's on %d + %d "
+                                "of %d requests" % (
+                                    len(res) - identical,
+                                    len(res1) - identical1, len(res)))
+            if not steps_ok:
+                failures.append("a step ran outside a graph replay")
+            if router.migration_failures or sum(
+                    migration["migrations"].values()) != 2 * len(prompts) + 1:
+                failures.append("a request of the run did not migrate")
+            for k in ("flash_fwd", "paged_attention"):
+                if launches[k] <= 0:
+                    failures.append("%s never launched" % k)
+            # a decode replay on d0 (bucket_checks: a prefill at (256,)
+            # and a decode at (8, 128)) and a prefill replay on p0, their
+            # traced launches against the recorded ones and the path's
+            buckets = bucket_checks(torch, d0.engine, SEED + 3)
+            rng = np.random.RandomState(SEED + 7)
+            prompt = rng.randint(0, cfg.vocab, BUCKET_PROMPT).tolist()
+            blocks = p0.engine.pool.alloc(p0.engine.pool.blocks_for(
+                BUCKET_PROMPT))
+            try:
+                p0_prefill = replay_check(
+                    torch, p0.engine, p0.engine._prefill,
+                    (pow2_bucket(BUCKET_PROMPT, cfg.max_seq),),
+                    lambda: p0.engine.prefill_tokens(prompt, blocks),
+                    {"flash_fwd": cfg.n_layers})
+            finally:
+                p0.engine.pool.free(blocks)
+            imported = fleet_import_check(torch, p0, d0, prompts[2])
+            socket_round = fleet_socket_round(p0, d0, prompts[1], want[1])
+            torn = fleet_torn_drill(router, (d0, d1), prompts[3], want[3])
+            copies = fleet_copies_alone(torch, p0, d0)
+        finally:
+            router.close()
+        out.update({"copies_alone": copies,
+                    "buckets_d0": buckets, "prefill_p0": p0_prefill,
+                    "import_under_captured_graphs": imported,
+                    "socket_round": socket_round, "torn_migration": torn})
+        kill = fleet_kill_drill(torch, tr, workers, prompts, want)
+        out["kill_drill"] = kill
+        for what, ok in (("d0's bucket replays", buckets["ok"]),
+                         ("p0's prefill replay", p0_prefill["ok"]),
+                         ("import under captured graphs", imported["ok"]),
+                         ("socket round", socket_round["ok"]),
+                         ("torn migration", torn["ok"]),
+                         ("kill drill", kill["ok"])):
+            if not ok:
+                failures.append(what)
+    finally:
+        # a killed worker's engine is alive until its shutdown
+        for w in workers.values():
+            w.shutdown()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out["failures"] = failures
+    out["ok"] = not failures
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 # phases 7-8: training through the fluid Executor
 # ---------------------------------------------------------------------------
 
@@ -3237,6 +3767,15 @@ def main():
         finally:
             srv.close()
 
+        phase = "serve_fleet"
+        torch.cuda.empty_cache()
+        result, launches_fleet = serve_fleet_phase(torch, cfg, params,
+                                                   prompts, res, secs)
+        emit(result)
+        if not result["ok"]:
+            raise AssertionError("serve_fleet: %s"
+                                 % "; ".join(result["failures"]))
+
         launches_train = {}
         for fuse in (False, True):
             phase = "train_fused" if fuse else "train_f32"
@@ -3461,6 +4000,7 @@ def main():
                    "serve_int8": launches8.get(name, 0),
                    "serve_prefix": launches_prefix.get(name, 0),
                    "serve_spec": launches_spec.get(name, 0),
+                   "serve_fleet": launches_fleet.get(name, 0),
                    **{p: c.get(name, 0) for p, c in launches_train.items()}}
         summary.append({
             "name": name, "route": "cuda", "source": meta[name][0],

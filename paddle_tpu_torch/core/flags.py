@@ -114,3 +114,43 @@ define_flag("bn_bf16", False,
             "stay f32 internally, like layer_norm) instead of casting "
             "its inputs to f32; halves BN-chain activation bytes on "
             "HBM-bound conv nets")
+define_flag("sanitizer", "off",
+            "runtime sanitizers (core/sanitizer.py): 'off' (default; a "
+            "guarded site costs one flag read) or 'buffers' ('all' "
+            "reads as 'buffers' here): a read of the KV pages while a "
+            "step that writes them is in flight or through a stale "
+            "epoch, a block decref without a reference, and a "
+            "mis-shaped KV import raise BufferLifetimeError naming "
+            "var/op/step/site")
+define_flag("fault_spec", "",
+            "fault injection spec: point:action:value[:limit],... "
+            "(distributed/resilience.py; actions drop, delay, error)")
+define_flag("fleet_lease_s", 2.0,
+            "router-side worker lease: a worker unreachable for this "
+            "long is evicted from membership and its in-flight "
+            "requests re-prefilled on a survivor")
+define_flag("fleet_lease_interval_s", 0.5,
+            "how often the router pings every member (lease renewal "
+            "cadence; each sweep also recomputes the availability)")
+define_flag("fleet_hedge_s", 0.0,
+            "hedged re-dispatch: a request not finished after this "
+            "many seconds gets a second full attempt on different "
+            "workers, first completion wins (0 disables)")
+define_flag("fleet_request_deadline_s", 120.0,
+            "end-to-end per-request deadline across all router "
+            "attempts (DeadlineExceeded past it)")
+define_flag("fleet_max_attempts", 4,
+            "bounded per-request dispatch attempts per router "
+            "attempt-loop (each eviction/hedge runs its own loop)")
+define_flag("fleet_prefix_tokens", 8,
+            "token-id prefix length the router hashes for "
+            "prefix-affinity prefill placement")
+define_flag("fleet_decode_credits", 16,
+            "router admission valve: max outstanding dispatches per "
+            "decode worker; excess arrivals queue in the router "
+            "instead of flooding worker KV pools into PoolExhausted "
+            "retry storms")
+define_flag("fleet_prefill_slots", 4,
+            "max concurrent prefill+export+migrate admissions per "
+            "prefill worker; excess calls queue (backpressure) instead "
+            "of racing the block pool")

@@ -3,8 +3,9 @@
 Counterpart of the ``RequestQueue`` and ``TokenScheduler`` of
 ``paddle_tpu/serving/batcher.py``: every decode iteration re-decides
 the batch, admitting queued prefills the moment the block pool can hold
-them (Orca iteration-level scheduling).  The predict-tier dispatcher
-is not part of this slice.
+them (Orca iteration-level scheduling), and a request migrated in with
+its pages resident (``serving/fleet.py``) the moment the batch has
+room.  The predict-tier dispatcher is not part of the port.
 """
 from __future__ import annotations
 
@@ -72,7 +73,9 @@ class TokenScheduler:
     already-resident prefix blocks by refcount and allocates only the
     rest, so a mostly-cached prompt admits under pressure that would
     requeue a cold one (``seq.cached_len`` carries the boundary to the
-    engine's suffix prefill)."""
+    engine's suffix prefill).  A request that arrives with ``blocks``
+    (migrated in by the fleet, its pages resident) is admitted as it
+    is, before either branch."""
 
     def __init__(self, pool, max_batch, prefix_cache=None):
         self.pool = pool
@@ -87,6 +90,13 @@ class TokenScheduler:
             req = queue.get(timeout=0)
             if req is None:
                 break
+            if req.blocks:
+                # migrated in (serving/fleet.py MigrateKV): the pages are
+                # already in blocks the receive path allocated, so
+                # admission is batch membership alone; another alloc
+                # here would leak the originals
+                admitted.append(req)
+                continue
             if self.prefix_cache is not None:
                 if not self.prefix_cache.acquire(req):
                     queue.put_front([req])  # keeps its arrival stamp

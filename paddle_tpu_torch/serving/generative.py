@@ -61,9 +61,16 @@ Two levers ride on top, both off by default, as in the reference:
   greedy decode.
 
 Each of their steps is a ``StepCache`` bucket captured like the rest.
-Not in this port: KV block export/import for the fleet, and the
-metrics/trace/sanitizer hooks (the reference's counters are plain
-attributes of the engine and its pool).
+
+The disaggregated fleet (``serving/fleet.py``) moves a prompt's pages
+between engines: ``export_blocks`` gathers them to host memory and
+``import_blocks`` writes them into freshly allocated blocks IN PLACE
+(``index_copy_`` along the block axis), so every graph captured before
+the import reads them; the reference rebinds its donated pool instead.
+Every step, COW copy and import is bracketed by the pool's epoch guard
+(``core/sanitizer.BufferEpochGuard``, ``kv_epoch``), as the reference's
+donations are.  Not in this port: the metrics and trace hooks (the
+reference's counters are plain attributes of the engine and its pool).
 """
 from __future__ import annotations
 
@@ -76,6 +83,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..core import sanitizer as _san
 from ..core import step_graph
 from ..core.flags import FLAGS
 from ..device import resolve_device
@@ -517,6 +525,11 @@ class GenerativeEngine:
                                device=self.device)
         # held by every capture and every step of this engine
         self._lock = threading.Lock()
+        # the pages' write/re-bind epoch: every step that writes them is
+        # bracketed begin()/rebind(), so a reader holding an epoch can
+        # tell whether the pages changed since (FLAGS_sanitizer=buffers)
+        self._kv_guard = _san.BufferEpochGuard("kv_pool:%s" % self.name)
+        self._kv_steps = 0
         # the engine's captures run on their own stream: two tenants
         # may capture at once
         self._stream = torch.cuda.Stream(self.device) \
@@ -936,9 +949,18 @@ class GenerativeEngine:
              "lens": np.zeros(bb, np.int32),
              "toks": np.zeros((bb, k1), np.int64)}, step)
 
-    def _run(self, step, **host):
-        """``step.run(**host)``; call under ``self._lock``."""
+    def _begin(self, op):
+        """Open the pages' epoch guard for a write by ``op`` (closed by
+        ``self._kv_guard.rebind()``); call under ``self._lock``."""
+        self._kv_steps += 1
+        self._kv_guard.begin(op, self._kv_steps)
+
+    def _run(self, op, step, **host):
+        """``step.run(**host)`` bracketed by the pages' epoch guard as
+        step ``op``; call under ``self._lock``."""
+        self._begin(op)
         out = step.run(**host)
+        self._kv_guard.rebind()
         self.steps += 1
         if step.graph is not None:
             self.replays += 1
@@ -986,7 +1008,7 @@ class GenerativeEngine:
         m = min(len(blocks), len(ids))
         ids[:m] = blocks[:m]
         with self._lock, torch.no_grad():
-            nxt, = self._run(step, toks=toks,
+            nxt, = self._run("prefill", step, toks=toks,
                              length=np.array([n], np.int64), ids=ids)
             return int(nxt)
 
@@ -1008,7 +1030,8 @@ class GenerativeEngine:
         ids[:len(blocks)] = blocks
         with self._lock, torch.no_grad():
             nxt, logits = self._run(
-                step, toks=toks, start=np.array([start], np.int64),
+                "prefill_cached", step, toks=toks,
+                start=np.array([start], np.int64),
                 count=np.array([count], np.int64), ids=ids)
             if with_logits:
                 return int(nxt), logits.cpu().numpy()
@@ -1021,16 +1044,18 @@ class GenerativeEngine:
         flight; on a card on the engine's stream, ordered after the
         work queued so far and before the work queued next."""
         with self._lock, torch.no_grad():
+            self._begin("cow")
             if self._stream is None:
                 self._kp[:, dst] = self._kp[:, src]
                 self._vp[:, dst] = self._vp[:, src]
-                return
-            cur = torch.cuda.current_stream(self.device)
-            self._stream.wait_stream(cur)
-            with torch.cuda.stream(self._stream):
-                self._kp[:, dst] = self._kp[:, src]
-                self._vp[:, dst] = self._vp[:, src]
-            cur.wait_stream(self._stream)
+            else:
+                cur = torch.cuda.current_stream(self.device)
+                self._stream.wait_stream(cur)
+                with torch.cuda.stream(self._stream):
+                    self._kp[:, dst] = self._kp[:, src]
+                    self._vp[:, dst] = self._vp[:, src]
+                cur.wait_stream(self._stream)
+            self._kv_guard.rebind()
 
     # -- decode ---------------------------------------------------------
 
@@ -1065,7 +1090,7 @@ class GenerativeEngine:
         key, step = cache.pick(want)
         host = _padded_rows(blocks_list, lens_list, toks_list, *key[:2])
         with self._lock, torch.no_grad():
-            out = self._run(step, **host)
+            out = self._run("decode", step, **host)
             self.last_decode_key = key
             nxt = out[0][:b].cpu().numpy()
             if with_logits:
@@ -1091,7 +1116,7 @@ class GenerativeEngine:
                                % (kk, k))
         host = _padded_rows(blocks_list, lens_list, toks_list, bb, nbb)
         with self._lock, torch.no_grad():
-            props, = self._run(step, **host)
+            props, = self._run("propose", step, **host)
             return props[:b].cpu().numpy()
 
     def verify_step(self, seqs, props, with_logits=False):
@@ -1121,7 +1146,8 @@ class GenerativeEngine:
             toks[i, 0] = s.out[-1] if s.out else s.prompt[-1]
             toks[i, 1:] = props[i]
         with self._lock, torch.no_grad():
-            out = self._run(step, tables=tables, lens=lens, toks=toks)
+            out = self._run("verify", step, tables=tables, lens=lens,
+                            toks=toks)
             nxt = out[0][:b].cpu().numpy()
             if with_logits:
                 return nxt, out[1][:b].cpu().numpy()
@@ -1192,20 +1218,139 @@ class GenerativeEngine:
         self.decode_rows += b
         return emitted
 
+    # -- the pages' epoch, and KV migration (serving/fleet.py) ----------
+
+    @property
+    def kv_epoch(self):
+        """Write generation of the pages (bumps at every step that writes
+        them under FLAGS_sanitizer=buffers)."""
+        return self._kv_guard.epoch
+
+    def kv_pages(self):
+        """Debug access to the live page tensors: ``(kp, vp, epoch)``,
+        taken under the engine's lock.  With the buffer sanitizer on, a
+        call while a step is in flight raises BufferLifetimeError;
+        validate a retained handle later with ``check_kv_epoch``."""
+        with self._lock:
+            self._kv_guard.check()
+            return self._kp, self._vp, self._kv_guard.epoch
+
+    def check_kv_epoch(self, epoch):
+        """Raise BufferLifetimeError when pages observed at ``epoch`` have
+        been written since (a no-op with the sanitizer off)."""
+        self._kv_guard.check(epoch=epoch, var="kv_pool")
+
+    def export_blocks(self, blocks):
+        """Host copies of the K/V pages behind ``blocks`` and the epoch
+        they were read at: ``(k_pages, v_pages, epoch)``, each a float32
+        numpy array ``[L, len(blocks), bs, H, D]``.  Under the engine's
+        lock with a guard check, so an export racing a step in flight is
+        a named BufferLifetimeError.  On a card the gather runs on the
+        engine's stream, after the work queued so far, into page-locked
+        host memory, and the return waits for that copy (after the lock
+        is released: later steps are ordered after it on the stream):
+        the caller may free the blocks, and the next prompt overwrite
+        them, at once."""
+        with self._lock, torch.no_grad():
+            self._kv_guard.check()
+            epoch = self._kv_guard.epoch
+            ids = torch.as_tensor([int(b) for b in blocks],
+                                  dtype=torch.long)
+            if self._stream is None:
+                return (self._kp.index_select(1, ids).numpy(),
+                        self._vp.index_select(1, ids).numpy(), epoch)
+            cur = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(cur)
+            out = []
+            with torch.cuda.stream(self._stream):
+                ids = ids.to(self.device)
+                for pages in (self._kp, self._vp):
+                    g = pages.index_select(1, ids)
+                    host = torch.empty(g.shape, dtype=g.dtype,
+                                       pin_memory=True)
+                    host.copy_(g, non_blocking=True)
+                    out.append(host)
+                done = torch.cuda.Event()
+                done.record(self._stream)
+        done.synchronize()
+        return out[0].numpy(), out[1].numpy(), epoch
+
+    def import_blocks(self, blocks, k_pages, v_pages):
+        """Install migrated K/V pages into ``blocks`` (already allocated
+        from this engine's pool by the caller).  Shapes must be exactly
+        ``[L, len(blocks), bs, H, D]`` float32: a mismatch trips the
+        buffer sanitizer by name instead of scattering garbage into live
+        pages.  The write goes INTO the page tensors (``index_copy_``
+        along the block axis), never a rebinding, so every captured
+        bucket graph, which holds the pages by address, reads the
+        imported pages.  Bracketed begin/rebind like a step; returns the
+        post-install epoch (the MigrateKV handshake value).  On a card
+        the host pages go once into page-locked memory (a received
+        payload is a read-only buffer), then to the card and into the
+        pages on the engine's stream, after the work queued so far.  The
+        return waits for that copy, after the lock is released: later
+        steps are ordered after it on the engine's stream already, so
+        the decode loop need not wait for it, and the staged pages only
+        have to outlive it."""
+        cfg = self.config
+        ids = [int(b) for b in blocks]
+        if any(b == 0 for b in ids):
+            raise ValueError("cannot import into reserved block 0")
+        want = (cfg.n_layers, len(ids), cfg.block_size,
+                cfg.n_heads, cfg.head_dim)
+        pages = [np.asarray(x) for x in (k_pages, v_pages)]
+        if any(x.shape != want or x.dtype != np.float32 for x in pages):
+            _san.trip("kv_pool:%s" % self.name, op="migrate_in",
+                      site="import_blocks: page shape %r/%r != %r "
+                           "(torn or mis-framed migration)"
+                           % (pages[0].shape, pages[1].shape, want),
+                      epoch=self._kv_guard.epoch)
+        cuda = self._stream is not None
+        staged = []
+        for x in pages:
+            t = torch.empty(want, dtype=torch.float32, pin_memory=cuda)
+            t.numpy()[...] = x
+            staged.append(t)
+        idx = torch.as_tensor(ids, dtype=torch.long)
+        done = None
+        with self._lock, torch.no_grad():
+            self._begin("migrate_in")
+            if not cuda:
+                self._kp.index_copy_(1, idx, staged[0])
+                self._vp.index_copy_(1, idx, staged[1])
+            else:
+                cur = torch.cuda.current_stream(self.device)
+                self._stream.wait_stream(cur)
+                with torch.cuda.stream(self._stream):
+                    idx = idx.to(self.device)
+                    for pages, t in zip((self._kp, self._vp), staged):
+                        pages.index_copy_(
+                            1, idx, t.to(self.device, non_blocking=True))
+                    done = torch.cuda.Event()
+                    done.record(self._stream)
+                cur.wait_stream(self._stream)
+            self._kv_guard.rebind()
+            epoch = self._kv_guard.epoch
+        if done is not None:
+            done.synchronize()
+        return epoch
+
     def warm_role(self, role):
         """Warm one side of the ladder: ``'prefill'`` the prefill
         ladder; ``'decode'`` the whole ``(batch, block-count)`` grid and
         the prefill ladder (a decode worker also serves whole
-        requests)."""
+        requests).  On a card every kernel's nvcc runs at once first."""
+        if role not in ("prefill", "decode"):
+            raise ValueError("unknown role %r" % (role,))
+        if self.device.type == "cuda":
+            _build.build_all()
         if role == "prefill":
             self._prefill.warm([(s,) for s in self.prefill_ladder])
-        elif role == "decode":
+        else:
             self._decode.warm([(b, nb)
                                for b in self.batch_ladder
                                for nb in bucket_ladder(self.nb_top)])
             self._prefill.warm([(s,) for s in self.prefill_ladder])
-        else:
-            raise ValueError("unknown role %r" % (role,))
 
     @property
     def warm_decode_buckets(self):
@@ -1297,6 +1442,19 @@ class DecodeLoop:
         # 1. admission: a prefill failure fails THAT request and returns
         # its blocks; the rest of the batch carries on
         for req in self.scheduler.try_admit(self.queue, len(running)):
+            if req.blocks and req.context_len:
+                # migrated in (serving/fleet.py): the prompt's pages are
+                # resident and ``out`` holds the first token, so joining
+                # the batch is the admission; no prefill
+                if len(req.out) >= req.max_new or (
+                        req.eos_id is not None and req.out
+                        and req.out[-1] == req.eos_id):
+                    self.engine.free_sequence(req)
+                    if not req.future.done():
+                        req.future.set_result(req.result())
+                    continue
+                running.append(req)
+                continue
             try:
                 tok = self.engine.prefill(req)
             except Exception as e:

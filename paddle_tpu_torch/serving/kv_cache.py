@@ -23,14 +23,17 @@ sequence's blocks.
 The reference's process gauges and counters are plain integer
 attributes of the pool here: ``alloc_failures``, ``preemptions``,
 ``cow_copies``, ``prefix_hits``, ``prefix_tokens``,
-``prefix_tokens_cached`` and the ``shared_blocks`` property.  Not in
-this port: the buffer sanitizer's trip on a decref without a reference
-(an unmatched decref is ignored).
+``prefix_tokens_cached`` and the ``shared_blocks`` property.  A decref
+without a reference (a double free) trips the buffer sanitizer under
+``FLAGS_sanitizer=buffers`` and is ignored otherwise, as in the
+reference.
 """
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
+
+from ..core import sanitizer as _san
 
 __all__ = ["BlockPool"]
 
@@ -215,23 +218,44 @@ class BlockPool:
     def free(self, blocks):
         """Drop one reference per listed block.  A block returns to
         circulation only at refcount zero — to the cached LRU when the
-        prefix index marked it cacheable, else to the free list.  An
-        unmatched decref is ignored."""
+        prefix index marked it cacheable, else to the free list.
+        Dropping a reference that does not exist (the refcount form of a
+        double free) trips the sanitizer under FLAGS_sanitizer=buffers
+        and is ignored otherwise."""
         blocks = [int(b) for b in blocks]
+        if not blocks:
+            return
+        # validate BEFORE mutating: a trip half-way through the decrefs
+        # would leave the ledger half-updated
         if any(b == 0 for b in blocks):
             raise ValueError("block 0 is the reserved padding block; "
                              "it is never allocated")
         with self._lock:
+            if _san.buffers_on():
+                # two owners each think they returned the pages: the
+                # next alloc would hand one sequence's live pages to
+                # another.  Checked and applied under one lock hold, so
+                # two racing frees of the last reference cannot both pass
+                avail = dict(self._ref)
+                for b in blocks:
+                    if avail.get(b, 0) <= 0:
+                        _san.trip("kv_block:%d" % b, op="free",
+                                  site="BlockPool(block_size=%d): "
+                                       "decref without a reference"
+                                       % self.block_size)
+                    avail[b] = avail.get(b, 0) - 1
             for b in blocks:
                 r = self._ref.get(b, 0)
+                if r <= 0:
+                    continue          # unmatched decref (tripped above)
                 if r > 1:
                     self._ref[b] = r - 1      # decref-to-nonzero: no free
-                elif r == 1:
-                    del self._ref[b]
-                    if b in self._cacheable:
-                        self._cached[b] = None   # park, most-recent end
-                    else:
-                        self._free.append(b)
+                    continue
+                del self._ref[b]
+                if b in self._cacheable:
+                    self._cached[b] = None    # park, most-recent end
+                else:
+                    self._free.append(b)
 
     def note_prefix_lookup(self, tokens, tokens_cached):
         """Prefix-index accounting: one lookup over ``tokens`` prompt

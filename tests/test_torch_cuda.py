@@ -2443,3 +2443,97 @@ def test_prefix_and_spec_certificate_at_a_small_width_on_card(cuda):
                 assert delivered <= emitted <= delivered + 3 * len(prompts)
     assert out["prefix"] == out["plain"]
     assert out["spec"] == out["plain"]
+
+
+@pytest.mark.cuda
+def test_export_import_round_trip_between_two_engines_on_card(cuda):
+    """export_blocks on one card engine and import_blocks into another
+    move a block set's K/V bit for bit, into the destination's page
+    tensors in place (same storage), touching no other block."""
+    src, dst = _serve_engine(name="src"), _serve_engine(name="dst")
+    try:
+        _fill_pages(src, 10)
+        _fill_pages(dst, 11)
+        blocks_src, blocks_dst = [5, 9, 2, 40], [7, 3, 60, 11]
+        want = [t[:, blocks_src].cpu() for t in (src._kp, src._vp)]
+        before = [t.cpu() for t in (dst._kp, dst._vp)]
+        ptrs = [t.data_ptr() for t in (dst._kp, dst._vp)]
+        k, v, _ = src.export_blocks(blocks_src)
+        assert isinstance(k, np.ndarray) and k.dtype == np.float32
+        for got, w in zip((k, v), want):
+            assert torch.equal(torch.from_numpy(got), w)
+        dst.import_blocks(blocks_dst, k, v)
+        assert [t.data_ptr() for t in (dst._kp, dst._vp)] == ptrs
+        for t, w, b in zip((dst._kp, dst._vp), want, before):
+            b[:, blocks_dst] = w
+            assert torch.equal(t.cpu(), b)
+    finally:
+        src.close()
+        dst.close()
+
+
+@pytest.mark.cuda
+def test_an_import_after_a_capture_is_read_by_its_replay_on_card(cuda):
+    """A decode bucket captured, THEN a prompt's pages imported into
+    fresh blocks of that engine: replays of the captured graph over
+    those blocks give the tokens and logits of the same prompt prefilled
+    locally and decoded through the same graph, bit for bit."""
+    src, dst = _serve_engine(name="src"), _serve_engine(name="dst")
+    try:
+        dst._decode_logits.warm([(1, 4)])
+        step = dst._decode_logits.get((1, 4))
+        assert step.graph is not None
+        prompt = np.random.RandomState(12).randint(0, 512, 50).tolist()
+        sb = src.pool.alloc(4)         # 50 + 6 positions, 16 a block
+        first = src.prefill_tokens(prompt, sb)
+        k, v, _ = src.export_blocks(sb)
+        out = {}
+        for how in ("imported", "local"):
+            blocks = dst.pool.alloc(4)
+            if how == "imported":
+                dst.import_blocks(blocks, k, v)
+                tok = first
+            else:
+                tok = dst.prefill_tokens(prompt, blocks)
+            toks, logits = [tok], []
+            for i in range(6):
+                nxt, lg = dst.decode_step([blocks], [50 + i], [toks[-1]],
+                                          with_logits=True)
+                assert dst.last_decode_key == (1, 4)
+                toks.append(int(nxt[0]))
+                logits.append(lg[0])
+            out[how] = (toks, np.stack(logits))
+            dst.pool.free(blocks)
+        assert dst._decode_logits.get((1, 4)) is step
+        assert out["imported"][0] == out["local"][0]
+        np.testing.assert_array_equal(out["imported"][1], out["local"][1])
+    finally:
+        src.close()
+        dst.close()
+
+
+@pytest.mark.cuda
+def test_export_returns_after_its_copy_completes_on_card(cuda):
+    """export_blocks synchronises before it returns: the blocks freed and
+    re-prefilled at once with another prompt, the exported host pages,
+    read straight after the return, still equal the pages as they were
+    (and differ from the new ones)."""
+    eng = _serve_engine()
+    try:
+        rng = np.random.RandomState(13)
+        blocks = eng.pool.alloc(16)
+        eng.prefill_tokens(rng.randint(0, 512, 250).tolist(), blocks)
+        want = [t[:, blocks].cpu() for t in (eng._kp, eng._vp)]
+        k, v, _ = eng.export_blocks(blocks)
+        snap = [k.copy(), v.copy()]
+        eng.pool.free(blocks)
+        again = eng.pool.alloc(16)
+        assert sorted(again) == sorted(blocks)
+        eng.prefill_tokens(rng.randint(0, 512, 250).tolist(), blocks)
+        torch.cuda.synchronize()
+        for got, s, w, t in zip((k, v), snap, want, (eng._kp, eng._vp)):
+            assert torch.equal(torch.from_numpy(s), w)
+            assert torch.equal(torch.from_numpy(got), w)
+            assert not torch.equal(t[:, blocks].cpu(), w)
+    finally:
+        eng.close()
