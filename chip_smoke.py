@@ -178,6 +178,17 @@ Phases, each printed as one JSON line:
              times a step each, K4's bf16 form 25 times, K5's 12 times,
              no f32 form of K1-K5;
 24. train_fused_amp_oracle — phase 22 for the fused-block program;
+24a. train_sp_amp — phase 15 under bf16 AMP: the ring on bf16 Q/K/V,
+             K9's bf16 form and K2/K3's bf16 forms 60 times a step each,
+             no f32 form of K1/K2/K3/K9; every parameter still float32;
+24b. train_sp_amp_oracle — one sp AMP step at full width, depth 1,
+             batch 1 on the card's 4-shard mesh against the same step
+             on a 4-shard CPU mesh and against the dense AMP program's
+             step on the card, from the same parameters: each fetched
+             tensor (the loss, the block's output, every parameter
+             gradient) within twice the CPU sp step's own spread when
+             every weight matrix moves by one bf16 ulp either way
+             (AMP_ORACLE_*), as phase 22; 10 launches of each bf16 form;
 25-28. train_resnet_amp_prepared, train_resnet_fused_amp_prepared,
              train_fused_amp_prepared, train_amp_prepared — phases 18,
              19, 23 and 21 through Executor.prepare / run_prepared, the
@@ -209,8 +220,8 @@ Phases, each printed as one JSON line:
              prepared (``prepared`` true) but in the BENCH_PREPARED=0
              run.
 
-Phases 18-29 each check that every loss is finite, the last below the
-first, and every parameter still float32.
+Phases 18-29 (24a among them) each check that every loss is finite,
+the last below the first, and every parameter still float32.
 
 Phase 3 holds K8 against its plain version at the flagship layer's
 four projections at every decode bucket M = 1..16 (the decode kernel,
@@ -227,7 +238,12 @@ on ragged shapes and at the path's widths (K = 4608, a Co = 64 3x3
 stage at 56 x 56, the stem at 224 x 224); K9 at the ring's shard
 [16, 8, 512, 128] (the diagonal causal fold, a non-causal fold from a
 carry seeded by an earlier one, a half-masked and a wholly masked
-block, the last bit-identical to its carry); K6's bf16 form
+block, the last bit-identical to its carry), in f32 and in its bf16
+form (``flash_chunk_bf16``: bf16 q, k, v, the f32 carry at ATOL /
+RTOL, the wgmma forward of csrc/flash_bf16.cuh with its carry policy,
+bound at the dense bf16 peak with its bytes counted at 2 bytes a q, k,
+v element and 4 a carry element, bound_split_ms its 3 products as run);
+K6's bf16 form
 (``conv_stage_bf16``: for Ci % 8 == 0 the wgmma tile of
 csrc/wgmma_gemm.cuh with x loaded by TMA's im2col mode, ``form``
 "wgmma 128x128" or "wgmma 128x64"; the stem on the mma.sync tile,
@@ -236,12 +252,15 @@ to STATS_RTOL on the sums) at the same 20 shapes (statistics form; the
 five heaviest also with the full epilogue), against F.conv2d on
 channels_last bf16 (cuDNN) with the sums in torch, bound at the dense
 bf16 peak, and at every epilogue combination on ragged shapes; K2/K3
-at that shape, non-causal and the causal diagonal; K10, which no path runs, at the
+and their bf16 forms at that shape, non-causal and the causal diagonal
+(the ring's backward steps; bf16 within one ulp plus 2**-12 of max
+|plain|); K10, which no path runs, at the
 LM's logits [32768, 8192]; the bf16 forms of K1/K2/K3 at [1, 8, 256,
 128] and [16, 8, 2048, 128] causal (out and the gradients within one
 bf16 ulp of the plain value plus 2**-12 of the tensor's max |plain|, the
 LSE at ATOL / RTOL; K1's bf16 form is the wgmma kernel of
-flash_fwd.cu, K2's and K3's those of flash_bwd.cu; their bounds count
+flash_bf16.cuh (built in flash_fwd.cu), K2's and K3's those of
+flash_bwd.cu; their bounds count
 the function's products, and bound_split_ms those run with P and dS
 split into hi + lo: K1 3, K2 4, K3 6), K4's
 (the wgmma tile of csrc/wgmma_gemm.cuh) at the five
@@ -355,19 +374,20 @@ INT8W_SPLIT_TF32_FLOPS = 494.7e12 / 2
 BF16_FLOPS = 989.4e12
 # the bf16 kernel forms, bound by BF16_FLOPS
 BF16_KERNELS = ("conv_stage_bf16", "flash_fwd_bf16", "flash_bwd_dq_bf16",
-                "flash_bwd_dkv_bf16", "matmul_epilogue_bf16", "add_ln_bf16")
+                "flash_bwd_dkv_bf16", "matmul_epilogue_bf16", "add_ln_bf16",
+                "flash_chunk_bf16")
 # the flash kernels' bf16 forms against their plain versions: one bf16
 # rounding of two f32 results that differ in summation order (and in
 # the bf16 hi + lo split of P and dS, 2**-17 relative a term), so
 # within one bf16 ulp of the plain value, plus 2**-12 of the tensor's
 # max |plain| for values that are small sums of large terms
 FLASH_BF16_FLOOR = 2.0 ** -12
-# the symbols of the wgmma kernels (the bf16 forms of K4, K6, K1, K2
-# and K3), whose accumulators must stay in registers: ptxas may report
+# the symbols of the wgmma kernels (the bf16 forms of K4, K6, K1, K2,
+# K3 and K9), whose accumulators must stay in registers: ptxas may report
 # no spill
 WGMMA_KERNELS = ("gemm_bf16_kernel", "conv_wgmma_kernel",
                  "flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
-                 "flash_bwd_dkv_bf16_kernel")
+                 "flash_bwd_dkv_bf16_kernel", "flash_chunk_bf16_kernel")
 SEED = 0
 
 
@@ -1013,19 +1033,22 @@ def check_conv(torch, timer, gen, record, bad, rows, dtype):
 
 def check_ring_kernels(torch, timer, gen, record, bad):
     """K9 at the ring's shard of the training step at sp = 4, q, k, v
-    [16, 8, 512, 128]: the diagonal causal fold from a fresh carry, a
-    non-causal fold from the carry it left, a half-masked block
-    (k_offset 256) and a wholly masked one (k_offset 512), which must
-    leave its carry bit-identical; then K2/K3 at that shape, non-causal
-    (the ring's off-diagonal backward steps) and causal (its diagonal).  K9's yardstick is SDPA over
-    the same block with the same mask: not the same function (it
-    normalizes and keeps no carry), a point of reference."""
+    [16, 8, 512, 128], in f32 and (``flash_chunk_bf16``, the sp LM under
+    AMP) on bf16 q/k/v with the f32 carry: the diagonal causal fold from
+    a fresh carry, a non-causal fold from the carry it left, a
+    half-masked block (k_offset 256) and a wholly masked one (k_offset
+    512), which must leave its carry bit-identical; then K2/K3 at that
+    shape, f32 and bf16, non-causal (the ring's off-diagonal backward
+    steps) and causal (its diagonal).  K9's yardstick is SDPA over the
+    same block with the same mask, in the operands' dtype: not the same
+    function (it normalizes and keeps no carry), a point of
+    reference."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels.flash_attention import (
         NEG_INF, attention_reference, chunk_update_reference,
         flash_attention_bwd_reference, flash_attention_chunk,
-        flash_bwd_dkv, flash_bwd_dq)
+        flash_bwd_dkv, flash_bwd_dq, flash_delta)
 
     dev = "cuda"
     b, h, s, d = TRAIN_BATCH, TRAIN_LM["n_head"], \
@@ -1037,78 +1060,98 @@ def check_ring_kernels(torch, timer, gen, record, bad):
     fresh = (torch.full((b, h, s), NEG_INF, device=dev),
              torch.zeros(b, h, s, device=dev),
              torch.zeros(b, h, s, d, device=dev))
-    seeded = flash_attention_chunk(q, k, v, *fresh, causal=True)
     pos = torch.arange(s, device=dev)
-    for what, kv, carry, causal, off in (
-            ("diagonal causal", (k, v), fresh, True, 0),
-            ("non-causal, seeded carry", (k2, v2), seeded, False, 0),
-            ("causal k_offset %d (half masked)" % (s // 2), (k2, v2),
-             fresh, True, s // 2),
-            ("causal k_offset %d (wholly masked), seeded carry" % s,
-             (k2, v2), seeded, True, s)):
-        got = flash_attention_chunk(q, *kv, *carry, causal=causal,
-                                    k_offset=off)
-        want = chunk_update_reference(q, *kv, *carry, scale, causal, off)
-        errs = [compare(torch, a, w_) for a, w_ in zip(got, want)]
-        ok = all(o for _, o in errs)
-        if causal and off >= s and not all(
-                torch.equal(a, c_) for a, c_ in zip(got, carry)):
-            bad.append("flash_chunk: a wholly masked block changed the "
-                       "carry")
-        del got, want
-        # what this block's data needs: the scores to compute, the q rows
-        # with a live key and the k/v rows with a live query, the carry
-        # read and written whole (dead rows copy theirs through)
-        mask = pos[:, None] >= off + pos[None, :] if causal else None
-        live = int(mask.sum()) if causal else s * s
-        rows_q = int(mask.any(1).sum()) if causal else s
-        rows_k = int(mask.any(0).sum()) if causal else s
-        record("flash_chunk", "%s %s" % (shape, what),
-               max(e for e, _ in errs), ok,
-               timer(lambda: flash_attention_chunk(
-                   q, *kv, *carry, causal=causal, k_offset=off)),
-               timer(lambda: chunk_update_reference(
-                   q, *kv, *carry, scale, causal, off)),
-               timer(lambda: F.scaled_dot_product_attention(
-                   q, *kv, attn_mask=mask if off else None,
-                   is_causal=causal and not off)),
-               4 * (b * h * d * (rows_q + 2 * rows_k)
-                    + 2 * (2 * b * h * s + b * h * s * d)),
-               4 * b * h * d * live)
-    del seeded, fresh, k2, v2
+    for name, dt in (("flash_chunk", torch.float32),
+                     ("flash_chunk_bf16", torch.bfloat16)):
+        qx, kx, vx, k2x, v2x = (x.to(dt) for x in (q, k, v, k2, v2))
+        seeded = flash_attention_chunk(qx, kx, vx, *fresh, causal=True)
+        size = 2 if dt == torch.bfloat16 else 4
+        for what, kv, carry, causal, off in (
+                ("diagonal causal", (kx, vx), fresh, True, 0),
+                ("non-causal, seeded carry", (k2x, v2x), seeded, False, 0),
+                ("causal k_offset %d (half masked)" % (s // 2), (k2x, v2x),
+                 fresh, True, s // 2),
+                ("causal k_offset %d (wholly masked), seeded carry" % s,
+                 (k2x, v2x), seeded, True, s)):
+            got = flash_attention_chunk(qx, *kv, *carry, causal=causal,
+                                        k_offset=off)
+            want = chunk_update_reference(qx, *kv, *carry, scale, causal,
+                                          off)
+            errs = [compare(torch, a, w_) for a, w_ in zip(got, want)]
+            ok = all(o for _, o in errs)
+            if causal and off >= s and not all(
+                    torch.equal(a, c_) for a, c_ in zip(got, carry)):
+                bad.append("%s: a wholly masked block changed the carry"
+                           % name)
+            del got, want
+            # what this block's data needs: the scores to compute, the q
+            # rows with a live key and the k/v rows with a live query (in
+            # the operands' dtype), the f32 carry read and written whole
+            # (dead rows copy theirs through)
+            mask = pos[:, None] >= off + pos[None, :] if causal else None
+            live = int(mask.sum()) if causal else s * s
+            rows_q = int(mask.any(1).sum()) if causal else s
+            rows_k = int(mask.any(0).sum()) if causal else s
+            record(name, "%s %s" % (shape, what), max(e for e, _ in errs),
+                   ok,
+                   timer(lambda: flash_attention_chunk(
+                       qx, *kv, *carry, causal=causal, k_offset=off)),
+                   timer(lambda: chunk_update_reference(
+                       qx, *kv, *carry, scale, causal, off)),
+                   timer(lambda: F.scaled_dot_product_attention(
+                       qx, *kv, attn_mask=mask if off else None,
+                       is_causal=causal and not off)),
+                   size * b * h * d * (rows_q + 2 * rows_k)
+                   + 4 * 2 * (2 * b * h * s + b * h * s * d),
+                   4 * b * h * d * live,
+                   # the bf16 form as run: S, P_hi V and P_lo V
+                   6 * b * h * d * live if dt == torch.bfloat16 else None)
+        del seeded
+    del fresh, k2, v2
 
-    # K2/K3 from the saved lse at the shard shape: non-causal (the ring's
-    # off-diagonal steps) and causal (its diagonal step)
+    # K2/K3 from the saved lse at the shard shape, f32 and bf16:
+    # non-causal (the ring's off-diagonal steps) and causal (its diagonal
+    # step); the bf16 forms within one bf16 ulp plus FLASH_BF16_FLOOR
     do = torch.randn(b, h, s, d, device=dev, generator=gen)
-    for causal, what in ((False, " non-causal"), (True, " diagonal causal")):
-        out, lse = attention_reference(q, k, v, scale, causal)
-        delta = (do * out).sum(-1)
-        want = flash_attention_bwd_reference(q, k, v, out, lse, do, scale,
-                                             causal)
-        got = (flash_bwd_dq(q, k, v, do, lse, delta, scale, causal),
-               *flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal))
-        errs = [compare(torch, a, w_) for a, w_ in zip(got, want)]
-        plain_ms = timer(lambda: flash_attention_bwd_reference(
-            q, k, v, out, lse, do, scale, causal), iters=5)
-        del got, want
-        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-        o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-        lib_ms = timer(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
-                                                   retain_graph=True))
-        del o_lib, qg, kg, vg
-        # one product over the scores the mask leaves live
-        tile = 2 * b * h * d * (s * (s + 1) // 2 if causal else s * s)
-        io = 4 * b * h * s * d
-        record("flash_bwd_dq", shape + what, errs[0][0], errs[0][1],
-               timer(lambda: flash_bwd_dq(q, k, v, do, lse, delta, scale,
-                                          causal)),
-               plain_ms, lib_ms, 5 * io + 8 * b * h * s, 3 * tile)
-        record("flash_bwd_dkv", shape + what,
-               max(errs[1][0], errs[2][0]), errs[1][1] and errs[2][1],
-               timer(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, scale,
-                                           causal)),
-               plain_ms, lib_ms, 6 * io + 8 * b * h * s, 4 * tile)
-        del out, lse, delta
+    for dt, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        qx, kx, vx, dox = (x.to(dt) for x in (q, k, v, do))
+        for causal, what in ((False, " non-causal"),
+                             (True, " diagonal causal")):
+            out, lse = attention_reference(qx, kx, vx, scale, causal)
+            delta = flash_delta(dox, out)
+            want = flash_attention_bwd_reference(qx, kx, vx, out, lse, dox,
+                                                 scale, causal)
+            got = (flash_bwd_dq(qx, kx, vx, dox, lse, delta, scale, causal),
+                   *flash_bwd_dkv(qx, kx, vx, dox, lse, delta, scale,
+                                  causal))
+            errs = [compare_bf16(torch, a, w_, FLASH_BF16_FLOOR) if suffix
+                    else compare(torch, a, w_) for a, w_ in zip(got, want)]
+            plain_ms = timer(lambda: flash_attention_bwd_reference(
+                qx, kx, vx, out, lse, dox, scale, causal), iters=5)
+            del got, want
+            qg, kg, vg = (x.detach().requires_grad_() for x in (qx, kx, vx))
+            o_lib = F.scaled_dot_product_attention(qg, kg, vg,
+                                                   is_causal=causal)
+            lib_ms = timer(lambda: torch.autograd.grad(
+                o_lib, (qg, kg, vg), dox, retain_graph=True))
+            del o_lib, qg, kg, vg
+            # one product over the scores the mask leaves live; the bf16
+            # forms as run, with P and dS split into hi + lo: K2 4, K3 6
+            tile = 2 * b * h * d * (s * (s + 1) // 2 if causal else s * s)
+            io = (2 if suffix else 4) * b * h * s * d
+            record("flash_bwd_dq" + suffix, shape + what, errs[0][0],
+                   errs[0][1],
+                   timer(lambda: flash_bwd_dq(qx, kx, vx, dox, lse, delta,
+                                              scale, causal)),
+                   plain_ms, lib_ms, 5 * io + 8 * b * h * s, 3 * tile,
+                   4 * tile if suffix else None)
+            record("flash_bwd_dkv" + suffix, shape + what,
+                   max(errs[1][0], errs[2][0]), errs[1][1] and errs[2][1],
+                   timer(lambda: flash_bwd_dkv(qx, kx, vx, dox, lse, delta,
+                                               scale, causal)),
+                   plain_ms, lib_ms, 6 * io + 8 * b * h * s, 4 * tile,
+                   6 * tile if suffix else None)
+            del out, lse, delta
     del q, k, v, do
     torch.cuda.empty_cache()
 
@@ -2513,6 +2556,8 @@ SP = 4
 SP_KERNELS = {"flash_chunk": SP * (SP + 1) // 2,
               "flash_bwd_dq": SP * (SP + 1) // 2,
               "flash_bwd_dkv": SP * (SP + 1) // 2}
+# under bf16 AMP: each one's bf16 form, and no f32 form
+SP_AMP_KERNELS = {k + "_bf16": n for k, n in SP_KERNELS.items()}
 FUSED_MATMULS = (("qkv", 1024, 3072, False, ""),
                  ("out_proj", 1024, 1024, True, ""),
                  ("fc1", 1024, 4096, True, "relu"),
@@ -2778,16 +2823,17 @@ def sp_mesh(torch, device):
     return make_mesh({"sp": SP}, [torch.device(device)] * SP)
 
 
-def train_sp(torch):
+def train_sp(torch, amp=False):
     """Startup, then 1 warm-up and TRAIN_STEPS timed steps of the sp LM
-    on one fixed batch through ExecutorCore(CUDAPlace(0)) on the 4-shard
-    one-card mesh; the dense program's loss from the startup parameters
-    and the same batch beside the warm-up's, for information."""
+    (under bf16 AMP with ``amp``) on one fixed batch through
+    ExecutorCore(CUDAPlace(0)) on the 4-shard one-card mesh; the dense
+    program's loss from the startup parameters and the same batch beside
+    the warm-up's, for information."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.core.executor_impl import ExecutorCore
     from paddle_tpu_torch.kernels import KERNELS, reset_launches
 
-    main, startup, loss = build_lm(fluid, sp=True)
+    main, startup, loss = build_lm(fluid, amp=amp, sp=True)
     mesh = sp_mesh(torch, "cuda:0")
     core = ExecutorCore(fluid.CUDAPlace(0), mesh=mesh)
     scope = fluid.Scope()
@@ -2796,7 +2842,7 @@ def train_sp(torch):
     torch.cuda.synchronize()
     startup_s = time.perf_counter() - t0
     feed = lm_batch(TRAIN_BATCH, SEED + 3)
-    dmain, _, dloss = build_lm(fluid)
+    dmain, _, dloss = build_lm(fluid, amp=amp)
     dense = fluid.Scope()
     for name, v in main.desc.blocks[0].vars.items():
         if v.persistable and scope.has_var(name):
@@ -2819,11 +2865,15 @@ def train_sp(torch):
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_LM["seq_len"]
     p50 = _pct(step_ms, 0.5)
-    want = {k: TRAIN_LM["n_layers"] * n for k, n in SP_KERNELS.items()}
+    want = {k: TRAIN_LM["n_layers"] * n for k, n in
+            (SP_AMP_KERNELS if amp else SP_KERNELS).items()}
     per_step = {k: launches[k] / TRAIN_STEPS for k in KERNELS}
+    dtypes = param_dtypes(main, scope)
     ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-          and all(per_step[k] == want.get(k, 0) for k in KERNELS))
-    return {"phase": "train_sp", "batch": TRAIN_BATCH, **TRAIN_LM,
+          and all(per_step[k] == want.get(k, 0) for k in KERNELS)
+          and dtypes == ["float32"])
+    return {"phase": "train_sp_amp" if amp else "train_sp", "amp": amp,
+            "batch": TRAIN_BATCH, **TRAIN_LM,
             "mesh": {"axes": mesh.shape,
                      "logical_devices": [str(d_) for d_ in mesh.devices],
                      "physical_devices": len(set(mesh.devices))},
@@ -2836,7 +2886,7 @@ def train_sp(torch):
                                              "and_batch"],
             "launches_per_step": per_step,
             "launches_per_step_wanted": want, "launches": launches,
-            "ok": ok}
+            "param_dtypes": dtypes, "ok": ok}
 
 
 def train_sp_oracle(torch):
@@ -2881,6 +2931,69 @@ def train_sp_oracle(torch):
             "vs_cpu_sp": vs_cpu, "vs_card_dense": vs_dense,
             "ok": (vs_cpu["ok"] and vs_dense["ok"]
                    and launches == dict(SP_KERNELS))}
+
+
+def train_sp_amp_oracle(torch):
+    """One sp step under bf16 AMP at full width, depth 1, batch 1 on the
+    card's 4-shard mesh, and from the same parameters the same step on a
+    4-shard CPU mesh and the dense AMP program's step on the card; the
+    CPU sp step twice more with every weight matrix one bf16 ulp up and
+    down (its own spread, as train_amp_oracle's).  Each fetched tensor
+    (the loss, the block's output, every parameter gradient) of the card
+    sp step is held to AMP_ORACLE_SPREAD times that spread against the
+    CPU sp step and against the dense card step (amp_agreement)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.executor_impl import ExecutorCore
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.tools.amp_spread import (lm_block_output,
+                                                   nudge_weights)
+
+    main, startup, loss = build_lm(fluid, amp=True, n_layers=1, sp=True)
+    dmain, _, _ = build_lm(fluid, amp=True, n_layers=1)
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    arrays = get_scope_arrays(card, persist)
+    dense = fluid.Scope()
+    set_scope_arrays(dense, arrays, "cuda")
+    params = [p.name for p in main.all_parameters()]
+    grads = [p + "@GRAD" for p in params]
+    block_out = lm_block_output(main)
+    fetch = [loss.name, block_out] + grads
+    feed = lm_batch(1, SEED + 4)
+    reset_launches()
+    got = ExecutorCore(fluid.CUDAPlace(0), mesh=sp_mesh(torch, "cuda:0")
+                       ).run(main.desc, card, 0, feed, fetch,
+                             return_numpy=False)
+    launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+    grad_dtypes = sorted({str(t.dtype) for t in got[2:]})
+    out_dtype = str(got[1].dtype)
+    got = [t.float().cpu().numpy() for t in got]
+    cpu = []
+    for step in (0, 1, -1):
+        host = fluid.Scope()
+        set_scope_arrays(host, nudge_weights(arrays, step, params), "cpu")
+        cpu.append(ExecutorCore(fluid.CPUPlace(), mesh=sp_mesh(torch, "cpu")
+                                ).run(main.desc, host, 0, feed, fetch))
+    want, up, down = cpu
+    dense_card = fluid.Executor(fluid.CUDAPlace(0)).run(
+        dmain, feed=feed, fetch_list=fetch, scope=dense)
+    vs_cpu = amp_agreement(got, want, up, down, fetch, grads, {
+        "launches": launches == SP_AMP_KERNELS,
+        "grad_dtypes": grad_dtypes == ["torch.float32"],
+        "block_output_dtype": out_dtype == "torch.bfloat16"})
+    vs_dense = amp_agreement(got, dense_card, up, down, fetch, grads, {})
+    return {"phase": "train_sp_amp_oracle", "n_layers": 1, "batch": 1,
+            "sp": SP, "amp": True, "launches": launches,
+            "loss_card": float(got[0].ravel()[0]),
+            "loss_cpu_sp": float(want[0].ravel()[0]),
+            "loss_card_dense": float(dense_card[0].ravel()[0]),
+            "block_output": block_out, "block_output_dtype": out_dtype,
+            "grad_dtypes": grad_dtypes, "vs_cpu_sp": vs_cpu,
+            "vs_card_dense": vs_dense,
+            "ok": vs_cpu["ok"] and vs_dense["ok"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3882,6 +3995,23 @@ def main():
                                      "with the CPU one past its spread"
                                      % phase)
 
+        phase = "train_sp_amp"
+        torch.cuda.empty_cache()
+        result = train_sp(torch, amp=True)
+        emit(result)
+        if not result["ok"]:
+            raise AssertionError("%s failed its checks" % phase)
+        launches_train[phase] = result["launches"]
+
+        phase = "train_sp_amp_oracle"
+        torch.cuda.empty_cache()
+        oracle = train_sp_amp_oracle(torch)
+        emit(oracle)
+        if not oracle["ok"]:
+            raise AssertionError("%s: the card's sp AMP step disagrees with "
+                                 "the CPU sp step or the dense card step "
+                                 "past the CPU's spread" % phase)
+
         for path, kind, fused in PREPARED_PATHS:
             phase = path + "_prepared"
             torch.cuda.empty_cache()
@@ -3940,6 +4070,8 @@ def main():
             "conv_stage_bf16": [CONV_FWD_BF16],
             "flash_chunk": [shard + " diagonal causal",
                             shard + " non-causal, seeded carry"],
+            "flash_chunk_bf16": [shard + " diagonal causal",
+                                 shard + " non-causal, seeded carry"],
             "fused_ce": ["[%d,%d]" % (m, TRAIN_LM["vocab_size"])]}
     csrc = "paddle_tpu_torch/kernels/csrc/"
     tpu = "paddle_tpu/kernels/"
@@ -3949,7 +4081,7 @@ def main():
                              tpu + "flash_attention.py:284"),
             "flash_bwd_dkv": (csrc + "flash_bwd.cu",
                               tpu + "flash_attention.py:307"),
-            "flash_fwd_bf16": (csrc + "flash_fwd.cu",
+            "flash_fwd_bf16": (csrc + "flash_bf16.cuh",
                                tpu + "flash_attention.py:68"),
             "flash_bwd_dq_bf16": (csrc + "flash_bwd.cu",
                                   tpu + "flash_attention.py:284"),
@@ -3973,11 +4105,14 @@ def main():
                                 tpu + "conv_fused.py:73"),
             "flash_chunk": (csrc + "flash_chunk.cu",
                             tpu + "flash_attention.py:795"),
+            "flash_chunk_bf16": (csrc + "flash_bf16.cuh",
+                                 tpu + "flash_attention.py:795"),
             "fused_ce": (csrc + "fused_ce.cu", tpu + "fused.py:29")}
     # launches: each kernel's count on its main path (train_f32 for the
     # flash training kernels, train_fused for K4/K5, train_amp and
     # train_fused_amp for their bf16 forms, train_resnet_fused for K6,
-    # train_resnet_fused_amp for K6's bf16 form, train_sp for K9, the
+    # train_resnet_fused_amp for K6's bf16 form, train_sp for K9,
+    # train_sp_amp for K9's bf16 form, the
     # int8 tenant's serve run, which runs all three serving kernels, for
     # the rest; K10 is on no path, so 0); every path's count stands
     # beside it (the *_prepared phases': the wrappers' calls recorded at
@@ -3993,6 +4128,7 @@ def main():
                 "train_resnet_fused_amp" if name == "conv_stage_bf16" else
                 bf16_path[name] if name in bf16_path else
                 "train_sp" if name == "flash_chunk" else
+                "train_sp_amp" if name == "flash_chunk_bf16" else
                 None if name == "fused_ce" else
                 "train_fused" if name in FUSED_KERNELS else
                 "train_f32" if name in TRAIN_KERNELS else "serve_int8")

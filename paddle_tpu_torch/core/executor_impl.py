@@ -37,10 +37,9 @@ ring attention op under an ``sp`` axis) place their shards on the
 mesh's devices; every other op runs on the place's device.
 
 Under bf16 AMP (``program.amp_bf16``) the lowering casts each op's
-inputs (``lowering.amp_cast_ins``).  Two AMP programs are refused, each
-naming its ROADMAP item: one run on a mesh whose sp axis the ring
-attention shards over (the ring's chunk kernel K9 has no bf16 form), and
-one holding ``moe_ffn`` (its dense dispatch has no test under AMP).
+inputs (``lowering.amp_cast_ins``), on a mesh as without one: the ring
+attention runs its shards' folds and backward steps in bf16 (K9's and
+K2/K3's bf16 forms on a card).
 
 Not ported yet: GSPMD's partition of the whole step over a mesh, host
 ops and ragged (LoD) feeds, and the prepared step's numerics twin
@@ -59,11 +58,6 @@ from .types import proto_to_np_dtype
 
 _INT32_MAX = 2 ** 31 - 1
 _INT32_MIN = -(2 ** 31)
-
-# ops not ported under bf16 AMP, with the ROADMAP item that brings
-# each: an AMP program that holds one (or its grad) is refused rather
-# than run on casts no test holds against the reference
-AMP_UNPORTED = {"moe_ffn": "ROADMAP queue 1 item 3h, moe_ffn under AMP"}
 
 # a callable op -> context manager that every op runs inside, e.g. CUDA
 # events around it for its device time (tools/profile_train.py); None,
@@ -402,8 +396,6 @@ class ExecutorCore:
             raise NotImplementedError(
                 "host ops %s are not ported to paddle_tpu_torch yet"
                 % sorted(set(host)))
-        if getattr(program, "amp_bf16", False):
-            _refuse_unported_amp(block, self.mesh)
         written, external, seen = set(), [], set()
         for op in core_ops:
             for name in op.input_arg_names():
@@ -492,31 +484,6 @@ def _indexed(device):
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return device
-
-
-def _refuse_unported_amp(block, mesh):
-    """Raise NotImplementedError for an AMP block the port cannot run:
-    one that holds an ``AMP_UNPORTED`` op, or a ``ring_attention`` whose
-    sp axis has size > 1 on ``mesh`` (the ring under AMP)."""
-    types = {op.type[:-len("_grad")] if op.type.endswith("_grad")
-             else op.type for op in block.ops}
-    unported = sorted(types & set(AMP_UNPORTED))
-    if unported:
-        raise NotImplementedError(
-            "bf16 AMP (Float16Transpiler): %s not ported under AMP (%s)"
-            % (unported, "; ".join(AMP_UNPORTED[t] for t in unported)))
-    if mesh is None:
-        return
-    for op in block.ops:
-        if op.type != "ring_attention":
-            continue
-        axis = op.attr("sp_axis", "sp")
-        if axis in mesh.axis_names and mesh.shape[axis] > 1:
-            raise NotImplementedError(
-                "bf16 AMP (Float16Transpiler) on a mesh whose %r axis has "
-                "size %d: the ring attention's chunk kernel K9 has no bf16 "
-                "form yet (ROADMAP queue 1 item 3g, the sp program under "
-                "AMP)" % (axis, mesh.shape[axis]))
 
 
 def _check_int32_range(name, arr):

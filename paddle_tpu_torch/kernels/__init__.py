@@ -13,8 +13,8 @@ from .flash_attention import (chunk_finalize, flash_attention,
                               flash_attention_chunk_bwd,
                               flash_attention_fwd_lse, flash_attention_train,
                               flash_bwd_dkv, flash_bwd_dkv_bf16, flash_bwd_dq,
-                              flash_bwd_dq_bf16, flash_fwd_bf16,
-                              paged_attention)
+                              flash_bwd_dq_bf16, flash_chunk_bf16,
+                              flash_fwd_bf16, paged_attention)
 from .matmul_fused import (add_ln, add_ln_bf16, matmul_epilogue,
                            matmul_epilogue_bf16, matmul_int8_dequant)
 from .conv_fused import conv2d_nhwc, conv2d_nhwc_bf16
@@ -26,7 +26,7 @@ __all__ = ["KERNELS", "reset_launches", "launch_counts", "add_launches",
            "flash_attention_train", "flash_attention_chunk",
            "chunk_finalize", "flash_attention_chunk_bwd", "paged_attention",
            "flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
-           "matmul_epilogue", "add_ln", "matmul_epilogue_bf16",
+           "flash_chunk_bf16", "matmul_epilogue", "add_ln", "matmul_epilogue_bf16",
            "add_ln_bf16", "matmul_int8_dequant",
            "conv2d_nhwc", "conv2d_nhwc_bf16", "fused_softmax_cross_entropy"]
 
@@ -45,6 +45,7 @@ KERNELS = {"flash_fwd": flash_attention_fwd_lse,
            "conv_stage": conv2d_nhwc,
            "conv_stage_bf16": conv2d_nhwc_bf16,
            "flash_chunk": flash_attention_chunk,
+           "flash_chunk_bf16": flash_chunk_bf16,
            "fused_ce": fused_softmax_cross_entropy}
 
 

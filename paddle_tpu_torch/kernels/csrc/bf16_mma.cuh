@@ -1,7 +1,7 @@
 // bf16 products on the tensor cores: the mma.sync primitives of the
 // GEMM tile's bf16 form (gemm_tile.cuh: K6 under AMP), and the rounding
 // and hi + lo split that the wgmma kernels' bf16 forms take too
-// (wgmma_gemm.cuh: K4; flash_fwd.cu: K1; flash_bwd.cu: K2, K3).
+// (wgmma_gemm.cuh: K4; flash_bf16.cuh: K1, K9; flash_bwd.cu: K2, K3).
 //
 // mma.sync.m16n8k16.bf16 multiplies bf16 operands exactly (an 8-bit
 // by 8-bit significand product fits float32) and sums into float32

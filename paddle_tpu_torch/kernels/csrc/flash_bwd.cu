@@ -97,7 +97,7 @@
 // Recomputing S and dP in both kernels (10 products where an atomic
 // dQ would need 7) is the price of the deterministic split.
 //
-// Design (as K1's bf16 form, flash_fwd.cu): a block per (head, 128
+// Design (as K1's bf16 form, flash_bf16.cuh): a block per (head, 128
 // resident rows; 64 on a grid short of a block an SM), one consumer
 // warpgroup a 64 rows and a producer warpgroup, which gives its
 // registers to the consumers (setmaxnreg).  The producer's first thread

@@ -33,6 +33,22 @@
 // carry is read straight into the warps' C-fragment registers (float4
 // loads in fragment order) before the loop and written from them after
 // it, the carry's extra cost over K1.
+//
+// The bf16 form (flash_chunk_bf16; the sp LM under AMP, where the
+// reference kernel takes bf16 q, k, v, widens them to f32 in its body
+// and keeps an f32 carry): the same fold of the same operands, the carry
+// float32 in and out, on K1's bf16 mainloop (flash_bf16.cuh: wgmma with
+// TMA, P V as hi + lo) with its carry policy: (m, l, acc) read into the
+// accumulator's registers before the loop and written from them after
+// it, m compared in natural units so that a row whose max does not rise
+// keeps it bit for bit, the reference's p = 0 guard on masked scores,
+// k_offset in the mask and the stop rules.  What bounds it at the ring's
+// non-causal [16, 8, 512, 128] block: the bytes, q, k, v in bf16 (50.3
+// MB) and the f32 carry in and out (m, l 1.0 MB, acc 67.1 MB), 118.5 MB
+// at 3.35 TB/s = 0.035 ms, against 17.2 GFLOP of products at 989.4
+// TFLOP/s = 0.017 ms (0.026 ms with P's split): bound by bytes, most of
+// them the carry's.
+#include "flash_bf16.cuh"
 #include "flash_tile.cuh"
 
 namespace {
@@ -143,4 +159,21 @@ extern "C" int flash_chunk_f32(const float* q, const float* k,
                      : launch<Small<128>>(q, k, v, m_in, l_in, acc_in, m_out,
                                           l_out, acc_out, bh, t, tk, scale,
                                           causal, k_offset, s));
+}
+
+// The bf16 form: q, k, v bf16 [bh, t|tk, d], 16-byte aligned; the carry
+// in and out float32 as above (out distinct from in).  Returns the
+// launch's cudaError_t.
+extern "C" int flash_chunk_bf16(const tc::bf16* q, const tc::bf16* k,
+                                const tc::bf16* v, const float* m_in,
+                                const float* l_in, const float* acc_in,
+                                float* m_out, float* l_out, float* acc_out,
+                                int bh, int t, int tk, int d, float scale,
+                                int causal, int k_offset, void* stream) {
+  if (bh <= 0 || t <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
+  if (d != f16::D) return (int)cudaErrorInvalidValue;
+  const f16::Carry carry{m_in, l_in, acc_in, m_out, l_out, acc_out};
+  return (int)f16::run<true>(q, k, v, nullptr, nullptr, carry, bh, t, tk,
+                             scale, causal, k_offset,
+                             static_cast<cudaStream_t>(stream));
 }

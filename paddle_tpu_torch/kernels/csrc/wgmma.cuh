@@ -5,8 +5,8 @@
 // TMA stores, named barriers, setmaxnreg, and wgmma.mma_async m64n128k16
 // (bf16 operands, float32 accumulator) with A from shared memory or from
 // registers, and m64n64k16 with both from shared memory.  Shared by K4's
-// bf16 form (wgmma_gemm.cuh), K1's (flash_fwd.cu) and K2's and K3's
-// (flash_bwd.cu).  sm_90a only.
+// bf16 form (wgmma_gemm.cuh), K1's and K9's (flash_bf16.cuh) and K2's
+// and K3's (flash_bwd.cu).  sm_90a only.
 //
 // Layouts.  A TMA box whose inner extent is 64 bf16 (128 bytes) lands
 // as rows of 128 bytes, each row's eight 16-byte chunks permuted by

@@ -14,7 +14,10 @@ either way; a bf16 call launches the kernel's bf16 form, whose launches
 ``flash_fwd_bf16``, ``flash_bwd_dq_bf16`` and ``flash_bwd_dkv_bf16``
 count (K1's bf16 form runs on ``wgmma`` with TMA, ``csrc/wgmma.cuh``).
 The ring-step chunk form (``flash_attention_chunk`` and its backward)
-threads an explicit online-softmax carry for ``parallel/ring.py``.
+threads an explicit online-softmax carry for ``parallel/ring.py``: K9
+folds float32 or bfloat16 q/k/v into a float32 carry (its bf16 form,
+counted by ``flash_chunk_bf16``, on ``wgmma`` with TMA as K1's), and
+the backward runs K2/K3 in the operands' dtype.
 The wrapper checks device, dtype, shape and contiguity; for a tensor on
 the CPU it runs the plain version, for a CUDA tensor it launches the
 kernel or raises.  ``<wrapper>.launches`` counts kernel launches.
@@ -34,9 +37,10 @@ __all__ = ["flash_attention", "flash_attention_fwd_lse",
            "flash_bwd_dq", "flash_bwd_dkv", "flash_attention_chunk",
            "chunk_finalize", "flash_attention_chunk_bwd", "paged_attention",
            "flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
-           "flash_delta", "attention_reference", "flash_attention_bwd_reference",
-           "chunk_update_reference", "chunk_bwd_reference",
-           "paged_attention_reference", "paged_span_pages", "NEG_INF"]
+           "flash_chunk_bf16", "flash_delta", "attention_reference",
+           "flash_attention_bwd_reference", "chunk_update_reference",
+           "chunk_bwd_reference", "paged_attention_reference",
+           "paged_span_pages", "NEG_INF"]
 
 NEG_INF = -1e30
 # the shapes the kernels are built for: the flagship LM's head_dim and
@@ -405,7 +409,10 @@ def flash_attention_chunk(q, k, v, m, l, acc, scale=None, causal=False,
     the new ``(m, l, acc)``.  ``causal`` masks q_pos < k_offset + k_pos:
     ``k_offset`` 0 is the ring's diagonal block, ``k_offset >= Sq`` a
     block wholly in the future, which leaves the carry bit-identical.
-    On the card, K9; on the CPU, ``chunk_update_reference``."""
+    q/k/v are all float32 or all bfloat16 (the sp LM under AMP: the
+    scores, softmax and sums stay float32, the carry float32 either
+    way).  On the card, K9 (a bf16 call its bf16 form,
+    ``flash_chunk_bf16``); on the CPU, ``chunk_update_reference``."""
     where = route(q, k, v, m, l, acc)
     require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
             "q/k/v must be [B, H, S, D]")
@@ -416,8 +423,9 @@ def flash_attention_chunk(q, k, v, m, l, acc, scale=None, causal=False,
             "shape mismatch q %s k %s m %s l %s acc %s"
             % (tuple(q.shape), tuple(k.shape), tuple(m.shape),
                tuple(l.shape), tuple(acc.shape)))
-    require(all(x.dtype == torch.float32 for x in (q, k, v, m, l, acc)),
-            "flash attention chunk takes float32")
+    dt = _one_dtype((q, k, v), "flash attention chunk")
+    require(all(x.dtype == torch.float32 for x in (m, l, acc)),
+            "flash attention chunk takes a float32 carry (m, l, acc)")
     require(t > 0 and k.shape[2] > 0, "empty sequence")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -435,18 +443,36 @@ def flash_attention_chunk(q, k, v, m, l, acc, scale=None, causal=False,
     m2, l2, acc2 = torch.empty_like(m), torch.empty_like(l), \
         torch.empty_like(acc)
     fn = _build.function(
-        "flash_chunk", "flash_chunk_f32",
+        "flash_chunk", "flash_chunk_" + _FLASH_FORMS[dt],
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     rc = fn(ptr(q), ptr(k), ptr(v), ptr(m), ptr(l), ptr(acc), ptr(m2),
             ptr(l2), ptr(acc2), b * h, t, k.shape[2], d, float(scale),
             int(bool(causal)), k_offset, stream())
     _build.check(rc, "flash_chunk")
-    _build.count(flash_attention_chunk)
+    if dt == torch.bfloat16:
+        _build.count(flash_chunk_bf16)
+    else:
+        _build.count(flash_attention_chunk)
     return m2, l2, acc2
 
 
 flash_attention_chunk.launches = 0
+
+
+def flash_chunk_bf16(q, k, v, m, l, acc, scale=None, causal=False,
+                     k_offset=0):
+    """``flash_attention_chunk`` on bfloat16 q/k/v with the float32
+    carry (the sp LM under AMP); its ``launches`` counts the bf16 form's
+    launches, which ``flash_attention_chunk`` makes for any bf16
+    call."""
+    require(all(x.dtype == torch.bfloat16 for x in (q, k, v)),
+            "want bfloat16 q/k/v")
+    return flash_attention_chunk(q, k, v, m, l, acc, scale, causal,
+                                 k_offset)
+
+
+flash_chunk_bf16.launches = 0
 
 
 def chunk_finalize(m, l, acc, dtype):
@@ -497,10 +523,13 @@ def flash_attention_chunk_bwd(q, k, v, do, lse, delta, scale=None,
     the card it runs K2 (dQ) and K3 (dK, dV), whose mask takes the
     offset, as the JAX package's TPU branch runs its two flash backward
     kernels (its causal off-diagonal offsets go to ``_chunk_bwd_xla``,
-    the same math); a CPU tensor takes ``chunk_bwd_reference``."""
-    where = _bwd_args(q, k, v, do, lse, do)    # no O: dO stands in
-    require(q.dtype == torch.float32, "the chunk backward takes float32 "
-            "(its bf16 form comes with K9's)")
+    the same math); a CPU tensor takes ``chunk_bwd_reference``.
+
+    q/k/v all float32 or all bfloat16, dO float32 or bfloat16; the
+    gradients come back in q/k/v's dtype.  The CPU keeps dO as given
+    (the reference's off-TPU branch widens it); the card casts it to
+    q's dtype first, as the reference's kernel branch does."""
+    where = _bwd_args(q, k, v, q, lse, do)    # no O: q stands in
     require(tuple(delta.shape) == tuple(lse.shape)
             and delta.device == q.device,
             "delta must be [B, H, Sq] beside q")
@@ -512,6 +541,7 @@ def flash_attention_chunk_bwd(q, k, v, do, lse, delta, scale=None,
                                    int(k_offset))
     require(delta.is_contiguous(), "flash backward kernels need a "
             "contiguous delta")
+    do = do.to(q.dtype).contiguous()
     dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, k_offset)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, k_offset)
     return dq, dk, dv

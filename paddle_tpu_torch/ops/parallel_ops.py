@@ -8,11 +8,12 @@ backward) otherwise: no mesh, no such axis, or size 1.  The op cuts
 Q/K/V along S into the ring's shards and joins ``Out`` and ``LSE`` back,
 as ``shard_map``'s in/out specs do in the JAX package.  Batch (``dp``)
 and head (``tp``) axes of size > 1 are not ported and raise.  Under bf16
-AMP the dense path carries bf16 Q/K/V through the flash kernels' bf16
-forms (Out in bf16, LSE in f32); the ring has no bf16 form yet, and the
-executor refuses an AMP program on an sp mesh.
+AMP both paths carry bf16 Q/K/V through the kernels' bf16 forms (Out in
+bf16, LSE in f32): the dense one K1/K2/K3's, the ring K9's and
+K2/K3's.
 ``moe_ffn`` is the top-1 mixture-of-experts FFN in its dense-dispatch
-form; an ``ep`` axis of size > 1 (expert parallelism) raises.
+form, under AMP in the dtype the reference's jnp promotion gives its
+operands; an ``ep`` axis of size > 1 (expert parallelism) raises.
 """
 from __future__ import annotations
 
@@ -105,13 +106,17 @@ def _ring_attention_grad_lower(ctx, ins, attrs, op=None):
     lse = ins.get("LSE")
     if lse is None:
         return core_lowering.generic_grad_lower(ctx, ins, attrs, op)
-    out = ins["Out"]
-    # the cotangent in Out's dtype, as the reference's kernel branch
-    # casts it (an f32 cotangent of a bf16 Out under AMP)
-    args = [ins[s].contiguous() for s in ("Q", "K", "V")] + [
-        out.contiguous(), lse.contiguous(),
-        ins["Out@GRAD"].to(out.dtype).contiguous()]
+    out, do = ins["Out"], ins["Out@GRAD"]
     causal = bool(attrs.get("causal", True))
+    if sp_axis is None:
+        # the flash backward takes the cotangent in Out's dtype, as the
+        # reference's kernel branch casts it (an f32 cotangent of a bf16
+        # Out under AMP); the ring takes it as it arrives, as the
+        # reference's ring does (delta from it; each chunk backward casts
+        # it to q's dtype on the card only)
+        do = do.to(out.dtype)
+    args = [ins[s].contiguous() for s in ("Q", "K", "V")] + [
+        out.contiguous(), lse.contiguous(), do.contiguous()]
     if sp_axis is not None:
         from paddle_tpu_torch.parallel.ring import ring_attention_bwd
         dq, dk, dv = ring_attention_bwd(*args, ctx.mesh, sp_axis, causal,
@@ -141,11 +146,19 @@ def _moe_ffn_lower(ctx, ins, attrs, op=None):
     x, wg, w1, w2 = (ins[s] for s in ("X", "RouterW", "W1", "W2"))
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    gates = torch.softmax(x2 @ wg, dim=-1)
+    gates = torch.softmax(torch.matmul(*_promoted(x2, wg)), dim=-1)
     expert = torch.argmax(gates, dim=-1)
     gate = torch.gather(gates, 1, expert[:, None])[:, 0]
-    h = torch.relu(torch.einsum("td,edf->tef", x2, w1))
-    y = torch.einsum("tef,efd->ted", h, w2)
+    h = torch.relu(torch.einsum("td,edf->tef", *_promoted(x2, w1)))
+    y = torch.einsum("tef,efd->ted", *_promoted(h, w2))
     out = y[torch.arange(x2.shape[0], device=x2.device), expert] * \
         gate[:, None]
     return {"Out": out.reshape(shape)}
+
+
+def _promoted(a, b):
+    """``a`` and ``b`` in their promoted dtype, as the reference's jnp
+    promotes the operands of a product (under AMP a bf16 activation
+    times an f32 weight runs in f32); torch's products refuse a mix."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)

@@ -16,6 +16,13 @@ no [S_local, S_local] score block is ever stored:
   stay home; each dQ travels with its package, so shard s's dQ takes
   home s first, then s - 1, and so on, as the JAX ring adds them.
 
+On bf16 Q/K/V (the sp LM under AMP) the carry, the lse and delta stay
+float32: each fold runs K9's bf16 form, ``out`` is rounded to q's dtype
+once by ``chunk_finalize``, and each backward step's bf16 gradients
+(K2/K3's bf16 forms, dO cast to q's dtype on the card) are summed in
+float32 and rounded once, as the JAX ring's are.  delta is taken from
+the cotangent as it arrives, as the JAX ring takes it.
+
 The JAX package runs the shards at once under ``shard_map`` and moves
 blocks with ``ppermute``.  Here one process runs them in turn, and the
 collective is an index into the list of shards plus a ``.to(device)``

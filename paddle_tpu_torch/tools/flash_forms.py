@@ -17,8 +17,8 @@ and holds each against the plain version at atol = rtol = 1e-4:
   blocks against the SM count: 8 heads take Small, 12 Large);
 - K9 at the ring's shard [16, 8, 512, 128], diagonal (causal,
   k_offset 0) and non-causal;
-- K1's bf16 form (``--bf16``, the wgmma kernel of ``flash_fwd.cu``'s
-  ``f16``: Wide, 128 query rows a block, when its blocks give every SM
+- K1's bf16 form (``--bf16``, the wgmma kernel of ``flash_bf16.cuh``'s
+  ``f16``, built in ``flash_fwd.cu``: Wide, 128 query rows a block, when its blocks give every SM
   one, else Narrow, 64) in both forms at [1, 8, 256, 128], [1, 8, 2048, 128]
   and [16, 8, 2048, 128] causal, each held within one bf16 ulp plus
   2**-12 of max |plain| on O and at atol = rtol = 1e-4 on the LSE,
@@ -97,8 +97,9 @@ extern "C" int flash_fwd_bf16_form(int form, const tc::bf16* q,
   return (int)cudaErrorInvalidValue;
 }
 ''' % "\n".join(
-    "    case %d: return (int)f16::launch<f16::%s>(q, k, v, out, lse, bh, "
-    "t, tk, scale, causal, s);" % (i, f) for i, (_, f) in enumerate(BF16_FORMS))
+    "    case %d: return (int)f16::launch<f16::%s, false>(q, k, v, out, "
+    "lse, f16::Carry{}, bh, t, tk, scale, causal, 0, s);" % (i, f)
+    for i, (_, f) in enumerate(BF16_FORMS))
 # K2's and K3's bf16 forms on mma.sync, which the wgmma kernels
 # replaced (PERF.md section 6, chip_smoke.py's phase 3; NVIDIA H100 80GB
 # HBM3, 700 W): {(b, h, t): (dq ms, dkv ms)}

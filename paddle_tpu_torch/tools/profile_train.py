@@ -9,7 +9,7 @@ Builds one of two models as a fluid Program:
   for the sequence-parallel program on a P-shard mesh laid on the one
   card, run by ``ExecutorCore`` with that mesh; ``--amp`` for bf16
   mixed precision, ``Float16Transpiler``, as ``bench.py`` trains it on
-  an accelerator, not with ``--sp``);
+  an accelerator, with ``--sp`` too);
 - ``--model resnet50``: ResNet-50 (``models/resnet`` get_model:
   flowers, 224 x 224, 102 classes, uint8 images, Momentum 0.9 at lr
   0.01; ``--batch`` images, default 256; ``--fuse`` for the NHWC
@@ -77,6 +77,7 @@ KERNEL_GROUPS = {"matmul_epilogue_bf16": "gemm_bf16_kernel",
                  "conv_stage_bf16": "conv_wgmma_kernel",
                  "conv_stage_bf16_stem": "gemm::bf16_kernel",
                  "flash_fwd_bf16": "flash_fwd_bf16_kernel",
+                 "flash_chunk_bf16": "flash_chunk_bf16_kernel",
                  "flash_bwd_dq_bf16": "flash_bwd_dq_bf16_kernel",
                  "flash_bwd_dkv_bf16": "flash_bwd_dkv_bf16_kernel"}
 
@@ -182,9 +183,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.sp and args.model != "lm":
         ap.error("--sp applies to --model lm")
-    if args.amp and args.sp > 1:
-        ap.error("--amp with --sp: the ring has no bf16 form yet (ROADMAP "
-                 "queue 1 item 3g)")
     FLAGS.bn_bf16 = args.amp and args.model == "resnet50"
 
     rng = np.random.RandomState(args.seed)

@@ -1531,9 +1531,9 @@ K_OFFSET_CASES = [(256, 256, True, 0), (200, 130, True, 37),
 @pytest.mark.parametrize("t,tk,causal,k_offset", K_OFFSET_CASES)
 def test_flash_bwd_bf16_kernels_at_a_k_offset_on_card(cuda, t, tk, causal,
                                                      k_offset):
-    """The bf16 K2/K3 called directly with k_offset (the chunk backward
-    still refuses bf16) against chunk_bwd_reference, from the lse of the
-    masked block itself (NEG_INF where a row sees no key)."""
+    """The bf16 K2/K3 called directly with k_offset against
+    chunk_bwd_reference, from the lse of the masked block itself
+    (NEG_INF where a row sees no key)."""
     from paddle_tpu_torch.kernels.flash_attention import (
         chunk_bwd_reference, flash_bwd_dkv_bf16, flash_bwd_dq_bf16)
 
@@ -1622,6 +1622,196 @@ def test_flash_wrappers_refuse_mixed_dtypes_on_card(cuda):
     lse = torch.zeros(1, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="all float32 or all bfloat16"):
         flash_bwd_dq(q, q, q.float(), q, lse, lse, 0.1, True)
+
+
+# K9's bf16 form: the ring-step fold on bf16 q/k/v into the f32 carry
+# (the sp LM under AMP), on K1 bf16's wgmma mainloop.  Carry at TOL (K9
+# f32's bar: P's hi + lo split keeps the products f32-accurate); a
+# wholly masked block leaves the carry bit-identical.
+
+def _chunk_bf16_operands(cuda, b, h, t, tk, seed):
+    import importlib
+
+    pfa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, h, t, 128, device=cuda, generator=g).bfloat16()
+    k, v, k0, v0 = (torch.randn(b, h, tk, 128, device=cuda, generator=g)
+                    .bfloat16() for _ in range(4))
+    fresh = (torch.full((b, h, t), pfa.NEG_INF, device=cuda),
+             torch.zeros(b, h, t, device=cuda),
+             torch.zeros(b, h, t, 128, device=cuda))
+    seeded = pfa.flash_attention_chunk(q, k0, v0, *fresh)
+    return pfa, q, k, v, fresh, seeded
+
+
+# (B, H, T, Tk): the ring's shard of the training step at sp = 4 (128
+# heads x 4 Q tiles: the 128-row form), ragged T and Tk in the 64-row
+# form, and a ragged grid large enough for the 128-row form
+CHUNK_BF16_SHAPES = [(16, 8, 512, 512), (2, 8, 100, 200), (2, 3, 256, 256),
+                     (1, 2, 200, 100), (36, 8, 300, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,tk", CHUNK_BF16_SHAPES)
+def test_flash_chunk_bf16_kernel_matches_plain_on_card(cuda, b, h, t, tk):
+    """Every mask the ring and its tests give K9: the diagonal, a block
+    half masked (k_offset T // 2), one wholly masked (k_offset T), an
+    unaligned offset that leaves a 128-row block's two warpgroups
+    different tiles (37) and non-causal; from a fresh and a seeded
+    carry.  The bf16 form launches, the f32 form never."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    pfa, q, k, v, fresh, seeded = _chunk_bf16_operands(cuda, b, h, t, tk,
+                                                       t + tk)
+    cases = ((True, 0), (True, t // 2), (True, t), (True, 37), (False, 0))
+    reset_launches()
+    for carry in (fresh, seeded):
+        for causal, off in cases:
+            got = pfa.flash_attention_chunk(q, k, v, *carry, causal=causal,
+                                            k_offset=off)
+            want = pfa.chunk_update_reference(q, k, v, *carry,
+                                              128 ** -0.5, causal, off)
+            for a, w in zip(got, want):
+                assert a.dtype == torch.float32
+                torch.testing.assert_close(a, w, **TOL)
+            if causal and off >= t:     # wholly in the future
+                for a, c in zip(got, carry):
+                    assert torch.equal(a, c)
+    assert {k_: f.launches for k_, f in KERNELS.items() if f.launches} == \
+        {"flash_chunk_bf16": 2 * len(cases)}
+
+
+@pytest.mark.cuda
+def test_flash_chunk_bf16_keeps_a_settled_max_bit_for_bit_on_card(cuda):
+    """A row whose max does not rise keeps m bit for bit: a carry whose m
+    lies above every score of the block (m + 50) comes back with that m
+    exactly, l and acc scaled by alpha = 1 plus the block's terms."""
+    pfa, q, k, v, _, seeded = _chunk_bf16_operands(cuda, 2, 8, 256, 256, 3)
+    m, l, acc = seeded
+    high = (m + 50.0, l, acc)
+    got = pfa.flash_attention_chunk(q, k, v, *high, causal=False)
+    assert torch.equal(got[0], high[0])
+    want = pfa.chunk_update_reference(q, k, v, *high, 128 ** -0.5, False)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **TOL)
+
+
+@pytest.mark.cuda
+def test_flash_chunk_bf16_is_deterministic_on_card(cuda):
+    pfa, q, k, v, _, seeded = _chunk_bf16_operands(cuda, 16, 8, 512, 512, 5)
+    for causal in (True, False):
+        one = pfa.flash_attention_chunk(q, k, v, *seeded, causal=causal)
+        two = pfa.flash_attention_chunk(q, k, v, *seeded, causal=causal)
+        for a, b in zip(one, two):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_chunk_bf16_refusals_never_run_the_plain_version_on_card(
+        cuda, monkeypatch):
+    """A CUDA bf16 fold the kernel cannot take raises before any launch
+    and never falls back to chunk_update_reference: head_dim 64, a
+    misaligned q, a non-contiguous carry, mixed q/k/v dtypes and a bf16
+    carry."""
+    import importlib
+
+    pfa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(pfa, "chunk_update_reference", plain)
+    g = torch.Generator(device=cuda).manual_seed(8)
+
+    def operands(d):
+        q, k, v = (torch.randn(1, 2, 64, d, device=cuda, generator=g)
+                   .bfloat16() for _ in range(3))
+        carry = (torch.full((1, 2, 64), pfa.NEG_INF, device=cuda),
+                 torch.zeros(1, 2, 64, device=cuda),
+                 torch.zeros(1, 2, 64, d, device=cuda))
+        return [q, k, v, *carry]
+
+    base = torch.randn(2 * 64 * 128 + 1, device=cuda).bfloat16()
+    bad_q = base[1:].view(1, 2, 64, 128)
+    ops = operands(128)
+    strided = torch.zeros(1, 2, 128, 64, device=cuda).transpose(2, 3)
+    cases = [(operands(64), "head_dim"),
+             ([bad_q] + ops[1:], "16-byte"),
+             (ops[:5] + [strided], "contiguous"),
+             ([ops[0], ops[1].float()] + ops[2:],
+              "all float32 or all bfloat16"),
+             (ops[:3] + [x.bfloat16() for x in ops[3:]], "float32 carry")]
+    before = pfa.flash_chunk_bf16.launches
+    for args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            pfa.flash_attention_chunk(*args, causal=True)
+    assert pfa.flash_chunk_bf16.launches == before
+    # and the card still works
+    pfa.flash_attention_chunk(*ops, causal=True)
+    torch.cuda.synchronize()
+    assert pfa.flash_chunk_bf16.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_chunk_bwd_bf16_at_the_ring_shard_on_card(cuda, causal):
+    """The ring's backward steps under AMP at its shard [16, 8, 512, 128]
+    through the chunk backward: non-causal (36 of a step's 60 calls) and
+    the causal diagonal (24), K2/K3 bf16 against chunk_bwd_reference
+    within one bf16 ulp plus 2**-12 of max |plain|, from an f32
+    cotangent the card casts to bf16."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    pfa, q, k, v, fresh, _ = _chunk_bf16_operands(cuda, 16, 8, 512, 512, 9)
+    scale = 128 ** -0.5
+    m, l, acc = pfa.flash_attention_chunk(q, k, v, *fresh, causal=causal)
+    out, lse = pfa.chunk_finalize(m, l, acc, torch.bfloat16)
+    do = torch.randn(q.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(10))
+    delta = (do.float() * out.float()).sum(-1)
+    reset_launches()
+    got = pfa.flash_attention_chunk_bwd(q, k, v, do, lse, delta,
+                                        causal=causal)
+    assert {k_: f.launches for k_, f in KERNELS.items() if f.launches} == {
+        "flash_bwd_dq_bf16": 1, "flash_bwd_dkv_bf16": 1}
+    want = pfa.chunk_bwd_reference(q, k, v, do.bfloat16(), lse, delta,
+                                   scale, causal)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and _within_ulp(a, w, 2 ** -12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [2, 4])
+def test_ring_bf16_on_one_card_matches_plain(cuda, p):
+    """The ring on bf16 q/k/v over a p-shard mesh on one card: out within
+    one bf16 ulp plus 2**-12 of max |plain| of plain attention, lse at
+    TOL; p(p+1)/2 launches of each bf16 form and no f32 form.  The
+    gradients sum p bf16-rounded steps in f32, as the reference's ring
+    does, so each is held to one ulp plus p ulps of its max |plain|."""
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.parallel import make_mesh, ring
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, do = (torch.randn(1, 8, 256, 128, device=cuda, generator=g)
+                   .bfloat16() for _ in range(4))
+    mesh = make_mesh({"sp": p}, [cuda] * p)
+    reset_launches()
+    out, lse = ring.ring_attention_fwd_lse(q, k, v, mesh, causal=True)
+    grads = ring.ring_attention_bwd(q, k, v, out, lse, do, mesh,
+                                    causal=True)
+    n = p * (p + 1) // 2
+    assert {k_: f.launches for k_, f in KERNELS.items()
+            if f.launches} == {"flash_chunk_bf16": n,
+                               "flash_bwd_dq_bf16": n,
+                               "flash_bwd_dkv_bf16": n}
+    scale = 128 ** -0.5
+    ro, rl = attention_reference(q, k, v, scale, True)
+    assert out.dtype == torch.bfloat16 and _within_ulp(out, ro, 2 ** -12)
+    torch.testing.assert_close(lse, rl, **TOL)
+    want = flash_attention_bwd_reference(q, k, v, ro, rl, do, scale, True)
+    for a, w in zip(grads, want):
+        assert a.dtype == torch.bfloat16
+        assert _within_ulp(a, w, p * 2 ** -8)
 
 
 # (M, K, N): the fused step's five projections at M = 16 x 2048, then
@@ -1739,6 +1929,19 @@ def test_bf16_flash_backward_reaches_the_wgmma_kernels_on_card(cuda):
     assert len(ours) == 2, names
     assert any("flash_bwd_dq_bf16_kernel" in n for n in ours), names
     assert any("flash_bwd_dkv_bf16_kernel" in n for n in ours), names
+
+
+@pytest.mark.cuda
+def test_flash_chunk_bf16_reaches_its_wgmma_kernel_on_card(cuda):
+    """A bf16 fold launches the carry form of the wgmma forward
+    (flash_chunk_bf16_kernel), not K1's entry and no split-TF32 chunk
+    kernel."""
+    pfa, q, k, v, fresh, _ = _chunk_bf16_operands(cuda, 1, 2, 64, 64, 6)
+    names = _kernel_names(lambda: pfa.flash_attention_chunk(
+        q, k, v, *fresh, causal=True))
+    assert any("flash_chunk_bf16_kernel" in n for n in names), names
+    assert not any("flash_fwd_bf16_kernel" in n or "flash_chunk_kernel" in n
+                   for n in names), names
 
 
 @pytest.mark.cuda

@@ -11,8 +11,8 @@ sequence 64, batch 2).
   rtol = atol = 2**-7 (``test_torch_amp.TOL``) once both are widened to
   f32, a sum the reference takes in a bf16 accumulator within 2**-7 of
   its terms' magnitudes besides;
-- three Adam steps of the LM under ``Float16Transpiler``, unfused, fused
-  and tp (dense), from the reference's startup parameters: losses within
+- three Adam steps of the LM under ``Float16Transpiler``, unfused, fused,
+  tp (dense) and moe, from the reference's startup parameters: losses within
   rtol 1e-2 of the reference's AMP losses, the dtypes of the fetched
   activations the reference's, every parameter and parameter gradient
   float32;
@@ -21,9 +21,12 @@ sequence 64, batch 2).
   branch on the CPU), K4's per-op plain version, K5's; and K4's
   one-rounding plain version (the card's yardstick) against a float32
   numpy product rounded once;
-- the refusals that remain: an AMP program holding ``moe_ffn`` (the sp
-  mesh's is ``test_torch_amp.py``'s), and a kernel wrapper given mixed
-  or other dtypes;
+- the MoE program (``moe_ffn``, whose dense dispatch promotes a bf16
+  activation and f32 expert weights to f32, as the reference's jnp
+  does) as a fourth program, and ``moe_ffn`` and its grad through both
+  packages' ``run_op``;
+- the refusal that remains: a kernel wrapper given mixed or other
+  dtypes;
 - the two repairs: the card backward's ``delta`` takes the cotangent in
   O's dtype and sums in float32, and the ring attention grad casts
   ``Out@GRAD`` to ``Out``'s dtype.
@@ -339,7 +342,8 @@ def build(fluid, module, **kw):
 WATCHED = {"mul": "Out", "elementwise_add": "Out", "layer_norm": "Y",
            "ring_attention": "Out", "relu": "Out", "transpose2": "Out",
            "fused_qkv_matmul": "Out", "fused_matmul_bias_act": "Out",
-           "fused_add_ln": "Out", "softmax_with_cross_entropy": "Loss"}
+           "fused_add_ln": "Out", "softmax_with_cross_entropy": "Loss",
+           "moe_ffn": "Out"}
 
 
 def _watched(main):
@@ -352,7 +356,7 @@ def _watched(main):
 
 
 PROGRAMS = {"unfused": {}, "fused": {"fuse_transformer": True},
-            "tp": {"tp": True}}
+            "tp": {"tp": True}, "moe": {"moe_experts": 2}}
 
 
 @pytest.fixture(scope="module")
@@ -541,17 +545,42 @@ def test_k5_statistics_are_exact_f32_for_bf16_rows():
 
 # ------------------------------------------------------ refusals
 
-def test_moe_under_amp_is_refused():
-    main, startup, loss = build(tfluid, ttransformer, moe_experts=2,
-                                n_layers=2, seq_len=16, d_model=16,
-                                n_head=2, d_ff=32)
-    scope = tfluid.Scope()
-    tfluid.Executor(tfluid.CPUPlace()).run(startup, scope=scope)
-    toks = np.random.RandomState(0).randint(0, 64, (2, 17))
-    with pytest.raises(NotImplementedError, match="item 3h"):
-        tfluid.Executor(tfluid.CPUPlace()).run(
-            main, feed={"src": toks[:, :-1], "label": toks[:, 1:, None]},
-            fetch_list=[loss], scope=scope)
+def test_moe_under_amp_is_refused(lm_runs):
+    """(Its name is kept from when the port refused it.)  The MoE
+    program (a top-1 ``moe_ffn`` of 2 experts in every second block)
+    runs under AMP: its dense dispatch promotes the bf16 activation and
+    the f32 expert weights to f32, as the reference's jnp does, so
+    ``moe_ffn``'s Out is float32 in both, and its 3 Adam steps track the
+    reference's (the ``moe`` cases of the program tests above)."""
+    main, _, _ = build(tfluid, ttransformer, **PROGRAMS["moe"])
+    outs = [n for op in main.desc.blocks[0].ops if op.type == "moe_ffn"
+            for n in op.output("Out")]
+    acts = lm_runs[("port", "moe")][1]
+    moe = {n: acts[n] for n in outs}
+    assert moe and set(moe.values()) == {"float32"}
+    assert {n: lm_runs[("jax", "moe")][1][n] for n in moe} == moe
+    want, got = lm_runs[("jax", "moe")][0], lm_runs[("port", "moe")][0]
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+
+
+def test_moe_ffn_promotes_as_the_reference_under_amp():
+    """``moe_ffn`` and its grad through both packages' run_op under AMP
+    on a bf16 X and f32 weights: each output's dtype is the
+    reference's (Out f32; X@GRAD bf16, the weights' f32), the values
+    within the file's bf16 tolerance."""
+    rng = np.random.RandomState(20)
+    x = _rand(rng, 2, 8, 16)
+    wg, w1, w2 = (_rand(rng, *shp, scale=0.3) for shp in
+                  ((16, 2), (2, 16, 32), (2, 32, 16)))
+    ins = {"X": (x, "bf16"), "RouterW": (wg, None), "W1": (w1, None),
+           "W2": (w2, None)}
+    fwd = _run_both("moe_ffn", ins, {"Out": 1})
+    _assert_same(fwd)
+    dout = _rand(rng, 2, 8, 16)
+    _assert_same(_run_both(
+        "moe_ffn_grad", {**ins, "Out": (_host(fwd["out_out"][0]), None),
+                         "Out@GRAD": (dout, None)},
+        {"X@GRAD": 1, "RouterW@GRAD": 1, "W1@GRAD": 1, "W2@GRAD": 1}))
 
 
 def test_wrappers_refuse_mixed_and_other_dtypes():
