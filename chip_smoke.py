@@ -19,6 +19,35 @@ Phases, each printed as one JSON line:
              against f32 FMAs; ``ops_rate`` says which); K4 also at
              every epilogue variant on ragged shapes; each K4, K6 and
              K8 row's ``form`` names the form it ran;
+3a. train_fused_dropout, train_fused_dropout_amp — the FFN half of a
+             block at the flagship widths (16384 rows, 1024 -> 4096
+             gelu -> dropout 0.1 -> 1024 -> dropout 0.1 -> + x),
+             fused: two fused_matmul_bias_act a step with their dropout
+             branch (K4, then the mask and the residual in torch), one
+             CUDA graph replay a step (the batch staged on the card):
+             K4 (its bf16 form under AMP) twice a step, recorded and
+             traced; every replay draws new masks keeping 1 - p within
+             5 sigma; 20 run() and 20 prepared steps bit-identical;
+             with an explicit seed the fused and unfused programs draw
+             the same masks, each fused op's Out and MulOut against the
+             plain version of its composition (K4's bars), the fused and
+             unfused gradients within 1e-4 (bf16 2**-7); step ms, device
+             ms and idle share;
+3b. train_vgg, train_vgg_amp — VGG16-BN (flowers, 224 x 224, 102
+             classes, Adam 1e-3, NCHW; no TPU kernel on its path), f32
+             through run() and the prepared step at batch 256 or, where
+             it does not fit, the largest halving that does, and bf16
+             AMP (FLAGS_bn_bf16) prepared at 256: step ms, images/s,
+             peak memory, the device's idle share, 3 prepared steps
+             against 3 run() steps from one scope;
+3c. train_vgg_oracle — one f32 VGG step at batch 4 on the card against
+             Executor(CPUPlace()) on a desc copy with every dropout_prob
+             0, at twice the CPU's one-ulp spread, as phase 14 holds
+             ResNet-50;
+3d. sparse_update — an is_sparse 8192 x 1024 table (its gradient a
+             SelectedRows, duplicate ids every batch) under sgd,
+             momentum and lazy adam: 3 captured steps against 3 CPU
+             run() steps, losses and persistables within 1e-6;
 4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
@@ -214,7 +243,9 @@ Phases, each printed as one JSON line:
              BENCH_ITERS=10, then (information) at BENCH_AMP=0
              BENCH_LAYOUT=NHWC beside phase 13's step, then
              BENCH_MODEL=transformer at its card default (bf16),
-             unfused and BENCH_FUSED_TRANSFORMER=1; each must exit 0
+             unfused and BENCH_FUSED_TRANSFORMER=1, then
+             BENCH_MODEL=vgg (bf16, batch 256) and BENCH_MODEL=resnet32
+             (BENCH_DATASET=cifar10); each must exit 0
              with finite losses, the last below the first, float32
              parameters, under AMP an mfu, and every timed step
              prepared (``prepared`` true) but in the BENCH_PREPARED=0
@@ -3655,12 +3686,753 @@ def prepared_agreement(torch, fluid, main, loss, feed, persist, init):
             "ok": bool(ok)}
 
 
+# ---------------------------------------------------------------------------
+# slice 21: dropout and its random stream in a captured step (K4's
+# dropout branch), VGG16-BN, the sparse updates
+# ---------------------------------------------------------------------------
+
+DROPOUT_P = 0.1
+DROPOUT_ROWS = (8, 2048)        # 16384 rows of the flagship LM's width
+DROPOUT_STEPS = 20              # run() against run_prepared, bit for bit
+DROPOUT_SEED = 11               # the explicit seed of the fused/unfused pair
+DROPOUT_TIMED = 10              # more replays timed, after the checked 3
+# K4 launches a step: fc1 (gelu, dropout) and fc2 (dropout, residual)
+DROPOUT_K4 = 2
+# a replay's K4 kernels by symbol: the f32 form's split-TF32 tile, the
+# bf16 form's wgmma tile
+K4_SYMBOLS = {"matmul_epilogue": "gemm::gemm_kernel",
+              "matmul_epilogue_bf16": "gemm_bf16_kernel"}
+
+
+def dropout_chain(fluid, fuse, amp, seed=None):
+    """The FFN half of a transformer block at the flagship LM's widths:
+    x [8, 2048, 1024] -> fc 4096 + gelu -> dropout(0.1) -> fc 1024 ->
+    dropout(0.1) -> + x, a squared error against y, Adam; under
+    FLAGS_transformer_fuse (``fuse``) each fc chain is one
+    fused_matmul_bias_act (K4, the mask and the residual in torch);
+    under bf16 AMP with ``amp``.  Returns (main, startup, loss, the
+    two dropout Masks, the fused ops' Outs or None)."""
+    d, dff = TRAIN_LM["d_model"], TRAIN_LM["d_ff"]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[DROPOUT_ROWS[1], d],
+                              dtype="float32")
+        y = fluid.layers.data(name="y", shape=[DROPOUT_ROWS[1], d],
+                              dtype="float32")
+        h = fluid.layers.fc(x, size=dff, num_flatten_dims=2, act="gelu")
+        h = fluid.layers.dropout(h, dropout_prob=DROPOUT_P, seed=seed)
+        h = fluid.layers.fc(h, size=d, num_flatten_dims=2)
+        h = fluid.layers.dropout(h, dropout_prob=DROPOUT_P, seed=seed)
+        out = fluid.layers.elementwise_add(x, h)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(out, y))
+        if fuse:
+            counts = fluid.transpiler.TransformerFuseTranspiler().transpile(
+                main)
+            if counts.get("matmul_bias_act") != DROPOUT_K4:
+                raise AssertionError("the fuse pass: %r" % counts)
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+    if amp:
+        fluid.transpiler.Float16Transpiler().transpile(main)
+    ops = main.desc.blocks[0].ops
+    kind = "fused_matmul_bias_act" if fuse else "dropout"
+    masks = [op.output("Mask")[0] for op in ops
+             if op.type == kind and op.output("Mask", [])]
+    fused = [op for op in ops if op.type == "fused_matmul_bias_act"]
+    return main, startup, loss, masks, fused
+
+
+def dropout_batch(seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    shape = DROPOUT_ROWS + (TRAIN_LM["d_model"],)
+    return {"x": rng.randn(*shape).astype(np.float32),
+            "y": rng.randn(*shape).astype(np.float32)}
+
+
+def traced_k4(torch, step, n):
+    """{K4 form: launches a step} of ``n`` calls of ``step`` (one replay
+    each), read from a ``torch.profiler`` trace by kernel symbol; None
+    when the trace holds no device event."""
+    from paddle_tpu_torch.tools.profile_train import device_kernels
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof, n)
+    if not kernels:
+        return None
+    return {name: sum(v["calls_per_step"] for k, v in kernels.items()
+                      if sym in k) for name, sym in K4_SYMBOLS.items()}
+
+
+def _fro_rel(np, a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d = float(np.linalg.norm(a - b))
+    return d / max(float(np.linalg.norm(b)), 1e-30) if d else 0.0
+
+
+def train_fused_dropout(torch, amp):
+    """Phase train_fused_dropout[_amp]: ``dropout_chain`` fused, as a
+    prepared step (one CUDA graph replay a step).  Gates:
+
+    - K4 launches DROPOUT_K4 times a step (its bf16 form under AMP, no
+      other form), recorded at capture and read from a trace of two
+      replays;
+    - run-seeded masks differ between replays, each keeping 1 - p of
+      the elements within 5 sigma;
+    - DROPOUT_STEPS steps of run() and of run_prepared from one start
+      are bit-identical: losses and every persistable;
+    - with an explicit seed, the fused and the unfused programs draw the
+      same masks; each fused op's Out and MulOut are held to K4's bar
+      against the plain version of its composition on its own inputs
+      (f32 atol = rtol = 1e-4; bf16 one ulp plus 1e-6 of max |Y|), and
+      the parameter gradients of the fused and unfused programs agree
+      (f32: relative Frobenius 1e-4; bf16: 2**-7, one bf16 ulp)."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.kernels import matmul_fused as mf
+
+    k4 = "matmul_epilogue_bf16" if amp else "matmul_epilogue"
+    feed = dropout_batch(SEED + 21)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    main, startup, loss, masks, _ = dropout_chain(fluid, True, amp)
+    start = fluid.Scope()
+    exe.run(startup, scope=start)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    init = get_scope_arrays(start, persist)
+    failures = []
+
+    # the captured step: launches, fresh masks, the keep rate; the
+    # batch staged on the card once, so that a step copies it device to
+    # device (from the host, its 128 MB would cross PCIe every step)
+    scope = fluid.Scope()
+    set_scope_arrays(scope, init, "cuda")
+    dfeed = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prep = exe.prepare(main, feed_specs=dfeed, fetch_list=[loss] + masks,
+                       scope=scope)
+    t0 = time.perf_counter()
+    prep.run_prepared(dfeed)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    reset_launches()
+    step_ms, outs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        o = prep.run_prepared(dfeed)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(o)
+    counted = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+    launches = {k: n / 3 for k, n in counted.items()}
+    for _ in range(DROPOUT_TIMED):
+        t0 = time.perf_counter()
+        prep.run_prepared(dfeed)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    want = {k: DROPOUT_K4 if k == k4 else 0 for k in K4_SYMBOLS}
+    traced = traced_k4(torch, lambda: prep.run_prepared(dfeed), 2)
+    device_ms, idle = idle_share(torch, lambda: prep.run_prepared(dfeed), 2)
+    prep.sync_scope()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {k4: DROPOUT_K4}:
+        failures.append("launches a step %r" % launches)
+    if traced != want:
+        failures.append("traced launches a replay %r" % traced)
+    keep = [float((o[1] != 0).float().mean()) for o in outs]
+    n = outs[0][1].numel()
+    sigma = math.sqrt(DROPOUT_P * (1 - DROPOUT_P) / n)
+    fresh = all(not torch.equal(outs[i][j], outs[i + 1][j])
+                for i in range(2) for j in (1, 2))
+    if not fresh:
+        failures.append("a replay drew its predecessor's mask")
+    if any(abs(k - (1 - DROPOUT_P)) > 5 * sigma for k in keep):
+        failures.append("keep rate %r" % keep)
+    del outs, prep
+
+    # run() against run_prepared, DROPOUT_STEPS steps from one start
+    runs = {}
+    for prepared in (False, True):
+        s = fluid.Scope()
+        set_scope_arrays(s, init, "cuda")
+        if prepared:
+            with exe.prepare(main, feed_specs=feed, fetch_list=[loss],
+                             scope=s) as p:
+                ls = [p.run_prepared(feed, return_numpy=True)[0]
+                      for _ in range(DROPOUT_STEPS)]
+        else:
+            ls = [exe.run(main, feed=feed, fetch_list=[loss], scope=s)[0]
+                  for _ in range(DROPOUT_STEPS)]
+        runs[prepared] = (np.concatenate([np.ravel(x) for x in ls]),
+                          get_scope_arrays(s, persist))
+        del s
+        torch.cuda.empty_cache()
+    identical = bool(np.array_equal(runs[False][0], runs[True][0]) and all(
+        np.array_equal(runs[False][1][k], runs[True][1][k])
+        for k in persist))
+    if not identical:
+        differ = [k for k in persist
+                  if not np.array_equal(runs[False][1][k], runs[True][1][k])]
+        failures.append("run() and run_prepared differ: losses %s, %d "
+                        "persistables" % (
+                            not np.array_equal(runs[False][0],
+                                               runs[True][0]), len(differ)))
+    losses = runs[True][0].tolist()
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        failures.append("losses %r" % losses[:3])
+    del runs
+
+    # an explicit seed: the fused and the unfused programs
+    pair = {}
+    for fuse in (False, True):
+        m, st, ls, mk, fused = dropout_chain(fluid, fuse, amp,
+                                             seed=DROPOUT_SEED)
+        params = sorted(p.name for p in m.all_parameters())
+        fetch = mk + [p + "@GRAD" for p in params]
+        ins = []
+        for op in fused:
+            ins.append([op.attr("act"), op.input("X")[0], op.input("W")[0],
+                        op.input("Bias")[0], op.output("Out")[0],
+                        op.output("MulOut", [None])[0],
+                        op.output("Mask")[0]]
+                       + op.input("Residual", []))
+        flat = sorted({n for names in ins for n in names[1:]
+                       if n is not None and n not in persist})
+        s = fluid.Scope()
+        set_scope_arrays(s, init, "cuda")
+        with exe.prepare(m, feed_specs=feed, fetch_list=fetch + flat,
+                         scope=s) as p:
+            got = p.run_prepared(feed)
+        vals = dict(zip(fetch + flat, got))
+        kernel = []
+        for act, x, w, b, out, pre, mask, *res in ins:
+            xt, wt, bt = vals[x], s.find_var(w), s.find_var(b)
+            # the step updated W and b: the forward read their starting
+            # values
+            wt = torch.from_numpy(init[w]).cuda().to(wt.dtype)
+            bt = torch.from_numpy(init[b]).cuda().to(bt.dtype)
+            if amp:
+                wt, bt = wt.to(torch.bfloat16), bt.to(torch.bfloat16)
+                xt = xt.to(torch.bfloat16)
+            x2 = xt.reshape(-1, wt.shape[0])
+            ref = mf.matmul_epilogue_f32acc_reference if amp else \
+                mf.matmul_epilogue_reference
+            h, pre_want = ref(x2, wt, bt, None, act)
+            want = h * vals[mask].reshape(h.shape).to(h.dtype)
+            if res:
+                want = want + vals[res[0]].reshape(h.shape).to(h.dtype)
+            e1, ok1 = (None, True) if pre is None else compare(
+                torch, vals[pre].reshape(h.shape), pre_want)
+            got_out = vals[out].reshape(h.shape)
+            if amp and res:
+                # one ulp of h (K4's own bar) carried through the bf16
+                # residual add, plus that add's rounding
+                from paddle_tpu_torch.kernels.conv_fused import bf16_ulp
+
+                w32 = want.float()
+                err = (got_out.float() - w32).abs()
+                bound = bf16_ulp(h.float()) + bf16_ulp(w32) + \
+                    1e-6 * w32.abs().max()
+                e2, ok2 = float(err.max()), bool((err <= bound).all())
+            else:
+                e2, ok2 = compare(torch, got_out, want)
+            kernel.append({"shape": "M=%d K=%d N=%d" % (
+                x2.shape[0], x2.shape[1], wt.shape[1]), "act": act,
+                "residual": bool(res), "mulout_max_abs_err": e1,
+                "out_max_abs_err": e2, "ok": ok1 and ok2})
+        pair[fuse] = {"masks": [vals[k].float().cpu().numpy() for k in mk],
+                      "grads": {k: vals[k + "@GRAD"].float().cpu().numpy()
+                                for k in params}, "kernel": kernel}
+        del s, vals, got
+        torch.cuda.empty_cache()
+    same_masks = all(np.array_equal(a, b) for a, b in
+                     zip(pair[False]["masks"], pair[True]["masks"]))
+    if not same_masks:
+        failures.append("the fused and unfused programs drew other masks "
+                        "with seed %d" % DROPOUT_SEED)
+    if not all(k["ok"] for k in pair[True]["kernel"]):
+        failures.append("K4's dropout branch against its plain version: "
+                        "%r" % pair[True]["kernel"])
+    grad_tol = 2.0 ** -7 if amp else 1e-4
+    grads = {k: _fro_rel(np, pair[True]["grads"][k], pair[False]["grads"][k])
+             for k in pair[False]["grads"]}
+    if not all(v <= grad_tol for v in grads.values()):
+        failures.append("fused vs unfused gradients %r" % grads)
+    p50 = _pct(step_ms, 0.5)
+    return {"phase": "train_fused_dropout" + ("_amp" if amp else ""),
+            "amp": amp, "rows": DROPOUT_ROWS[0] * DROPOUT_ROWS[1],
+            "d_model": TRAIN_LM["d_model"], "d_ff": TRAIN_LM["d_ff"],
+            "dropout_prob": DROPOUT_P, "captured": True,
+            "first_step_s": capture_s, "step_ms": step_ms,
+            "step_ms_p50": p50,
+            "tokens_per_s": DROPOUT_ROWS[0] * DROPOUT_ROWS[1] / p50 * 1e3,
+            "max_memory_allocated_bytes": peak,
+            "device_ms_per_step": device_ms, "device_idle_share": idle,
+            "feeds": "staged on the card once (a device-to-device copy "
+                     "a step)",
+            "launches_per_step": launches,
+            "launches_per_step_wanted": {k4: DROPOUT_K4},
+            "launches": counted,
+            "replay_launches_traced_per_step":
+                traced if traced is not None else "not measured",
+            "keep_rate": keep, "keep_sigma": sigma,
+            "masks_fresh_each_replay": fresh,
+            "run_vs_prepared_steps": DROPOUT_STEPS,
+            "run_vs_prepared_bit_identical": identical,
+            "losses_prepared": losses,
+            "explicit_seed_masks_identical": same_masks,
+            "k4_vs_plain": pair[True]["kernel"],
+            "fused_vs_unfused_grad_fro_rel": grads,
+            "grad_tolerance": grad_tol, "failures": failures,
+            "ok": not failures}
+
+
+VGG = dict(data_set="flowers", learning_rate=1e-3)
+VGG_BATCH = 256
+VGG_STEPS = 5
+VGG_ORACLE_BATCH = 4
+VGG_PROFILED = 2        # steps traced for the device's idle share
+TRAIN_FLOPS_PER_IMG_VGG16 = 46.5e9      # bench.py:55
+
+
+def build_vgg(fluid, amp=False):
+    from paddle_tpu_torch.models import vgg
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = vgg.get_model(**VGG)
+    if amp:
+        fluid.transpiler.Float16Transpiler().transpile(main)
+    return main, startup, loss
+
+
+def vgg_batch(batch, seed):
+    """bench.py's fake VGG batch: float32 images in [0, 1), 102 labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {"data": rng.rand(batch, 3, 224, 224).astype(np.float32),
+            "label": rng.randint(0, 102, (batch, 1)).astype(np.int64)}
+
+
+def idle_share(torch, step, n):
+    """(device ms a step, the device's idle share) over ``n`` calls of
+    ``step`` under ``torch.profiler``: the kernels', memcpys' and
+    memsets' summed time against the wall time; ("not measured", ...)
+    when the trace holds no device event."""
+    from paddle_tpu_torch.tools.profile_train import device_kernels
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels = device_kernels(prof, n)
+    if not kernels:
+        return "not measured", "not measured"
+    busy = sum(k["ms_per_step"] for k in kernels.values())
+    return busy, max(0.0, 1.0 - busy / wall)
+
+
+def train_vgg(torch, amp):
+    """Phases train_vgg (f32: run() and the prepared step) and
+    train_vgg_amp (bf16 AMP with FLAGS_bn_bf16, the bench entry's
+    default: the prepared step): VGG16-BN at bench.py's card default
+    (flowers, 224 x 224, batch 256, 102 classes, Adam 1e-3), NCHW, its
+    ten dropout layers drawing from the step's stream.  f32 at batch 256
+    may not fit the card: the batch halves until it does, and the
+    result says so.  Each path: 1 warm-up step (the prepared one
+    captures), VGG_STEPS timed steps on one batch, step ms p50,
+    images/s, peak memory, the device's idle share over VGG_PROFILED
+    profiled steps; no kernel of the port runs (the path reaches no TPU
+    kernel); the prepared steps against run() (``prepared_agreement``;
+    where run() is not bit-identical run to run, the losses alone)."""
+    with bn_bf16(amp):
+        return _train_vgg(torch, amp)
+
+
+def _train_vgg(torch, amp):
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays
+
+    main, startup, loss = build_vgg(fluid, amp)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    start = fluid.Scope()
+    exe.run(startup, scope=start)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    init = get_scope_arrays(start, persist)
+    del start
+    paths = ("prepared",) if amp else ("run", "prepared")
+    batch, failures = VGG_BATCH, []
+    while True:
+        try:
+            out = {path: _vgg_path(torch, fluid, exe, main, loss, init,
+                                   persist, path, batch) for path in paths}
+            break
+        except RuntimeError as e:
+            # an allocation that failed, raised as it is or by the
+            # capture that wraps it
+            if not _out_of_memory(torch, e) or amp or batch <= 8:
+                raise
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            batch //= 2
+    for path, res in out.items():
+        if not res["ok"]:
+            failures.append("%s: %s" % (path, res["failures"]))
+    feed = vgg_batch(batch, SEED + 9)
+    torch.cuda.empty_cache()
+    agreement = prepared_agreement(torch, fluid, main, loss, feed, persist,
+                                   init)
+    # where run() is not bit-identical run to run (cuDNN's f32 grad
+    # convs sum with atomics), Adam turns the order noise of near-zero
+    # gradients (the BN biases') into steps of about lr, and one run()
+    # pair under-reads that spread: the losses are held, the
+    # persistables reported
+    held = agreement["ok"] or (
+        not agreement["run_bit_identical_run_to_run"]
+        and agreement["loss"]["fro_rel"] <= agreement["loss"]["tolerance"])
+    if not held:
+        failures.append("prepared against run(): %r"
+                        % agreement["worst_vs_tolerance"])
+    p = out["prepared"]
+    result = {"phase": "train_vgg" + ("_amp" if amp else ""),
+              "amp": amp, "bn_bf16": amp, **VGG, "batch": batch,
+              "batch_wanted": VGG_BATCH,
+              "batch_note": None if batch == VGG_BATCH else
+              "f32 at batch %d does not fit the card: the largest batch "
+              "that did, halving" % VGG_BATCH,
+              "step_ms_p50": p["step_ms_p50"],
+              "images_per_s": p["images_per_s"],
+              "paths": out, "agreement": agreement,
+              "launches": p["launches"], "failures": failures,
+              "ok": not failures}
+    return result
+
+
+def _out_of_memory(torch, e):
+    while e is not None:
+        if isinstance(e, torch.cuda.OutOfMemoryError):
+            return True
+        e = e.__cause__ or e.__context__
+    return False
+
+
+def _vgg_path(torch, fluid, exe, main, loss, init, persist, path, batch):
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    feed = vgg_batch(batch, SEED + 9)
+    scope = fluid.Scope()
+    set_scope_arrays(scope, init, "cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prep = None
+    try:
+        if path == "prepared":
+            prep = exe.prepare(main, feed_specs=feed, fetch_list=[loss],
+                               scope=scope)
+
+            def step():
+                return prep.run_prepared(feed, return_numpy=True)
+        else:
+            def step():
+                return exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope)
+        t0 = time.perf_counter()
+        losses = [float(step()[0][0])]
+        first_s = time.perf_counter() - t0
+        reset_launches()
+        step_ms = []
+        for _ in range(VGG_STEPS):
+            t0 = time.perf_counter()
+            o = step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)  # fetch syncs
+            losses.append(float(o[0][0]))
+        launches = {k: fn.launches for k, fn in KERNELS.items()
+                    if fn.launches}
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        device_ms, idle = idle_share(torch, step, VGG_PROFILED)
+        if prep is not None:
+            prep.sync_scope()
+        dtypes = param_dtypes(main, scope)
+    finally:
+        del prep, scope
+    failures = []
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        failures.append("losses %r" % losses)
+    if launches:
+        failures.append("a port kernel ran on the VGG path: %r" % launches)
+    if dtypes != ["float32"]:
+        failures.append("parameter dtypes %r" % dtypes)
+    p50 = _pct(step_ms, 0.5)
+    return {"path": path, "batch": batch, "first_step_s": first_s,
+            "losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+            "images_per_s": batch / p50 * 1e3,
+            "train_tflops": batch / p50 * 1e3 * TRAIN_FLOPS_PER_IMG_VGG16
+            / 1e12,
+            "max_memory_allocated_bytes": peak,
+            "memory_reserved_bytes": reserved,
+            "device_ms_per_step": device_ms, "device_idle_share": idle,
+            "launches": launches, "param_dtypes": dtypes,
+            "failures": failures, "ok": not failures}
+
+
+
+def vgg_oracle(torch, seed=SEED):
+    """One step of VGG16-BN (f32, flowers 224 x 224) at batch
+    VGG_ORACLE_BATCH on the card and, from the same parameters, on
+    Executor(CPUPlace()), on a copy of the desc with every dropout_prob
+    0 (so that the two sides draw the same, empty, masks), then on the
+    CPU again with one ulp added to every filter (the step's own f32
+    spread): the loss and every parameter gradient, held as the ResNet
+    oracle holds them."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+
+    main, startup, loss = build_vgg(fluid)
+    main = main.clone()
+    for op in main.desc.blocks[0].ops:
+        if op.type in ("dropout", "dropout_grad"):
+            op.set_attr("dropout_prob", 0.0)
+    startup.random_seed = seed
+    card = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    arrays = get_scope_arrays(card, persist)
+    params = sorted(p.name for p in main.all_parameters() if p.trainable)
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+    feed = vgg_batch(VGG_ORACLE_BATCH, seed + 7)
+    got = fluid.Executor(fluid.CUDAPlace(0)).run(main, feed=feed,
+                                                 fetch_list=fetch,
+                                                 scope=card)
+    cpu = []
+    for ulp in (False, True):
+        host = fluid.Scope()
+        set_scope_arrays(host, {
+            k: np.nextafter(v, np.float32(np.inf)) if ulp and v.ndim == 4
+            else v for k, v in arrays.items()}, "cpu")
+        cpu.append(fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch, scope=host))
+    want, moved = cpu
+    n = len(params)
+    loss_err = abs(float(got[0][0]) - float(want[0][0])) / \
+        abs(float(want[0][0]))
+    # a bias under batch norm has an exact gradient of 0: its noise is
+    # held to the largest gradient's scale instead
+    scale = max(float(np.abs(b).max()) for b in want[1:1 + n])
+
+    def rel(a, b):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        den = max(float(np.linalg.norm(b)), 1e-3 * scale * math.sqrt(b.size))
+        return float(np.linalg.norm(a - b)) / den
+
+    grads = {name: {"fro_rel": rel(a, b), "cpu_ulp_fro_rel": rel(c, b)}
+             for name, a, b, c in zip(fetch[1:], got[1:], want[1:],
+                                      moved[1:])}
+    spread = max(g["cpu_ulp_fro_rel"] for g in grads.values())
+    tol = max(ORACLE_GRAD_RTOL, RESNET_ORACLE_SPREAD * spread)
+    median = _pct([g["fro_rel"] for g in grads.values()], 0.5)
+    median_spread = _pct([g["cpu_ulp_fro_rel"] for g in grads.values()], 0.5)
+    median_tol = max(ORACLE_GRAD_RTOL, RESNET_ORACLE_SPREAD * median_spread)
+    worst = max(grads, key=lambda g: grads[g]["fro_rel"])
+    ok = (math.isfinite(loss_err) and loss_err <= RESNET_ORACLE_LOSS_RTOL
+          and spread <= RESNET_ORACLE_SPREAD_MAX and median <= median_tol
+          and all(math.isfinite(g["fro_rel"]) and g["fro_rel"] <= tol
+                  for g in grads.values()))
+    return {"phase": "train_vgg_oracle", "batch": VGG_ORACLE_BATCH,
+            "seed": seed, "dropout_prob": 0.0,
+            "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
+            "loss_cpu_ulp": float(moved[0][0]), "loss_rel_err": loss_err,
+            "worst_grad": worst, "worst_fro_rel": grads[worst]["fro_rel"],
+            "median_fro_rel": median, "cpu_ulp_worst_fro_rel": spread,
+            "cpu_ulp_median_fro_rel": median_spread,
+            "cpu_ulp_tolerance": RESNET_ORACLE_SPREAD_MAX,
+            "grads": grads, "loss_tolerance": RESNET_ORACLE_LOSS_RTOL,
+            "grad_tolerance": tol, "median_grad_tolerance": median_tol,
+            "ok": ok}
+
+
+SPARSE_STEPS = 3
+SPARSE_BATCH = (16, 128)        # ids a step: 2048, duplicates forced
+SPARSE_TOL = 1e-6
+
+
+def sparse_update(torch):
+    """Phase sparse_update: an ``is_sparse`` embedding at the flagship
+    LM's vocabulary and width (8192 x 1024) -> fc 1 -> mean, its
+    gradient a SelectedRows, under sgd, momentum (densified) and lazy
+    adam, duplicate ids in every batch: SPARSE_STEPS captured steps on
+    the card against as many run() steps of the port on the CPU from
+    the same start, losses and every persistable within SPARSE_TOL
+    (atol and rtol); the rows no id touched unchanged under sgd and
+    adam."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+
+    vocab, dim = TRAIN_LM["vocab_size"], TRAIN_LM["d_model"]
+    rng = np.random.RandomState(SEED + 13)
+    feeds = []
+    for _ in range(SPARSE_STEPS):
+        ids = rng.randint(0, vocab, SPARSE_BATCH + (1,)).astype(np.int64)
+        ids[:, :16] = ids[0, 0]
+        feeds.append({"ids": ids})
+    touched = np.unique(np.concatenate([f["ids"].ravel() for f in feeds]))
+    out, failures = {}, []
+    for optimizer in ("sgd", "momentum", "adam"):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            ids = fluid.layers.data(name="ids", shape=[SPARSE_BATCH[1], 1],
+                                    dtype="int64")
+            e = fluid.layers.embedding(ids, size=[vocab, dim],
+                                       is_sparse=True,
+                                       param_attr=fluid.ParamAttr(
+                                           name="table"))
+            loss = fluid.layers.mean(fluid.layers.fc(e, size=1,
+                                                     num_flatten_dims=2))
+            {"sgd": lambda: fluid.optimizer.SGD(learning_rate=0.5),
+             "momentum": lambda: fluid.optimizer.Momentum(0.5, 0.9),
+             # Adam's step is about lr whatever the gradient, so the
+             # two devices' rounding of a small gradient reaches the
+             # parameters at lr times its relative size: the default
+             # rate, as VGG and the LM train at
+             "adam": lambda: fluid.optimizer.Adam(learning_rate=1e-3)
+             }[optimizer]().minimize(loss)
+        persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                         if v.persistable)
+        cpu = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu)
+        init = get_scope_arrays(cpu, persist)
+        want = [float(fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=f, fetch_list=[loss], scope=cpu)[0].ravel()[0])
+            for f in feeds]
+        card = fluid.Scope()
+        set_scope_arrays(card, init, "cuda")
+        t0 = time.perf_counter()
+        with fluid.Executor(fluid.CUDAPlace(0)).prepare(
+                main, feed_specs=feeds[0], fetch_list=[loss],
+                scope=card) as prep:
+            got = [float(prep.run_prepared(f, return_numpy=True)[0]
+                         .ravel()[0]) for f in feeds]
+        secs = time.perf_counter() - t0
+        a, b = get_scope_arrays(card, persist), get_scope_arrays(cpu, persist)
+        err = {k: float(np.abs(a[k].astype(np.float64) - b[k]).max())
+               for k in persist}
+        ok = (np.allclose(got, want, rtol=SPARSE_TOL, atol=SPARSE_TOL)
+              and all(np.allclose(a[k], b[k], rtol=SPARSE_TOL,
+                                  atol=SPARSE_TOL) for k in persist))
+        untouched = np.setdiff1d(np.arange(vocab), touched)
+        lazy = optimizer == "momentum" or bool(np.array_equal(
+            a["table"][untouched], init["table"][untouched]))
+        if not (ok and lazy):
+            failures.append(optimizer)
+        out[optimizer] = {"losses_card": got, "losses_cpu": want,
+                          "max_abs_err": err, "untouched_rows_unchanged":
+                          lazy, "seconds": secs, "ok": ok and lazy}
+    return {"phase": "sparse_update", "table": [vocab, dim],
+            "ids_per_step": SPARSE_BATCH[0] * SPARSE_BATCH[1],
+            "rows_touched": int(touched.size), "steps": SPARSE_STEPS,
+            "captured": True, "tolerance": SPARSE_TOL, "runs": out,
+            "failures": failures, "ok": not failures}
+
+
+SLICE21_TIMEOUT_S = 600
+
+
+def slice21_phases(torch):
+    """Slice 21's phases in order, as (name, zero-argument callable)."""
+    return [("train_fused_dropout",
+             lambda: train_fused_dropout(torch, False)),
+            ("train_fused_dropout_amp",
+             lambda: train_fused_dropout(torch, True)),
+            ("train_vgg", lambda: train_vgg(torch, False)),
+            ("train_vgg_amp", lambda: train_vgg(torch, True)),
+            ("train_vgg_oracle", lambda: vgg_oracle(torch)),
+            ("sparse_update", lambda: sparse_update(torch))]
+
+
+def slice21_main():
+    """``chip_smoke.py --slice21``: slice 21's phases alone, each printed
+    as one JSON line; stops at the first that fails (exit 1)."""
+    import torch
+
+    from paddle_tpu_torch import resolve_device
+
+    resolve_device("cuda")
+    for name, run in slice21_phases(torch):
+        torch.cuda.empty_cache()
+        try:
+            result = run()
+        except Exception as e:
+            traceback.print_exc()
+            result = {"phase": name, "ok": False,
+                      "error": "%s: %s" % (type(e).__name__, e)}
+        emit(result)
+        if not result["ok"]:
+            return 1
+    return 0
+
+
+def slice21_subprocess():
+    """Run ``slice21_main`` in a child process (``main``'s profiler
+    sessions stay out of its traces).  Returns (its phases' JSON lines,
+    {phase: launches} of the phases that drive a kernel's path, and
+    (phase, reason) of the first that failed, or None)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--slice21"], cwd=root, capture_output=True,
+                          text=True, timeout=SLICE21_TIMEOUT_S)
+    lines = []
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("{"):
+            lines.append(json.loads(ln))
+    launches = {r["phase"]: r["launches"] for r in lines
+                if r["phase"].startswith("train_fused_dropout")
+                and "launches" in r}
+    failure = None
+    bad = [r for r in lines if not r.get("ok")]
+    if bad:
+        r = bad[0]
+        failure = (r["phase"], r.get("error") or "; ".join(
+            r.get("failures") or ["its checks"]))
+    elif proc.returncode != 0 or len(lines) != len(slice21_phases(None)):
+        failure = ("slice21", "the child exited %d after %d phases: %s" % (
+            proc.returncode, len(lines), proc.stderr[-2000:]))
+    if failure:
+        sys.stderr.write(proc.stderr[-4000:])
+    return lines, launches, failure
+
+
 def bench_runs(torch, fused_step_ms):
     """The port's bench entry in a subprocess: the default headline with
     its secondary (the flagship LM, which must be the bf16 LM),
     BENCH_LAYOUT=NHWC, (information, beside ``fused_step_ms``, phase
     13's p50) BENCH_AMP=0 BENCH_LAYOUT=NHWC, and BENCH_MODEL=transformer
-    at its card default (bf16), unfused and fused-block, each
+    at its card default (bf16), unfused and fused-block, BENCH_MODEL=vgg
+    at its card default and BENCH_MODEL=resnet32 on cifar10, each
     BENCH_ITERS, no secondary but the headline's.  Returns (the runs'
     JSON lines, the phase's summary)."""
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3670,7 +4442,13 @@ def bench_runs(torch, fused_step_ms):
             ("nhwc_f32", {"BENCH_LAYOUT": "NHWC", "BENCH_AMP": "0"}),
             ("lm", {"BENCH_MODEL": "transformer"}),
             ("lm_fused", {"BENCH_MODEL": "transformer",
-                          "BENCH_FUSED_TRANSFORMER": "1"}))
+                          "BENCH_FUSED_TRANSFORMER": "1"}),
+            # slice 21: VGG16-BN at bench.py's card default (flowers,
+            # batch 256, bf16) and the cifar ResNet (depth 32, which
+            # takes cifar10, as in bench.py)
+            ("vgg", {"BENCH_MODEL": "vgg"}),
+            ("resnet32", {"BENCH_MODEL": "resnet32",
+                          "BENCH_DATASET": "cifar10"}))
     lines, summary, bad = {}, {}, []
     for name, extra in runs:
         env = {k: v for k, v in os.environ.items()
@@ -3693,7 +4471,17 @@ def bench_runs(torch, fused_step_ms):
         lines[name] = out
         amp = extra.get("BENCH_AMP", "1") == "1"
         checks = bench_checks(out, amp, extra.get("BENCH_PREPARED") != "0")
-        if "BENCH_MODEL" in extra:
+        if extra.get("BENCH_MODEL") in ("vgg", "resnet32"):
+            model = extra["BENCH_MODEL"]
+            checks.update(
+                metric=out["metric"] == (
+                    "vgg_flowers_train_bs256_bf16" if model == "vgg"
+                    else "resnet32_cifar10_train_bs256_bf16"),
+                data_format=out["data_format"] == "NCHW",
+                secondary=out["secondary"] is None)
+            # bench.py's MFU counts 224 x 224 images only
+            checks["mfu"] = (out["mfu"] is not None) is (model == "vgg")
+        elif "BENCH_MODEL" in extra:
             fused = "BENCH_FUSED_TRANSFORMER" in extra
             checks.update(
                 metric=out["metric"] ==
@@ -3795,6 +4583,21 @@ def main():
             raise AssertionError("kernel disagrees with its plain "
                                  "version: " + "; ".join(bad))
 
+        # slice 21's phases run in a process of their own: profiler
+        # sessions pile up in one process, and past some number of them
+        # a trace of a CUDA graph replay shows only part of its kernels
+        # or none (a late trace of the dropout chain's replay read one of
+        # its two K4 launches; with these phases first, serve_fleet's
+        # decode trace read none), where a fresh process reads them all
+        phase = "slice21"
+        torch.cuda.empty_cache()
+        lines, launches_train, failure = slice21_subprocess()
+        for line in lines:
+            emit(line)
+        if failure:
+            phase = failure[0]
+            raise AssertionError("%s: %s" % failure)
+
         phase = "serve_f32"
         cfg, params = tiny_lm(SEED, **FLAGSHIP_LM)
         lengths = (16, 300, 1024, 64, 517, 33, 100, 800, 17, 256, 1000, 48)
@@ -3889,7 +4692,6 @@ def main():
             raise AssertionError("serve_fleet: %s"
                                  % "; ".join(result["failures"]))
 
-        launches_train = {}
         for fuse in (False, True):
             phase = "train_fused" if fuse else "train_f32"
             torch.cuda.empty_cache()
@@ -4159,4 +4961,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(slice21_main() if sys.argv[1:] == ["--slice21"] else main())

@@ -36,6 +36,12 @@ With a ``mesh`` (``parallel.Mesh``), the ops that shard over it (the
 ring attention op under an ``sp`` axis) place their shards on the
 mesh's devices; every other op runs on the place's device.
 
+A SelectedRows (a sparse gradient, ``core/selected_rows.py``) travels
+through the block's environment like a tensor; a fetch of one comes back
+as a SelectedRows with numpy rows and values.  A program cloned for test
+runs in test mode (``LoweringContext.mode``: dropout and batch norm
+infer), as the JAX package's executor does.
+
 Under bf16 AMP (``program.amp_bf16``) the lowering casts each op's
 inputs (``lowering.amp_cast_ins``), on a mesh as without one: the ring
 attention runs its shards' folds and backward steps in bf16 (K9's and
@@ -54,6 +60,7 @@ import torch
 from .flags import FLAGS
 from .lowering import LoweringContext, run_op
 from .registry import get_op_info
+from .selected_rows import SelectedRows
 from .types import proto_to_np_dtype
 
 _INT32_MAX = 2 ** 31 - 1
@@ -163,7 +170,7 @@ class PreparedProgram:
     else wrote always wins over the device copy."""
 
     def __init__(self, core, program, block_id, entry, scope, feed_names,
-                 fixed_shapes):
+                 fixed_shapes, mode="train"):
         from .step_graph import StepGraph
 
         self._core = core
@@ -180,7 +187,7 @@ class PreparedProgram:
         self._read_only = [n for n in self._state_names if n not in written]
         self._seen = {}   # name -> (owning scope, write version) we saw
         self._step = StepGraph(core, program, block_id, entry,
-                               self._state_names, fixed_shapes)
+                               self._state_names, fixed_shapes, mode)
         self._block = block
         # another prepared program may hold newer values of our state
         flush_prepared(scope)
@@ -321,7 +328,7 @@ class ExecutorCore:
         self._cache = {}
 
     def run(self, program, scope, block_id=0, feed=None, fetch_list=None,
-            return_numpy=True):
+            return_numpy=True, mode="train"):
         # device-resident prepared state lands in the scope first
         flush_prepared(scope)
         block = program.blocks[block_id]
@@ -333,7 +340,8 @@ class ExecutorCore:
             if name not in env:
                 env[name] = self._scope_tensor(scope, name)
         ctx = LoweringContext(program, block_id, env, self.device,
-                              seed=_run_seed(program, scope), mesh=self.mesh)
+                              seed=_run_seed(program, scope), mesh=self.mesh,
+                              mode=mode)
         run_block(ctx, entry)
         for name in entry.persist_outs:
             (scope.find_scope_of(name) or scope).set(name, env[name])
@@ -343,7 +351,7 @@ class ExecutorCore:
         return fetches
 
     def prepare(self, program, feed_specs, fetch_list, scope=None,
-                block_id=0):
+                block_id=0, mode="train"):
         """Reference Executor::Prepare: make the block's plan once and
         return a PreparedProgram whose step is feed staging and one
         dispatch (on a card, one CUDA graph replay).
@@ -377,7 +385,7 @@ class ExecutorCore:
         if self.device.type == "cuda":
             self._refuse_uncapturable(entry)
         return PreparedProgram(self, program, block_id, entry, scope,
-                               feed_specs, fixed)
+                               feed_specs, fixed, mode)
 
     def _entry(self, program, block_id, fetch_list):
         key = _cache_key(program, block_id, fetch_list)
@@ -418,14 +426,9 @@ class ExecutorCore:
 
     def _refuse_uncapturable(self, entry):
         """A card captures the prepared step as one CUDA graph; refuse
-        (Uncapturable) what a replay cannot reproduce."""
-        random = sorted({op.type for op in entry.ops if _draws(op)})
-        if random:
-            raise Uncapturable(
-                "prepare() on a card: random op(s) %s would draw the same "
-                "numbers at every replay of the captured step (ROADMAP "
-                "queue 1 item 2, dropout and its random stream); use "
-                "run()" % random)
+        (Uncapturable) what a replay cannot reproduce.  (Random ops are
+        not refused: ``lowering.RandomStream`` draws afresh at each
+        replay.)"""
         if any(op.type == "assign_value" for op in entry.ops):
             raise Uncapturable(
                 "prepare() on a card: assign_value copies its values from "
@@ -462,16 +465,11 @@ class ExecutorCore:
         return to_device(val, self.device)
 
 
-def _draws(op):
-    """Whether ``op`` draws random numbers: a stateful op, but not one
-    whose only random part is a dropout it runs at probability 0 (the
-    fused matmul; its dropout is refused anyway, ROADMAP item 2)."""
-    return get_op_info(op.type).stateful and \
-        float(op.attr("dropout_prob", 1.0)) > 0.0
-
-
 def to_device(val, device):
-    """A scope value as a tensor on ``device`` (numpy converted)."""
+    """A scope value as a tensor (or a SelectedRows) on ``device``
+    (numpy converted)."""
+    if isinstance(val, SelectedRows):
+        return val.to(device) if val.device != device else val
     if isinstance(val, np.ndarray):
         val = torch.from_numpy(val)
     if isinstance(val, torch.Tensor) and val.device != device:
@@ -549,8 +547,12 @@ def _segment(block):
 def fetches_to_host(outs):
     """Fetch-list values -> host numpy (None passes through).  numpy has
     no bfloat16: a bf16 value (an AMP activation) comes back as float32,
-    exactly; fetch with ``return_numpy=False`` to see its dtype."""
+    exactly; fetch with ``return_numpy=False`` to see its dtype.  A
+    SelectedRows (a sparse gradient) comes back as one with numpy rows
+    and values."""
     return [_host(v) if isinstance(v, torch.Tensor)
+            else SelectedRows(_host(v.rows), _host(v.values), v.height)
+            if isinstance(v, SelectedRows)
             else (None if v is None else np.asarray(v)) for v in outs]
 
 

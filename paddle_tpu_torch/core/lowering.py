@@ -137,10 +137,93 @@ class Ins:
         return self._d.keys()
 
 
+class RandomStream:
+    """The random numbers of one step, made so that a CUDA graph replay
+    draws afresh and draws what ``run()`` draws at the same step.
+
+    The JAX package folds (seed, run counter) into a traced key
+    (``LoweringContext.next_key``), so its compiled step draws new
+    numbers at every call.  A CUDA graph instead bakes in the Philox
+    seed and offset of the generators it records, except for the
+    generators registered with it (``CUDAGraph.register_generator_state``),
+    whose seed and offset it reads afresh at each replay.  So:
+
+    - every draw of a step takes a ``torch.Generator`` of this stream:
+      the draws without a ``seed`` attr share one, seeded from the
+      program's random seed and the scope's run counter
+      (``executor_impl._run_seed``), which advances op by op; each draw
+      with an explicit ``seed`` takes one of its own, in op order,
+      seeded with that seed alone, so it draws the same numbers at
+      every step and at every place in the program (the reference takes
+      ``PRNGKey(seed)`` afresh at each call);
+    - ``reset(seed)`` before every step, eager or replayed, puts every
+      generator back at offset 0 under its seed;
+    - a captured step registers ``generators()`` with its graph before
+      the capture; the warm-up steps before it made them (the capture
+      makes none).  A replay then draws with the seeds and offsets the
+      last ``reset`` set, and the warm-ups leave the run counter as it
+      was: the step's seed is drawn once per ``run_prepared``.
+
+    On the CPU and in ``run()`` the same generators draw eagerly, so a
+    prepared step and ``run()`` draw the same numbers bit for bit on
+    either device.  (The CPU's generator is not Philox: CPU and card
+    numbers differ, as torch's and jax's do.)
+    """
+
+    def __init__(self, device, seed=0):
+        self.device = device
+        self.seed = seed
+        self._run = None        # the run-seeded draws' generator
+        self._fixed = []        # [[seed, generator]] explicit-seed draws
+        self._next = 0
+        self.frozen = False     # while a graph records: make no generator
+
+    def rewind(self):
+        """Start a step at the first explicit-seed generator again, its
+        seeds and offsets as they stand (a capture: the graph reads them
+        at each replay)."""
+        self._next = 0
+
+    def reset(self, seed):
+        """Start a step whose run-seeded draws take ``seed``."""
+        self.seed = seed
+        self.rewind()
+        if self._run is not None:
+            self._run.manual_seed(seed)
+        for s, g in self._fixed:
+            g.manual_seed(s)
+
+    def _new(self, seed):
+        if self.frozen:
+            raise RuntimeError(
+                "a draw the warm-up steps did not make reached a captured "
+                "step: its generator cannot be registered with the graph")
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def generator(self, seed=0):
+        if not seed:
+            if self._run is None:
+                self._run = self._new(self.seed)
+            return self._run
+        i = self._next
+        self._next += 1
+        if i == len(self._fixed):
+            self._fixed.append([seed, self._new(seed)])
+        elif self._fixed[i][0] != seed:
+            self._fixed[i][0] = seed
+            self._fixed[i][1].manual_seed(seed)
+        return self._fixed[i][1]
+
+    def generators(self):
+        gens = [g for _, g in self._fixed]
+        return gens if self._run is None else [self._run] + gens
+
+
 class LoweringContext:
     """State shared by the ops of one block run."""
 
-    def __init__(self, program, block_idx, env, device, seed=0, mesh=None):
+    def __init__(self, program, block_idx, env, device, seed=0, mesh=None,
+                 stream=None, mode="train"):
         self.program = program
         self.block_idx = block_idx
         self.block = program.blocks[block_idx]
@@ -148,21 +231,18 @@ class LoweringContext:
         self.device = device            # torch.device the block runs on
         self.seed = seed                # this run's random seed
         self.mesh = mesh                # parallel.Mesh of the run, or None
+        self.mode = mode                # 'train' | 'test'
         self.amp = bool(getattr(program, "amp_bf16", False))
         self.op = None                  # the op running (executor_impl)
-        self._generator = None
+        self.stream = stream            # RandomStream, made at first draw
 
     def generator(self, seed=0):
-        """``torch.Generator`` for a random op: a fresh one seeded with
-        the op's own ``seed`` attr when set, else the run's generator
-        (seeded once from the program's seed and the run counter), whose
+        """``torch.Generator`` of a random op (``RandomStream``): the
+        op's own for an explicit ``seed`` attr, else the step's, whose
         stream advances op by op."""
-        if seed:
-            return torch.Generator(device=self.device).manual_seed(seed)
-        if self._generator is None:
-            self._generator = torch.Generator(
-                device=self.device).manual_seed(self.seed)
-        return self._generator
+        if self.stream is None:
+            self.stream = RandomStream(self.device, self.seed)
+        return self.stream.generator(seed)
 
 
 def run_op(ctx, op):

@@ -43,6 +43,15 @@ are taken back and added again at every replay.  A capture that fails
 raises RuntimeError naming the op being captured; nothing falls back to
 running the step eagerly.
 
+Random ops draw from the step's ``lowering.RandomStream``: its
+generators are registered with the graph before the capture, and reset
+to the step's seed (the program's random seed and the scope's run
+counter, drawn once per step) before every step, eager or replayed. A
+replay therefore draws new numbers at every step, the ones ``run()``
+draws at that step, and an op with an explicit ``seed`` draws the same
+numbers at every step; the warm-up steps draw from the first step's seed
+and move no counter.
+
 ``capture`` is that warm-up and capture alone, for any step function:
 the serving engine (``serving/generative.py``) captures each prefill
 and decode bucket with it.
@@ -55,7 +64,7 @@ from .. import kernels
 from ..kernels import _build
 from .executor_impl import PreparedShapeMismatch, run_block, to_device
 from .flags import FLAGS
-from .lowering import LoweringContext
+from .lowering import LoweringContext, RandomStream
 
 # steps run before the capture (their updates are undone)
 WARMUP_STEPS = 2
@@ -69,12 +78,13 @@ def _lowering_flags():
 
 class StepGraph:
     def __init__(self, core, program, block_id, entry, state_names,
-                 fixed_shapes):
+                 fixed_shapes, mode="train"):
         self._program = program
         self._block_id = block_id
         self._entry = entry
         self._device = core.device
         self._mesh = core.mesh
+        self._mode = mode
         self._capture = self._device.type == "cuda"
         # {feed name: shape} the step takes (None: any, on the CPU)
         self._fixed = fixed_shapes
@@ -91,6 +101,9 @@ class StepGraph:
         self._fetch_out = None
         self._graph_outs = {}
         self._launches = {}
+        # the step's generators (lowering.RandomStream): reset to the
+        # step's seed before each step, and registered with the graph
+        self._stream = RandomStream(self._device)
 
     def load_state(self, name, value):
         """Copy a scope value into the static tensor of ``name``."""
@@ -121,6 +134,7 @@ class StepGraph:
         if not self._capture:
             env = dict(self.state)
             env.update((n, t.to(self._device)) for n, t in feeds.items())
+            self._stream.reset(seed)
             fetches, outs = self._step(self._ctx(env, seed))
             self.outs.update(outs)
             return fetches
@@ -131,6 +145,9 @@ class StepGraph:
         else:
             for n, t in feeds.items():
                 self._feeds[n].copy_(t)
+        # the replay reads the generators' seeds and offsets as they
+        # stand: this step's
+        self._stream.reset(seed)
         self._graph.replay()
         kernels.add_launches(self._launches)
         # a re-stage drops the write-only outputs: the replay made them
@@ -164,7 +181,8 @@ class StepGraph:
 
     def _ctx(self, env, seed):
         return LoweringContext(self._program, self._block_id, env,
-                               self._device, seed=seed, mesh=self._mesh)
+                               self._device, seed=seed, mesh=self._mesh,
+                               stream=self._stream, mode=self._mode)
 
     def _step(self, ctx):
         """The step function: run the block over ``ctx.env``, copy the
@@ -204,6 +222,10 @@ class StepGraph:
 
         def step():
             ctxs[0] = None
+            # each call's explicit-seed draws take their generators in op
+            # order again; the capture records draws that each replay
+            # makes from the generators' states as ``run`` resets them
+            self._stream.rewind()
             ctxs[0] = self._ctx(dict(env), seed)
             return self._step(ctxs[0])
 
@@ -211,6 +233,8 @@ class StepGraph:
             for name, val in saved.items():
                 self.state[name].copy_(val)
             saved.clear()
+            # the warm-ups made every generator the step draws from
+            self._stream.frozen = True
 
         def at_op():
             op = ctxs[0].op
@@ -218,14 +242,15 @@ class StepGraph:
                                   else "(after the ops)")
 
         graph, (fetches, outs), launches = capture(
-            step, "the prepared step", at_op, restore=restore)
+            step, "the prepared step", at_op, restore=restore,
+            generators=self._stream.generators)
         self._graph, self._fetch_out, self._launches = graph, fetches, \
             launches
         self._graph_outs = outs
 
 
 def capture(step, what, where=None, restore=None,
-            capture_error_mode="global", stream=None):
+            capture_error_mode="global", stream=None, generators=None):
     """Capture one call of ``step()`` as a CUDA graph; returns (graph,
     what that call returned, {kernel name: launches one replay makes}).
 
@@ -233,7 +258,11 @@ def capture(step, what, where=None, restore=None,
     a new one): they build the kernels and let cuBLAS and cuDNN choose
     their algorithms; ``restore()`` then undoes what they wrote.  The
     capture runs on ``stream`` (else ``torch.cuda.graph``'s own) into a
-    private memory pool.  The launches the wrappers count
+    private memory pool.  ``generators()`` (after the warm-ups) lists
+    the ``torch.Generator``s the step draws from: they are registered
+    with the graph, so that each replay draws from their seeds and
+    offsets as they stand then (``lowering.RandomStream``).  The
+    launches the wrappers count
     while this thread captures are taken back: recording a launch is
     not making one, so the caller adds them at each replay.  A capture
     that fails raises RuntimeError naming ``what`` (and ``where()``, the
@@ -248,6 +277,14 @@ def capture(step, what, where=None, restore=None,
     if restore is not None:
         restore()
     graph = torch.cuda.CUDAGraph()
+    gens = list(generators()) if generators is not None else []
+    if gens and not hasattr(graph, "register_generator_state"):
+        raise RuntimeError(
+            "capturing %s: torch %s cannot register a generator with a "
+            "CUDA graph (CUDAGraph.register_generator_state), so a replay "
+            "would repeat its random draws" % (what, torch.__version__))
+    for g in gens:
+        graph.register_generator_state(g)
     with _build.recording() as rec:
         try:
             with torch.cuda.graph(graph, stream=stream,

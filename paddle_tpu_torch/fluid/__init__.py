@@ -32,6 +32,7 @@ from . import unique_name
 from .executor import Executor, global_scope, scope_guard, fetch_var
 from .parallel_executor import ParallelExecutor
 from . import io
+from . import nets
 from . import transpiler
 
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace
@@ -44,7 +45,7 @@ __all__ = [
     "layers", "initializer", "ParamAttr", "LayerHelper",
     "append_backward", "calc_gradient", "optimizer", "unique_name",
     "Executor", "global_scope", "scope_guard", "fetch_var", "io",
-    "ParallelExecutor",
+    "ParallelExecutor", "nets",
     "transpiler",
     "CPUPlace", "CUDAPlace", "Scope",
 ]

@@ -52,6 +52,12 @@ def _fetch_names(fetch_list):
             for f in (fetch_list or [])]
 
 
+def _mode(program):
+    """'test' for a program cloned for test (its dropout and batch norm
+    run in inference mode), else 'train'."""
+    return "test" if getattr(program, "_is_test", False) else "train"
+
+
 def _check_feed(feed):
     for v in (feed or {}).values():
         if isinstance(v, Variable):
@@ -113,7 +119,8 @@ class Executor:
         _check_feed(feed)
         return self._core.run(program.desc, scope, 0, dict(feed or {}),
                               _fetch_names(fetch_list),
-                              return_numpy=return_numpy)
+                              return_numpy=return_numpy,
+                              mode=_mode(program))
 
     def prepare(self, program=None, feed_specs=None, fetch_list=None,
                 scope=None):
@@ -130,7 +137,7 @@ class Executor:
             scope = _current_scope()
         return PreparedProgram(self._core.prepare(
             program.desc, feed_specs, _fetch_names(fetch_list),
-            scope=scope))
+            scope=scope, mode=_mode(program)))
 
     def close(self):
         pass

@@ -1,6 +1,6 @@
 """Layer API: functions that append ops to the current program
-(counterpart of paddle_tpu/fluid/layers; the layers the transformer LM
-and ResNet use)."""
+(counterpart of paddle_tpu/fluid/layers; the layers the transformer LM,
+ResNet and VGG16-BN use)."""
 from . import tensor
 from .tensor import *  # noqa: F401,F403
 from . import nn

@@ -12,7 +12,8 @@ from ..initializer import ConstantInitializer, NormalInitializer
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
     "softmax", "cross_entropy", "softmax_with_cross_entropy", "mean",
-    "reshape", "transpose", "topk", "scale", "elementwise_add",
+    "reshape", "transpose", "topk", "scale", "elementwise_add", "dropout",
+    "matmul", "square_error_cost", "reduce_sum",
 ]
 
 
@@ -278,3 +279,51 @@ def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
+    helper = LayerHelper("dropout", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    mask = helper.create_tmp_variable(dtype=x.dtype, stop_gradient=True)
+    helper.append_op(
+        type="dropout", inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed if seed is not None else 0})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type="matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y,
+                            "alpha": float(alpha)})
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost", **locals())
+    minus_out = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(type="elementwise_sub",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [minus_out]})
+    square_out = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(type="square", inputs={"X": [minus_out]},
+                     outputs={"Out": [square_out]})
+    return square_out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", **locals())
+    out = helper.create_tmp_variable(dtype=input.dtype)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        attrs = {"dim": dim if isinstance(dim, list) else [dim],
+                 "keep_dim": keep_dim, "reduce_all": False}
+    helper.append_op(type="reduce_sum", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out

@@ -2,7 +2,7 @@
 
 Counterpart of paddle_tpu/fluid/optimizer.py (minimize =
 append_backward + regularization + clipping +
-_create_optimization_pass); Momentum and Adam are ported so far.
+_create_optimization_pass); SGD, Momentum and Adam are ported so far.
 """
 from __future__ import annotations
 
@@ -18,8 +18,8 @@ from .clip import append_gradient_clip_ops, error_clip_callback
 from . import unique_name
 from . import layers
 
-__all__ = ["Momentum", "MomentumOptimizer", "Adam", "AdamOptimizer",
-           "Optimizer"]
+__all__ = ["SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer", "Adam",
+           "AdamOptimizer", "Optimizer"]
 
 
 class Optimizer:
@@ -133,6 +133,19 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+class SGDOptimizer(Optimizer):
+    def __init__(self, learning_rate, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return block.append_op(
+            type=self.type,
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": param_and_grad[0]}, infer_shape=False)
+
+
 class MomentumOptimizer(Optimizer):
     _velocity_acc_str = "velocity"
 
@@ -203,5 +216,6 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon}, infer_shape=False)
 
 
+SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer

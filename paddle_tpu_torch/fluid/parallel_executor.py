@@ -15,7 +15,7 @@ training (``num_trainers`` > 1) raise NotImplementedError.
 one CUDA graph replay a step), one per (fetch, feed) signature, as the
 JAX package's does: a program with host ops is remembered, per program
 version, as needing ``run()``, and so is one whose step a CUDA graph
-cannot replay (``Uncapturable``: a random op, ``assign_value``, a mesh
+cannot replay (``Uncapturable``: ``assign_value``, a mesh
 over distinct cards); a program that changed since it was
 prepared is synced and prepared again; a batch whose shape differs from
 the prepared one runs through ``run()``.

@@ -1,7 +1,7 @@
 """The port's operator library: importing this package registers every
 op (counterpart of ``paddle_tpu/ops``; only the ops that the
-transformer LM's and ResNet's training steps, plain and fused, and their
-optests reach are ported so far)."""
+transformer LM's, ResNet's and VGG16-BN's training steps, plain and
+fused, sparse embeddings and their optests reach are ported so far)."""
 from . import math  # noqa: F401
 from . import tensor  # noqa: F401
 from . import nn  # noqa: F401

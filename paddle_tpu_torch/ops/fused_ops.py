@@ -7,7 +7,12 @@ emits, backed by the kernels in ``kernels/matmul_fused.py``:
 - ``fused_qkv_matmul``: X @ [W_q | W_k | W_v] — one wide matmul (K4)
   feeding attention's q/k/v instead of three reads of X.
 - ``fused_matmul_bias_act``: matmul + bias (+relu/gelu) (+residual add)
-  with the elementwise tail in the matmul's epilogue (K4).
+  with the elementwise tail in the matmul's epilogue (K4).  With
+  ``dropout_prob > 0`` K4 computes matmul + bias + act, and the dropout
+  mask (``ops/random.keep_mask``, drawn at the op-output shape, so an
+  explicit seed draws the unfused ``dropout`` op's mask) and the
+  residual add follow in torch, as the reference composes them; in
+  test mode the output scales by 1 - p ("downgrade_in_infer").
 - ``fused_add_ln``: LayerNorm(X + Y) with the sum and the statistics
   from one pass over the rows (K5); the sum is also an output (the
   residual stream reads it downstream).
@@ -23,9 +28,7 @@ as the reference's ``preferred_element_type`` names them.  Each forward
 op registers an ``infer_shape``: build-time shape inference runs on
 ``meta`` tensors, which the kernel wrappers do not take.
 
-Not ported: the dropout branch of ``fused_matmul_bias_act``
-(``dropout_prob > 0``) needs the ``dropout`` op and its random stream,
-and raises NotImplementedError.  The reference's ``force_xla`` /
+The reference's ``force_xla`` /
 ``interpret`` attrs select its XLA branch or the Pallas interpreter;
 they are accepted and ignored.
 """
@@ -36,6 +39,8 @@ import torch
 
 from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.kernels import matmul_fused
+from paddle_tpu_torch.ops import random as _random
+from paddle_tpu_torch.ops.nn import test_mode
 
 
 def _flat2(x, num_col_dims):
@@ -70,13 +75,6 @@ def _dot(a, b, out_dtype):
 
 def _meta(shape, like):
     return torch.empty(tuple(shape), dtype=like.dtype, device=like.device)
-
-
-def _no_dropout(attrs, op_type):
-    if float(attrs.get("dropout_prob", 0.0)) > 0.0:
-        raise NotImplementedError(
-            "%s with dropout_prob > 0: the dropout op and its random "
-            "stream are not ported to paddle_tpu_torch yet" % op_type)
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +145,6 @@ def _mba_infer(ins, attrs, op):
 @register_op("fused_matmul_bias_act", infer_shape=_mba_infer,
              stateful=True)
 def _mba_lower(ctx, ins, attrs, op):
-    _no_dropout(attrs, "fused_matmul_bias_act")
     x, w = ins["X"], ins["W"]
     bias = ins.get("Bias")
     residual = ins.get("Residual")
@@ -156,11 +153,35 @@ def _mba_lower(ctx, ins, attrs, op):
     res2 = residual.reshape(-1, n).contiguous() \
         if residual is not None else None
     save_pre = bool(op.outputs.get("MulOut"))
+    p = float(attrs.get("dropout_prob", 0.0))
+    outs = {}
+    # with dropout, K4 runs matmul + bias + act alone: the mask and the
+    # residual tail follow in torch
     r = matmul_fused.matmul_epilogue(
-        x2.contiguous(), w, bias, res2, attrs.get("act", ""),
-        save_preact=save_pre)
+        x2.contiguous(), w, bias, None if p > 0.0 else res2,
+        attrs.get("act", ""), save_preact=save_pre)
     y2, pre2 = r if save_pre else (r, None)
-    outs = {"Out": y2.reshape(lead + (n,)).to(x.dtype)}
+    if p > 0.0 and not test_mode(attrs, ctx):
+        keep = _random.keep_mask(ctx, lead + (n,), 1.0 - p,
+                                 attrs.get("seed", 0))
+        mask2 = keep.to(y2.dtype).reshape(y2.shape)
+        if attrs.get("dropout_implementation",
+                     "downgrade_in_infer") == "upscale_in_train":
+            mask2 = mask2 / (1.0 - p)
+        y2 = y2 * mask2
+        if res2 is not None:
+            y2 = y2 + res2
+        outs["Mask"] = mask2.reshape(lead + (n,))
+    elif p > 0.0:
+        if attrs.get("dropout_implementation",
+                     "downgrade_in_infer") != "upscale_in_train":
+            y2 = y2 * (1.0 - p)
+        if res2 is not None:
+            y2 = y2 + res2
+        if op.outputs.get("Mask"):
+            outs["Mask"] = torch.ones(lead + (n,), dtype=y2.dtype,
+                                      device=y2.device)
+    outs["Out"] = y2.reshape(lead + (n,)).to(x.dtype)
     if save_pre:
         outs["MulOut"] = pre2.reshape(lead + (n,))
     return outs
@@ -179,9 +200,9 @@ def _act_grad(pre2, dh, act):
 @register_op("fused_matmul_bias_act_grad", grad_maker=None)
 def _mba_grad(ctx, ins, attrs, op):
     """Backward from saved residuals only: the activation derivative
-    comes from MulOut (or the Out sign for plain relu), and the two grad
-    matmuls run on the forward's operands — no forward re-execution."""
-    _no_dropout(attrs, "fused_matmul_bias_act_grad")
+    comes from MulOut (or the Out sign for plain relu), the dropout tail
+    replays the saved Mask, and the two grad matmuls run on the
+    forward's operands — no forward re-execution."""
     x, w = ins["X"], ins["W"]
     bias = ins.get("Bias")
     residual = ins.get("Residual")
@@ -195,6 +216,15 @@ def _mba_grad(ctx, ins, attrs, op):
     if residual is not None:
         out_grads["Residual@GRAD"] = dy.reshape(
             residual.shape).to(residual.dtype)
+    p = float(attrs.get("dropout_prob", 0.0))
+    is_test = bool(attrs.get("is_test", False))
+    mask = ins.get("Mask")
+    if p > 0.0 and not is_test and mask is not None:
+        dh = dh * mask.reshape(-1, n)
+    elif p > 0.0 and is_test and attrs.get(
+            "dropout_implementation",
+            "downgrade_in_infer") != "upscale_in_train":
+        dh = dh * (1.0 - p)
     if act:
         pre = ins.get("MulOut")
         if pre is not None:

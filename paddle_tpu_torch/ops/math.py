@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.core.selected_rows import SelectedRows, concat_rows
 from paddle_tpu_torch.core.types import proto_to_torch_dtype
 
 
@@ -37,6 +38,7 @@ def _ew(name, fn):
 
 
 _ew("elementwise_add", torch.add)
+_ew("elementwise_sub", torch.sub)
 _ew("elementwise_mul", torch.mul)
 
 
@@ -45,11 +47,35 @@ def _relu(ctx, ins, attrs, op):
     return {"Out": torch.relu(ins["X"])}
 
 
+@register_op("gelu")
+def _gelu(ctx, ins, attrs, op):
+    """The tanh form (the reference's ``jax.nn.gelu(approximate=True)``),
+    as K4's epilogue computes it."""
+    from paddle_tpu_torch.kernels.matmul_fused import apply_act
+
+    return {"Out": apply_act(ins["X"], "gelu")}
+
+
+@register_op("tanh")
+def _tanh(ctx, ins, attrs, op):
+    return {"Out": torch.tanh(ins["X"])}
+
+
+@register_op("square")
+def _square(ctx, ins, attrs, op):
+    return {"Out": torch.square(ins["X"])}
+
+
 @register_op("scale")
 def _scale(ctx, ins, attrs, op):
     x = ins["X"]
     scale = attrs.get("scale", 1.0)
     bias = attrs.get("bias", 0.0)
+    if isinstance(x, SelectedRows):     # a sparse gradient's scaling
+        if bias != 0.0:
+            raise ValueError("scale of a SelectedRows takes bias 0 only, "
+                             "got %r" % (bias,))
+        return {"Out": x.scale(scale)}
     if attrs.get("bias_after_scale", True):
         return {"Out": x * scale + bias}
     return {"Out": (x + bias) * scale}
@@ -78,9 +104,33 @@ def _mul(ctx, ins, attrs, op):
     return {"Out": torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])}
 
 
+@register_op("matmul")
+def _matmul(ctx, ins, attrs, op):
+    """reference matmul_op.cc: batched ``X @ Y`` with the last two dims
+    of each transposed on request, times ``alpha``."""
+    x, y = ins["X"], ins["Y"]
+    if attrs.get("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": out}
+
+
 @register_op("sum")
 def _sum(ctx, ins, attrs, op):
+    """Elementwise sum; of SelectedRows alone, their rows concatenated
+    (reference sum_op's SelectedRows kernel); a mix densifies."""
     xs = [x for x in ins.list("X") if x is not None]
+    sparse = [isinstance(x, SelectedRows) for x in xs]
+    if xs and all(sparse):
+        return {"Out": concat_rows(xs)}
+    if any(sparse):
+        xs = [x.to_dense() if isinstance(x, SelectedRows) else x
+              for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x

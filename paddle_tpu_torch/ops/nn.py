@@ -1,15 +1,17 @@
 """Neural-network ops.
 
 Counterpart of ``paddle_tpu/ops/nn.py`` for the ops ported so far:
-``conv2d``, ``pool2d``, ``batch_norm``, ``layer_norm``, ``softmax`` and
-the fused conv stage ``fused_conv2d_bn_act``.  Plain convolutions are
+``conv2d``, ``pool2d`` (adaptive too), ``batch_norm``, ``layer_norm``,
+``softmax``, ``dropout`` (its mask drawn by ``ops/random.keep_mask``
+from the step's stream) and the fused conv stage
+``fused_conv2d_bn_act``.  Plain convolutions are
 ``F.conv2d`` (cuDNN on the card, TF32 off), as the JAX package leaves
 them to ``lax.conv_general_dilated``; the fused stage's forward conv is
 the hand-written kernel K6 (``kernels/conv_fused.py``).
 
 Not ported: the legacy per-op ``FLAGS.conv_nhwc`` experiment (the
 layout transpiler replaced it), grouped/depthwise/3-D/transposed convs,
-lrn, dropout.
+lrn.
 """
 from __future__ import annotations
 
@@ -17,8 +19,10 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.lowering import amp_cast_ins
+from paddle_tpu_torch.core.desc import OpDesc
 from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.kernels import conv_fused
+from paddle_tpu_torch.ops import random as _random
 
 
 def _pair(v):
@@ -118,7 +122,18 @@ def _pool2d(ctx, ins, attrs, op):
         paddings = [0, 0]
         strides = [1, 1]
     if attrs.get("adaptive", False):
-        raise NotImplementedError("pool2d: adaptive pooling is not ported")
+        # ksize output bins over equal windows (the reference reshapes:
+        # H and W must divide by the bins)
+        oh, ow = ksize
+        if nhwc:
+            n, h, w_, c = x.shape
+            x6, dims = x.reshape(n, oh, h // oh, ow, w_ // ow, c), (2, 4)
+        else:
+            n, c, h, w_ = x.shape
+            x6, dims = x.reshape(n, c, oh, h // oh, ow, w_ // ow), (3, 5)
+        if ptype == "max":
+            return {"Out": x6.amax(dim=dims)}
+        return {"Out": x6.mean(dim=dims)}
     xv = x.permute(0, 3, 1, 2) if nhwc else x
     # output extent floor((H + 2p - k) / s) + 1, as the reference's
     # reduce_window (ceil_mode is not honoured there either)
@@ -131,6 +146,57 @@ def _pool2d(ctx, ins, attrs, op):
                            count_include_pad=not attrs.get("exclusive",
                                                            True))
     return {"Out": out.permute(0, 2, 3, 1) if nhwc else out}
+
+
+# ---------------------------------------------------------------------------
+# dropout
+# ---------------------------------------------------------------------------
+
+def test_mode(attrs, ctx):
+    """An op's ``is_test`` attr, or a run in test mode (a program cloned
+    for test, ``ctx.mode``)."""
+    return bool(attrs.get("is_test", False)) or \
+        getattr(ctx, "mode", "train") == "test"
+
+
+def _dropout_lower(ctx, ins, attrs, op):
+    """reference dropout_op.cc: in training Out = X * Mask, Mask the
+    keep draw (``keep_mask``), over 1 - p under "upscale_in_train";
+    in test mode Out = X * (1 - p) ("downgrade_in_infer", the default)
+    or X, with a Mask of ones."""
+    x = ins["X"]
+    p = float(attrs.get("dropout_prob", 0.5))
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if test_mode(attrs, ctx):
+        out = x if impl == "upscale_in_train" else x * (1.0 - p)
+        return {"Out": out, "Mask": torch.ones_like(x)}
+    if x.device.type == "meta":
+        return {"Out": torch.empty_like(x), "Mask": torch.empty_like(x)}
+    mask = _random.keep_mask(ctx, x.shape, 1.0 - p,
+                             attrs.get("seed", 0)).to(x.dtype)
+    if impl == "upscale_in_train":
+        mask = mask / (1.0 - p)
+    return {"Out": x * mask, "Mask": mask}
+
+
+def _dropout_grad_maker(op, block, no_grad_set):
+    xg = op.input("X")[0] + "@GRAD"
+    g = OpDesc("dropout_grad",
+               inputs={"Mask": op.output("Mask"),
+                       "Out@GRAD": [op.output("Out")[0] + "@GRAD"]},
+               outputs={"X@GRAD": [xg]},
+               attrs={k: a.value for k, a in op.attrs.items()})
+    return [g], {xg: op.input("X")[0]}
+
+
+register_op("dropout", lower=_dropout_lower, stateful=True,
+            grad_maker=_dropout_grad_maker)
+
+
+@register_op("dropout_grad", grad_maker=None)
+def _dropout_grad(ctx, ins, attrs, op):
+    """Out@GRAD * Mask: the forward's saved mask, never a new draw."""
+    return {"X@GRAD": ins["Out@GRAD"] * ins["Mask"]}
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +226,7 @@ def _batch_norm(ctx, ins, attrs, op):
     bshape = [1] * x.dim()
     bshape[c_axis] = x.shape[c_axis]
 
-    if attrs.get("is_test", False):
+    if test_mode(attrs, ctx):
         mean, var = mean_in, var_in
         mean_out, var_out = mean_in, var_in
     else:
@@ -240,7 +306,7 @@ def _fused_conv_bn_lower(ctx, ins, attrs, op):
         residual = residual.contiguous()
     co = w.shape[3]
 
-    if attrs.get("is_test", False):
+    if test_mode(attrs, ctx):
         inv = torch.rsqrt(var_in.float() + eps)
         a = scale.float() * inv
         b = bias.float() - mean_in.float() * a

@@ -1,7 +1,11 @@
-"""Random ops, drawn from a ``torch.Generator`` (``ctx.generator``).
+"""Random ops, drawn from a ``torch.Generator`` (``ctx.generator``,
+the step's ``lowering.RandomStream``).
 
 Counterpart of ``paddle_tpu/ops/random.py`` for the ops ported so far
-(``uniform_random``, ``gaussian_random``).
+(``uniform_random``, ``gaussian_random``), and ``keep_mask``: the one
+draw every dropout form makes (the ``dropout`` op and the dropout
+branch of ``fused_matmul_bias_act``), so that a test can put another
+mask in at one place.
 The numbers differ from the JAX package's (a different generator from
 the same seed): tests carry parameters across instead of re-drawing
 them.
@@ -37,3 +41,14 @@ def _gaussian_random(ctx, ins, attrs, op):
                       device=ctx.device, dtype=torch.float32)
     out = out * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
     return {"Out": out.to(dtype)}
+
+
+def keep_mask(ctx, shape, keep_prob, seed=0):
+    """[shape] bool, each element True with probability ``keep_prob``
+    (``jax.random.bernoulli``'s uniform < p), drawn from the op's own
+    ``seed`` when set, else from the step's stream.  The draw is at the
+    op-output shape, so the fused and unfused dropout forms with one
+    explicit seed draw the same mask."""
+    u = torch.rand(tuple(shape), generator=ctx.generator(seed),
+                   device=ctx.device, dtype=torch.float32)
+    return u < keep_prob

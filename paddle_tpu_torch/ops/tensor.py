@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.core.selected_rows import SelectedRows
 from paddle_tpu_torch.core.types import DataType, proto_to_torch_dtype
 
 
@@ -89,18 +90,29 @@ def _lookup_table(ctx, ins, attrs, op):
 
 @register_op("lookup_table_grad", grad_maker=None)
 def _lookup_table_grad(ctx, ins, attrs, op):
-    """Dense W@GRAD of the lookup: the out-grad rows scatter-added into
-    a zero table (``index_add_``).  The sparse (SelectedRows) form of
-    the JAX package is not ported yet."""
-    if attrs.get("is_sparse", False) or ins.get("W") is None:
-        raise NotImplementedError(
-            "lookup_table_grad: SelectedRows (is_sparse / distributed "
-            "table) gradients are not ported to paddle_tpu_torch yet")
-    w, ids, g = ins["W"], ins["Ids"], ins["Out@GRAD"]
+    """W@GRAD of the lookup: with ``is_sparse`` a SelectedRows (rows =
+    the looked-up ids, duplicates kept; values = the out-grad rows),
+    else the out-grad rows scatter-added into a zero table
+    (``index_add_``; reference lookup_table_op.cc's grad kernels)."""
+    ids, g = ins["Ids"], ins["Out@GRAD"]
+    w = ins.get("W")
+    # a distributed table never lives on the trainer: its shape comes
+    # from the 'table_shape' attr the transpiler stamps
+    if w is not None:
+        height, d, wdtype = int(w.shape[0]), int(w.shape[1]), w.dtype
+    else:
+        height, d = [int(v) for v in attrs["table_shape"]]
+        wdtype = g.dtype
     padding_idx = attrs.get("padding_idx", -1)
     rows = _lookup_idx(ids).reshape(-1).long()
-    vals = g.reshape(-1, w.shape[1]).to(w.dtype)
+    vals = g.reshape(-1, d).to(wdtype)
     if padding_idx != -1:
         # the vjp of the padding mask: those rows contribute nothing
         vals = vals.masked_fill((rows == padding_idx)[:, None], 0.0)
+    if attrs.get("is_sparse", False):
+        return {"W@GRAD": SelectedRows(rows, vals, height)}
+    if w is None:
+        raise ValueError(
+            "lookup_table_grad without W requires is_sparse=True "
+            "(distributed tables always ship sparse grads)")
     return {"W@GRAD": torch.zeros_like(w).index_add_(0, rows, vals)}

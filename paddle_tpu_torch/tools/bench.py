@@ -9,10 +9,12 @@ It reads ``bench.py``'s knobs with its accelerator defaults on the card
 and its CPU defaults with ``BENCH_DEVICE=cpu`` (the only way to run
 without a card):
 
-- ``BENCH_MODEL`` resnet50 (default) | transformer; the other models
-  ``bench.py`` takes raise NotImplementedError;
-- ResNet: ``BENCH_BATCH`` (256; CPU 16), ``BENCH_ITERS`` (60; 5),
-  ``BENCH_DATASET`` (flowers; cifar10), ``BENCH_DEPTH`` (50),
+- ``BENCH_MODEL`` resnet50 (default) | resnet32 | vgg | transformer;
+  the other models ``bench.py`` takes raise NotImplementedError;
+- the image models (ResNet, VGG16-BN): ``BENCH_BATCH`` (256; CPU 16),
+  ``BENCH_ITERS`` (60; 5), ``BENCH_DATASET`` (flowers; cifar10: as in
+  ``bench.py``, resnet32 is the cifar ResNet and needs cifar10),
+  ``BENCH_DEPTH`` (ResNet: 50 or 32 by model),
   ``BENCH_LAYOUT`` (NCHW, or ``FLAGS_conv_layout``),
   ``BENCH_FUSED_STAGES``, ``BENCH_AMP`` (1 on the card; 0),
   ``BENCH_BN_BF16`` (follows AMP);
@@ -20,7 +22,7 @@ without a card):
   ``BENCH_ITERS`` (30; 3), ``BENCH_DMODEL`` (1024; 64),
   ``BENCH_LAYERS`` (6; 2), ``BENCH_HEADS`` (8; 4), ``BENCH_AMP`` (1 on
   the card; 0), ``BENCH_FUSED_TRANSFORMER`` (the fused-block program);
-- ``BENCH_SECONDARY`` (1 on the card; 0): after the ResNet headline,
+- ``BENCH_SECONDARY`` (1 on the card; 0): after the ResNet-50 headline,
   the flagship LM as ``bench.py``'s secondary metric, at
   ``BENCH_AMP``'s accelerator default as ``bench.py``'s (bf16 on the
   card);
@@ -38,15 +40,17 @@ when every timed step was prepared, and ``prepared_steps`` counts them.
 Where it departs from ``bench.py`` (each visible in the JSON):
 
 - data is synthetic, drawn from a seed at ``bench.py``'s shapes (uint8
-  images for ResNet, as in its real-data mode), fed from the host each
-  step: ``BENCH_FAKE=0`` raises, since the port has no flowers reader.
+  images for ResNet-50, as in its real-data mode; float32 for resnet32
+  and VGG, as its fake data), fed from the host each step:
+  ``BENCH_FAKE=0`` raises, since the port has no flowers reader.
 
 Each timed step ends with the loss fetch, which waits for the card, so
 ``step_ms_p50/p90/p99`` are device-honest.  The last line of standard
 output is one JSON object: ``metric``, ``value``, ``unit``,
-``vs_baseline`` (ResNet: value / 81.69, ``bench.py``'s baseline),
-``tflops`` (ResNet at 224 x 224: ``bench.py``'s 12.3e9 FLOPs a training
-image; the LM: ``bench.py``'s 6 N_params + 6 L d_model T FLOPs a token)
+``vs_baseline`` (value / ``bench.py``'s baseline: 81.69 for ResNet,
+30.44 for VGG), ``tflops`` (at 224 x 224: ``bench.py``'s 12.3e9 FLOPs a
+training image of ResNet-50, 46.5e9 of VGG16; the LM: ``bench.py``'s
+6 N_params + 6 L d_model T FLOPs a token)
 and ``mfu`` (on the card under AMP only; else null), ``amp``,
 ``data_format``, ``fused_stages``, ``prepared``, ``prepared_steps``,
 the step
@@ -65,16 +69,16 @@ import time
 
 import numpy as np
 
-TRAIN_FLOPS_PER_IMG_224 = 12.3e9    # bench.py:52, forward + backward
+TRAIN_FLOPS_PER_IMG_224 = 12.3e9    # bench.py:54, forward + backward
+TRAIN_FLOPS_PER_IMG_VGG16_224 = 46.5e9  # bench.py:55
 RESNET50_BASELINE = 81.69           # bench.py:29-31, images/s
+VGG_BASELINE = 30.44                # bench.py:770-774, images/s
 DEFAULT_PEAK_TFLOPS = 989.4         # H100 SXM, dense bf16
 SEED = 0
 # bench.py's other models, and the ROADMAP item that brings each
 UNPORTED_MODELS = {
-    "resnet32": "queue 1 item 3e (the bench entry's other models)",
-    "vgg": "queue 1 items 2 and 3e (dropout; the other models)",
     "lstm": "queue 1 items 7 and 3e (the LoD sequence ops)",
-    "alexnet": "queue 1 items 7 and 3e (lrn, dropout)",
+    "alexnet": "queue 1 items 7 and 3e (lrn)",
     "googlenet": "queue 1 items 7 and 3e (concat, the inception ops)"}
 
 
@@ -246,11 +250,13 @@ def transformer_bench(place, on_card, secondary=False):
     return out
 
 
-def resnet_bench(place, on_card):
-    """ResNet, bench.py's headline: images/s."""
+def resnet_bench(place, on_card, model="resnet50"):
+    """An image model, bench.py's headline loop: ResNet-50 (the
+    headline), resnet32 or VGG16-BN (``vgg``, NCHW, as bench.py runs
+    it); images/s."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.core.flags import FLAGS
-    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.models import resnet, vgg
 
     batch = int(_env("BENCH_BATCH", "256", "16", on_card))
     iters = int(_env("BENCH_ITERS", "60", "5", on_card))
@@ -262,27 +268,35 @@ def resnet_bench(place, on_card):
     if os.environ.get("BENCH_FUSED_STAGES") is not None:
         FLAGS.conv_fused_stages = os.environ["BENCH_FUSED_STAGES"] == "1"
     depth = int(os.environ.get("BENCH_DEPTH", "0"))
+    uint8 = model == "resnet50"     # bench.py's real-data input
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        loss, (data, label), _ = resnet.get_model(
-            data_set=data_set, depth=depth or 50, input_dtype="uint8",
-            data_format=data_format)
+        if model == "vgg":
+            loss, (data, label), _ = vgg.get_model(data_set=data_set)
+        else:
+            loss, (data, label), _ = resnet.get_model(
+                data_set=data_set,
+                depth=depth or (50 if model == "resnet50" else 32),
+                input_dtype="uint8" if uint8 else "float32",
+                data_format=data_format)
     if amp:
         fluid.transpiler.Float16Transpiler().transpile(main)
     rng = np.random.RandomState(SEED)
     classes = 10 if data_set == "cifar10" else \
         102 if data_set == "flowers" else 1000
-    feed = {data.name: rng.randint(0, 256, [batch] + list(data.shape[1:]))
-            .astype(np.uint8),
+    shape = [batch] + list(data.shape[1:])
+    feed = {data.name: rng.randint(0, 256, shape).astype(np.uint8)
+            if uint8 else rng.rand(*shape).astype(np.float32),
             label.name: rng.randint(0, classes, (batch, 1)).astype(np.int64)}
     losses, step_ms, dtypes, prepared = _train(fluid, place, main, startup,
                                                loss, [feed], iters)
     images_per_s = batch * iters / (sum(step_ms) / 1e3)
     ops = main.desc.blocks[0].ops
-    out = {"metric": "resnet50_%s_train_bs%d%s" % (
-               data_set, batch, "_bf16" if amp else ""),
+    baseline = VGG_BASELINE if model == "vgg" else RESNET50_BASELINE
+    out = {"metric": "%s_%s_train_bs%d%s" % (
+               model, data_set, batch, "_bf16" if amp else ""),
            "value": images_per_s, "unit": "images/sec",
-           "vs_baseline": images_per_s / RESNET50_BASELINE,
+           "vs_baseline": images_per_s / baseline,
            **_common(losses, step_ms, dtypes, prepared, amp, on_card),
            "bn_bf16": bool(FLAGS.bn_bf16),
            "data_format": "NHWC" if any(
@@ -291,10 +305,13 @@ def resnet_bench(place, on_card):
            "fused_stages": sum(op.type == "fused_conv2d_bn_act"
                                for op in ops),
            "tflops": None, "mfu": None}
-    if depth:
+    if depth and model != "vgg":
         out["depth"] = depth
-    if on_card and data_set in ("flowers", "imagenet") and depth in (0, 50):
-        out["tflops"] = images_per_s * TRAIN_FLOPS_PER_IMG_224 / 1e12
+    per_img = {"resnet50": TRAIN_FLOPS_PER_IMG_224,
+               "vgg": TRAIN_FLOPS_PER_IMG_VGG16_224}.get(model)
+    if on_card and data_set in ("flowers", "imagenet") and per_img and \
+            (model == "vgg" or depth in (0, 50)):
+        out["tflops"] = images_per_s * per_img / 1e12
         if amp:     # against the bf16 peak the run targets
             out["mfu"] = out["tflops"] / _peak_tflops()
             out["peak_tflops"] = _peak_tflops()
@@ -307,9 +324,9 @@ def main():
         raise NotImplementedError(
             "BENCH_MODEL=%s is not ported to paddle_tpu_torch yet "
             "(ROADMAP %s)" % (model, UNPORTED_MODELS[model]))
-    if model not in ("resnet50", "transformer"):
-        raise SystemExit("BENCH_MODEL must be resnet50|transformer, got %r"
-                         % model)
+    if model not in ("resnet50", "resnet32", "vgg", "transformer"):
+        raise SystemExit("BENCH_MODEL must be resnet50|resnet32|vgg|"
+                         "transformer, got %r" % model)
     if os.environ.get("BENCH_FAKE", "1") != "1":
         raise NotImplementedError(
             "BENCH_FAKE=0: the port has no flowers reader, and nothing "
@@ -318,9 +335,11 @@ def main():
     if model == "transformer":
         out = dict(transformer_bench(place, on_card), secondary=None)
     else:
-        out = resnet_bench(place, on_card)
+        out = resnet_bench(place, on_card, model)
+        # as bench.py: the secondary follows the ResNet-50 headline only
         out["secondary"] = transformer_bench(place, on_card, secondary=True) \
-            if _flag("BENCH_SECONDARY", on_card) else None
+            if _flag("BENCH_SECONDARY", on_card) and model == "resnet50" \
+            else None
     print(json.dumps(out), flush=True)
     return 0
 

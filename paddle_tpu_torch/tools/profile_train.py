@@ -1,6 +1,6 @@
 """Where a training step's time goes on the card.
 
-Builds one of two models as a fluid Program:
+Builds one of three models as a fluid Program:
 
 - ``--model lm`` (the default): the flagship LM (``models/transformer``
   get_model: vocab 8192, d_model 1024, 8 heads, 6 layers, d_ff 4096,
@@ -16,6 +16,9 @@ Builds one of two models as a fluid Program:
   fused-stage program, ``FLAGS_conv_layout=NHWC``; ``--amp`` for bf16
   mixed precision, ``Float16Transpiler`` with ``FLAGS_bn_bf16``, as
   ``bench.py`` trains it on an accelerator);
+- ``--model vgg``: VGG16-BN (``models/vgg`` get_model: flowers, 224 x
+  224, 102 classes, float32 images, NCHW, ten dropout layers, Adam at
+  lr 1e-3; ``--batch`` images, default 256; ``--amp`` as for ResNet-50);
 
 runs its startup program and 2 untimed steps on one fixed batch drawn
 from ``--seed`` (with ``--prepared`` through ``Executor.prepare`` /
@@ -43,7 +46,7 @@ every later step is one replay), then:
 Where the profiler records no device time these read "not measured".
 Run on a CUDA machine from the repository root:
 
-    python -m paddle_tpu_torch.tools.profile_train [--model resnet50]
+    python -m paddle_tpu_torch.tools.profile_train [--model resnet50 | vgg]
         [--batch N] [--fuse] [--amp] [--sp P] [--prepared]
 
 Prints one JSON line.
@@ -62,7 +65,7 @@ from torch.autograd import DeviceType
 from .. import fluid
 from ..core import executor_impl
 from ..core.flags import FLAGS
-from ..models import resnet, transformer
+from ..models import resnet, transformer, vgg
 from ..parallel import make_mesh
 
 LM = dict(vocab_size=8192, seq_len=2048, d_model=1024, n_head=8,
@@ -163,10 +166,11 @@ class OpTimer:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("lm", "resnet50"), default="lm")
+    ap.add_argument("--model", choices=("lm", "resnet50", "vgg"),
+                    default="lm")
     ap.add_argument("--batch", type=int, default=None,
                     help="sequences (lm, default 16) or images (resnet50, "
-                    "default 256)")
+                    "vgg: default 256)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fuse", action="store_true",
@@ -176,14 +180,17 @@ def main(argv=None):
                     help="lm: the sequence-parallel program on a mesh of "
                     "this many ring shards laid on the one card")
     ap.add_argument("--amp", action="store_true",
-                    help="bf16 mixed precision (resnet50: bn_bf16 on)")
+                    help="bf16 mixed precision (resnet50, vgg: bn_bf16 "
+                    "on)")
     ap.add_argument("--prepared", action="store_true",
                     help="profile the prepared step (one CUDA graph "
                     "replay a step); the by-op times stay on run()")
     args = ap.parse_args(argv)
     if args.sp and args.model != "lm":
         ap.error("--sp applies to --model lm")
-    FLAGS.bn_bf16 = args.amp and args.model == "resnet50"
+    if args.fuse and args.model == "vgg":
+        ap.error("--fuse applies to --model lm and resnet50")
+    FLAGS.bn_bf16 = args.amp and args.model != "lm"
 
     rng = np.random.RandomState(args.seed)
     main_prog, startup = fluid.Program(), fluid.Program()
@@ -197,6 +204,15 @@ def main(argv=None):
                                (batch, LM["seq_len"] + 1)).astype(np.int64)
             feed = {"src": toks[:, :-1], "label": toks[:, 1:, None]}
             per_step, unit = batch * LM["seq_len"], "tokens_per_s"
+        elif args.model == "vgg":
+            batch = args.batch or 256
+            config = dict(data_set="flowers", learning_rate=1e-3)
+            loss, _, _ = vgg.get_model(**config)
+            feed = {"data": rng.rand(batch, 3, 224, 224)
+                    .astype(np.float32),
+                    "label": rng.randint(0, 102, (batch, 1))
+                    .astype(np.int64)}
+            per_step, unit = batch, "images_per_s"
         else:
             batch = args.batch or 256
             config = dict(RESNET50, data_format="NHWC" if args.fuse

@@ -112,19 +112,47 @@ def test_bench_prints_one_json_line(runs, key):
                                        else 0)
 
 
+# the models a ROADMAP item refused until it was done: they now run
+PORTED_SINCE = {"vgg": "vgg_cifar10_train_bs2",
+                "resnet32": "resnet32_cifar10_train_bs2"}
+
+
 @pytest.mark.parametrize("extra,reason", [
     ({"BENCH_MODEL": "vgg"}, "ROADMAP queue 1 items 2 and 3e"),
     ({"BENCH_MODEL": "resnet32"}, "ROADMAP queue 1 item 3e"),
     ({"BENCH_FAKE": "0"}, "no flowers reader")])
-def test_bench_refusals_raise(monkeypatch, extra, reason):
+def test_bench_refusals_raise(monkeypatch, capsys, extra, reason):
+    """A refusal raises with its reason.  ``vgg`` and ``resnet32`` were
+    refused until ``reason`` (dropout, the other models) was done: they
+    now run on the CPU at batch 2 (VGG16-BN NCHW with its dropout
+    layers; the cifar ResNet at depth 32), prepared, and print one JSON
+    line with bench.py's metric name."""
+    from paddle_tpu_torch.core.flags import FLAGS
     from paddle_tpu_torch.tools import bench
 
     for k in [k for k in os.environ if k.startswith("BENCH_")]:
         monkeypatch.delenv(k)
     for k, v in dict(extra, BENCH_DEVICE="cpu").items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=reason):
-        bench.main()
+    model = extra.get("BENCH_MODEL")
+    if model not in PORTED_SINCE:
+        with pytest.raises(NotImplementedError, match=reason):
+            bench.main()
+        return
+    monkeypatch.setattr(FLAGS, "bn_bf16", FLAGS.bn_bf16)
+    monkeypatch.setenv("BENCH_BATCH", "2")
+    monkeypatch.setenv("BENCH_ITERS", "2")
+    assert bench.main() == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert all(f in out for f in FIELDS), sorted(set(FIELDS) - set(out))
+    assert out["metric"] == PORTED_SINCE[model]
+    assert out["unit"] == "images/sec" and out["value"] > 0
+    assert out["prepared"] is True and out["prepared_steps"] == 2
+    assert out["losses_finite"] and out["secondary"] is None
+    assert out["data_format"] == "NCHW" and out["param_dtypes"] == \
+        ["float32"]
+    baseline = 30.44 if model == "vgg" else 81.69
+    assert out["vs_baseline"] == pytest.approx(out["value"] / baseline)
 
 
 def test_a_refusal_exits_non_zero():

@@ -2178,29 +2178,56 @@ def test_captured_step_copies_feeds_and_keeps_its_addresses_on_card(cuda):
     assert {n: t.data_ptr() for n, t in step.state.items()} == state_ptrs
 
 
-@pytest.mark.cuda
-def test_prepare_refuses_a_random_op_on_card(cuda):
-    """A replay would draw the same numbers every step: prepare() on a
-    card refuses a block with a random op (ROADMAP item 2)."""
-    import paddle_tpu_torch.fluid as fluid
+def _random_program(fluid):
+    """uniform noise added to a persistable each step: a random op in a
+    captured step."""
     from paddle_tpu_torch.core.types import DataType
 
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        w = fluid.layers.create_global_var([4], 0.0, "float32",
+        w = fluid.layers.create_global_var([4096], 0.0, "float32",
                                            persistable=True, name="rw")
         block = main.global_block()
-        noise = block.create_var(name="noise", shape=[4], dtype="float32")
+        noise = block.create_var(name="noise", shape=[4096],
+                                 dtype="float32")
         block.append_op(type="uniform_random", outputs={"Out": [noise]},
-                        attrs={"shape": [4], "dtype": DataType.FP32})
+                        attrs={"shape": [4096], "min": -1.0, "max": 1.0,
+                               "dtype": DataType.FP32})
         block.append_op(type="elementwise_add",
                         inputs={"X": [w], "Y": [noise]},
                         outputs={"Out": [w]})
-    exe = fluid.Executor(fluid.CUDAPlace(0))
-    scope = fluid.Scope()
-    exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        exe.prepare(main, fetch_list=[w], scope=scope)
+    main.random_seed = 7
+    return main, startup, w
+
+
+@pytest.mark.cuda
+def test_prepare_refuses_a_random_op_on_card(cuda):
+    """(Its name is kept from when prepare() refused random ops on a
+    card.)  A random op in a captured step draws afresh at every replay,
+    the numbers run() draws at the same step, bit for bit."""
+    import paddle_tpu_torch.fluid as fluid
+
+    out = {}
+    for prepared in (False, True):
+        main, startup, w = _random_program(fluid)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if prepared:
+            with exe.prepare(main, fetch_list=["noise", w],
+                             scope=scope) as prep:
+                out[prepared] = [[t.cpu().numpy()
+                                  for t in prep.run_prepared()]
+                                 for _ in range(4)]
+        else:
+            out[prepared] = [exe.run(main, fetch_list=["noise", w],
+                                     scope=scope) for _ in range(4)]
+    for a, b in zip(out[False], out[True]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    noise = [o[0] for o in out[True]]
+    for i in range(3):
+        assert not np.array_equal(noise[i], noise[i + 1])
 
 
 @pytest.mark.cuda
@@ -2740,3 +2767,213 @@ def test_export_returns_after_its_copy_completes_on_card(cuda):
             assert not torch.equal(t[:, blocks].cpu(), w)
     finally:
         eng.close()
+
+
+# ---------------------------------------------------------------- slice 21:
+# dropout and its random stream in a captured step, K4's dropout
+# branch, the sparse updates
+
+def _dropout_chain(fluid, seed, fuse, d=256, rows=64, amp=False):
+    """x [rows, d] -> fc(4d, gelu) -> dropout(0.1, seed) -> fc(d) ->
+    + x -> mean, Adam; fused (K4 + the mask in torch) with ``fuse``."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[d], dtype="float32")
+        h = fluid.layers.fc(x, size=4 * d, act="gelu")
+        h = fluid.layers.dropout(h, dropout_prob=0.1, seed=seed)
+        h = fluid.layers.fc(h, size=d)
+        loss = fluid.layers.mean(fluid.layers.elementwise_add(x, h))
+        if fuse:
+            counts = fluid.transpiler.TransformerFuseTranspiler().transpile(
+                main)
+            assert counts.get("matmul_bias_act"), counts
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    if amp:
+        fluid.transpiler.Float16Transpiler().transpile(main)
+    main.random_seed = 3
+    masks = [op.output("Mask")[0] for op in main.desc.blocks[0].ops
+             if op.type in ("dropout", "fused_matmul_bias_act")
+             and op.output("Mask", [])]
+    return main, startup, loss, masks
+
+
+def _chain_feed(d=256, rows=64):
+    return {"x": np.random.RandomState(1).randn(rows, d).astype(np.float32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [False, True])
+def test_explicit_seed_draws_one_mask_under_replay_on_card(cuda, fuse):
+    """dropout(seed=11): every replay draws the same mask (a replay
+    does not advance the op's generator), the mask run() draws, and the
+    fused program's mask is the unfused one's."""
+    import paddle_tpu_torch.fluid as fluid
+
+    got = {}
+    for f in (False, True):
+        main, startup, loss, masks = _dropout_chain(fluid, 11, f)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        with exe.prepare(main, feed_specs=_chain_feed(),
+                         fetch_list=masks, scope=scope) as prep:
+            got[f] = [prep.run_prepared(_chain_feed())[0].cpu().numpy()
+                      for _ in range(3)]
+        got[f, "run"] = exe.run(main, feed=_chain_feed(), fetch_list=masks,
+                                scope=scope)[0]
+    a = got[fuse]
+    np.testing.assert_array_equal(a[0], a[1])
+    np.testing.assert_array_equal(a[0], a[2])
+    np.testing.assert_array_equal(a[0], got[fuse, "run"])
+    np.testing.assert_array_equal(got[False][0], got[True][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [False, True])
+def test_warmup_leaves_the_stream_untouched_on_card(cuda, fuse):
+    """The capture's warm-up steps draw but move no counter: from one
+    start, N prepared (captured) steps and N run() steps of a run-seeded
+    dropout program give bit-identical losses, masks and persistables,
+    each step's mask new, the scope's counter advanced N times."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+
+    n = 6
+    main, startup, loss, masks = _dropout_chain(fluid, None, fuse)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    start = fluid.Scope()
+    exe.run(startup, scope=start)
+    persist = sorted(k for k, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    init = get_scope_arrays(start, persist)
+    out = {}
+    for prepared in (False, True):
+        scope = fluid.Scope()
+        set_scope_arrays(scope, init, "cuda")
+        if prepared:
+            with exe.prepare(main, feed_specs=_chain_feed(),
+                             fetch_list=[loss] + masks, scope=scope) as prep:
+                steps = [[t.cpu().numpy() for t in
+                          prep.run_prepared(_chain_feed())]
+                         for _ in range(n)]
+        else:
+            steps = [exe.run(main, feed=_chain_feed(),
+                             fetch_list=[loss] + masks, scope=scope)
+                     for _ in range(n)]
+        assert scope._rng_counter == n
+        out[prepared] = steps, get_scope_arrays(scope, persist)
+    for a, b in zip(out[False][0], out[True][0]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for k in persist:
+        np.testing.assert_array_equal(out[False][1][k], out[True][1][k],
+                                      err_msg=k)
+    m = [s[1] for s in out[True][0]]
+    assert all(not np.array_equal(m[i], m[i + 1]) for i in range(n - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_dropout_branch_matches_plain_on_card(cuda, dtype, monkeypatch):
+    """fused_matmul_bias_act with dropout_prob 0.1: K4 computes matmul +
+    bias + gelu, the mask and the residual follow in torch.  On one
+    fixed mask, Out and MulOut against the plain version of the same
+    composition on the same card tensors (f32 atol = rtol = 1e-4; bf16
+    MulOut one ulp plus 1e-6 of max |Y|, Out that ulp carried through
+    the residual add plus the add's rounding), and K4 launched once."""
+    from paddle_tpu_torch.core.lowering import Ins, LoweringContext
+    from paddle_tpu_torch.core.registry import get_op_info
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.ops import random as prandom
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    m, k, n = 300, 256, 512
+    x = torch.randn(m, k, device=cuda, generator=g).to(dt)
+    w = (torch.randn(k, n, device=cuda, generator=g) / 16).to(dt)
+    b = torch.randn(n, device=cuda, generator=g).to(dt)
+    r = torch.randn(m, n, device=cuda, generator=g).to(dt)
+    keep = torch.rand(m, n, device=cuda, generator=g) < 0.9
+    monkeypatch.setattr(prandom, "keep_mask",
+                        lambda ctx, shape, kp, seed=0: keep)
+
+    class _Op:
+        outputs = {"Out": ["o"], "MulOut": ["p"], "Mask": ["m"]}
+
+    class _Prog:
+        blocks = [None]
+
+    ctx = LoweringContext(_Prog(), 0, {}, cuda)
+    reset_launches()
+    outs = get_op_info("fused_matmul_bias_act").lower(
+        ctx, Ins({"X": [x], "W": [w], "Bias": [b], "Residual": [r]}),
+        {"act": "gelu", "dropout_prob": 0.1}, _Op())
+    name = "matmul_epilogue_bf16" if dtype == "bfloat16" else \
+        "matmul_epilogue"
+    assert KERNELS[name].launches == 1
+    ref = pmm.matmul_epilogue_f32acc_reference if dtype == "bfloat16" \
+        else pmm.matmul_epilogue_reference
+    h, pre = ref(x, w, b, None, "gelu")
+    mask = keep.to(h.dtype)
+    want = h * mask + r
+    torch.testing.assert_close(outs["Mask"], mask)
+    if dtype == "bfloat16":
+        from paddle_tpu_torch.kernels.conv_fused import bf16_ulp
+
+        _assert_within_one_bf16_ulp(outs["MulOut"], pre)
+        # K4's one ulp of h, carried through the bf16 residual add, plus
+        # that add's own rounding
+        w32 = want.float()
+        err = (outs["Out"].float() - w32).abs()
+        bound = bf16_ulp(h.float()) + bf16_ulp(w32) + 1e-6 * w32.abs().max()
+        assert bool((err <= bound).all()), float((err / bound).max())
+    else:
+        torch.testing.assert_close(outs["MulOut"], pre, **TOL)
+        torch.testing.assert_close(outs["Out"], want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["sgd", "momentum", "adam"])
+def test_sparse_update_with_duplicate_ids_in_a_captured_step(cuda,
+                                                              optimizer):
+    """An is_sparse embedding (duplicate ids in every batch) under sgd,
+    momentum and lazy adam: 3 captured steps on the card against 3
+    run() steps on the CPU from the same start, to 1e-6."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+
+    vocab, dim, seq = 512, 64, 16
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data(name="ids", shape=[seq, 1], dtype="int64")
+        e = fluid.layers.embedding(ids, size=[vocab, dim], is_sparse=True)
+        loss = fluid.layers.mean(fluid.layers.fc(e, size=1))
+        {"sgd": lambda: fluid.optimizer.SGD(learning_rate=0.5),
+         "momentum": lambda: fluid.optimizer.Momentum(0.5, 0.9),
+         "adam": lambda: fluid.optimizer.Adam(1e-3)}[optimizer]().minimize(
+            loss)
+    rng = np.random.RandomState(2)
+    feeds = []
+    for _ in range(3):
+        x = rng.randint(0, vocab, (8, seq, 1)).astype(np.int64)
+        x[:, :4] = x[0, 0]               # duplicates
+        feeds.append({"ids": x})
+    cpu = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu)
+    persist = sorted(k for k, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    init = get_scope_arrays(cpu, persist)
+    want = [fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=f, fetch_list=[loss], scope=cpu)[0] for f in feeds]
+    card = fluid.Scope()
+    set_scope_arrays(card, init, "cuda")
+    with fluid.Executor(fluid.CUDAPlace(0)).prepare(
+            main, feed_specs=feeds[0], fetch_list=[loss],
+            scope=card) as prep:
+        got = [prep.run_prepared(f)[0].cpu().numpy() for f in feeds]
+    np.testing.assert_allclose(np.ravel(got), np.ravel(want), rtol=1e-6,
+                               atol=1e-6)
+    a, b = get_scope_arrays(card, persist), get_scope_arrays(cpu, persist)
+    for k in persist:
+        np.testing.assert_allclose(a[k], b[k], rtol=1e-6, atol=1e-6,
+                                   err_msg=k)

@@ -245,13 +245,48 @@ def test_qkv_grad_counts_a_missing_out_grad_as_zeros():
     assert not got[2].any()
 
 
-def test_dropout_branch_raises():
+def test_dropout_branch_raises(monkeypatch):
+    """The dropout branch (it raised before the port had dropout): K4's
+    matmul + bias + gelu, then the mask and the residual in torch.  At
+    dropout_prob 0.3 with seed 11, the port's draw replaced by the
+    reference's (``jax.random.bernoulli(PRNGKey(11))``, through
+    ``ops/random.keep_mask``), Out, MulOut and Mask and the grad program
+    replay the spec at its tolerance; in test mode (the output scaled
+    by 1 - p) no draw is needed."""
+    import jax
+
+    from paddle_tpu_torch.ops import random as prandom
+
+    def reference_keep(ctx, shape, keep_prob, seed=0):
+        assert seed == 11
+        keep = jax.random.bernoulli(jax.random.PRNGKey(seed), keep_prob,
+                                    tuple(shape))
+        return torch.from_numpy(np.array(keep))
+
+    monkeypatch.setattr(prandom, "keep_mask", reference_keep)
     s = optest.SPECS["fused_matmul_bias_act"]
-    t = optest._make_optest("fused_matmul_bias_act", s)
-    t.attrs = dict(s["attrs"], dropout_prob=0.3)
-    main, _, feed = t._build()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        run_in_port(main, feed, optest._fetch_names(t))
+    for attrs, outs in (
+            (dict(s["attrs"], dropout_prob=0.3, seed=11),
+             ["Out", "MulOut", "Mask"]),
+            (dict(s["attrs"], dropout_prob=0.3, is_test=True),
+             ["Out", "MulOut"])):
+        spec = dict(s, attrs=attrs, outs=outs)
+        t = optest._make_optest("fused_matmul_bias_act", spec)
+        names = optest._fetch_names(t)
+        ref = t.run_outputs(jfluid.CPUPlace(), fetch_names=names)
+        main, _, feed = t._build()
+        got = run_in_port(main, feed, names)
+        for n in names:
+            err = optest._compare(n, ref[n], got[n], *s["tol"])
+            assert err is None, err
+        t2 = optest._make_optest("fused_matmul_bias_act", spec)
+        t2.outputs = _spec_outputs(t, ref)
+        gmain, _, gfeed, gnames = optest._grad_program(t2, s["grad"])
+        g_ref = optest._run_on(jfluid.CPUPlace(), gmain, gfeed, gnames)
+        g_got = run_in_port(gmain, gfeed, gnames)
+        for n, a in zip(gnames, g_ref):
+            err = optest._compare(n, a, g_got[n], *s["tol"])
+            assert err is None, err
 
 
 @pytest.mark.parametrize("op", FUSED_OPS)

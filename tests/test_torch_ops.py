@@ -62,11 +62,11 @@ def test_op_replays_its_spec(op):
     replay_spec(op)
 
 
-def replay_spec(op):
-    """Run ``op``'s SPECS entry (and its gradient program, where the
-    spec has ``grad``) in both packages; hold every output at the
-    spec's tolerance."""
-    s = optest.SPECS[op]
+def replay_spec(op, s=None):
+    """Run ``op``'s SPECS entry, or the spec ``s`` made from it (and its
+    gradient program, where the spec has ``grad``) in both packages;
+    hold every output at the spec's tolerance."""
+    s = optest.SPECS[op] if s is None else s
     t = optest._make_optest(op, s)
     names = optest._fetch_names(t)
     ref = t.run_outputs(jfluid.CPUPlace(), fetch_names=names)
@@ -113,12 +113,22 @@ def test_uniform_random_replays_its_spec():
 
 
 def test_lookup_table_grad_sparse_raises():
+    """The sparse form (it raised before SelectedRows were ported): the
+    reference's SelectedRows, rows, values and height, at the spec's
+    tolerance."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+
     s = optest.SPECS["lookup_table_grad"]
     t = optest._make_optest("lookup_table_grad", s)
     t.attrs = dict(s["attrs"], is_sparse=True)
+    names = optest._fetch_names(t)
+    ref = t.run_outputs(jfluid.CPUPlace(), fetch_names=names)["W@GRAD"]
+    ref = ref.item()
     main, _, feed = t._build()
-    with pytest.raises(NotImplementedError, match="SelectedRows"):
-        run_in_port(main, feed, optest._fetch_names(t))
+    got = run_in_port(main, feed, names)["W@GRAD"]
+    assert isinstance(got, SelectedRows) and got.height == ref.height
+    _check("rows", np.asarray(ref.rows), got.rows, s["tol"])
+    _check("values", np.asarray(ref.values), got.values, s["tol"])
 
 
 def _sp_spec():
