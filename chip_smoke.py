@@ -48,6 +48,16 @@ Phases, each printed as one JSON line:
              SelectedRows, duplicate ids every batch) under sgd,
              momentum and lazy adam: 3 captured steps against 3 CPU
              run() steps, losses and persistables within 1e-6;
+3e. checkpoint_prepared_amp, trainer_resume, host_ops — checkpoints and
+             the host-op runtime (in a child process, ``--slice22``):
+             the fused-block LM under bf16 AMP at full width through
+             the prepared step, saved in the middle of the loop and
+             resumed in a fresh executor and scope, bit for bit; the
+             f32 fused LM through fluid.Trainer (no place: the card),
+             killed and resumed bit for bit, then the Inferencer and an
+             inference model's feed / fetch ops, the logits bit for
+             bit; Print as a postlude and between device ops; the
+             checkpoint's bytes and the save's and load's GB/s;
 4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
@@ -4374,52 +4384,588 @@ def slice21_phases(torch):
             ("sparse_update", lambda: sparse_update(torch))]
 
 
-def slice21_main():
-    """``chip_smoke.py --slice21``: slice 21's phases alone, each printed
-    as one JSON line; stops at the first that fails (exit 1)."""
+# ---------------------------------------------------------------------------
+# slice 22: checkpoints and the host-op runtime (a save in the middle of a
+# prepared loop and a resume, the Trainer's kill and resume, the
+# Inferencer and an inference model, host ops on the card)
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS = 6          # the uninterrupted run; the save after CKPT_SAVE_AT
+CKPT_SAVE_AT = 3
+TRAINER_EPOCHS = 2
+TRAINER_STEPS = 4       # batches an epoch
+TRAINER_KILL_AT = (1, 1)      # a crash after this step (epoch, step)
+TRAINER_LR = 1e-3
+INFER_SEQS = 2          # sequences the Inferencer and the model run
+PREPARED_TIMED = 3      # bare prepared steps timed beside the Trainer's
+HOST_OPS_ROWS = 256
+SLICE22_TIMEOUT_S = 600
+
+
+def smoke_dir(name):
+    """A fresh directory ``name`` under the checkout's ignored
+    ``_smoke_io/`` (the checkpoints and models the phases write)."""
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_smoke_io")
+    path = os.path.join(root, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def lm_batches(n, seed):
+    return [lm_batch(TRAIN_BATCH, seed + i) for i in range(n)]
+
+
+def _bits_equal(torch, a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.cpu(), b.cpu())
+
+
+def _free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def checkpoint_prepared_amp(torch):
+    """Phase checkpoint_prepared_amp: the fused-block LM under bf16 AMP
+    at TRAIN_LM, batch 16 x 2048, through Executor.prepare (one CUDA
+    graph replay a step), from one set of startup values: (A)
+    CKPT_STEPS steps uninterrupted; (B) CKPT_SAVE_AT steps,
+    fluid.io.save_checkpoint (no sync_scope by hand: the save flushes
+    the prepared state), the rest of the steps as replays, then a
+    load_checkpoint into B's scope while its prepared program lives and
+    one more replay; (C) a fresh Executor(CUDAPlace(0)) and Scope:
+    startup, load_checkpoint, prepare, the steps after the save.  Gates:
+    B's and C's losses after the save A's, bit for bit; every saved
+    tensor A's state after CKPT_SAVE_AT steps, bit for bit in its dtype;
+    the replay after the load A's loss of the step after the save; K1-K5's
+    bf16 forms launched per replay as train_launches_per_step(True,
+    True).  Records the checkpoint's bytes, the save's and the load's
+    seconds and GB/s (warm: the files are in the page cache), and the
+    state's device-to-host and host-to-device copies alone."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.utils import serialization
+
+    t_phase = time.perf_counter()
+    main, startup, loss = build_lm(fluid, amp=True, fuse_transformer=True)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    feeds = lm_batches(CKPT_STEPS, SEED + 20)
+    ckpt = smoke_dir("checkpoint_prepared_amp")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    start = fluid.Scope()
+    exe.run(startup, scope=start)
+    init = {n: start.find_var(n).clone() for n in persist}
+    del start
+
+    def scope_from(state):
+        s = fluid.Scope()
+        for n, v in state.items():
+            s.set(n, v.clone())
+        return s
+
+    def losses(ts):
+        return [float(t.float().cpu().reshape(-1)[0]) for t in ts]
+
+    # (A) uninterrupted; the state after CKPT_SAVE_AT steps kept aside
+    scope = scope_from(init)
+    prep = exe.prepare(main, feed_specs=feeds[0], fetch_list=[loss],
+                       scope=scope)
+    a_out = []
+    for i, f in enumerate(feeds):
+        a_out.append(prep.run_prepared(f)[0])
+        if i + 1 == CKPT_SAVE_AT:
+            prep.sync_scope()
+            after = {n: scope.find_var(n).clone() for n in persist}
+    del prep, scope
+    _free(torch)
+
+    # (B) the save in the middle of the loop, then a load into the
+    # live prepared program's scope
+    scope = scope_from(init)
+    prep = exe.prepare(main, feed_specs=feeds[0], fetch_list=[loss],
+                       scope=scope)
+    b_out = [prep.run_prepared(feeds[0])[0]]
+    reset_launches()
+    replays = 0
+    for i, f in enumerate(feeds[1:], 1):
+        if i == CKPT_SAVE_AT:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with fluid.scope_guard(scope):
+                serial = fluid.io.save_checkpoint(
+                    exe, ckpt, trainer_args={"step_id": CKPT_SAVE_AT},
+                    main_program=main)
+            save_s = time.perf_counter() - t0
+        b_out.append(prep.run_prepared(f)[0])
+        replays += 1
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    nbytes = dir_bytes(ckpt)
+    model_dir = os.path.join(ckpt, "checkpoint_%d" % serial, "__model__")
+    saved_ok, mismatched = True, []
+    for n in persist:
+        got = serialization.load_tensor(os.path.join(model_dir, n),
+                                        as_torch=True)
+        want = after[n].cpu()
+        if want.dim() == 0:
+            want = want.reshape(1)
+        if not _bits_equal(torch, got, want):
+            saved_ok = False
+            mismatched.append(n)
+    # the save's and the load's device copies alone (pageable, as the
+    # ops make them): the rest is the host's serialization and the files
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = [after[n].cpu() for n in persist]
+    d2h_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = [h.to(exe.device) for h in host]
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    del host, back
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.load_checkpoint(exe, ckpt, serial, main_program=main)
+    torch.cuda.synchronize()
+    load_live_s = time.perf_counter() - t0
+    on_card = all(scope.find_var(n).device.type == "cuda" for n in persist)
+    again = prep.run_prepared(feeds[CKPT_SAVE_AT])[0]
+    del prep, scope, after
+    _free(torch)
+
+    # (C) a fresh executor and scope resume from the checkpoint
+    exe_c = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe_c.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.load_checkpoint(exe_c, ckpt, main_program=main)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prep = exe_c.prepare(main, feed_specs=feeds[CKPT_SAVE_AT],
+                         fetch_list=[loss], scope=scope)
+    c_out = [prep.run_prepared(f)[0] for f in feeds[CKPT_SAVE_AT:]]
+    del prep, scope
+    _free(torch)
+
+    la, lb, lc = losses(a_out), losses(b_out), losses(c_out)
+    tail = slice(CKPT_SAVE_AT, None)
+    b_same = all(_bits_equal(torch, x, y)
+                 for x, y in zip(b_out[tail], a_out[tail]))
+    c_same = all(_bits_equal(torch, x, y)
+                 for x, y in zip(c_out, a_out[tail]))
+    live_same = _bits_equal(torch, again, a_out[CKPT_SAVE_AT])
+    per_replay = {k: launches[k] / replays for k in KERNELS}
+    want = train_launches_per_step(True, True)
+    launches_ok = all(per_replay[k] == want.get(k, 0) for k in KERNELS)
+    failures = [name for name, ok in (
+        ("B's losses after the save", b_same),
+        ("C's losses", c_same), ("the saved tensors", saved_ok),
+        ("the replay after a load into the live scope", live_same),
+        ("the loaded tensors on the card", on_card),
+        ("launches per replay", launches_ok)) if not ok]
+    return {"phase": "checkpoint_prepared_amp", "amp": True, "fused": True,
+            "batch": TRAIN_BATCH, **TRAIN_LM, "captured": True,
+            "steps": CKPT_STEPS, "save_after_step": CKPT_SAVE_AT,
+            "losses_a": la, "losses_b": lb, "losses_c": lc,
+            "loss_after_live_load": losses([again])[0],
+            "checkpoint_bytes": nbytes, "tensors": len(persist),
+            "save_s": save_s, "save_gb_per_s": nbytes / save_s / 1e9,
+            "load_s": load_s, "load_gb_per_s": nbytes / load_s / 1e9,
+            "load_into_live_scope_s": load_live_s,
+            "d2h_s": d2h_s, "h2d_s": h2d_s,
+            "saved_tensors_mismatched": mismatched,
+            "launches": launches, "replays_counted": replays,
+            "launches_per_replay": per_replay,
+            "launches_per_replay_wanted": want,
+            "seconds": time.perf_counter() - t_phase,
+            "failures": failures, "ok": not failures}
+
+
+def lm_train_func(fluid, logits_out):
+    """The layers transformer.get_model builds, fused, without its
+    minimize (the Trainer minimizes); the logits Variable goes into
+    ``logits_out``."""
+    from paddle_tpu_torch.fluid.transpiler import TransformerFuseTranspiler
+    from paddle_tpu_torch.models.transformer import transformer_lm
+
+    lm = TRAIN_LM
+
+    def train_func():
+        src = fluid.layers.data(name="src", shape=[lm["seq_len"]],
+                                dtype="int64")
+        label = fluid.layers.data(name="label", shape=[lm["seq_len"], 1],
+                                  dtype="int64")
+        logits = transformer_lm(src, lm["vocab_size"], lm["seq_len"],
+                                lm["d_model"], lm["n_head"], lm["n_layers"],
+                                lm["d_ff"])
+        avg = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        TransformerFuseTranspiler().transpile(fluid.default_main_program())
+        logits_out[:] = [logits]
+        return [avg]
+
+    return train_func
+
+
+def lm_infer_func(fluid):
+    from paddle_tpu_torch.fluid.transpiler import TransformerFuseTranspiler
+    from paddle_tpu_torch.models.transformer import transformer_lm
+
+    lm = TRAIN_LM
+
+    def infer_func():
+        src = fluid.layers.data(name="src", shape=[lm["seq_len"]],
+                                dtype="int64")
+        logits = transformer_lm(src, lm["vocab_size"], lm["seq_len"],
+                                lm["d_model"], lm["n_head"], lm["n_layers"],
+                                lm["d_ff"])
+        TransformerFuseTranspiler().transpile(fluid.default_main_program())
+        return logits
+
+    return infer_func
+
+
+def lm_reader(seed):
+    """Samples (src [2048], label [2048, 1]) from a seeded RandomState,
+    TRAIN_STEPS batches of TRAIN_BATCH an epoch."""
+    import numpy as np
+
+    def reader():
+        rng = np.random.RandomState(seed)
+        for _ in range(TRAINER_STEPS * TRAIN_BATCH):
+            toks = rng.randint(0, TRAIN_LM["vocab_size"],
+                               TRAIN_LM["seq_len"] + 1).astype(np.int64)
+            yield toks[:-1], toks[1:, None]
+
+    return reader
+
+
+class Killed(Exception):
+    """Raised by the kill run's event handler: a crash in the middle of
+    an epoch (the checkpoints stay)."""
+
+
+def trainer_run(fluid, pt, ckpt, kill_at=None, logits=None):
+    """One fluid.Trainer (no place: the card) over the flagship LM's
+    fused f32 program: TRAINER_EPOCHS epochs of lm_reader, Adam at
+    TRAINER_LR, CheckpointConfig(step_interval=2, epoch_interval=1) in
+    ``ckpt``; killed after step ``kill_at``.  Returns (trainer, [(epoch,
+    step, loss, ms)])."""
+    seen, t0 = [], [0.0]
+
+    def handler(ev):
+        if isinstance(ev, fluid.BeginStepEvent):
+            t0[0] = time.perf_counter()
+        elif isinstance(ev, fluid.EndStepEvent):
+            seen.append((ev.epoch, ev.step,
+                         float(ev.metrics[0].reshape(-1)[0]),
+                         (time.perf_counter() - t0[0]) * 1e3))
+            if (ev.epoch, ev.step) == kill_at:
+                raise Killed()
+
+    cfg = fluid.CheckpointConfig(checkpoint_dir=ckpt, step_interval=2,
+                                 epoch_interval=1)
+    t = fluid.Trainer(
+        train_func=lm_train_func(fluid, logits if logits is not None
+                                 else []),
+        optimizer_func=lambda: fluid.optimizer.Adam(
+            learning_rate=TRAINER_LR),
+        checkpoint_config=cfg)
+    try:
+        t.train(num_epochs=TRAINER_EPOCHS, event_handler=handler,
+                reader=pt.batch(lm_reader(SEED + 30), TRAIN_BATCH),
+                feed_order=["src", "label"])
+    except Killed:
+        pass
+    return t, seen
+
+
+def trainer_resume(torch):
+    """Phase trainer_resume: fluid.Trainer with no place (so
+    CUDAPlace(0)) trains the flagship LM's fused-block program at full
+    width in f32 (TRAINER_EPOCHS x TRAINER_STEPS steps of 16 x 2048
+    tokens, checkpoints every 2 steps and every epoch), uninterrupted,
+    then killed after TRAINER_KILL_AT and resumed in a new Trainer: the
+    killed run's and the resumed run's losses the uninterrupted run's,
+    bit for bit.  Then, from
+    the uninterrupted Trainer: save_params -> Inferencer (no place),
+    whose logits for INFER_SEQS sequences equal the Trainer's test
+    program's bit for bit; save_inference_model -> load_inference_model
+    in a fresh scope (the feed and fetch host ops on the card), the same
+    logits.  Records each step's ms (a step that saved a checkpoint
+    includes the save) beside PREPARED_TIMED bare run_prepared steps of
+    the same program from the same scope, and the save_params seconds."""
+    import numpy as np
+
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    t_phase = time.perf_counter()
+    logits = []
+    reset_launches()
+    base, seen = trainer_run(fluid, pt, smoke_dir("trainer_base"),
+                             logits=logits)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    failures = []
+    if base.place != fluid.CUDAPlace(0) or \
+            base.scope.find_var("pos_emb").device.type != "cuda":
+        failures.append("the Trainer's place")
+    want_launches = {k: n * (len(seen) + 2)   # + the capture's warm-ups
+                     for k, n in train_launches_per_step(True).items()}
+    if any(launches[k] != want_launches.get(k, 0) for k in KERNELS):
+        failures.append("launches")
+    # the Inferencer and the inference model against the test program
+    rng = np.random.RandomState(SEED + 31)
+    toks = rng.randint(0, TRAIN_LM["vocab_size"],
+                       (INFER_SEQS, TRAIN_LM["seq_len"] + 1)).astype(
+                           np.int64)
+    src = toks[:, :-1]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    want, = exe.run(base.test_program,
+                    feed={"src": src, "label": toks[:, 1:, None]},
+                    fetch_list=[logits[0]], scope=base.scope)
+    params = smoke_dir("trainer_params")
+    t0 = time.perf_counter()
+    base.save_params(params)
+    save_params_s = time.perf_counter() - t0
+    inf = fluid.Inferencer(infer_func=lm_infer_func(fluid),
+                           param_path=params)
+    got_inf, = inf.infer({"src": src})
+    inf_place = inf.place
+    del inf
+    model = smoke_dir("trainer_model")
+    with fluid.scope_guard(base.scope):
+        fluid.io.save_inference_model(model, ["src"], [logits[0]], exe,
+                                      main_program=base.train_program)
+    with fluid.scope_guard(fluid.Scope()):
+        prog, feed_names, fetch_vars = fluid.io.load_inference_model(model,
+                                                                     exe)
+        got_model, = exe.run(prog, feed={"src": src}, fetch_list=fetch_vars)
+    host_ops = sorted({op.type for op in prog.desc.blocks[0].ops
+                       if op.type in ("feed", "fetch")})
+    del prog, fetch_vars
+    if inf_place != fluid.CUDAPlace(0) or \
+            not np.array_equal(got_inf, want):
+        failures.append("the Inferencer's logits")
+    if feed_names != ["src"] or host_ops != ["feed", "fetch"] or \
+            not np.array_equal(got_model, want):
+        failures.append("the inference model's logits")
+    # bare prepared steps of the same program, beside the Trainer's
+    feed = fluid.DataFeeder(["src", "label"],
+                            program=base.train_program).feed(
+        list(lm_reader(SEED + 32)())[:TRAIN_BATCH])
+    prep = exe.prepare(base.train_program, feed_specs=feed,
+                       fetch_list=[base.train_func_outputs[0]],
+                       scope=base.scope)
+    prep.run_prepared(feed, return_numpy=True)
+    prepared_ms = []
+    for _ in range(PREPARED_TIMED):
+        t0 = time.perf_counter()
+        prep.run_prepared(feed, return_numpy=True)
+        prepared_ms.append((time.perf_counter() - t0) * 1e3)
+    del prep, base
+    _free(torch)
+
+    ckpt = smoke_dir("trainer_resume")
+    killed, first = trainer_run(fluid, pt, ckpt, kill_at=TRAINER_KILL_AT)
+    del killed
+    _free(torch)
+    resumed_t, second = trainer_run(fluid, pt, ckpt)
+    del resumed_t
+    _free(torch)
+    baseline = {(e, s): v for e, s, v, _ in seen}
+    resumed = {(e, s): v for e, s, v, _ in second}
+    # the last checkpoint before the kill holds the last even step: the
+    # resume starts after it
+    kill_e, kill_s = TRAINER_KILL_AT
+    want_keys = [(e, s) for e, s, *_ in seen
+                 if (e, s) >= (kill_e, kill_s - kill_s % 2 + 1)]
+    if first[-1][:2] != TRAINER_KILL_AT or any(
+            v != baseline[(e, s)] for e, s, v, _ in first):
+        failures.append("the killed run's losses")
+    if sorted(resumed) != want_keys or any(
+            resumed[k] != baseline[k] for k in want_keys):
+        failures.append("the resumed losses")
+    saving = {(e, s) for e, s, *_ in seen if s % 2 == 0}
+    plain_ms = [ms for e, s, _, ms in seen[1:] if (e, s) not in saving]
+    # the second epoch's loss on each batch below the first epoch's
+    losses = [v for *_, v, _ in seen]
+    if not (all(math.isfinite(x) for x in losses) and all(
+            baseline[(1, s)] < baseline[(0, s)]
+            for s in range(TRAINER_STEPS))):
+        failures.append("the losses")
+    return {"phase": "trainer_resume", "amp": False, "fused": True,
+            "batch": TRAIN_BATCH, **TRAIN_LM, "learning_rate": TRAINER_LR,
+            "place": repr(fluid.CUDAPlace(0)),
+            "epochs": TRAINER_EPOCHS, "steps_per_epoch": TRAINER_STEPS,
+            "kill_at": list(TRAINER_KILL_AT),
+            "losses": [[e, s, v] for e, s, v, _ in seen],
+            "losses_killed": [[e, s, v] for e, s, v, _ in first],
+            "losses_resumed": [[e, s, v] for e, s, v, _ in second],
+            "step_ms": [[e, s, ms] for e, s, _, ms in seen],
+            "step_ms_p50_no_save": _pct(plain_ms, 0.5),
+            "prepared_step_ms": prepared_ms,
+            "prepared_step_ms_p50": _pct(prepared_ms, 0.5),
+            "save_params_s": save_params_s,
+            "checkpoint_bytes": dir_bytes(params),
+            "inference_logits_shape": list(want.shape),
+            "launches": launches, "launches_wanted": want_launches,
+            "seconds": time.perf_counter() - t_phase,
+            "failures": failures, "ok": not failures}
+
+
+def host_ops_phase(torch):
+    """Phase host_ops: x [HOST_OPS_ROWS, 1024] -> fc 4096 relu -> fc 1024
+    -> mean on the card, with Print after the last device op (the
+    postlude, reading a temporary), with Print between the two fcs (the
+    block runs op by op), and with both: each Print runs once a run, and
+    the fetches are those of the program without Print, bit for bit;
+    prepare() refuses the blocks with ValueError."""
+    import contextlib
+    import io as _io
+
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+
+    d, dff = TRAIN_LM["d_model"], TRAIN_LM["d_ff"]
+
+    def build(between, tail):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            x = fluid.layers.data(name="x", shape=[d], dtype="float32")
+            h = fluid.layers.fc(x, size=dff, act="relu")
+            if between:
+                fluid.layers.Print(h, message="host_ops h", summarize=0)
+            y = fluid.layers.fc(h, size=d)
+            out = fluid.layers.mean(y)
+            if tail:
+                fluid.layers.Print(y, message="host_ops y")
+        return main, startup, [h, y, out]
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    x = np.random.RandomState(SEED + 40).randn(HOST_OPS_ROWS, d).astype(
+        np.float32)
+    main, startup, fetch = build(False, False)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    init = get_scope_arrays(scope, persist)
+    want = exe.run(main, feed={"x": x}, fetch_list=fetch, scope=scope)
+    runs, failures = {}, []
+    for name, between, tail in (("postlude", False, True),
+                                ("between", True, False),
+                                ("both", True, True)):
+        main, startup, fetch = build(between, tail)
+        scope = fluid.Scope()
+        set_scope_arrays(scope, init, "cuda")
+        buf = _io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            got = exe.run(main, feed={"x": x}, fetch_list=fetch,
+                          scope=scope)
+        secs = time.perf_counter() - t0
+        printed = [ln.split("\t")[0] for ln in buf.getvalue().splitlines()
+                   if ln.startswith("host_ops ")]
+        try:
+            exe.prepare(main, feed_specs={"x": x}, fetch_list=fetch,
+                        scope=scope)
+            refused = False
+        except ValueError:
+            refused = True
+        same = all(np.array_equal(g, w) for g, w in zip(got, want))
+        expect = ["host_ops h"] * between + ["host_ops y"] * tail
+        ok = same and refused and printed == expect
+        if not ok:
+            failures.append(name)
+        runs[name] = {"fetches_bit_identical": same, "printed": printed,
+                      "prepare_refused": refused, "seconds": secs,
+                      "ok": ok}
+    return {"phase": "host_ops", "rows": HOST_OPS_ROWS, "runs": runs,
+            "failures": failures, "ok": not failures}
+
+
+def slice22_phases(torch):
+    """Slice 22's phases in order, as (name, zero-argument callable)."""
+    return [("checkpoint_prepared_amp",
+             lambda: checkpoint_prepared_amp(torch)),
+            ("trainer_resume", lambda: trainer_resume(torch)),
+            ("host_ops", lambda: host_ops_phase(torch))]
+
+
+SLICES = {"--slice21": slice21_phases, "--slice22": slice22_phases}
+
+
+def slice_main(flag):
+    """``chip_smoke.py --slice21`` / ``--slice22``: that slice's phases
+    alone, each printed as one JSON line; stops at the first that fails
+    (exit 1).  Slice 22's files go under ``_smoke_io/``, removed after."""
+    import shutil
+
     import torch
 
     from paddle_tpu_torch import resolve_device
 
     resolve_device("cuda")
-    for name, run in slice21_phases(torch):
-        torch.cuda.empty_cache()
-        try:
-            result = run()
-        except Exception as e:
-            traceback.print_exc()
-            result = {"phase": name, "ok": False,
-                      "error": "%s: %s" % (type(e).__name__, e)}
-        emit(result)
-        if not result["ok"]:
-            return 1
-    return 0
+    try:
+        for name, run in SLICES[flag](torch):
+            torch.cuda.empty_cache()
+            try:
+                result = run()
+            except Exception as e:
+                traceback.print_exc()
+                result = {"phase": name, "ok": False,
+                          "error": "%s: %s" % (type(e).__name__, e)}
+            emit(result)
+            if not result["ok"]:
+                return 1
+        return 0
+    finally:
+        shutil.rmtree(os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "_smoke_io"), ignore_errors=True)
 
 
-def slice21_subprocess():
-    """Run ``slice21_main`` in a child process (``main``'s profiler
+def slice_subprocess(flag, timeout, counted):
+    """Run ``slice_main(flag)`` in a child process (``main``'s profiler
     sessions stay out of its traces).  Returns (its phases' JSON lines,
-    {phase: launches} of the phases that drive a kernel's path, and
-    (phase, reason) of the first that failed, or None)."""
+    {phase: launches} of the phases ``counted`` names, which drive a
+    kernel's path, and (phase, reason) of the first that failed, or
+    None)."""
     root = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--slice21"], cwd=root, capture_output=True,
-                          text=True, timeout=SLICE21_TIMEOUT_S)
+                           flag], cwd=root, capture_output=True,
+                          text=True, timeout=timeout)
     lines = []
     for ln in proc.stdout.splitlines():
         if ln.startswith("{"):
             lines.append(json.loads(ln))
     launches = {r["phase"]: r["launches"] for r in lines
-                if r["phase"].startswith("train_fused_dropout")
-                and "launches" in r}
+                if r["phase"] in counted and "launches" in r}
     failure = None
     bad = [r for r in lines if not r.get("ok")]
     if bad:
         r = bad[0]
         failure = (r["phase"], r.get("error") or "; ".join(
             r.get("failures") or ["its checks"]))
-    elif proc.returncode != 0 or len(lines) != len(slice21_phases(None)):
-        failure = ("slice21", "the child exited %d after %d phases: %s" % (
+    elif proc.returncode != 0 or len(lines) != len(SLICES[flag](None)):
+        failure = (flag[2:], "the child exited %d after %d phases: %s" % (
             proc.returncode, len(lines), proc.stderr[-2000:]))
     if failure:
         sys.stderr.write(proc.stderr[-4000:])
@@ -4591,12 +5137,27 @@ def main():
         # decode trace read none), where a fresh process reads them all
         phase = "slice21"
         torch.cuda.empty_cache()
-        lines, launches_train, failure = slice21_subprocess()
+        lines, launches_train, failure = slice_subprocess(
+            "--slice21", SLICE21_TIMEOUT_S,
+            ("train_fused_dropout", "train_fused_dropout_amp"))
         for line in lines:
             emit(line)
         if failure:
             phase = failure[0]
             raise AssertionError("%s: %s" % failure)
+
+        # slice 22's phases, in a child process of their own too
+        phase = "slice22"
+        torch.cuda.empty_cache()
+        lines, launches22, failure = slice_subprocess(
+            "--slice22", SLICE22_TIMEOUT_S,
+            ("checkpoint_prepared_amp", "trainer_resume"))
+        for line in lines:
+            emit(line)
+        if failure:
+            phase = failure[0]
+            raise AssertionError("%s: %s" % failure)
+        launches_train.update(launches22)
 
         phase = "serve_f32"
         cfg, params = tiny_lm(SEED, **FLAGSHIP_LM)
@@ -4961,4 +5522,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(slice21_main() if sys.argv[1:] == ["--slice21"] else main())
+    sys.exit(slice_main(sys.argv[1]) if sys.argv[1:2] and
+             sys.argv[1] in SLICES else main())

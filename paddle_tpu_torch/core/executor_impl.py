@@ -47,8 +47,16 @@ inputs (``lowering.amp_cast_ins``), on a mesh as without one: the ring
 attention runs its shards' folds and backward steps in bf16 (K9's and
 K2/K3's bf16 forms on a card).
 
-Not ported yet: GSPMD's partition of the whole step over a mesh, host
-ops and ragged (LoD) feeds, and the prepared step's numerics twin
+Host ops (``ops/io_ops.py``: feed, fetch, save, load, print, ...) run on
+the host as in the JAX package: those before the first device op as a
+prelude, those after the last as a postlude (handed, through an env,
+the temporaries they read and the fetches they write), and a block with
+host ops between device ops op by op (``_run_interpreted``); an
+all-host program (a save or a load) makes no plan.  ``prepare()``
+refuses a block with host ops (ValueError): callers run() it.
+
+Not ported yet: GSPMD's partition of the whole step over a mesh,
+ragged (LoD) feeds, and the prepared step's numerics twin
 (``entry_health``, bisect snapshots), buffer sanitizer and telemetry
 spans and counters (no observability module is ported).
 """
@@ -332,9 +340,51 @@ class ExecutorCore:
         # device-resident prepared state lands in the scope first
         flush_prepared(scope)
         block = program.blocks[block_id]
+        feed = dict(feed or {})
         fetch_list = list(fetch_list or [])
+        prelude, core_ops, postlude, mixed = _segment(block)
+        if mixed:
+            # the op-by-op path runs every op, host ops included: running
+            # a prelude or postlude here too would run them twice
+            fetches = self._run_interpreted(program, block_id, scope, feed,
+                                            fetch_list, mode)
+        else:
+            for op in prelude:
+                _run_host_op(self, op, scope, feed)
+            # postlude host ops may read temporaries the block computed
+            # (a print of an activation): the block returns those too,
+            # and they reach the ops through an env, not the scope; and
+            # the fetches the postlude writes come out of that env
+            post_writes = {n for op in postlude
+                           for n in op.output_arg_names() if n}
+            core_fetch = [n for n in fetch_list if n not in post_writes]
+            post_reads = sorted({
+                n for op in postlude for n in op.input_arg_names()
+                if n and n not in feed and not scope.has_var(n)
+                and n not in post_writes})
+            if core_ops or core_fetch or post_reads:
+                outs = self._run_core(program, block_id, scope, feed,
+                                      core_fetch + post_reads, mode)
+            else:
+                outs = []   # an all-host program (save, load): no plan
+            by_name = dict(zip(core_fetch, outs[:len(core_fetch)]))
+            post_env = dict(zip(post_reads, outs[len(core_fetch):]))
+            for op in postlude:
+                _run_host_op(self, op, scope, feed,
+                             post_env if (post_reads or post_writes)
+                             else None)
+            fetches = [by_name[n] if n in by_name else post_env.get(n)
+                       for n in fetch_list]
+        if return_numpy:
+            fetches = fetches_to_host(fetches)
+        return fetches
+
+    def _run_core(self, program, block_id, scope, feed, fetch_list, mode):
+        """Run the block's device ops through its plan; returns the
+        fetches as tensors."""
+        block = program.blocks[block_id]
         env = {name: self._feed_host(block, name, val).to(self.device)
-               for name, val in (feed or {}).items()}
+               for name, val in feed.items()}
         entry = self._entry(program, block_id, fetch_list)
         for name in entry.input_names:
             if name not in env:
@@ -345,10 +395,38 @@ class ExecutorCore:
         run_block(ctx, entry)
         for name in entry.persist_outs:
             (scope.find_scope_of(name) or scope).set(name, env[name])
-        fetches = [env[name] for name in fetch_list]
-        if return_numpy:
-            fetches = fetches_to_host(fetches)
-        return fetches
+        return [env[name] for name in fetch_list]
+
+    def _run_interpreted(self, program, block_id, scope, feed, fetch_list,
+                         mode):
+        """A block with host ops between its device ops: every op in
+        order, each host op once, over an env that reads the scope as it
+        stands when an op first asks for a name (so a value a host op
+        loaded is what the device ops after it read)."""
+        block = program.blocks[block_id]
+        env = _ScopeEnv(scope, self.device)
+        for name, val in feed.items():
+            env[name] = self._feed_host(block, name, val).to(self.device)
+        ctx = LoweringContext(program, block_id, env, self.device,
+                              seed=_run_seed(program, scope), mesh=self.mesh,
+                              mode=mode)
+        with torch.no_grad():
+            for op in block.ops:
+                if get_op_info(op.type).host_op:
+                    _run_host_op(self, op, scope, feed, env)
+                    continue
+                ctx.op = op
+                if OP_HOOK is None:
+                    run_op(ctx, op)
+                else:
+                    with OP_HOOK(op):
+                        run_op(ctx, op)
+        ctx.op = None
+        for name in env.written:
+            vd = block.find_var_recursive(name)
+            if vd is not None and vd.persistable:
+                (scope.find_scope_of(name) or scope).set(name, env[name])
+        return [env.get(n) for n in fetch_list]
 
     def prepare(self, program, feed_specs, fetch_list, scope=None,
                 block_id=0, mode="train"):
@@ -397,13 +475,7 @@ class ExecutorCore:
 
     def _build(self, program, block_id, fetch_list):
         block = program.blocks[block_id]
-        prelude, core_ops, postlude, mixed = _segment(block)
-        host = [op.type for op in prelude + postlude] if not mixed else \
-            [op.type for op in block.ops if get_op_info(op.type).host_op]
-        if host:
-            raise NotImplementedError(
-                "host ops %s are not ported to paddle_tpu_torch yet"
-                % sorted(set(host)))
+        _, core_ops, _, _ = _segment(block)
         written, external, seen = set(), [], set()
         for op in core_ops:
             for name in op.input_arg_names():
@@ -525,6 +597,40 @@ def _free_plan(block, ops, keep):
             continue
         plan.setdefault(i, []).append(name)
     return plan
+
+
+class _ScopeEnv(dict):
+    """The op-by-op path's env: a name it lacks is read from the scope
+    (on the executor's device) when first asked for; ``written`` names
+    every value set, for the write-back of persistables."""
+
+    def __init__(self, scope, device):
+        super().__init__()
+        self.scope = scope
+        self.device = device
+        self.written = set()
+
+    def __contains__(self, name):
+        return super().__contains__(name) or self.scope.has_var(name)
+
+    def __missing__(self, name):
+        val = to_device(self.scope.find_var(name), self.device)
+        super().__setitem__(name, val)
+        return val
+
+    def __setitem__(self, name, val):
+        self.written.add(name)
+        super().__setitem__(name, val)
+
+    def get(self, name, default=None):
+        try:
+            return self[name]
+        except KeyError:
+            return default
+
+
+def _run_host_op(executor, op, scope, feed, env=None):
+    get_op_info(op.type).lower(executor, op, scope, feed, env)
 
 
 def _segment(block):

@@ -46,6 +46,17 @@ class Scope:
         self._version += 1
         self._write_versions[name] = self._version
 
+    def erase(self, names):
+        """Drop ``names`` from this scope (the delete_var op)."""
+        removed = False
+        for n in names:
+            if n in self._vars:
+                del self._vars[n]
+                self._write_versions.pop(n, None)
+                removed = True
+        if removed:  # a no-op erase must not force prepared re-stages
+            self._version += 1
+
     def find_var(self, name):
         """Recursive lookup (reference Scope::FindVar); raises KeyError
         if the name exists nowhere.  Flushes the attached prepared state

@@ -14,7 +14,8 @@ and a segment sum at length K), never by ``torch.unique``, whose size
 depends on the data.  XLA drops an out-of-bounds scatter update; torch
 raises a device-side assert instead, so the inactive slots that
 ``merge_rows`` points at row == height are masked explicitly
-(:func:`scatter_set`).
+(:func:`scatter_set`).  Every scatter-add here and in the ops goes
+through :func:`add_rows`, so duplicates sum in one order on every run.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ class SelectedRows:
         rows accumulate)."""
         dense = torch.zeros(self.dense_shape, dtype=self.values.dtype,
                             device=self.values.device)
-        return dense.index_add_(0, self.rows, self.values)
+        return add_rows(dense, self.rows, self.values)
 
     def scale(self, factor):
         return SelectedRows(self.rows, self.values * factor, self.height)
@@ -58,6 +59,17 @@ class SelectedRows:
     def __repr__(self):
         return "SelectedRows(rows=%s, values=%s, height=%d)" % (
             tuple(self.rows.shape), tuple(self.values.shape), self.height)
+
+
+def add_rows(dst, rows, vals):
+    """``dst`` with ``vals`` added in place at ``rows`` along dim 0,
+    duplicate rows summed in the same order at every call:
+    ``index_put_`` with ``accumulate`` (on CUDA a kernel that sorts the
+    rows and sums each row's values in their order).  ``index_add_``
+    adds them on CUDA with atomics, in whatever order they land, so an
+    f32 sum's last bits change from run to run, where the JAX package's
+    scatter-add gives the same bits every time."""
+    return dst.index_put_((rows,), vals, accumulate=True)
 
 
 def concat_rows(srs):
@@ -86,7 +98,7 @@ def merge_rows(sr):
     if k > 1:
         is_start[1:] = r[1:] != r[:-1]
     seg = torch.cumsum(is_start.to(torch.int64), 0) - 1     # [K] segments
-    merged = torch.zeros_like(v).index_add_(0, seg, v)
+    merged = add_rows(torch.zeros_like(v), seg, v)
     # every slot of a segment holds the same row, so the scatter's
     # duplicate writes agree
     rows_m = torch.full((k,), sr.height, dtype=r.dtype,

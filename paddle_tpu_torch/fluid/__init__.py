@@ -1,8 +1,9 @@
 """fluid-compatible user API of the port.
 
 Counterpart of ``paddle_tpu.fluid`` for the surface the transformer
-LM's and ResNet's training reaches, and ``ParallelExecutor`` over a
-sequence-parallel mesh:
+LM's and ResNet's training reaches, ``ParallelExecutor`` over a
+sequence-parallel mesh, persistence (``io``), ``DataFeeder`` and the
+high-level ``Trainer`` / ``Inferencer``:
 
     import paddle_tpu_torch.fluid as fluid
     x = fluid.layers.data(name="x", shape=[13])
@@ -32,8 +33,20 @@ from . import unique_name
 from .executor import Executor, global_scope, scope_guard, fetch_var
 from .parallel_executor import ParallelExecutor
 from . import io
+from .io import (save_vars, save_params, save_persistables, load_vars,
+                 load_params, load_persistables, save_inference_model,
+                 load_inference_model, get_inference_program,
+                 save_checkpoint, load_checkpoint, clean_checkpoint,
+                 get_latest_checkpoint_serial)
 from . import nets
 from . import transpiler
+from . import data_feeder
+from .data_feeder import DataFeeder
+from . import trainer
+from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,
+                      BeginStepEvent, EndStepEvent, CheckpointConfig)
+from . import inferencer
+from .inferencer import Inferencer
 
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace
 from paddle_tpu_torch.core.scope import Scope
@@ -46,6 +59,11 @@ __all__ = [
     "append_backward", "calc_gradient", "optimizer", "unique_name",
     "Executor", "global_scope", "scope_guard", "fetch_var", "io",
     "ParallelExecutor", "nets",
-    "transpiler",
+    "transpiler", "save_vars", "save_params", "save_persistables",
+    "load_vars", "load_params", "load_persistables", "save_inference_model",
+    "load_inference_model", "get_inference_program", "save_checkpoint",
+    "load_checkpoint", "clean_checkpoint", "get_latest_checkpoint_serial",
+    "DataFeeder", "Trainer", "BeginEpochEvent", "EndEpochEvent",
+    "BeginStepEvent", "EndStepEvent", "CheckpointConfig", "Inferencer",
     "CPUPlace", "CUDAPlace", "Scope",
 ]

@@ -1,6 +1,6 @@
 """Layer API: functions that append ops to the current program
 (counterpart of paddle_tpu/fluid/layers; the layers the transformer LM,
-ResNet and VGG16-BN use)."""
+ResNet, VGG16-BN and the MNIST net use, and ``Print``)."""
 from . import tensor
 from .tensor import *  # noqa: F401,F403
 from . import nn
@@ -9,5 +9,8 @@ from . import io
 from .io import *  # noqa: F401,F403
 from . import metric_op
 from .metric_op import *  # noqa: F401,F403
+from . import control_flow
+from .control_flow import *  # noqa: F401,F403
 
-__all__ = tensor.__all__ + nn.__all__ + io.__all__ + metric_op.__all__
+__all__ = tensor.__all__ + nn.__all__ + io.__all__ + metric_op.__all__ + \
+    control_flow.__all__

@@ -22,8 +22,9 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.core.registry import register_op
-from paddle_tpu_torch.core.selected_rows import (SelectedRows, gather_rows,
-                                                 merge_rows, scatter_set)
+from paddle_tpu_torch.core.selected_rows import (SelectedRows, add_rows,
+                                                 gather_rows, merge_rows,
+                                                 scatter_set)
 
 
 def _lr(ins):
@@ -66,8 +67,8 @@ def _sgd(ctx, ins, attrs, op):
     if isinstance(g, SelectedRows):
         # reference sgd_op.h's SelectedRows kernel: a scatter-add over
         # the looked-up rows; duplicates accumulate
-        return {"ParamOut": p.index_add(
-            0, g.rows, _mul(-lr, g.values).to(p.dtype))}
+        return {"ParamOut": add_rows(p.clone(), g.rows,
+                                     _mul(-lr, g.values).to(p.dtype))}
     return {"ParamOut": _sub(p, _mul(lr, g))}
 
 

@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.registry import register_op
-from paddle_tpu_torch.core.selected_rows import SelectedRows
+from paddle_tpu_torch.core.selected_rows import SelectedRows, add_rows
 from paddle_tpu_torch.core.types import DataType, proto_to_torch_dtype
 
 
@@ -93,7 +93,8 @@ def _lookup_table_grad(ctx, ins, attrs, op):
     """W@GRAD of the lookup: with ``is_sparse`` a SelectedRows (rows =
     the looked-up ids, duplicates kept; values = the out-grad rows),
     else the out-grad rows scatter-added into a zero table
-    (``index_add_``; reference lookup_table_op.cc's grad kernels)."""
+    (``selected_rows.add_rows``, the same bits on every run; reference
+    lookup_table_op.cc's grad kernels)."""
     ids, g = ins["Ids"], ins["Out@GRAD"]
     w = ins.get("W")
     # a distributed table never lives on the trainer: its shape comes
@@ -115,4 +116,4 @@ def _lookup_table_grad(ctx, ins, attrs, op):
         raise ValueError(
             "lookup_table_grad without W requires is_sparse=True "
             "(distributed tables always ship sparse grads)")
-    return {"W@GRAD": torch.zeros_like(w).index_add_(0, rows, vals)}
+    return {"W@GRAD": add_rows(torch.zeros_like(w), rows, vals)}

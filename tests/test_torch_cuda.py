@@ -2977,3 +2977,220 @@ def test_sparse_update_with_duplicate_ids_in_a_captured_step(cuda,
     for k in persist:
         np.testing.assert_allclose(a[k], b[k], rtol=1e-6, atol=1e-6,
                                    err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the host-op runtime: tensors saved from and loaded onto
+# the card, a save and a load around a captured prepared step, the
+# Trainer's default place
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "int64"])
+def test_save_load_round_trip_of_cuda_tensors_on_card(cuda, dtype, tmp_path):
+    """A CUDA tensor is written as its CPU copy is (bf16 through its
+    int16 bits) and read back bit for bit; through the save and load
+    ops of an executor on the card, one file and combined, it comes back
+    on the card in its dtype."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.utils import serialization
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    if dtype == "bfloat16":
+        t = torch.randn(64, 33, device=cuda, generator=g).to(torch.bfloat16)
+    else:
+        t = torch.randint(-2 ** 40, 2 ** 40, (64, 33), device=cuda,
+                          generator=g, dtype=torch.int64)
+    assert serialization.tensor_to_bytes(t) == \
+        serialization.tensor_to_bytes(t.cpu())
+    serialization.save_tensor(str(tmp_path / "t"), t)
+    back = serialization.load_tensor(str(tmp_path / "t"), as_torch=True)
+    assert back.dtype == t.dtype and torch.equal(back, t.cpu())
+    prog = fluid.Program()
+    with fluid.program_guard(prog):
+        prog.global_block().create_var(name="v", shape=list(t.shape),
+                                       dtype=dtype, persistable=True)
+    scope = fluid.Scope()
+    scope.set("v", t)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(scope):
+        fluid.io.save_persistables(exe, str(tmp_path / "d"), prog)
+        fluid.io.save_persistables(exe, str(tmp_path / "c"), prog,
+                                   filename="all")
+    for name, filename in (("d", None), ("c", "all")):
+        fresh = fluid.Scope()
+        with fluid.scope_guard(fresh):
+            fluid.io.load_persistables(exe, str(tmp_path / name), prog,
+                                       filename=filename)
+        got = fresh.find_var("v")
+        assert got.device.type == "cuda" and got.dtype == t.dtype
+        assert torch.equal(got, t)
+
+
+@pytest.mark.cuda
+def test_a_save_mid_loop_and_a_load_on_a_captured_step_on_card(cuda,
+                                                               tmp_path):
+    """The small AMP LM's captured step: a save_checkpoint after 3
+    replays, with no sync_scope by hand, writes the state after the
+    third step and leaves the replays after it on the uninterrupted
+    run's losses; a load into the scope while the prepared program lives
+    is what its next replay reads; all bit for bit."""
+    import os
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.utils import serialization
+
+    main, startup, loss = _prepared_program("lm")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    start = fluid.Scope()
+    exe.run(startup, scope=start)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    init = {n: start.find_var(n).clone() for n in persist}
+    feeds = _prepared_feeds("lm", 6)
+
+    def fresh():
+        s = fluid.Scope()
+        for n, v in init.items():
+            s.set(n, v.clone())
+        return s
+
+    scope = fresh()
+    want = []
+    with exe.prepare(main, feed_specs=feeds[0], fetch_list=[loss],
+                     scope=scope) as prep:
+        for i, f in enumerate(feeds):
+            want.append(prep.run_prepared(f)[0])
+            if i == 2:
+                prep.sync_scope()
+                mid = {n: scope.find_var(n).clone() for n in persist}
+    ckpt = str(tmp_path / "ckpt")
+    scope = fresh()
+    prep = exe.prepare(main, feed_specs=feeds[0], fetch_list=[loss],
+                       scope=scope)
+    got = []
+    for i, f in enumerate(feeds):
+        if i == 3:
+            with fluid.scope_guard(scope):
+                fluid.io.save_checkpoint(exe, ckpt, main_program=main)
+        got.append(prep.run_prepared(f)[0])
+    assert prep._prep._step._graph is not None       # captured
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    files = os.path.join(ckpt, "checkpoint_0", "__model__")
+    for n in persist:
+        saved = serialization.load_tensor(os.path.join(files, n),
+                                          as_torch=True)
+        assert saved.dtype == mid[n].dtype
+        assert torch.equal(saved, mid[n].cpu().reshape(saved.shape)), n
+    with fluid.scope_guard(scope):
+        fluid.io.load_checkpoint(exe, ckpt, main_program=main)
+    assert all(scope.find_var(n).device.type == "cuda" for n in persist)
+    assert torch.equal(prep.run_prepared(feeds[3])[0], want[3])
+
+
+@pytest.mark.cuda
+def test_trainer_defaults_to_the_card_on_card(cuda, tmp_path, monkeypatch):
+    """fluid.Trainer and fluid.Inferencer with no place run on
+    CUDAPlace(0); the Trainer's steps are captured prepared steps; the
+    losses those of the same Trainer on the CPU (constant initial
+    parameters) within rtol 1e-5, f32 on both."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import executor as fexecutor
+
+    w_true = np.random.RandomState(3).randn(8, 1).astype(np.float32)
+
+    def reader():
+        rng = np.random.RandomState(0)
+        for _ in range(32):
+            x = rng.randn(8).astype(np.float32)
+            yield x, (x @ w_true).astype(np.float32)
+
+    def net():
+        x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+        const = fluid.initializer.ConstantInitializer(0.0)
+        return x, fluid.layers.fc(
+            x, size=1, param_attr=fluid.ParamAttr(name="w",
+                                                  initializer=const),
+            bias_attr=fluid.ParamAttr(name="b", initializer=const))
+
+    def train_func():
+        _, pred = net()
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        return [fluid.layers.mean(fluid.layers.square_error_cost(pred, y))]
+
+    prepared = []
+    real = fexecutor.Executor.prepare
+
+    def recording(self, *a, **k):
+        prepared.append(real(self, *a, **k))
+        return prepared[-1]
+
+    monkeypatch.setattr(fexecutor.Executor, "prepare", recording)
+    out = {}
+    for name, place in (("card", None), ("cpu", fluid.CPUPlace())):
+        t = fluid.Trainer(train_func=train_func,
+                          optimizer_func=lambda: fluid.optimizer.SGD(0.05),
+                          place=place)
+        seen = []
+        t.train(num_epochs=2,
+                event_handler=lambda ev: seen.append(
+                    float(ev.metrics[0].reshape(-1)[0]))
+                if isinstance(ev, fluid.EndStepEvent) else None,
+                reader=pt.batch(reader, 8), feed_order=["x", "y"])
+        out[name] = (t, seen)
+    t, seen = out["card"]
+    assert t.place == fluid.CUDAPlace(0)
+    assert t.scope.find_var("w").device.type == "cuda"
+    assert prepared[0]._prep._step._graph is not None
+    np.testing.assert_allclose(seen, out["cpu"][1], rtol=1e-5)
+    assert seen[-1] < seen[0]
+    params = str(tmp_path / "params")
+    t.save_params(params)
+    inf = fluid.Inferencer(infer_func=lambda: net()[1], param_path=params)
+    assert inf.place == fluid.CUDAPlace(0)
+    assert inf.scope.find_var("w").device.type == "cuda"
+    xs = np.ones((4, 8), np.float32)
+    got, = inf.infer({"x": xs})
+    w = inf.scope.find_var("w").cpu().numpy()
+    b = inf.scope.find_var("b").cpu().numpy()
+    np.testing.assert_allclose(got, xs @ w + b, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_embedding_grad_sums_duplicates_in_one_order_on_card(cuda):
+    """lookup_table_grad at the flagship LM's step (16 x 2048 ids, most
+    repeated, into 8192 x 1024 rows) gives the same bits at every call,
+    eager and as a CUDA graph replay (selected_rows.add_rows: the
+    duplicates sum in one order; index_add_'s atomics sum them in the
+    order they land), within f32 rounding of the float64 sum."""
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ids = torch.randint(0, 8192, (16, 2048, 1), device=cuda, generator=g)
+    w = torch.zeros(8192, 1024, device=cuda)
+    dout = torch.randn(16, 2048, 1024, device=cuda, generator=g)
+    lower = get_op_info("lookup_table_grad").lower
+
+    def grad():
+        return lower(None, {"Ids": ids, "W": w, "Out@GRAD": dout},
+                     {"padding_idx": -1}, None)["W@GRAD"]
+
+    first = grad()
+    for _ in range(4):
+        assert torch.equal(grad(), first)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        grad()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = grad()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    want = torch.zeros(8192, 1024, dtype=torch.float64, device=cuda)
+    want.index_add_(0, ids.reshape(-1), dout.reshape(-1, 1024).double())
+    torch.testing.assert_close(first.double(), want, atol=1e-5, rtol=1e-6)
