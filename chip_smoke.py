@@ -58,6 +58,27 @@ Phases, each printed as one JSON line:
              inference model's feed / fetch ops, the logits bit for
              bit; Print as a postlude and between device ops; the
              checkpoint's bytes and the save's and load's GB/s;
+3f. train_lstm, train_lstm_amp, train_lstm_ragged, train_lstm_oracle,
+             train_sentiment_conv — ragged (LoD) feeds and the sequence
+             ops (in a child process, ``--slice23``; no TPU kernel on
+             the path): the stacked dynamic LSTM at bench.py's card
+             width (64 sequences of 80 tokens, hidden 512, 3 stacks, a
+             5000-word vocabulary, Adam 2e-3), f32 and bf16 AMP, through
+             run() and the prepared step (step ms p50, examples/s, peak
+             memory, capture s, the device's idle share), 3 prepared
+             steps bit for bit against 3 run() steps; the same model on
+             seeded batches of 64 sequences of 8-80 tokens whose
+             longest fall in 3 padded buckets (one captured graph a
+             bucket, all in one memory pool, the pool and the reserved
+             bytes after each new bucket; losses finite and falling on
+             the repeated batch; bit for bit against run()); one f32
+             step at 4 sequences of 5-23 tokens against
+             Executor(CPUPlace()) at twice the CPU's one-ulp spread
+             (every parameter moved), never below 1e-4, the median at
+             twice the median spread, and a TF32 control past the bar;
+             understand_sentiment's conv net (is_sparse embedding,
+             Adagrad) on ragged batches, 3 captured steps against 3 CPU
+             run() steps, losses and persistables within 1e-6;
 4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
@@ -3322,87 +3343,127 @@ def _train_resnet(torch, fused, amp):
             "param_dtypes": dtypes, "ok": ok}
 
 
-def resnet_oracle(torch, seed=SEED):
-    """One step of the fused ResNet-50 at full width and depth, batch 2,
-    on the card and, from the same parameters, on Executor(CPUPlace()),
-    then on the CPU again with one ulp added to every filter (the
-    step's own f32 spread): the loss and every parameter gradient; relu
-    flips counted on the zero pattern of each relu stage's Y.  ``seed``
-    draws the parameters and the batch."""
+def fro_rel(a, b, scale=None):
+    """||a - b|| / ||b|| in float64 (Frobenius norm); 0 where a == b."""
     import numpy as np
 
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    d = float(np.linalg.norm(a - b))
+    return d / float(np.linalg.norm(b)) if d else 0.0
+
+
+def ulp_oracle(fluid, main, arrays, feed, fetch, n, perturb, rel, floor,
+               median_floor=None):
+    """One f32 step of ``main`` on ``feed`` from the persistables
+    ``arrays``, on the card and on Executor(CPUPlace()), then on the CPU
+    again with one ulp added to every array that ``perturb(name,
+    array)`` selects (the step's own f32 spread).  ``fetch`` is the
+    loss, then the ``n`` gradients held, then whatever the caller reads
+    besides.  Each gradient's error ``rel(card, cpu, scale)`` (``scale``:
+    the largest |value| of the CPU's gradients) is held to
+    RESNET_ORACLE_SPREAD times the worst CPU spread ``rel(moved, cpu,
+    scale)``, never below ``floor``, and the median error to that
+    multiple of the median spread, never below ``median_floor`` (else
+    ``floor``); the loss to RESNET_ORACLE_LOSS_RTOL
+    relative; a worst spread above RESNET_ORACLE_SPREAD_MAX fails, so
+    that no unstable step raises its own bar without limit.  Returns
+    the card's, the CPU's and the moved CPU's fetches, and the summary
+    (its "ok")."""
+    import numpy as np
+
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+
+    card = fluid.Scope()
+    set_scope_arrays(card, arrays, "cuda")
+    got = fluid.Executor(fluid.CUDAPlace(0)).run(main, feed=feed,
+                                                 fetch_list=fetch,
+                                                 scope=card)
+    del card
+    cpu = []
+    for ulp in (False, True):
+        host = fluid.Scope()
+        set_scope_arrays(host, {
+            k: np.nextafter(v, np.float32(np.inf)) if ulp and perturb(k, v)
+            else v for k, v in arrays.items()}, "cpu")
+        cpu.append(fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch, scope=host))
+    want, moved = cpu
+    loss = [float(x[0].ravel()[0]) for x in (got, want, moved)]
+    loss_err = abs(loss[0] - loss[1]) / abs(loss[1])
+    scale = max(float(np.abs(b).max()) for b in want[1:1 + n])
+    grads = {name: {"fro_rel": rel(a, b, scale),
+                    "cpu_ulp_fro_rel": rel(c, b, scale)}
+             for name, a, b, c in zip(fetch[1:1 + n], got[1:1 + n],
+                                      want[1:1 + n], moved[1:1 + n])}
+    spread = max(g["cpu_ulp_fro_rel"] for g in grads.values())
+    tol = max(floor, RESNET_ORACLE_SPREAD * spread)
+    median = _pct([g["fro_rel"] for g in grads.values()], 0.5)
+    median_spread = _pct([g["cpu_ulp_fro_rel"] for g in grads.values()], 0.5)
+    median_tol = max(floor if median_floor is None else median_floor,
+                     RESNET_ORACLE_SPREAD * median_spread)
+    worst = max(grads, key=lambda g: grads[g]["fro_rel"])
+    ok = (math.isfinite(loss_err) and loss_err <= RESNET_ORACLE_LOSS_RTOL
+          and spread <= RESNET_ORACLE_SPREAD_MAX and median <= median_tol
+          and all(math.isfinite(g["fro_rel"]) and g["fro_rel"] <= tol
+                  for g in grads.values()))
+    return got, want, moved, {
+        "loss_card": loss[0], "loss_cpu": loss[1], "loss_cpu_ulp": loss[2],
+        "loss_rel_err": loss_err,
+        "worst_grad": worst, "worst_fro_rel": grads[worst]["fro_rel"],
+        "median_fro_rel": median, "cpu_ulp_worst_fro_rel": spread,
+        "cpu_ulp_median_fro_rel": median_spread,
+        "cpu_ulp_tolerance": RESNET_ORACLE_SPREAD_MAX, "grads": grads,
+        "loss_tolerance": RESNET_ORACLE_LOSS_RTOL, "grad_floor": floor,
+        "grad_tolerance": tol, "median_grad_tolerance": median_tol,
+        "ok": ok}
+
+
+def start_arrays(fluid, main, startup, place):
+    """The persistables of ``main`` (sorted names) and their values after
+    ``startup`` on ``place``, as numpy arrays."""
+    from paddle_tpu_torch.fluid.io import get_scope_arrays
+
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    start = fluid.Scope()
+    fluid.Executor(place).run(startup, scope=start)
+    return persist, get_scope_arrays(start, persist)
+
+
+def resnet_oracle(torch, seed=SEED):
+    """One step of the fused ResNet-50 at full width and depth, batch
+    RESNET_ORACLE_BATCH, held by ``ulp_oracle`` with one ulp added to
+    every filter, never below ORACLE_GRAD_RTOL (relu flips); the flips
+    counted on the zero pattern of each relu stage's Y.  ``seed`` draws
+    the parameters and the batch."""
     import paddle_tpu_torch.fluid as fluid
-    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
     from paddle_tpu_torch.kernels import KERNELS, reset_launches
 
     main, startup, loss = build_resnet(fluid, True)
     startup.random_seed = seed
-    card = fluid.Scope()
-    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
-    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
-                     if v.persistable)
-    arrays = get_scope_arrays(card, persist)
+    _, arrays = start_arrays(fluid, main, startup, fluid.CUDAPlace(0))
     params = sorted(p.name for p in main.all_parameters() if p.trainable)
     relu_y = [op.output("Y")[0] for op in main.desc.blocks[0].ops
               if op.type == "fused_conv2d_bn_act" and op.attr("act") == "relu"]
     fetch = [loss.name] + [p + "@GRAD" for p in params] + relu_y
     feed = resnet_batch(RESNET_ORACLE_BATCH, seed + 7)
-    reset_launches()
-    got = fluid.Executor(fluid.CUDAPlace(0)).run(main, feed=feed,
-                                                 fetch_list=fetch,
-                                                 scope=card)
-    k6 = KERNELS["conv_stage"].launches
-    cpu = []
-    for ulp in (False, True):
-        host = fluid.Scope()
-        set_scope_arrays(host, {
-            k: np.nextafter(v, np.float32(np.inf)) if ulp and v.ndim == 4
-            else v for k, v in arrays.items()}, "cpu")
-        cpu.append(fluid.Executor(fluid.CPUPlace()).run(
-            main, feed=feed, fetch_list=fetch, scope=host))
-    want, moved = cpu
     n = len(params)
-
-    def fro_rel(a, b):
-        a, b = a.astype(np.float64), b.astype(np.float64)
-        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    reset_launches()
+    got, want, moved, held = ulp_oracle(
+        fluid, main, arrays, feed, fetch, n, lambda k, v: v.ndim == 4,
+        fro_rel, ORACLE_GRAD_RTOL)
+    k6 = KERNELS["conv_stage"].launches
 
     def flips(xs, ys):
         return sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(xs, ys))
 
-    loss_err = abs(float(got[0][0]) - float(want[0][0])) / \
-        abs(float(want[0][0]))
-    grads = {name: {"fro_rel": fro_rel(a, b), "cpu_ulp_fro_rel":
-                    fro_rel(c, b)}
-             for name, a, b, c in zip(fetch[1:1 + n], got[1:1 + n],
-                                      want[1:1 + n], moved[1:1 + n])}
-    spread = max(g["cpu_ulp_fro_rel"] for g in grads.values())
-    tol = max(ORACLE_GRAD_RTOL, RESNET_ORACLE_SPREAD * spread)
-    median = _pct([g["fro_rel"] for g in grads.values()], 0.5)
-    median_spread = _pct([g["cpu_ulp_fro_rel"] for g in grads.values()], 0.5)
-    median_tol = max(ORACLE_GRAD_RTOL, RESNET_ORACLE_SPREAD * median_spread)
-    worst = max(grads, key=lambda g: grads[g]["fro_rel"])
-    ok = (math.isfinite(loss_err) and loss_err <= RESNET_ORACLE_LOSS_RTOL
-          and k6 == RESNET_CONVS
-          and spread <= RESNET_ORACLE_SPREAD_MAX and median <= median_tol
-          and all(math.isfinite(g["fro_rel"]) and g["fro_rel"] <= tol
-                  for g in grads.values()))
     return {"phase": "train_resnet_fused_oracle", "depth": 50,
             "batch": RESNET_ORACLE_BATCH, "seed": seed,
             "conv_stage_launches": k6,
-            "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
-            "loss_cpu_ulp": float(moved[0][0]), "loss_rel_err": loss_err,
             "relu_flips": flips(got[1 + n:], want[1 + n:]),
             "relu_flips_cpu_ulp": flips(moved[1 + n:], want[1 + n:]),
             "relu_outputs": int(sum(a.size for a in want[1 + n:])),
-            "worst_grad": worst, "worst_fro_rel": grads[worst]["fro_rel"],
-            "median_fro_rel": median,
-            "cpu_ulp_worst_fro_rel": spread,
-            "cpu_ulp_median_fro_rel": median_spread,
-            "cpu_ulp_tolerance": RESNET_ORACLE_SPREAD_MAX,
-            "grads": grads, "loss_tolerance": RESNET_ORACLE_LOSS_RTOL,
-            "grad_tolerance": tol, "median_grad_tolerance": median_tol,
-            "ok": ok}
+            **held, "ok": held["ok"] and k6 == RESNET_CONVS}
 
 
 def resnet_oracle_amp(torch, seed=SEED):
@@ -4209,16 +4270,13 @@ def _vgg_path(torch, fluid, exe, main, loss, init, persist, path, batch):
 
 def vgg_oracle(torch, seed=SEED):
     """One step of VGG16-BN (f32, flowers 224 x 224) at batch
-    VGG_ORACLE_BATCH on the card and, from the same parameters, on
-    Executor(CPUPlace()), on a copy of the desc with every dropout_prob
-    0 (so that the two sides draw the same, empty, masks), then on the
-    CPU again with one ulp added to every filter (the step's own f32
-    spread): the loss and every parameter gradient, held as the ResNet
-    oracle holds them."""
+    VGG_ORACLE_BATCH, on a copy of the desc with every dropout_prob 0
+    (so that the card and the CPU draw the same, empty, masks), held by
+    ``ulp_oracle`` as the ResNet oracle is: one ulp added to every
+    filter, never below ORACLE_GRAD_RTOL."""
     import numpy as np
 
     import paddle_tpu_torch.fluid as fluid
-    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
 
     main, startup, loss = build_vgg(fluid)
     main = main.clone()
@@ -4226,62 +4284,23 @@ def vgg_oracle(torch, seed=SEED):
         if op.type in ("dropout", "dropout_grad"):
             op.set_attr("dropout_prob", 0.0)
     startup.random_seed = seed
-    card = fluid.Scope()
-    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
-    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
-                     if v.persistable)
-    arrays = get_scope_arrays(card, persist)
+    _, arrays = start_arrays(fluid, main, startup, fluid.CUDAPlace(0))
     params = sorted(p.name for p in main.all_parameters() if p.trainable)
     fetch = [loss.name] + [p + "@GRAD" for p in params]
     feed = vgg_batch(VGG_ORACLE_BATCH, seed + 7)
-    got = fluid.Executor(fluid.CUDAPlace(0)).run(main, feed=feed,
-                                                 fetch_list=fetch,
-                                                 scope=card)
-    cpu = []
-    for ulp in (False, True):
-        host = fluid.Scope()
-        set_scope_arrays(host, {
-            k: np.nextafter(v, np.float32(np.inf)) if ulp and v.ndim == 4
-            else v for k, v in arrays.items()}, "cpu")
-        cpu.append(fluid.Executor(fluid.CPUPlace()).run(
-            main, feed=feed, fetch_list=fetch, scope=host))
-    want, moved = cpu
-    n = len(params)
-    loss_err = abs(float(got[0][0]) - float(want[0][0])) / \
-        abs(float(want[0][0]))
-    # a bias under batch norm has an exact gradient of 0: its noise is
-    # held to the largest gradient's scale instead
-    scale = max(float(np.abs(b).max()) for b in want[1:1 + n])
 
-    def rel(a, b):
+    def rel(a, b, scale):
+        # a bias under batch norm has an exact gradient of 0: its noise
+        # is held to the largest gradient's scale instead
         a, b = a.astype(np.float64), b.astype(np.float64)
         den = max(float(np.linalg.norm(b)), 1e-3 * scale * math.sqrt(b.size))
         return float(np.linalg.norm(a - b)) / den
 
-    grads = {name: {"fro_rel": rel(a, b), "cpu_ulp_fro_rel": rel(c, b)}
-             for name, a, b, c in zip(fetch[1:], got[1:], want[1:],
-                                      moved[1:])}
-    spread = max(g["cpu_ulp_fro_rel"] for g in grads.values())
-    tol = max(ORACLE_GRAD_RTOL, RESNET_ORACLE_SPREAD * spread)
-    median = _pct([g["fro_rel"] for g in grads.values()], 0.5)
-    median_spread = _pct([g["cpu_ulp_fro_rel"] for g in grads.values()], 0.5)
-    median_tol = max(ORACLE_GRAD_RTOL, RESNET_ORACLE_SPREAD * median_spread)
-    worst = max(grads, key=lambda g: grads[g]["fro_rel"])
-    ok = (math.isfinite(loss_err) and loss_err <= RESNET_ORACLE_LOSS_RTOL
-          and spread <= RESNET_ORACLE_SPREAD_MAX and median <= median_tol
-          and all(math.isfinite(g["fro_rel"]) and g["fro_rel"] <= tol
-                  for g in grads.values()))
+    _, _, _, held = ulp_oracle(fluid, main, arrays, feed, fetch,
+                               len(params), lambda k, v: v.ndim == 4, rel,
+                               ORACLE_GRAD_RTOL)
     return {"phase": "train_vgg_oracle", "batch": VGG_ORACLE_BATCH,
-            "seed": seed, "dropout_prob": 0.0,
-            "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
-            "loss_cpu_ulp": float(moved[0][0]), "loss_rel_err": loss_err,
-            "worst_grad": worst, "worst_fro_rel": grads[worst]["fro_rel"],
-            "median_fro_rel": median, "cpu_ulp_worst_fro_rel": spread,
-            "cpu_ulp_median_fro_rel": median_spread,
-            "cpu_ulp_tolerance": RESNET_ORACLE_SPREAD_MAX,
-            "grads": grads, "loss_tolerance": RESNET_ORACLE_LOSS_RTOL,
-            "grad_tolerance": tol, "median_grad_tolerance": median_tol,
-            "ok": ok}
+            "seed": seed, "dropout_prob": 0.0, **held}
 
 
 SPARSE_STEPS = 3
@@ -4910,13 +4929,427 @@ def slice22_phases(torch):
             ("host_ops", lambda: host_ops_phase(torch))]
 
 
-SLICES = {"--slice21": slice21_phases, "--slice22": slice22_phases}
+# ---------------------------------------------------------------------------
+# slice 23: ragged (LoD) feeds and the sequence ops (the stacked dynamic
+# LSTM, ragged buckets, the sentiment conv net)
+# ---------------------------------------------------------------------------
+
+LSTM = dict(dict_dim=5000, hidden_dim=512, stacked_num=3,
+            learning_rate=2e-3)     # bench.py:360-415
+LSTM_BATCH = 64
+LSTM_SEQ = 80
+LSTM_STEPS = 5
+# steps traced for the device's idle share: a traced run() step records
+# every one of its thousands of host-side torch ops, so that path
+# traces one
+LSTM_PROFILED = {"run": 1, "prepared": 2}
+RAGGED_MAX = (80, 56, 33)           # padded T 80, 56 and 40
+RAGGED_ORDER = (0, 1, 2, 0, 1, 2, 0)
+# the buckets' graphs share one memory pool and one warm-up stream:
+# after the first (and largest) bucket's capture, the pool and the
+# card's reserved bytes may grow by at most this share; a private pool
+# a bucket would add about (56 + 40) / 80 = 1.2 times the pool, and a
+# new warm-up stream a bucket 10 % of the reserved bytes each (on an
+# H100: 713, 784, 857 MB)
+RAGGED_GROWTH_MAX = 0.1
+LSTM_ORACLE_LENS = (5, 11, 17, 23)
+# train_lstm_oracle's floor under each gradient's bar.  The last fc's
+# bias gradient is a sum over the batch of p - y, terms near +-0.5
+# whose sum nearly cancels: its error is an ulp of the terms, not of
+# itself, and one ulp on the parameters leaves it unmoved.  On an H100
+# the card reads 9.73e-6 there (the other gradients 1.2e-6 at most,
+# within twice the spread), and the CPU step from TF32-rounded weights
+# 4.97e-4: the floor sits between.  The median stays at twice the
+# median spread, with no floor
+LSTM_ORACLE_GRAD_FLOOR = 1e-4
+# the sentiment book model on IMDB's word dictionary (5147 words)
+SENTIMENT = dict(dict_dim=5147, emb_dim=32, hid_dim=32,
+                 learning_rate=0.002)
+SENTIMENT_BATCH = 128
+SENTIMENT_MAX = (80, 60, 40)
+SENTIMENT_TOL = 1e-6
+SLICE23_TIMEOUT_S = 600
+
+
+def build_lstm(fluid, amp=False):
+    from paddle_tpu_torch.models import stacked_dynamic_lstm
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, (words, label), _ = stacked_dynamic_lstm.get_model(**LSTM)
+    if amp:
+        fluid.transpiler.Float16Transpiler().transpile(main)
+    return main, startup, loss, [words, label]
+
+
+def ragged_batch(fluid, main, slots, lens, seed, vocab):
+    """A DataFeeder batch of seeded sequences of ``lens`` tokens, each
+    with a 0/1 label: the words slot a LoDTensor."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return fluid.DataFeeder(slots, program=main).feed(
+        [(rng.randint(0, vocab, int(n)).tolist(), [int(rng.randint(2))])
+         for n in lens])
+
+
+def ragged_lens(mx, n, seed):
+    """``n`` lengths in 8 .. ``mx``, the first ``mx``."""
+    import numpy as np
+
+    lens = np.random.RandomState(seed).randint(8, mx + 1, n)
+    lens[0] = mx
+    return lens
+
+
+def train_lstm(torch, amp):
+    """Phases train_lstm (f32) and train_lstm_amp (bf16 AMP, the bench
+    entry's card default): the stacked dynamic LSTM at bench.py's card
+    width on one batch of LSTM_BATCH sequences of LSTM_SEQ tokens, through
+    run() and the prepared step (its first step captures: ``capture_s``),
+    each 1 first step and LSTM_STEPS timed ones: step ms p50,
+    examples/s, peak memory, the device's idle share over LSTM_PROFILED
+    traced steps (under the profiler); no kernel of the port runs (no
+    TPU kernel on the path); then AGREE_STEPS prepared steps bit for bit
+    against as many run() steps from the same start
+    (``prepared_agreement``)."""
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup, loss, slots = build_lstm(fluid, amp)
+    persist, init = start_arrays(fluid, main, startup, fluid.CUDAPlace(0))
+    feed = ragged_batch(fluid, main, slots, [LSTM_SEQ] * LSTM_BATCH,
+                        SEED + 23, LSTM["dict_dim"])
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    out = {path: _lstm_path(torch, fluid, exe, main, loss, init, path, feed)
+           for path in ("run", "prepared")}
+    failures = ["%s: %s" % (p, r["failures"]) for p, r in out.items()
+                if not r["ok"]]
+    torch.cuda.empty_cache()
+    agreement = prepared_agreement(torch, fluid, main, loss, feed, persist,
+                                   init)
+    if not agreement["bit_identical_to_run"]:
+        failures.append("prepared against run(): %r"
+                        % agreement["worst_vs_tolerance"])
+    r, p = out["run"], out["prepared"]
+    return {"phase": "train_lstm" + ("_amp" if amp else ""), "amp": amp,
+            **LSTM, "batch": LSTM_BATCH, "seq": LSTM_SEQ,
+            "step_ms_p50_run": r["step_ms_p50"],
+            "step_ms_p50_prepared": p["step_ms_p50"],
+            "run_over_prepared": r["step_ms_p50"] / p["step_ms_p50"],
+            "examples_per_s": p["examples_per_s"],
+            "capture_s": p["first_step_s"], "paths": out,
+            "agreement": agreement, "launches": p["launches"],
+            "failures": failures, "ok": not failures}
+
+
+def _lstm_path(torch, fluid, exe, main, loss, init, path, feed):
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    scope = fluid.Scope()
+    set_scope_arrays(scope, init, "cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prep = None
+    try:
+        t0 = time.perf_counter()
+        if path == "prepared":
+            prep = exe.prepare(main, feed_specs=feed, fetch_list=[loss],
+                               scope=scope)
+
+            def step():
+                return prep.run_prepared(feed, return_numpy=True)
+        else:
+            def step():
+                return exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope)
+        losses = [float(step()[0][0])]
+        first_s = time.perf_counter() - t0
+        reset_launches()
+        step_ms = []
+        for _ in range(LSTM_STEPS):
+            t0 = time.perf_counter()
+            o = step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)  # fetch syncs
+            losses.append(float(o[0][0]))
+        launches = {k: fn.launches for k, fn in KERNELS.items()
+                    if fn.launches}
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        device_ms, idle = idle_share(torch, step, LSTM_PROFILED[path])
+        buckets = None
+        if prep is not None:
+            buckets = prep._prep._step.buckets
+            prep.sync_scope()
+        dtypes = param_dtypes(main, scope)
+    finally:
+        del prep, scope
+    failures = []
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        failures.append("losses %r" % losses)
+    if launches:
+        failures.append("a port kernel ran on the LSTM path: %r" % launches)
+    if dtypes != ["float32"]:
+        failures.append("parameter dtypes %r" % dtypes)
+    p50 = _pct(step_ms, 0.5)
+    return {"path": path, "first_step_s": first_s, "losses": losses,
+            "step_ms": step_ms, "step_ms_p50": p50,
+            "examples_per_s": LSTM_BATCH / p50 * 1e3,
+            "max_memory_allocated_bytes": peak,
+            "memory_reserved_bytes": reserved,
+            "device_ms_per_step": device_ms, "device_idle_share": idle,
+            "buckets": buckets, "launches": launches,
+            "param_dtypes": dtypes, "failures": failures,
+            "ok": not failures}
+
+
+def train_lstm_ragged(torch):
+    """Phase train_lstm_ragged: the f32 stacked LSTM on three seeded
+    batches of LSTM_BATCH sequences of 8 .. RAGGED_MAX[i] tokens (padded
+    T 80, 56 and 40), stepped in RAGGED_ORDER through the prepared step:
+    each bucket's first batch captures a graph of its own, every later
+    one replays it (``buckets``: captures and replays a bucket), all in
+    one memory pool, which, with the card's reserved bytes, grows by at
+    most RAGGED_GROWTH_MAX after the first capture
+    (``memory_by_bucket``: both after each new bucket); the losses
+    finite and falling on the repeated batch 0; the same steps through
+    run() from the same start, losses and every persistable bit for
+    bit."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    main, startup, loss, slots = build_lstm(fluid)
+    persist, init = start_arrays(fluid, main, startup, fluid.CUDAPlace(0))
+    batches = [ragged_batch(fluid, main, slots,
+                            ragged_lens(mx, LSTM_BATCH, SEED + 30 + i),
+                            SEED + 40 + i, LSTM["dict_dim"])
+               for i, mx in enumerate(RAGGED_MAX)]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    runs = {}
+    for path in ("prepared", "run"):
+        scope = fluid.Scope()
+        set_scope_arrays(scope, init, "cuda")
+        torch.cuda.empty_cache()
+        reset_launches()
+        losses, step_ms, buckets, memory, pools = [], [], None, [], None
+        if path == "prepared":
+            with exe.prepare(main, feed_specs=batches[0], fetch_list=[loss],
+                             scope=scope) as prep:
+                caps = prep._prep._step._captures
+                for i in RAGGED_ORDER:
+                    n = len(caps)
+                    t0 = time.perf_counter()
+                    o = prep.run_prepared(batches[i], return_numpy=True)
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(float(o[0][0]))
+                    if len(caps) > n:
+                        memory.append(pool_memory(torch, caps))
+                buckets = prep._prep._step.buckets
+                pools = len({c.graph.pool() for c in caps.values()})
+        else:
+            for i in RAGGED_ORDER:
+                t0 = time.perf_counter()
+                o = exe.run(main, feed=batches[i], fetch_list=[loss],
+                            scope=scope)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(o[0][0]))
+        launches = {k: fn.launches for k, fn in KERNELS.items()
+                    if fn.launches}
+        runs[path] = {"losses": losses, "step_ms": step_ms,
+                      "buckets": buckets, "memory_by_bucket": memory,
+                      "pools": pools, "launches": launches,
+                      "state": get_scope_arrays(scope, persist)}
+        del scope
+    p, r = runs["prepared"], runs["run"]
+    identical = p["losses"] == r["losses"] and all(
+        np.array_equal(p["state"][n], r["state"][n]) for n in persist)
+    want = {}
+    for i in RAGGED_ORDER:
+        t = -(-max(RAGGED_MAX[i], 1) // 8) * 8
+        want[t] = want.get(t, 0) + 1
+    got = {int(re.search(r"words\[\d+, (\d+)", k).group(1)): v
+           for k, v in p["buckets"].items()}
+    failures = []
+    if sorted(got) != sorted(want) or any(
+            got[t] != {"captures": 1, "replays": want[t]} for t in want):
+        failures.append("buckets %r, want replays %r" % (p["buckets"], want))
+    first = [p["losses"][j] for j, i in enumerate(RAGGED_ORDER) if i == 0]
+    if not (all(math.isfinite(x) for x in p["losses"])
+            and all(a > b for a, b in zip(first, first[1:]))):
+        failures.append("losses %r" % p["losses"])
+    if not identical:
+        failures.append("prepared against run(): not bit for bit")
+    mem = p["memory_by_bucket"]
+    if p["pools"] != 1:
+        failures.append("the buckets' graphs in %r pools" % p["pools"])
+    for key in ("pool_bytes", "reserved_bytes"):
+        if mem[-1][key] > (1 + RAGGED_GROWTH_MAX) * mem[0][key]:
+            failures.append("%s grew past %g: %r"
+                            % (key, RAGGED_GROWTH_MAX, mem))
+    if p["launches"] or r["launches"]:
+        failures.append("a port kernel ran: %r" % [p["launches"],
+                                                   r["launches"]])
+    return {"phase": "train_lstm_ragged", **LSTM, "batch": LSTM_BATCH,
+            "max_lens": list(RAGGED_MAX), "order": list(RAGGED_ORDER),
+            "buckets": p["buckets"], "buckets_wanted_replays": want,
+            "memory_by_bucket": mem, "pools": p["pools"],
+            "losses_prepared": p["losses"], "losses_run": r["losses"],
+            "step_ms_prepared": p["step_ms"], "step_ms_run": r["step_ms"],
+            "bit_identical_to_run": identical, "launches": p["launches"],
+            "failures": failures, "ok": not failures}
+
+
+def tf32(v):
+    """``v`` (float32) rounded to TF32's 10-bit mantissa, to nearest, as
+    a TF32 product rounds its operands."""
+    import numpy as np
+
+    bits = v.view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def pool_memory(torch, caps):
+    """The bytes reserved on the card in all, and in the memory pool the
+    captured graphs ``caps`` ({signature: _Capture}) share."""
+    pool = tuple(next(iter(caps.values())).graph.pool())
+    size = sum(sg["total_size"]
+               for sg in torch.cuda.memory._snapshot()["segments"]
+               if tuple(sg["segment_pool_id"]) == pool)
+    return {"captures": len(caps), "pool_bytes": size,
+            "reserved_bytes": torch.cuda.memory_reserved()}
+
+
+def lstm_oracle(torch):
+    """Phase train_lstm_oracle: one f32 step of the stacked LSTM at
+    bench.py's width on 4 sequences of LSTM_ORACLE_LENS tokens, held by
+    ``ulp_oracle`` with one ulp added to every parameter (the biases
+    too): each gradient at twice the CPU's worst spread, never below
+    LSTM_ORACLE_GRAD_FLOOR, the median at twice the median spread.  A
+    control shows that the bar sees a lower precision: the CPU step
+    from the parameters rounded to TF32 (only the weights' rounding, a
+    part of what TF32 products do) must read past the bar
+    (``tf32_worst_fro_rel``)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+
+    main, startup, loss, slots = build_lstm(fluid)
+    _, arrays = start_arrays(fluid, main, startup, fluid.CUDAPlace(0))
+    params = sorted(p.name for p in main.all_parameters() if p.trainable)
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+    feed = ragged_batch(fluid, main, slots, LSTM_ORACLE_LENS, SEED + 50,
+                        LSTM["dict_dim"])
+    _, want, _, held = ulp_oracle(fluid, main, arrays, feed, fetch,
+                                  len(params), lambda k, v: k in params,
+                                  fro_rel, LSTM_ORACLE_GRAD_FLOOR, 0.0)
+    host = fluid.Scope()
+    set_scope_arrays(host, {k: tf32(v) if k in params else v
+                            for k, v in arrays.items()}, "cpu")
+    rounded = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=host)
+    tf32_worst = max(fro_rel(a, b) for a, b in zip(rounded[1:], want[1:]))
+    return {"phase": "train_lstm_oracle", "lens": list(LSTM_ORACLE_LENS),
+            **held, "tf32_worst_fro_rel": tf32_worst,
+            "ok": held["ok"] and tf32_worst > held["grad_tolerance"]}
+
+
+def sentiment_conv(torch):
+    """Phase train_sentiment_conv: understand_sentiment's conv net (an
+    is_sparse SENTIMENT["dict_dim"] x 32 embedding, sequence_conv_pool
+    with filters 3 and 4 and sqrt pooling, Adagrad) on three ragged
+    batches of SENTIMENT_BATCH sequences of 8 .. SENTIMENT_MAX[i]
+    tokens: 3 captured steps on the card (one graph a bucket) against 3
+    CPU run() steps from the same start, losses and every persistable
+    within SENTIMENT_TOL (atol and rtol), as sparse_update holds them;
+    the embedding rows no id touched unchanged (the lazy update)."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.models import understand_sentiment
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, slots, _ = understand_sentiment.get_model(net="conv",
+                                                        **SENTIMENT)
+    persist, init = start_arrays(fluid, main, startup, fluid.CPUPlace())
+    batches = [ragged_batch(fluid, main, slots,
+                            ragged_lens(mx, SENTIMENT_BATCH, SEED + 60 + i),
+                            SEED + 70 + i, SENTIMENT["dict_dim"])
+               for i, mx in enumerate(SENTIMENT_MAX)]
+    cpu = fluid.Scope()
+    set_scope_arrays(cpu, init, "cpu")
+    want = [float(fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=b, fetch_list=[loss], scope=cpu)[0].ravel()[0])
+        for b in batches]
+    card = fluid.Scope()
+    set_scope_arrays(card, init, "cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    with fluid.Executor(fluid.CUDAPlace(0)).prepare(
+            main, feed_specs=batches[0], fetch_list=[loss],
+            scope=card) as prep:
+        got = [float(prep.run_prepared(b, return_numpy=True)[0].ravel()[0])
+               for b in batches]
+        buckets = prep._prep._step.buckets
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+    a, b = get_scope_arrays(card, persist), get_scope_arrays(cpu, persist)
+    err = {k: float(np.abs(a[k].astype(np.float64) - b[k]).max())
+           for k in persist}
+    ok = (np.allclose(got, want, rtol=SENTIMENT_TOL, atol=SENTIMENT_TOL)
+          and all(np.allclose(a[k], b[k], rtol=SENTIMENT_TOL,
+                              atol=SENTIMENT_TOL) for k in persist))
+    table = next(p.name for p in main.all_parameters()
+                 if p.shape[0] == SENTIMENT["dict_dim"])
+    ids = np.concatenate([np.asarray(bt["words"].data).ravel()
+                          for bt in batches])
+    untouched = np.setdiff1d(np.arange(SENTIMENT["dict_dim"]), ids)
+    lazy = bool(np.array_equal(a[table][untouched],
+                               init[table][untouched]))
+    failures = []
+    if not ok:
+        failures.append("card against CPU past %g: %r" % (
+            SENTIMENT_TOL, {k: v for k, v in err.items()
+                            if v > SENTIMENT_TOL}))
+    if not lazy:
+        failures.append("untouched embedding rows moved")
+    if len(buckets) != len(SENTIMENT_MAX):
+        failures.append("buckets %r" % buckets)
+    if launches:
+        failures.append("a port kernel ran: %r" % launches)
+    return {"phase": "train_sentiment_conv", **SENTIMENT,
+            "batch": SENTIMENT_BATCH, "max_lens": list(SENTIMENT_MAX),
+            "losses_card": got, "losses_cpu": want, "max_abs_err": err,
+            "buckets": buckets, "seconds": secs, "captured": True,
+            "untouched_rows_unchanged": lazy, "tolerance": SENTIMENT_TOL,
+            "launches": launches, "failures": failures, "ok": not failures}
+
+
+def slice23_phases(torch):
+    """Slice 23's phases in order, as (name, zero-argument callable)."""
+    return [("train_lstm", lambda: train_lstm(torch, False)),
+            ("train_lstm_amp", lambda: train_lstm(torch, True)),
+            ("train_lstm_ragged", lambda: train_lstm_ragged(torch)),
+            ("train_lstm_oracle", lambda: lstm_oracle(torch)),
+            ("train_sentiment_conv", lambda: sentiment_conv(torch))]
+
+
+SLICES = {"--slice21": slice21_phases, "--slice22": slice22_phases,
+          "--slice23": slice23_phases}
 
 
 def slice_main(flag):
-    """``chip_smoke.py --slice21`` / ``--slice22``: that slice's phases
-    alone, each printed as one JSON line; stops at the first that fails
-    (exit 1).  Slice 22's files go under ``_smoke_io/``, removed after."""
+    """``chip_smoke.py --slice21`` / ``--slice22`` / ``--slice23``: that
+    slice's phases alone, each printed as one JSON line; stops at the
+    first that fails (exit 1).  Slice 22's files go under
+    ``_smoke_io/``, removed after."""
     import shutil
 
     import torch
@@ -4927,8 +5360,10 @@ def slice_main(flag):
     try:
         for name, run in SLICES[flag](torch):
             torch.cuda.empty_cache()
+            t0 = time.perf_counter()
             try:
                 result = run()
+                result.setdefault("phase_seconds", time.perf_counter() - t0)
             except Exception as e:
                 traceback.print_exc()
                 result = {"phase": name, "ok": False,
@@ -4978,7 +5413,8 @@ def bench_runs(torch, fused_step_ms):
     BENCH_LAYOUT=NHWC, (information, beside ``fused_step_ms``, phase
     13's p50) BENCH_AMP=0 BENCH_LAYOUT=NHWC, and BENCH_MODEL=transformer
     at its card default (bf16), unfused and fused-block, BENCH_MODEL=vgg
-    at its card default and BENCH_MODEL=resnet32 on cifar10, each
+    at its card default, BENCH_MODEL=resnet32 on cifar10 and
+    BENCH_MODEL=lstm at its card default (bf16, ms/batch), each
     BENCH_ITERS, no secondary but the headline's.  Returns (the runs'
     JSON lines, the phase's summary)."""
     root = os.path.dirname(os.path.abspath(__file__))
@@ -4994,7 +5430,10 @@ def bench_runs(torch, fused_step_ms):
             # takes cifar10, as in bench.py)
             ("vgg", {"BENCH_MODEL": "vgg"}),
             ("resnet32", {"BENCH_MODEL": "resnet32",
-                          "BENCH_DATASET": "cifar10"}))
+                          "BENCH_DATASET": "cifar10"}),
+            # slice 23: the stacked dynamic LSTM at bench.py's card
+            # default (64 x 80 tokens, hidden 512, bf16), ms/batch
+            ("lstm", {"BENCH_MODEL": "lstm"}))
     lines, summary, bad = {}, {}, []
     for name, extra in runs:
         env = {k: v for k, v in os.environ.items()
@@ -5017,7 +5456,15 @@ def bench_runs(torch, fused_step_ms):
         lines[name] = out
         amp = extra.get("BENCH_AMP", "1") == "1"
         checks = bench_checks(out, amp, extra.get("BENCH_PREPARED") != "0")
-        if extra.get("BENCH_MODEL") in ("vgg", "resnet32"):
+        if extra.get("BENCH_MODEL") == "lstm":
+            # bench.py reports no FLOPs for the LSTM: no mfu
+            checks.update(
+                metric=out["metric"] == "stacked_lstm_train_bs64_h512_seq80"
+                "_bf16" and out["unit"] == "ms/batch",
+                mfu=out["mfu"] is None,
+                vs_baseline=out["vs_baseline"] == 184.0 / out["value"],
+                secondary=out["secondary"] is None)
+        elif extra.get("BENCH_MODEL") in ("vgg", "resnet32"):
             model = extra["BENCH_MODEL"]
             checks.update(
                 metric=out["metric"] == (
@@ -5051,7 +5498,8 @@ def bench_runs(torch, fused_step_ms):
         summary[name] = {k: out.get(k) for k in (
             "metric", "value", "step_ms_p50", "step_ms_p90", "step_ms_p99",
             "tflops", "mfu", "amp", "data_format", "fused_stages",
-            "prepared", "prepared_steps", "device")}
+            "prepared", "prepared_steps", "device", "examples_per_sec",
+            "vs_baseline")}
         if out.get("secondary"):
             summary[name]["secondary"] = {k: out["secondary"].get(k) for k in (
                 "metric", "value", "step_ms_p50", "tflops", "mfu", "amp",
@@ -5158,6 +5606,21 @@ def main():
             phase = failure[0]
             raise AssertionError("%s: %s" % failure)
         launches_train.update(launches22)
+
+        # slice 23's phases (ragged feeds, the sequence ops), in a child
+        # process of their own too
+        phase = "slice23"
+        torch.cuda.empty_cache()
+        lines, launches23, failure = slice_subprocess(
+            "--slice23", SLICE23_TIMEOUT_S,
+            ("train_lstm", "train_lstm_amp", "train_lstm_ragged",
+             "train_sentiment_conv"))
+        for line in lines:
+            emit(line)
+        if failure:
+            phase = failure[0]
+            raise AssertionError("%s: %s" % failure)
+        launches_train.update(launches23)
 
         phase = "serve_f32"
         cfg, params = tiny_lm(SEED, **FLAGSHIP_LM)

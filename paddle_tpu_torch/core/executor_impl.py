@@ -55,10 +55,23 @@ host ops between device ops op by op (``_run_interpreted``); an
 all-host program (a save or a load) makes no plan.  ``prepare()``
 refuses a block with host ops (ValueError): callers run() it.
 
-Not ported yet: GSPMD's partition of the whole step over a mesh,
-ragged (LoD) feeds, and the prepared step's numerics twin
-(``entry_health``, bisect snapshots), buffer sanitizer and telemetry
-spans and counters (no observability module is ported).
+A ragged (LoD) feed (``core/lod.LoDTensor``) is padded on the host
+(``_prepare_lod_feeds``, the JAX package's bridge: T up to a multiple of
+``LOD_PAD_MULTIPLE``, nested levels to ``LOD_SEQ_PAD_MULTIPLE``) and
+goes to the device beside its int32 lengths '<name>@LEN' (and
+'<name>@LEN@j' for level j of a nested LoD); the sequence ops read
+them from the env (``lowering.LoweringContext.seq_len_of``).  A length
+never becomes a variable: no '@LEN' name reaches the scope, a fetch of
+one the block did not make is None, and the prepared step keeps them
+with its feeds, not its state.  On a card the prepared step keeps one
+captured graph per padded signature of its ragged feeds
+(``step_graph.StepGraph``); a dense feed of another shape still raises
+``PreparedShapeMismatch``.
+
+Not ported yet: GSPMD's partition of the whole step over a mesh, and
+the prepared step's numerics twin (``entry_health``, bisect
+snapshots), buffer sanitizer and telemetry spans and counters (no
+observability module is ported).
 """
 from __future__ import annotations
 
@@ -66,6 +79,7 @@ import numpy as np
 import torch
 
 from .flags import FLAGS
+from .lod import LoDTensor
 from .lowering import LoweringContext, run_op
 from .registry import get_op_info
 from .selected_rows import SelectedRows
@@ -78,6 +92,94 @@ _INT32_MIN = -(2 ** 31)
 # events around it for its device time (tools/profile_train.py); None,
 # the loop pays one test per op
 OP_HOOK = None
+
+
+LEN_SUFFIX = "@LEN"
+# a ragged batch's time dim is padded up to a multiple of this, so the
+# number of distinct shapes (and of captured graphs) stays bounded
+LOD_PAD_MULTIPLE = 8
+# nested feeds bucket their outer (sub-sequence count) dims too
+LOD_SEQ_PAD_MULTIPLE = 4
+
+
+def _prepare_lod_feeds(feed):
+    """The JAX package's feed bridge, unchanged: LoDTensor feeds ->
+    padded dense array + '<name>@LEN' lengths.  Level-2 LoD pads to
+    [N, S, W, ...] with '@LEN' = outer sentence lengths and '@LEN@1' =
+    [N, S] inner sub-sequence lengths; deeper LoD generalizes
+    recursively, one padded dim and one '@LEN@j' array per level
+    (reference lod_tensor.h:58 depth-unbounded LoD).  Dense feeds pass
+    through, and a feed without a LoDTensor returns as it came."""
+    for v in feed.values():
+        if isinstance(v, LoDTensor) and v.lod:
+            break
+    else:
+        return feed
+
+    for name, v in list(feed.items()):
+        if not (isinstance(v, LoDTensor) and v.lod):
+            continue
+        if len(v.lod) > 2:
+            # level k >= 3: the outer ragged dims bucket to
+            # LOD_SEQ_PAD_MULTIPLE, the innermost (time) to
+            # LOD_PAD_MULTIPLE; '@LEN@j' carries level j's lengths
+            k = len(v.lod)
+            max_dims = []
+            for j in range(k):
+                mult = LOD_PAD_MULTIPLE if j == k - 1 \
+                    else LOD_SEQ_PAD_MULTIPLE
+                mx = max(v.sequence_lengths(j), default=1)
+                max_dims.append(-(-max(mx, 1) // mult) * mult)
+            padded, lens = v.to_padded_klevel(max_dims=max_dims)
+            feed[name] = padded
+            feed[name + LEN_SUFFIX] = lens[0].astype(np.int32)
+            for j in range(1, k):
+                feed[name + LEN_SUFFIX + "@%d" % j] = \
+                    lens[j].astype(np.int32)
+            continue
+        if len(v.lod) == 2:
+            # both ragged dims bucket; the sequence ops fold '@LEN@1'
+            # and work at the finest level (ops/sequence._fold_level2)
+            s_max = max((v.lod[0][i + 1] - v.lod[0][i]
+                         for i in range(len(v.lod[0]) - 1)), default=1)
+            w_max = max((v.lod[1][j + 1] - v.lod[1][j]
+                         for j in range(len(v.lod[1]) - 1)), default=1)
+            s_max = -(-max(s_max, 1) // LOD_SEQ_PAD_MULTIPLE) * \
+                LOD_SEQ_PAD_MULTIPLE
+            w_max = -(-max(w_max, 1) // LOD_PAD_MULTIPLE) * \
+                LOD_PAD_MULTIPLE
+            padded, outer, inner = v.to_padded_2level(
+                max_seq=s_max, max_word=w_max)
+            feed[name] = padded
+            feed[name + LEN_SUFFIX] = outer.astype(np.int32)
+            feed[name + LEN_SUFFIX + "@1"] = inner.astype(np.int32)
+            continue
+        lens = v.sequence_lengths(0)
+        t = max(lens) if lens else 1
+        t = -(-max(t, 1) // LOD_PAD_MULTIPLE) * LOD_PAD_MULTIPLE
+        padded, lengths = v.to_padded(max_len=t)
+        feed[name] = padded
+        feed[name + LEN_SUFFIX] = lengths.astype(np.int32)
+    return feed
+
+
+def is_len_name(name):
+    """True for a sequence-length companion ('<name>@LEN[@j]')."""
+    return LEN_SUFFIX in name
+
+
+def lod_feed_names(block, names):
+    """``names`` with the '@LEN' companions of every ragged one (its
+    var's ``lod_level`` k > 0: '@LEN' and '@LEN@1' .. '@LEN@{k-1}'),
+    for a prepared step given feed names alone."""
+    out = list(names)
+    for name in names:
+        vd = block.find_var_recursive(name)
+        k = getattr(vd, "lod_level", 0) if vd is not None else 0
+        if k:
+            out.append(name + LEN_SUFFIX)
+            out.extend(name + LEN_SUFFIX + "@%d" % j for j in range(1, k))
+    return out
 
 
 class PreparedShapeMismatch(ValueError):
@@ -260,7 +362,7 @@ class PreparedProgram:
                 self.sync_scope()
             self._refresh_from_scope()
             self._scope_epoch = scope.chain_version()
-        feed = dict(feed or {})
+        feed = _prepare_lod_feeds(dict(feed or {}))
         if feed.keys() != self._feed_names:
             self._check_feed_names(feed)
         staged = {name: self._core._feed_host(self._block, name, feed[name])
@@ -340,7 +442,7 @@ class ExecutorCore:
         # device-resident prepared state lands in the scope first
         flush_prepared(scope)
         block = program.blocks[block_id]
-        feed = dict(feed or {})
+        feed = _prepare_lod_feeds(dict(feed or {}))
         fetch_list = list(fetch_list or [])
         prelude, core_ops, postlude, mixed = _segment(block)
         if mixed:
@@ -358,9 +460,15 @@ class ExecutorCore:
             post_writes = {n for op in postlude
                            for n in op.output_arg_names() if n}
             core_fetch = [n for n in fetch_list if n not in post_writes]
+            post_in = [n for op in postlude for n in op.input_arg_names()
+                       if n]
+            # the '@LEN' companions ride along, so a host op sees the
+            # real sequence lengths, not the padded T (None where the
+            # block made none)
+            post_in += [n + LEN_SUFFIX for n in list(post_in)]
             post_reads = sorted({
-                n for op in postlude for n in op.input_arg_names()
-                if n and n not in feed and not scope.has_var(n)
+                n for n in post_in
+                if n not in feed and not scope.has_var(n)
                 and n not in post_writes})
             if core_ops or core_fetch or post_reads:
                 outs = self._run_core(program, block_id, scope, feed,
@@ -395,7 +503,8 @@ class ExecutorCore:
         run_block(ctx, entry)
         for name in entry.persist_outs:
             (scope.find_scope_of(name) or scope).set(name, env[name])
-        return [env[name] for name in fetch_list]
+        return [env.get(name) if is_len_name(name) else env[name]
+                for name in fetch_list]
 
     def _run_interpreted(self, program, block_id, scope, feed, fetch_list,
                          mode):
@@ -437,7 +546,9 @@ class ExecutorCore:
         ``feed_specs`` is a sample feed dict (the first batch: its
         shapes fix the step's, and a batch of another shape raises
         PreparedShapeMismatch) or an iterable of feed names (on a card
-        the first run_prepared's feed fixes the shapes).  Raises
+        the first run_prepared's feed fixes the shapes).  A ragged feed
+        may change its padded shape from batch to batch: the step takes
+        each new bucket (on a card, captures a graph for it).  Raises
         ValueError for a block holding host ops, so that callers fall
         back to run()."""
         if scope is None:
@@ -457,8 +568,11 @@ class ExecutorCore:
                 "whole block on the device: use run()" % (block_id, host))
         fixed = None
         if hasattr(feed_specs, "keys"):
+            feed_specs = _prepare_lod_feeds(dict(feed_specs))
             fixed = {name: tuple(self._feed_host(block, name, val).shape)
                      for name, val in feed_specs.items()}
+        else:
+            feed_specs = lod_feed_names(block, list(feed_specs))
         entry = self._entry(program, block_id, fetch_list)
         if self.device.type == "cuda":
             self._refuse_uncapturable(entry)
@@ -483,9 +597,12 @@ class ExecutorCore:
                     seen.add(name)
                     external.append(name)
             written.update(n for n in op.output_arg_names() if n)
-        # fetching a name the block does not write reads it
+        # fetching a name the block does not write reads it; a '@LEN'
+        # fetch is a length the run makes in the env (or None), never
+        # read from outside
         for name in fetch_list:
-            if name not in written and name not in seen:
+            if name not in written and name not in seen and \
+                    not is_len_name(name):
                 seen.add(name)
                 external.append(name)
         persist_outs = sorted(
@@ -501,6 +618,12 @@ class ExecutorCore:
         (Uncapturable) what a replay cannot reproduce.  (Random ops are
         not refused: ``lowering.RandomStream`` draws afresh at each
         replay.)"""
+        if any(op.type == "lod_reset" and not op.inputs.get("Y")
+               for op in entry.ops):
+            raise Uncapturable(
+                "prepare() on a card: lod_reset copies its target_lod "
+                "lengths from host memory at every step, which a CUDA "
+                "graph cannot capture; use run()")
         if any(op.type == "assign_value" for op in entry.ops):
             raise Uncapturable(
                 "prepare() on a card: assign_value copies its values from "

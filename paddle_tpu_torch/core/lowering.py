@@ -14,7 +14,16 @@ same casts inside the forward it replays, so a white op's backward runs
 in bf16 too and autograd through the casts gives float32 gradients for
 the float32 parameters.
 
-Not ported yet: the JAX package's ragged-sequence ('@LEN') propagation.
+Ragged (LoD) values travel padded [N, T, ...] beside a device-side
+int32 length vector '<name>@LEN' in the env (and '<name>@LEN@j' for
+nested levels), as in the JAX package: the executor puts a ragged
+feed's lengths there (``executor_impl._prepare_lod_feeds``), a
+sequence op (``seq_aware``) reads them through ``ctx.seq_len_of`` and
+sets its outputs' through ``ctx.set_seq_len``, and ``run_op`` carries
+them across every other op whose output keeps the input's [N, T]
+leading dims (``_propagate_seq_lens``).  A ``*_grad`` op's forward
+replay sees the forward op's names (``_FwdOpView``), so a sequence op
+reads the same '<input>@LEN' under differentiation.
 """
 from __future__ import annotations
 
@@ -236,6 +245,14 @@ class LoweringContext:
         self.op = None                  # the op running (executor_impl)
         self.stream = stream            # RandomStream, made at first draw
 
+    def seq_len_of(self, name):
+        """Device-side [N] int32 lengths of a ragged (LoD) value, or None
+        when the value is dense."""
+        return self.env.get(name + "@LEN")
+
+    def set_seq_len(self, name, lengths):
+        self.env[name + "@LEN"] = lengths
+
     def generator(self, seed=0):
         """``torch.Generator`` of a random op (``RandomStream``): the
         op's own for an explicit ``seed`` attr, else the step's, whose
@@ -255,6 +272,42 @@ def run_op(ctx, op):
         ins = amp_cast_ins(op.type, ins, getattr(op, "role", 0))
     outs = info.lower(ctx, ins, attrs, op)
     _scatter_outputs(ctx.env, op, outs)
+    if not info.seq_aware:
+        _propagate_seq_lens(ctx, op)
+
+
+def _propagate_seq_lens(ctx, op):
+    """Carry '<name>@LEN' across ops that keep the [N, T, ...] leading
+    layout (embedding / fc / activation / elementwise chains), the
+    padded-batch analog of the reference's ShareLoD in InferShape: the
+    first input with lengths lends them to every output whose first two
+    dims equal that input's, and each nested level '@LEN@j' while the
+    output keeps dim j + 1."""
+    env = ctx.env
+    lens = src = None
+    nested = []     # (j, '@LEN@j' value) of every nested level present
+    for n in op.input_arg_names():
+        if n and n + "@LEN" in env:
+            lens = env[n + "@LEN"]
+            j = 1
+            while n + "@LEN@%d" % j in env:
+                nested.append((j, env[n + "@LEN@%d" % j]))
+                j += 1
+            src = env.get(n)
+            break
+    if lens is None or not isinstance(src, torch.Tensor) or src.dim() < 2:
+        return
+    lead = tuple(src.shape[:2])
+    for n in op.output_arg_names():
+        if not n or n + "@LEN" in env:
+            continue
+        val = env.get(n)
+        if isinstance(val, torch.Tensor) and val.dim() >= 2 and \
+                tuple(val.shape[:2]) == lead:
+            env[n + "@LEN"] = lens
+            for j, v in nested:
+                if val.dim() >= j + 2 and val.shape[j + 1] == src.shape[j + 1]:
+                    env[n + "@LEN@%d" % j] = v
 
 
 def _gather_inputs(env, op):

@@ -35,11 +35,24 @@ encode on the host) baked in stay valid; fetches come back as clones,
 so a held loss is not overwritten by the next replay.  A feed whose
 shape or dtype differs from the captured one raises
 ``PreparedShapeMismatch`` (``check``), as on the CPU when the
-prepared step was given a sample feed.  The flags the lowering reads
-(``LOWERING_FLAGS``) are those of prepare(): a replay bakes them in, so
-a step after one of them changed raises RuntimeError on both devices.
-The kernels' launch counts made while capturing
-are taken back and added again at every replay.  A capture that fails
+prepared step was given a sample feed, except a ragged feed (one that
+carries '<name>@LEN', and the lengths themselves): a batch whose
+padded signature is new is captured as a graph of its own at its
+first step and replayed from then on, one graph per bucket
+(``buckets`` counts each one's captures and replays), as the serving
+engine keeps one per bucket.  Padding T to a multiple of 8 bounds the
+number of buckets by the longest sequence / 8.  Every capture of a step
+allocates from one memory pool, the first capture's: a replay's
+temporaries are dead once its fetches are cloned and its write-only
+outputs handed on, and replays never overlap, so the graphs reuse one
+another's blocks and the pool holds about the largest bucket's step,
+not the sum over the buckets; their warm-ups and captures all run on
+one side stream, whose cached blocks each later bucket's warm-ups reuse
+(the allocator keeps a stream's blocks to that stream).  The flags the
+lowering reads (``LOWERING_FLAGS``) are those of prepare(): a replay
+bakes them in, so a step after one of them changed raises RuntimeError
+on both devices.  The kernels' launch counts made while capturing are
+taken back and added again at every replay.  A capture that fails
 raises RuntimeError naming the op being captured; nothing falls back to
 running the step eagerly.
 
@@ -62,7 +75,8 @@ import torch
 
 from .. import kernels
 from ..kernels import _build
-from .executor_impl import PreparedShapeMismatch, run_block, to_device
+from .executor_impl import (LEN_SUFFIX, PreparedShapeMismatch, is_len_name,
+                            run_block, to_device)
 from .flags import FLAGS
 from .lowering import LoweringContext, RandomStream
 
@@ -74,6 +88,34 @@ LOWERING_FLAGS = ("bn_bf16",)
 
 def _lowering_flags():
     return {name: getattr(FLAGS, name) for name in LOWERING_FLAGS}
+
+
+def _ragged(name, feeds):
+    """A feed whose padded shape may change from batch to batch: a
+    ragged one (it has '@LEN') or a length itself."""
+    return is_len_name(name) or name + LEN_SUFFIX in feeds
+
+
+def _signature(feeds):
+    return tuple(sorted((n, tuple(t.shape), t.dtype)
+                        for n, t in feeds.items()))
+
+
+class _Capture:
+    """One captured graph: its static feed buffers, its fetch and
+    write-only outputs, the launches one replay makes, and the replays
+    made."""
+
+    __slots__ = ("feeds", "graph", "fetch_out", "outs", "launches",
+                 "replays")
+
+    def __init__(self, feeds, graph, fetch_out, outs, launches):
+        self.feeds = feeds
+        self.graph = graph
+        self.fetch_out = fetch_out
+        self.outs = outs
+        self.launches = launches
+        self.replays = 0
 
 
 class StepGraph:
@@ -94,13 +136,12 @@ class StepGraph:
         state = set(state_names)
         self.write_back = [n for n in entry.persist_outs if n in state]
         self._outs_only = [n for n in entry.persist_outs if n not in state]
-        # the card: static feed buffers, the graph, its fetch and
-        # write-only outputs, and the launches one replay makes
-        self._feeds = None
-        self._graph = None
-        self._fetch_out = None
-        self._graph_outs = {}
-        self._launches = {}
+        # the card: {feed signature: _Capture}, the memory pool they all
+        # capture into (the first capture's) and the stream they warm up
+        # and capture on
+        self._captures = {}
+        self._pool = None
+        self._side = None
         # the step's generators (lowering.RandomStream): reset to the
         # step's seed before each step, and registered with the graph
         self._stream = RandomStream(self._device)
@@ -113,7 +154,7 @@ class StepGraph:
                 and cur.dtype == src.dtype:
             cur.copy_(src)
             return
-        if self._graph is not None:
+        if self._captures:
             raise PreparedShapeMismatch(
                 "state %r is now %s %s, the captured step's %s %s: "
                 "prepare again" % (name, tuple(src.shape), src.dtype,
@@ -138,26 +179,39 @@ class StepGraph:
             fetches, outs = self._step(self._ctx(env, seed))
             self.outs.update(outs)
             return fetches
-        if self._graph is None:
-            self._feeds = {n: t.to(self._device, copy=True)
-                           for n, t in feeds.items()}
-            self._build_graph(seed)
+        sig = _signature(feeds)
+        cap = self._captures.get(sig)
+        if cap is None:
+            cap = self._build_graph({n: t.to(self._device, copy=True)
+                                     for n, t in feeds.items()}, seed)
+            self._captures[sig] = cap
         else:
             for n, t in feeds.items():
-                self._feeds[n].copy_(t)
+                cap.feeds[n].copy_(t)
         # the replay reads the generators' seeds and offsets as they
         # stand: this step's
         self._stream.reset(seed)
-        self._graph.replay()
-        kernels.add_launches(self._launches)
+        cap.graph.replay()
+        cap.replays += 1
+        kernels.add_launches(cap.launches)
         # a re-stage drops the write-only outputs: the replay made them
-        self.outs.update(self._graph_outs)
-        return [t.clone() for t in self._fetch_out]
+        self.outs.update(cap.outs)
+        return [t.clone() for t in cap.fetch_out]
+
+    @property
+    def buckets(self):
+        """{feed shapes: {"captures", "replays"}}: each captured graph
+        (one per padded signature of the ragged feeds) and the replays it
+        made."""
+        return {" ".join("%s%s" % (n, list(shape)) for n, shape, _ in sig):
+                {"captures": 1, "replays": cap.replays}
+                for sig, cap in self._captures.items()}
 
     def check(self, feeds):
-        """Before a step: raise PreparedShapeMismatch for a feed of
-        another shape (or, on a card, dtype) than the step's, and
-        RuntimeError if a flag of ``LOWERING_FLAGS`` changed."""
+        """Before a step: raise PreparedShapeMismatch for a dense feed of
+        another shape than the step's or, on a card, a feed of another
+        dtype, and RuntimeError if a flag of ``LOWERING_FLAGS`` changed.
+        A ragged feed's shape may change (a new bucket)."""
         if self._flags != _lowering_flags():
             raise RuntimeError(
                 "FLAGS %s changed since prepare() (%s then): the prepared "
@@ -167,17 +221,20 @@ class StepGraph:
             if not self._capture:
                 return
             self._fixed = {n: tuple(t.shape) for n, t in feeds.items()}
+        # every capture stages a feed in the same dtype
+        cap = next(iter(self._captures.values()), None)
         for name, t in feeds.items():
             want = self._fixed.get(name)
-            if want is not None and tuple(t.shape) != want:
+            if want is not None and tuple(t.shape) != want and \
+                    not _ragged(name, feeds):
                 raise PreparedShapeMismatch(
                     "feed %r shape %s != the prepared step's %s: prepare "
                     "again for the new batch shape, or use run()"
                     % (name, tuple(t.shape), want))
-            if self._feeds is not None and t.dtype != self._feeds[name].dtype:
+            if cap is not None and t.dtype != cap.feeds[name].dtype:
                 raise PreparedShapeMismatch(
                     "feed %r dtype %s != the captured step's %s"
-                    % (name, t.dtype, self._feeds[name].dtype))
+                    % (name, t.dtype, cap.feeds[name].dtype))
 
     def _ctx(self, env, seed):
         return LoweringContext(self._program, self._block_id, env,
@@ -215,8 +272,10 @@ class StepGraph:
                 self.state[name] = val
         return fetches, {n: outs[n] for n in self._outs_only}
 
-    def _build_graph(self, seed):
-        env = {**self.state, **self._feeds}
+    def _build_graph(self, feeds, seed):
+        """Warm up and capture the step on static ``feeds``; returns its
+        _Capture."""
+        env = {**self.state, **feeds}
         saved = {n: self.state[n].clone() for n in self.write_back}
         ctxs = [None]      # the latest step's context, and no other
 
@@ -241,30 +300,34 @@ class StepGraph:
             return " at op %s" % (op.type if op is not None
                                   else "(after the ops)")
 
+        if self._side is None:
+            self._side = torch.cuda.Stream(self._device)
         graph, (fetches, outs), launches = capture(
             step, "the prepared step", at_op, restore=restore,
-            generators=self._stream.generators)
-        self._graph, self._fetch_out, self._launches = graph, fetches, \
-            launches
-        self._graph_outs = outs
+            stream=self._side, generators=self._stream.generators,
+            pool=self._pool)
+        if self._pool is None:
+            self._pool = graph.pool()
+        return _Capture(feeds, graph, fetches, outs, launches)
 
 
 def capture(step, what, where=None, restore=None,
-            capture_error_mode="global", stream=None, generators=None):
+            capture_error_mode="global", stream=None, generators=None,
+            pool=None):
     """Capture one call of ``step()`` as a CUDA graph; returns (graph,
     what that call returned, {kernel name: launches one replay makes}).
 
     ``WARMUP_STEPS`` calls run first on a side stream (``stream``, else
     a new one): they build the kernels and let cuBLAS and cuDNN choose
     their algorithms; ``restore()`` then undoes what they wrote.  The
-    capture runs on ``stream`` (else ``torch.cuda.graph``'s own) into a
-    private memory pool.  ``generators()`` (after the warm-ups) lists
-    the ``torch.Generator``s the step draws from: they are registered
-    with the graph, so that each replay draws from their seeds and
-    offsets as they stand then (``lowering.RandomStream``).  The
-    launches the wrappers count
-    while this thread captures are taken back: recording a launch is
-    not making one, so the caller adds them at each replay.  A capture
+    capture runs on ``stream`` (else ``torch.cuda.graph``'s own) into
+    ``pool`` (a ``graph.pool()`` handle), else a private memory pool.
+    ``generators()`` (after the warm-ups) lists the ``torch.Generator``s
+    the step draws from: they are registered with the graph, so that
+    each replay draws from their seeds and offsets as they stand then
+    (``lowering.RandomStream``).  The launches the wrappers count while
+    this thread captures are taken back: recording a launch is not
+    making one, so the caller adds them at each replay.  A capture
     that fails raises RuntimeError naming ``what`` (and ``where()``, the
     place it failed); nothing runs in its place."""
     dev = torch.cuda.current_stream().device
@@ -287,7 +350,7 @@ def capture(step, what, where=None, restore=None,
         graph.register_generator_state(g)
     with _build.recording() as rec:
         try:
-            with torch.cuda.graph(graph, stream=stream,
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
                                   capture_error_mode=capture_error_mode):
                 out = step()
         except Exception as e:

@@ -3,7 +3,8 @@
 Counterpart of ``paddle_tpu.fluid`` for the surface the transformer
 LM's and ResNet's training reaches, ``ParallelExecutor`` over a
 sequence-parallel mesh, persistence (``io``), ``DataFeeder`` and the
-high-level ``Trainer`` / ``Inferencer``:
+high-level ``Trainer`` / ``Inferencer``, and ragged (LoD) feeds
+(``create_lod_tensor``) with the sequence layers:
 
     import paddle_tpu_torch.fluid as fluid
     x = fluid.layers.data(name="x", shape=[13])
@@ -47,6 +48,8 @@ from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,
                       BeginStepEvent, EndStepEvent, CheckpointConfig)
 from . import inferencer
 from .inferencer import Inferencer
+from . import lod_tensor
+from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
 
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace
 from paddle_tpu_torch.core.scope import Scope
@@ -65,5 +68,6 @@ __all__ = [
     "load_checkpoint", "clean_checkpoint", "get_latest_checkpoint_serial",
     "DataFeeder", "Trainer", "BeginEpochEvent", "EndEpochEvent",
     "BeginStepEvent", "EndStepEvent", "CheckpointConfig", "Inferencer",
-    "CPUPlace", "CUDAPlace", "Scope",
+    "CPUPlace", "CUDAPlace", "Scope", "lod_tensor", "create_lod_tensor",
+    "create_random_int_lodtensor",
 ]

@@ -1,14 +1,17 @@
-"""DataFeeder: a minibatch (a list of sample tuples) -> a feed dict of
-numpy arrays.
+"""DataFeeder: a minibatch (a list of sample tuples) -> a feed dict.
 
-Counterpart of ``paddle_tpu/fluid/data_feeder.py`` for dense slots.  A
-slot with ``lod_level > 0`` (a ragged sequence) raises
-NotImplementedError: ragged (LoD) feeds are not ported yet (ROADMAP
-queue 1 items 1 + 6).
+Counterpart of ``paddle_tpu/fluid/data_feeder.py`` (parity: reference
+python/paddle/fluid/data_feeder.py).  A dense slot becomes a numpy
+array of the slot's dtype; a slot with ``lod_level`` k > 0 (a ragged
+sequence, nested k deep) becomes a ``core.lod.LoDTensor`` (the flat
+data and its offset table), which the executor pads and pairs with
+'<name>@LEN' lengths on the device.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from paddle_tpu_torch.core.lod import LoDTensor
 
 from .framework import Variable, default_main_program
 
@@ -16,33 +19,47 @@ __all__ = ["DataFeeder"]
 
 
 class DataToLoDTensorConverter:
-    """Stacks one dense slot's samples into an array of the slot's
-    dtype, reshaped to the slot's shape where the samples disagree."""
+    """One slot's samples: stacked into an array of the slot's dtype
+    (reshaped to the slot's shape where the samples disagree), or, for
+    a ragged slot, concatenated with one offset list a level."""
 
     def __init__(self, shape, dtype, lod_level):
-        if lod_level:
-            raise NotImplementedError(
-                "DataFeeder: a slot with lod_level %d (a ragged sequence) "
-                "needs ragged (LoD) feeds, which are not ported to "
-                "paddle_tpu_torch yet (ROADMAP queue 1 items 1 + 6)"
-                % lod_level)
         self.shape = shape
         self.dtype = dtype
+        self.lod_level = lod_level
         self.data = []
+        self.lod = [[0] for _ in range(lod_level)]
 
     def feed(self, data):
-        self.data.append(data)
+        self._feed_impl(data, self.lod, self.lod_level)
+
+    def _feed_impl(self, data, lod, lod_level):
+        if lod_level == 0:
+            self.data.append(data)
+        else:
+            lod[0].append(lod[0][-1] + len(data))
+            for item in data:
+                self._feed_impl(item, lod[1:], lod_level - 1)
 
     def done(self):
-        arr = np.array(self.data, dtype=self.dtype)
-        if self.shape:
-            want = tuple(d for d in self.shape if d > 0)
-            if arr.shape[1:] != want:
-                try:
-                    arr = arr.reshape((-1,) + want)
-                except ValueError:
-                    pass
-        return arr
+        if self.lod_level == 0:
+            arr = np.array(self.data, dtype=self.dtype)
+            if self.shape:
+                want = tuple(d for d in self.shape if d > 0)
+                if arr.shape[1:] != want:
+                    try:
+                        arr = arr.reshape((-1,) + want)
+                    except ValueError:
+                        pass
+            return arr
+        if self.data:
+            flat = np.concatenate(
+                [np.asarray(x, dtype=self.dtype).reshape(-1, *self.shape)
+                 if self.shape else np.asarray(x, dtype=self.dtype)
+                 for x in self.data], axis=0)
+        else:
+            flat = np.zeros([0] + list(self.shape), dtype=self.dtype)
+        return LoDTensor(flat, self.lod)
 
 
 class DataFeeder:
@@ -63,6 +80,8 @@ class DataFeeder:
             shape = list(each_var.shape)
             if shape and shape[0] == -1:   # drop the batch dim
                 shape = shape[1:]
+            if each_var.lod_level > 0 and shape and shape[0] == -1:
+                shape = shape[1:]          # and a ragged slot's padded T
             self.feed_shapes.append(shape)
             self.feed_dtypes.append(each_var.dtype)
         self.place = place

@@ -12,7 +12,7 @@ from paddle_tpu_torch.core.types import np_dtype_to_proto
 from ..layer_helper import LayerHelper
 from ..initializer import ConstantInitializer
 
-__all__ = ["create_parameter", "create_global_var", "cast"]
+__all__ = ["create_parameter", "create_global_var", "cast", "concat"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None,
@@ -43,4 +43,12 @@ def cast(x, dtype):
     helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"in_dtype": int(x.proto_dtype),
                             "out_dtype": int(np_dtype_to_proto(dtype))})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", **locals())
+    out = helper.create_tmp_variable(dtype=helper.input_dtype())
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out

@@ -1,12 +1,13 @@
 """Composite networks (counterpart of ``paddle_tpu/fluid/nets.py``,
 parity: python/paddle/fluid/nets.py): the image blocks the VGG and
-MNIST models build from.  The sequence and attention composites are
-not ported yet (their LoD ops are not, ROADMAP queue 1 item 7)."""
+MNIST models build from, and ``sequence_conv_pool``, the sentiment
+net's text tower.  ``glu`` and the attention composite are not ported
+yet (ROADMAP queue 1 item 7)."""
 from __future__ import annotations
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -51,3 +52,14 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 tmp = layers.dropout(x=tmp, dropout_prob=drop_rate)
     return layers.pool2d(input=tmp, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max"):
+    """Context-window conv over a ragged batch, then a whole-sequence
+    pool (reference nets.py sequence_conv_pool: the sentiment /
+    recommender text tower)."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)

@@ -2,7 +2,8 @@
 
 Counterpart of paddle_tpu/fluid/optimizer.py (minimize =
 append_backward + regularization + clipping +
-_create_optimization_pass); SGD, Momentum and Adam are ported so far.
+_create_optimization_pass); SGD, Momentum, Adagrad and Adam are ported
+so far.
 """
 from __future__ import annotations
 
@@ -18,8 +19,9 @@ from .clip import append_gradient_clip_ops, error_clip_callback
 from . import unique_name
 from . import layers
 
-__all__ = ["SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer", "Adam",
-           "AdamOptimizer", "Optimizer"]
+__all__ = ["SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
+           "Adagrad", "AdagradOptimizer", "Adam", "AdamOptimizer",
+           "Optimizer"]
 
 
 class Optimizer:
@@ -174,6 +176,30 @@ class MomentumOptimizer(Optimizer):
                    "use_nesterov": self._use_nesterov}, infer_shape=False)
 
 
+class AdagradOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.type = "adagrad"
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment_acc = self._get_accumulator(self._moment_acc_str,
+                                           param_and_grad[0])
+        return block.append_op(
+            type=self.type,
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "Moment": moment_acc,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": param_and_grad[0], "MomentOut": moment_acc},
+            attrs={"epsilon": self._epsilon}, infer_shape=False)
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -218,4 +244,5 @@ class AdamOptimizer(Optimizer):
 
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer

@@ -1,6 +1,8 @@
 """Loss ops.
 
 Counterpart of ``paddle_tpu/ops/loss.py`` for the ops ported so far.
+The per-token losses of a ragged input are 0 at its padded positions,
+as the JAX package's are (``_mask_padded``).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ def _cross_entropy(ctx, ins, attrs, op):
     else:
         picked = torch.gather(x, -1, _hard_label_idx(label, x.dim()))
         loss = -torch.log(torch.clamp_min(picked, _TOL))
-    return {"Y": loss}
+    return {"Y": _mask_padded(ctx, op, "X", loss)}
 
 
 @register_op("softmax_with_cross_entropy")
@@ -38,7 +40,22 @@ def _softmax_with_ce(ctx, ins, attrs, op):
     else:
         idx = _hard_label_idx(label, logits.dim())
         loss = -torch.gather(log_softmax, -1, idx)
-    return {"Softmax": softmax, "Loss": loss}
+    return {"Softmax": softmax,
+            "Loss": _mask_padded(ctx, op, "Logits", loss)}
+
+
+def _mask_padded(ctx, op, slot, loss):
+    """Zero the per-token loss at the padded positions of a ragged input
+    (the packed reference never sees padding, cross_entropy_op.cc)."""
+    if op is None:
+        return loss
+    names = op.inputs.get(slot) or []
+    lens = ctx.seq_len_of(names[0]) if names and names[0] else None
+    if lens is None or loss.dim() < 2:
+        return loss
+    mask = (torch.arange(loss.shape[1], device=loss.device)[None, :]
+            < lens[:, None]).to(loss.dtype)
+    return loss * mask.reshape(mask.shape + (1,) * (loss.dim() - 2))
 
 
 def _hard_label_idx(label, logits_ndim):

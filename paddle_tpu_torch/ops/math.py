@@ -61,6 +61,11 @@ def _tanh(ctx, ins, attrs, op):
     return {"Out": torch.tanh(ins["X"])}
 
 
+@register_op("sigmoid")
+def _sigmoid(ctx, ins, attrs, op):
+    return {"Out": torch.sigmoid(ins["X"])}
+
+
 @register_op("square")
 def _square(ctx, ins, attrs, op):
     return {"Out": torch.square(ins["X"])}
@@ -137,10 +142,26 @@ def _sum(ctx, ins, attrs, op):
     return {"Out": out}
 
 
-@register_op("mean")
+@register_op("mean", seq_aware=True)
 def _mean(ctx, ins, attrs, op):
-    """Mean over all elements, as a [1] tensor."""
-    return {"Out": torch.mean(ins["X"]).reshape((1,))}
+    """Mean over all elements, as a [1] tensor; over the valid elements
+    of a ragged input (the reference averages over its sum_T packed
+    tokens, lod_tensor.h:58, so a padded batch must not count its
+    padding)."""
+    x = ins["X"]
+    lens = None
+    if op is not None:
+        names = op.inputs.get("X") or []
+        if names and names[0]:
+            lens = ctx.seq_len_of(names[0])
+    if lens is not None and x.dim() >= 2:
+        mask = (torch.arange(x.shape[1], device=x.device)[None, :]
+                < lens[:, None]).to(x.dtype)
+        mask = mask.reshape(mask.shape + (1,) * (x.dim() - 2))
+        denom = mask.sum() * float(np.prod(x.shape[2:]) or 1.0)
+        return {"Out": ((x * mask).sum()
+                        / torch.clamp(denom, min=1.0)).reshape((1,))}
+    return {"Out": torch.mean(x).reshape((1,))}
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@ anew, and the executor writes those persistables back to the scope.
 
 Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` for the ops ported
 so far: ``sgd`` (dense, and a scatter-add of a SelectedRows gradient),
-``momentum`` (a SelectedRows gradient densified) and ``adam`` (dense,
-and the lazy row-subset update of a SelectedRows gradient).
+``momentum`` (a SelectedRows gradient densified), and ``adam`` and
+``adagrad`` (dense, and the lazy row-subset update of a SelectedRows
+gradient, its duplicates merged at the static length K through
+``selected_rows.add_rows``).
 
 Each update computes in the dtypes jnp promotes to.  The learning rate
 is a 0-dim float32 tensor: in jnp a 0-d float32 array promotes a
@@ -113,3 +115,23 @@ def _adam(ctx, ins, attrs, op):
     p_out = _sub(p, _div(_mul(lr, m1_out), torch.sqrt(m2_out) + eps))
     return {"ParamOut": p_out, "Moment1Out": m1_out, "Moment2Out": m2_out,
             **pows}
+
+
+@register_op("adagrad", grad_maker=None)
+def _adagrad(ctx, ins, attrs, op):
+    p, g, m = ins["Param"], ins["Grad"], ins["Moment"]
+    eps = attrs.get("epsilon", 1e-6)
+    lr = _lr(ins)
+    if isinstance(g, SelectedRows):
+        # reference adagrad_op.cc's SelectedRows kernel: duplicates
+        # merged, then the moment and the parameter updated at the
+        # touched rows alone
+        sr = merge_rows(g)
+        m_n = gather_rows(m, sr) + torch.square(sr.values)
+        p_n = _sub(gather_rows(p, sr),
+                   _div(_mul(lr, sr.values), torch.sqrt(m_n) + eps))
+        return {"ParamOut": scatter_set(p, sr, p_n),
+                "MomentOut": scatter_set(m, sr, m_n)}
+    m_out = m + torch.square(g)
+    p_out = _sub(p, _div(_mul(lr, g), torch.sqrt(m_out) + eps))
+    return {"ParamOut": p_out, "MomentOut": m_out}

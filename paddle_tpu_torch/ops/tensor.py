@@ -21,6 +21,13 @@ def _reshape(ctx, ins, attrs, op):
     return {"Out": x.reshape(shape)}
 
 
+@register_op("concat")
+def _concat(ctx, ins, attrs, op):
+    # torch.cat promotes mixed float dtypes as jnp.concatenate does
+    xs = [x for x in ins.list("X") if x is not None]
+    return {"Out": torch.cat(xs, attrs.get("axis", 0))}
+
+
 @register_op("transpose")
 def _transpose(ctx, ins, attrs, op):
     # a view: a consumer that needs contiguous memory (a kernel) copies

@@ -9,8 +9,8 @@ It reads ``bench.py``'s knobs with its accelerator defaults on the card
 and its CPU defaults with ``BENCH_DEVICE=cpu`` (the only way to run
 without a card):
 
-- ``BENCH_MODEL`` resnet50 (default) | resnet32 | vgg | transformer;
-  the other models ``bench.py`` takes raise NotImplementedError;
+- ``BENCH_MODEL`` resnet50 (default) | resnet32 | vgg | transformer |
+  lstm; the other models ``bench.py`` takes raise NotImplementedError;
 - the image models (ResNet, VGG16-BN): ``BENCH_BATCH`` (256; CPU 16),
   ``BENCH_ITERS`` (60; 5), ``BENCH_DATASET`` (flowers; cifar10: as in
   ``bench.py``, resnet32 is the cifar ResNet and needs cifar10),
@@ -22,6 +22,11 @@ without a card):
   ``BENCH_ITERS`` (30; 3), ``BENCH_DMODEL`` (1024; 64),
   ``BENCH_LAYERS`` (6; 2), ``BENCH_HEADS`` (8; 4), ``BENCH_AMP`` (1 on
   the card; 0), ``BENCH_FUSED_TRANSFORMER`` (the fused-block program);
+- lstm (the stacked dynamic LSTM, ``bench.py``'s ``lstm_bench``, on
+  ragged feeds of ``BENCH_SEQ`` tokens a sequence): ``BENCH_BATCH``
+  (64; 4), ``BENCH_HIDDEN`` (512; 32), ``BENCH_SEQ`` (80; 16),
+  ``BENCH_ITERS`` (30; 3), ``BENCH_AMP`` (1 on the card; 0); a
+  5000-word vocabulary, 3 stacks, Adam 2e-3; ms/batch;
 - ``BENCH_SECONDARY`` (1 on the card; 0): after the ResNet-50 headline,
   the flagship LM as ``bench.py``'s secondary metric, at
   ``BENCH_AMP``'s accelerator default as ``bench.py``'s (bf16 on the
@@ -48,12 +53,13 @@ Each timed step ends with the loss fetch, which waits for the card, so
 ``step_ms_p50/p90/p99`` are device-honest.  The last line of standard
 output is one JSON object: ``metric``, ``value``, ``unit``,
 ``vs_baseline`` (value / ``bench.py``'s baseline: 81.69 for ResNet,
-30.44 for VGG), ``tflops`` (at 224 x 224: ``bench.py``'s 12.3e9 FLOPs a
-training image of ResNet-50, 46.5e9 of VGG16; the LM: ``bench.py``'s
-6 N_params + 6 L d_model T FLOPs a token)
-and ``mfu`` (on the card under AMP only; else null), ``amp``,
-``data_format``, ``fused_stages``, ``prepared``, ``prepared_steps``,
-the step
+30.44 for VGG; the LSTM's 184 ms / value at batch 64, hidden 512, else
+0, with ``examples_per_sec``), ``tflops`` (at 224 x 224:
+``bench.py``'s 12.3e9 FLOPs a training image of ResNet-50, 46.5e9 of
+VGG16; the LM: ``bench.py``'s 6 N_params + 6 L d_model T FLOPs a
+token; the LSTM: null, as in ``bench.py``) and ``mfu`` (on the card
+under AMP only; else null), ``amp``, ``data_format``,
+``fused_stages``, ``prepared``, ``prepared_steps``, the step
 percentiles, ``device`` (the card's name and power limit from
 nvidia-smi, or "cpu"), ``secondary``, and the run's losses and
 parameter dtypes.
@@ -75,9 +81,9 @@ RESNET50_BASELINE = 81.69           # bench.py:29-31, images/s
 VGG_BASELINE = 30.44                # bench.py:770-774, images/s
 DEFAULT_PEAK_TFLOPS = 989.4         # H100 SXM, dense bf16
 SEED = 0
+LSTM_BASELINE_MS = 184.0            # bench.py:405-408, ms/batch (K40m)
 # bench.py's other models, and the ROADMAP item that brings each
 UNPORTED_MODELS = {
-    "lstm": "queue 1 items 7 and 3e (the LoD sequence ops)",
     "alexnet": "queue 1 items 7 and 3e (lrn)",
     "googlenet": "queue 1 items 7 and 3e (concat, the inception ops)"}
 
@@ -318,15 +324,52 @@ def resnet_bench(place, on_card, model="resnet50"):
     return out
 
 
+def lstm_bench(place, on_card):
+    """The stacked dynamic LSTM, bench.py's ``lstm_bench``: a batch of
+    ``BENCH_BATCH`` ragged sequences of ``BENCH_SEQ`` seeded tokens (one
+    bucket), trained through the prepared step; ms/batch."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import stacked_dynamic_lstm
+
+    bs = int(_env("BENCH_BATCH", "64", "4", on_card))
+    hidden = int(_env("BENCH_HIDDEN", "512", "32", on_card))
+    seq = int(_env("BENCH_SEQ", "80", "16", on_card))
+    iters = int(_env("BENCH_ITERS", "30", "3", on_card))
+    amp = _flag("BENCH_AMP", on_card)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, (words, label), _ = stacked_dynamic_lstm.get_model(
+            dict_dim=5000, hidden_dim=hidden)
+    if amp:
+        fluid.transpiler.Float16Transpiler().transpile(main)
+    rng = np.random.RandomState(SEED)
+    feeder = fluid.DataFeeder([words, label], program=main)
+    feed = feeder.feed([(rng.randint(0, 5000, seq).tolist(),
+                         [int(rng.randint(2))]) for _ in range(bs)])
+    losses, step_ms, dtypes, prepared = _train(fluid, place, main, startup,
+                                               loss, [feed], iters)
+    ms = sum(step_ms) / len(step_ms)
+    return {"metric": "stacked_lstm_train_bs%d_h%d_seq%d%s" % (
+                bs, hidden, seq, "_bf16" if amp else ""),
+            "value": ms, "unit": "ms/batch",
+            # indicative, as in bench.py: its baseline is a 2-layer
+            # stack on a K40m, and it counts only at its bs / hidden
+            "vs_baseline": LSTM_BASELINE_MS / ms
+            if (bs, hidden) == (64, 512) else 0.0,
+            "examples_per_sec": bs * iters / (sum(step_ms) / 1e3),
+            **_common(losses, step_ms, dtypes, prepared, amp, on_card),
+            "fused_stages": 0, "tflops": None, "mfu": None}
+
+
 def main():
     model = os.environ.get("BENCH_MODEL", "resnet50")
     if model in UNPORTED_MODELS:
         raise NotImplementedError(
             "BENCH_MODEL=%s is not ported to paddle_tpu_torch yet "
             "(ROADMAP %s)" % (model, UNPORTED_MODELS[model]))
-    if model not in ("resnet50", "resnet32", "vgg", "transformer"):
+    if model not in ("resnet50", "resnet32", "vgg", "transformer", "lstm"):
         raise SystemExit("BENCH_MODEL must be resnet50|resnet32|vgg|"
-                         "transformer, got %r" % model)
+                         "transformer|lstm, got %r" % model)
     if os.environ.get("BENCH_FAKE", "1") != "1":
         raise NotImplementedError(
             "BENCH_FAKE=0: the port has no flowers reader, and nothing "
@@ -334,6 +377,8 @@ def main():
     place, on_card = _place()
     if model == "transformer":
         out = dict(transformer_bench(place, on_card), secondary=None)
+    elif model == "lstm":
+        out = dict(lstm_bench(place, on_card), secondary=None)
     else:
         out = resnet_bench(place, on_card, model)
         # as bench.py: the secondary follows the ResNet-50 headline only

@@ -19,6 +19,11 @@ Builds one of three models as a fluid Program:
 - ``--model vgg``: VGG16-BN (``models/vgg`` get_model: flowers, 224 x
   224, 102 classes, float32 images, NCHW, ten dropout layers, Adam at
   lr 1e-3; ``--batch`` images, default 256; ``--amp`` as for ResNet-50);
+- ``--model lstm``: the stacked dynamic LSTM (``models/
+  stacked_dynamic_lstm`` get_model: a 5000-word vocabulary, hidden 512,
+  3 stacks, Adam at lr 2e-3; ``--batch`` sequences of LSTM_SEQ (80)
+  tokens, default 64, fed as a ragged batch, as ``bench.py`` trains it;
+  ``--amp`` for bf16 mixed precision);
 
 runs its startup program and 2 untimed steps on one fixed batch drawn
 from ``--seed`` (with ``--prepared`` through ``Executor.prepare`` /
@@ -46,8 +51,9 @@ every later step is one replay), then:
 Where the profiler records no device time these read "not measured".
 Run on a CUDA machine from the repository root:
 
-    python -m paddle_tpu_torch.tools.profile_train [--model resnet50 | vgg]
-        [--batch N] [--fuse] [--amp] [--sp P] [--prepared]
+    python -m paddle_tpu_torch.tools.profile_train
+        [--model resnet50 | vgg | lstm] [--batch N] [--fuse]
+        [--amp] [--sp P] [--prepared]
 
 Prints one JSON line.
 """
@@ -65,13 +71,16 @@ from torch.autograd import DeviceType
 from .. import fluid
 from ..core import executor_impl
 from ..core.flags import FLAGS
-from ..models import resnet, transformer, vgg
+from ..models import resnet, stacked_dynamic_lstm, transformer, vgg
 from ..parallel import make_mesh
 
 LM = dict(vocab_size=8192, seq_len=2048, d_model=1024, n_head=8,
           n_layers=6, d_ff=4096, learning_rate=1e-3)
 RESNET50 = dict(data_set="flowers", depth=50, learning_rate=0.01,
                 input_dtype="uint8")
+LSTM = dict(dict_dim=5000, hidden_dim=512, stacked_num=3,
+            learning_rate=2e-3)
+LSTM_SEQ = 80       # tokens a sequence: bench.py's card default
 # {name: the substring of its kernel symbols}: the wgmma kernels' device
 # ms a step, summed over their forms and call sites, and K6's bf16 stem
 # on mma.sync's bf16_kernel (the one kernel of that tile a step runs)
@@ -166,11 +175,11 @@ class OpTimer:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("lm", "resnet50", "vgg"),
+    ap.add_argument("--model", choices=("lm", "resnet50", "vgg", "lstm"),
                     default="lm")
     ap.add_argument("--batch", type=int, default=None,
-                    help="sequences (lm, default 16) or images (resnet50, "
-                    "vgg: default 256)")
+                    help="sequences (lm, default 16; lstm, 64) or images "
+                    "(resnet50, vgg: default 256)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fuse", action="store_true",
@@ -188,9 +197,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.sp and args.model != "lm":
         ap.error("--sp applies to --model lm")
-    if args.fuse and args.model == "vgg":
+    if args.fuse and args.model in ("vgg", "lstm"):
         ap.error("--fuse applies to --model lm and resnet50")
-    FLAGS.bn_bf16 = args.amp and args.model != "lm"
+    FLAGS.bn_bf16 = args.amp and args.model in ("resnet50", "vgg")
 
     rng = np.random.RandomState(args.seed)
     main_prog, startup = fluid.Program(), fluid.Program()
@@ -204,6 +213,14 @@ def main(argv=None):
                                (batch, LM["seq_len"] + 1)).astype(np.int64)
             feed = {"src": toks[:, :-1], "label": toks[:, 1:, None]}
             per_step, unit = batch * LM["seq_len"], "tokens_per_s"
+        elif args.model == "lstm":
+            batch = args.batch or 64
+            config = dict(LSTM, seq=LSTM_SEQ)
+            loss, (words, label), _ = stacked_dynamic_lstm.get_model(**LSTM)
+            feed = fluid.DataFeeder([words, label], program=main_prog).feed(
+                [(rng.randint(0, LSTM["dict_dim"], LSTM_SEQ).tolist(),
+                  [int(rng.randint(2))]) for _ in range(batch)])
+            per_step, unit = batch, "examples_per_s"
         elif args.model == "vgg":
             batch = args.batch or 256
             config = dict(data_set="flowers", learning_rate=1e-3)

@@ -3,7 +3,9 @@ the CPU at tiny dims, in subprocesses: ResNet depth 8 on cifar10, batch
 4, 2 iterations, AMP off and on, NCHW and NHWC fused, and the LM with
 AMP off and on, the fused-block program under AMP too, each through the
 prepared step (``bench.py``'s default), and the ResNet and the LM once
-with ``BENCH_PREPARED=0`` (``run()``).  Each run exits 0 and prints one
+with ``BENCH_PREPARED=0`` (``run()``); the stacked dynamic LSTM at
+``bench.py``'s CPU sizes (batch 4, hidden 32, 16 tokens, 3 iterations)
+on ragged feeds, prepared.  Each run exits 0 and prints one
 parseable JSON last line with ``bench.py``'s fields; each refusal exits
 non-zero with its reason.  The LM, the secondary metric
 included, takes ``BENCH_AMP`` with ``bench.py``'s default: on on the
@@ -33,6 +35,7 @@ RUNS[("transformer", "1", None)] = {"BENCH_MODEL": "transformer",
 RUNS[("transformer", "1", "fused")] = {
     "BENCH_MODEL": "transformer", "BENCH_ITERS": "2", "BENCH_AMP": "1",
     "BENCH_FUSED_TRANSFORMER": "1"}
+RUNS[("lstm", "0", None)] = {"BENCH_MODEL": "lstm"}
 # run() instead of the prepared step
 RUNS[("resnet50", "0", "NCHW", "run")] = dict(RESNET, BENCH_AMP="0",
                                              BENCH_LAYOUT="NCHW",
@@ -88,7 +91,8 @@ def test_bench_prints_one_json_line(runs, key):
     prepared = key[3:] != ("run",)
     assert out["amp"] is (amp == "1")
     assert out["prepared"] is prepared and out["device"] == "cpu"
-    assert out["prepared_steps"] == (2 if prepared else 0)
+    iters = 3 if model == "lstm" else 2
+    assert out["prepared_steps"] == (iters if prepared else 0)
     assert out["value"] > 0 and out["secondary"] is None
     # no device metric from a CPU run
     assert out["tflops"] is None and out["mfu"] is None
@@ -103,6 +107,13 @@ def test_bench_prints_one_json_line(runs, key):
         assert out["fused_stages"] == (9 if layout == "NHWC" else 0)
         assert out["bn_bf16"] is (amp == "1")
         assert len(out["losses"]) == 3
+    elif model == "lstm":
+        assert out["unit"] == "ms/batch"
+        assert out["metric"] == "stacked_lstm_train_bs4_h32_seq16"
+        # bench.py's baseline counts at batch 64, hidden 512 only
+        assert out["vs_baseline"] == 0.0 and out["examples_per_sec"] > 0
+        assert len(out["losses"]) == 4 and out["losses"][-1] < \
+            out["losses"][0]
     else:
         assert out["unit"] == "tokens/sec"
         assert out["metric"] == "transformer_lm_d64_L2_train_bs2_seq128" + (
@@ -156,7 +167,9 @@ def test_bench_refusals_raise(monkeypatch, capsys, extra, reason):
 
 
 def test_a_refusal_exits_non_zero():
-    p = _start({"BENCH_MODEL": "lstm"})
+    """(``lstm`` ran into this refusal until ragged feeds were ported:
+    ``alexnet`` still does.)"""
+    p = _start({"BENCH_MODEL": "alexnet"})
     stdout, stderr = p.communicate(timeout=TIMEOUT)
     assert p.returncode != 0 and stdout.strip() == ""
     assert "NotImplementedError" in stderr and "ROADMAP" in stderr

@@ -2164,7 +2164,8 @@ def test_captured_step_copies_feeds_and_keeps_its_addresses_on_card(cuda):
     _, got = prep.run_prepared(feed)
     assert torch.equal(got, src)
     step = prep._prep._step
-    feed_ptr = step._feeds["src"].data_ptr()
+    (cap,) = step._captures.values()
+    feed_ptr = cap.feeds["src"].data_ptr()
     state_ptrs = {n: t.data_ptr() for n, t in step.state.items()}
     assert feed_ptr != src.data_ptr()
     src.copy_(torch.from_numpy(f2["src"]))
@@ -2174,7 +2175,7 @@ def test_captured_step_copies_feeds_and_keeps_its_addresses_on_card(cuda):
     new = get_scope_arrays(scope, [w])[w] * 0.5          # flushes
     scope.set(w, torch.from_numpy(new).to(cuda))         # external write
     prep.run_prepared(feed)
-    assert step._feeds["src"].data_ptr() == feed_ptr
+    assert cap.feeds["src"].data_ptr() == feed_ptr
     assert {n: t.data_ptr() for n, t in step.state.items()} == state_ptrs
 
 
@@ -3073,7 +3074,7 @@ def test_a_save_mid_loop_and_a_load_on_a_captured_step_on_card(cuda,
             with fluid.scope_guard(scope):
                 fluid.io.save_checkpoint(exe, ckpt, main_program=main)
         got.append(prep.run_prepared(f)[0])
-    assert prep._prep._step._graph is not None       # captured
+    assert prep._prep._step._captures                # captured
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     files = os.path.join(ckpt, "checkpoint_0", "__model__")
@@ -3142,7 +3143,7 @@ def test_trainer_defaults_to_the_card_on_card(cuda, tmp_path, monkeypatch):
     t, seen = out["card"]
     assert t.place == fluid.CUDAPlace(0)
     assert t.scope.find_var("w").device.type == "cuda"
-    assert prepared[0]._prep._step._graph is not None
+    assert prepared[0]._prep._step._captures
     np.testing.assert_allclose(seen, out["cpu"][1], rtol=1e-5)
     assert seen[-1] < seen[0]
     params = str(tmp_path / "params")
@@ -3194,3 +3195,155 @@ def test_embedding_grad_sums_duplicates_in_one_order_on_card(cuda):
     want = torch.zeros(8192, 1024, dtype=torch.float64, device=cuda)
     want.index_add_(0, ids.reshape(-1), dout.reshape(-1, 1024).double())
     torch.testing.assert_close(first.double(), want, atol=1e-5, rtol=1e-6)
+
+
+def _lstm_program(fluid, hidden=64, stacks=2, vocab=500):
+    from paddle_tpu_torch.models import stacked_dynamic_lstm
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, slots, _ = stacked_dynamic_lstm.get_model(
+            dict_dim=vocab, hidden_dim=hidden, stacked_num=stacks)
+    return main, startup, loss, slots
+
+
+def _ragged_batch(fluid, main, slots, lens, seed, vocab=500):
+    rng = np.random.RandomState(seed)
+    return fluid.DataFeeder(slots, program=main).feed(
+        [(rng.randint(0, vocab, int(n)).tolist(), [int(rng.randint(2))])
+         for n in lens])
+
+
+def _lstm_start(fluid, main, startup, device):
+    from paddle_tpu_torch.fluid.io import get_scope_arrays
+
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    s = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=s)
+    return persist, get_scope_arrays(s, persist)
+
+
+@pytest.mark.cuda
+def test_ragged_lengths_reach_the_card_as_int32_in_a_captured_step(cuda):
+    """A ragged feed's '@LEN' is staged on the card as int32 beside the
+    padded ids, and the step captures as one CUDA graph with
+    capture_error_mode "global": a host read of a length inside the step
+    (``.item()``, a shape from a length) would fail the capture."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+
+    main, startup, loss, slots = _lstm_program(fluid)
+    _, init = _lstm_start(fluid, main, startup, cuda)
+    feed = _ragged_batch(fluid, main, slots, [9, 3, 16, 5], 0)
+    scope = fluid.Scope()
+    set_scope_arrays(scope, init, "cuda")
+    prep = fluid.Executor(fluid.CUDAPlace(0)).prepare(
+        main, feed_specs=feed, fetch_list=[loss], scope=scope)
+    out = prep.run_prepared(feed)[0]
+    step = prep._prep._step
+    (cap,) = step._captures.values()
+    lens = cap.feeds["words@LEN"]
+    assert lens.dtype == torch.int32 and lens.device.type == "cuda"
+    assert lens.tolist() == [9, 3, 16, 5]
+    assert cap.feeds["words"].shape == (4, 16, 1)
+    assert out.device.type == "cuda" and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_prepared_step_over_three_buckets_is_run_bit_for_bit(cuda):
+    """Batches of padded T 24, 16 and 8, stepped 0 1 2 0 1 2 0: one
+    captured graph a bucket, each replayed as often as its batch comes,
+    all three in one memory pool; the losses and every persistable equal
+    run()'s bit for bit."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+
+    main, startup, loss, slots = _lstm_program(fluid)
+    persist, init = _lstm_start(fluid, main, startup, cuda)
+    batches = [_ragged_batch(fluid, main, slots, lens, i)
+               for i, lens in enumerate(([24, 3, 17], [16, 9, 2],
+                                         [5, 8, 1]))]
+    order = (0, 1, 2, 0, 1, 2, 0)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    sa, sb = fluid.Scope(), fluid.Scope()
+    set_scope_arrays(sa, init, "cuda")
+    set_scope_arrays(sb, init, "cuda")
+    la = [exe.run(main, feed=batches[i], fetch_list=[loss], scope=sa)[0]
+          for i in order]
+    with exe.prepare(main, feed_specs=batches[0], fetch_list=[loss],
+                     scope=sb) as prep:
+        lb = [prep.run_prepared(batches[i], return_numpy=True)[0]
+              for i in order]
+        buckets = prep._prep._step.buckets
+        pools = {c.graph.pool() for c in prep._prep._step._captures.values()}
+    assert sorted(v["replays"] for v in buckets.values()) == [2, 2, 3]
+    assert len(pools) == 1
+    assert all(v["captures"] == 1 for v in buckets.values())
+    for a, b in zip(la, lb):
+        np.testing.assert_array_equal(a, b)
+    pa, pb = get_scope_arrays(sa, persist), get_scope_arrays(sb, persist)
+    for n in persist:
+        np.testing.assert_array_equal(pa[n], pb[n])
+
+
+@pytest.mark.cuda
+def test_lstm_step_on_card_matches_the_cpu(cuda):
+    """One f32 step of a 2-stack LSTM (hidden 64) on 4 ragged sequences:
+    the loss and every parameter gradient on the card against
+    Executor(CPUPlace()) from the same parameters, at 1e-4."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+
+    main, startup, loss, slots = _lstm_program(fluid)
+    _, init = _lstm_start(fluid, main, startup, cuda)
+    params = sorted(p.name for p in main.all_parameters())
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+    feed = _ragged_batch(fluid, main, slots, [5, 11, 17, 23], 3)
+    out = {}
+    for place, dev in ((fluid.CUDAPlace(0), "cuda"),
+                       (fluid.CPUPlace(), "cpu")):
+        scope = fluid.Scope()
+        set_scope_arrays(scope, init, dev)
+        out[dev] = fluid.Executor(place).run(main, feed=feed,
+                                             fetch_list=fetch, scope=scope)
+    for n, a, b in zip(fetch, out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a, b, err_msg=n, **TOL)
+
+
+@pytest.mark.cuda
+def test_sparse_adagrad_gives_one_result_in_ten_calls(cuda):
+    """adagrad on a SelectedRows gradient of 16 x 2048 ids (most
+    repeated) into an 8192 x 1024 table: the duplicates merge through
+    selected_rows.add_rows (index_put_ with accumulate), so 10 calls
+    give the same bits; rows no id touched stay as they were."""
+    from paddle_tpu_torch.core.registry import get_op_info
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ids = torch.randint(0, 8192, (16 * 2048,), device=cuda, generator=g)
+    vals = torch.randn(16 * 2048, 1024, device=cuda, generator=g)
+    p = torch.randn(8192, 1024, device=cuda, generator=g)
+    m = torch.rand(8192, 1024, device=cuda, generator=g)
+    lr = torch.full((1,), 0.01, device=cuda)
+    lower = get_op_info("adagrad").lower
+
+    def step():
+        return lower(None, {"Param": p, "Grad": SelectedRows(ids, vals,
+                                                             8192),
+                            "Moment": m, "LearningRate": lr},
+                     {"epsilon": 1e-6}, None)
+
+    first = step()
+    for _ in range(9):
+        out = step()
+        assert torch.equal(out["ParamOut"], first["ParamOut"])
+        assert torch.equal(out["MomentOut"], first["MomentOut"])
+    untouched = torch.ones(8192, dtype=torch.bool, device=cuda)
+    untouched[ids] = False
+    assert untouched.any()
+    assert torch.equal(first["ParamOut"][untouched], p[untouched])
+    dense = torch.zeros_like(p).index_put_((ids,), vals, accumulate=True)
+    m_want = m + dense * dense
+    torch.testing.assert_close(first["MomentOut"][~untouched],
+                               m_want[~untouched], **TOL)

@@ -601,7 +601,7 @@ def test_a_load_of_another_shape_into_a_captured_state_raises():
                        scope=scope)
     prep.run_prepared(_mlp_feed(0))
     step = prep._prep._step
-    step._graph = object()     # as after a capture on a card
+    step._captures[()] = object()     # as after a capture on a card
     w = next(n for n in step.state if n.endswith(".w_0"))
     with pytest.raises(PreparedShapeMismatch, match="prepare again"):
         step.load_state(w, torch.zeros(1, dtype=torch.float64))

@@ -43,11 +43,21 @@ def _torch_threads():
     torch.set_num_threads(prev)
 
 
+def port_feed(feed):
+    """``feed`` with each of the JAX package's LoDTensors as the port's
+    (the same data and offsets)."""
+    from paddle_tpu.core.lod import LoDTensor as JLoD
+    from paddle_tpu_torch.core.lod import LoDTensor
+
+    return {k: LoDTensor(np.asarray(v.data), v.lod)
+            if isinstance(v, JLoD) else v for k, v in feed.items()}
+
+
 def run_in_port(main, feed, fetch_names):
     """Run a ``paddle_tpu.fluid`` program's desc in the port on the CPU."""
     prog = tfluid.Program.parse_from_string(main.desc.serialize_to_string())
     exe = tfluid.Executor(tfluid.CPUPlace())
-    outs = exe.run(prog, feed=feed, fetch_list=fetch_names,
+    outs = exe.run(prog, feed=port_feed(feed), fetch_list=fetch_names,
                    scope=PortScope())
     return dict(zip(fetch_names, outs))
 

@@ -169,7 +169,8 @@ def _embedding_program(fluid, optimizer):
     opt = {"sgd": lambda: fluid.optimizer.SGD(learning_rate=0.5),
            "momentum": lambda: fluid.optimizer.Momentum(
                learning_rate=0.5, momentum=0.9),
-           "adam": lambda: fluid.optimizer.Adam(learning_rate=0.05)}
+           "adam": lambda: fluid.optimizer.Adam(learning_rate=0.05),
+           "adagrad": lambda: fluid.optimizer.Adagrad(learning_rate=0.05)}
     opt[optimizer]().minimize(loss)
     return loss
 
@@ -220,21 +221,23 @@ def _train_both(optimizer, sparse, feeds):
     return runs, init
 
 
-@pytest.mark.parametrize("optimizer", ["sgd", "momentum", "adam"])
+@pytest.mark.parametrize("optimizer", ["sgd", "momentum", "adam",
+                                       "adagrad"])
 def test_sparse_embedding_trains_as_the_reference(optimizer):
     """Losses and parameters within 1e-6 (rtol and atol) of the
     reference's.  Adam's step is lr * m / sqrt(v), about lr whatever
     the gradient's size, so it carries the two packages' float rounding
     of a near-zero gradient into the parameters at lr times its
-    relative size: there the bar is the larger of 1e-6 and the same
-    program's gap with dense gradients (is_sparse off in both
+    relative size; so does Adagrad's, lr * g / sqrt(m), whose first
+    step is about lr as well: there the bar is the larger of 1e-6 and
+    the same program's gap with dense gradients (is_sparse off in both
     packages), measured here."""
     feeds = _embedding_feeds(3)
     runs, init = _train_both(optimizer, True, feeds)
     (jl, jv), (tl, tv) = runs[False], runs[True]
     np.testing.assert_allclose(tl, jl, **TOL)
     tol = dict(TOL)
-    if optimizer == "adam":
+    if optimizer in ("adam", "adagrad"):
         dense, _ = _train_both(optimizer, False, feeds)
         gap = max(float(np.abs(dense[True][1][n] - dense[False][1][n]).max())
                   for n in jv)

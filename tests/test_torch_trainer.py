@@ -467,13 +467,27 @@ def test_data_feeder_feeds_what_the_references_feeds():
 
 
 def test_data_feeder_refuses_a_ragged_slot():
-    main = tfluid.Program()
-    with tfluid.program_guard(main):
-        w = tfluid.layers.data(name="w", shape=[1], dtype="int64",
-                               lod_level=1)
-        feeder = tfluid.DataFeeder(feed_list=[w], program=main)
-    with pytest.raises(NotImplementedError, match="LoD"):
-        feeder.feed([([1, 2],)])
+    """(Its name is kept from when a ragged slot raised.)  A lod_level 1
+    slot beside a dense one builds the reference's LoDTensor: the same
+    flat int64 data and offsets; a feed_list entry that is no Variable
+    still raises."""
+    from paddle_tpu_torch.core.lod import LoDTensor
+
+    samples = [([1, 2], [0]), ([3], [1]), ([4, 5, 6], [0])]
+    out = []
+    for fluid in (jfluid, tfluid):
+        main = fluid.Program()
+        with fluid.program_guard(main):
+            w = fluid.layers.data(name="w", shape=[1], dtype="int64",
+                                  lod_level=1)
+            y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+            out.append(fluid.DataFeeder(feed_list=[w, y],
+                                        program=main).feed(samples))
+    assert isinstance(out[1]["w"], LoDTensor)
+    assert out[1]["w"].lod == out[0]["w"].lod == [[0, 2, 3, 6]]
+    np.testing.assert_array_equal(out[1]["w"].data, out[0]["w"].data)
+    assert out[1]["w"].data.dtype == np.int64
+    np.testing.assert_array_equal(out[1]["y"], out[0]["y"])
     with pytest.raises(TypeError):
         tfluid.DataFeeder(feed_list=[3], program=main)
 
