@@ -198,18 +198,21 @@ class _CacheEntry:
     """A block's plan: ``ops`` (the core ops), ``input_names`` (the names
     read before the block writes them, in order: feeds and scope
     values), ``persist_outs`` (the persistables it writes, sorted),
-    ``fetch_names`` and ``free_after`` (``_free_plan``)."""
+    ``fetch_names``, ``free_after`` (``_free_plan``) and ``body_ops``
+    (the ops of the sub-blocks its control-flow ops run, at any
+    depth)."""
 
     __slots__ = ("ops", "input_names", "persist_outs", "fetch_names",
-                 "free_after")
+                 "free_after", "body_ops")
 
     def __init__(self, ops, input_names, persist_outs, fetch_names,
-                 free_after):
+                 free_after, body_ops):
         self.ops = ops
         self.input_names = input_names
         self.persist_outs = persist_outs
         self.fetch_names = fetch_names
         self.free_after = free_after
+        self.body_ops = body_ops
 
 
 def _cache_key(program, block_id, fetch_list):
@@ -609,22 +612,37 @@ class ExecutorCore:
             n for n in written
             if (vd := block.find_var_recursive(n)) is not None
             and vd.persistable)
+        from ..ops.control_flow import body_ops
+
+        bodies = [o for op in core_ops if "sub_block" in op.attrs
+                  for o in body_ops(program,
+                                    int(op.attrs["sub_block"].value))]
         return _CacheEntry(list(core_ops), external, persist_outs,
                            list(fetch_list),
-                           _free_plan(block, core_ops, set(fetch_list)))
+                           _free_plan(block, core_ops, set(fetch_list)),
+                           bodies)
 
     def _refuse_uncapturable(self, entry):
         """A card captures the prepared step as one CUDA graph; refuse
-        (Uncapturable) what a replay cannot reproduce.  (Random ops are
-        not refused: ``lowering.RandomStream`` draws afresh at each
-        replay.)"""
+        (Uncapturable) what a replay cannot reproduce, in the block and
+        in every sub-block its control-flow ops run, at any depth.
+        (Random ops are not refused: ``lowering.RandomStream`` draws
+        afresh at each replay.)"""
+        ops = entry.ops + entry.body_ops
+        host_read = sorted({op.type for op in ops
+                            if op.type in ("while", "conditional_block")})
+        if host_read:
+            raise Uncapturable(
+                "prepare() on a card: %s read(s) its condition on the host "
+                "at every step, which a CUDA graph replay cannot repeat; "
+                "use run()" % host_read)
         if any(op.type == "lod_reset" and not op.inputs.get("Y")
-               for op in entry.ops):
+               for op in ops):
             raise Uncapturable(
                 "prepare() on a card: lod_reset copies its target_lod "
                 "lengths from host memory at every step, which a CUDA "
                 "graph cannot capture; use run()")
-        if any(op.type == "assign_value" for op in entry.ops):
+        if any(op.type == "assign_value" for op in ops):
             raise Uncapturable(
                 "prepare() on a card: assign_value copies its values from "
                 "host memory at every step, which a CUDA graph cannot "
@@ -778,10 +796,13 @@ def fetches_to_host(outs):
     no bfloat16: a bf16 value (an AMP activation) comes back as float32,
     exactly; fetch with ``return_numpy=False`` to see its dtype.  A
     SelectedRows (a sparse gradient) comes back as one with numpy rows
-    and values."""
+    and values, a TensorArray as one with a numpy buffer and size."""
+    from ..ops.control_flow import TensorArray
+
     return [_host(v) if isinstance(v, torch.Tensor)
             else SelectedRows(_host(v.rows), _host(v.values), v.height)
             if isinstance(v, SelectedRows)
+            else v.map(_host) if isinstance(v, TensorArray)
             else (None if v is None else np.asarray(v)) for v in outs]
 
 

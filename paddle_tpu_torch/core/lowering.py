@@ -24,14 +24,20 @@ them across every other op whose output keeps the input's [N, T]
 leading dims (``_propagate_seq_lens``).  A ``*_grad`` op's forward
 replay sees the forward op's names (``_FwdOpView``), so a sequence op
 reads the same '<input>@LEN' under differentiation.
+
+A control-flow op (``ops/control_flow.py``) runs a sub-block through
+``LoweringContext.sub_context`` and ``run_ops``: the sub-context shares
+the block's device, mesh, mode, AMP, seed and random stream, over an
+environment of the op's own making.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .flags import FLAGS
 from .registry import get_op_info
-from .types import proto_to_torch_dtype
+from .types import proto_to_np_dtype, proto_to_torch_dtype
 
 EMPTY_VAR = ""
 
@@ -261,6 +267,35 @@ class LoweringContext:
             self.stream = RandomStream(self.device, self.seed)
         return self.stream.generator(seed)
 
+    def var_desc(self, name):
+        """The VarDesc of ``name`` in this block or the nearest block
+        above it that declares it, or None."""
+        return _find_var(self.program, self.block, name)
+
+    def var_np_dtype(self, name):
+        vd = self.var_desc(name)
+        return np.float32 if vd is None else proto_to_np_dtype(vd.dtype)
+
+    def sub_context(self, block_idx, env):
+        """Context for running sub-block ``block_idx`` (a control-flow
+        body) over ``env``: the same device, mesh, mode, AMP and seed,
+        and the same random stream, so a body's draws advance the
+        step's one stream."""
+        if self.stream is None:
+            self.stream = RandomStream(self.device, self.seed)
+        return LoweringContext(self.program, block_idx, env, self.device,
+                               seed=self.seed, mesh=self.mesh,
+                               stream=self.stream, mode=self.mode)
+
+
+def run_ops(ctx):
+    """Run every op of ``ctx.block`` in order over ``ctx.env``
+    (``ctx.op`` names the op running)."""
+    for op in ctx.block.ops:
+        ctx.op = op
+        run_op(ctx, op)
+    ctx.op = None
+
 
 def run_op(ctx, op):
     info = get_op_info(op.type)
@@ -393,6 +428,10 @@ def generic_grad_lower(ctx, ins, attrs, op):
         {s: list(op.inputs.get(s, [])) for s in fwd_output_slots})
 
     merged = {s: list(ins.list(s)) for s in fwd_input_slots}
+    # a TensorArray (ops/control_flow.py) is no leaf: its gradient stays
+    # a hole
+    wrt = [(slot, i) for slot, i in wrt
+           if isinstance(merged[slot][i], torch.Tensor)]
     leaves = []
     with torch.enable_grad():
         for slot, i in wrt:
@@ -425,7 +464,7 @@ def generic_grad_lower(ctx, ins, attrs, op):
                 cots.append(g)
         grads = (torch.autograd.grad(outputs, leaves, cots,
                                      allow_unused=True)
-                 if outputs else [None] * len(leaves))
+                 if outputs and leaves else [None] * len(leaves))
     by_leaf = {}
     for (slot, i), leaf, g in zip(wrt, leaves, grads):
         by_leaf[(slot, i)] = torch.zeros_like(leaf.detach()) if g is None \
@@ -470,12 +509,18 @@ def _is_float(x):
 _FAKE_BATCH = 97
 _FAKE_BATCH_ALT = 89
 _META = torch.device("meta")
+# the JAX package's eval_shape runs in its default 32-bit mode, where
+# every 64-bit output narrows: its descs record these dtypes so (the
+# lowering keeps the 64-bit tensor)
+_X32 = {torch.int64: torch.int32, torch.float64: torch.float32,
+        torch.uint64: torch.uint32}
 
 
 def infer_op_outputs(program, block, op):
     """Infer output (shape, torch dtype) per output var by running the
     op's registered ``infer_shape`` or, as the general fallback, its
-    lowering on ``meta`` tensors (no data, no FLOPs)."""
+    lowering on ``meta`` tensors (no data, no FLOPs; a 64-bit dtype
+    recorded narrowed, as the JAX package's ``_X32``)."""
     info = get_op_info(op.type)
     attrs = {k: a.value for k, a in op.attrs.items()}
 
@@ -540,7 +585,9 @@ def infer_op_outputs(program, block, op):
                     shape.append(-1)
                 else:
                     shape.append(d)
-            result[n] = (tuple(shape), t.dtype)
+            dtype = t.dtype if callable(info.infer_shape) \
+                else _X32.get(t.dtype, t.dtype)
+            result[n] = (tuple(shape), dtype)
     return result
 
 

@@ -81,3 +81,7 @@ def get_op_info(type_):
 
 def has_op(type_):
     return type_ in _registry
+
+
+def registered_ops():
+    return sorted(_registry.keys())

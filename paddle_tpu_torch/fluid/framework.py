@@ -132,6 +132,77 @@ class Variable:
 
     __str__ = __repr__
 
+    # math_op_patch (reference layers/math_op_patch.py): operators build ops
+    def _binary_op(self, other, op_type, reverse=False):
+        block = self.block
+        if not isinstance(other, Variable):
+            from .layers.tensor import fill_constant
+            if isinstance(other, (int, float)):
+                other = fill_constant(shape=[1], dtype=self.dtype,
+                                      value=float(other))
+            else:
+                raise TypeError("unsupported operand %r" % (other,))
+        x, y = (other, self) if reverse else (self, other)
+        out = block.create_var(dtype=x.dtype)
+        block.append_op(type=op_type, inputs={"X": x, "Y": y},
+                        outputs={"Out": out}, attrs={"axis": -1})
+        return out
+
+    def __add__(self, o):
+        return self._binary_op(o, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary_op(o, "elementwise_sub")
+
+    def __rsub__(self, o):
+        return self._binary_op(o, "elementwise_sub", reverse=True)
+
+    def __mul__(self, o):
+        return self._binary_op(o, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary_op(o, "elementwise_div")
+
+    def __rtruediv__(self, o):
+        return self._binary_op(o, "elementwise_div", reverse=True)
+
+    def __pow__(self, o):
+        return self._binary_op(o, "elementwise_pow")
+
+    def __neg__(self):
+        block = self.block
+        out = block.create_var(dtype=self.dtype)
+        block.append_op(type="scale", inputs={"X": self},
+                        outputs={"Out": out}, attrs={"scale": -1.0})
+        return out
+
+    def _cmp_op(self, other, op_type):
+        block = self.block
+        if not isinstance(other, Variable):
+            from .layers.tensor import fill_constant
+            other = fill_constant(shape=[1], dtype=self.dtype,
+                                  value=float(other))
+        out = block.create_var(dtype="bool")
+        block.append_op(type=op_type, inputs={"X": self, "Y": other},
+                        outputs={"Out": out})
+        return out
+
+    def __lt__(self, o):
+        return self._cmp_op(o, "less_than")
+
+    def __le__(self, o):
+        return self._cmp_op(o, "less_equal")
+
+    def __gt__(self, o):
+        return self._cmp_op(o, "greater_than")
+
+    def __ge__(self, o):
+        return self._cmp_op(o, "greater_equal")
+
 
 class Parameter(Variable):
     """A trainable persistable Variable (reference framework.py:1272)."""

@@ -12,8 +12,10 @@ from ..initializer import ConstantInitializer, NormalInitializer
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
     "softmax", "cross_entropy", "softmax_with_cross_entropy", "mean",
-    "reshape", "transpose", "topk", "scale", "elementwise_add", "dropout",
-    "matmul", "square_error_cost", "reduce_sum",
+    "reshape", "transpose", "topk", "scale", "elementwise_add",
+    "elementwise_sub", "elementwise_mul", "elementwise_div",
+    "elementwise_max", "elementwise_min", "elementwise_pow", "dropout",
+    "matmul", "square_error_cost", "reduce_sum", "reduce_mean",
 ]
 
 
@@ -281,6 +283,30 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_add", x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
     helper = LayerHelper("dropout", **locals())
     out = helper.create_tmp_variable(dtype=x.dtype)
@@ -316,14 +342,22 @@ def square_error_cost(input, label):
     return square_out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", **locals())
+def _reduce(op_type, input, dim, keep_dim, name):
+    helper = LayerHelper(op_type, **locals())
     out = helper.create_tmp_variable(dtype=input.dtype)
     if dim is None:
         attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
     else:
         attrs = {"dim": dim if isinstance(dim, list) else [dim],
                  "keep_dim": keep_dim, "reduce_all": False}
-    helper.append_op(type="reduce_sum", inputs={"X": [input]},
+    helper.append_op(type=op_type, inputs={"X": [input]},
                      outputs={"Out": [out]}, attrs=attrs)
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)

@@ -9,10 +9,15 @@ import numpy as np
 
 from paddle_tpu_torch.core.types import np_dtype_to_proto
 
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 from ..initializer import ConstantInitializer
 
-__all__ = ["create_parameter", "create_global_var", "cast", "concat"]
+__all__ = [
+    "create_parameter", "create_global_var", "cast", "concat", "sums",
+    "assign", "fill_constant", "fill_constant_batch_size_like", "ones",
+    "zeros",
+]
 
 
 def create_parameter(shape, dtype, name=None, attr=None,
@@ -52,3 +57,72 @@ def concat(input, axis=0, name=None):
     helper.append_op(type="concat", inputs={"X": input},
                      outputs={"Out": [out]}, attrs={"axis": axis})
     return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum", **locals())
+    if out is None:
+        out = helper.create_tmp_variable(dtype=helper.input_dtype())
+    helper.append_op(type="sum", inputs={"X": input},
+                     outputs={"Out": [out]})
+    return out
+
+
+def assign(input, output=None):
+    helper = LayerHelper("assign", **locals())
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_tmp_variable(dtype=input.dtype)
+        helper.append_op(type="assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+    elif isinstance(input, np.ndarray):
+        if output is None:
+            output = helper.create_tmp_variable(dtype=input.dtype)
+        if input.dtype in (np.float32, np.float64):
+            values = [float(v) for v in input.astype(np.float32).flat]
+            key = "fp32_values"
+        else:
+            values = [int(v) for v in input.astype(np.int32).flat]
+            key = "int32_values"
+        helper.append_op(type="assign_value", outputs={"Out": [output]},
+                         attrs={"shape": list(input.shape),
+                                "dtype": int(np_dtype_to_proto(input.dtype)),
+                                key: values})
+    else:
+        raise TypeError("assign expects Variable or ndarray")
+    return output
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant", **locals())
+    if out is None:
+        out = helper.create_tmp_variable(dtype=dtype)
+    helper.append_op(type="fill_constant", outputs={"Out": [out]},
+                     attrs={"shape": [int(s) for s in shape],
+                            "dtype": int(np_dtype_to_proto(dtype)),
+                            "value": float(value)})
+    out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like", **locals())
+    out = helper.create_tmp_variable(dtype=dtype)
+    helper.append_op(type="fill_constant_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": [int(s) for s in shape],
+                            "dtype": int(np_dtype_to_proto(dtype)),
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    out.stop_gradient = True
+    return out
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(value=1.0, shape=shape, dtype=dtype)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(value=0.0, shape=shape, dtype=dtype)

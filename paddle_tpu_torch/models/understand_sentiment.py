@@ -4,10 +4,10 @@ python/paddle/fluid/tests/book/notest_understand_sentiment.py — the
 convolution net, the hand-built DynamicRNN LSTM; the stacked-LSTM
 variant lives in models/stacked_dynamic_lstm.py).
 
-Text towers are ragged (lod_level=1) batches.  ``convolution_net``
-(sequence_conv_pool, an ``is_sparse`` embedding, Adagrad) runs;
-``dyn_rnn_lstm`` needs ``DynamicRNN``, which is not ported yet, and
-raises NotImplementedError.
+Text towers are ragged (lod_level=1) batches: ``convolution_net``
+through sequence_conv_pool, ``dyn_rnn_lstm`` through a DynamicRNN
+(``fluid/layers/control_flow.py``), both over an ``is_sparse``
+embedding and trained with Adagrad.
 """
 from __future__ import annotations
 
@@ -33,12 +33,37 @@ def convolution_net(data, input_dim, class_dim=2, emb_dim=32, hid_dim=32):
 
 def dyn_rnn_lstm(data, input_dim, class_dim=2, emb_dim=32, lstm_size=128):
     """An LSTM cell written out gate by gate inside a DynamicRNN block
-    (reference notest_understand_sentiment.py:52).  DynamicRNN, a
-    sub-block with its tensor arrays, is not ported yet."""
-    raise NotImplementedError(
-        "understand_sentiment net='dyn_rnn' needs DynamicRNN (sub-blocks "
-        "and control flow), which is not ported to paddle_tpu_torch yet "
-        "(ROADMAP queue 1 item \"1 + 6 (rest)\", sub-blocks)")
+    (reference notest_understand_sentiment.py:52): the control-flow
+    front-end (one masked ``recurrent`` op) rather than the lstm op."""
+    emb = fluid.layers.embedding(input=data, size=[input_dim, emb_dim],
+                                 is_sparse=True)
+    sentence = fluid.layers.fc(input=emb, size=lstm_size, act="tanh")
+
+    rnn = fluid.layers.DynamicRNN()
+    with rnn.block():
+        word = rnn.step_input(sentence)
+        prev_hidden = rnn.memory(value=0.0, shape=[lstm_size])
+        prev_cell = rnn.memory(value=0.0, shape=[lstm_size])
+
+        def gate(ipt, hidden):
+            g0 = fluid.layers.fc(input=ipt, size=lstm_size, bias_attr=True)
+            g1 = fluid.layers.fc(input=hidden, size=lstm_size,
+                                 bias_attr=False)
+            return g0 + g1
+
+        forget_g = fluid.layers.sigmoid(gate(word, prev_hidden))
+        input_g = fluid.layers.sigmoid(gate(word, prev_hidden))
+        output_g = fluid.layers.sigmoid(gate(word, prev_hidden))
+        cell_g = fluid.layers.tanh(gate(word, prev_hidden))
+
+        cell = forget_g * prev_cell + input_g * cell_g
+        hidden = output_g * fluid.layers.tanh(cell)
+        rnn.update_memory(prev_cell, cell)
+        rnn.update_memory(prev_hidden, hidden)
+        rnn.output(hidden)
+
+    last = fluid.layers.sequence_last_step(rnn())
+    return fluid.layers.fc(input=last, size=class_dim, act="softmax")
 
 
 def get_model(dict_dim, net="conv", class_dim=2, emb_dim=32, hid_dim=32,

@@ -40,6 +40,10 @@ def _ew(name, fn):
 _ew("elementwise_add", torch.add)
 _ew("elementwise_sub", torch.sub)
 _ew("elementwise_mul", torch.mul)
+_ew("elementwise_div", torch.div)
+_ew("elementwise_max", torch.maximum)
+_ew("elementwise_min", torch.minimum)
+_ew("elementwise_pow", torch.pow)
 
 
 @register_op("relu")
@@ -89,6 +93,52 @@ def _scale(ctx, ins, attrs, op):
 @register_op("cast")
 def _cast(ctx, ins, attrs, op):
     return {"Out": ins["X"].to(proto_to_torch_dtype(attrs["out_dtype"]))}
+
+
+# ---------------------------------------------------------------------------
+# Comparison / logical (bool outputs, not differentiable)
+# ---------------------------------------------------------------------------
+
+def _cmp(name, fn):
+    def lower(ctx, ins, attrs, op):
+        x = ins["X"]
+        y = broadcast_y_to_x(x, ins["Y"], attrs.get("axis", -1))
+        return {"Out": fn(x, y)}
+
+    register_op(name, lower=lower, grad_maker=None)
+
+
+_cmp("less_than", torch.lt)
+_cmp("less_equal", torch.le)
+_cmp("greater_than", torch.gt)
+_cmp("greater_equal", torch.ge)
+_cmp("equal", torch.eq)
+_cmp("not_equal", torch.ne)
+
+
+def _logical(name, fn, unary=False):
+    def lower(ctx, ins, attrs, op):
+        if unary:
+            return {"Out": fn(ins["X"])}
+        return {"Out": fn(ins["X"], ins["Y"])}
+
+    register_op(name, lower=lower, grad_maker=None)
+
+
+_logical("logical_and", torch.logical_and)
+_logical("logical_or", torch.logical_or)
+_logical("logical_xor", torch.logical_xor)
+_logical("logical_not", torch.logical_not, unary=True)
+
+
+@register_op("increment")
+def _increment(ctx, ins, attrs, op):
+    """X + step in X's dtype: a Python scalar, so no host value is
+    copied to the card (an integer X takes the step as an integer, as
+    the JAX package's cast of it does)."""
+    x = ins["X"]
+    step = attrs.get("step", 1.0)
+    return {"Out": x + (step if x.is_floating_point() else int(step))}
 
 
 # ---------------------------------------------------------------------------
@@ -168,17 +218,23 @@ def _mean(ctx, ins, attrs, op):
 # Reduce family (reference reduce_op.cc)
 # ---------------------------------------------------------------------------
 
-@register_op("reduce_sum")
-def _reduce_sum(ctx, ins, attrs, op):
-    x = ins["X"]
-    dims = attrs.get("dim", [0])
-    if isinstance(dims, int):
-        dims = [dims]
-    keep = attrs.get("keep_dim", False)
-    if attrs.get("reduce_all", False):
-        out = torch.sum(x)
-        out = out.reshape((1,) * x.dim()) if keep else out.reshape((1,))
-    else:
-        axes = tuple(d if d >= 0 else d + x.dim() for d in dims)
-        out = torch.sum(x, dim=axes, keepdim=keep)
-    return {"Out": out}
+def _reduce(name, fn):
+    def lower(ctx, ins, attrs, op):
+        x = ins["X"]
+        dims = attrs.get("dim", [0])
+        if isinstance(dims, int):
+            dims = [dims]
+        keep = attrs.get("keep_dim", False)
+        if attrs.get("reduce_all", False):
+            out = fn(x)
+            out = out.reshape((1,) * x.dim()) if keep else out.reshape((1,))
+        else:
+            axes = tuple(d if d >= 0 else d + x.dim() for d in dims)
+            out = fn(x, dim=axes, keepdim=keep)
+        return {"Out": out}
+
+    register_op(name, lower=lower)
+
+
+_reduce("reduce_sum", torch.sum)
+_reduce("reduce_mean", torch.mean)

@@ -78,6 +78,23 @@ def _fill_constant(ctx, ins, attrs, op):
                               device=ctx.device)}
 
 
+@register_op("fill_constant_batch_size_like", grad_maker=None)
+def _fill_cbsl(ctx, ins, attrs, op):
+    """``shape`` with dim ``output_dim_idx`` taken from the input's dim
+    ``input_dim_idx`` (its batch), filled with ``value``."""
+    dtype = proto_to_torch_dtype(attrs.get("dtype", DataType.FP32))
+    shape = list(attrs.get("shape"))
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ins["Input"].shape[attrs.get("input_dim_idx", 0)]
+    return {"Out": torch.full(tuple(shape), attrs.get("value", 0.0),
+                              dtype=dtype, device=ctx.device)}
+
+
+@register_op("fill_zeros_like", grad_maker=None)
+def _fill_zeros_like(ctx, ins, attrs, op):
+    return {"Out": torch.zeros_like(ins["X"])}
+
+
 def _lookup_idx(ids):
     return ids.reshape(ids.shape[:-1]) if ids.shape[-1] == 1 else ids
 

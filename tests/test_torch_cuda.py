@@ -3347,3 +3347,143 @@ def test_sparse_adagrad_gives_one_result_in_ten_calls(cuda):
     m_want = m + dense * dense
     torch.testing.assert_close(first["MomentOut"][~untouched],
                                m_want[~untouched], **TOL)
+
+
+def _dyn_rnn_program(fluid, vocab=500):
+    from paddle_tpu_torch.models import understand_sentiment
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, slots, _ = understand_sentiment.get_model(
+            vocab, net="dyn_rnn", emb_dim=16, hid_dim=32)
+    return main, startup, loss, slots
+
+
+@pytest.mark.cuda
+def test_dynamic_rnn_step_captured_over_two_buckets_is_run_bit_for_bit(
+        cuda):
+    """The sentiment DynamicRNN on batches of padded T 16 and 8, stepped
+    0 1 0 1: one captured graph a bucket in one memory pool (the
+    recurrent op's loop and its replayed gradient inside it); the losses
+    and every persistable equal run()'s bit for bit."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+
+    main, startup, loss, slots = _dyn_rnn_program(fluid)
+    persist, init = _lstm_start(fluid, main, startup, cuda)
+    batches = [_ragged_batch(fluid, main, slots, lens, 20 + i)
+               for i, lens in enumerate(([16, 3, 11], [5, 8, 1]))]
+    order = (0, 1, 0, 1)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    sa, sb = fluid.Scope(), fluid.Scope()
+    set_scope_arrays(sa, init, "cuda")
+    set_scope_arrays(sb, init, "cuda")
+    la = [exe.run(main, feed=batches[i], fetch_list=[loss], scope=sa)[0]
+          for i in order]
+    with exe.prepare(main, feed_specs=batches[0], fetch_list=[loss],
+                     scope=sb) as prep:
+        lb = [prep.run_prepared(batches[i], return_numpy=True)[0]
+              for i in order]
+        buckets = prep._prep._step.buckets
+        pools = {c.graph.pool() for c in prep._prep._step._captures.values()}
+    assert sorted(v["replays"] for v in buckets.values()) == [2, 2]
+    assert len(pools) == 1
+    for a, b in zip(la, lb):
+        np.testing.assert_array_equal(a, b)
+    pa, pb = get_scope_arrays(sa, persist), get_scope_arrays(sb, persist)
+    for n in persist:
+        np.testing.assert_array_equal(pa[n], pb[n])
+
+
+def _host_read_in_a_body(fluid, kind):
+    """A DynamicRNN whose body holds a ``kind`` op (while or
+    conditional_block), which reads its condition on the host."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = L.data(name="x", shape=[3], dtype="float32", lod_level=1)
+        rnn = L.DynamicRNN()
+        with rnn.block():
+            x_t = rnn.step_input(x)
+            h = rnn.memory(shape=[3], value=0.0)
+            h_new = L.elementwise_add(h, x_t)
+            if kind == "while":
+                i = L.fill_constant([1], "float32", 0.0)
+                n = L.fill_constant([1], "float32", 2.0)
+                cond = L.less_than(i, n)
+                with L.While(cond=cond).block():
+                    L.assign(L.scale(h_new, scale=0.5), h_new)
+                    L.increment(i, value=1.0)
+                    L.less_than(i, n, cond=cond)
+            else:
+                cond = L.greater_than(L.reduce_sum(x_t),
+                                      L.fill_constant([1], "float32", 0.0))
+                with L.ConditionalBlock([cond]).block():
+                    L.assign(L.scale(h_new, scale=0.5), h_new)
+            rnn.update_memory(h, h_new)
+            rnn.output(h_new)
+        loss = L.mean(rnn())
+    return main, startup, loss
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["while", "conditional_block"])
+def test_host_read_control_flow_in_a_body_is_uncapturable(cuda, kind):
+    """prepare() on the card raises Uncapturable for a while and for a
+    conditional_block nested in a recurrent body (a replay cannot read
+    a condition); run() on the card gives the CPU's output."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.executor_impl import Uncapturable
+    from paddle_tpu_torch.core.lod import LoDTensor
+
+    main, startup, loss = _host_read_in_a_body(fluid, kind)
+    data = np.random.RandomState(0).randn(9, 3).astype(np.float32)
+    feed = {"x": LoDTensor(data, [[0, 4, 6, 9]])}
+    out = {}
+    for dev, place in (("cuda", fluid.CUDAPlace(0)),
+                       ("cpu", fluid.CPUPlace())):
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        if dev == "cuda":
+            with pytest.raises(Uncapturable, match=kind):
+                exe.prepare(main, feed_specs=feed, fetch_list=[loss],
+                            scope=scope)
+        out[dev] = exe.run(main, feed=feed, fetch_list=[loss],
+                           scope=scope)[0]
+    np.testing.assert_allclose(out["cuda"], out["cpu"], **TOL)
+
+
+@pytest.mark.cuda
+def test_tensor_array_on_card_has_no_host_sync_in_a_replay(cuda):
+    """A TensorArray written and read at device indices (one write past
+    the capacity, clamped) inside a captured step: the replay runs under
+    torch.cuda.set_sync_debug_mode("error"), so any host sync in it
+    raises; the values and the length equal run()'s."""
+    import paddle_tpu_torch.fluid as fluid
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        v = L.fill_constant([4, 8], "float32", 1.5)
+        arr = L.create_array("float32", element_shape=[4, 8], capacity=4)
+        idx = [L.fill_constant([1], "int64", k) for k in (0, 2, 7)]
+        for k, i in enumerate(idx):
+            L.array_write(L.scale(v, scale=float(k + 1)), i, array=arr)
+        fetch = [L.array_read(arr, i) for i in idx] + [L.array_length(arr)]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    want = exe.run(main, fetch_list=fetch, scope=scope)
+    prep = exe.prepare(main, feed_specs={}, fetch_list=fetch, scope=scope)
+    prep.run_prepared({})           # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = prep.run_prepared({})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(t.device.type == "cuda" for t in got)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b)
+    assert int(want[3][0]) == 8
+    np.testing.assert_array_equal(want[2], np.full((4, 8), 4.5, np.float32))

@@ -14,8 +14,8 @@ stacks, batch 4, T <= 12).
   reference's dtype;
 - the LSTM's prepared step on ragged batches (three padded buckets)
   gives ``run()``'s losses and state bit for bit;
-- ``understand_sentiment`` with ``net="dyn_rnn"`` raises
-  NotImplementedError (DynamicRNN is not ported).
+- ``understand_sentiment`` with ``net="dyn_rnn"`` (a DynamicRNN) builds
+  the reference's ProgramDesc and trains 3 steps as it does.
 """
 import numpy as np
 import pytest
@@ -152,9 +152,10 @@ def _watched(main):
 
 
 def _train(model, amp):
-    """STEPS steps of ``model`` in both packages from the reference's
+    """STEPS steps of ``model`` (a MODELS key, or a (build, jax module,
+    port module) triple) in both packages from the reference's
     startup values: {"jax" | "port": (losses, {watched: dtype})}."""
-    build, jmod, tmod = MODELS[model]
+    build, jmod, tmod = model if isinstance(model, tuple) else MODELS[model]
     jmain, jstart, jloss, jslots = build(jfluid, jmod, amp)
     tmain, tstart, tloss, tslots = build(tfluid, tmod, amp)
     assert tmain.desc.serialize_to_string() == \
@@ -249,8 +250,22 @@ def test_lstm_prepared_over_buckets_is_run_bit_for_bit():
         np.testing.assert_array_equal(pa[n], pb[n])
 
 
-def test_sentiment_dyn_rnn_is_not_ported():
-    main, startup = tfluid.Program(), tfluid.Program()
-    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
-        with pytest.raises(NotImplementedError, match="DynamicRNN"):
-            tsent.get_model(VOCAB, net="dyn_rnn")
+def _sentiment_dyn_model(fluid, module, amp=False):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, slots, _ = module.get_model(VOCAB, net="dyn_rnn", emb_dim=8,
+                                          hid_dim=16)
+    return main, startup, loss, slots
+
+
+def test_sentiment_dyn_rnn_trains_as_the_reference():
+    """The DynamicRNN sentiment net, which raised NotImplementedError
+    before DynamicRNN was ported: the reference's desc, its 3 steps'
+    losses and parameters, every watched op output in its dtype."""
+    out, jv, tv = _train((_sentiment_dyn_model, jsent, tsent), amp=False)
+    np.testing.assert_allclose(out["port"][0], out["jax"][0],
+                               rtol=TRAIN_RTOL)
+    for n in jv:
+        np.testing.assert_allclose(tv[n], jv[n], rtol=1e-4, atol=1e-5,
+                                   err_msg=n)
+    assert out["port"][1] == out["jax"][1]
