@@ -627,7 +627,8 @@ class ExecutorCore:
         (Uncapturable) what a replay cannot reproduce, in the block and
         in every sub-block its control-flow ops run, at any depth.
         (Random ops are not refused: ``lowering.RandomStream`` draws
-        afresh at each replay.)"""
+        afresh at each replay; nor is ``assign_value``: the step reads a
+        device constant made at ``prepare()``.)"""
         ops = entry.ops + entry.body_ops
         host_read = sorted({op.type for op in ops
                             if op.type in ("while", "conditional_block")})
@@ -642,11 +643,6 @@ class ExecutorCore:
                 "prepare() on a card: lod_reset copies its target_lod "
                 "lengths from host memory at every step, which a CUDA "
                 "graph cannot capture; use run()")
-        if any(op.type == "assign_value" for op in ops):
-            raise Uncapturable(
-                "prepare() on a card: assign_value copies its values from "
-                "host memory at every step, which a CUDA graph cannot "
-                "capture (ROADMAP queue 1 item 4, what it leaves); use run()")
         if self.mesh is not None and any(
                 d != self.device for d in map(_indexed, self.mesh.devices)):
             raise Uncapturable(

@@ -238,7 +238,7 @@ class LoweringContext:
     """State shared by the ops of one block run."""
 
     def __init__(self, program, block_idx, env, device, seed=0, mesh=None,
-                 stream=None, mode="train"):
+                 stream=None, mode="train", constants=None):
         self.program = program
         self.block_idx = block_idx
         self.block = program.blocks[block_idx]
@@ -250,6 +250,10 @@ class LoweringContext:
         self.amp = bool(getattr(program, "amp_bf16", False))
         self.op = None                  # the op running (executor_impl)
         self.stream = stream            # RandomStream, made at first draw
+        # {id(op): device tensor}: the prepared step's constants
+        # (assign_value, fill; ops/tensor.CONSTANT_OPS), made once at
+        # prepare()
+        self.constants = constants if constants is not None else {}
 
     def seq_len_of(self, name):
         """Device-side [N] int32 lengths of a ragged (LoD) value, or None
@@ -280,12 +284,13 @@ class LoweringContext:
         """Context for running sub-block ``block_idx`` (a control-flow
         body) over ``env``: the same device, mesh, mode, AMP and seed,
         and the same random stream, so a body's draws advance the
-        step's one stream."""
+        step's one stream, and the same constants."""
         if self.stream is None:
             self.stream = RandomStream(self.device, self.seed)
         return LoweringContext(self.program, block_idx, env, self.device,
                                seed=self.seed, mesh=self.mesh,
-                               stream=self.stream, mode=self.mode)
+                               stream=self.stream, mode=self.mode,
+                               constants=self.constants)
 
 
 def run_ops(ctx):

@@ -63,7 +63,10 @@ counter, drawn once per step) before every step, eager or replayed. A
 replay therefore draws new numbers at every step, the ones ``run()``
 draws at that step, and an op with an explicit ``seed`` draws the same
 numbers at every step; the warm-up steps draw from the first step's seed
-and move no counter.
+and move no counter.  Each ``assign_value`` (a learning-rate table of
+``piecewise_decay``) and ``fill`` is a device constant made once when
+the step is prepared, which every step reads
+(``LoweringContext.constants``).
 
 ``capture`` is that warm-up and capture alone, for any step function:
 the serving engine (``serving/generative.py``) captures each prefill
@@ -79,6 +82,7 @@ from .executor_impl import (LEN_SUFFIX, PreparedShapeMismatch, is_len_name,
                             run_block, to_device)
 from .flags import FLAGS
 from .lowering import LoweringContext, RandomStream
+from ..ops.tensor import CONSTANT_OPS
 
 # steps run before the capture (their updates are undone)
 WARMUP_STEPS = 2
@@ -145,6 +149,13 @@ class StepGraph:
         # the step's generators (lowering.RandomStream): reset to the
         # step's seed before each step, and registered with the graph
         self._stream = RandomStream(self._device)
+        # each assign_value's (and fill's) constant, on the device once:
+        # a replay reads it there (its lowering would copy from the host)
+        self._constants = {
+            id(op): CONSTANT_OPS[op.type](
+                {k: a.value for k, a in op.attrs.items()}, self._device)
+            for op in entry.ops + entry.body_ops
+            if op.type in CONSTANT_OPS}
 
     def load_state(self, name, value):
         """Copy a scope value into the static tensor of ``name``."""
@@ -239,7 +250,8 @@ class StepGraph:
     def _ctx(self, env, seed):
         return LoweringContext(self._program, self._block_id, env,
                                self._device, seed=seed, mesh=self._mesh,
-                               stream=self._stream, mode=self._mode)
+                               stream=self._stream, mode=self._mode,
+                               constants=self._constants)
 
     def _step(self, ctx):
         """The step function: run the block over ``ctx.env``, copy the

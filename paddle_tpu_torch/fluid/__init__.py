@@ -30,6 +30,8 @@ from . import layer_helper
 from . import backward
 from .backward import append_backward, calc_gradient
 from . import optimizer
+from . import regularizer
+from . import clip
 from . import unique_name
 from .executor import Executor, global_scope, scope_guard, fetch_var
 from .parallel_executor import ParallelExecutor
@@ -59,7 +61,8 @@ __all__ = [
     "default_main_program", "default_startup_program", "program_guard",
     "switch_main_program", "switch_startup_program",
     "layers", "initializer", "ParamAttr", "LayerHelper",
-    "append_backward", "calc_gradient", "optimizer", "unique_name",
+    "append_backward", "calc_gradient", "optimizer", "regularizer", "clip",
+    "unique_name",
     "Executor", "global_scope", "scope_guard", "fetch_var", "io",
     "ParallelExecutor", "nets",
     "transpiler", "save_vars", "save_params", "save_persistables",

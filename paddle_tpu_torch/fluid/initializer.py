@@ -1,16 +1,19 @@
 """Parameter initializers — append fill ops to the startup program.
 
-Counterpart of paddle_tpu/fluid/initializer.py (Constant / Uniform /
-Normal / Xavier through fill_constant / uniform_random / gaussian_random
-ops in the startup program).
+Counterpart of paddle_tpu/fluid/initializer.py, class for class
+(Constant / Uniform / Normal / Xavier / MSRA through fill_constant /
+uniform_random / gaussian_random ops in the startup program; Bilinear and
+NumpyArray through assign_value).
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["Constant", "Uniform", "Normal", "Xavier", "ConstantInitializer",
+
+__all__ = ["Constant", "Uniform", "Normal", "Xavier", "MSRA", "Bilinear",
+           "NumpyArrayInitializer", "ConstantInitializer",
            "UniformInitializer", "NormalInitializer", "XavierInitializer",
-           "force_init_on_cpu"]
+           "MSRAInitializer", "force_init_on_cpu"]
 
 
 def force_init_on_cpu():
@@ -91,7 +94,62 @@ class XavierInitializer(Initializer):
             NormalInitializer(0.0, std, self.seed)(var, block)
 
 
+class MSRAInitializer(Initializer):
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform = uniform
+        self.fan_in = fan_in
+        self.seed = seed
+
+    def __call__(self, var, block):
+        fi, _ = _fan_in_out(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = float(np.sqrt(6.0 / fi))
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = float(np.sqrt(2.0 / fi))
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class BilinearInitializer(Initializer):
+    """For upsampling conv_transpose filters (reference initializer.py)."""
+
+    def __call__(self, var, block):
+        shape = var.shape
+        if len(shape) != 4:
+            raise ValueError("bilinear init expects 4-D filter")
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        weight = np.zeros(shape, dtype=np.float32)
+        size = int(np.prod(shape))
+        vals = np.zeros(size, dtype=np.float32)
+        for i in range(size):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            vals[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        weight = vals.reshape(shape)
+        block.append_op(
+            type="assign_value", outputs={"Out": var},
+            attrs={"shape": list(shape), "dtype": int(var.proto_dtype),
+                   "fp32_values": [float(v) for v in weight.flatten()]})
+
+
+class NumpyArrayInitializer(Initializer):
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        block.append_op(
+            type="assign_value", outputs={"Out": var},
+            attrs={"shape": list(self.value.shape),
+                   "dtype": int(var.proto_dtype),
+                   "fp32_values": [float(v) for v in
+                                   self.value.astype(np.float32).flatten()]})
+
+
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer
+Bilinear = BilinearInitializer

@@ -83,4 +83,10 @@ for _op in unary_op_types():
     globals()[_op] = _make_unary(_op)
     _GENERATED.append(_op)
 
-__all__ = list(_GENERATED) + ["unary_op_types"]
+__all__ = list(_GENERATED) + ["uniform_random_like", "unary_op_types"]
+
+
+def uniform_random_like(x, min=-1.0, max=1.0, seed=0):
+    from .nn import uniform_random_batch_size_like
+    return uniform_random_batch_size_like(x, shape=list(x.shape),
+                                          min=min, max=max, seed=seed)

@@ -1,7 +1,7 @@
 """Tensor-creation and manipulation layers.
 
-Counterpart of paddle_tpu/fluid/layers/tensor.py (the layers ported so
-far).
+Counterpart of paddle_tpu/fluid/layers/tensor.py, function for
+function.
 """
 from __future__ import annotations
 
@@ -14,10 +14,17 @@ from ..layer_helper import LayerHelper
 from ..initializer import ConstantInitializer
 
 __all__ = [
-    "create_parameter", "create_global_var", "cast", "concat", "sums",
-    "assign", "fill_constant", "fill_constant_batch_size_like", "ones",
-    "zeros",
+    "create_tensor", "create_parameter", "create_global_var", "cast",
+    "concat", "sums", "assign", "fill_constant",
+    "fill_constant_batch_size_like", "ones", "zeros", "reverse",
+    "argmax", "argmin", "argsort", "isfinite", "range_",
 ]
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
 
 
 def create_parameter(shape, dtype, name=None, attr=None,
@@ -126,3 +133,52 @@ def ones(shape, dtype, force_cpu=False):
 
 def zeros(shape, dtype, force_cpu=False):
     return fill_constant(value=0.0, shape=shape, dtype=dtype)
+
+
+def reverse(x, axis):
+    if isinstance(axis, int):
+        axis = [axis]
+    helper = LayerHelper("reverse", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type="reverse", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def argmax(x, axis=0):
+    helper = LayerHelper("arg_max", **locals())
+    out = helper.create_tmp_variable("int64")
+    helper.append_op(type="arg_max", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper("arg_min", **locals())
+    out = helper.create_tmp_variable("int64")
+    helper.append_op(type="arg_min", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def argsort(input, axis=-1, name=None):
+    helper = LayerHelper("argsort", **locals())
+    out = helper.create_tmp_variable(dtype=input.dtype)
+    ids = helper.create_tmp_variable("int64")
+    helper.append_op(type="argsort", inputs={"X": [input]},
+                     outputs={"Out": [out], "Indices": [ids]},
+                     attrs={"axis": axis})
+    return out, ids
+
+
+def isfinite(x):
+    helper = LayerHelper("isfinite", **locals())
+    out = helper.create_tmp_variable("bool")
+    helper.append_op(type="isfinite", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def range_(start, end, step, dtype):
+    """numpy.arange as a constant (host-computed)."""
+    return assign(np.arange(start, end, step, dtype=np.dtype(dtype)))

@@ -1,9 +1,10 @@
 """The port's operator library: importing this package registers every
-op (counterpart of ``paddle_tpu/ops``; only the ops that the
-transformer LM's, ResNet's and VGG16-BN's training steps, plain and
-fused, sparse embeddings and their optests reach are ported so far,
-the host IO ops, the sequence (LoD) ops with ``adagrad``, and the
-control-flow ops)."""
+op (counterpart of ``paddle_tpu/ops``: ``math``, ``tensor``, ``loss``,
+``random``, ``optimizer_ops``, ``parallel_ops``, ``fused_ops``,
+``io_ops``, ``sequence`` and ``control_flow`` whole, ``nn`` but the
+conv family, ``metric`` but ``auc`` and ``precision_recall``;
+``crf_ctc``, ``beam_search``, ``detection``, ``misc``, the reader,
+concurrency and distributed ops are not ported yet)."""
 from . import math  # noqa: F401
 from . import tensor  # noqa: F401
 from . import nn  # noqa: F401

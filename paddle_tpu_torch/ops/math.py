@@ -1,8 +1,7 @@
 """Math / elementwise / activation / reduce ops.
 
-Counterpart of ``paddle_tpu/ops/math.py`` for the ops ported so far.
-Gradients come from the generic autograd lowering
-(``core/lowering.generic_grad_lower``).
+Counterpart of ``paddle_tpu/ops/math.py``, op for op.  Gradients come
+from the generic autograd lowering (``core/lowering.generic_grad_lower``).
 """
 from __future__ import annotations
 
@@ -44,35 +43,119 @@ _ew("elementwise_div", torch.div)
 _ew("elementwise_max", torch.maximum)
 _ew("elementwise_min", torch.minimum)
 _ew("elementwise_pow", torch.pow)
+# Python's signs, as jnp.mod / jnp.floor_divide
+_ew("elementwise_mod", torch.remainder)
+_ew("elementwise_floordiv", torch.floor_divide)
 
 
-@register_op("relu")
-def _relu(ctx, ins, attrs, op):
-    return {"Out": torch.relu(ins["X"])}
+# ---------------------------------------------------------------------------
+# Activations: one table, as the JAX package's (reference
+# activation_op.cc).  ``fn(x, attrs)``; each lowering reads X and writes
+# Out alone, so ``fluid/layers/ops.py`` generates its layer.
+# ---------------------------------------------------------------------------
+
+def _act(name, fn, **reg_kwargs):
+    def lower(ctx, ins, attrs, op):
+        return {"Out": fn(ins["X"], attrs)}
+
+    register_op(name, lower=lower, **reg_kwargs)
 
 
-@register_op("gelu")
-def _gelu(ctx, ins, attrs, op):
+def _gelu(x, a):
     """The tanh form (the reference's ``jax.nn.gelu(approximate=True)``),
     as K4's epilogue computes it."""
     from paddle_tpu_torch.kernels.matmul_fused import apply_act
 
-    return {"Out": apply_act(ins["X"], "gelu")}
+    return apply_act(x, "gelu")
 
 
-@register_op("tanh")
-def _tanh(ctx, ins, attrs, op):
-    return {"Out": torch.tanh(ins["X"])}
+def _softplus(x):
+    # jax.nn.softplus: logaddexp(x, 0), no linear cut-off (F.softplus
+    # has one at 20)
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
-@register_op("sigmoid")
-def _sigmoid(ctx, ins, attrs, op):
-    return {"Out": torch.sigmoid(ins["X"])}
+def _where0(cond, x):
+    return torch.where(cond, x, torch.zeros_like(x))
 
 
-@register_op("square")
-def _square(ctx, ins, attrs, op):
-    return {"Out": torch.square(ins["X"])}
+def scalar(x, v):
+    """``v`` as a 0-d tensor of x's dtype on x's device, made by a fill
+    on the device (a captured step may copy nothing from the host)."""
+    return torch.full((), v, dtype=x.dtype, device=x.device)
+
+
+def _max(x, v):
+    """jnp.maximum against a scalar: a tie splits the gradient evenly,
+    as jax's does (clamp gives it all to x)."""
+    return torch.maximum(x, scalar(x, v))
+
+
+def _min(x, v):
+    return torch.minimum(x, scalar(x, v))
+
+
+def clip(x, lo, hi):
+    """jnp.clip: minimum(maximum(x, lo), hi), with jax's tie gradients."""
+    if lo is not None:
+        x = _max(x, lo)
+    return x if hi is None else _min(x, hi)
+
+
+_act("relu", lambda x, a: torch.relu(x))
+_act("sigmoid", lambda x, a: torch.sigmoid(x))
+_act("logsigmoid", lambda x, a: -_softplus(-x))
+_act("tanh", lambda x, a: torch.tanh(x))
+_act("tanh_shrink", lambda x, a: x - torch.tanh(x))
+_act("sqrt", lambda x, a: torch.sqrt(x))
+_act("abs", lambda x, a: torch.abs(x))
+_act("ceil", lambda x, a: torch.ceil(x), grad_maker=None)
+_act("floor", lambda x, a: torch.floor(x), grad_maker=None)
+# half to even, as jnp.round
+_act("round", lambda x, a: torch.round(x), grad_maker=None)
+_act("cos", lambda x, a: torch.cos(x))
+_act("sin", lambda x, a: torch.sin(x))
+_act("exp", lambda x, a: torch.exp(x))
+_act("log", lambda x, a: torch.log(x))
+_act("square", lambda x, a: torch.square(x))
+_act("reciprocal", lambda x, a: 1.0 / x)
+_act("softplus", lambda x, a: _softplus(x))
+_act("softsign", lambda x, a: x / (1 + torch.abs(x)))
+_act("relu6", lambda x, a: clip(x, 0.0, a.get("threshold", 6.0)))
+_act("pow", lambda x, a: torch.pow(x, a.get("factor", 1.0)))
+_act("stanh", lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(
+    a.get("scale_a", 2.0 / 3.0) * x))
+_act("hard_sigmoid", lambda x, a: clip(
+    a.get("slope", 0.2) * x + a.get("offset", 0.5), 0.0, 1.0))
+_act("elu", lambda x, a: torch.where(
+    x > 0, x, a.get("alpha", 1.0) * (torch.exp(_min(x, 0.0)) - 1)))
+_act("leaky_relu", lambda x, a: torch.where(x > 0, x,
+                                            a.get("alpha", 0.02) * x))
+_act("brelu", lambda x, a: clip(x, a.get("t_min", 0.0),
+                                 a.get("t_max", 24.0)))
+_act("soft_relu", lambda x, a: torch.log(
+    1 + torch.exp(clip(x, -a.get("threshold", 40.0),
+                       a.get("threshold", 40.0)))))
+_act("thresholded_relu", lambda x, a: _where0(
+    x > a.get("threshold", 1.0), x))
+_act("hard_shrink", lambda x, a: _where0(
+    torch.abs(x) > a.get("threshold", 0.5), x))
+_act("softshrink", lambda x, a: torch.sign(x) * _max(
+    torch.abs(x) - a.get("lambda", 0.5), 0.0))
+_act("swish", lambda x, a: x * torch.sigmoid(a.get("beta", 1.0) * x))
+_act("gelu", _gelu)
+_act("sign", lambda x, a: torch.sign(x), grad_maker=None)
+
+
+@register_op("prelu")
+def _prelu(ctx, ins, attrs, op):
+    x, alpha = ins["X"], ins["Alpha"]
+    mode = attrs.get("mode", "all")
+    if mode == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    elif mode == "element":
+        alpha = alpha.reshape((1,) + tuple(x.shape[1:]))
+    return {"Out": torch.where(x > 0, x, alpha * x)}
 
 
 @register_op("scale")
@@ -214,6 +297,74 @@ def _mean(ctx, ins, attrs, op):
     return {"Out": torch.mean(x).reshape((1,))}
 
 
+@register_op("minus")
+def _minus(ctx, ins, attrs, op):
+    return {"Out": ins["X"] - ins["Y"]}
+
+
+@register_op("cos_sim")
+def _cos_sim(ctx, ins, attrs, op):
+    x, y = ins["X"], ins["Y"]
+    xn = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=1, keepdim=True))
+    z = torch.sum(x * y, dim=1, keepdim=True) / (xn * yn)
+    return {"Out": z, "XNorm": xn, "YNorm": yn}
+
+
+@register_op("clip")
+def _clip(ctx, ins, attrs, op):
+    return {"Out": clip(ins["X"], attrs.get("min"), attrs.get("max"))}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs, op):
+    x = ins["X"]
+    max_norm = attrs.get("max_norm")
+    norm = torch.sqrt(torch.sum(x * x))
+    scale = torch.where(norm > max_norm,
+                        max_norm / _max(norm, 1e-12),
+                        torch.ones_like(norm))
+    return {"Out": x * scale}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs, op):
+    return {"Out": torch.sum(torch.square(ins["X"])).reshape((1,))}
+
+
+@register_op("squared_l2_distance")
+def _squared_l2_distance(ctx, ins, attrs, op):
+    diff = ins["X"] - ins["Y"]
+    return {"sub_result": diff,
+            "Out": torch.sum(torch.square(diff), dim=1, keepdim=True)}
+
+
+@register_op("l1_norm")
+def _l1_norm(ctx, ins, attrs, op):
+    return {"Out": torch.sum(torch.abs(ins["X"])).reshape((1,))}
+
+
+@register_op("cumsum")
+def _cumsum(ctx, ins, attrs, op):
+    x = ins["X"]
+    axis = attrs.get("axis", -1)
+    rev = attrs.get("reverse", False)
+    src = torch.flip(x, (axis,)) if rev else x
+    out = torch.cumsum(src, dim=axis)
+    if attrs.get("exclusive", False):
+        out = out - src
+    return {"Out": torch.flip(out, (axis,)) if rev else out}
+
+
+@register_op("norm")
+def _norm(ctx, ins, attrs, op):
+    x = ins["X"]
+    axis = attrs.get("axis", 1)
+    eps = attrs.get("epsilon", 1e-10)
+    norm = torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True) + eps)
+    return {"Out": x / norm, "Norm": norm}
+
+
 # ---------------------------------------------------------------------------
 # Reduce family (reference reduce_op.cc)
 # ---------------------------------------------------------------------------
@@ -236,5 +387,32 @@ def _reduce(name, fn):
     register_op(name, lower=lower)
 
 
+def _prod(x, dim=None, keepdim=False):
+    """torch.prod over several dims (it takes one at a time)."""
+    if dim is None:
+        return torch.prod(x)
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
 _reduce("reduce_sum", torch.sum)
 _reduce("reduce_mean", torch.mean)
+# amax / amin split a tie's gradient evenly, as jnp.max / jnp.min do
+_reduce("reduce_max", torch.amax)
+_reduce("reduce_min", torch.amin)
+_reduce("reduce_prod", _prod)
+
+
+@register_op("isfinite", grad_maker=None)
+def _isfinite(ctx, ins, attrs, op):
+    return {"Out": torch.isfinite(ins["X"]).all().reshape((1,))}
+
+
+@register_op("maxout")
+def _maxout(ctx, ins, attrs, op):
+    x = ins["X"]    # NCHW
+    groups = attrs["groups"]
+    n, c, h, w = x.shape
+    return {"Out": torch.amax(x.reshape(n, c // groups, groups, h, w),
+                              dim=2)}

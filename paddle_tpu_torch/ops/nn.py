@@ -9,9 +9,10 @@ from the step's stream) and the fused conv stage
 them to ``lax.conv_general_dilated``; the fused stage's forward conv is
 the hand-written kernel K6 (``kernels/conv_fused.py``).
 
-Not ported: the legacy per-op ``FLAGS.conv_nhwc`` experiment (the
-layout transpiler replaced it), grouped/depthwise/3-D/transposed convs,
-lrn.
+``log_softmax`` and ``lrn`` are plain torch too.  Not ported: the
+legacy per-op ``FLAGS.conv_nhwc`` experiment (the layout transpiler
+replaced it), depthwise / 3-D / transposed convs, ``row_conv``,
+``spp`` (ROADMAP queue 1, the conv family).
 """
 from __future__ import annotations
 
@@ -275,6 +276,32 @@ def _layer_norm(ctx, ins, attrs, op):
 @register_op("softmax")
 def _softmax(ctx, ins, attrs, op):
     return {"Out": torch.softmax(ins["X"], dim=-1)}
+
+
+@register_op("log_softmax")
+def _log_softmax(ctx, ins, attrs, op):
+    return {"Out": torch.log_softmax(ins["X"], dim=attrs.get("axis", -1))}
+
+
+@register_op("lrn")
+def _lrn(ctx, ins, attrs, op):
+    """Local response norm across channels (reference lrn_op.cc, as the
+    JAX package writes it): mid = k + alpha * (the sum of x^2 over the n
+    channels centred on each), out = x / mid^beta.  Not
+    ``F.local_response_norm``, which divides alpha by n and pads
+    otherwise.  The window sum is added slice by slice in the JAX
+    package's order."""
+    x = ins["X"]    # NCHW
+    n = attrs.get("n", 5)
+    k = attrs.get("k", 2.0)
+    alpha = attrs.get("alpha", 1e-4)
+    beta = attrs.get("beta", 0.75)
+    half = n // 2
+    pad = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    acc = sum(pad[:, i:i + c] for i in range(n))
+    mid = k + alpha * acc
+    return {"Out": x / torch.pow(mid, beta), "MidOut": mid}
 
 
 # ---------------------------------------------------------------------------

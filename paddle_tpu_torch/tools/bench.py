@@ -9,15 +9,18 @@ It reads ``bench.py``'s knobs with its accelerator defaults on the card
 and its CPU defaults with ``BENCH_DEVICE=cpu`` (the only way to run
 without a card):
 
-- ``BENCH_MODEL`` resnet50 (default) | resnet32 | vgg | transformer |
-  lstm; the other models ``bench.py`` takes raise NotImplementedError;
-- the image models (ResNet, VGG16-BN): ``BENCH_BATCH`` (256; CPU 16),
+- ``BENCH_MODEL`` resnet50 (default) | resnet32 | vgg | alexnet |
+  googlenet | transformer | lstm (every model ``bench.py`` takes);
+- the image models (ResNet, VGG16-BN, AlexNet, GoogLeNet):
+  ``BENCH_BATCH`` (256; CPU 16),
   ``BENCH_ITERS`` (60; 5), ``BENCH_DATASET`` (flowers; cifar10: as in
   ``bench.py``, resnet32 is the cifar ResNet and needs cifar10),
   ``BENCH_DEPTH`` (ResNet: 50 or 32 by model),
   ``BENCH_LAYOUT`` (NCHW, or ``FLAGS_conv_layout``),
   ``BENCH_FUSED_STAGES``, ``BENCH_AMP`` (1 on the card; 0),
-  ``BENCH_BN_BF16`` (follows AMP);
+  ``BENCH_BN_BF16`` (follows AMP); AlexNet and GoogLeNet take 224 x 224
+  flowers whatever ``BENCH_DATASET`` says, and on the CPU at most
+  batch 4 and 2 iterations, as ``bench.py:522-527``;
 - LM: ``BENCH_BATCH`` (16; 2), ``BENCH_SEQ`` (2048; 128),
   ``BENCH_ITERS`` (30; 3), ``BENCH_DMODEL`` (1024; 64),
   ``BENCH_LAYERS`` (6; 2), ``BENCH_HEADS`` (8; 4), ``BENCH_AMP`` (1 on
@@ -45,20 +48,22 @@ when every timed step was prepared, and ``prepared_steps`` counts them.
 Where it departs from ``bench.py`` (each visible in the JSON):
 
 - data is synthetic, drawn from a seed at ``bench.py``'s shapes (uint8
-  images for ResNet-50, as in its real-data mode; float32 for resnet32
-  and VGG, as its fake data), fed from the host each step:
-  ``BENCH_FAKE=0`` raises, since the port has no flowers reader.
+  images for ResNet-50, as in its real-data mode; float32 for the other
+  image models, as its fake data), fed from the host each step:
+  ``BENCH_FAKE=0`` raises, since the port has no flowers reader and no
+  ``DeviceLoader`` (ROADMAP queue 1 item 11).
 
 Each timed step ends with the loss fetch, which waits for the card, so
 ``step_ms_p50/p90/p99`` are device-honest.  The last line of standard
 output is one JSON object: ``metric``, ``value``, ``unit``,
 ``vs_baseline`` (value / ``bench.py``'s baseline: 81.69 for ResNet,
-30.44 for VGG; the LSTM's 184 ms / value at batch 64, hidden 512, else
-0, with ``examples_per_sec``), ``tflops`` (at 224 x 224:
-``bench.py``'s 12.3e9 FLOPs a training image of ResNet-50, 46.5e9 of
-VGG16; the LM: ``bench.py``'s 6 N_params + 6 L d_model T FLOPs a
-token; the LSTM: null, as in ``bench.py``) and ``mfu`` (on the card
-under AMP only; else null), ``amp``, ``data_format``,
+30.44 for VGG, 626.53 for AlexNet, 269.50 for GoogLeNet; the LSTM's
+184 ms / value at batch 64, hidden 512, else 0, with
+``examples_per_sec``), ``tflops`` (at 224 x 224: ``bench.py``'s 12.3e9
+FLOPs a training image of ResNet-50, 46.5e9 of VGG16; the LM:
+``bench.py``'s 6 N_params + 6 L d_model T FLOPs a token; AlexNet,
+GoogLeNet and the LSTM: null, as in ``bench.py``) and ``mfu`` (on the
+card under AMP only; else null), ``amp``, ``data_format``,
 ``fused_stages``, ``prepared``, ``prepared_steps``, the step
 percentiles, ``device`` (the card's name and power limit from
 nvidia-smi, or "cpu"), ``secondary``, and the run's losses and
@@ -79,13 +84,12 @@ TRAIN_FLOPS_PER_IMG_224 = 12.3e9    # bench.py:54, forward + backward
 TRAIN_FLOPS_PER_IMG_VGG16_224 = 46.5e9  # bench.py:55
 RESNET50_BASELINE = 81.69           # bench.py:29-31, images/s
 VGG_BASELINE = 30.44                # bench.py:770-774, images/s
+ALEXNET_BASELINE = 626.53           # bench.py:775-776, images/s
+GOOGLENET_BASELINE = 269.50         # bench.py:777-778, images/s
 DEFAULT_PEAK_TFLOPS = 989.4         # H100 SXM, dense bf16
 SEED = 0
 LSTM_BASELINE_MS = 184.0            # bench.py:405-408, ms/batch (K40m)
-# bench.py's other models, and the ROADMAP item that brings each
-UNPORTED_MODELS = {
-    "alexnet": "queue 1 items 7 and 3e (lrn)",
-    "googlenet": "queue 1 items 7 and 3e (concat, the inception ops)"}
+IMAGE_MODELS = ("resnet50", "resnet32", "vgg", "alexnet", "googlenet")
 
 
 def _env(name, card, cpu, on_card):
@@ -258,15 +262,22 @@ def transformer_bench(place, on_card, secondary=False):
 
 def resnet_bench(place, on_card, model="resnet50"):
     """An image model, bench.py's headline loop: ResNet-50 (the
-    headline), resnet32 or VGG16-BN (``vgg``, NCHW, as bench.py runs
-    it); images/s."""
+    headline), resnet32, VGG16-BN (``vgg``), AlexNet or GoogLeNet (the
+    last three NCHW, as bench.py runs them); images/s."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.core.flags import FLAGS
-    from paddle_tpu_torch.models import resnet, vgg
+    from paddle_tpu_torch.models import alexnet, googlenet, resnet, vgg
 
     batch = int(_env("BENCH_BATCH", "256", "16", on_card))
     iters = int(_env("BENCH_ITERS", "60", "5", on_card))
     data_set = _env("BENCH_DATASET", "flowers", "cifar10", on_card)
+    legacy = model in ("alexnet", "googlenet")
+    if legacy:
+        # bench.py:522-527: 224 x 224 only (GoogLeNet's final 7 x 7
+        # pool needs it); the CPU shrinks the batch and the iterations
+        data_set = "flowers"
+        if not on_card:
+            batch, iters = min(batch, 4), min(iters, 2)
     amp = _flag("BENCH_AMP", on_card)
     FLAGS.bn_bf16 = _flag("BENCH_BN_BF16", amp)
     data_format = os.environ.get("BENCH_LAYOUT",
@@ -279,6 +290,9 @@ def resnet_bench(place, on_card, model="resnet50"):
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         if model == "vgg":
             loss, (data, label), _ = vgg.get_model(data_set=data_set)
+        elif legacy:
+            mod = alexnet if model == "alexnet" else googlenet
+            loss, (data, label), _ = mod.get_model()
         else:
             loss, (data, label), _ = resnet.get_model(
                 data_set=data_set,
@@ -298,7 +312,9 @@ def resnet_bench(place, on_card, model="resnet50"):
                                                loss, [feed], iters)
     images_per_s = batch * iters / (sum(step_ms) / 1e3)
     ops = main.desc.blocks[0].ops
-    baseline = VGG_BASELINE if model == "vgg" else RESNET50_BASELINE
+    baseline = {"vgg": VGG_BASELINE, "alexnet": ALEXNET_BASELINE,
+                "googlenet": GOOGLENET_BASELINE}.get(model,
+                                                     RESNET50_BASELINE)
     out = {"metric": "%s_%s_train_bs%d%s" % (
                model, data_set, batch, "_bf16" if amp else ""),
            "value": images_per_s, "unit": "images/sec",
@@ -311,7 +327,7 @@ def resnet_bench(place, on_card, model="resnet50"):
            "fused_stages": sum(op.type == "fused_conv2d_bn_act"
                                for op in ops),
            "tflops": None, "mfu": None}
-    if depth and model != "vgg":
+    if depth and model in ("resnet50", "resnet32"):
         out["depth"] = depth
     per_img = {"resnet50": TRAIN_FLOPS_PER_IMG_224,
                "vgg": TRAIN_FLOPS_PER_IMG_VGG16_224}.get(model)
@@ -363,17 +379,15 @@ def lstm_bench(place, on_card):
 
 def main():
     model = os.environ.get("BENCH_MODEL", "resnet50")
-    if model in UNPORTED_MODELS:
-        raise NotImplementedError(
-            "BENCH_MODEL=%s is not ported to paddle_tpu_torch yet "
-            "(ROADMAP %s)" % (model, UNPORTED_MODELS[model]))
-    if model not in ("resnet50", "resnet32", "vgg", "transformer", "lstm"):
+    if model not in IMAGE_MODELS + ("transformer", "lstm"):
         raise SystemExit("BENCH_MODEL must be resnet50|resnet32|vgg|"
-                         "transformer|lstm, got %r" % model)
+                         "alexnet|googlenet|transformer|lstm, got %r"
+                         % model)
     if os.environ.get("BENCH_FAKE", "1") != "1":
         raise NotImplementedError(
-            "BENCH_FAKE=0: the port has no flowers reader, and nothing "
-            "may be downloaded; the bench runs on seeded synthetic data")
+            "BENCH_FAKE=0: the port has no flowers reader and no "
+            "DeviceLoader (ROADMAP queue 1 item 11), and nothing may be "
+            "downloaded; the bench runs on seeded synthetic data")
     place, on_card = _place()
     if model == "transformer":
         out = dict(transformer_bench(place, on_card), secondary=None)

@@ -5,7 +5,9 @@ AMP off and on, the fused-block program under AMP too, each through the
 prepared step (``bench.py``'s default), and the ResNet and the LM once
 with ``BENCH_PREPARED=0`` (``run()``); the stacked dynamic LSTM at
 ``bench.py``'s CPU sizes (batch 4, hidden 32, 16 tokens, 3 iterations)
-on ragged feeds, prepared.  Each run exits 0 and prints one
+on ragged feeds, prepared; AlexNet and GoogLeNet at ``bench.py``'s CPU
+shrink (224 x 224 flowers, batch 4, 2 iterations).  Each run exits 0
+and prints one
 parseable JSON last line with ``bench.py``'s fields; each refusal exits
 non-zero with its reason.  The LM, the secondary metric
 included, takes ``BENCH_AMP`` with ``bench.py``'s default: on on the
@@ -36,6 +38,10 @@ RUNS[("transformer", "1", "fused")] = {
     "BENCH_MODEL": "transformer", "BENCH_ITERS": "2", "BENCH_AMP": "1",
     "BENCH_FUSED_TRANSFORMER": "1"}
 RUNS[("lstm", "0", None)] = {"BENCH_MODEL": "lstm"}
+# bench.py's CPU shrink of the legacy models: 224 x 224 flowers, batch
+# <= 4, <= 2 iterations
+RUNS[("alexnet", "0", None)] = {"BENCH_MODEL": "alexnet"}
+RUNS[("googlenet", "0", None)] = {"BENCH_MODEL": "googlenet"}
 # run() instead of the prepared step
 RUNS[("resnet50", "0", "NCHW", "run")] = dict(RESNET, BENCH_AMP="0",
                                              BENCH_LAYOUT="NCHW",
@@ -107,6 +113,13 @@ def test_bench_prints_one_json_line(runs, key):
         assert out["fused_stages"] == (9 if layout == "NHWC" else 0)
         assert out["bn_bf16"] is (amp == "1")
         assert len(out["losses"]) == 3
+    elif model in ("alexnet", "googlenet"):
+        assert out["unit"] == "images/sec"
+        assert out["metric"] == model + "_flowers_train_bs4"
+        baseline = 626.53 if model == "alexnet" else 269.50
+        assert out["vs_baseline"] == pytest.approx(out["value"] / baseline)
+        assert out["data_format"] == "NCHW" and out["fused_stages"] == 0
+        assert len(out["losses"]) == 3
     elif model == "lstm":
         assert out["unit"] == "ms/batch"
         assert out["metric"] == "stacked_lstm_train_bs4_h32_seq16"
@@ -167,9 +180,10 @@ def test_bench_refusals_raise(monkeypatch, capsys, extra, reason):
 
 
 def test_a_refusal_exits_non_zero():
-    """(``lstm`` ran into this refusal until ragged feeds were ported:
-    ``alexnet`` still does.)"""
-    p = _start({"BENCH_MODEL": "alexnet"})
+    """(``lstm`` ran into a refusal until ragged feeds were ported, and
+    ``alexnet`` until lrn was: the reader refusal of ``BENCH_FAKE=0``
+    still does.)"""
+    p = _start({"BENCH_FAKE": "0"})
     stdout, stderr = p.communicate(timeout=TIMEOUT)
     assert p.returncode != 0 and stdout.strip() == ""
     assert "NotImplementedError" in stderr and "ROADMAP" in stderr

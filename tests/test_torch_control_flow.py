@@ -739,8 +739,11 @@ def _nested(fluid, L, kind):
 def test_nested_control_flow_runs_and_prepare_refuses_it_on_a_card(kind):
     """A conditional_block, a while and an assign_value inside a
     recurrent body: run() gives the reference's outputs, and the card's
-    prepare() refusal (which reads the block's plan) finds each one in
-    the sub-block; a DynamicRNN alone is capturable."""
+    prepare() refusal (which reads the block's plan) finds the first
+    two in the sub-block; an assign_value there is no longer refused
+    (the prepared step reads a device constant made at prepare(), and
+    its steps are run()'s bit for bit); a DynamicRNN alone is
+    capturable."""
     from paddle_tpu_torch.core.executor_impl import (ExecutorCore,
                                                       Uncapturable)
 
@@ -751,10 +754,24 @@ def test_nested_control_flow_runs_and_prepare_refuses_it_on_a_card(kind):
     want, got, _, _ = _run_both(body, [_dense({"x": xv})])
     _agree(want, got)
     core = ExecutorCore(tfluid.CPUPlace())
-    main, _, out = _build(tfluid, body)
+    main, startup, out = _build(tfluid, body)
     entry = core._entry(main.desc, 0, [out[0].name])
-    with pytest.raises(Uncapturable, match=kind):
+    if kind == "assign_value":
         core._refuse_uncapturable(entry)
+        exe = tfluid.Executor(tfluid.CPUPlace())
+        scope = tfluid.Scope()
+        exe.run(startup, scope=scope)
+        prep = exe.prepare(main, feed_specs={"x": xv}, fetch_list=out,
+                           scope=scope)
+        for _ in range(2):
+            a = prep.run_prepared({"x": xv}, return_numpy=True)[0]
+            b = exe.run(main, feed={"x": xv}, fetch_list=out,
+                        scope=scope)[0]
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, got[0][0])
+    else:
+        with pytest.raises(Uncapturable, match=kind):
+            core._refuse_uncapturable(entry)
     main, _, out = _build(tfluid, _dyn_rnn_classifier)
     core._refuse_uncapturable(core._entry(main.desc, 0, [out[0].name]))
 

@@ -2317,36 +2317,173 @@ def test_captured_step_keeps_write_only_persistables_on_card(cuda,
 @pytest.mark.cuda
 def test_prepare_refuses_assign_value_and_parallel_executor_runs_it_on_card(
         cuda):
-    """assign_value copies from host memory each step: prepare() on a
-    card refuses it (Uncapturable), and ParallelExecutor takes the
-    refusal as its cue to run the program through run()."""
+    """assign_value copied from host memory each step and was refused;
+    now the prepared step reads a device constant made at prepare():
+    prepare() takes it, the captured steps are run()'s bit for bit, and
+    ParallelExecutor runs it prepared."""
     import paddle_tpu_torch.fluid as fluid
-    from paddle_tpu_torch.core.executor_impl import Uncapturable
     from paddle_tpu_torch.core.types import DataType
 
-    main, startup = fluid.Program(), fluid.Program()
-    with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        w = fluid.layers.create_global_var([3], 0.0, "float32",
-                                           persistable=True, name="av_w")
-        block = main.global_block()
-        c = block.create_var(name="av_c", shape=[3], dtype="float32")
-        block.append_op(type="assign_value", outputs={"Out": [c]},
-                        attrs={"shape": [3], "dtype": DataType.FP32,
-                               "fp32_values": [1.0, 2.0, 3.0]})
-        block.append_op(type="elementwise_add",
-                        inputs={"X": [w], "Y": [c]}, outputs={"Out": [w]})
+    def build():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            w = fluid.layers.create_global_var([3], 0.0, "float32",
+                                               persistable=True, name="av_w")
+            block = main.global_block()
+            c = block.create_var(name="av_c", shape=[3], dtype="float32")
+            block.append_op(type="assign_value", outputs={"Out": [c]},
+                            attrs={"shape": [3], "dtype": DataType.FP32,
+                                   "fp32_values": [1.0, 2.0, 3.0]})
+            block.append_op(type="elementwise_add",
+                            inputs={"X": [w], "Y": [c]},
+                            outputs={"Out": [w]})
+        return main, startup, w
+
     exe = fluid.Executor(fluid.CUDAPlace(0))
+    out = {}
+    for how in ("prepared", "run"):
+        main, startup, w = build()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if how == "prepared":
+            prep = exe.prepare(main, feed_specs={}, fetch_list=[w],
+                               scope=scope)
+            out[how] = [prep.run_prepared({}, return_numpy=True)[0]
+                        for _ in range(3)]
+            assert sum(c["replays"] for c in
+                       prep._prep._step.buckets.values()) == 3
+        else:
+            out[how] = [exe.run(main, fetch_list=[w], scope=scope)[0]
+                        for _ in range(3)]
+    for k, (a, b) in enumerate(zip(out["prepared"], out["run"])):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, (k + 1) * np.float32([1, 2, 3]))
+    main, startup, w = build()
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    with pytest.raises(Uncapturable, match="assign_value"):
-        exe.prepare(main, fetch_list=[w], scope=scope)
     pe = fluid.ParallelExecutor(main_program=main, scope=scope,
                                 num_devices=1)
     for step in (1, 2):
         got, = pe.run([w.name])
         np.testing.assert_array_equal(
             got, step * np.array([1.0, 2.0, 3.0], np.float32))
-    assert not pe._prepared and len(pe._unpreparable) == 1
+    assert pe._prepared and not pe._unpreparable
+
+
+def _sched_fc(fluid, schedule):
+    """A small fc regression under ``schedule`` (piecewise or noam),
+    Adam with a global-norm clip and L2Decay; returns (loss, lr)."""
+    L = fluid.layers
+    x = L.data(name="x", shape=[32], dtype="float32")
+    y = L.data(name="y", shape=[1], dtype="float32")
+    loss = L.mean(L.square_error_cost(L.fc(L.fc(x, 64, act="relu"), 1), y))
+    fluid.clip.set_gradient_clip(fluid.clip.GradientClipByGlobalNorm(0.1))
+    lr = (L.piecewise_decay([2, 4], [1e-2, 5e-3, 2.5e-3])
+          if schedule == "piecewise" else L.noam_decay(64, 3))
+    fluid.optimizer.Adam(learning_rate=lr,
+                         regularization=fluid.regularizer.L2Decay(1e-3)
+                         ).minimize(loss)
+    return loss, lr
+
+
+def _sched_feed(seed):
+    rng = np.random.RandomState(seed)
+    return {"x": rng.randn(16, 32).astype(np.float32),
+            "y": rng.randn(16, 1).astype(np.float32)}
+
+
+@pytest.mark.cuda
+def test_captured_piecewise_decay_is_run_bit_for_bit_on_card(cuda):
+    """piecewise_decay's table (an assign_value) and the step counter's
+    increment inside the captured graph: 6 replays cross both
+    boundaries, their learning rates the table's, and every fetch and
+    persistable equals a run() loop's bit for bit."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, lr = _sched_fc(fluid, "piecewise")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    out, state = {}, {}
+    for how in ("prepared", "run"):
+        main.random_seed = startup.random_seed = 3
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        feeds = [_sched_feed(i) for i in range(6)]
+        if how == "prepared":
+            prep = exe.prepare(main, feed_specs=feeds[0],
+                               fetch_list=[loss, lr], scope=scope)
+            out[how] = [prep.run_prepared(f, return_numpy=True)
+                        for f in feeds]
+            prep.sync_scope()
+        else:
+            out[how] = [exe.run(main, feed=f, fetch_list=[loss, lr],
+                                scope=scope) for f in feeds]
+        state[how] = get_scope_arrays(scope, persist)
+    lrs = [float(o[1][0]) for o in out["prepared"]]
+    assert lrs == [np.float32(v) for v in
+                   (1e-2, 5e-3, 5e-3, 2.5e-3, 2.5e-3, 2.5e-3)]
+    for a, b in zip(out["prepared"], out["run"]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for n in persist:
+        np.testing.assert_array_equal(state["prepared"][n],
+                                      state["run"][n], err_msg=n)
+    assert state["run"]["@LR_DECAY_COUNTER@"][0] == 6.0
+
+
+@pytest.mark.cuda
+def test_the_step_counter_survives_a_mid_loop_save_on_card(cuda, tmp_path):
+    """Three captured steps under noam_decay, save_checkpoint in the
+    loop (no sync_scope by hand), three more; a fresh scope that loads
+    the checkpoint and prepares again continues the schedule: its
+    learning rates, losses and persistables equal the uninterrupted
+    run's bit for bit, and its counter ends at 6."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, lr = _sched_fc(fluid, "noam")
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feeds = [_sched_feed(10 + i) for i in range(6)]
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    prep = exe.prepare(main, feed_specs=feeds[0], fetch_list=[loss, lr],
+                       scope=scope)
+    whole = [prep.run_prepared(f, return_numpy=True) for f in feeds[:3]]
+    ckpt = str(tmp_path / "ckpt")
+    with fluid.scope_guard(scope):
+        fluid.io.save_checkpoint(exe, ckpt, main_program=main)
+    whole += [prep.run_prepared(f, return_numpy=True) for f in feeds[3:]]
+    prep.sync_scope()
+    done = get_scope_arrays(scope, persist)
+    resumed = fluid.Scope()
+    exe.run(startup, scope=resumed)
+    with fluid.scope_guard(resumed):
+        fluid.io.load_checkpoint(exe, ckpt, main_program=main)
+    assert get_scope_arrays(resumed, ["@LR_DECAY_COUNTER@"])[
+        "@LR_DECAY_COUNTER@"][0] == 3.0
+    prep2 = exe.prepare(main, feed_specs=feeds[3], fetch_list=[loss, lr],
+                        scope=resumed)
+    again = [prep2.run_prepared(f, return_numpy=True) for f in feeds[3:]]
+    prep2.sync_scope()
+    for a, b in zip(whole[3:], again):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for s, o in enumerate(whole, 1):
+        want = 64 ** -0.5 * min(s ** -0.5, 3 ** -1.5 * s)
+        assert abs(float(o[1][0]) - want) <= float(
+            np.spacing(np.float32(want)))
+    redo = get_scope_arrays(resumed, persist)
+    for n in persist:
+        np.testing.assert_array_equal(redo[n], done[n], err_msg=n)
+    assert redo["@LR_DECAY_COUNTER@"][0] == 6.0
 
 
 # The serving engine's bucket steps, each captured as one CUDA graph

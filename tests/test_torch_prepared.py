@@ -827,31 +827,67 @@ def _assign_value_block(fluid):
     return w
 
 
+def _while_block(fluid):
+    """A main block with a ``while`` loop (its condition read on the
+    host at every step): twice, ``av_w += 1``."""
+    L = fluid.layers
+    w = L.create_global_var([3], 0.0, "float32", persistable=True,
+                            name="av_w")
+    i = L.fill_constant([1], "float32", 0.0)
+    n = L.fill_constant([1], "float32", 2.0)
+    cond = L.less_than(i, n)
+    with L.While(cond=cond).block():
+        L.assign(L.scale(w, bias=1.0), w)
+        L.increment(i, value=1.0)
+        L.less_than(i, n, cond=cond)
+    return w
+
+
 @pytest.mark.parametrize("block,match", [
     (_random_block, "item 2"), (_assign_value_block, "assign_value")])
 def test_a_step_a_graph_cannot_replay_is_uncapturable(block, match):
-    """The refusals prepare() makes on a card, from the block's plan:
-    assign_value (a copy from host memory each step); Uncapturable is a
-    NotImplementedError.  A random op was refused until ROADMAP queue 1
-    item 2 gave the captured step its random stream (a replay draws
-    afresh, ``lowering.RandomStream``): it is not refused now."""
+    """What prepare() refuses on a card, from the block's plan; neither
+    of these is refused now.  A random op was refused until ROADMAP
+    queue 1 item 2 gave the captured step its random stream (a replay
+    draws afresh, ``lowering.RandomStream``); assign_value (a copy from
+    host memory each step) until the prepared step made its value a
+    device constant at prepare(): its prepared steps are run()'s bit
+    for bit.  Uncapturable is a NotImplementedError."""
     main, _, w = _programs(PORT, block)
     core = ExecutorCore(tfluid.CPUPlace())
     entry = core._entry(main.desc, 0, [w.name])
     assert issubclass(Uncapturable, NotImplementedError)
+    core._refuse_uncapturable(entry)
     if block is _random_block:
-        core._refuse_uncapturable(entry)
         return
-    with pytest.raises(Uncapturable, match=match):
-        core._refuse_uncapturable(entry)
+    out = {}
+    for how in ("prepared", "run"):
+        main, startup, w = _programs(PORT, block)
+        scope = PORT.scope()
+        exe = PORT.exe()
+        exe.run(startup, scope=scope)
+        if how == "prepared":
+            prep = exe.prepare(main, feed_specs={}, fetch_list=[w],
+                               scope=scope)
+            out[how] = [prep.run_prepared({}, return_numpy=True)[0]
+                        for _ in range(STEPS)]
+            consts = list(prep._prep._step._constants.values())
+            assert len(consts) == 1
+            np.testing.assert_array_equal(consts[0].numpy(), [1, 2, 3])
+        else:
+            out[how] = [exe.run(main, fetch_list=[w], scope=scope)[0]
+                        for _ in range(STEPS)]
+    for k, (a, b) in enumerate(zip(out["prepared"], out["run"])):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, (k + 1) * np.float32([1, 2, 3]))
 
 
 def test_parallel_executor_runs_an_uncapturable_program_through_run(
         monkeypatch):
     """prepare() refusing a step a graph cannot replay (here with the
-    card's refusals applied on the CPU: assign_value's, since random
-    ops are captured now) sends ParallelExecutor to run(), once for the
-    signature: its steps update what run()'s do."""
+    card's refusals applied on the CPU: a ``while`` loop's, since random
+    ops and assign_value are captured now) sends ParallelExecutor to
+    run(), once for the signature: its steps update what run()'s do."""
     real, calls = ExecutorCore.prepare, []
 
     def as_on_a_card(self, program, feed_specs, fetch_list, scope=None,
@@ -863,7 +899,7 @@ def test_parallel_executor_runs_an_uncapturable_program_through_run(
 
     out = {}
     for how in ("pe", "run"):
-        main, startup, w = _programs(PORT, _assign_value_block)
+        main, startup, w = _programs(PORT, _while_block)
         main.random_seed = 5
         scope = PORT.scope()
         exe = PORT.exe()
