@@ -11,7 +11,7 @@ Phases, each printed as one JSON line:
 2. build   — nvcc build of every kernel under paddle_tpu_torch/kernels/csrc;
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the serving and training paths' shapes, with times (CUDA
-             events, median of 25, L2 flushed before each launch) beside
+             events, median of 11, L2 flushed before each launch) beside
              the plain version, a PyTorch library yardstick and the
              card's bound (the f32 matrix-product kernels K1-K4, K6 and
              K9 against split-TF32 tensor-core products, K8 against the
@@ -123,6 +123,26 @@ Phases, each printed as one JSON line:
              vs_baseline), each with an f32 oracle at batch 4 (the same
              seeded dropout masks on both places through
              ops/random.keep_mask; no TPU kernel on their path);
+3i. train_mt, train_mt_oracle, train_recommender,
+             train_recommender_oracle, train_srl, train_srl_oracle, ctc,
+             beam_decode — crf_ctc, beam_search and the last three book
+             models (in a child process, ``--slice26``; no TPU kernel on
+             the path): machine_translation at its defaults (dicts
+             10000, emb and hidden 256; batch 64 of wmt14's synthetic
+             corpus in buckets T 8 and 16), the recommender (batch 64 of
+             movielens, its sparse tables) and label_semantic_roles
+             (hidden 512, depth 8, the word table trained, batch 16 of
+             conll05 in buckets T 8, 16 and 24, its Viterbi path
+             fetched), each through the prepared step (one graph a
+             bucket, one pool) and run(), bit for bit, step ms p50 and
+             peak memory, and one f32 step of each at batch 4 against
+             the CPU (``ulp_oracle``, floor LSTM_ORACLE_GRAD_FLOOR, a
+             TF32 control past the bar, the Viterbi path equal); warpctc's
+             loss and gradient against the CPU and ctc_greedy_decoder's
+             ids equal to the CPU's; the While-loop beam decode of
+             tests/test_beam_search.py and one of 8 sentences x 4 beams
+             over 1,000 words through run(), ids bit for bit and scores
+             within BEAM_SCORE_TOL of the CPU's, prepare() refused;
 4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
@@ -315,7 +335,7 @@ Phases, each printed as one JSON line:
              with its secondary, the flagship LM, which must be the bf16
              LM), then (information) with BENCH_PREPARED=0 (run()), and
              with BENCH_LAYOUT=NHWC (no secondary), each with
-             BENCH_ITERS=10, then (information) at BENCH_AMP=0
+             BENCH_ITERS=5, then (information) at BENCH_AMP=0
              BENCH_LAYOUT=NHWC beside phase 13's step, then
              BENCH_MODEL=transformer at its card default (bf16),
              unfused and BENCH_FUSED_TRANSFORMER=1, then
@@ -522,7 +542,7 @@ class Timer:
         self.flush = torch.ones(16 << 20, dtype=torch.float32,
                                 device="cuda")
 
-    def __call__(self, fn, iters=25, warmup=3):
+    def __call__(self, fn, iters=11, warmup=3):
         torch = self.torch
         for _ in range(warmup):
             fn()
@@ -2644,7 +2664,7 @@ def serve_fleet_phase(torch, cfg, params, prompts, f32_res, f32_secs):
 TRAIN_LM = dict(vocab_size=8192, seq_len=2048, d_model=1024, n_head=8,
                 n_layers=6, d_ff=4096, learning_rate=1e-3)
 TRAIN_BATCH = 16
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3
 # kernels a training step launches, with their count per step (one per
 # layer: ring_attention runs K1, ring_attention_grad K2 and K3)
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -3109,11 +3129,11 @@ def train_sp_amp_oracle(torch):
 RESNET = dict(data_set="flowers", depth=50, learning_rate=0.01,
               input_dtype="uint8")
 RESNET_BATCH = 256
-RESNET_STEPS = 5
+RESNET_STEPS = 3
 RESNET_CONVS = 53      # conv stages: K6 launches a fused step or forward
 RESNET_ORACLE_BATCH = 2
 RESNET_PATHS = ("infer_resnet_fused", "train_resnet", "train_resnet_fused")
-BENCH_ITERS = 10
+BENCH_ITERS = 5
 CONV_FWD = "ResNet-50 forward, batch 256, stats: 53 launches, 20 shapes"
 CONV_FWD_BF16 = ("ResNet-50 forward, batch 256, bf16, stats: 53 launches, "
                  "20 shapes")
@@ -3981,8 +4001,8 @@ def train_fused_dropout(torch, amp):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     want = {k: DROPOUT_K4 if k == k4 else 0 for k in K4_SYMBOLS}
-    traced = traced_k4(torch, lambda: prep.run_prepared(dfeed), 2)
-    device_ms, idle = idle_share(torch, lambda: prep.run_prepared(dfeed), 2)
+    traced = traced_k4(torch, lambda: prep.run_prepared(dfeed), 1)
+    device_ms, idle = idle_share(torch, lambda: prep.run_prepared(dfeed), 1)
     prep.sync_scope()
     peak = torch.cuda.max_memory_allocated()
     if launches != {k4: DROPOUT_K4}:
@@ -4140,9 +4160,9 @@ def train_fused_dropout(torch, amp):
 
 VGG = dict(data_set="flowers", learning_rate=1e-3)
 VGG_BATCH = 256
-VGG_STEPS = 5
+VGG_STEPS = 3
 VGG_ORACLE_BATCH = 4
-VGG_PROFILED = 2        # steps traced for the device's idle share
+VGG_PROFILED = 1        # steps traced for the device's idle share
 TRAIN_FLOPS_PER_IMG_VGG16 = 46.5e9      # bench.py:55
 
 
@@ -5008,11 +5028,11 @@ LSTM = dict(dict_dim=5000, hidden_dim=512, stacked_num=3,
             learning_rate=2e-3)     # bench.py:360-415
 LSTM_BATCH = 64
 LSTM_SEQ = 80
-LSTM_STEPS = 5
+LSTM_STEPS = 3
 # steps traced for the device's idle share: a traced run() step records
 # every one of its thousands of host-side torch ops, so that path
 # traces one
-LSTM_PROFILED = {"run": 1, "prepared": 2}
+LSTM_PROFILED = {"run": 1, "prepared": 1}
 RAGGED_MAX = (80, 56, 33)           # padded T 80, 56 and 40
 RAGGED_ORDER = (0, 1, 2, 0, 1, 2, 0)
 # the buckets' graphs share one memory pool and one warm-up stream:
@@ -5823,7 +5843,7 @@ def train_rnn(torch, model, amp=False):
                 state = None
                 prep.sync_scope()
                 state = get_scope_arrays(scope, persist)
-                traced = step_kernels(torch, lambda: step(0), 2)
+                traced = step_kernels(torch, lambda: step(0), 1)
         else:
             def step(i):
                 return exe.run(main, feed=batches[i], fetch_list=[loss],
@@ -5958,7 +5978,7 @@ SCHED_NOAM_WARMUP = 4000
 SCHED_PIECEWISE = ([2, 4], [1e-3, 5e-4, 2.5e-4])
 SCHED_L2 = 1e-4
 SCHED_CLIP = 1.0
-SCHED_PROFILED = 2      # replays traced for the step's kernels
+SCHED_PROFILED = 1      # replays traced for the step's kernels
 OPT_FEATURES, OPT_HIDDEN, OPT_BATCH = 256, 512, 64
 OPT_STEPS = 3
 OPT_TOL = 1e-6          # or twice the CPU's one-ulp spread, the larger
@@ -6464,13 +6484,475 @@ def slice25_phases(torch):
              lambda: legacy_oracle(torch, "googlenet"))]
 
 
+# ---------------------------------------------------------------------------
+# slice 26: crf_ctc, beam_search and the last three book models
+# (machine_translation, recommender, label_semantic_roles) on their
+# dataset adapters' synthetic corpora; no TPU kernel on the path
+# ---------------------------------------------------------------------------
+
+BOOK_BATCH = {"machine_translation": 64, "recommender": 64,
+              "label_semantic_roles": 16}
+BOOK_ORDER = {"machine_translation": (0, 1, 0, 1),
+              "recommender": (0, 1, 2, 0, 1, 2),
+              "label_semantic_roles": (0, 1, 2, 0, 1, 2)}
+# the ragged buckets of each model's batches ({feed name: padded T})
+BOOK_BUCKETS = {"machine_translation": 2, "recommender": 1,
+                "label_semantic_roles": 3}
+BOOK_ORACLE_BATCH = 4
+CTC = dict(n=16, features=128, vocab=32, t=(60, 100), labels=(10, 30))
+BEAM = dict(sentences=8, beam=4, vocab=1000, steps=12)
+BEAM_SCORE_TOL = 1e-6
+SLICE26_TIMEOUT_S = 600
+
+
+def build_book(fluid, model):
+    """(main, startup, loss, slots, fetch besides the loss) of a book
+    model at its published widths: machine_translation.get_model's
+    defaults (dicts 10000, emb and hidden 256), the recommender's fixed
+    widths over movielens' dictionaries, label_semantic_roles at its
+    defaults (hidden 512, depth 8) with the word table trained
+    (``train_word_emb=True``) and its crf_decoding fetched."""
+    from paddle_tpu_torch import dataset
+    from paddle_tpu_torch.models import (label_semantic_roles,
+                                         machine_translation, recommender)
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if model == "machine_translation":
+            loss, slots, extra = machine_translation.get_model()
+        elif model == "recommender":
+            loss, slots, extra = recommender.get_model()
+            extra = []
+        else:
+            word, verb, label = dataset.conll05.get_dict()
+            loss, slots, extra = label_semantic_roles.get_model(
+                len(word), len(label), len(verb), train_word_emb=True)
+    return main, startup, loss, slots, list(extra)
+
+
+def book_rows(model):
+    """The dataset adapter's synthetic samples of ``model``, grouped so
+    that its batches fall in BOOK_BUCKETS[model] padded buckets: wmt14
+    (dict 10000) by sentence length (<= 6 words: T 8, else 16), conll05
+    by sentence length (<= 8, <= 16, 17: T 8, 16, 24), movielens in
+    reader order (every batch at T 8)."""
+    from paddle_tpu_torch import dataset
+
+    n = BOOK_BATCH[model]
+    if model == "machine_translation":
+        rows = list(dataset.wmt14.train(10000)())
+        short = [r for r in rows if len(r[0]) <= 8]
+        long_ = [r for r in rows if len(r[0]) > 8]
+        return [short[:n], long_[:n]]
+    if model == "recommender":
+        rows = list(dataset.movielens.train()())
+        return [rows[i * n:(i + 1) * n] for i in range(3)]
+    rows = list(dataset.conll05.test()())
+    by = [[r for r in rows if lo < len(r[0]) <= hi]
+          for lo, hi in ((0, 8), (8, 16), (16, 24))]
+    return [b[:n] for b in by]
+
+
+def train_book(torch, model):
+    """Phases train_mt, train_recommender and train_srl: the model at
+    its published widths (``build_book``) on its adapter's batches
+    (``book_rows``), stepped in BOOK_ORDER[model] through the prepared
+    step (the first round captures one graph a padded bucket, all in one
+    memory pool; the rest replay) and through run() from the same start:
+    the fetches (the SRL's Viterbi path too) and every persistable bit
+    for bit, finite losses; ms a step of the second round on each path,
+    the peak memory, a traced step's device ms, idle share and
+    kernels; no kernel of the port runs (no TPU kernel on the path)."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    main, startup, loss, slots, extra = build_book(fluid, model)
+    fetch = [loss] + extra
+    persist, init = start_arrays(fluid, main, startup, fluid.CPUPlace())
+    feeder = fluid.DataFeeder(slots, program=main)
+    batches = [feeder.feed(rows) for rows in book_rows(model)]
+    order = BOOK_ORDER[model]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    runs = {}
+    for path in ("prepared", "run"):
+        scope = fluid.Scope()
+        set_scope_arrays(scope, init, "cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        outs, step_ms, buckets, pools = [], [], None, None
+        t0 = time.perf_counter()
+        if path == "prepared":
+            with exe.prepare(main, feed_specs=batches[0], fetch_list=fetch,
+                             scope=scope) as prep:
+                caps = prep._prep._step._captures
+
+                def step(i):
+                    return prep.run_prepared(batches[i], return_numpy=True)
+                for i in order:
+                    t1 = time.perf_counter()
+                    outs.append(step(i))
+                    step_ms.append((time.perf_counter() - t1) * 1e3)
+                launches = {k: fn.launches for k, fn in KERNELS.items()
+                            if fn.launches}
+                buckets = prep._prep._step.buckets
+                pools = len({c.graph.pool() for c in caps.values()})
+                prep.sync_scope()
+                state = get_scope_arrays(scope, persist)
+                peak = torch.cuda.max_memory_allocated()
+                traced = step_kernels(torch, lambda: step(0), 1)
+        else:
+            def step(i):
+                return exe.run(main, feed=batches[i], fetch_list=fetch,
+                               scope=scope)
+            for i in order:
+                t1 = time.perf_counter()
+                outs.append(step(i))
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            launches = {k: fn.launches for k, fn in KERNELS.items()
+                        if fn.launches}
+            state = get_scope_arrays(scope, persist)
+            peak = torch.cuda.max_memory_allocated()
+            traced = step_kernels(torch, lambda: step(0), 1)
+        half = len(order) // 2
+        runs[path] = {"losses": [float(o[0].ravel()[0]) for o in outs],
+                      "outs": outs, "step_ms": step_ms,
+                      "step_ms_p50": _pct(step_ms[half:], 0.5),
+                      "seconds": time.perf_counter() - t0,
+                      "buckets": buckets, "pools": pools,
+                      "max_memory_allocated_bytes": peak,
+                      "launches": launches, "state": state,
+                      "device_ms_per_step": traced[0],
+                      "device_idle_share": traced[1],
+                      "device_launches_per_step": traced[2],
+                      "costliest_kernels": traced[3]}
+        del scope
+    p, r = runs["prepared"], runs["run"]
+    identical = all(np.array_equal(a, b) for x, y in zip(p["outs"], r["outs"])
+                    for a, b in zip(x, y)) and all(
+        np.array_equal(p["state"][n], r["state"][n]) for n in persist)
+    failures = []
+    if not identical:
+        failures.append("prepared against run(): not bit for bit (losses "
+                        "%r against %r)" % (p["losses"], r["losses"]))
+    if not all(math.isfinite(x) for x in p["losses"]):
+        failures.append("losses %r" % p["losses"])
+    n_buckets = BOOK_BUCKETS[model]
+    replays = len(order) // n_buckets      # the capture's step replays too
+    if len(p["buckets"]) != n_buckets or any(
+            v != {"captures": 1, "replays": replays}
+            for v in p["buckets"].values()):
+        failures.append("buckets %r" % p["buckets"])
+    if p["pools"] != 1:
+        failures.append("the buckets' graphs in %r pools" % p["pools"])
+    if p["launches"] or r["launches"]:
+        failures.append("a port kernel ran: %r" % [p["launches"],
+                                                   r["launches"]])
+    decode = None
+    if extra:
+        tags = np.concatenate([o[1].ravel() for o in p["outs"]])
+        decode = {"tags": int(tags.size), "min": int(tags.min()),
+                  "max": int(tags.max())}
+        if tags.min() < 0 or tags.max() >= main.global_block().var(
+                "crfw").shape[1]:
+            failures.append("Viterbi tags out of range: %r" % decode)
+    for v in runs.values():
+        del v["state"], v["outs"]
+    name = {"machine_translation": "train_mt",
+            "recommender": "train_recommender",
+            "label_semantic_roles": "train_srl"}[model]
+    return {"phase": name, "model": model, "batch": BOOK_BATCH[model],
+            "order": list(order), "buckets": n_buckets,
+            "step_ms_p50": p["step_ms_p50"],
+            "run_step_ms_p50": r["step_ms_p50"],
+            "run_over_prepared": r["step_ms_p50"] / p["step_ms_p50"],
+            "max_memory_allocated_bytes": p["max_memory_allocated_bytes"],
+            "crf_decode": decode, "bit_identical_to_run": identical,
+            "paths": runs, "launches": p["launches"],
+            "failures": failures, "ok": not failures}
+
+
+def book_oracle(torch, model):
+    """Phases train_mt_oracle, train_recommender_oracle and
+    train_srl_oracle: one f32 step of the model at its published widths
+    on BOOK_ORACLE_BATCH of its adapter's rows, held by ``ulp_oracle``
+    with one ulp added to every trainable parameter: each gradient (a
+    sparse table's made dense) at twice the CPU's worst spread, never
+    below LSTM_ORACLE_GRAD_FLOOR, the median at twice the median spread,
+    the loss within RESNET_ORACLE_LOSS_RTOL; the SRL's Viterbi path
+    equal to the CPU's; and a control past the bar, the CPU step from
+    the parameters rounded to TF32 (``tf32_worst_fro_rel``)."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+
+    main, startup, loss, slots, extra = build_book(fluid, model)
+    _, arrays = start_arrays(fluid, main, startup, fluid.CPUPlace())
+    torch.cuda.reset_peak_memory_stats()
+    params = sorted(p.name for p in main.all_parameters() if p.trainable)
+    fetch = [loss.name] + [p + "@GRAD" for p in params] + \
+        [v.name for v in extra]
+    rows = book_rows(model)[-1][:BOOK_ORACLE_BATCH]
+    feed = fluid.DataFeeder(slots, program=main).feed(rows)
+    got, want, _, held = ulp_oracle(fluid, main, arrays, feed, fetch,
+                                    len(params), lambda k, v: k in params,
+                                    fro_rel, LSTM_ORACLE_GRAD_FLOOR)
+    host = fluid.Scope()
+    set_scope_arrays(host, {k: tf32(v) if k in params else v
+                            for k, v in arrays.items()}, "cpu")
+    rounded = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=host)
+    tf32_worst = max(fro_rel(dense_rows(a), b) for a, b in zip(
+        rounded[1:1 + len(params)], want[1:1 + len(params)]))
+    ok = held["ok"] and tf32_worst > held["grad_tolerance"]
+    if extra:
+        held["viterbi_equal"] = bool(np.array_equal(got[-1], want[-1]))
+        ok = ok and held["viterbi_equal"]
+    name = {"machine_translation": "train_mt_oracle",
+            "recommender": "train_recommender_oracle",
+            "label_semantic_roles": "train_srl_oracle"}[model]
+    return {"phase": name, "batch": BOOK_ORACLE_BATCH, **held,
+            "tf32_worst_fro_rel": tf32_worst,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "ok": ok}
+
+
+def ctc_program(fluid):
+    """x (ragged, CTC["features"]) -> fc to CTC["vocab"] -> warpctc
+    against a ragged label (blank 0) -> mean, SGD; beside it
+    ctc_greedy_decoder over dense logits p [T, vocab]."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = L.data(name="x", shape=[CTC["features"]], lod_level=1,
+                   dtype="float32")
+        lab = L.data(name="lab", shape=[1], lod_level=1, dtype="int64")
+        h = L.fc(x, size=CTC["vocab"])
+        loss = L.mean(L.warpctc(h, lab, blank=0))
+        fluid.optimizer.SGD(learning_rate=1e-3).minimize(loss)
+        p = L.data(name="p", shape=[CTC["t"][1], CTC["vocab"]],
+                   dtype="float32")
+        dec = L.ctc_greedy_decoder(p, blank=0)
+    return main, startup, loss, dec
+
+
+def ctc_phase(torch):
+    """Phase ctc: the warpctc loss and its gradient on the card against
+    the CPU, one f32 step through ``ulp_oracle`` (16 sequences of 60-100
+    frames of 128 features, fc to 32 symbols, labels of 10-30 symbols:
+    each fc gradient at twice the CPU's one-ulp spread, never below
+    LSTM_ORACLE_GRAD_FLOOR), and ctc_greedy_decoder over logits with
+    tied maxima (integer-valued), its ids equal to the CPU's; its ms
+    on the card through run()."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    main, startup, loss, dec = ctc_program(fluid)
+    _, arrays = start_arrays(fluid, main, startup, fluid.CPUPlace())
+    params = sorted(p.name for p in main.all_parameters())
+    rng = np.random.RandomState(SEED + 140)
+    t_lens = rng.randint(CTC["t"][0], CTC["t"][1] + 1, CTC["n"])
+    l_lens = rng.randint(CTC["labels"][0], CTC["labels"][1] + 1, CTC["n"])
+    xs = [rng.randn(t, CTC["features"]).astype(np.float32) for t in t_lens]
+    labs = [rng.randint(1, CTC["vocab"], (n, 1)).astype(np.int64)
+            for n in l_lens]
+    logits = rng.randint(0, 4, (CTC["n"], CTC["t"][1], CTC["vocab"])
+                         ).astype(np.float32)
+    feed = {"x": LoDTensor.from_sequences(xs),
+            "lab": LoDTensor.from_sequences(labs), "p": logits}
+    fetch = [loss.name] + [p + "@GRAD" for p in params] + [dec.name]
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    got, want, _, held = ulp_oracle(fluid, main, arrays, feed, fetch,
+                                    len(params), lambda k, v: k in params,
+                                    fro_rel, LSTM_ORACLE_GRAD_FLOOR)
+    launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+    ids_equal = bool(np.array_equal(got[-1], want[-1]))
+    scope = fluid.Scope()
+    set_scope_arrays(scope, arrays, "cuda")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    failures = []
+    if not held["ok"]:
+        failures.append("the card's warpctc step against the CPU's")
+    if not ids_equal:
+        failures.append("ctc_greedy_decoder's ids differ from the CPU's")
+    if launches:
+        failures.append("a port kernel ran: %r" % launches)
+    return {"phase": "ctc", **CTC, "decoder_ids_equal": ids_equal,
+            "run_step_ms_p50": _pct(ms[1:], 0.5),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            **held,
+            "failures": failures, "ok": not failures}
+
+
+def build_decode(fluid, beam_size, n=1, max_len=4, vocab=5, end=0):
+    """tests/test_beam_search.py's While-loop decode over a log-prob
+    table (the machine_translation decode program's shape) for ``n``
+    sentences: only beam 0 of each is live at t = 0."""
+    import numpy as np
+
+    L = fluid.layers
+    nb = n * beam_size
+    counter = L.fill_constant(shape=[1], dtype="int64", value=0)
+    limit = L.fill_constant(shape=[1], dtype="int64", value=max_len)
+    init_ids = L.fill_constant(shape=[nb, 1], dtype="int64", value=1)
+    init_scores = L.assign(np.asarray(
+        ([[0.0]] + [[-1e9]] * (beam_size - 1)) * n, np.float32))
+    ids_arr = L.array_write(init_ids, i=counter, capacity=max_len + 1)
+    sc_arr = L.array_write(init_scores, i=counter, capacity=max_len + 1)
+    par_arr = L.array_write(L.assign(np.zeros((nb,), np.int32)),
+                            i=counter, capacity=max_len + 1)
+    cond = L.less_than(x=counter, y=limit)
+    w = L.While(cond=cond)
+    with w.block():
+        pre_ids = L.array_read(ids_arr, i=counter)
+        pre_scores = L.array_read(sc_arr, i=counter)
+        logp = L.embedding(pre_ids, size=[vocab, vocab],
+                           param_attr=fluid.ParamAttr(name="table"))
+        logp = L.reshape(logp, [nb, vocab])
+        accu = L.elementwise_add(x=logp, y=pre_scores)
+        cand_scores, cand_ids = L.topk(accu, k=vocab - 1)
+        sel_ids, sel_scores, parent = L.beam_search(
+            pre_ids, pre_scores, cand_ids, cand_scores,
+            beam_size=beam_size, end_id=end)
+        L.increment(x=counter, value=1, in_place=True)
+        L.array_write(sel_ids, i=counter, array=ids_arr)
+        L.array_write(sel_scores, i=counter, array=sc_arr)
+        L.array_write(parent, i=counter, array=par_arr)
+        L.less_than(x=counter, y=limit, cond=cond)
+    return L.beam_search_decode(ids_arr, sc_arr, par_arr, beam_size, end)
+
+
+def garden_table():
+    """tests/test_beam_search.py's table: greedy takes 1 -> 2 and then a
+    weak continuation; 1 -> 3 -> end has the higher total."""
+    import numpy as np
+
+    t = np.full((5, 5), -1e9, np.float32)
+    t[1, 2], t[1, 3] = np.log(0.6), np.log(0.4)
+    t[2, 4], t[2, 0] = np.log(0.55), np.log(0.45)
+    t[4, 0] = t[3, 0] = t[0, 0] = 0.0
+    return t
+
+
+def beam_decode_phase(torch):
+    """Phase beam_decode: the While-loop decode through run() on the
+    card against the CPU, ids bit for bit and scores within
+    BEAM_SCORE_TOL: tests/test_beam_search.py's garden-path table at
+    beam 1 and 2 (beam 2 finds 1 -> 3 -> end, greedy 1 -> 2 -> 4 ->
+    end), and a random log-prob table of BEAM["vocab"] words at
+    BEAM["sentences"] sentences of BEAM["beam"] beams over
+    BEAM["steps"] steps, where the -1e9 scores of the beams not yet live
+    tie and the selection's tie rule decides; its ms on the card;
+    prepare() refuses the program (a while reads its condition on the
+    host) as Uncapturable."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.executor_impl import Uncapturable
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    rng = np.random.RandomState(SEED + 150)
+    p = rng.uniform(0.05, 1.0, (BEAM["vocab"], BEAM["vocab"]))
+    cases = {"greedy_garden": (1, 1, 4, 5, garden_table()),
+             "beam2_garden": (2, 1, 4, 5, garden_table()),
+             "random": (BEAM["beam"], BEAM["sentences"], BEAM["steps"],
+                        BEAM["vocab"], np.log(p / p.sum(1, keepdims=True))
+                        .astype(np.float32))}
+    results, failures = {}, []
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    for name, (beam, n, steps, vocab, table) in cases.items():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            ids, scores = build_decode(fluid, beam, n, steps, vocab)
+        out, ms = {}, []
+        for dev, place in (("cuda", fluid.CUDAPlace(0)),
+                           ("cpu", fluid.CPUPlace())):
+            scope = fluid.Scope()
+            exe = fluid.Executor(place)
+            exe.run(startup, scope=scope)
+            scope.set("table", torch.from_numpy(table).to(
+                "cuda" if dev == "cuda" else "cpu"))
+            reps = 3 if dev == "cuda" else 1
+            for _ in range(reps):
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[dev] = exe.run(main, fetch_list=[ids, scores],
+                                   scope=scope)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            if dev == "cuda":
+                try:
+                    exe.prepare(main, feed_specs={}, fetch_list=[ids],
+                                scope=scope)
+                    refused = False
+                except Uncapturable:
+                    refused = True
+        ids_equal = bool(np.array_equal(out["cuda"][0], out["cpu"][0]))
+        score_err = float(np.abs(out["cuda"][1].astype(np.float64)
+                                 - out["cpu"][1]).max())
+        results[name] = {"beam": beam, "sentences": n, "steps": steps,
+                         "vocab": vocab, "ids_equal": ids_equal,
+                         "max_abs_score_err": score_err,
+                         "run_ms_p50": _pct(ms[1:], 0.5),
+                         "prepare_refused": refused,
+                         "best": out["cuda"][0][0, 0].tolist()[:6]}
+        if not (ids_equal and score_err <= BEAM_SCORE_TOL and refused):
+            failures.append("%s: %r" % (name, results[name]))
+    garden = (results["greedy_garden"]["best"][:4] == [1, 2, 4, 0]
+              and results["beam2_garden"]["best"][:3] == [1, 3, 0])
+    if not garden:
+        failures.append("the garden path's beams")
+    launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+    if launches:
+        failures.append("a port kernel ran: %r" % launches)
+    return {"phase": "beam_decode", "score_tol": BEAM_SCORE_TOL,
+            "cases": results,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "failures": failures, "ok": not failures}
+
+
+def slice26_phases(torch):
+    """Slice 26's phases in order, as (name, zero-argument callable)."""
+    return [("train_mt", lambda: train_book(torch, "machine_translation")),
+            ("train_mt_oracle",
+             lambda: book_oracle(torch, "machine_translation")),
+            ("train_recommender", lambda: train_book(torch, "recommender")),
+            ("train_recommender_oracle",
+             lambda: book_oracle(torch, "recommender")),
+            ("train_srl",
+             lambda: train_book(torch, "label_semantic_roles")),
+            ("train_srl_oracle",
+             lambda: book_oracle(torch, "label_semantic_roles")),
+            ("ctc", lambda: ctc_phase(torch)),
+            ("beam_decode", lambda: beam_decode_phase(torch))]
+
+
 SLICES = {"--slice21": slice21_phases, "--slice22": slice22_phases,
           "--slice23": slice23_phases, "--slice24": slice24_phases,
-          "--slice25": slice25_phases}
+          "--slice25": slice25_phases, "--slice26": slice26_phases}
 
 
 def slice_main(flag):
-    """``chip_smoke.py --slice21`` .. ``--slice25``: that slice's phases
+    """``chip_smoke.py --slice21`` .. ``--slice26``: that slice's phases
     alone, each printed as one JSON line; stops at the
     first that fails (exit 1).  Slice 22's files go under
     ``_smoke_io/``, removed after."""
@@ -6652,6 +7134,17 @@ def bench_checks(out, amp, prepared):
                                           else 0)}
 
 
+def cache_bytecode():
+    """Let the child processes (the slices, the bench runs) share one
+    bytecode cache under the checkout's ignored ``_pycache/``: where the
+    environment sets PYTHONDONTWRITEBYTECODE, each child would compile
+    torch's Python sources again (on an H100 host, importing torch and
+    the port took 9.7-11.0 s without the cache, 7.6-8.0 s with it)."""
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "_pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
 def main():
     import torch
 
@@ -6671,6 +7164,7 @@ def main():
     from paddle_tpu_torch.serving import (FLAGSHIP_LM, InferenceServer,
                                           tiny_lm)
 
+    cache_bytecode()
     resolve_device("cuda")      # pins float32 matmuls (no TF32)
     phase = "device"
     try:
@@ -6774,6 +7268,20 @@ def main():
             phase = failure[0]
             raise AssertionError("%s: %s" % failure)
         launches_train.update(launches25)
+
+        # slice 26's phases (crf_ctc, beam_search, the last three book
+        # models), in a child process of their own too
+        phase = "slice26"
+        torch.cuda.empty_cache()
+        lines, launches26, failure = slice_subprocess(
+            "--slice26", SLICE26_TIMEOUT_S,
+            ("train_mt", "train_recommender", "train_srl"))
+        for line in lines:
+            emit(line)
+        if failure:
+            phase = failure[0]
+            raise AssertionError("%s: %s" % failure)
+        launches_train.update(launches26)
 
         phase = "serve_f32"
         cfg, params = tiny_lm(SEED, **FLAGSHIP_LM)

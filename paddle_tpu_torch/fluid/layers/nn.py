@@ -40,16 +40,11 @@ __all__ = [
 
 
 _CONV = "queue 1 item 7, the conv family"
-_CRF = "queue 1 item 7, crf_ctc with label_semantic_roles"
-_BEAM = "queue 1 item 7, beam_search with machine_translation's decoder"
 _MISC = "queue 1 item 7, detection and misc"
 # the layers whose ops the port lacks, and the ROADMAP item of each
 _UNPORTED = {
     "conv3d": _CONV, "conv2d_transpose": _CONV, "row_conv": _CONV,
-    "spp": _CONV, "linear_chain_crf": _CRF, "crf_decoding": _CRF,
-    "warpctc": _CRF, "ctc_greedy_decoder": _CRF, "chunk_eval": _CRF,
-    "beam_search": _BEAM, "beam_search_decode": _BEAM,
-    "conv_shift": _MISC, "roi_pool": _MISC, "unpool": _MISC,
+    "spp": _CONV, "conv_shift": _MISC, "roi_pool": _MISC, "unpool": _MISC,
     "scale_sub_region": _MISC}
 
 
@@ -915,32 +910,142 @@ def spp(input, pyramid_height, pool_type="max"):
 
 def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
                 level=0, name=None):
-    _not_ported("beam_search")
+    """One beam-growth step (reference nn.py:2025 / beam_search_op.cc).
+
+    Signature follows the op's evolved form with explicit ``pre_scores``
+    (the 0.14 layer smuggled them through the score LoD); ``scores`` are
+    the ACCUMULATED log-probs of each candidate in ``ids``.  Returns
+    (selected_ids, selected_scores, parent_idx) — ancestry is an explicit
+    gather index instead of the reference's output-LoD encoding."""
+    helper = LayerHelper("beam_search", **locals())
+    selected_ids = helper.create_tmp_variable(dtype=ids.dtype)
+    selected_scores = helper.create_tmp_variable(dtype="float32")
+    parent_idx = helper.create_tmp_variable(dtype="int32")
+    for v in (selected_ids, selected_scores, parent_idx):
+        v.stop_gradient = True
+    helper.append_op(
+        type="beam_search",
+        inputs={"pre_ids": [pre_ids], "pre_scores": [pre_scores],
+                "ids": [ids], "scores": [scores]},
+        outputs={"selected_ids": [selected_ids],
+                 "selected_scores": [selected_scores],
+                 "parent_idx": [parent_idx]},
+        attrs={"beam_size": beam_size, "end_id": end_id, "level": level})
+    return selected_ids, selected_scores, parent_idx
 
 
 def beam_search_decode(ids, scores, parents, beam_size, end_id, name=None):
-    _not_ported("beam_search_decode")
+    """Backtrack a finished decode loop's arrays into whole sequences
+    (reference nn.py:1765 / beam_search_decode_op.cc).  ``ids``/``scores``
+    /``parents`` are the TensorArrays written per step; returns
+    (sentence_ids [N, beam, T] best-first, sentence_scores [N, beam])."""
+    helper = LayerHelper("beam_search_decode", **locals())
+    sentence_ids = helper.create_tmp_variable(dtype="int64")
+    sentence_scores = helper.create_tmp_variable(dtype="float32")
+    helper.append_op(
+        type="beam_search_decode",
+        inputs={"Ids": [ids], "Scores": [scores], "Parents": [parents]},
+        outputs={"SentenceIds": [sentence_ids],
+                 "SentenceScores": [sentence_scores]},
+        attrs={"beam_size": beam_size, "end_id": end_id})
+    return sentence_ids, sentence_scores
 
 
 def linear_chain_crf(input, label, param_attr=None):
-    _not_ported("linear_chain_crf")
+    """Linear-chain CRF cost (reference nn.py linear_chain_crf /
+    linear_chain_crf_op.cc).  Creates the [K+2, K] transition parameter
+    (row 0 start, row 1 stop) and returns the per-sequence negative
+    log-likelihood [N, 1]."""
+    helper = LayerHelper("linear_chain_crf", **locals())
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr(), shape=[size + 2, size],
+        dtype=helper.input_dtype())
+    log_likelihood = helper.create_tmp_variable(
+        dtype=helper.input_dtype())
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs={"Emission": [input], "Transition": [transition],
+                "Label": [label]},
+        outputs={"LogLikelihood": [log_likelihood]})
+    return log_likelihood
 
 
 def crf_decoding(input, param_attr, label=None):
-    _not_ported("crf_decoding")
+    """Viterbi decode with the CRF's transition parameter (reference
+    nn.py crf_decoding / crf_decoding_op.cc).  With ``label`` the output
+    is the per-token correctness mask."""
+    helper = LayerHelper("crf_decoding", **locals())
+    block = helper.main_program.global_block()
+    if param_attr.name in block.vars:
+        transition = block.var(param_attr.name)
+    else:
+        # standalone inference program: declare the parameter so
+        # load_persistables can fill it by name
+        size = input.shape[-1]
+        transition = helper.create_parameter(
+            attr=param_attr, shape=[size + 2, size],
+            dtype=helper.input_dtype())
+    viterbi_path = helper.create_tmp_variable(dtype="int64")
+    inputs = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        inputs["Label"] = [label]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [viterbi_path]})
+    viterbi_path.stop_gradient = True
+    return viterbi_path
 
 
 def warpctc(input, label, blank=0, norm_by_times=False):
-    _not_ported("warpctc")
+    """CTC loss (reference nn.py warpctc / warpctc_op.cc).  ``input`` is
+    the raw [N, T, V] logits; returns per-sequence loss [N, 1]."""
+    helper = LayerHelper("warpctc", **locals())
+    loss = helper.create_tmp_variable(dtype=input.dtype)
+    grad = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(
+        type="warpctc", inputs={"Logits": [input], "Label": [label]},
+        outputs={"Loss": [loss], "WarpCTCGrad": [grad]},
+        attrs={"blank": int(blank), "norm_by_times": norm_by_times})
+    return loss
 
 
 def ctc_greedy_decoder(input, blank, name=None):
-    _not_ported("ctc_greedy_decoder")
+    """argmax + ctc_align: merge repeats then drop blanks (reference
+    nn.py ctc_greedy_decoder built on ctc_align_op.cc)."""
+    helper = LayerHelper("ctc_greedy_decoder", **locals())
+    _, ids = topk(input, k=1)
+    ids = reshape(ids, list(ids.shape[:-1]))
+    out = helper.create_tmp_variable(dtype="int64")
+    helper.append_op(type="ctc_align", inputs={"Input": [ids]},
+                     outputs={"Output": [out]},
+                     attrs={"blank": int(blank), "padding_value": 0})
+    out.stop_gradient = True
+    return out
 
 
 def chunk_eval(input, label, chunk_scheme, num_chunk_types,
                excluded_chunk_types=None):
-    _not_ported("chunk_eval")
+    """Chunk-level precision/recall/F1 (reference nn.py chunk_eval /
+    chunk_eval_op.cc; schemes plain/IOB/IOE/IOBES)."""
+    helper = LayerHelper("chunk_eval", **locals())
+    precision = helper.create_tmp_variable(dtype="float32")
+    recall = helper.create_tmp_variable(dtype="float32")
+    f1_score = helper.create_tmp_variable(dtype="float32")
+    num_infer = helper.create_tmp_variable(dtype="int64")
+    num_label = helper.create_tmp_variable(dtype="int64")
+    num_correct = helper.create_tmp_variable(dtype="int64")
+    helper.append_op(
+        type="chunk_eval",
+        inputs={"Inference": [input], "Label": [label]},
+        outputs={"Precision": [precision], "Recall": [recall],
+                 "F1-Score": [f1_score], "NumInferChunks": [num_infer],
+                 "NumLabelChunks": [num_label],
+                 "NumCorrectChunks": [num_correct]},
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": int(num_chunk_types),
+               "excluded_chunk_types": list(excluded_chunk_types or [])})
+    return (precision, recall, f1_score, num_infer, num_label,
+            num_correct)
 
 
 def conv_shift(x, y):

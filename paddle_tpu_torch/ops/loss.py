@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.registry import register_op
-from paddle_tpu_torch.ops.math import scalar
+from paddle_tpu_torch.ops.math import absolute, scalar
 
 _TOL = 1e-20  # reference math/cross_entropy.h TolerableValue
 
@@ -75,7 +75,7 @@ def _relu0(x):
 
 
 def _log1p_exp_neg_abs(x):
-    return torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.log1p(torch.exp(-absolute(x)))
 
 
 @register_op("sigmoid_cross_entropy_with_logits")

@@ -91,6 +91,27 @@ def _max(x, v):
     return torch.maximum(x, scalar(x, v))
 
 
+class _Abs(torch.autograd.Function):
+    """``torch.abs`` with jax's gradient: ``select(x >= 0, g, -g)``, so
+    +1 at both zeros where torch's ``sgn`` gives 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def absolute(x):
+    """|x| as ``jnp.abs``: the value of ``torch.abs`` (+0.0 at -0.0),
+    the gradient +1 at an exact zero."""
+    return _Abs.apply(x)
+
+
 def _min(x, v):
     return torch.minimum(x, scalar(x, v))
 
@@ -108,7 +129,7 @@ _act("logsigmoid", lambda x, a: -_softplus(-x))
 _act("tanh", lambda x, a: torch.tanh(x))
 _act("tanh_shrink", lambda x, a: x - torch.tanh(x))
 _act("sqrt", lambda x, a: torch.sqrt(x))
-_act("abs", lambda x, a: torch.abs(x))
+_act("abs", lambda x, a: absolute(x))
 _act("ceil", lambda x, a: torch.ceil(x), grad_maker=None)
 _act("floor", lambda x, a: torch.floor(x), grad_maker=None)
 # half to even, as jnp.round
@@ -341,7 +362,7 @@ def _squared_l2_distance(ctx, ins, attrs, op):
 
 @register_op("l1_norm")
 def _l1_norm(ctx, ins, attrs, op):
-    return {"Out": torch.sum(torch.abs(ins["X"])).reshape((1,))}
+    return {"Out": torch.sum(absolute(ins["X"])).reshape((1,))}
 
 
 @register_op("cumsum")

@@ -48,9 +48,18 @@ def _top_k_infer(ins, attrs, op):
                                    device=x.device)}
 
 
+def top_k(x, k):
+    """(values, indices) of the ``k`` largest along the last dim, as
+    ``jax.lax.top_k``: equal values in index order, the lower first, on
+    both devices (``torch.topk``'s order among ties is unspecified and
+    differs between the CPU and CUDA), by a stable descending sort."""
+    idx = torch.argsort(x, dim=-1, descending=True, stable=True)[..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
 @register_op("top_k", grad_maker=None, infer_shape=_top_k_infer)
 def _top_k(ctx, ins, attrs, op):
-    vals, idx = torch.topk(ins["X"], attrs.get("k", 1), dim=-1)
+    vals, idx = top_k(ins["X"], attrs.get("k", 1))
     return {"Out": vals, "Indices": idx}
 
 

@@ -3624,3 +3624,181 @@ def test_tensor_array_on_card_has_no_host_sync_in_a_replay(cuda):
         np.testing.assert_array_equal(a.cpu().numpy(), b)
     assert int(want[3][0]) == 8
     np.testing.assert_array_equal(want[2], np.full((4, 8), 4.5, np.float32))
+
+
+def _book_program(fluid, model):
+    """The book models at small widths: machine_translation (dicts 80,
+    emb and hidden 32), the recommender (its fixed widths), SRL (hidden
+    16, depth 2, the word table trained)."""
+    from paddle_tpu_torch import dataset
+    from paddle_tpu_torch.models import (label_semantic_roles,
+                                         machine_translation, recommender)
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if model == "machine_translation":
+            loss, slots, _ = machine_translation.get_model(80, 80, 32, 32)
+        elif model == "recommender":
+            loss, slots, _ = recommender.get_model()
+        else:
+            word, verb, label = dataset.conll05.get_dict()
+            loss, slots, _ = label_semantic_roles.get_model(
+                len(word), len(label), len(verb), hidden_dim=16, depth=2,
+                train_word_emb=True)
+    return main, startup, loss, slots
+
+
+def _book_rows(model):
+    """Two batches of 8 of the model's adapter samples whose ragged
+    slots pad to two buckets: short and long sentences (wmt14, conll05);
+    for movielens, whose titles all pad to 8, the second batch's titles
+    lengthened to 9-12 words by repeating their own."""
+    from paddle_tpu_torch import dataset
+
+    if model == "machine_translation":
+        rows = list(dataset.wmt14.train(80)())
+        return [[r for r in rows if len(r[0]) <= 8][:8],
+                [r for r in rows if len(r[0]) > 8][:8]]
+    if model == "recommender":
+        rows = list(dataset.movielens.train()())
+        long_ = [list(r) for r in rows[8:16]]
+        for i, r in enumerate(long_):
+            r[6] = (r[6] * 12)[:9 + i % 4]
+        return [rows[:8], long_]
+    rows = list(dataset.conll05.test()())
+    return [[r for r in rows if len(r[0]) <= 8][:8],
+            [r for r in rows if len(r[0]) > 8][:8]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["machine_translation", "recommender",
+                                   "label_semantic_roles"])
+def test_book_model_captured_over_two_buckets_is_run_bit_for_bit(cuda,
+                                                                 model):
+    """Each book model on two batches whose ragged slots pad to two
+    buckets, stepped 0 1 0 1: one captured graph a bucket in one memory
+    pool (the SRL's CRF loops, the recommender's sparse tables inside
+    it); the losses and every persistable equal run()'s bit for bit."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+
+    main, startup, loss, slots = _book_program(fluid, model)
+    persist = sorted(n for n, v in main.desc.blocks[0].vars.items()
+                     if v.persistable)
+    s0 = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=s0)
+    init = get_scope_arrays(s0, persist)
+    feeder = fluid.DataFeeder(slots, program=main)
+    batches = [feeder.feed(rows) for rows in _book_rows(model)]
+    order = (0, 1, 0, 1)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    sa, sb = fluid.Scope(), fluid.Scope()
+    set_scope_arrays(sa, init, "cuda")
+    set_scope_arrays(sb, init, "cuda")
+    la = [exe.run(main, feed=batches[i], fetch_list=[loss], scope=sa)[0]
+          for i in order]
+    with exe.prepare(main, feed_specs=batches[0], fetch_list=[loss],
+                     scope=sb) as prep:
+        lb = [prep.run_prepared(batches[i], return_numpy=True)[0]
+              for i in order]
+        buckets = prep._prep._step.buckets
+        pools = {c.graph.pool() for c in prep._prep._step._captures.values()}
+    assert sorted(v["replays"] for v in buckets.values()) == [2, 2]
+    assert len(pools) == 1
+    for a, b in zip(la, lb):
+        np.testing.assert_array_equal(a, b)
+    assert np.isfinite(np.concatenate([np.ravel(a) for a in la])).all()
+    pa, pb = get_scope_arrays(sa, persist), get_scope_arrays(sb, persist)
+    for n in persist:
+        np.testing.assert_array_equal(pa[n], pb[n])
+
+
+def _select_on(device, fn, *arrays):
+    return [o.cpu().numpy() for o in fn(*[torch.as_tensor(a, device=device)
+                                          for a in arrays])]
+
+
+@pytest.mark.cuda
+def test_beam_search_and_top_k_ties_on_card_equal_the_cpu(cuda):
+    """Tied scores, where torch.topk's order is unspecified and differs
+    between the CPU and CUDA: the beam_search op's selections and the
+    top_k op's indices on the card equal the CPU's (the lower index
+    first, as jax.lax.top_k), at a decode step's width too."""
+    import paddle_tpu_torch.ops  # noqa: F401  (registers the ops)
+    from paddle_tpu_torch.core.lowering import Ins
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    rng = np.random.RandomState(0)
+    beam = get_op_info("beam_search").lower
+    top_k = get_op_info("top_k").lower
+    for nb, k, hi in ((4, 6, 1), (32, 999, 3), (64, 4096, 2)):
+        scores = -rng.randint(0, hi + 1, (nb, k)).astype(np.float32)
+        ids = np.tile(np.arange(k, dtype=np.int64), (nb, 1))
+        pre_ids = rng.randint(0, 5, (nb, 1)).astype(np.int64)
+        pre_scores = -rng.randint(0, 2, (nb, 1)).astype(np.float32)
+
+        def select(pi, ps, i, s):
+            out = beam(None, Ins({"pre_ids": [pi], "pre_scores": [ps],
+                                  "ids": [i], "scores": [s]}),
+                       {"beam_size": 4, "end_id": 0})
+            return [out["selected_ids"], out["selected_scores"],
+                    out["parent_idx"]]
+
+        def topk(s):
+            out = top_k(None, Ins({"X": [s]}), {"k": min(k, 64)}, None)
+            return [out["Out"], out["Indices"]]
+
+        for fn, args in ((select, (pre_ids, pre_scores, ids, scores)),
+                         (topk, (scores,))):
+            for a, b in zip(_select_on(cuda, fn, *args),
+                            _select_on("cpu", fn, *args)):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_crf_and_ctc_on_card_equal_the_cpu(cuda):
+    """linear_chain_crf's loss and gradients and warpctc's (labels CTC
+    cannot align included) within 1e-5 of the CPU's; crf_decoding on
+    tied and integer scores and ctc_align give the CPU's ids exactly."""
+    import paddle_tpu_torch.ops  # noqa: F401  (registers the ops)
+    from paddle_tpu_torch.core.lowering import Ins
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    rng = np.random.RandomState(1)
+    crf = get_op_info("linear_chain_crf").lower
+    dec = get_op_info("crf_decoding").lower
+    ctc = get_op_info("warpctc").lower
+    align = get_op_info("ctc_align").lower
+    em = rng.randn(8, 24, 13).astype(np.float32)
+    tr = rng.randn(15, 13).astype(np.float32)
+    lab = rng.randint(0, 13, (8, 24, 1)).astype(np.int64)
+    logits = rng.randn(8, 40, 32).astype(np.float32)
+    clab = rng.randint(1, 32, (8, 30)).astype(np.int64)
+    best = np.argmax(np.round(logits), -1)
+    out = {}
+    for dev in (cuda, "cpu"):
+        t = {k: torch.tensor(v, device=dev, requires_grad=v.dtype ==
+                             np.float32)
+             for k, v in (("em", em), ("tr", tr), ("lg", logits))}
+        ll = crf(None, Ins({"Emission": [t["em"]], "Transition": [t["tr"]],
+                            "Label": [torch.as_tensor(lab, device=dev)]}),
+                 {})["LogLikelihood"]
+        loss = ctc(None, Ins({"Logits": [t["lg"]],
+                              "Label": [torch.as_tensor(clab, device=dev)]}),
+                   {"blank": 0})["Loss"]
+        grads = torch.autograd.grad(ll.sum() + loss[:, 0].clamp_max(1e6)
+                                    .sum(), [t["em"], t["tr"], t["lg"]])
+        ties = torch.as_tensor(np.round(em), device=dev)
+        paths = [dec(None, Ins({"Emission": [e], "Transition": [
+            torch.as_tensor(np.round(tr), device=dev)]}), {})["ViterbiPath"]
+            for e in (t["em"].detach(), ties, torch.zeros_like(ties))]
+        greedy = align(None, Ins({"Input": [torch.as_tensor(
+            best, device=dev)]}), {"blank": 0})
+        out[str(dev)] = [x.detach().cpu().numpy() for x in
+                         [ll, loss] + list(grads) + paths +
+                         [greedy["Output"]]]
+    got, want = out[str(cuda)], out["cpu"]
+    for a, b in zip(got[:5], want[:5]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    for a, b in zip(got[5:], want[5:]):
+        np.testing.assert_array_equal(a, b)

@@ -85,6 +85,54 @@ def test_dense_op_variant_replays(case):
     replay_spec(*GRAD_CASES[case])
 
 
+# exact zeros where the ops take |x| (ROADMAP queue 3, item 1): jax's
+# abs has gradient +1 at 0, torch's sgn 0, so each case moved only a
+# gradient before the port's ops took ``ops/math.absolute``
+_Z = np.zeros
+ZERO_CASES = {
+    "abs": ("abs", dict(S["abs"], inputs={"X": np.asarray(
+        [[0.0, -0.0, 0.5], [-0.5, 0.0, -0.0]], np.float32)})),
+    "l1_norm": ("l1_norm", dict(S["l1_norm"], inputs={"X": np.asarray(
+        [[0, 1, -2], [0, 0, 3]], np.float32)})),
+    "sigmoid_cross_entropy_with_logits": (
+        "sigmoid_cross_entropy_with_logits", dict(
+            S["sigmoid_cross_entropy_with_logits"],
+            inputs=dict(S["sigmoid_cross_entropy_with_logits"]["inputs"],
+                        X=_Z((4, 5), np.float32)))),
+    "rank_loss": ("rank_loss", dict(S["rank_loss"], inputs=dict(
+        S["rank_loss"]["inputs"], Left=_Z((4, 1), np.float32),
+        Right=_Z((4, 1), np.float32)))),
+    "lambda_rank": ("lambda_rank", dict(S["lambda_rank"], inputs=dict(
+        S["lambda_rank"]["inputs"], Score=type(
+            S["lambda_rank"]["inputs"]["Score"])(
+            _Z((8, 1), np.float32),
+            S["lambda_rank"]["inputs"]["Score"].lod)))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ZERO_CASES))
+def test_gradient_at_an_exact_zero_is_the_references(case):
+    """abs at X = 0 (both signs), l1_norm on [[0, 1, -2], [0, 0, 3]],
+    sigmoid_cross_entropy_with_logits at X = 0, rank_loss at Left =
+    Right = 0 and lambda_rank at all-zero scores: forward and gradient
+    at the spec's tolerance."""
+    replay_spec(*ZERO_CASES[case])
+
+
+def test_absolute_is_torch_abs_with_the_jax_gradient():
+    """``ops/math.absolute``: torch.abs's value bit for bit (+0.0 at
+    -0.0), the gradient sign(x) off zero and +1 at both zeros, as jax's
+    select(x >= 0, g, -g)."""
+    from paddle_tpu_torch.ops.math import absolute
+
+    x = torch.tensor([-2.0, -0.0, 0.0, 3.0, -1e-30], requires_grad=True)
+    y = absolute(x)
+    assert torch.equal(y.detach().view(torch.int32),
+                       torch.abs(x.detach()).view(torch.int32))
+    g, = torch.autograd.grad(y, x, torch.full_like(x, 2.0))
+    assert g.tolist() == [-2.0, 2.0, 2.0, 2.0, -2.0]
+
+
 def test_nce_with_the_references_samples(monkeypatch):
     """nce's outputs at the spec's tolerance once its negative samples
     are the JAX package's (read from its SampleLabels)."""
@@ -235,7 +283,8 @@ def test_meta_shape_inference_matches_jax(op):
 def test_the_port_registers_the_dense_op_library():
     """Every op type that the JAX package's math, tensor, loss, random,
     optimizer_ops files register is the port's too (nn: all but the
-    conv family), and the port counts about 205 op types."""
+    conv family), and the port counts 212 op types (205 at the dense op
+    library's slice; crf_ctc's 5 and beam_search's 2 since)."""
     import importlib
     import inspect
 
@@ -257,4 +306,4 @@ def test_the_port_registers_the_dense_op_library():
     # the grad ops made on demand from the forward lowerings aside
     own = [op for op in treg.registered_ops()
            if treg._registry[op].lower is not generic_grad_lower]
-    assert len(own) == 205, len(own)
+    assert len(own) == 212, len(own)
