@@ -143,6 +143,28 @@ Phases, each printed as one JSON line:
              tests/test_beam_search.py and one of 8 sentences x 4 beams
              over 1,000 words through run(), ids bit for bit and scores
              within BEAM_SCORE_TOL of the CPU's, prepare() refused;
+3j. train_ssd, train_ssd_oracle, detect_ssd, conv_family — the conv
+             family, the detection / misc / metric ops and MobileNet-SSD
+             (in a child process, ``--slice27``; no TPU kernel on the
+             path): mobilenet_ssd.py's MobileNet-SSD (300 x 300, 21
+             classes, its six maps into multi_box_head, ssd_loss, Adam;
+             ``build_mobilenet_ssd``) at batch 32 on synthetic images
+             whose ragged gt (1-8 and 1-16 boxes an image) pad to two
+             buckets, through the prepared step (one graph a bucket, one
+             pool, each prior_box a device constant) and run(), bit for
+             bit, the loss falling, step ms p50 of both, capture s, peak
+             memory, a traced replay's device ms, idle share and kernel
+             families; one f32 step at batch 4 against the CPU
+             (``ulp_oracle``, floor 1e-4, the spread cap
+             SSD_ORACLE_SPREAD_MAX, a TF32 control past the bar); the
+             detection program at batch 8 through run() (prepare()
+             refuses its host ops), its NMS rows, counts and mAP equal to
+             the port's host ops on the CPU over the card's decoded boxes
+             and scores, the NMS's host ms; conv2d_transpose, conv3d,
+             depthwise_conv2d, row_conv, spp, roi_pool,
+             max_pool2d_with_index, unpool and conv_shift once each at a
+             realistic shape (CONV_FAMILY), forward and gradients against
+             the CPU, ms a call;
 4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
@@ -329,8 +351,9 @@ Phases, each printed as one JSON line:
              within twice run()'s own run-to-run spread (never below
              ORACLE_GRAD_RTOL); the step p50 and peak memory beside
              the run() phase's;
-29. bench — the port's bench entry (python3 -m
-             paddle_tpu_torch.tools.bench), prepared by default, at its
+29. bench — the port's bench entry (paddle_tpu_torch.tools.bench's
+             main(), every run in one child process, ``--bench-child``),
+             prepared by default, at its
              default headline (ResNet-50, bf16 AMP, NCHW, batch 256,
              with its secondary, the flagship LM, which must be the bf16
              LM), then (information) with BENCH_PREPARED=0 (run()), and
@@ -3417,7 +3440,7 @@ def fro_rel(a, b, scale=None):
 
 
 def ulp_oracle(fluid, main, arrays, feed, fetch, n, perturb, rel, floor,
-               median_floor=None):
+               median_floor=None, spread_max=RESNET_ORACLE_SPREAD_MAX):
     """One f32 step of ``main`` on ``feed`` from the persistables
     ``arrays``, on the card and on Executor(CPUPlace()), then on the CPU
     again with one ulp added to every array that ``perturb(name,
@@ -3429,8 +3452,9 @@ def ulp_oracle(fluid, main, arrays, feed, fetch, n, perturb, rel, floor,
     scale)``, never below ``floor``, and the median error to that
     multiple of the median spread, never below ``median_floor`` (else
     ``floor``); the loss to RESNET_ORACLE_LOSS_RTOL
-    relative; a worst spread above RESNET_ORACLE_SPREAD_MAX fails, so
-    that no unstable step raises its own bar without limit.  Returns
+    relative; a worst spread above ``spread_max``
+    (RESNET_ORACLE_SPREAD_MAX) fails, so that no unstable step raises
+    its own bar without limit.  Returns
     the card's, the CPU's and the moved CPU's fetches (a SelectedRows
     made dense, ``dense_rows``), and the summary (its "ok")."""
     import numpy as np
@@ -3468,7 +3492,7 @@ def ulp_oracle(fluid, main, arrays, feed, fetch, n, perturb, rel, floor,
                      RESNET_ORACLE_SPREAD * median_spread)
     worst = max(grads, key=lambda g: grads[g]["fro_rel"])
     ok = (math.isfinite(loss_err) and loss_err <= RESNET_ORACLE_LOSS_RTOL
-          and spread <= RESNET_ORACLE_SPREAD_MAX and median <= median_tol
+          and spread <= spread_max and median <= median_tol
           and all(math.isfinite(g["fro_rel"]) and g["fro_rel"] <= tol
                   for g in grads.values()))
     return got, want, moved, {
@@ -3477,7 +3501,7 @@ def ulp_oracle(fluid, main, arrays, feed, fetch, n, perturb, rel, floor,
         "worst_grad": worst, "worst_fro_rel": grads[worst]["fro_rel"],
         "median_fro_rel": median, "cpu_ulp_worst_fro_rel": spread,
         "cpu_ulp_median_fro_rel": median_spread,
-        "cpu_ulp_tolerance": RESNET_ORACLE_SPREAD_MAX, "grads": grads,
+        "cpu_ulp_tolerance": spread_max, "grads": grads,
         "loss_tolerance": RESNET_ORACLE_LOSS_RTOL, "grad_floor": floor,
         "grad_tolerance": tol, "median_grad_tolerance": median_tol,
         "ok": ok}
@@ -5767,10 +5791,11 @@ def rnn_batches(fluid, main, slots, model):
                           SEED + 110 + i) for i, mx in enumerate(SEQ2SEQ_MAX)]
 
 
-def step_kernels(torch, step, n):
+def step_kernels(torch, step, n, families=False):
     """(device ms a step, the device's idle share, device kernels
     launched a step (kernels, memcpys, memsets), the five costliest by
-    name) over ``n`` calls of ``step`` under ``torch.profiler``."""
+    name, or with ``families`` every kernel summed by KERNEL_FAMILIES)
+    over ``n`` calls of ``step`` under ``torch.profiler``."""
     from paddle_tpu_torch.tools.profile_train import device_kernels
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -5786,8 +5811,8 @@ def step_kernels(torch, step, n):
     if not kernels:
         return "not measured", "not measured", "not measured", {}
     busy = sum(k["ms_per_step"] for k in kernels.values())
-    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms_per_step"])
-               [:5])
+    top = kernel_families(kernels) if families else dict(
+        sorted(kernels.items(), key=lambda kv: -kv[1]["ms_per_step"])[:5])
     return (busy, max(0.0, 1.0 - busy / wall),
             sum(k["calls_per_step"] for k in kernels.values()), top)
 
@@ -6946,13 +6971,679 @@ def slice26_phases(torch):
             ("beam_decode", lambda: beam_decode_phase(torch))]
 
 
+# ---------------------------------------------------------------------------
+# slice 27: the conv family, the detection / misc / metric ops and
+# MobileNet-SSD (no TPU kernel on the path)
+# ---------------------------------------------------------------------------
+
+# PaddlePaddle/models fluid/object_detection/mobilenet_ssd.py (Fluid era):
+# MobileNet-v1's published widths, SSD heads on PASCAL VOC's 21 classes
+SSD_IMAGE = 300
+SSD_CLASSES = 21
+SSD_MAX_GT = 8          # gt boxes an image: 1-8, a ragged feed
+SSD_LR = 0.001
+
+
+def _ssd_conv_bn(fluid, x, filter_size, num_filters, stride, padding,
+                 num_groups=1, act="relu"):
+    """mobilenet_ssd.py's conv_bn: conv (no bias; MSRA, learning rate
+    0.1) and batch norm."""
+    attr = fluid.ParamAttr(learning_rate=0.1,
+                           initializer=fluid.initializer.MSRA())
+    conv = fluid.layers.conv2d(
+        input=x, num_filters=num_filters, filter_size=filter_size,
+        stride=stride, padding=padding, groups=num_groups, act=None,
+        param_attr=attr, bias_attr=False)
+    return fluid.layers.batch_norm(input=conv, act=act)
+
+
+def _ssd_separable(fluid, x, nf1, nf2, groups, stride, scale):
+    """A depthwise 3x3 (conv2d with groups = C, as the published model
+    writes it) and a pointwise 1x1, each conv-BN-relu."""
+    dw = _ssd_conv_bn(fluid, x, 3, int(nf1 * scale), stride, 1,
+                      int(groups * scale))
+    return _ssd_conv_bn(fluid, dw, 1, int(nf2 * scale), 1, 0)
+
+
+def _ssd_extra(fluid, x, nf1, nf2, groups, stride, scale):
+    pw = _ssd_conv_bn(fluid, x, 1, int(nf1 * scale), 1, 0,
+                      int(groups * scale))
+    return _ssd_conv_bn(fluid, pw, 3, int(nf2 * scale), stride, 1,
+                        int(groups * scale))
+
+
+def build_mobilenet_ssd(fluid, image=SSD_IMAGE, scale=1.0,
+                        num_classes=SSD_CLASSES, detect=False):
+    """MobileNet-SSD (mobilenet_ssd.py's mobile_net and its train /
+    infer programs) from the layers both packages have.  Feeds: "image"
+    [N, 3, image, image], "gt_box" [N, G, 4] and "gt_label" [N, G, 1]
+    ragged (lod_level 1).  Returns (loss, feed names, extra fetches):
+    the mean ssd_loss under Adam; with ``detect`` no optimizer and the
+    extra fetches the decoded boxes, the softmax scores transposed to
+    [N, C, M], detection_output's rows and detection_map's mAP."""
+    layers = fluid.layers
+    img = layers.data(name="image", shape=[3, image, image],
+                      dtype="float32")
+    gt_box = layers.data(name="gt_box", shape=[4], dtype="float32",
+                         lod_level=1)
+    gt_label = layers.data(name="gt_label", shape=[1], dtype="int64",
+                           lod_level=1)
+    # 300 -> 150 -> 75 -> 38 -> 19
+    t = _ssd_conv_bn(fluid, img, 3, int(32 * scale), 2, 1)
+    t = _ssd_separable(fluid, t, 32, 64, 32, 1, scale)
+    t = _ssd_separable(fluid, t, 64, 128, 64, 2, scale)
+    t = _ssd_separable(fluid, t, 128, 128, 128, 1, scale)
+    t = _ssd_separable(fluid, t, 128, 256, 128, 2, scale)
+    t = _ssd_separable(fluid, t, 256, 256, 256, 1, scale)
+    t = _ssd_separable(fluid, t, 256, 512, 256, 2, scale)
+    for _ in range(5):
+        t = _ssd_separable(fluid, t, 512, 512, 512, 1, scale)
+    module11 = t                                         # 19 x 19 x 512
+    t = _ssd_separable(fluid, t, 512, 1024, 512, 2, scale)
+    module13 = _ssd_separable(fluid, t, 1024, 1024, 1024, 1, scale)
+    module14 = _ssd_extra(fluid, module13, 256, 512, 1, 2, scale)   # 5
+    module15 = _ssd_extra(fluid, module14, 128, 256, 1, 2, scale)   # 3
+    module16 = _ssd_extra(fluid, module15, 128, 256, 1, 2, scale)   # 2
+    module17 = _ssd_extra(fluid, module16, 64, 128, 1, 2, scale)    # 1
+    locs, confs, box, box_var = layers.detection.multi_box_head(
+        inputs=[module11, module13, module14, module15, module16,
+                module17],
+        image=img, num_classes=num_classes, min_ratio=20, max_ratio=90,
+        aspect_ratios=[[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0],
+                       [2.0, 3.0], [2.0, 3.0]],
+        base_size=image, offset=0.5, flip=True)
+    feeds = ["image", "gt_box", "gt_label"]
+    if detect:
+        scores = layers.softmax(confs)
+        decoded = layers.detection.box_coder(box, box_var, locs,
+                                             "decode_center_size")
+        scores_t = layers.transpose(scores, perm=[0, 2, 1])
+        nmsed = layers.detection.multiclass_nms(decoded, scores_t)
+        label = layers.concat(
+            [layers.cast(gt_label, "float32"), gt_box], axis=2)
+        m = layers.detection.detection_map(nmsed, label, num_classes)
+        return None, feeds, [decoded, scores_t, nmsed, m]
+    loss = layers.mean(layers.detection.ssd_loss(locs, confs, gt_box,
+                                                 gt_label, box, box_var))
+    fluid.optimizer.Adam(learning_rate=SSD_LR).minimize(loss)
+    return loss, feeds, []
+
+
+def ssd_batch(n, image=SSD_IMAGE, num_classes=SSD_CLASSES,
+              max_gt=SSD_MAX_GT, seed=SEED):
+    """A synthetic VOC-like batch from ``seed``: images uniform in
+    [0, 1), 1-``max_gt`` boxes an image (corners sorted in [0, 1], at
+    least 0.05 wide and high), labels 1 .. num_classes - 1.  Returns
+    (image [n, 3, image, image], [boxes [g, 4]] and [labels [g, 1]]
+    per image)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    imgs = rng.uniform(0, 1, (n, 3, image, image)).astype(np.float32)
+    boxes, labels = [], []
+    for _ in range(n):
+        g = int(rng.randint(1, max_gt + 1))
+        lo = rng.uniform(0, 0.7, (g, 2))
+        wh = rng.uniform(0.05, 0.3, (g, 2))
+        boxes.append(np.concatenate([lo, np.minimum(lo + wh, 1.0)],
+                                    1).astype(np.float32))
+        labels.append(rng.randint(1, num_classes, (g, 1)).astype(np.int64))
+    return imgs, boxes, labels
+
+
+def ssd_feed(lod_tensor_cls, imgs, boxes, labels):
+    """The feed dict of ``ssd_batch``'s arrays for a package's
+    LoDTensor class."""
+    return {"image": imgs,
+            "gt_box": lod_tensor_cls.from_sequences(boxes),
+            "gt_label": lod_tensor_cls.from_sequences(labels)}
+
+
+SSD_BATCH = 32
+SSD_ORDER = (0, 1, 0, 1, 0, 1)
+SSD_BOXES = (8, 16)     # gt boxes an image at most: padded buckets 8, 16
+SSD_ORACLE_BATCH = 4
+# the CPU's own one-ulp spread of MobileNet-SSD's gradients reaches 0.10 -
+# 0.14 at batch 4 - 16 (the first batch norm's scale: a sum over 32 x
+# 150 x 150 products that nearly cancels), past RESNET_ORACLE_SPREAD_MAX
+SSD_ORACLE_SPREAD_MAX = 0.25
+SSD_DETECT_BATCH = 8
+SLICE27_TIMEOUT_S = 600
+# kernel families of a traced SSD replay, by a substring of the symbol
+KERNEL_FAMILIES = (("conv", ("conv", "cudnn", "xmma", "implicit", "dgrad",
+                             "wgrad", "winograd", "fft")),
+                   ("gemm", ("gemm", "cutlass")),
+                   ("sort", ("sort", "radix")),
+                   ("reduce", ("reduce", "Reduce")),
+                   ("index", ("index", "gather", "scatter", "Index")),
+                   ("memcpy / memset", ("Memcpy", "Memset", "memcpy",
+                                        "memset")),
+                   ("elementwise", ("elementwise", "vectorized",
+                                    "unrolled", "Elementwise")))
+
+
+def kernel_families(kernels):
+    """``profile_train.device_kernels`` summed by KERNEL_FAMILIES (the
+    first family whose substring a symbol holds; "other" else)."""
+    out = {}
+    for name, k in kernels.items():
+        fam = next((f for f, keys in KERNEL_FAMILIES
+                    if any(key in name for key in keys)), "other")
+        d = out.setdefault(fam, {"ms_per_step": 0.0, "calls_per_step": 0.0})
+        d["ms_per_step"] += k["ms_per_step"]
+        d["calls_per_step"] += k["calls_per_step"]
+    return out
+
+
+_SSD_PROGRAMS = {}
+
+
+def ssd_program(fluid, detect=False):
+    """(main, startup, loss, extra fetches) of MobileNet-SSD at its
+    published widths, built once a process; ``detect``: the test clone
+    of the detection program (batch norm on its running statistics)."""
+    if detect not in _SSD_PROGRAMS:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            loss, _, extra = build_mobilenet_ssd(fluid, detect=detect)
+        if detect:
+            main = main.clone(for_test=True)
+        _SSD_PROGRAMS[detect] = (main, startup, loss, extra)
+    return _SSD_PROGRAMS[detect]
+
+
+def train_ssd(torch):
+    """Phase train_ssd: MobileNet-SSD (300 x 300, 21 classes, Adam) at
+    batch SSD_BATCH on two synthetic batches whose ragged gt (1-8 and
+    1-16 boxes an image) pad to two buckets, stepped SSD_ORDER through
+    the prepared step (one graph a bucket, one pool) and through run()
+    from the same start, both on cuDNN's deterministic algorithms
+    (FLAGS_cudnn_deterministic: its default weight gradients add with
+    atomics): every loss and persistable bit for bit, each bucket
+    captured once, the loss falling on the repeated batch; step ms p50
+    of both paths, each bucket's first (capture) step s, peak memory
+    allocated and reserved, one traced replay's device ms, idle share,
+    kernels and their families; beside them the prepared step's ms on
+    cuDNN's default algorithms (``default_cudnn_step_ms_p50``); no
+    kernel of the port runs (no TPU kernel on the path)."""
+    from paddle_tpu_torch.core.flags import FLAGS
+
+    prev = FLAGS.cudnn_deterministic
+    try:
+        FLAGS.cudnn_deterministic = False
+        default_ms = _ssd_default_ms(torch)
+        FLAGS.cudnn_deterministic = True
+        out = _train_ssd(torch)
+    finally:
+        FLAGS.cudnn_deterministic = prev
+    out["default_cudnn_step_ms_p50"] = default_ms
+    return out
+
+
+def _ssd_default_ms(torch):
+    """ms p50 of 3 replays of the prepared SSD step on batch 0 (after its
+    capture) on cuDNN's default algorithms."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+
+    main, startup, loss, _ = ssd_program(fluid)
+    _, init = start_arrays(fluid, main, startup, fluid.CPUPlace())
+    feed = ssd_feed(LoDTensor, *ssd_batch(SSD_BATCH, max_gt=SSD_BOXES[0],
+                                          seed=SEED))
+    scope = fluid.Scope()
+    set_scope_arrays(scope, init, "cuda")
+    ms = []
+    with fluid.Executor(fluid.CUDAPlace(0)).prepare(
+            main, feed_specs=feed, fetch_list=[loss], scope=scope) as prep:
+        for _ in range(4):
+            t0 = time.perf_counter()
+            prep.run_prepared(feed, return_numpy=True)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    del scope
+    torch.cuda.empty_cache()
+    return _pct(ms[1:], 0.5)
+
+
+def _train_ssd(torch):
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    main, startup, loss, _ = ssd_program(fluid)
+    persist, init = start_arrays(fluid, main, startup, fluid.CPUPlace())
+    batches = [ssd_feed(LoDTensor, *ssd_batch(SSD_BATCH, max_gt=g,
+                                              seed=SEED + k))
+               for k, g in enumerate(SSD_BOXES)]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    runs = {}
+    for path in ("prepared", "run"):
+        scope = fluid.Scope()
+        set_scope_arrays(scope, init, "cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        outs, step_ms = [], []
+        t0 = time.perf_counter()
+        if path == "prepared":
+            with exe.prepare(main, feed_specs=batches[0], fetch_list=[loss],
+                             scope=scope) as prep:
+                caps = prep._prep._step._captures
+
+                def step(i):
+                    return prep.run_prepared(batches[i], return_numpy=True)
+                for i in SSD_ORDER:
+                    t1 = time.perf_counter()
+                    outs.append(step(i))
+                    step_ms.append((time.perf_counter() - t1) * 1e3)
+                launches = {k: fn.launches for k, fn in KERNELS.items()
+                            if fn.launches}
+                buckets = prep._prep._step.buckets
+                pools = len({c.graph.pool() for c in caps.values()})
+                prep.sync_scope()
+                state = get_scope_arrays(scope, persist)
+                peak = torch.cuda.max_memory_allocated()
+                reserved = torch.cuda.max_memory_reserved()
+                traced = step_kernels(torch, lambda: step(0), 1,
+                                      families=True)
+        else:
+            def step(i):
+                return exe.run(main, feed=batches[i], fetch_list=[loss],
+                               scope=scope)
+            for i in SSD_ORDER:
+                t1 = time.perf_counter()
+                outs.append(step(i))
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            launches = {k: fn.launches for k, fn in KERNELS.items()
+                        if fn.launches}
+            buckets = pools = None
+            state = get_scope_arrays(scope, persist)
+            peak = torch.cuda.max_memory_allocated()
+            reserved = torch.cuda.max_memory_reserved()
+            traced = step_kernels(torch, lambda: step(0), 1,
+                                  families=True)
+        half = len(SSD_ORDER) // 2
+        runs[path] = {"losses": [float(o[0].ravel()[0]) for o in outs],
+                      "outs": outs, "step_ms": step_ms,
+                      "step_ms_p50": _pct(step_ms[half:], 0.5),
+                      "first_step_s": [step_ms[0] / 1e3, step_ms[1] / 1e3],
+                      "seconds": time.perf_counter() - t0,
+                      "buckets": buckets, "pools": pools,
+                      "max_memory_allocated_bytes": peak,
+                      "max_memory_reserved_bytes": reserved,
+                      "launches": launches, "state": state,
+                      "device_ms_per_step": traced[0],
+                      "device_idle_share": traced[1],
+                      "device_launches_per_step": traced[2],
+                      "kernel_families": traced[3]}
+        del scope
+    p, r = runs["prepared"], runs["run"]
+    identical = all(np.array_equal(a, b) for x, y in zip(p["outs"], r["outs"])
+                    for a, b in zip(x, y)) and all(
+        np.array_equal(p["state"][n], r["state"][n]) for n in persist)
+    failures = []
+    if not identical:
+        failures.append("prepared against run(): not bit for bit (losses "
+                        "%r against %r)" % (p["losses"], r["losses"]))
+    losses = p["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        failures.append("losses %r" % losses)
+    elif not losses[-2] < losses[0]:
+        failures.append("the loss of batch 0 did not fall: %r" % losses)
+    replays = len(SSD_ORDER) // 2
+    if len(p["buckets"]) != 2 or any(
+            v != {"captures": 1, "replays": replays}
+            for v in p["buckets"].values()):
+        failures.append("buckets %r" % p["buckets"])
+    if p["pools"] != 1:
+        failures.append("the buckets' graphs in %r pools" % p["pools"])
+    if p["launches"] or r["launches"]:
+        failures.append("a port kernel ran: %r" % [p["launches"],
+                                                   r["launches"]])
+    for v in runs.values():
+        del v["state"], v["outs"]
+    n_priors = int(main.global_block().var(
+        [op for op in main.global_block().ops
+         if op.type == "iou_similarity"][0].input("Y")[0]).shape[0])
+    return {"phase": "train_ssd", "batch": SSD_BATCH, "image": SSD_IMAGE,
+            "classes": SSD_CLASSES, "priors": n_priors,
+            "gt_buckets": list(SSD_BOXES), "order": list(SSD_ORDER),
+            "cudnn_deterministic": True, "step_ms_p50": p["step_ms_p50"],
+            "run_step_ms_p50": r["step_ms_p50"],
+            "images_per_s": SSD_BATCH * 1e3 / p["step_ms_p50"],
+            "run_over_prepared": r["step_ms_p50"] / p["step_ms_p50"],
+            "capture_s": p["first_step_s"],
+            "max_memory_allocated_bytes": p["max_memory_allocated_bytes"],
+            "max_memory_reserved_bytes": p["max_memory_reserved_bytes"],
+            "bit_identical_to_run": identical, "paths": runs,
+            "launches": p["launches"], "failures": failures,
+            "ok": not failures}
+
+
+def ssd_oracle(torch):
+    """Phase train_ssd_oracle: one f32 step of MobileNet-SSD at its
+    published widths on SSD_ORACLE_BATCH synthetic images (1-8 gt
+    boxes), held by ``ulp_oracle`` with one ulp added to every trainable
+    parameter: each gradient at twice the CPU's worst spread, never
+    below LSTM_ORACLE_GRAD_FLOOR, the median at twice the median spread,
+    the loss within RESNET_ORACLE_LOSS_RTOL, the CPU's worst spread at
+    most SSD_ORACLE_SPREAD_MAX; and a control past the bar, the CPU step
+    from the parameters rounded to TF32 (``tf32_worst_fro_rel``)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+
+    main, startup, loss, _ = ssd_program(fluid)
+    _, arrays = start_arrays(fluid, main, startup, fluid.CPUPlace())
+    torch.cuda.reset_peak_memory_stats()
+    params = sorted(p.name for p in main.all_parameters() if p.trainable)
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+    feed = ssd_feed(LoDTensor, *ssd_batch(SSD_ORACLE_BATCH,
+                                          seed=SEED + 7))
+    t0 = time.perf_counter()
+    _, want, _, held = ulp_oracle(fluid, main, arrays, feed, fetch,
+                                  len(params), lambda k, v: k in params,
+                                  fro_rel, LSTM_ORACLE_GRAD_FLOOR,
+                                  spread_max=SSD_ORACLE_SPREAD_MAX)
+    oracle_s = time.perf_counter() - t0
+    host = fluid.Scope()
+    set_scope_arrays(host, {k: tf32(v) if k in params else v
+                            for k, v in arrays.items()}, "cpu")
+    rounded = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=host)
+    tf32_worst = max(fro_rel(a, b) for a, b in zip(
+        rounded[1:1 + len(params)], want[1:1 + len(params)]))
+    return {"phase": "train_ssd_oracle", "batch": SSD_ORACLE_BATCH, **held,
+            "oracle_s": oracle_s, "tf32_worst_fro_rel": tf32_worst,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "ok": held["ok"] and tf32_worst > held["grad_tolerance"]}
+
+
+def ssd_host_tail(fluid, place, decoded, scores, boxes, labels):
+    """The port's host ops alone on ``place``: multiclass_nms (the
+    detection_output defaults) over ``decoded`` [N, M, 4] and ``scores``
+    [N, C, M], then detection_map against the ragged gt.  Returns the
+    rows, their per-image counts and the mAP."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.lod import LoDTensor
+
+    main, startup = fluid.Program(), fluid.Program()
+    n, m, _ = decoded.shape
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        bb = fluid.layers.data(name="bb", shape=[m, 4], dtype="float32")
+        sc = fluid.layers.data(name="sc", shape=[SSD_CLASSES, m],
+                               dtype="float32")
+        lab = fluid.layers.data(name="lab", shape=[5], dtype="float32",
+                                lod_level=1)
+        rows = fluid.layers.detection.multiclass_nms(bb, sc)
+        m_ap = fluid.layers.detection.detection_map(rows, lab, SSD_CLASSES)
+    label = LoDTensor.from_sequences([
+        np.concatenate([lb.astype(np.float32), bx], 1)
+        for bx, lb in zip(boxes, labels)])
+    return fluid.Executor(place).run(
+        main, feed={"bb": decoded, "sc": scores, "lab": label},
+        fetch_list=[rows, rows.name + "@ROWS", m_ap], scope=fluid.Scope())
+
+
+def detect_ssd(torch):
+    """Phase detect_ssd: MobileNet-SSD's detection program (the test
+    clone: softmax, box_coder decode, multiclass_nms, detection_map) at
+    SSD_DETECT_BATCH through run() on the card (prepare() refuses the
+    host tail), from the startup parameters: the NMS rows, their
+    per-image counts and the mAP equal bit for bit what the port's host
+    ops give on the CPU for the decoded boxes and scores the card
+    fetched, on the synthetic gt (mAP 0 for a random head) and on a gt
+    of each image's first 3 detections (mAP above 0); the NMS's host ms
+    on those arrays."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+    from paddle_tpu_torch.ops.detection import multiclass_nms_rows
+
+    main, startup, _, extra = ssd_program(fluid, detect=True)
+    _, arrays = start_arrays(fluid, main, startup, fluid.CPUPlace())
+    imgs, boxes, labels = ssd_batch(SSD_DETECT_BATCH, seed=SEED + 9)
+    feed = ssd_feed(LoDTensor, imgs, boxes, labels)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    set_scope_arrays(scope, arrays, "cuda")
+    decoded, scores, rows, m_ap = extra
+    fetch = [decoded, scores, rows, rows.name + "@ROWS", m_ap]
+    failures = []
+    try:
+        exe.prepare(main, feed_specs=feed, fetch_list=fetch, scope=scope)
+        failures.append("prepare() took the host tail")
+    except ValueError:
+        pass
+    t0 = time.perf_counter()
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    run_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    multiclass_nms_rows(got[0], got[1], {})
+    nms_ms = (time.perf_counter() - t0) * 1e3
+    # a second batch whose gt are each image's first 3 detections, so
+    # that its mAP is not 0 as the random gt's is
+    offs = np.concatenate([[0], np.cumsum(got[3])])
+    top = [got[2][offs[i]:offs[i] + 3] for i in range(SSD_DETECT_BATCH)]
+    gt2 = ([r[:, 2:].copy() for r in top],
+           [r[:, :1].astype(np.int64) for r in top])
+    got2 = exe.run(main, feed=ssd_feed(LoDTensor, imgs, *gt2),
+                   fetch_list=fetch, scope=scope)
+    equal = []
+    for out, (bx, lb) in ((got, (boxes, labels)), (got2, gt2)):
+        want = ssd_host_tail(fluid, fluid.CPUPlace(), out[0], out[1], bx,
+                             lb)
+        equal += [bool(np.array_equal(a, b)) for a, b in zip(out[2:], want)]
+        counts = out[3].tolist()
+        if sum(counts) != out[2].shape[0] or \
+                not 0.0 <= float(out[4][0]) <= 1.0:
+            failures.append("counts %r, mAP %r" % (counts, out[4]))
+    if not all(equal):
+        failures.append("rows / counts / mAP against the CPU's host ops: "
+                        "%r" % equal)
+    if not float(got2[4][0]) > 0.0:
+        failures.append("the mAP against the card's own detections is "
+                        "%r" % got2[4])
+    return {"phase": "detect_ssd", "batch": SSD_DETECT_BATCH,
+            "run_ms": run_ms, "nms_host_ms": nms_ms,
+            "detections": int(got[2].shape[0]),
+            "per_image": got[3].tolist(), "map": float(got[4][0]),
+            "map_own_detections": float(got2[4][0]),
+            "equal_to_cpu_host_ops": equal,
+            "failures": failures, "ok": not failures}
+
+
+# the conv family and the device ops of ops/misc.py once at a realistic
+# shape each: (name, op, inputs {slot: (shape, "f32" | index maker)},
+# attrs, the float slots differentiated)
+def _roi_boxes(np, rng, n, r, h, w, scale):
+    """``r`` Fast R-CNN proposals over ``n`` images of an h x w map at
+    ``scale``: [batch_idx, x1, y1, x2, y2] in image coordinates."""
+    x1 = rng.uniform(0, w / scale * 0.7, r)
+    y1 = rng.uniform(0, h / scale * 0.7, r)
+    bw = rng.uniform(16, w / scale * 0.3, r)
+    bh = rng.uniform(16, h / scale * 0.3, r)
+    return np.stack([rng.randint(0, n, r), x1, y1, x1 + bw, y1 + bh],
+                    1).astype(np.float32)
+
+
+CONV_FAMILY = (
+    # FCN-8s / DCGAN: a 4 x 4 stride-2 upsample, 256 -> 128 channels
+    ("conv2d_transpose", {"Input": (32, 256, 28, 28),
+                          "Filter": (256, 128, 4, 4)},
+     {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1]}),
+    # C3D conv2a: 3 x 3 x 3, 64 -> 128 channels over 16 frames of 56 x 56
+    ("conv3d", {"Input": (8, 64, 16, 56, 56), "Filter": (128, 64, 3, 3, 3)},
+     {"strides": [1, 1, 1], "paddings": [1, 1, 1], "dilations": [1, 1, 1],
+      "groups": 1}),
+    # MobileNet-v1's 3 x 3 depthwise at 19 x 19 x 512 (MobileNet-SSD's
+    # module11 stages)
+    ("depthwise_conv2d", {"Input": (32, 512, 19, 19),
+                          "Filter": (512, 1, 3, 3)},
+     {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1],
+      "groups": 512}),
+    # DeepSpeech2's lookahead row convolution: 20 future steps over 300
+    # frames of a 1024-wide layer
+    ("row_conv", {"X": (32, 300, 1024), "Filter": (21, 1024)}, {}),
+    # SPP-net over AlexNet's conv5 (13 x 13 x 256), a 3-level pyramid
+    ("spp", {"X": (32, 256, 13, 13)},
+     {"pyramid_height": 3, "pooling_type": "max"}),
+    # Fast R-CNN: 7 x 7 bins over VGG16's conv5 of two ~600 x 800 images
+    # (38 x 50 x 512, spatial scale 1/16), 128 proposals
+    ("roi_pool", {"X": (2, 512, 38, 50), "ROIs": "rois"},
+     {"pooled_height": 7, "pooled_width": 7, "spatial_scale": 0.0625}),
+    # SegNet's encoder pool1 (2 x 2, stride 2) over VGG16's conv1 at
+    # 224 x 224
+    ("max_pool2d_with_index", {"X": (8, 64, 224, 224)},
+     {"ksize": [2, 2], "strides": [2, 2], "paddings": [0, 0]}),
+    # SegNet's decoder unpool of that pooling, its indices
+    ("unpool", {"X": (8, 64, 112, 112), "Indices": "mask"},
+     {"ksize": [2, 2], "strides": [2, 2], "paddings": [0, 0]}),
+    # a Neural Turing Machine's shift: 3-tap weights over 128 memory rows,
+    # 64 heads x batch
+    ("conv_shift", {"X": (64, 128), "Y": (64, 3)}, {}),
+)
+
+
+def family_arrays(np, op, slots, attrs, seed):
+    """The inputs of one CONV_FAMILY case from ``seed``."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for slot, spec in slots.items():
+        if spec == "rois":
+            n, _, h, w = slots["X"]
+            out[slot] = _roi_boxes(np, rng, n, 128, h, w,
+                                   attrs["spatial_scale"])
+        elif spec == "mask":
+            # the pool1 indices of a map of 2x the unpool's input
+            n, c, oh, ow = slots["X"]
+            dy, dx = rng.randint(0, 2, (2, n, c, oh, ow))
+            rows = np.arange(oh)[:, None] * 2 + dy
+            cols = np.arange(ow)[None, :] * 2 + dx
+            out[slot] = (rows * (2 * ow) + cols).astype(np.int32)
+        else:
+            out[slot] = rng.randn(*spec).astype(np.float32)
+    return out
+
+
+def family_call(torch, op, arrays, attrs, device):
+    """One CONV_FAMILY op forward and backward on ``device``: a call
+    returning [the float output, its integer companion (Mask, Argmax)
+    where the op has one, the gradients of the float inputs].  The
+    convs' gradients through their explicit grad lowering
+    (``<op>_grad``); the rest through autograd over the forward."""
+    import numpy as np
+
+    import paddle_tpu_torch.ops  # noqa: F401  (registers the ops)
+    from paddle_tpu_torch.core.desc import OpDesc, ProgramDesc
+    from paddle_tpu_torch.core.lowering import Ins, LoweringContext
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    ctx = LoweringContext(ProgramDesc(), 0, {}, torch.device(device))
+    ins = {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+    floats = [k for k, v in ins.items() if v.is_floating_point()
+              and not (op == "roi_pool" and k == "ROIs")]
+    fwd = get_op_info(op).lower
+    explicit = get_op_info(op).grad_lower is not None
+    cots = []       # the output's cotangent: one seeded array, any device
+
+    def call():
+        leaves = {k: v.detach().requires_grad_(k in floats)
+                  for k, v in ins.items()}
+        with torch.enable_grad():
+            outs = fwd(ctx, Ins({k: [v] for k, v in leaves.items()}),
+                       dict(attrs), None)
+            out = outs.get("Out", outs.get("Output"))
+            if not cots:
+                cots.append(torch.from_numpy(np.random.RandomState(3).randn(
+                    *out.shape).astype(np.float32)).to(device))
+            cot = cots[0]
+            if explicit:
+                gop = OpDesc(op + "_grad", inputs={
+                    "Input": ["x"], "Filter": ["w"], "Output@GRAD": ["dy"]},
+                    outputs={"Input@GRAD": ["dx"], "Filter@GRAD": ["dw"]},
+                    attrs=dict(attrs))
+                g = get_op_info(op + "_grad").lower(ctx, Ins({
+                    "Input": [ins["Input"]], "Filter": [ins["Filter"]],
+                    "Output@GRAD": [cot]}), dict(attrs), gop)
+                grads = [g["Input@GRAD"], g["Filter@GRAD"]]
+            else:
+                grads = list(torch.autograd.grad(
+                    out, [leaves[k] for k in floats], cot))
+        ints = [v for k, v in outs.items() if k in ("Mask", "Argmax")]
+        return [out.detach()] + ints + [g.detach() for g in grads]
+
+    return call
+
+
+def conv_family(torch):
+    """Phase conv_family: each CONV_FAMILY op at its realistic shape,
+    forward and gradients on the card against the CPU (each tensor
+    scaled by its largest |CPU value|, within ATOL + RTOL of it; Mask and
+    Argmax outputs exact), with the card's ms a call (forward and
+    backward, CUDA events, median of 3 after a warm-up)."""
+    import numpy as np
+
+    rows, failures = {}, []
+    for op, slots, attrs in CONV_FAMILY:
+        arrays = family_arrays(np, op, slots, attrs, seed=SEED + 27)
+        card = family_call(torch, op, arrays, attrs, "cuda")
+        got = [t.cpu() for t in card()]
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            card()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        want = family_call(torch, op, arrays, attrs, "cpu")()
+        errs, ok = [], True
+        for a, b in zip(got, want):
+            if not b.is_floating_point():
+                good = bool(torch.equal(a, b))
+                errs.append(0 if good else int((a != b).sum()))
+                ok = ok and good
+                continue
+            s = max(float(b.abs().max()), 1e-30)
+            err, good = compare(torch, a / s, b / s)
+            errs.append(err)
+            ok = ok and good
+        rows[op] = {"shapes": {k: list(v.shape) for k, v in arrays.items()},
+                    "ms": _pct(times[1:], 0.5), "scaled_max_err": errs,
+                    "ok": ok}
+        if not ok:
+            failures.append("%s: %r" % (op, errs))
+        del card, got, want
+        torch.cuda.empty_cache()
+    return {"phase": "conv_family", "atol": ATOL, "rtol": RTOL,
+            "ops": rows, "failures": failures, "ok": not failures}
+
+
+def slice27_phases(torch):
+    """Slice 27's phases in order, as (name, zero-argument callable)."""
+    return [("train_ssd", lambda: train_ssd(torch)),
+            ("train_ssd_oracle", lambda: ssd_oracle(torch)),
+            ("detect_ssd", lambda: detect_ssd(torch)),
+            ("conv_family", lambda: conv_family(torch))]
+
+
 SLICES = {"--slice21": slice21_phases, "--slice22": slice22_phases,
           "--slice23": slice23_phases, "--slice24": slice24_phases,
-          "--slice25": slice25_phases, "--slice26": slice26_phases}
+          "--slice25": slice25_phases, "--slice26": slice26_phases,
+          "--slice27": slice27_phases}
 
 
 def slice_main(flag):
-    """``chip_smoke.py --slice21`` .. ``--slice26``: that slice's phases
+    """``chip_smoke.py --slice21`` .. ``--slice27``: that slice's phases
     alone, each printed as one JSON line; stops at the
     first that fails (exit 1).  Slice 22's files go under
     ``_smoke_io/``, removed after."""
@@ -7013,51 +7704,96 @@ def slice_subprocess(flag, timeout, counted):
     return lines, launches, failure
 
 
-def bench_runs(torch, fused_step_ms):
-    """The port's bench entry in a subprocess: the default headline with
-    its secondary (the flagship LM, which must be the bf16 LM),
-    BENCH_LAYOUT=NHWC, (information, beside ``fused_step_ms``, phase
-    13's p50) BENCH_AMP=0 BENCH_LAYOUT=NHWC, and BENCH_MODEL=transformer
-    at its card default (bf16), unfused and fused-block, BENCH_MODEL=vgg
-    at its card default, BENCH_MODEL=resnet32 on cifar10 and
-    BENCH_MODEL=lstm at its card default (bf16, ms/batch), each
-    BENCH_ITERS, no secondary but the headline's.  Returns (the runs'
-    JSON lines, the phase's summary)."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    runs = (("headline", {"BENCH_SECONDARY": "1"}),
-            ("headline_run", {"BENCH_PREPARED": "0"}),
-            ("nhwc", {"BENCH_LAYOUT": "NHWC"}),
-            ("nhwc_f32", {"BENCH_LAYOUT": "NHWC", "BENCH_AMP": "0"}),
-            ("lm", {"BENCH_MODEL": "transformer"}),
-            ("lm_fused", {"BENCH_MODEL": "transformer",
-                          "BENCH_FUSED_TRANSFORMER": "1"}),
-            # slice 21: VGG16-BN at bench.py's card default (flowers,
-            # batch 256, bf16) and the cifar ResNet (depth 32, which
-            # takes cifar10, as in bench.py)
-            ("vgg", {"BENCH_MODEL": "vgg"}),
-            ("resnet32", {"BENCH_MODEL": "resnet32",
-                          "BENCH_DATASET": "cifar10"}),
-            # slice 23: the stacked dynamic LSTM at bench.py's card
-            # default (64 x 80 tokens, hidden 512, bf16), ms/batch
-            ("lstm", {"BENCH_MODEL": "lstm"}))
-    lines, summary, bad = {}, {}, []
-    for name, extra in runs:
-        env = {k: v for k, v in os.environ.items()
-               if not k.startswith("BENCH_")}
-        env.update(BENCH_ITERS=str(BENCH_ITERS), BENCH_SECONDARY="0")
-        env.update(extra)
+# the bench entry's runs: (name, BENCH_* settings besides BENCH_ITERS)
+BENCH_RUNS = (("headline", {"BENCH_SECONDARY": "1"}),
+              ("headline_run", {"BENCH_PREPARED": "0"}),
+              ("nhwc", {"BENCH_LAYOUT": "NHWC"}),
+              ("nhwc_f32", {"BENCH_LAYOUT": "NHWC", "BENCH_AMP": "0"}),
+              ("lm", {"BENCH_MODEL": "transformer"}),
+              ("lm_fused", {"BENCH_MODEL": "transformer",
+                            "BENCH_FUSED_TRANSFORMER": "1"}),
+              # slice 21: VGG16-BN at bench.py's card default (flowers,
+              # batch 256, bf16) and the cifar ResNet (depth 32, which
+              # takes cifar10, as in bench.py)
+              ("vgg", {"BENCH_MODEL": "vgg"}),
+              ("resnet32", {"BENCH_MODEL": "resnet32",
+                            "BENCH_DATASET": "cifar10"}),
+              # slice 23: the stacked dynamic LSTM at bench.py's card
+              # default (64 x 80 tokens, hidden 512, bf16), ms/batch
+              ("lstm", {"BENCH_MODEL": "lstm"}))
+
+
+def bench_child():
+    """``chip_smoke.py --bench-child``: every BENCH_RUNS configuration
+    through the bench entry's ``main()`` in this one process (one import
+    of torch and the port, where a process a run paid ~8 s each), the
+    BENCH_* environment and the flags the entry sets put back before
+    each run; one JSON line a run: {"bench_run", "seconds", "rc",
+    "out"} (``out`` the entry's last line)."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from paddle_tpu_torch.core.flags import FLAGS
+    from paddle_tpu_torch.tools import bench
+
+    flags = {k: d["value"] for k, d in FLAGS._defs.items()}
+    for name, extra in BENCH_RUNS:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(BENCH_ITERS=str(BENCH_ITERS), BENCH_SECONDARY="0")
+        os.environ.update(extra)
+        for k, v in flags.items():
+            setattr(FLAGS, k, v)
+        gc.collect()
         torch.cuda.empty_cache()
+        buf = io.StringIO()
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "paddle_tpu_torch.tools.bench"],
-            cwd=root, env=env, capture_output=True, text=True, timeout=900)
-        secs = time.perf_counter() - t0
-        out = None
-        if proc.returncode == 0 and proc.stdout.strip():
-            out = json.loads(proc.stdout.strip().splitlines()[-1])
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = bench.main()
+            out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        except Exception:
+            traceback.print_exc()
+            rc, out = 1, None
+        print(json.dumps({"bench_run": name,
+                          "seconds": time.perf_counter() - t0,
+                          "rc": rc, "out": out}), flush=True)
+    return 0
+
+
+def bench_runs(torch, fused_step_ms):
+    """The port's bench entry in one child process (``bench_child``):
+    the default headline with its secondary (the flagship LM, which
+    must be the bf16 LM), BENCH_LAYOUT=NHWC, (information, beside
+    ``fused_step_ms``, phase 13's p50) BENCH_AMP=0 BENCH_LAYOUT=NHWC,
+    and BENCH_MODEL=transformer at its card default (bf16), unfused and
+    fused-block, BENCH_MODEL=vgg at its card default,
+    BENCH_MODEL=resnet32 on cifar10 and BENCH_MODEL=lstm at its card
+    default (bf16, ms/batch), each BENCH_ITERS, no secondary but the
+    headline's.  Returns (the runs' JSON lines, the phase's summary)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--bench-child"], cwd=root, capture_output=True,
+                          text=True, timeout=1500)
+    done = {}
+    for ln in proc.stdout.splitlines():
+        if ln.startswith('{"bench_run"'):
+            r = json.loads(ln)
+            done[r["bench_run"]] = r
+    lines, summary, bad = {}, {}, []
+    for name, extra in BENCH_RUNS:
+        r = done.get(name)
+        out = r["out"] if r and r["rc"] == 0 else None
+        secs = r["seconds"] if r else None
         if out is None:
             sys.stderr.write(proc.stderr[-4000:])
-            bad.append("%s: rc %d" % (name, proc.returncode))
+            bad.append("%s: rc %s" % (name, r["rc"] if r else
+                                      "none (the child exited %d)"
+                                      % proc.returncode))
             continue
         lines[name] = out
         amp = extra.get("BENCH_AMP", "1") == "1"
@@ -7282,6 +8018,19 @@ def main():
             phase = failure[0]
             raise AssertionError("%s: %s" % failure)
         launches_train.update(launches26)
+
+        # slice 27's phases (the conv family, the detection / misc / metric
+        # ops, MobileNet-SSD), in a child process of their own too
+        phase = "slice27"
+        torch.cuda.empty_cache()
+        lines, launches27, failure = slice_subprocess(
+            "--slice27", SLICE27_TIMEOUT_S, ("train_ssd",))
+        for line in lines:
+            emit(line)
+        if failure:
+            phase = failure[0]
+            raise AssertionError("%s: %s" % failure)
+        launches_train.update(launches27)
 
         phase = "serve_f32"
         cfg, params = tiny_lm(SEED, **FLAGSHIP_LM)
@@ -7646,5 +8395,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--bench-child"]:
+        sys.exit(bench_child())
     sys.exit(slice_main(sys.argv[1]) if sys.argv[1:2] and
              sys.argv[1] in SLICES else main())

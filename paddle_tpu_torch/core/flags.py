@@ -114,6 +114,12 @@ define_flag("bn_bf16", False,
             "stay f32 internally, like layer_norm) instead of casting "
             "its inputs to f32; halves BN-chain activation bytes on "
             "HBM-bound conv nets")
+define_flag("cudnn_deterministic", False,
+            "run the convs (conv2d, depthwise_conv2d, conv3d, "
+            "conv2d_transpose, the fused stage's backward) on cuDNN's "
+            "deterministic algorithms: cuDNN's default weight-gradient "
+            "algorithms add with atomics, so a conv net's step is not "
+            "bit-repeatable without it (the port's own flag)")
 define_flag("sanitizer", "off",
             "runtime sanitizers (core/sanitizer.py): 'off' (default; a "
             "guarded site costs one flag read) or 'buffers' ('all' "

@@ -408,9 +408,16 @@ def generic_grad_lower(ctx, ins, attrs, op):
     in the leaf's own dtype; a cotangent whose dtype differs from its
     output's (f32 from a black consumer into a bf16 output) is cast.
     Outside AMP such a mismatch is an error.
+
+    A forward registered with a ``grad_lower`` (``ops/nn.py``'s convs)
+    hands its gradient to that lowering instead.
     """
     fwd_type = op.type[: -len("_grad")]
     info = get_op_info(fwd_type)
+    if info.grad_lower is not None:
+        # the forward's explicit gradient (the convs'), which never
+        # re-runs the forward
+        return info.grad_lower(ctx, ins, attrs, op)
 
     out_grad_slots = [s for s in ins.slots() if s.endswith("@GRAD")]
     fwd_output_slots = [s[: -len("@GRAD")] for s in out_grad_slots]

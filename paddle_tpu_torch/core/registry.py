@@ -11,7 +11,7 @@ fields; the table is the port's own.  An op is:
   the generic ``<type>_grad`` desc; None -> not differentiable).  A
   ``<type>_grad`` without an explicit registration lowers through
   ``lowering.generic_grad_lower`` (torch.autograd over the forward
-  lowering).
+  lowering, or the forward's ``grad_lower`` where it has one).
 - ``infer_shape``: optional ``fn(ins, attrs, op) -> {slot: tensors}``
   over ``meta`` tensors, for ops whose lowering must not see them (a
   kernel wrapper rejects ``meta``).

@@ -63,12 +63,18 @@ class SelectedRows:
 
 def add_rows(dst, rows, vals):
     """``dst`` with ``vals`` added in place at ``rows`` along dim 0,
-    duplicate rows summed in the same order at every call:
-    ``index_put_`` with ``accumulate`` (on CUDA a kernel that sorts the
-    rows and sums each row's values in their order).  ``index_add_``
-    adds them on CUDA with atomics, in whatever order they land, so an
-    f32 sum's last bits change from run to run, where the JAX package's
-    scatter-add gives the same bits every time."""
+    duplicate rows summed in the same order at every call: on CUDA
+    ``index_put_`` with ``accumulate`` (a kernel that sorts the rows and
+    sums each row's values in their order), on the CPU ``scatter_add_``
+    (one pass over the rows in order, the JAX package's serial order;
+    the CPU's ``index_put_`` splits the rows over threads).
+    ``index_add_`` adds them on CUDA with atomics, in whatever order
+    they land, so an f32 sum's last bits change from run to run, where
+    the JAX package's scatter-add gives the same bits every time."""
+    if dst.device.type == "cpu":
+        idx = rows.long().reshape((-1,) + (1,) * (vals.dim() - 1)).expand_as(
+            vals)
+        return dst.scatter_add_(0, idx, vals)
     return dst.index_put_((rows,), vals, accumulate=True)
 
 

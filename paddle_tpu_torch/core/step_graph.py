@@ -64,9 +64,9 @@ replay therefore draws new numbers at every step, the ones ``run()``
 draws at that step, and an op with an explicit ``seed`` draws the same
 numbers at every step; the warm-up steps draw from the first step's seed
 and move no counter.  Each ``assign_value`` (a learning-rate table of
-``piecewise_decay``) and ``fill`` is a device constant made once when
-the step is prepared, which every step reads
-(``LoweringContext.constants``).
+``piecewise_decay``), ``fill`` and ``prior_box`` (SSD's priors) is a
+device constant made once when the step is prepared, which every step
+reads (``LoweringContext.constants``).
 
 ``capture`` is that warm-up and capture alone, for any step function:
 the serving engine (``serving/generative.py``) captures each prefill
@@ -87,7 +87,7 @@ from ..ops.tensor import CONSTANT_OPS
 # steps run before the capture (their updates are undone)
 WARMUP_STEPS = 2
 # the flags the lowering reads while it runs
-LOWERING_FLAGS = ("bn_bf16",)
+LOWERING_FLAGS = ("bn_bf16", "cudnn_deterministic")
 
 
 def _lowering_flags():
@@ -149,13 +149,27 @@ class StepGraph:
         # the step's generators (lowering.RandomStream): reset to the
         # step's seed before each step, and registered with the graph
         self._stream = RandomStream(self._device)
-        # each assign_value's (and fill's) constant, on the device once:
-        # a replay reads it there (its lowering would copy from the host)
-        self._constants = {
-            id(op): CONSTANT_OPS[op.type](
-                {k: a.value for k, a in op.attrs.items()}, self._device)
-            for op in entry.ops + entry.body_ops
-            if op.type in CONSTANT_OPS}
+        # each assign_value's, fill's and prior_box's constant, on the
+        # device once: a replay reads it there (its lowering would copy
+        # from the host)
+        self._constants = {}
+        for op in entry.ops + entry.body_ops:
+            make = CONSTANT_OPS.get(op.type)
+            if make is None:
+                continue
+            const = make({k: a.value for k, a in op.attrs.items()},
+                         self._device,
+                         lambda slot, op=op: self._desc_shape(op, slot))
+            if const is not None:
+                self._constants[id(op)] = const
+
+    def _desc_shape(self, op, slot):
+        """The desc shape of ``op``'s (first) input in ``slot``."""
+        name = op.input(slot)[0]
+        for block in self._program.blocks:
+            if name in block.vars:
+                return tuple(block.vars[name].shape)
+        raise KeyError("var %r of %s not found" % (name, op.type))
 
     def load_state(self, name, value):
         """Copy a scope value into the static tensor of ``name``."""

@@ -3,8 +3,9 @@
 Counterpart of ``paddle_tpu.fluid`` for the surface the transformer
 LM's and ResNet's training reaches, ``ParallelExecutor`` over a
 sequence-parallel mesh, persistence (``io``), ``DataFeeder`` and the
-high-level ``Trainer`` / ``Inferencer``, and ragged (LoD) feeds
-(``create_lod_tensor``) with the sequence layers:
+high-level ``Trainer`` / ``Inferencer``, ragged (LoD) feeds
+(``create_lod_tensor``) with the sequence layers, and the metric front
+end (``metrics``, ``evaluator``, ``average``):
 
     import paddle_tpu_torch.fluid as fluid
     x = fluid.layers.data(name="x", shape=[13])
@@ -52,6 +53,9 @@ from . import inferencer
 from .inferencer import Inferencer
 from . import lod_tensor
 from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
+from . import metrics
+from . import evaluator
+from . import average
 
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace
 from paddle_tpu_torch.core.scope import Scope
@@ -72,5 +76,5 @@ __all__ = [
     "DataFeeder", "Trainer", "BeginEpochEvent", "EndEpochEvent",
     "BeginStepEvent", "EndStepEvent", "CheckpointConfig", "Inferencer",
     "CPUPlace", "CUDAPlace", "Scope", "lod_tensor", "create_lod_tensor",
-    "create_random_int_lodtensor",
+    "create_random_int_lodtensor", "metrics", "evaluator", "average",
 ]

@@ -1,9 +1,7 @@
 """Neural-network layers (functions that append ops).
 
 Counterpart of paddle_tpu/fluid/layers/nn.py, function for function:
-the same calls build the same ops and descs.  The layers whose ops are
-not ported yet keep the reference's signatures and raise
-NotImplementedError naming their ROADMAP item (``_not_ported``).
+the same calls build the same ops and descs.
 """
 from __future__ import annotations
 
@@ -39,19 +37,6 @@ __all__ = [
 ]
 
 
-_CONV = "queue 1 item 7, the conv family"
-_MISC = "queue 1 item 7, detection and misc"
-# the layers whose ops the port lacks, and the ROADMAP item of each
-_UNPORTED = {
-    "conv3d": _CONV, "conv2d_transpose": _CONV, "row_conv": _CONV,
-    "spp": _CONV, "conv_shift": _MISC, "roi_pool": _MISC, "unpool": _MISC,
-    "scale_sub_region": _MISC}
-
-
-def _not_ported(layer):
-    raise NotImplementedError(
-        "fluid.layers.%s: its op is not ported to paddle_tpu_torch yet "
-        "(ROADMAP %s)" % (layer, _UNPORTED[layer]))
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -137,14 +122,62 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
 def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
            groups=None, param_attr=None, bias_attr=None, act=None,
            name=None):
-    _not_ported("conv3d")
+    helper = LayerHelper("conv3d", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+
+    def _triple(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v] * 3
+
+    filter_size = _triple(filter_size)
+    filter_shape = [num_filters, input.shape[1] // groups] + filter_size
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr(), shape=filter_shape, dtype=dtype)
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type="conv3d",
+        inputs={"Input": [input], "Filter": [filter_param]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _triple(stride), "paddings": _triple(padding),
+               "dilations": _triple(dilation), "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
 
 
 def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
                      padding=0, stride=1, dilation=1, groups=None,
                      param_attr=None, bias_attr=None, use_cudnn=True,
                      act=None, name=None):
-    _not_ported("conv2d_transpose")
+    helper = LayerHelper("conv2d_transpose", **locals())
+    dtype = helper.input_dtype()
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size or filter_size required")
+        output_size = _pair(output_size)
+        h_in, w_in = input.shape[2], input.shape[3]
+        filter_size = [
+            (output_size[0] - (h_in - 1) * stride[0] + 2 * padding[0] - 1)
+            // dilation[0] + 1,
+            (output_size[1] - (w_in - 1) * stride[1] + 2 * padding[1] - 1)
+            // dilation[1] + 1]
+    else:
+        filter_size = _pair(filter_size)
+    groups = groups or 1
+    filter_shape = [input.shape[1], num_filters // groups] + filter_size
+    img_filter = helper.create_parameter(
+        attr=helper.param_attr(), shape=filter_shape, dtype=dtype)
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input], "Filter": [img_filter]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation, "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
 
 
 def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
@@ -500,7 +533,16 @@ def nce(input, label, num_total_classes, sample_weight=None,
 
 
 def row_conv(input, future_context_size, param_attr=None, act=None):
-    _not_ported("row_conv")
+    helper = LayerHelper("row_conv", **locals())
+    dtype = helper.input_dtype()
+    filter_shape = [future_context_size + 1, input.shape[-1]]
+    filter_param = helper.create_parameter(attr=helper.param_attr(),
+                                           shape=filter_shape, dtype=dtype)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(type="row_conv",
+                     inputs={"X": [input], "Filter": [filter_param]},
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
 
 
 def multiplex(inputs, index):
@@ -905,7 +947,13 @@ def mean_iou(input, label, num_classes):
 
 
 def spp(input, pyramid_height, pool_type="max"):
-    _not_ported("spp")
+    helper = LayerHelper("spp", **locals())
+    out = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(type="spp", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pyramid_height": pyramid_height,
+                            "pooling_type": pool_type})
+    return out
 
 
 def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
@@ -1049,7 +1097,13 @@ def chunk_eval(input, label, chunk_scheme, num_chunk_types,
 
 
 def conv_shift(x, y):
-    _not_ported("conv_shift")
+    """Circular correlation (reference nn.py conv_shift /
+    conv_shift_op.cc): X [N, M], Y [N, K] with K odd."""
+    helper = LayerHelper("conv_shift", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type="conv_shift", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def modified_huber_loss(input, label):
@@ -1065,12 +1119,35 @@ def modified_huber_loss(input, label):
 
 
 def roi_pool(input, rois, pooled_height, pooled_width, spatial_scale=1.0):
-    _not_ported("roi_pool")
+    """ROI max pooling (reference roi_pool_op.cc): rois [R, 5] rows
+    [batch_idx, x1, y1, x2, y2]."""
+    helper = LayerHelper("roi_pool", **locals())
+    out = helper.create_tmp_variable(dtype=input.dtype)
+    argmax = helper.create_tmp_variable(dtype="int64")
+    helper.append_op(type="roi_pool",
+                     inputs={"X": [input], "ROIs": [rois]},
+                     outputs={"Out": [out], "Argmax": [argmax]},
+                     attrs={"pooled_height": int(pooled_height),
+                            "pooled_width": int(pooled_width),
+                            "spatial_scale": float(spatial_scale)})
+    return out
 
 
 def unpool(input, indices, unpool_size, unpool_stride=None,
            unpool_padding=0):
-    _not_ported("unpool")
+    """Max unpooling (reference unpool_op.cc): scatter input back to
+    the argmax positions recorded by max_pool2d_with_index."""
+    helper = LayerHelper("unpool", **locals())
+    out = helper.create_tmp_variable(dtype=input.dtype)
+    ksize = _pair(unpool_size)
+    helper.append_op(
+        type="unpool", inputs={"X": [input], "Indices": [indices]},
+        outputs={"Out": [out]},
+        attrs={"ksize": ksize,
+               "strides": _pair(unpool_stride) if unpool_stride
+               else ksize,
+               "paddings": _pair(unpool_padding)})
+    return out
 
 
 def lambda_rank(score, label, ndcg_num=5, return_ndcg=False):
@@ -1091,4 +1168,13 @@ def lambda_rank(score, label, ndcg_num=5, return_ndcg=False):
 
 
 def scale_sub_region(x, indices, value):
-    _not_ported("scale_sub_region")
+    """Scale the per-sample [C,H,W] sub-box named by ``indices``
+    ([N, 6] 1-based inclusive c0,c1,h0,h1,w0,w1) by ``value``
+    (reference scale_sub_region_layer -> scale_sub_region op)."""
+    helper = LayerHelper("scale_sub_region", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type="scale_sub_region",
+                     inputs={"X": [x], "Indices": [indices]},
+                     outputs={"Out": [out]},
+                     attrs={"value": float(value)})
+    return out

@@ -1,24 +1,32 @@
 """Neural-network ops.
 
-Counterpart of ``paddle_tpu/ops/nn.py`` for the ops ported so far:
-``conv2d``, ``pool2d`` (adaptive too), ``batch_norm``, ``layer_norm``,
-``softmax``, ``dropout`` (its mask drawn by ``ops/random.keep_mask``
-from the step's stream) and the fused conv stage
-``fused_conv2d_bn_act``.  Plain convolutions are
-``F.conv2d`` (cuDNN on the card, TF32 off), as the JAX package leaves
-them to ``lax.conv_general_dilated``; the fused stage's forward conv is
-the hand-written kernel K6 (``kernels/conv_fused.py``).
+Counterpart of ``paddle_tpu/ops/nn.py``: ``conv2d`` and the rest of the
+conv family (``depthwise_conv2d``, ``conv3d``, ``conv2d_transpose``,
+``row_conv``, ``spp``), ``pool2d`` (adaptive too), ``batch_norm``,
+``layer_norm``, ``softmax``, ``dropout`` (its mask drawn by
+``ops/random.keep_mask`` from the step's stream) and the fused conv
+stage ``fused_conv2d_bn_act``.  Plain convolutions are ``F.conv2d`` /
+``F.conv3d`` / ``F.conv_transpose2d`` (cuDNN on the card, TF32 off), as
+the JAX package leaves them to ``lax.conv_general_dilated``; their
+gradients are explicit ``convolution_backward`` calls that never re-run
+the forward (``conv2d_grad``; the other three through their
+``grad_lower``); with ``FLAGS_cudnn_deterministic`` cuDNN runs them on
+its deterministic algorithms (its default weight gradients add with
+atomics).  The fused stage's forward conv is the hand-written kernel K6
+(``kernels/conv_fused.py``).
 
-``log_softmax`` and ``lrn`` are plain torch too.  Not ported: the
-legacy per-op ``FLAGS.conv_nhwc`` experiment (the layout transpiler
-replaced it), depthwise / 3-D / transposed convs, ``row_conv``,
-``spp`` (ROADMAP queue 1, the conv family).
+``log_softmax``, ``lrn``, ``row_conv`` and ``spp`` are plain torch too.
+Not ported: the legacy per-op ``FLAGS.conv_nhwc`` experiment (the
+layout transpiler replaced it).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+import contextlib
+
+from paddle_tpu_torch.core.flags import FLAGS
 from paddle_tpu_torch.core.lowering import amp_cast_ins
 from paddle_tpu_torch.core.desc import OpDesc
 from paddle_tpu_torch.core.registry import register_op
@@ -30,6 +38,16 @@ def _pair(v):
     if isinstance(v, (list, tuple)):
         return [int(x) for x in v]
     return [int(v), int(v)]
+
+
+def _cudnn(x):
+    """cuDNN's deterministic algorithms for a conv on the card when
+    ``FLAGS.cudnn_deterministic`` asks for them (TF32 stays off)."""
+    if FLAGS.cudnn_deterministic and x.is_cuda:
+        return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                          deterministic=True,
+                                          allow_tf32=False)
+    return contextlib.nullcontext()
 
 
 def _wanted(op, slot):
@@ -55,23 +73,26 @@ def _conv_views(x, w, attrs):
     return x, w, nhwc, hwio
 
 
-@register_op("conv2d")
 def _conv2d(ctx, ins, attrs, op):
     xv, wv, nhwc, _ = _conv_views(ins["Input"], ins["Filter"], attrs)
-    out = F.conv2d(xv, wv, None, _pair(attrs.get("strides", [1, 1])),
-                   _pair(attrs.get("paddings", [0, 0])),
-                   _pair(attrs.get("dilations", [1, 1])),
-                   attrs.get("groups", 1))
+    with _cudnn(xv):
+        out = F.conv2d(xv, wv, None, _pair(attrs.get("strides", [1, 1])),
+                       _pair(attrs.get("paddings", [0, 0])),
+                       _pair(attrs.get("dilations", [1, 1])),
+                       attrs.get("groups", 1))
     return {"Output": out.permute(0, 2, 3, 1) if nhwc else out}
 
 
-@register_op("conv2d_grad", grad_maker=None)
+register_op("conv2d", lower=_conv2d)
+
+
 def _conv2d_grad(ctx, ins, attrs, op):
     """dInput and dFilter from Output@GRAD, in the op's own layouts.
     Explicit, so the backward does not re-run the forward conv (the
     generic autograd lowering would).  Under AMP the grad convs run in
     bf16, as the forward did (its casts, Output@GRAD's too), and each
-    gradient comes back in its operand's own dtype."""
+    gradient comes back in its operand's own dtype.  ``depthwise_conv2d``'s
+    gradient too (its casts are conv2d's)."""
     x_dtype, w_dtype = ins["Input"].dtype, ins["Filter"].dtype
     if ctx.amp:
         ins = amp_cast_ins("conv2d", ins, getattr(op, "role", 0))
@@ -94,15 +115,99 @@ def _conv2d_grad(ctx, ins, attrs, op):
     return out
 
 
-def _conv_backward(dy, xv, wv, strides, paddings, dilations, groups, want):
-    """(dx, dw) of ``F.conv2d(xv, wv)`` for the NCHW / OIHW views, None
-    where not wanted."""
+register_op("conv2d_grad", lower=_conv2d_grad, grad_maker=None)
+# depthwise conv is grouped conv (groups = C), as in the JAX package;
+# its gradient lowers through conv2d's (core/lowering.generic_grad_lower
+# hands a ``<type>_grad`` to its forward's ``grad_lower``)
+register_op("depthwise_conv2d", lower=_conv2d, grad_lower=_conv2d_grad)
+
+
+def _conv_backward(dy, xv, wv, strides, paddings, dilations, groups, want,
+                   transposed=False):
+    """(dx, dw) of the convolution of ``xv`` by ``wv`` (``F.conv2d`` /
+    ``F.conv3d``, or ``F.conv_transpose2d`` when ``transposed``) in
+    NC... / OI... layout, None where not wanted."""
     if not any(want):
         return None, None
-    dx, dw, _ = torch.ops.aten.convolution_backward(
-        dy.to(xv.dtype), xv, wv, None, strides, paddings, dilations,
-        False, [0, 0], groups, [want[0], want[1], False])
+    with _cudnn(xv):
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            dy.to(xv.dtype), xv, wv, None, strides, paddings, dilations,
+            transposed, [0] * len(strides), groups,
+            [want[0], want[1], False])
     return dx, dw
+
+
+def _explicit_conv_grad(op_type, attr_fn):
+    """The explicit gradient of ``op_type`` (NC... data, the filter as
+    its forward takes it): ``attr_fn(attrs)`` gives (strides, paddings,
+    dilations, groups, transposed).  AMP as ``conv2d_grad``."""
+
+    def grad(ctx, ins, attrs, op):
+        x_dtype, w_dtype = ins["Input"].dtype, ins["Filter"].dtype
+        if ctx.amp:
+            ins = amp_cast_ins(op_type, ins, getattr(op, "role", 0))
+        strides, paddings, dilations, groups, transposed = attr_fn(attrs)
+        dx, dw = _conv_backward(
+            ins["Output@GRAD"], ins["Input"], ins["Filter"], strides,
+            paddings, dilations, groups,
+            [_wanted(op, "Input@GRAD"), _wanted(op, "Filter@GRAD")],
+            transposed)
+        out = {}
+        if dx is not None:
+            out["Input@GRAD"] = dx.to(x_dtype)
+        if dw is not None:
+            out["Filter@GRAD"] = dw.to(w_dtype)
+        return out
+
+    return grad
+
+
+# ---------------------------------------------------------------------------
+# conv3d, conv2d_transpose
+# ---------------------------------------------------------------------------
+
+def _conv3d_attrs(attrs):
+    return ([int(v) for v in attrs.get("strides", [1, 1, 1])],
+            [int(v) for v in attrs.get("paddings", [0, 0, 0])],
+            [int(v) for v in attrs.get("dilations", [1, 1, 1])],
+            int(attrs.get("groups", 1)), False)
+
+
+def _conv3d(ctx, ins, attrs, op):
+    """NCDHW x OIDHW (``F.conv3d``)."""
+    strides, paddings, dilations, groups, _ = _conv3d_attrs(attrs)
+    with _cudnn(ins["Input"]):
+        return {"Output": F.conv3d(ins["Input"], ins["Filter"], None,
+                                   strides, paddings, dilations, groups)}
+
+
+register_op("conv3d", lower=_conv3d,
+            grad_lower=_explicit_conv_grad("conv3d", _conv3d_attrs))
+
+
+def _conv2d_transpose_attrs(attrs):
+    # the reference's op ignores ``groups`` (its filter is
+    # [C_in, C_out, kH, kW] whatever the layer was given)
+    return (_pair(attrs.get("strides", [1, 1])),
+            _pair(attrs.get("paddings", [0, 0])),
+            _pair(attrs.get("dilations", [1, 1])), 1, True)
+
+
+def _conv2d_transpose(ctx, ins, attrs, op):
+    """Filter (C_in, C_out, kH, kW) as in reference
+    conv_transpose_op.cc: ``F.conv_transpose2d``, whose output extent
+    (H - 1) * s - 2p + d (k - 1) + 1 is the JAX package's lhs-dilated
+    conv with the flipped kernel padded by d (k - 1) - p."""
+    strides, paddings, dilations, _, _ = _conv2d_transpose_attrs(attrs)
+    with _cudnn(ins["Input"]):
+        return {"Output": F.conv_transpose2d(ins["Input"], ins["Filter"],
+                                             None, strides, paddings, 0, 1,
+                                             dilations)}
+
+
+register_op("conv2d_transpose", lower=_conv2d_transpose,
+            grad_lower=_explicit_conv_grad("conv2d_transpose",
+                                           _conv2d_transpose_attrs))
 
 
 # ---------------------------------------------------------------------------
@@ -453,3 +558,42 @@ def _fused_conv_bn_grad(ctx, ins, attrs, op):
             out[slot + "@GRAD"] = (src * momentum if src is not None
                                    else torch.zeros_like(ins[slot]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# row_conv, spp
+# ---------------------------------------------------------------------------
+
+@register_op("row_conv")
+def _row_conv(ctx, ins, attrs, op):
+    """Lookahead row convolution (reference row_conv_op.cc), dense batch
+    form: x [N, T, D], filter [future_ctx, D]; x padded with zeros after
+    T, the window's terms added in the JAX package's order."""
+    x, f = ins["X"], ins["Filter"]
+    ctx_len = f.shape[0]
+    t = x.shape[1]
+    xp = F.pad(x, (0, 0, 0, ctx_len - 1))
+    return {"Out": sum(xp[:, i:i + t] * f[i] for i in range(ctx_len))}
+
+
+@register_op("spp")
+def _spp(ctx, ins, attrs, op):
+    """Spatial pyramid pooling (reference spp_op.cc): level l pools
+    2**l x 2**l bins of ceil(H / 2**l) x ceil(W / 2**l), the map padded
+    after its end with -inf (max) or 0 (avg); the levels' [N, C * bins^2]
+    concatenated.  ``amax``'s gradient splits a tie evenly, as jax's
+    max reduction does."""
+    x = ins["X"]
+    levels = attrs.get("pyramid_height", 1)
+    is_max = attrs.get("pooling_type", "max") == "max"
+    n, c, h, w = x.shape
+    outs = []
+    for lvl in range(levels):
+        bins = 2 ** lvl
+        kh, kw = -(-h // bins), -(-w // bins)
+        xp = F.pad(x, (0, kw * bins - w, 0, kh * bins - h),
+                   value=-float("inf") if is_max else 0.0)
+        x6 = xp.reshape(n, c, bins, kh, bins, kw)
+        red = x6.amax(dim=(3, 5)) if is_max else x6.mean(dim=(3, 5))
+        outs.append(red.reshape(n, -1))
+    return {"Out": torch.cat(outs, dim=1)}

@@ -68,8 +68,9 @@ def _assign(ctx, ins, attrs, op):
     return {"Out": ins["X"]}
 
 
-def assign_value_tensor(attrs, device):
-    """The constant an ``assign_value`` op's attrs hold, on ``device``."""
+def assign_value_tensor(attrs, device, shape_of=None):
+    """The constant an ``assign_value`` op's attrs hold, on ``device``
+    (``shape_of``: see CONSTANT_OPS)."""
     dtype = proto_to_torch_dtype(attrs.get("dtype", DataType.FP32))
     shape = attrs.get("shape")
     if device.type == "meta":
@@ -314,7 +315,7 @@ def _one_hot(ctx, ins, attrs, op):
     return {"Out": (flat.long()[..., None] == classes).to(torch.float32)}
 
 
-def fill_tensor(attrs, device):
+def fill_tensor(attrs, device, shape_of=None):
     """The constant a ``fill`` op's attrs hold, on ``device``."""
     dtype = proto_to_torch_dtype(attrs.get("dtype", DataType.FP32))
     shape = attrs.get("shape")
@@ -335,8 +336,11 @@ def _fill(ctx, ins, attrs, op):
     return {"Out": fill_tensor(attrs, ctx.device)}
 
 
-# the ops whose output is a constant held in their attrs: a prepared
-# step makes each one's tensor on the device once (step_graph)
+# the ops whose output is a constant of their attrs (and of their
+# inputs' static shapes, ``prior_box``'s: ops/detection.py adds it): a
+# prepared step makes each one's value on the device once (step_graph),
+# ``make(attrs, device, shape_of)``, ``shape_of(slot)`` the desc shape of
+# the op's input in ``slot``; None where it cannot be made there
 CONSTANT_OPS = {"assign_value": assign_value_tensor, "fill": fill_tensor}
 
 

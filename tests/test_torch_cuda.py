@@ -3802,3 +3802,339 @@ def test_crf_and_ctc_on_card_equal_the_cpu(cuda):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
     for a, b in zip(got[5:], want[5:]):
         np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# slice 27: the conv family, the detection / misc / metric ops, SSD
+# --------------------------------------------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _op_on(device, op_type, arrays, attrs, wrt=()):
+    """One op's lowering on ``device`` over numpy ``arrays``: its outputs
+    and the gradients of the sum of its first float output weighted by a
+    seeded cotangent w.r.t. ``wrt``, all as numpy."""
+    import paddle_tpu_torch.ops  # noqa: F401  (registers the ops)
+    from paddle_tpu_torch.core.desc import ProgramDesc
+    from paddle_tpu_torch.core.lowering import Ins, LoweringContext
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    ctx = LoweringContext(ProgramDesc(), 0, {}, torch.device(device))
+    ins = {k: torch.as_tensor(v, device=device).requires_grad_(k in wrt)
+           for k, v in arrays.items()}
+    with torch.enable_grad():
+        outs = get_op_info(op_type).lower(
+            ctx, Ins({k: [v] for k, v in ins.items()}), dict(attrs), None)
+        res = {k: v.detach().cpu().numpy() for k, v in outs.items()}
+        if wrt:
+            first = next(v for v in outs.values() if v.is_floating_point())
+            cot = torch.as_tensor(np.random.RandomState(1).randn(
+                *first.shape).astype(np.float32), device=device)
+            grads = torch.autograd.grad(first, [ins[k] for k in wrt], cot)
+            res.update({k + "@GRAD": g.cpu().numpy()
+                        for k, g in zip(wrt, grads)})
+    return res
+
+
+def _assert_on_card_as_cpu(cuda, op_type, arrays, attrs, wrt=(), tol=1e-5):
+    got = _op_on(cuda, op_type, arrays, attrs, wrt)
+    want = _op_on("cpu", op_type, arrays, attrs, wrt)
+    assert got.keys() == want.keys()
+    for k, a in want.items():
+        if a.dtype.kind in "iub":
+            np.testing.assert_array_equal(got[k], a, err_msg=k)
+        else:
+            s = max(float(np.abs(a).max()), 1.0)
+            np.testing.assert_allclose(got[k] / s, a / s, rtol=tol,
+                                       atol=tol, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_detection_misc_and_metric_ops_on_card_equal_the_cpu(cuda):
+    """Every device op of ops/detection.py, ops/misc.py and the two
+    metric ops on the card against the CPU at SSD-like shapes: integer
+    outputs (matches, mined negatives, Mask, Argmax, the AUC counts)
+    exact, floats within 1e-5 (of the tensor's largest |value| when
+    above 1), gradients where the op has them."""
+    rng = np.random.RandomState(0)
+
+    def boxes(*lead):
+        c = np.sort(rng.uniform(0, 1, lead + (2, 2)), axis=-2)
+        return np.swapaxes(c, -1, -2).reshape(lead + (4,)).astype(
+            np.float32)
+
+    prior, gt = boxes(600), boxes(16, 8)
+    pvar = np.full((600, 4), 0.1, np.float32)
+    dist = rng.uniform(0, 1, (16, 8, 600)).astype(np.float32)
+    match = rng.randint(-1, 8, (16, 600)).astype(np.int32)
+    cases = [
+        ("prior_box", {"Input": np.zeros((2, 8, 19, 19), np.float32),
+                       "Image": np.zeros((2, 3, 300, 300), np.float32)},
+         {"min_sizes": [60.0], "max_sizes": [111.0],
+          "aspect_ratios": [2.0, 3.0], "flip": True, "clip": False},
+         ()),
+        ("iou_similarity", {"X": gt, "Y": prior}, {}, ()),
+        ("box_coder", {"PriorBox": prior, "PriorBoxVar": pvar,
+                       "TargetBox": gt}, {"code_type": "encode_center_size"},
+         ()),
+        ("box_coder", {"PriorBox": prior, "PriorBoxVar": pvar,
+                       "TargetBox": rng.randn(16, 600, 4).astype(
+                           np.float32)},
+         {"code_type": "decode_center_size"}, ()),
+        ("bipartite_match", {"DistMat": np.round(dist, 1)},
+         {"match_type": "per_prediction", "dist_threshold": 0.5}, ()),
+        ("target_assign", {"X": rng.randn(16, 8, 1).astype(np.float32),
+                           "MatchIndices": match,
+                           "NegIndices": (match < 0).astype(np.int32)},
+         {"mismatch_value": 0}, ()),
+        ("gather_encoded_target", {"Encoded": rng.randn(
+            16, 8, 600, 4).astype(np.float32), "MatchIndices": match}, {},
+         ()),
+        ("conv_shift", {"X": rng.randn(64, 128).astype(np.float32),
+                        "Y": rng.randn(64, 3).astype(np.float32)}, {},
+         ("X", "Y")),
+        ("fake_dequantize_max_abs", {
+            "X": rng.randint(-127, 128, (64, 256)).astype(np.float32),
+            "Scale": np.asarray([0.37], np.float32)},
+         {"max_range": 127.0}, ()),
+        ("polygon_box_transform", {"Input": rng.randn(4, 8, 32, 32).astype(
+            np.float32)}, {}, ()),
+        ("max_pool2d_with_index", {"X": rng.randint(
+            0, 4, (4, 16, 32, 32)).astype(np.float32)},
+         {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]}, ("X",)),
+        ("roi_pool", {"X": rng.randint(0, 5, (2, 16, 19, 25)).astype(
+            np.float32), "ROIs": np.asarray(
+                [[0, 10, 20, 200, 150], [1, 0, 0, 390, 300],
+                 [1, 100, 40, 110, 50], [0, 50, 60, 250, 280]],
+                np.float32)},
+         {"pooled_height": 7, "pooled_width": 7, "spatial_scale": 0.0625},
+         ("X",)),
+        ("scale_sub_region", {"X": rng.randn(4, 3, 8, 8).astype(np.float32),
+                              "Indices": np.asarray(
+                                  [[1, 2, 1, 8, 2, 5]] * 4, np.int32)},
+         {"value": 2.0}, ("X",)),
+        ("auc", {"Predict": rng.uniform(0, 1, (4096, 2)).astype(np.float32),
+                 "Label": rng.randint(0, 2, (4096, 1)).astype(np.int64),
+                 "TP": np.zeros(200, np.int64), "FP": np.zeros(200, np.int64),
+                 "TN": np.zeros(200, np.int64), "FN": np.zeros(200, np.int64)},
+         {"num_thresholds": 200}, ()),
+        ("precision_recall", {
+            "MaxProbs": rng.uniform(0, 1, (4096, 1)).astype(np.float32),
+            "Indices": rng.randint(0, 21, (4096, 1)).astype(np.int64),
+            "Labels": rng.randint(0, 21, (4096, 1)).astype(np.int64),
+            "Weights": rng.uniform(0, 2, (4096, 1)).astype(np.float32)},
+         {"class_number": 21}, ()),
+    ]
+    for op_type, arrays, attrs, wrt in cases:
+        _assert_on_card_as_cpu(cuda, op_type, arrays, attrs, wrt)
+
+
+@pytest.mark.cuda
+def test_conv_family_on_card_equals_the_cpu(cuda):
+    """chip_smoke.py's CONV_FAMILY ops at small shapes through
+    ``family_call`` (the convs' explicit gradients): forward and
+    gradients on the card within atol = rtol = 1e-4 of the CPU's, each
+    tensor scaled by its largest |CPU value|; Mask and Argmax exact."""
+    cs = _chip_smoke()
+    small = {"conv2d_transpose": {"Input": (4, 16, 14, 14),
+                                  "Filter": (16, 8, 4, 4)},
+             "conv3d": {"Input": (2, 8, 6, 14, 14),
+                        "Filter": (16, 8, 3, 3, 3)},
+             "depthwise_conv2d": {"Input": (4, 32, 19, 19),
+                                  "Filter": (32, 1, 3, 3)},
+             "row_conv": {"X": (4, 50, 64), "Filter": (21, 64)},
+             "spp": {"X": (4, 16, 13, 13)},
+             "roi_pool": {"X": (2, 16, 38, 50), "ROIs": "rois"},
+             "max_pool2d_with_index": {"X": (2, 8, 56, 56)},
+             "unpool": {"X": (2, 8, 28, 28), "Indices": "mask"},
+             "conv_shift": {"X": (16, 128), "Y": (16, 3)}}
+    for op, _, attrs in cs.CONV_FAMILY:
+        attrs = dict(attrs, groups=32) if op == "depthwise_conv2d" \
+            else attrs
+        arrays = cs.family_arrays(np, op, small[op], attrs, seed=2)
+        got = cs.family_call(torch, op, arrays, attrs, cuda)()
+        want = cs.family_call(torch, op, arrays, attrs, "cpu")()
+        for a, b in zip(got, want):
+            a = a.cpu()
+            if not b.is_floating_point():
+                assert torch.equal(a, b), op
+                continue
+            s = max(float(b.abs().max()), 1e-30)
+            torch.testing.assert_close(a / s, b / s, **TOL, msg=op)
+
+
+@pytest.mark.cuda
+def test_mine_hard_examples_on_tied_losses_on_card(cuda):
+    """Tied negative losses (an untrained head's), at an SSD step's
+    width: the card mines the CPU's negatives (a stable ranking), and
+    the same ones at every call."""
+    rng = np.random.RandomState(3)
+    cls = np.round(rng.uniform(0, 3, (32, 2278)), 0).astype(np.float32)
+    match = np.where(rng.rand(32, 2278) < 0.02, 0, -1).astype(np.int32)
+    arrays = {"ClsLoss": cls[..., None], "MatchIndices": match}
+    attrs = {"neg_pos_ratio": 3.0, "mining_type": "max_negative"}
+    want = _op_on("cpu", "mine_hard_examples", arrays, attrs)
+    for _ in range(3):
+        got = _op_on(cuda, "mine_hard_examples", arrays, attrs)
+        np.testing.assert_array_equal(got["NegIndices"],
+                                      want["NegIndices"])
+    assert want["NegIndices"].sum() > 0
+
+
+@pytest.mark.cuda
+def test_unpool_with_overlapping_windows_on_card(cuda):
+    """3 x 3 windows at stride 1 over maps with a few large values: one
+    position recorded many times.  Forward and gradient on the card are
+    the CPU's bit for bit at every call (the winner among duplicates by
+    an amax of ids, never arrival order), and the gradient reaches one
+    duplicate of each position."""
+    rng = np.random.RandomState(4)
+    x = rng.rand(8, 16, 40, 40).astype(np.float32)
+    x[:, :, 10::7, 10::7] += 5.0
+    attrs = {"ksize": [3, 3], "strides": [1, 1], "paddings": [0, 0]}
+    pooled = _op_on("cpu", "max_pool2d_with_index", {"X": x}, attrs)
+    arrays = {"X": pooled["Out"], "Indices": pooled["Mask"]}
+    want = _op_on("cpu", "unpool", arrays, attrs, ("X",))
+    for _ in range(3):
+        got = _op_on(cuda, "unpool", arrays, attrs, ("X",))
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    mask = pooled["Mask"].reshape(8 * 16, -1)
+    assert np.count_nonzero(want["X@GRAD"]) == sum(
+        len(np.unique(r)) for r in mask)
+
+
+@pytest.mark.cuda
+def test_precision_recall_is_bit_identical_across_runs_on_card(cuda):
+    """100,000 rows over 21 classes (every class summed ~5,000 times):
+    the card's states and metrics are one result in ten calls (a fixed
+    summation order, not index_add_'s atomics), within the f32 bar
+    (1e-4) of the CPU's serial order."""
+    rng = np.random.RandomState(5)
+    n = 100_000
+    arrays = {"MaxProbs": rng.uniform(0, 1, (n, 1)).astype(np.float32),
+              "Indices": rng.randint(0, 21, (n, 1)).astype(np.int64),
+              "Labels": rng.randint(0, 21, (n, 1)).astype(np.int64),
+              "Weights": rng.uniform(0, 1, (n, 1)).astype(np.float32)}
+    attrs = {"class_number": 21}
+    first = _op_on(cuda, "precision_recall", arrays, attrs)
+    for _ in range(9):
+        again = _op_on(cuda, "precision_recall", arrays, attrs)
+        for k in first:
+            np.testing.assert_array_equal(again[k], first[k], err_msg=k)
+    want = _op_on("cpu", "precision_recall", arrays, attrs)
+    for k in want:
+        np.testing.assert_allclose(first[k], want[k], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_step_captured_over_two_buckets_is_run_bit_for_bit(
+        cuda, monkeypatch):
+    """MobileNet-SSD (width 0.25, 64 x 64 images, batch 4) on two
+    batches whose ragged gt pad to buckets 8 and 16, stepped 0 1 0 1 on
+    cuDNN's deterministic algorithms (FLAGS_cudnn_deterministic): one
+    captured graph a bucket in one pool, each prior_box a device
+    constant of the capture, the bipartite match's loop with no host
+    read; the losses and every persistable equal run()'s bit for bit."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.flags import FLAGS
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.fluid.io import get_scope_arrays, set_scope_arrays
+
+    monkeypatch.setattr(FLAGS, "cudnn_deterministic", True)
+
+    cs = _chip_smoke()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = cs.build_mobilenet_ssd(fluid, image=64, scale=0.25)
+    persist, init = cs.start_arrays(fluid, main, startup, fluid.CPUPlace())
+    batches = [cs.ssd_feed(LoDTensor, *cs.ssd_batch(4, image=64, max_gt=g,
+                                                    seed=10 + g))
+               for g in (8, 16)]
+    order = (0, 1, 0, 1)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    sa, sb = fluid.Scope(), fluid.Scope()
+    set_scope_arrays(sa, init, "cuda")
+    set_scope_arrays(sb, init, "cuda")
+    la = [exe.run(main, feed=batches[i], fetch_list=[loss], scope=sa)[0]
+          for i in order]
+    with exe.prepare(main, feed_specs=batches[0], fetch_list=[loss],
+                     scope=sb) as prep:
+        lb = [prep.run_prepared(batches[i], return_numpy=True)[0]
+              for i in order]
+        step = prep._prep._step
+        buckets = step.buckets
+        pools = {c.graph.pool() for c in step._captures.values()}
+        consts = step._constants
+    assert sorted(v["replays"] for v in buckets.values()) == [2, 2]
+    assert len(pools) == 1
+    assert len(consts) == 6 and all(
+        t.is_cuda for c in consts.values() for t in c.values())
+    for a, b in zip(la, lb):
+        np.testing.assert_array_equal(a, b)
+    assert np.isfinite(np.concatenate([np.ravel(a) for a in la])).all()
+    pa, pb = get_scope_arrays(sa, persist), get_scope_arrays(sb, persist)
+    for n in persist:
+        np.testing.assert_array_equal(pa[n], pb[n], err_msg=n)
+
+
+@pytest.mark.cuda
+def test_conv_grads_repeat_bit_for_bit_under_the_deterministic_flag(
+        cuda, monkeypatch):
+    """A dense 1 x 1 and a 3 x 3 stride-2 conv's gradients (cuDNN's
+    default weight-gradient algorithms add with atomics) are one result
+    in five calls under FLAGS_cudnn_deterministic, through conv2d_grad
+    and conv3d's and conv2d_transpose's explicit gradients."""
+    from paddle_tpu_torch.core.flags import FLAGS
+
+    monkeypatch.setattr(FLAGS, "cudnn_deterministic", True)
+    cs = _chip_smoke()
+    cases = [("conv2d_transpose", {"Input": (8, 64, 28, 28),
+                                   "Filter": (64, 32, 4, 4)},
+              {"strides": [2, 2], "paddings": [1, 1],
+               "dilations": [1, 1]}),
+             ("conv3d", {"Input": (2, 16, 8, 28, 28),
+                         "Filter": (32, 16, 3, 3, 3)},
+              {"strides": [1, 1, 1], "paddings": [1, 1, 1],
+               "dilations": [1, 1, 1], "groups": 1})]
+    for op, slots, attrs in cases:
+        arrays = cs.family_arrays(np, op, slots, attrs, seed=3)
+        call = cs.family_call(torch, op, arrays, attrs, cuda)
+        first = call()
+        for _ in range(4):
+            for a, b in zip(call(), first):
+                assert torch.equal(a, b), op
+    import paddle_tpu_torch.ops  # noqa: F401  (registers the ops)
+    from paddle_tpu_torch.core.desc import OpDesc, ProgramDesc
+    from paddle_tpu_torch.core.lowering import Ins, LoweringContext
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    ctx = LoweringContext(ProgramDesc(), 0, {}, torch.device(cuda))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for xs, ws, st, pd in (((32, 32, 150, 150), (64, 32, 1, 1), 1, 0),
+                           ((32, 256, 10, 10), (512, 256, 3, 3), 2, 1)):
+        x = torch.randn(xs, device=cuda, generator=g)
+        w = torch.randn(ws, device=cuda, generator=g)
+        ho = (xs[2] + 2 * pd - ws[2]) // st + 1
+        dy = torch.randn((xs[0], ws[0], ho, ho), device=cuda, generator=g)
+        attrs = {"strides": [st, st], "paddings": [pd, pd]}
+        gop = OpDesc("conv2d_grad", inputs={"Input": ["x"], "Filter": ["w"],
+                                            "Output@GRAD": ["dy"]},
+                     outputs={"Input@GRAD": ["dx"], "Filter@GRAD": ["dw"]},
+                     attrs=attrs)
+        outs = [get_op_info("conv2d_grad").lower(ctx, Ins({
+            "Input": [x], "Filter": [w], "Output@GRAD": [dy]}), attrs, gop)
+            for _ in range(5)]
+        for o in outs[1:]:
+            for k in ("Input@GRAD", "Filter@GRAD"):
+                assert torch.equal(o[k], outs[0][k]), k

@@ -282,9 +282,12 @@ def test_meta_shape_inference_matches_jax(op):
 
 def test_the_port_registers_the_dense_op_library():
     """Every op type that the JAX package's math, tensor, loss, random,
-    optimizer_ops files register is the port's too (nn: all but the
-    conv family), and the port counts 212 op types (205 at the dense op
-    library's slice; crf_ctc's 5 and beam_search's 2 since)."""
+    optimizer_ops, nn, metric, detection and misc files register is the
+    port's too, and the port counts 236 op types (205 at the dense op
+    library's slice; crf_ctc's 5 and beam_search's 2, then the conv
+    family's 5, detection's 9, misc's 8 and the metric ops' 2 since):
+    the reference's 257 but its 22 reader, concurrency and distributed
+    types, and the port's own conv2d_grad."""
     import importlib
     import inspect
 
@@ -294,16 +297,27 @@ def test_the_port_registers_the_dense_op_library():
     from paddle_tpu_torch.core.lowering import generic_grad_lower
 
     missing = {}
-    for name in ("math", "tensor", "loss", "random", "optimizer_ops", "nn"):
+    for name in ("math", "tensor", "loss", "random", "optimizer_ops", "nn",
+                 "metric", "detection", "misc"):
         mod = importlib.import_module("paddle_tpu.ops." + name)
         ops = {op for op in jreg.registered_ops()
                if inspect.getmodule(jreg._registry[op].lower) is mod}
         left = sorted(op for op in ops if not treg.has_op(op))
         if left:
             missing[name] = left
-    assert missing == {"nn": ["conv2d_transpose", "conv3d",
-                              "depthwise_conv2d", "row_conv", "spp"]}
+    assert missing == {}
     # the grad ops made on demand from the forward lowerings aside
     own = [op for op in treg.registered_ops()
            if treg._registry[op].lower is not generic_grad_lower]
-    assert len(own) == 212, len(own)
+    assert len(own) == 236, len(own)
+    from paddle_tpu.core.lowering import generic_grad_lower as jgeneric
+
+    ref = {op for op in jreg.registered_ops()
+           if jreg._registry[op].lower is not jgeneric}
+    left = {}
+    for op in sorted(ref - set(own)):
+        mod = inspect.getmodule(jreg._registry[op].lower).__name__
+        left.setdefault(mod.rsplit(".", 1)[1], []).append(op)
+    assert {k: len(v) for k, v in left.items()} == {
+        "reader_ops": 10, "concurrency_ops": 6, "distributed_ops": 6}, left
+    assert set(own) - ref == {"conv2d_grad"}

@@ -596,15 +596,6 @@ def test_the_front_end_exports_the_references_names():
         hasattr(jfluid.layers, "square")
 
 
-@pytest.mark.parametrize("layer", sorted(
-    __import__("paddle_tpu_torch.fluid.layers.nn",
-               fromlist=["_UNPORTED"])._UNPORTED))
-def test_an_unported_layer_names_its_roadmap_item(layer):
-    fn = getattr(tfluid.layers, layer)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        fn(*([None] * fn.__code__.co_argcount))
-
-
 def test_a_prepared_step_makes_its_constants_once():
     """assign_value and fill hold their values in their attrs: the
     prepared step makes each one's tensor once, at prepare(), and every
