@@ -165,6 +165,29 @@ Phases, each printed as one JSON line:
              max_pool2d_with_index, unpool and conv_shift once each at a
              realistic shape (CONV_FAMILY), forward and gradients against
              the CPU, ms a call;
+3k. bench_real, train_reader_k6, loader_oracle — the data pipeline (in
+             a child process, ``--slice28``; K6 bf16 on the path): the
+             bench entry at its card defaults for ResNet-50, whose
+             BENCH_FAKE default is now 0 (the flowers adapter's synthetic
+             images in an uncompressed recordio file under _smoke_io/,
+             staged once in a DeviceDatasetCache, shuffled on the card
+             each epoch; the stream probe: idle h2d MB/s, images/s
+             through the double-buffered DeviceLoader, the overlap
+             ratio), beside BENCH_FAKE=1 in the same child, images/s,
+             peak memory, the file's and the cache's bytes; the full
+             ResNet-50 at batch 256, NHWC fused stages, bf16 AMP, fed
+             through run() by open_files -> shuffle -> batch ->
+             double_buffer -> read_file over a recordio file of 1024
+             seeded images (the native codec must have built): the
+             read op's batches equal the host-decoded ones, and fed
+             through run() from the same start they give every loss and
+             persistable bit for bit (cuDNN's deterministic algorithms);
+             K6 bf16 53 launches a step by the wrappers' counts and in a
+             trace of TRACED_REPLAYS steps (device ms, idle share);
+             fluid.core.EOFException after the epoch, reset(), a step
+             more; DeviceLoader's batches byte-identical to the host's,
+             the cache's epoch covering each sample once and reshuffled,
+             a mid-epoch double-buffer reset leaving no copy in flight;
 4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
@@ -353,7 +376,8 @@ Phases, each printed as one JSON line:
              the run() phase's;
 29. bench — the port's bench entry (paddle_tpu_torch.tools.bench's
              main(), every run in one child process, ``--bench-child``),
-             prepared by default, at its
+             prepared by default, on one synthetic batch (BENCH_FAKE=1;
+             phase 3k's bench_real runs the real-data default), at its
              default headline (ResNet-50, bf16 AMP, NCHW, batch 256,
              with its secondary, the flagship LM, which must be the bf16
              LM), then (information) with BENCH_PREPARED=0 (run()), and
@@ -7636,14 +7660,539 @@ def slice27_phases(torch):
             ("conv_family", lambda: conv_family(torch))]
 
 
+# slice 28: the data pipeline (recordio, the reader ops, DeviceLoader /
+# DeviceDatasetCache) with ResNet-50 trained from a recordio file
+SLICE28_TIMEOUT_S = 600
+READER_BATCH = 256
+READER_IMAGES = 1536        # 6 batches an epoch at READER_BATCH: a
+#                             warm-up, 3 timed, TRACED_REPLAYS traced
+READER_SHUFFLE = 512        # the shuffle reader's buffer
+READER_EPOCH_STEPS = READER_IMAGES // READER_BATCH
+READER_AFTER_RESET = 1      # steps after the EOF and the reset
+BENCH_REAL_ITERS = 10
+BENCH_REAL_IMAGES = 1024    # flowers' synthetic train set, all written
+IMAGE = (3, 224, 224)
+
+
+class cudnn_deterministic:
+    """FLAGS.cudnn_deterministic set for the block, then restored."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        from paddle_tpu_torch.core.flags import FLAGS
+
+        self.prev, FLAGS.cudnn_deterministic = \
+            FLAGS.cudnn_deterministic, self.on
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.core.flags import FLAGS
+
+        FLAGS.cudnn_deterministic = self.prev
+
+
+def reader_samples(n, seed, shape=IMAGE, classes=102):
+    """``n`` (uint8 image, int64 [1] label) samples from a seeded
+    RandomState: the records of the reader phases' recordio file."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, 256, shape).astype(np.uint8),
+             np.asarray([rng.randint(0, classes)], np.int64))
+            for _ in range(n)]
+
+
+def write_reader_file(fluid, path, samples):
+    """The samples as a recordio file of pickled feed tuples, as
+    ``fluid.recordio_writer`` writes them (uncompressed); returns the
+    record count."""
+    from paddle_tpu_torch import recordio
+
+    return fluid.recordio_writer.convert_reader_to_recordio_file(
+        path, lambda: iter(samples), compressor=recordio.NO_COMPRESS)
+
+
+def build_reader_resnet(fluid, rio=None, data_set="flowers", depth=50,
+                        batch=READER_BATCH, shuffle=READER_SHUFFLE,
+                        amp=True, learning_rate=0.01):
+    """``resnet.get_model``'s training program (uint8 input cast and
+    scaled on the device, NHWC with fused stages, Momentum) fed by the
+    reader chain ``open_files([rio]) -> shuffle -> batch -> double_buffer
+    -> read_file``, or with ``rio`` None by the data layers ``data`` and
+    ``label``; under bf16 AMP with ``amp``.  The two programs name every
+    parameter alike.  Returns (main, startup, loss, the reader or None,
+    image var, label var)."""
+    from paddle_tpu_torch.fluid.transpiler import LayoutTranspiler
+    from paddle_tpu_torch.models import resnet
+
+    cifar = data_set == "cifar10"
+    shape = [3, 32, 32] if cifar else list(IMAGE)
+    main, startup = fluid.Program(), fluid.Program()
+    reader = None
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if rio is not None:
+            reader = fluid.layers.io.open_files(
+                [rio], shapes=[[-1] + shape, [-1, 1]], lod_levels=[0, 0],
+                dtypes=["uint8", "int64"])
+            reader = fluid.layers.io.shuffle(reader, buffer_size=shuffle)
+            reader = fluid.layers.io.batch(reader, batch_size=batch)
+            reader = fluid.layers.io.double_buffer(reader)
+            image, label = fluid.layers.io.read_file(reader)
+        else:
+            image = fluid.layers.data(name="data", shape=shape,
+                                      dtype="uint8")
+            label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        x = fluid.layers.scale(fluid.layers.cast(image, "float32"),
+                               scale=1.0 / 255.0)
+        if cifar:
+            predict = resnet.resnet_cifar10(x, 10, depth=depth)
+        else:
+            predict = resnet.resnet_imagenet(x, 102, depth=depth)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(input=predict,
+                                                            label=label))
+        LayoutTranspiler().transpile(main, startup_program=startup,
+                                     data_format="NHWC", fuse_stages=True)
+        fluid.optimizer.Momentum(learning_rate=learning_rate,
+                                 momentum=0.9).minimize(loss)
+    if amp:
+        fluid.transpiler.Float16Transpiler().transpile(main)
+    return main, startup, loss, reader, image, label
+
+
+def host_reader_batches(rio, batch, shuffle, steps, reset_at=None):
+    """The batches the program's chain pops, decoded on the host by the
+    same reader classes (no double buffer): ``steps`` batches, the chain
+    reset before batch ``reset_at`` (after its EOF)."""
+    from paddle_tpu_torch.ops import reader_ops as ro
+
+    chain = ro._BatchReader(ro._ShuffleReader(ro._MultiFileReader([rio]),
+                                              shuffle), batch)
+    out = []
+    for i in range(steps):
+        if i == reset_at:
+            try:
+                chain.next()
+                raise AssertionError("the host chain has no EOF at %d" % i)
+            except ro.EOFException:
+                chain.reset()
+        out.append(chain.next())
+    return out
+
+
+def persistable_tensors(torch, main, scope):
+    """{name: tensor} of ``main``'s persistable tensors in ``scope`` (the
+    reader handles left out)."""
+    out = {}
+    for name, vd in main.desc.blocks[0].vars.items():
+        if vd.persistable and scope.has_var(name):
+            v = scope.find_var(name)
+            if isinstance(v, torch.Tensor):
+                out[name] = v
+    return out
+
+
+def traced_step(torch, step, n):
+    """({kernel: launches a step} of the port's kernels by symbol, device
+    ms a step, the device's idle share) of ``n`` calls of ``step`` in one
+    ``torch.profiler`` session; the kernel counts None when the trace
+    holds no device event."""
+    from paddle_tpu_torch.tools.profile_train import (device_kernels,
+                                                      port_kernel_groups)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels = device_kernels(prof, n)
+    if not kernels:
+        return None, "not measured", "not measured"
+    groups = {k: g["calls_per_step"]
+              for k, g in port_kernel_groups(kernels).items()}
+    groups["conv_stage_bf16"] += groups.pop("conv_stage_bf16_stem")
+    busy = sum(k["ms_per_step"] for k in kernels.values())
+    return groups, busy, max(0.0, 1.0 - busy / wall)
+
+
+def train_reader_k6(torch):
+    """Phase train_reader_k6: the full ResNet-50 (flowers 224 x 224, 102
+    classes, Momentum 0.01) at batch READER_BATCH, NHWC with fused
+    stages under bf16 AMP (FLAGS_bn_bf16; cuDNN's deterministic
+    algorithms for the convs K6 does not take), fed through run() by the
+    reader chain ``open_files([rio]) -> shuffle(READER_SHUFFLE) ->
+    batch -> double_buffer -> read_file`` over a recordio file of
+    READER_IMAGES seeded uint8 images: an epoch of READER_EPOCH_STEPS
+    steps (the last TRACED_REPLAYS in one profiler session: K6 bf16's
+    launches a step by symbol, device ms, idle share), then
+    ``fluid.core.EOFException``, ``reset()`` and READER_AFTER_RESET more
+    steps.  The same batches, decoded on the host by the chain's reader
+    classes, must equal the ones the read op popped, and fed through
+    run() from the same scope start they must give every loss and
+    persistable bit for bit.  K6 bf16 launches 53 times a step (the
+    wrappers' counts over the reader run, and the trace).  ``step_ms_p50``
+    is over the epoch's untraced steps after its first (the first, and
+    the step after the reset, whose double buffer refills the shuffle
+    buffer from the file before its first batch, are reported apart)."""
+    with bn_bf16(True), cudnn_deterministic(True):
+        return _train_reader_k6(torch)
+
+
+def _train_reader_k6(torch):
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import recordio
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+
+    if not recordio.native_available():
+        raise AssertionError("the native recordio codec did not build: %s"
+                             % recordio.native_error())
+    rio = os.path.join(smoke_dir("reader_k6"), "train.recordio")
+    t0 = time.perf_counter()
+    n = write_reader_file(fluid, rio, reader_samples(READER_IMAGES, SEED + 28))
+    write_s = time.perf_counter() - t0
+    main, startup, loss, reader, image, label = build_reader_resnet(
+        fluid, rio)
+    fmain, fstartup, floss, _, fimage, flabel = build_reader_resnet(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    init = {k: v.clone() for k, v in
+            persistable_tensors(torch, main, scope).items()}
+    steps = READER_EPOCH_STEPS + READER_AFTER_RESET
+    t0 = time.perf_counter()
+    host = host_reader_batches(rio, READER_BATCH, READER_SHUFFLE, steps,
+                               reset_at=READER_EPOCH_STEPS)
+    host_decode_s = time.perf_counter() - t0
+
+    def step():
+        return exe.run(main, fetch_list=[loss], scope=scope)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms, popped, traced = [], [], [], None
+    untraced = READER_EPOCH_STEPS - TRACED_REPLAYS
+    for i in range(untraced):
+        t0 = time.perf_counter()
+        losses.append(float(step()[0]))     # the fetch waits for the card
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        popped.append([scope.find_var(v.name).cpu().numpy()
+                       for v in (image, label)])
+    # the epoch's last TRACED_REPLAYS steps, traced in one session
+    trace_losses = []
+
+    def traced_one():
+        trace_losses.append(step())
+        popped.append([scope.find_var(v.name) for v in (image, label)])
+
+    traced, device_ms, idle = traced_step(torch, traced_one, TRACED_REPLAYS)
+    losses += [float(x[0]) for x in trace_losses]
+    popped[untraced:] = [[t.cpu().numpy() for t in p]
+                         for p in popped[untraced:]]
+    eof = False
+    try:
+        step()
+    except fluid.core.EOFException:
+        eof = True
+    reader.reset(scope=scope)
+    after_reset_ms = []
+    for _ in range(READER_AFTER_RESET):
+        t0 = time.perf_counter()
+        losses.append(float(step()[0]))
+        after_reset_ms.append((time.perf_counter() - t0) * 1e3)
+        popped.append([scope.find_var(v.name).cpu().numpy()
+                       for v in (image, label)])
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    final = {k: v.clone() for k, v in
+             persistable_tensors(torch, main, scope).items()}
+    db_device = str(scope.find_var(image.name).device)
+    del scope, exe
+    _free(torch)
+
+    # the same batches, decoded on the host, fed from the same start
+    same_batches = len(popped) == len(host) and all(
+        p[0].dtype == h[0].dtype and np.array_equal(p[0], h[0])
+        and np.array_equal(p[1], h[1]) for p, h in zip(popped, host))
+    fscope = fluid.Scope()
+    fexe = fluid.Executor(fluid.CUDAPlace(0))
+    fexe.run(fstartup, scope=fscope)
+    for k, v in init.items():
+        fscope.set(k, v.clone())
+    fed = [float(fexe.run(fmain, feed={fimage.name: h[0],
+                                       flabel.name: h[1]},
+                          fetch_list=[floss], scope=fscope)[0][0])
+           for h in host]
+    fed_final = persistable_tensors(torch, fmain, fscope)
+    differ = sorted(k for k in final if k not in fed_final
+                    or not _bits_equal(torch, final[k], fed_final[k]))
+    del fscope, fexe, init, final, fed_final
+    _free(torch)
+
+    per_step = launches["conv_stage_bf16"] / steps
+    checks = {
+        "records": n == READER_IMAGES,
+        "eof_after_epoch": eof,
+        "double_buffer_on_card": db_device.startswith("cuda"),
+        "same_batches_as_host": same_batches,
+        "losses_bit_for_bit": losses == fed,
+        "persistables_bit_for_bit": not differ,
+        "losses_finite": all(math.isfinite(x) for x in losses),
+        "k6_bf16_53_a_step": per_step == RESNET_CONVS
+        and launches["conv_stage"] == 0,
+        "k6_bf16_traced_53_a_step": traced is not None
+        and traced["conv_stage_bf16"] == RESNET_CONVS,
+    }
+    return {"phase": "train_reader_k6", "batch": READER_BATCH,
+            "images": READER_IMAGES, "shuffle": READER_SHUFFLE,
+            "file_bytes": os.path.getsize(rio), "write_s": write_s,
+            "host_decode_s": host_decode_s, "steps": steps, "losses": losses,
+            "fed_losses": fed, "differing_persistables": differ[:10],
+            "first_step_ms": step_ms[0], "step_ms": step_ms[1:],
+            "step_ms_p50": _pct(step_ms[1:], 0.5),
+            "images_per_s": READER_BATCH / _pct(step_ms[1:], 0.5) * 1e3,
+            "after_reset_step_ms": after_reset_ms,
+            "traced_steps": TRACED_REPLAYS, "traced_launches_per_step":
+            traced, "device_ms_per_step": device_ms, "idle_share": idle,
+            "max_memory_allocated_bytes": peak,
+            "launches": launches, "launches_per_step": {
+                k: v / steps for k, v in launches.items() if v},
+            "checks": checks, "ok": all(checks.values())}
+
+
+def loader_oracle(torch):
+    """Phase loader_oracle: on the card, ``DeviceLoader`` and
+    ``DeviceDatasetCache`` against the host.  DeviceLoader's batches of
+    READER_BATCH images from a recordio file (pinned copies on its copy
+    stream), copied back, byte-identical to ``batch(reader)``'s; one
+    epoch of the cache (READER_IMAGES indexed images) covers every
+    sample exactly once with each batch's images those of its indices,
+    and the next epoch's order differs; a mid-epoch ``reset()`` of the
+    reader chain's double buffer, its queue full, leaves no copy in
+    flight (its copy stream idle, its queue empty, its thread gone) and
+    after ``torch.cuda.synchronize()`` no staged batch allocated beyond
+    the one the scope holds; the epoch after it gives the file's batches
+    in order."""
+    import gc
+    import pickle
+
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import reader as rd
+
+    samples = reader_samples(READER_IMAGES, SEED + 29)
+    rio = os.path.join(smoke_dir("loader_oracle"), "loader.recordio")
+    write_reader_file(fluid, rio, samples)
+    place = fluid.CUDAPlace(0)
+    checks, info = {}, {}
+
+    # DeviceLoader: batches copied back equal the host reader's
+    base = rd.creator.recordio(rio, pickle.loads)
+    batched = rd.batch(base, READER_BATCH)
+    t0 = time.perf_counter()
+    got = [{k: (str(v.device), v.cpu().numpy()) for k, v in d.items()}
+           for d in rd.DeviceLoader(batched, ["image", "label"], place,
+                                    capacity=3)]
+    info["device_loader_s"] = time.perf_counter() - t0
+    want = list(batched())
+    checks["loader_batches"] = len(got) == len(want) == READER_EPOCH_STEPS
+    checks["loader_on_card"] = all(v[0].startswith("cuda")
+                                   for d in got for v in d.values())
+    checks["loader_bytes_equal"] = all(
+        g["image"][1].tobytes() == np.stack([s[0] for s in w]).tobytes()
+        and g["label"][1].tobytes() == np.stack([s[1] for s in w]).tobytes()
+        for g, w in zip(got, want))
+    del got, want
+
+    # DeviceDatasetCache: an epoch covers each sample once, reshuffled
+    imgs = np.stack([s[0] for s in samples])
+
+    def indexed():
+        for i, s in enumerate(samples):
+            yield s[0], np.asarray([i], np.int64)
+
+    cache = rd.DeviceDatasetCache(indexed, ["image", "index"], place,
+                                  READER_BATCH, seed=SEED)
+    epochs = []
+    images_match = True
+    for _ in range(2):
+        ids = []
+        for d in cache:
+            idx = d["index"][:, 0].cpu().numpy()
+            ids.append(idx)
+            images_match &= d["image"].device.type == "cuda" and \
+                np.array_equal(d["image"].cpu().numpy(), imgs[idx])
+        epochs.append(np.concatenate(ids))
+    checks["cache_covers_each_sample_once"] = all(
+        np.array_equal(np.sort(e), np.arange(READER_IMAGES)) for e in epochs)
+    checks["cache_reshuffles"] = not np.array_equal(epochs[0], epochs[1])
+    checks["cache_images_match_indices"] = bool(images_match)
+    info["cache_bytes"] = cache.nbytes
+    del cache, epochs
+    _free(torch)
+
+    # the double buffer's mid-epoch reset
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        r = fluid.layers.io.open_files(
+            [rio], shapes=[[-1] + list(IMAGE), [-1, 1]], lod_levels=[0, 0],
+            dtypes=["uint8", "int64"])
+        r = fluid.layers.io.batch(r, batch_size=READER_BATCH)
+        r = fluid.layers.io.double_buffer(r)
+        image, label = fluid.layers.io.read_file(r)
+        total = fluid.layers.reduce_sum(fluid.layers.cast(image, "float32"))
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    exe.run(main, fetch_list=[total], scope=scope)
+    db = scope.find_var(r.name)
+    deadline = time.time() + 30
+    while not db._q.full() and time.time() < deadline:
+        time.sleep(0.01)
+    batch_bytes = READER_BATCH * (int(np.prod(IMAGE)) + 8)
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
+    r.reset(scope=scope)
+    gc.collect()
+    torch.cuda.synchronize()
+    m2 = torch.cuda.memory_allocated()
+    checks["queue_was_full"] = m1 - m0 >= 2 * batch_bytes
+    checks["no_copy_in_flight"] = (db._thread is None and db._q.empty()
+                                   and db._copier.stream.query())
+    # what stays: the batch the scope holds and the run's small outputs
+    checks["staged_batches_freed"] = m2 - m0 <= batch_bytes + (1 << 20)
+    after = []
+    for _ in range(READER_EPOCH_STEPS):
+        exe.run(main, fetch_list=[total], scope=scope)
+        after.append(scope.find_var(image.name).cpu().numpy())
+    try:
+        exe.run(main, fetch_list=[total], scope=scope)
+        eof = False
+    except fluid.core.EOFException:
+        eof = True
+    checks["epoch_after_reset_in_order"] = eof and all(
+        np.array_equal(a, imgs[k * READER_BATCH:(k + 1) * READER_BATCH])
+        for k, a in enumerate(after))
+    info.update(allocated_before=m0, allocated_queue_full=m1,
+                allocated_after_reset=m2, batch_bytes=batch_bytes)
+    del scope, exe
+    _free(torch)
+    return {"phase": "loader_oracle", "batch": READER_BATCH,
+            "images": READER_IMAGES, **info, "checks": checks,
+            "ok": all(checks.values())}
+
+
+def bench_once(torch, extra):
+    """The bench entry's ``main()`` once in this process under the
+    BENCH_* settings ``extra`` (the others cleared, the flags it sets put
+    back after): (its JSON last line, seconds, peak memory allocated)."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch.core.flags import FLAGS
+    from paddle_tpu_torch.tools import bench
+
+    flags = {k: d["value"] for k, d in FLAGS._defs.items()}
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(extra)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main()
+        if rc != 0:
+            raise AssertionError("the bench entry returned %r" % rc)
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    finally:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+        for k, v in flags.items():
+            setattr(FLAGS, k, v)
+    secs = time.perf_counter() - t0
+    return out, secs, torch.cuda.max_memory_allocated()
+
+
+def bench_real(torch):
+    """Phase bench_real: the bench entry at its card defaults for
+    ``resnet50`` (flowers 224 x 224, batch 256, bf16 AMP, uint8 input,
+    NCHW, prepared; BENCH_FAKE's card default 0: the recordio file of
+    the flowers adapter's synthetic images, ``DeviceDatasetCache``,
+    the stream probe), BENCH_REAL_ITERS timed steps, no secondary;
+    beside it BENCH_FAKE=1 (one synthetic host batch) in this process:
+    images/s of both, the stream probe's three numbers, peak memory, the
+    file's and the cache's bytes."""
+    data_dir = smoke_dir("bench_data")
+    base = {"BENCH_ITERS": str(BENCH_REAL_ITERS), "BENCH_SECONDARY": "0",
+            "BENCH_DATA_DIR": data_dir}
+    real, real_s, real_peak = bench_once(torch, base)
+    fake, fake_s, fake_peak = bench_once(torch, dict(base, BENCH_FAKE="1"))
+    data = real.get("data") or {}
+    image_bytes = int(math.prod(IMAGE))
+    checks = {
+        "real_data": real["fake_data"] is False,
+        "cached": data.get("loader") == "DeviceDatasetCache",
+        "native_codec": data.get("codec") == "native",
+        "records": data.get("records") == BENCH_REAL_IMAGES,
+        "cache_bytes": data.get("cache_bytes") ==
+        BENCH_REAL_IMAGES * (image_bytes + 8),
+        "stream_probe": all(isinstance(real.get(k), float) and real[k] > 0
+                            for k in ("h2d_mb_per_sec_idle",
+                                      "streaming_imgs_per_sec",
+                                      "stream_overlap_ratio")),
+        "fake_run": fake["fake_data"] is True and "data" not in fake,
+        "metric": real["metric"] == fake["metric"] ==
+        "resnet50_flowers_train_bs256_bf16",
+        **{"%s_%s" % (name, k): v for name, out in (("real", real),
+                                                    ("fake", fake))
+           for k, v in bench_checks(out, True, True).items()},
+    }
+    keys = ("metric", "value", "step_ms_p50", "step_ms_p90", "tflops", "mfu",
+            "prepared_steps")
+    return {"phase": "bench_real", "iters": BENCH_REAL_ITERS,
+            "real": {**{k: real.get(k) for k in keys}, "data": data,
+                     "h2d_mb_per_sec_idle": real.get("h2d_mb_per_sec_idle"),
+                     "streaming_imgs_per_sec":
+                     real.get("streaming_imgs_per_sec"),
+                     "stream_overlap_ratio": real.get("stream_overlap_ratio"),
+                     "stream_steps": real.get("stream_steps"),
+                     "seconds": real_s,
+                     "max_memory_allocated_bytes": real_peak},
+            "fake": {**{k: fake.get(k) for k in keys}, "seconds": fake_s,
+                     "max_memory_allocated_bytes": fake_peak},
+            "cached_over_fake": real["value"] / fake["value"],
+            "device": real.get("device"), "checks": checks,
+            "ok": all(checks.values())}
+
+
+def slice28_phases(torch):
+    """Slice 28's phases in order, as (name, zero-argument callable)."""
+    return [("bench_real", lambda: bench_real(torch)),
+            ("train_reader_k6", lambda: train_reader_k6(torch)),
+            ("loader_oracle", lambda: loader_oracle(torch))]
+
+
 SLICES = {"--slice21": slice21_phases, "--slice22": slice22_phases,
           "--slice23": slice23_phases, "--slice24": slice24_phases,
           "--slice25": slice25_phases, "--slice26": slice26_phases,
-          "--slice27": slice27_phases}
+          "--slice27": slice27_phases, "--slice28": slice28_phases}
 
 
 def slice_main(flag):
-    """``chip_smoke.py --slice21`` .. ``--slice27``: that slice's phases
+    """``chip_smoke.py --slice21`` .. ``--slice28``: that slice's phases
     alone, each printed as one JSON line; stops at the
     first that fails (exit 1).  Slice 22's files go under
     ``_smoke_io/``, removed after."""
@@ -7743,7 +8292,10 @@ def bench_child():
     for name, extra in BENCH_RUNS:
         for k in [k for k in os.environ if k.startswith("BENCH_")]:
             del os.environ[k]
-        os.environ.update(BENCH_ITERS=str(BENCH_ITERS), BENCH_SECONDARY="0")
+        # one synthetic batch (slice 28's bench_real runs the card's
+        # real-data default, BENCH_FAKE=0)
+        os.environ.update(BENCH_ITERS=str(BENCH_ITERS), BENCH_SECONDARY="0",
+                          BENCH_FAKE="1")
         os.environ.update(extra)
         for k, v in flags.items():
             setattr(FLAGS, k, v)
@@ -8031,6 +8583,19 @@ def main():
             phase = failure[0]
             raise AssertionError("%s: %s" % failure)
         launches_train.update(launches27)
+
+        # slice 28's phases (the data pipeline, ResNet-50 from a recordio
+        # file through the reader ops), in a child process of their own too
+        phase = "slice28"
+        torch.cuda.empty_cache()
+        lines, launches28, failure = slice_subprocess(
+            "--slice28", SLICE28_TIMEOUT_S, ("train_reader_k6",))
+        for line in lines:
+            emit(line)
+        if failure:
+            phase = failure[0]
+            raise AssertionError("%s: %s" % failure)
+        launches_train.update(launches28)
 
         phase = "serve_f32"
         cfg, params = tiny_lm(SEED, **FLAGSHIP_LM)

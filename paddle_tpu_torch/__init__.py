@@ -9,12 +9,16 @@ Ported so far: token-level generative serving
 (``serving.InferenceServer().load_generative(...)`` then ``generate``)
 and training of the transformer LM through the fluid front-end
 (``fluid``, ``models.transformer.get_model``, ``fluid.Executor``), with
-checkpoints (``fluid.io``), ``fluid.Trainer`` / ``fluid.Inferencer``
-and readers (``reader``, ``batch``).
+checkpoints (``fluid.io``), ``fluid.Trainer`` / ``fluid.Inferencer``,
+readers (``reader``, ``batch``, ``DeviceLoader``, ``DeviceDatasetCache``),
+the recordio container (``recordio``) and dataset adapters (``dataset``).
 """
 from __future__ import annotations
 
 from .device import resolve_device
+from . import reader  # noqa: F401
+from . import dataset  # noqa: F401
+from . import recordio  # noqa: F401
 from .reader import batch
 
 __all__ = ["resolve_device", "batch"]

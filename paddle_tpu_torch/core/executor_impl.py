@@ -47,8 +47,10 @@ inputs (``lowering.amp_cast_ins``), on a mesh as without one: the ring
 attention runs its shards' folds and backward steps in bf16 (K9's and
 K2/K3's bf16 forms on a card).
 
-Host ops (``ops/io_ops.py``: feed, fetch, save, load, print, ...) run on
-the host as in the JAX package: those before the first device op as a
+Host ops (``ops/io_ops.py``: feed, fetch, save, load, print, ...; the
+reader chain of ``ops/reader_ops.py``, whose ``read`` puts a batch in
+the scope or raises ``EOFException``) run on the host as in the JAX
+package: those before the first device op as a
 prelude, those after the last as a postlude (handed, through an env,
 the temporaries they read and the fetches they write), and a block with
 host ops between device ops op by op (``_run_interpreted``); an
@@ -92,6 +94,13 @@ _INT32_MIN = -(2 ** 31)
 # events around it for its device time (tools/profile_train.py); None,
 # the loop pays one test per op
 OP_HOOK = None
+
+
+class EOFException(Exception):
+    """A program-level reader has no next batch (the reference's read op
+    at end-of-data, reader/read_op.cc): ``run()`` raises it from the
+    block's ``read`` op; callers catch it (``fluid.core.EOFException``)
+    and ``reset()`` the reader."""
 
 
 LEN_SUFFIX = "@LEN"
@@ -445,6 +454,8 @@ class ExecutorCore:
         # device-resident prepared state lands in the scope first
         flush_prepared(scope)
         block = program.blocks[block_id]
+        # host ops that run a sub-block (the custom reader) read this
+        self._current_program = program
         feed = _prepare_lod_feeds(dict(feed or {}))
         fetch_list = list(fetch_list or [])
         prelude, core_ops, postlude, mixed = _segment(block)

@@ -41,6 +41,12 @@ class Scope:
         return Scope(self)
 
     # --- vars ---
+    def var(self, name):
+        """Find-or-create in THIS scope (reference Scope::Var)."""
+        if name not in self._vars:
+            self._vars[name] = None
+        return self._vars.get(name)
+
     def set(self, name, value):
         self._vars[name] = value
         self._version += 1

@@ -4,8 +4,12 @@ Counterpart of ``paddle_tpu.fluid`` for the surface the transformer
 LM's and ResNet's training reaches, ``ParallelExecutor`` over a
 sequence-parallel mesh, persistence (``io``), ``DataFeeder`` and the
 high-level ``Trainer`` / ``Inferencer``, ragged (LoD) feeds
-(``create_lod_tensor``) with the sequence layers, and the metric front
-end (``metrics``, ``evaluator``, ``average``):
+(``create_lod_tensor``) with the sequence layers, the metric front end
+(``metrics``, ``evaluator``, ``average``), the reader layers over the
+reader ops (``layers.io``, ``recordio_writer``, ``core.EOFException``)
+and the reference's remaining names (``default_scope_funcs``,
+``debugger``, ``FLAGS`` / ``define_flag``, ``Tensor``,
+``is_compiled_with_cuda``):
 
     import paddle_tpu_torch.fluid as fluid
     x = fluid.layers.data(name="x", shape=[13])
@@ -34,7 +38,8 @@ from . import optimizer
 from . import regularizer
 from . import clip
 from . import unique_name
-from .executor import Executor, global_scope, scope_guard, fetch_var
+from .executor import (Executor, PreparedProgram, global_scope,
+                       scope_guard, fetch_var)
 from .parallel_executor import ParallelExecutor
 from . import io
 from .io import (save_vars, save_params, save_persistables, load_vars,
@@ -56,9 +61,28 @@ from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
 from . import metrics
 from . import evaluator
 from . import average
+from . import debugger
+from . import recordio_writer
+from . import default_scope_funcs
 
+from paddle_tpu_torch.core.flags import FLAGS, define_flag
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace
 from paddle_tpu_torch.core.scope import Scope
+from paddle_tpu_torch.core import executor_impl as core
+
+Tensor = None  # tensors are torch tensors; kept for import parity
+
+
+def is_compiled_with_cuda():
+    """Whether the torch build has CUDA (the reference's answers False:
+    its accelerator is the TPU)."""
+    import torch
+
+    return torch.version.cuda is not None
+
+
+def is_compiled_with_tpu():
+    return False
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter",
@@ -77,4 +101,5 @@ __all__ = [
     "BeginStepEvent", "EndStepEvent", "CheckpointConfig", "Inferencer",
     "CPUPlace", "CUDAPlace", "Scope", "lod_tensor", "create_lod_tensor",
     "create_random_int_lodtensor", "metrics", "evaluator", "average",
+    "PreparedProgram", "recordio_writer", "default_scope_funcs", "debugger",
 ]

@@ -2,8 +2,9 @@
 op (counterpart of ``paddle_tpu/ops``: ``math``, ``tensor``, ``loss``,
 ``random``, ``optimizer_ops``, ``parallel_ops``, ``fused_ops``,
 ``io_ops``, ``sequence``, ``control_flow``, ``nn``, ``metric``,
-``crf_ctc``, ``beam_search``, ``detection`` and ``misc``; the reader,
-concurrency and distributed ops are not ported yet)."""
+``crf_ctc``, ``beam_search``, ``detection``, ``misc`` and
+``reader_ops``; the concurrency and distributed ops are not ported
+yet)."""
 from . import math  # noqa: F401
 from . import tensor  # noqa: F401
 from . import nn  # noqa: F401
@@ -20,3 +21,4 @@ from . import crf_ctc  # noqa: F401
 from . import beam_search  # noqa: F401
 from . import detection  # noqa: F401
 from . import misc  # noqa: F401
+from . import reader_ops  # noqa: F401

@@ -45,13 +45,35 @@ whose shape differs from the prepared one (``PreparedShapeMismatch``);
 ``BENCH_PREPARED=0`` times ``run()``.  The JSON's ``prepared`` is true
 when every timed step was prepared, and ``prepared_steps`` counts them.
 
-Where it departs from ``bench.py`` (each visible in the JSON):
+Data, as ``bench.py``'s (``BENCH_FAKE``; the JSON's ``fake_data``):
 
-- data is synthetic, drawn from a seed at ``bench.py``'s shapes (uint8
-  images for ResNet-50, as in its real-data mode; float32 for the other
-  image models, as its fake data), fed from the host each step:
-  ``BENCH_FAKE=0`` raises, since the port has no flowers reader and no
-  ``DeviceLoader`` (ROADMAP queue 1 item 11).
+- ``BENCH_FAKE=0`` (the card's default for ``resnet50``, as
+  ``bench.py:481-484``): real data.  ``_ensure_bench_recordio`` writes
+  (once) an uncompressed recordio file under ``BENCH_DATA_DIR`` (the
+  temporary directory by default) of the dataset adapter's synthetic
+  images as uint8, ``label:i64le + CHW bytes`` a record (at most 2048;
+  flowers' synthetic train set has 1024).  Training reads it through
+  ``reader.DeviceDatasetCache`` (the whole set staged on the device
+  once, shuffled on the device each epoch) under ``BENCH_CACHE_BUDGET``
+  bytes (4 GiB), and falls back on ``DatasetExceedsBudget`` to the
+  shuffled, batched ``DeviceLoader`` (pinned memory, a copy stream);
+  each step's batch is a new device batch fed to the prepared step.
+  ResNet-50 takes the uint8 images (normalised on the device), the
+  other image models float32 / 255.  The JSON's ``data`` gives the
+  file's path, bytes and records, which loader ran and the cache's
+  bytes.  Then the stream probe (``bench.py:702-770``;
+  ``BENCH_STREAM_PROBE=0`` skips it): ``h2d_mb_per_sec_idle`` (the
+  median of 5 copies of 64 MiB from a pinned buffer to the idle card;
+  null on the CPU),
+  ``streaming_imgs_per_sec`` (``BENCH_STREAM_ITERS`` steps, 8, fed by
+  the ``DeviceLoader`` over the same file) and ``stream_overlap_ratio``
+  ((the cached step + the batch's bytes at the idle h2d rate) / the
+  streamed step: ~1 serial, up to 2 overlapped; null on the CPU);
+- ``BENCH_FAKE=1`` (the CPU's default and the other models'): one
+  synthetic batch drawn from a seed at ``bench.py``'s shapes (uint8
+  images for ResNet-50, float32 for the other image models), fed from
+  the host each step.  The LM and the LSTM take seeded tokens whatever
+  ``BENCH_FAKE`` says, as ``bench.py``'s do.
 
 Each timed step ends with the loss fetch, which waits for the card, so
 ``step_ms_p50/p90/p99`` are device-honest.  The last line of standard
@@ -71,11 +93,14 @@ parameter dtypes.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -137,21 +162,28 @@ def _place():
     return fluid.CUDAPlace(0), True
 
 
-def _train(fluid, place, main, startup, loss, feeds, iters):
-    """Startup, 1 warm-up step and ``iters`` timed steps, step ``i`` on
-    ``feeds[i % len(feeds)]`` (the warm-up on ``feeds[0]``), through the
-    prepared step unless ``BENCH_PREPARED=0`` (``bench.py``'s loop);
-    each step ends with the loss fetch.  Returns (losses, step ms,
-    parameter dtypes, timed steps that were prepared)."""
+def _train(fluid, place, main, startup, loss, feeds, iters, keep=None):
+    """Startup, 1 warm-up step and ``iters`` timed steps, each on the
+    next feed of ``feeds`` (an iterator; a list is taken in turn, the
+    warm-up on its first feed and timed step ``i`` on
+    ``feeds[i % len(feeds)]``), through the prepared step unless
+    ``BENCH_PREPARED=0`` (``bench.py``'s loop); each step ends with the
+    loss fetch.  Returns (losses, step ms, parameter dtypes, timed steps
+    that were prepared); ``keep`` (a list) gets (scope, executor, the
+    prepared step or None) for a probe after the loop."""
     from paddle_tpu_torch.core.executor_impl import PreparedShapeMismatch
 
+    if isinstance(feeds, list):
+        first, feeds = feeds[0], itertools.cycle(feeds)
+    else:
+        first = next(feeds)
     scope = fluid.Scope()
     exe = fluid.Executor(place)
     exe.run(startup, scope=scope)
     prepared = None
     if os.environ.get("BENCH_PREPARED", "1") == "1":
         try:
-            prepared = exe.prepare(main, feed_specs=feeds[0],
+            prepared = exe.prepare(main, feed_specs=first,
                                    fetch_list=[loss], scope=scope)
         except ValueError:
             prepared = None     # host ops in the block: run()
@@ -168,11 +200,11 @@ def _train(fluid, place, main, startup, loss, feeds, iters):
                 prepared = None
         return exe.run(main, feed=feed, fetch_list=[loss], scope=scope), 0
 
-    losses = [float(step(feeds[0])[0][0].ravel()[0])]
+    losses = [float(step(first)[0][0].ravel()[0])]
     step_ms, prepared_steps = [], 0
     for i in range(iters):
-        t0 = time.perf_counter()
-        out, was_prepared = step(feeds[i % len(feeds)])
+        t0 = time.perf_counter()        # the batch's gather or copy too
+        out, was_prepared = step(next(feeds))
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(out[0].ravel()[0]))
         prepared_steps += was_prepared
@@ -180,6 +212,8 @@ def _train(fluid, place, main, startup, loss, feeds, iters):
         prepared.sync_scope()
     dtypes = sorted({str(scope.find_var(p.name).dtype).replace(
         "torch.", "") for p in main.all_parameters()})
+    if keep is not None:
+        keep.append((scope, exe, prepared))
     return losses, step_ms, dtypes, prepared_steps
 
 
@@ -305,11 +339,20 @@ def resnet_bench(place, on_card, model="resnet50"):
     classes = 10 if data_set == "cifar10" else \
         102 if data_set == "flowers" else 1000
     shape = [batch] + list(data.shape[1:])
-    feed = {data.name: rng.randint(0, 256, shape).astype(np.uint8)
-            if uint8 else rng.rand(*shape).astype(np.float32),
-            label.name: rng.randint(0, classes, (batch, 1)).astype(np.int64)}
+    use_fake = _flag("BENCH_FAKE", not (on_card and model == "resnet50"))
+    names = [data.name, label.name]
+    if use_fake:
+        feeds = [{data.name: rng.randint(0, 256, shape).astype(np.uint8)
+                  if uint8 else rng.rand(*shape).astype(np.float32),
+                  label.name: rng.randint(0, classes,
+                                          (batch, 1)).astype(np.int64)}]
+    else:
+        base, data_info = _recordio_reader(shape[1:], data_set, uint8)
+        feeds, data_info["loader"], data_info["cache_bytes"] = \
+            _real_feeds(base, names, place, batch)
+    kept = []
     losses, step_ms, dtypes, prepared = _train(fluid, place, main, startup,
-                                               loss, [feed], iters)
+                                               loss, feeds, iters, kept)
     images_per_s = batch * iters / (sum(step_ms) / 1e3)
     ops = main.desc.blocks[0].ops
     baseline = {"vgg": VGG_BASELINE, "alexnet": ALEXNET_BASELINE,
@@ -327,6 +370,12 @@ def resnet_bench(place, on_card, model="resnet50"):
            "fused_stages": sum(op.type == "fused_conv2d_bn_act"
                                for op in ops),
            "tflops": None, "mfu": None}
+    out["fake_data"] = use_fake
+    if not use_fake:
+        out["data"] = data_info
+        if _flag("BENCH_STREAM_PROBE", True):
+            out.update(stream_probe(kept[0], main, loss, base, names, place,
+                                    batch, images_per_s))
     if depth and model in ("resnet50", "resnet32"):
         out["depth"] = depth
     per_img = {"resnet50": TRAIN_FLOPS_PER_IMG_224,
@@ -337,6 +386,169 @@ def resnet_bench(place, on_card, model="resnet50"):
         if amp:     # against the bf16 peak the run targets
             out["mfu"] = out["tflops"] / _peak_tflops()
             out["peak_tflops"] = _peak_tflops()
+    return out
+
+
+def _ensure_bench_recordio(img_shape, data_set, n=2048):
+    """Write (once) an uncompressed recordio file of uint8 images and
+    int64 labels in the CHW shape ``img_shape`` under ``BENCH_DATA_DIR``
+    (the temporary directory by default); returns its path.  A record is
+    ``label:i64le + image bytes`` (C order), at most ``n`` of them, from
+    the dataset adapter's synthetic set (``bench.py:156-189``)."""
+    from paddle_tpu_torch import dataset
+    from paddle_tpu_torch import recordio as rio
+
+    path = os.path.join(
+        os.environ.get("BENCH_DATA_DIR", tempfile.gettempdir()),
+        "paddle_tpu_torch_bench_%s_%s.rio" % (
+            data_set, "x".join(map(str, img_shape))))
+    if os.path.exists(path):
+        return path
+    if data_set == "cifar10":
+        base = dataset.cifar.train10()
+
+        def samples():
+            for a, lab in base():
+                yield (np.asarray(a, np.float32).reshape(img_shape), lab)
+    else:
+        samples = dataset.flowers.train()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = "%s.%d.tmp" % (path, os.getpid())
+    with rio.Writer(tmp, compressor=rio.NO_COMPRESS) as w:
+        k = 0
+        for img, lab in samples():
+            u8 = np.clip(np.asarray(img) * 255.0, 0, 255).astype(np.uint8)
+            w.write(struct.pack("<q", int(lab)) + u8.tobytes())
+            k += 1
+            if k >= n:
+                break
+    os.replace(tmp, path)
+    return path
+
+
+def _recordio_reader(img_shape, data_set, uint8):
+    """(a reader of (image, label) samples over the bench's recordio
+    file, {"path", "file_bytes", "records", "codec"})."""
+    from paddle_tpu_torch import recordio as rio
+    from paddle_tpu_torch.reader import creator
+
+    path = _ensure_bench_recordio(img_shape, data_set)
+    elems = int(np.prod(img_shape))
+
+    def deser(rec):
+        lab = np.frombuffer(rec, np.int64, count=1)
+        img = np.frombuffer(rec, np.uint8, offset=8,
+                            count=elems).reshape(img_shape)
+        if not uint8:       # a program without the uint8 front end
+            img = img.astype(np.float32) / 255.0
+        return img, lab
+
+    size = os.path.getsize(path)
+    # a record is its 4-byte length and 8 + elems bytes; the chunk headers
+    # (24 bytes a MiB of records) add up to less than one record
+    return creator.recordio(path, deser), {
+        "path": path, "file_bytes": size, "records": size // (8 + elems + 4),
+        "codec": "native" if rio.native_available() else "python"}
+
+
+def _stream_loader(base, names, place, batch):
+    """The streaming path: recordio -> shuffle -> batch -> the
+    double-buffered ``DeviceLoader``."""
+    from paddle_tpu_torch import reader
+
+    return reader.DeviceLoader(
+        reader.batch(reader.shuffle(base, buf_size=batch * 4),
+                     batch_size=batch), names, place, capacity=3)
+
+
+def _real_feeds(base, names, place, batch):
+    """(an endless iterator of device feed dicts, the loader's name, the
+    cache's bytes or None): the ``DeviceDatasetCache``, or the streaming
+    ``DeviceLoader`` where the set exceeds ``BENCH_CACHE_BUDGET``."""
+    from paddle_tpu_torch import reader
+
+    try:
+        loader = reader.DeviceDatasetCache(
+            base, names, place, batch,
+            max_bytes=int(os.environ.get("BENCH_CACHE_BUDGET",
+                                         str(4 << 30))))
+        kind, nbytes = "DeviceDatasetCache", loader.nbytes
+    except reader.DatasetExceedsBudget:
+        loader = _stream_loader(base, names, place, batch)
+        kind, nbytes = "DeviceLoader", None
+
+    def forever():
+        while True:
+            n = 0
+            for d in loader:    # each epoch reshuffles (or restreams)
+                n += 1
+                yield d
+            if n == 0:
+                raise RuntimeError("reader yielded no batches")
+
+    return forever(), kind, nbytes
+
+
+def stream_probe(trained, main, loss, base, names, place, batch,
+                 images_per_s):
+    """``bench.py:702-770``'s stream probe, after the timed loop: (a)
+    the idle card's host -> device rate, the median of 5 copies from a
+    64 MiB pinned buffer (null on the CPU), (b) images/s of
+    ``BENCH_STREAM_ITERS`` steps fed by the streaming ``DeviceLoader``
+    over the same file, on the trained scope (through its prepared step
+    where it has one), (c) the overlap ratio: (the cached step + the
+    batch's bytes at the idle rate) / the streamed step (null on the
+    CPU)."""
+    import torch
+
+    dev = place.torch_device()
+    out = {"h2d_mb_per_sec_idle": None, "stream_overlap_ratio": None}
+    if dev.type == "cuda":
+        nbytes = 64 << 20
+        buf = torch.ones(nbytes, dtype=torch.uint8).pin_memory()
+        x = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        secs = []
+        for _ in range(5):      # the median copy: one alone varied 1.5x
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x.copy_(buf, non_blocking=True)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        out["h2d_mb_per_sec_idle"] = nbytes / sorted(secs)[2] / 1e6
+        del x, buf
+
+    scope, exe, prepared = trained
+
+    def step(feed):
+        if prepared is not None:
+            return prepared.run_prepared(feed)
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+
+    it = iter(_stream_loader(base, names, place, batch))
+    feed = next(it)
+    step(feed)      # warm
+    n_iters = int(os.environ.get("BENCH_STREAM_ITERS", "8"))
+    t0 = time.perf_counter()
+    done, last = 0, None
+    for feed in it:
+        last = step(feed)
+        done += 1
+        if done >= n_iters:
+            break
+    float(last[0].float().sum())   # the last step's loss: waits for it
+    t_stream = time.perf_counter() - t0
+    it.close()
+    if prepared is not None:
+        prepared.sync_scope()
+    out["streaming_imgs_per_sec"] = batch * done / t_stream
+    out["stream_steps"] = done
+    if out["h2d_mb_per_sec_idle"]:
+        batch_mb = sum(v.numel() * v.element_size()
+                       for v in feed.values()) / 1e6
+        t_compute = batch / max(images_per_s, 1e-9)
+        t_h2d = batch_mb / out["h2d_mb_per_sec_idle"]
+        out["stream_overlap_ratio"] = (t_compute + t_h2d) / (t_stream / done)
     return out
 
 
@@ -383,11 +595,6 @@ def main():
         raise SystemExit("BENCH_MODEL must be resnet50|resnet32|vgg|"
                          "alexnet|googlenet|transformer|lstm, got %r"
                          % model)
-    if os.environ.get("BENCH_FAKE", "1") != "1":
-        raise NotImplementedError(
-            "BENCH_FAKE=0: the port has no flowers reader and no "
-            "DeviceLoader (ROADMAP queue 1 item 11), and nothing may be "
-            "downloaded; the bench runs on seeded synthetic data")
     place, on_card = _place()
     if model == "transformer":
         out = dict(transformer_bench(place, on_card), secondary=None)

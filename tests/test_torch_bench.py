@@ -145,12 +145,15 @@ PORTED_SINCE = {"vgg": "vgg_cifar10_train_bs2",
     ({"BENCH_MODEL": "vgg"}, "ROADMAP queue 1 items 2 and 3e"),
     ({"BENCH_MODEL": "resnet32"}, "ROADMAP queue 1 item 3e"),
     ({"BENCH_FAKE": "0"}, "no flowers reader")])
-def test_bench_refusals_raise(monkeypatch, capsys, extra, reason):
+def test_bench_refusals_raise(monkeypatch, capsys, tmp_path, extra, reason):
     """A refusal raises with its reason.  ``vgg`` and ``resnet32`` were
     refused until ``reason`` (dropout, the other models) was done: they
     now run on the CPU at batch 2 (VGG16-BN NCHW with its dropout
     layers; the cifar ResNet at depth 32), prepared, and print one JSON
-    line with bench.py's metric name."""
+    line with bench.py's metric name.  ``BENCH_FAKE=0`` was refused
+    while the port had no flowers reader and no ``DeviceLoader``: it now
+    trains ResNet-50 (here at depth 8) from the bench's recordio file
+    through the ``DeviceDatasetCache``, then runs the stream probe."""
     from paddle_tpu_torch.core.flags import FLAGS
     from paddle_tpu_torch.tools import bench
 
@@ -158,12 +161,30 @@ def test_bench_refusals_raise(monkeypatch, capsys, extra, reason):
         monkeypatch.delenv(k)
     for k, v in dict(extra, BENCH_DEVICE="cpu").items():
         monkeypatch.setenv(k, v)
+    monkeypatch.setattr(FLAGS, "bn_bf16", FLAGS.bn_bf16)
     model = extra.get("BENCH_MODEL")
     if model not in PORTED_SINCE:
-        with pytest.raises(NotImplementedError, match=reason):
-            bench.main()
+        for k, v in dict(BENCH_DATA_DIR=str(tmp_path), BENCH_DEPTH="8",
+                         BENCH_BATCH="4", BENCH_ITERS="2",
+                         BENCH_STREAM_ITERS="2").items():
+            monkeypatch.setenv(k, v)
+        assert bench.main() == 0
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["metric"] == "resnet50_cifar10_train_bs4"
+        assert out["fake_data"] is False and out["losses_finite"]
+        assert out["prepared"] is True and out["prepared_steps"] == 2
+        data = out["data"]
+        assert data["loader"] == "DeviceDatasetCache"
+        assert data["records"] == 2048 and data["codec"] == "native"
+        assert data["cache_bytes"] == 2048 * (3 * 32 * 32 + 8)
+        assert data["file_bytes"] == os.path.getsize(data["path"])
+        assert os.path.dirname(data["path"]) == str(tmp_path)
+        assert out["streaming_imgs_per_sec"] > 0
+        assert out["stream_steps"] == 2
+        # no host -> device link on the CPU: no device number
+        assert out["h2d_mb_per_sec_idle"] is None
+        assert out["stream_overlap_ratio"] is None
         return
-    monkeypatch.setattr(FLAGS, "bn_bf16", FLAGS.bn_bf16)
     monkeypatch.setenv("BENCH_BATCH", "2")
     monkeypatch.setenv("BENCH_ITERS", "2")
     assert bench.main() == 0
@@ -180,13 +201,13 @@ def test_bench_refusals_raise(monkeypatch, capsys, extra, reason):
 
 
 def test_a_refusal_exits_non_zero():
-    """(``lstm`` ran into a refusal until ragged feeds were ported, and
-    ``alexnet`` until lrn was: the reader refusal of ``BENCH_FAKE=0``
-    still does.)"""
-    p = _start({"BENCH_FAKE": "0"})
+    """(``lstm`` ran into a refusal until ragged feeds were ported,
+    ``alexnet`` until lrn was, and ``BENCH_FAKE=0`` until the reader
+    pipeline was: a model the bench does not know still does.)"""
+    p = _start({"BENCH_MODEL": "resnet18"})
     stdout, stderr = p.communicate(timeout=TIMEOUT)
     assert p.returncode != 0 and stdout.strip() == ""
-    assert "NotImplementedError" in stderr and "ROADMAP" in stderr
+    assert "BENCH_MODEL must be" in stderr and "resnet18" in stderr
 
 
 def test_no_card_and_no_cpu_request_fails():

@@ -4138,3 +4138,94 @@ def test_conv_grads_repeat_bit_for_bit_under_the_deterministic_flag(
         for o in outs[1:]:
             for k in ("Input@GRAD", "Filter@GRAD"):
                 assert torch.equal(o[k], outs[0][k]), k
+
+
+# slice 28: the data pipeline on the card
+
+
+def _indexed_samples(n, shape=(3, 32, 32)):
+    rng = np.random.RandomState(28)
+    return [(rng.randint(0, 256, shape).astype(np.uint8),
+             np.asarray([i], np.int64)) for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_device_loader_batches_on_card_are_the_hosts(cuda):
+    from paddle_tpu_torch import reader
+    import paddle_tpu_torch.fluid as fluid
+
+    samples = _indexed_samples(40)
+    batched = reader.batch(lambda: iter(samples), 8)
+    got = list(reader.DeviceLoader(batched, ["x", "i"], fluid.CUDAPlace(0),
+                                   capacity=2))
+    want = list(batched())
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert g["x"].device.type == "cuda" and g["x"].dtype == torch.uint8
+        assert g["x"].cpu().numpy().tobytes() == \
+            np.stack([s[0] for s in w]).tobytes()
+        assert torch.equal(g["i"].cpu(), torch.from_numpy(
+            np.stack([s[1] for s in w])))
+
+
+@pytest.mark.cuda
+def test_device_dataset_cache_epochs_on_card(cuda):
+    from paddle_tpu_torch import reader
+    import paddle_tpu_torch.fluid as fluid
+
+    samples = _indexed_samples(64)
+    imgs = np.stack([s[0] for s in samples])
+    cache = reader.DeviceDatasetCache(lambda: iter(samples), ["x", "i"],
+                                      fluid.CUDAPlace(0), 16, seed=3)
+    orders = []
+    for _ in range(2):
+        ids = []
+        for d in cache:
+            assert d["x"].device.type == "cuda"
+            idx = d["i"][:, 0].cpu().numpy()
+            assert np.array_equal(d["x"].cpu().numpy(), imgs[idx])
+            ids.append(idx)
+        orders.append(np.concatenate(ids))
+    for o in orders:
+        assert np.array_equal(np.sort(o), np.arange(64))
+    assert not np.array_equal(orders[0], orders[1])
+    # the same seed gives the same orders on the card
+    again = reader.DeviceDatasetCache(lambda: iter(samples), ["x", "i"],
+                                      fluid.CUDAPlace(0), 16, seed=3)
+    assert torch.equal(again.permutation(1).cpu(),
+                       cache.permutation(1).cpu())
+
+
+@pytest.mark.cuda
+def test_reader_program_double_buffers_onto_the_card(cuda, tmp_path):
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import recordio
+
+    samples = _indexed_samples(24)
+    path = str(tmp_path / "card.recordio")
+    fluid.recordio_writer.convert_reader_to_recordio_file(
+        path, lambda: iter(samples), compressor=recordio.NO_COMPRESS)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        r = fluid.layers.io.open_recordio_file(
+            path, shapes=[[-1, 3, 32, 32], [-1, 1]], lod_levels=[0, 0],
+            dtypes=["uint8", "int64"])
+        r = fluid.layers.io.batch(r, batch_size=8)
+        r = fluid.layers.io.double_buffer(r)
+        x, i = fluid.layers.io.read_file(r)
+        total = fluid.layers.reduce_sum(fluid.layers.cast(x, "float32"))
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    for epoch in range(2):
+        for k in range(3):
+            got, = exe.run(main, fetch_list=[total], scope=scope)
+            xs = scope.find_var(x.name)
+            assert xs.device.type == "cuda"
+            want = np.stack([s[0] for s in samples[8 * k:8 * k + 8]])
+            assert np.array_equal(xs.cpu().numpy(), want)
+            assert float(got.ravel()[0]) == float(want.astype(np.float64)
+                                                  .sum())
+        with pytest.raises(fluid.core.EOFException):
+            exe.run(main, fetch_list=[total], scope=scope)
+        r.reset(scope=scope)

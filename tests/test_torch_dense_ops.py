@@ -283,11 +283,11 @@ def test_meta_shape_inference_matches_jax(op):
 def test_the_port_registers_the_dense_op_library():
     """Every op type that the JAX package's math, tensor, loss, random,
     optimizer_ops, nn, metric, detection and misc files register is the
-    port's too, and the port counts 236 op types (205 at the dense op
+    port's too, and the port counts 246 op types (205 at the dense op
     library's slice; crf_ctc's 5 and beam_search's 2, then the conv
-    family's 5, detection's 9, misc's 8 and the metric ops' 2 since):
-    the reference's 257 but its 22 reader, concurrency and distributed
-    types, and the port's own conv2d_grad."""
+    family's 5, detection's 9, misc's 8, the metric ops' 2 and the
+    reader ops' 10 since): the reference's 257 but its 12 concurrency
+    and distributed types, and the port's own conv2d_grad."""
     import importlib
     import inspect
 
@@ -309,7 +309,7 @@ def test_the_port_registers_the_dense_op_library():
     # the grad ops made on demand from the forward lowerings aside
     own = [op for op in treg.registered_ops()
            if treg._registry[op].lower is not generic_grad_lower]
-    assert len(own) == 236, len(own)
+    assert len(own) == 246, len(own)
     from paddle_tpu.core.lowering import generic_grad_lower as jgeneric
 
     ref = {op for op in jreg.registered_ops()
@@ -319,5 +319,5 @@ def test_the_port_registers_the_dense_op_library():
         mod = inspect.getmodule(jreg._registry[op].lower).__name__
         left.setdefault(mod.rsplit(".", 1)[1], []).append(op)
     assert {k: len(v) for k, v in left.items()} == {
-        "reader_ops": 10, "concurrency_ops": 6, "distributed_ops": 6}, left
+        "concurrency_ops": 6, "distributed_ops": 6}, left
     assert set(own) - ref == {"conv2d_grad"}

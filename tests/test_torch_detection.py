@@ -650,20 +650,22 @@ def test_prior_box_constant_is_the_lowering():
         "Input": (-1, 8, -1, -1), "Image": (-1, 3, 300, 300)}.get) is None
 
 
-# the reader layers of the reference's fluid/layers/io.py, which wait for
-# the reader ops (ROADMAP queue 1, item 11)
+# the reader layers of the reference's fluid/layers/io.py, which waited
+# for the reader ops (ROADMAP queue 1, item 11) until slice 28
 READER_LAYERS = {"Preprocessor", "batch", "double_buffer", "multi_pass",
                  "open_files", "open_recordio_file", "random_data_generator",
                  "read_file", "shuffle", "threaded"}
 
 
 def test_layers_export_every_reference_name():
-    """fluid.layers exports every name of the reference's __all__ but the
-    reader layers, detection's all; each name the port exports is one
-    the reference does."""
+    """fluid.layers exports every name of the reference's __all__, the
+    reader layers included, detection's and io's all; each name the port
+    exports is one the reference does."""
     assert tfluid.layers.detection.__all__ == \
         jfluid.layers.detection.__all__
+    assert tfluid.layers.io.__all__ == jfluid.layers.io.__all__
+    assert READER_LAYERS <= set(tfluid.layers.io.__all__)
     want = set(jfluid.layers.__all__)
-    assert set(tfluid.layers.__all__) == want - READER_LAYERS
-    for name in want - READER_LAYERS:
+    assert set(tfluid.layers.__all__) == want
+    for name in want:
         assert hasattr(tfluid.layers, name), name

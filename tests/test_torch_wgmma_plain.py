@@ -23,7 +23,8 @@ numpy from a seed:
 - K1 at the card tests' ragged shapes and at one query row: the port's
   flash forward on the CPU (its plain version) against the JAX package's
   ``flash_attention_fwd_lse`` (its XLA branch on the CPU): out within
-  2**-7, the LSE within 1e-5.
+  2**-7, the LSE within 1e-5 of each other and each within 1e-5 of a
+  float64 LSE.
 """
 import importlib
 
@@ -56,9 +57,19 @@ K1_SHAPES = [(2, 3, 200, 200, True), (1, 2, 77, 130, False),
 
 @pytest.fixture(autouse=True, scope="module")
 def _torch_threads():
+    """Pin the state both sides' float32 products read, whatever an
+    earlier file in the same worker left: torch's threads and its f32
+    matmul precision, jax's default matmul precision and device."""
+    import jax
+
     prev = torch.get_num_threads()
+    prev_prec = torch.get_float32_matmul_precision()
     torch.set_num_threads(2)
-    yield
+    torch.set_float32_matmul_precision("highest")
+    with jax.default_matmul_precision("highest"), \
+            jax.default_device(jax.devices("cpu")[0]):
+        yield
+    torch.set_float32_matmul_precision(prev_prec)
     torch.set_num_threads(prev)
 
 
@@ -150,5 +161,21 @@ def test_k1_plain_version_at_the_card_shapes(b, h, t, tk, causal):
     w_ = _host(jout)
     err = np.abs(tout.double().numpy() - w_)
     assert np.all(err <= TOL + TOL * np.abs(w_)), float(err.max())
+    # each side against a float64 LSE of the same bf16 operands first, so
+    # that a miss names the side that moved
+    want = _lse64(*(_bf16("port", a).double().numpy() for a in (q, k)),
+                  causal)
+    for side, lse in (("port", tlse.numpy()), ("jax", _host(jlse))):
+        np.testing.assert_allclose(lse, want, rtol=1e-5, atol=1e-5,
+                                   err_msg=side + " LSE vs float64")
     np.testing.assert_allclose(tlse.numpy(), _host(jlse), rtol=1e-5,
                                atol=1e-5)
+
+
+def _lse64(q, k, causal):
+    """The per-row log-sum-exp of q k^T / sqrt(d) in float64."""
+    s = np.einsum("bhtd,bhsd->bhts", q, k) / np.sqrt(q.shape[-1])
+    if causal:
+        s = np.where(np.tril(np.ones(s.shape[-2:], bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    return m[..., 0] + np.log(np.exp(s - m).sum(-1))
