@@ -188,6 +188,22 @@ Phases, each printed as one JSON line:
              more; DeviceLoader's batches byte-identical to the host's,
              the cache's epoch covering each sample once and reshuffled,
              a mid-epoch double-buffer reset leaving no copy in flight;
+3l. kernels29, serve_predict_resnet[_bf16], predictor_attention —
+             inference and the predict tier (in a child process,
+             ``--slice29``; K6, K6 bf16, K1 non-causal and K1 bf16 on the
+             path): K1 non-causal and K6's test-mode stages at serving
+             batches (1, 16) against their plain versions, SDPA and
+             cuDNN; ResNet-50 (flowers 224, NHWC fused, is_test) saved
+             with its bucket-16 program exported, served by
+             InferenceServer(max_batch=16) (every bucket one CUDA graph,
+             the exported one adopted from disk with no op lowered) under
+             3 s of open-loop traffic over the socket endpoint and in
+             process: images/s, request p50 / p99, occupancy, padding,
+             each reply bit for bit a direct run of its bucket, K6 53 a
+             replay; a hot swap under load (0 dropped, 0 torn); the same
+             in bf16; the fused attention block (d_model 1024, 8 heads,
+             T 512) through AnalysisConfig, K1 once a run, against
+             NativeConfig's predictor;
 4. serve_f32  — the flagship LM (vocab 8192, d_model 1024, 8 heads,
              6 layers, d_ff 4096, max_seq 2048) served through
              InferenceServer.load_generative/generate, some requests
@@ -466,8 +482,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -8185,14 +8203,798 @@ def slice28_phases(torch):
             ("loader_oracle", lambda: loader_oracle(torch))]
 
 
+# ---------------------------------------------------------------------------
+# slice 29: inference and the predict tier
+# ---------------------------------------------------------------------------
+
+SLICE29_TIMEOUT_S = 600
+SERVE_BATCH = 16           # the ladder's top (1 .. 16) and the AOT bucket
+SERVE_SECONDS = 3.0        # a traffic run's open-loop arrivals
+SERVE_CLIENTS = 4          # PredictClient threads over the socket endpoint
+SERVE_SUBMITTERS = 2       # threads submitting in process
+SERVE_RATE = 160.0         # requests/s over all threads (Poisson arrivals)
+SERVE_ROWS = (1, 8)        # images a request, uniform
+SERVE_WAIT_US = 2000       # the batcher's deadline (FLAGS default)
+SERVE_SWAP_AFTER = 1.0     # s of traffic before the swap, and after it
+SERVE_SWAP_INPUTS = 8      # the swap run's distinct requests
+SERVE_IMAGES = 64          # the image pool requests draw from
+SERVE_SEEDS = (SEED + 29, SEED + 31)     # the served model and its swap
+# the bf16 tenant's replies across buckets: cuBLAS may take another
+# summation order for the last fc at another M, so a bf16 logit may land
+# one bf16 ulp away, moving its probability by p times that ulp; held to
+# two bf16 ulps (2**-7, the CPU AMP tests' bar).  The f32 tenant's are
+# held to INFER_TOL
+INFER_AMP_BUCKET_TOL = 2.0 ** -7
+# predictor_attention: a plain-front-end encoder block at the flagship
+# LM's widths; the bf16 predictor's output against the f32 oracle in
+# relative Frobenius norm: bf16 rounds x, Q/K/V, the attention output and
+# the out-projection (each 2**-9 relative at most), so four roundings
+# stay inside 2**-6 by a wide margin; its attention op alone is held to
+# K1 bf16's bar (one bf16 ulp + FLASH_BF16_FLOOR)
+ATTN = dict(d_model=1024, n_head=8, seq_len=512)
+ATTN_BATCHES = (16, 1)
+ATTN_RUNS = 3              # timed predictor runs a batch, after one
+ATTN_AMP_RTOL = 2.0 ** -6
+# K1 non-causal and K6's test-mode stages at serving batches
+K1_SERVE_SHAPES = ((16, 512), (1, 512))
+K6_SERVE_STAGES = (((224, 3, 64, 7, 2, 3), ""),
+                   ((14, 256, 256, 3, 1, 1), ""),
+                   ((14, 256, 1024, 1, 1, 0), "residual"))
+K6_SERVE_BATCHES = (1, 16)
+
+
+def check_serve_kernels(torch):
+    """Phase kernels29: K1's non-causal form (the fused attention block
+    an AnalysisConfig predictor runs) at K1_SERVE_SHAPES, f32 and bf16,
+    against attention_reference and SDPA non-causal; K6 in the test-mode
+    form the served ResNet-50 runs (affine + relu, the expand conv with
+    the residual too) at the stem, (14, 256, 256, 3x3) and
+    (14, 256, 1024, 1x1), batch 1 and 16, f32 and bf16, against its plain
+    version and cuDNN + the epilogue in torch.  Bounds: K1 4 B H T^2 D
+    operations at ops_rate; K6 conv_min_flops and its bytes."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels.conv_fused import (
+        conv2d_nhwc, conv2d_nhwc_reference, conv_stage_form)
+    from paddle_tpu_torch.kernels.flash_attention import (
+        attention_reference, flash_attention_fwd_lse)
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    rows, bad = [], []
+    h, d = 8, 128
+    scale = 1.0 / math.sqrt(d)
+
+    def record(name, shape, err, ok, ms, plain_ms, lib_ms, nbytes, flops):
+        rate_name, rate = ops_rate(name)
+        b_ms, by = bound_ms(nbytes, flops, rate)
+        rows.append({"kernel": name, "shape": shape, "max_abs_err": err,
+                     "ok": ok, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": by, "ops_rate": rate_name})
+        if not ok:
+            bad.append("%s %s (max abs err %g)" % (name, shape, err))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        esize = 2 if bf16 else 4
+        for b_, s in K1_SERVE_SHAPES:
+            q, k, v = (torch.randn(b_, h, s, d, device="cuda",
+                                   generator=gen).to(dtype)
+                       for _ in range(3))
+            out, lse = flash_attention_fwd_lse(q, k, v, causal=False)
+            ref_out, ref_lse = attention_reference(q, k, v, scale, False)
+            if bf16:
+                e1, ok1 = compare_bf16(torch, out, ref_out,
+                                       FLASH_BF16_FLOOR)
+            else:
+                e1, ok1 = compare(torch, out, ref_out)
+            e2, ok2 = compare(torch, lse, ref_lse)
+            record("flash_fwd_bf16" if bf16 else "flash_fwd",
+                   "[%d,8,%d,128] non-causal" % (b_, s), max(e1, e2),
+                   ok1 and ok2,
+                   timer(lambda: flash_attention_fwd_lse(q, k, v,
+                                                         causal=False)),
+                   timer(lambda: attention_reference(q, k, v, scale,
+                                                     False)),
+                   timer(lambda: F.scaled_dot_product_attention(q, k, v)),
+                   esize * 4 * b_ * h * s * d + 4 * b_ * h * s,
+                   4 * b_ * h * s * s * d)
+            del q, k, v, out, lse, ref_out, ref_lse
+        name = "conv_stage_bf16" if bf16 else "conv_stage"
+        for nb in K6_SERVE_BATCHES:
+            for shp, extra in K6_SERVE_STAGES:
+                hh, ci, co, k, s, p = shp
+                ho = (hh + 2 * p - k) // s + 1
+                x = torch.randn(nb, hh, hh, ci, device="cuda",
+                                generator=gen).to(dtype)
+                w = (torch.randn(k, k, ci, co, device="cuda", generator=gen)
+                     * (k * k * ci) ** -0.5).to(dtype)
+                a = torch.rand(co, device="cuda", generator=gen) + 0.5
+                b = torch.randn(co, device="cuda", generator=gen)
+                r = (torch.randn(nb, ho, ho, co, device="cuda",
+                                 generator=gen).to(dtype)
+                     if extra else None)
+                xcl = x.permute(0, 3, 1, 2)
+                wcl = w.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                rcl = r.permute(0, 3, 1, 2) if r is not None else None
+                kw = dict(affine=(a, b), residual=r, act="relu")
+
+                def lib():
+                    y = F.conv2d(xcl, wcl, None, s, p)
+                    y = y * a[:, None, None] + b[:, None, None]
+                    if rcl is not None:
+                        y = y + rcl
+                    return torch.relu(y).to(dtype)
+
+                err, ok, _ = conv_compare(
+                    torch, conv2d_nhwc(x, w, (s, s), (p, p), **kw),
+                    conv2d_nhwc_reference(x, w, (s, s), (p, p), **kw),
+                    x, w, s, p)
+                rows_x = min(hh, ho * min(k, s) + max(k - s, 0))
+                out_b = esize * nb * ho * ho * co
+                nbytes = esize * (nb * rows_x * rows_x * ci + w.numel()) + \
+                    out_b + 8 * co + (out_b if r is not None else 0)
+                record(name, "%s N=%d affine%s+relu" % (
+                    conv_shape_str(shp), nb,
+                    "+residual" if r is not None else ""),
+                       err, ok,
+                       timer(lambda: conv2d_nhwc(x, w, (s, s), (p, p),
+                                                 **kw)),
+                       timer(lambda: conv2d_nhwc_reference(
+                           x, w, (s, s), (p, p), **kw)),
+                       timer(lib), nbytes, conv_min_flops(nb, shp))
+                rows[-1]["form"] = conv_stage_form(
+                    ci + (-ci) % 4 if bf16 else ci, co, dtype)
+                del x, w, r, xcl, wcl, rcl
+    torch.cuda.empty_cache()
+    return {"phase": "kernels29", "rows": rows, "failures": bad,
+            "ok": not bad}
+
+
+def served_params(torch, exe, seed, batch=SERVE_BATCH):
+    """A ResNet-50 parameter set of the NCHW startup at ``seed``, each
+    BN's running statistics those of one training step's batch of
+    ``batch`` seeded images (infer_params' recipe), so an is_test program
+    normalizes as training does."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import get_scope_arrays
+
+    tmain, tstart, _ = build_resnet(fluid, False)
+    tstart.random_seed = seed
+    scope = fluid.Scope()
+    exe.run(tstart, scope=scope)
+    persist = sorted(n for n, v in tmain.desc.blocks[0].vars.items()
+                     if v.persistable)
+    params = get_scope_arrays(scope, persist)
+    bns = [op for op in tmain.desc.blocks[0].ops if op.type == "batch_norm"]
+    stats = exe.run(tmain, feed=resnet_batch(batch, seed), scope=scope,
+                    fetch_list=[op.output("SavedMean")[0] for op in bns] +
+                    [op.output("SavedVariance")[0] for op in bns])
+    del scope
+    for op, m, v in zip(bns, stats[:len(bns)], stats[len(bns):]):
+        params[op.input("Mean")[0]] = m
+        params[op.input("Variance")[0]] = v
+    torch.cuda.empty_cache()
+    return params
+
+
+def save_served_resnet(torch, dirname, params, amp=False):
+    """The is_test NHWC fused ResNet-50 (its bf16 AMP program with
+    ``amp``, under FLAGS_bn_bf16) saved with save_inference_model(["data"],
+    [softmax], aot_feed_specs={"data": ((SERVE_BATCH, 3, 224, 224),
+    uint8)}): the model dir and the exported program of bucket
+    SERVE_BATCH.  Returns seconds of the save."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.io import set_scope_arrays
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    main, _, _ = build_resnet(fluid, True, is_test=True, amp=amp)
+    block = main.global_block()
+    softmax = [op.output("Out")[0] for op in main.desc.blocks[0].ops
+               if op.type == "softmax"][-1]
+    data = block.vars["data"]
+    scope = fluid.Scope()
+    set_scope_arrays(scope, _hwio_for(params, main), "cuda")
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(
+            dirname, ["data"], [block.vars[softmax]], exe, main_program=main,
+            aot_feed_specs={"data": ((SERVE_BATCH,) + tuple(data.shape[1:]),
+                                     np.dtype(data.dtype).name)})
+    secs = time.perf_counter() - t0
+    del scope
+    torch.cuda.empty_cache()
+    return secs
+
+
+def _serve_images(seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return rng.randint(0, 256, (SERVE_IMAGES, 3, 224, 224)).astype(np.uint8)
+
+
+def _stamp(x, rid):
+    """Write request id ``rid`` and each image's row into the image's
+    first 4 bytes: the key that finds the request in the logged
+    batches (a random image matches a key with probability 2**-32)."""
+    for j in range(len(x)):
+        x[j, 0, 0, :4] = (rid & 255, (rid >> 8) & 255, (rid >> 16) & 255, j)
+
+
+def _stamp_of(row):
+    return bytes(row[0, 0, :4])
+
+
+class _BatchLog:
+    """Wraps each bucket executable's ``run`` of an engine to keep every
+    (bucket, padded feed, fetches) it ran, in order."""
+
+    def __init__(self, engine):
+        self.batches = []
+        self._lock = threading.Lock()
+        for b in engine.warm_buckets:
+            exe = engine.executable(b)
+            exe.run = self._wrap(b, exe.run)
+
+        self._exes = [engine.executable(b) for b in engine.warm_buckets]
+
+    def _wrap(self, bucket, run):
+        def logged(feed):
+            outs = run(feed)
+            with self._lock:
+                self.batches.append((bucket, feed["data"], outs[0]))
+            return outs
+        return logged
+
+    def close(self):
+        """Stop logging; returns the batches logged."""
+        for exe in self._exes:
+            del exe.run
+        return self.batches
+
+
+def served_trace(torch, step, n, bf16):
+    """(K6 launches a call, device ms a call, the device's idle share,
+    the K6 symbols counted) of ``n`` calls of ``step`` in one
+    ``torch.profiler`` session, K6 read by its symbols: the f32 form's
+    ``gemm_kernel`` over the conv gather (``ConvA``), the bf16 form's
+    ``conv_wgmma_kernel`` and its stem's ``bf16_kernel`` over it; the
+    count None when the trace holds no device event."""
+    from paddle_tpu_torch.tools.profile_train import device_kernels
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels = device_kernels(prof, n)
+    if not kernels:
+        return None, "not measured", "not measured", []
+    forms = (("conv_wgmma_kernel",), ("bf16_kernel", "ConvA")) if bf16 \
+        else (("gemm_kernel", "ConvA"),)
+    hits = [k for k in kernels
+            if any(all(part in k for part in f) for f in forms)]
+    busy = sum(k["ms_per_step"] for k in kernels.values())
+    return (sum(kernels[k]["calls_per_step"] for k in hits), busy,
+            max(0.0, 1.0 - busy / wall), sorted(hits) or sorted(kernels))
+
+
+def serve_traffic(srv, name, port, images, seconds, seed, inputs=None,
+                  during=None):
+    """Open-loop traffic on tenant ``name``: SERVE_SUBMITTERS threads
+    submit in process at Poisson arrival times (futures, never waiting),
+    SERVE_CLIENTS PredictClient threads send over the socket on their own
+    Poisson schedules (a client sends its next request when its time
+    comes, or when the reply before it is back if that is later).
+    Requests are 1-8 images from ``images`` (request id stamped into the
+    first, _stamp), or one of ``inputs`` when given.  ``during()``, if
+    given, runs in this thread after ``seconds`` of traffic, and the
+    traffic goes on for ``seconds`` more.  Returns (records, wall s),
+    records [{"x", "out", "ms", "via", "error"}]."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import PredictClient
+
+    n_threads = SERVE_SUBMITTERS + SERVE_CLIENTS
+    rate = SERVE_RATE / n_threads
+    stop = threading.Event()
+    records, lock = [], threading.Lock()
+    counter = [0]
+
+    def next_input(rng):
+        if inputs is not None:
+            return inputs[rng.randint(len(inputs))]
+        n = rng.randint(SERVE_ROWS[0], SERVE_ROWS[1] + 1)
+        x = images[rng.randint(0, len(images), n)].copy()
+        with lock:
+            counter[0] += 1
+            rid = counter[0]
+        _stamp(x, rid)
+        return x
+
+    def submitter(tid):
+        rng = np.random.RandomState(seed * 100 + tid)
+        pending, done = [], {}
+        t_next = time.perf_counter()
+        while not stop.is_set():
+            t_next += rng.exponential(1.0 / rate)
+            time.sleep(max(0.0, t_next - time.perf_counter()))
+            x = next_input(rng)
+            t0 = time.perf_counter()
+            fut = srv.submit(name, {"data": x})
+            fut.add_done_callback(
+                lambda f: done.__setitem__(id(f), time.perf_counter()))
+            pending.append((x, t0, fut))
+        for x, t0, fut in pending:
+            rec = {"x": x, "via": "submit", "error": None, "ms": None}
+            try:
+                rec["out"] = next(iter(fut.result(120).values()))
+                rec["ms"] = (done[id(fut)] - t0) * 1e3
+            except Exception as e:
+                rec["error"] = "%s: %s" % (type(e).__name__, e)
+            with lock:
+                records.append(rec)
+
+    def client(tid):
+        rng = np.random.RandomState(seed * 100 + 50 + tid)
+        t_next = time.perf_counter()
+        with PredictClient("127.0.0.1", port) as cli:
+            while not stop.is_set():
+                t_next += rng.exponential(1.0 / rate)
+                time.sleep(max(0.0, t_next - time.perf_counter()))
+                x = next_input(rng)
+                rec = {"x": x, "via": "socket", "error": None}
+                t0 = time.perf_counter()
+                try:
+                    rec["out"] = next(iter(cli.predict(
+                        name, {"data": x}).values()))
+                except Exception as e:
+                    rec["error"] = "%s: %s" % (type(e).__name__, e)
+                rec["ms"] = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    records.append(rec)
+
+    threads = [threading.Thread(target=submitter, args=(i,))
+               for i in range(SERVE_SUBMITTERS)] + \
+        [threading.Thread(target=client, args=(i,))
+         for i in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(seconds)
+    if during is not None:
+        during()
+        time.sleep(seconds)
+    stop.set()
+    for t in threads:
+        t.join(300)
+    return records, time.perf_counter() - t0
+
+
+def _latencies(records):
+    """Request ms, sorted: a socket request's round trip; a submitted
+    one's, from its submit to its future's completion."""
+    return sorted(r["ms"] for r in records if r.get("ms") is not None)
+
+
+def serve_predict_resnet(torch, amp=False, f32_ref=None):
+    """Phase serve_predict_resnet[_bf16]: ResNet-50 (RESNET's widths,
+    NHWC fused stages, is_test; under bf16 AMP and FLAGS_bn_bf16 with
+    ``amp``) saved with its bucket-SERVE_BATCH program exported, loaded by
+    InferenceServer(max_batch=SERVE_BATCH).load on the card (ladder 1-16,
+    all warm; the exported bucket adopted from disk with no op lowered),
+    then SERVE_SECONDS of open-loop traffic over the socket endpoint and
+    in process.  Checks: every served batch a graph replay, each reply
+    bit for bit its logged batch's rows and each logged batch bit for bit
+    a direct run of its bucket, each reply within INFER_TOL of the
+    bucket-16 forward (INFER_AMP_BUCKET_TOL under bf16), K6 (its bf16
+    form with ``amp``) RESNET_CONVS launches a replay by the wrappers'
+    counts and in a trace of TRACED_REPLAYS replays, no AOT fallback.
+    The f32 tenant then takes a hot swap to a model of another seed under
+    the same traffic: zero dropped, zero torn, both versions observed.
+    The bf16 tenant's softmax is held to the f32 tenant's (``f32_ref``:
+    its bucket-16 probabilities of the same images) within
+    INFER_AMP_TOL."""
+    with bn_bf16(amp):
+        return _serve_predict_resnet(torch, amp, f32_ref)
+
+
+def _serve_predict_resnet(torch, amp, f32_ref):
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.inference import aot
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.serving import InferenceServer
+
+    phase = "serve_predict_resnet" + ("_bf16" if amp else "")
+    kernel = "conv_stage_bf16" if amp else "conv_stage"
+    failures = []
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    params = served_params(torch, exe, SERVE_SEEDS[0])
+    root = smoke_dir(phase)
+    dirs = [os.path.join(root, "v1"), os.path.join(root, "v2")]
+    save_s = save_served_resnet(torch, dirs[0], params, amp)
+    del params
+
+    # the exported bucket alone: loaded with no op lowered
+    n0, f0 = lowering.LOWERINGS, aot.FALLBACK_COUNT
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        fluid.io.load_inference_model(dirs[0], exe)
+    t0 = time.perf_counter()
+    disk = aot.load_aot(dirs[0], scope, fluid.CUDAPlace(0))
+    artifact_s = time.perf_counter() - t0
+    artifact_lowerings = lowering.LOWERINGS - n0
+    if disk is None or artifact_lowerings != 0:
+        failures.append("the exported bucket did not load (%r) or lowered "
+                        "%d ops" % (aot.FALLBACKS[-1:], artifact_lowerings))
+    del disk, scope
+    torch.cuda.empty_cache()
+
+    srv = InferenceServer(max_batch=SERVE_BATCH, max_wait_us=SERVE_WAIT_US)
+    try:
+        base = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        eng = srv.load("resnet", dirs[0])
+        load_s = time.perf_counter() - t0
+        reserved = torch.cuda.memory_reserved() - base
+        ladder = eng.warm_buckets
+        exes = {b: eng.executable(b) for b in ladder}
+        if ladder != [1, 2, 4, 8, 16] or eng.artifact_bucket != SERVE_BATCH:
+            failures.append("ladder %r, artifact bucket %r" % (
+                ladder, eng.artifact_bucket))
+        if any(e.graphs != 1 for e in exes.values()):
+            failures.append("a bucket is not one CUDA graph: %r" % {
+                b: e.graphs for b, e in exes.items()})
+        port = srv.start_endpoint()
+        images = _serve_images(SERVE_SEEDS[0] + 1)
+        log = _BatchLog(eng)
+        disp = srv._tenant("resnet").dispatcher
+        b0, rep0 = disp.batches, sum(e.replays for e in exes.values())
+        reset_launches()
+        records, wall = serve_traffic(srv, "resnet", port, images,
+                                      SERVE_SECONDS, SERVE_SEEDS[0])
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        batches = disp.batches - b0
+        replays = sum(e.replays for e in exes.values()) - rep0
+        logged = log.close()
+        errors = [r["error"] for r in records if r["error"]]
+        if errors:
+            failures.append("%d requests failed: %s" % (len(errors),
+                                                        errors[:3]))
+        if replays != batches or batches != len(logged):
+            failures.append("%d batches served, %d replays, %d logged"
+                            % (batches, replays, len(logged)))
+        if launches[kernel] != RESNET_CONVS * replays or any(
+                n for k, n in launches.items() if k != kernel):
+            failures.append("launches %r over %d replays" % (launches,
+                                                              replays))
+        # each reply: its rows of the logged batch that carried it
+        where = {}
+        for i, (b, x, _) in enumerate(logged):
+            for row in range(x.shape[0]):
+                where.setdefault(_stamp_of(x[row]), (i, row))
+        exact = 0
+        for r in records:
+            if r["error"]:
+                continue
+            i, row = where[_stamp_of(r["x"][0])]
+            got = logged[i][2][row:row + len(r["x"])]
+            exact += int(np.array_equal(r["out"], got))
+        if exact != len(records) - len(errors):
+            failures.append("%d of %d replies differ from their batch's "
+                            "rows" % (len(records) - exact, len(records)))
+        # each logged batch: a direct run of its bucket, bit for bit; its
+        # rows against the bucket-16 forward of the same rows
+        direct_exact, cross_err = 0, 0.0
+        for b, x, out in logged:
+            direct_exact += int(np.array_equal(
+                exes[b].run({"data": x})[0], out))
+            if b < SERVE_BATCH:
+                pad = np.zeros((SERVE_BATCH,) + x.shape[1:], x.dtype)
+                pad[:b] = x
+                wide = exes[SERVE_BATCH].run({"data": pad})[0][:b]
+                cross_err = max(cross_err,
+                                float(np.abs(wide - out).max()))
+        if direct_exact != len(logged):
+            failures.append("%d of %d batches differ from a direct run of "
+                            "their bucket" % (len(logged) - direct_exact,
+                                              len(logged)))
+        bucket_tol = INFER_AMP_BUCKET_TOL if amp else INFER_TOL
+        if not cross_err <= bucket_tol:
+            failures.append("across buckets %g > %g" % (cross_err,
+                                                        bucket_tol))
+        feed16 = {"data": images[:SERVE_BATCH]}
+        k6, busy, idle, symbols = served_trace(
+            torch, lambda: exes[SERVE_BATCH].run(feed16), TRACED_REPLAYS,
+            amp)
+        if k6 != RESNET_CONVS:
+            failures.append("trace: %r %s a replay" % (k6, kernel))
+        if aot.FALLBACK_COUNT != f0:
+            failures.append("AOT fallbacks: %r" % aot.FALLBACKS[-3:])
+        lat = _latencies(records)
+        n_img = sum(len(r["x"]) for r in records if not r["error"])
+        probs16 = exes[SERVE_BATCH].run(feed16)[0]
+        result = {
+            "phase": phase, "amp": amp, "batch": SERVE_BATCH, **RESNET,
+            "ladder": ladder, "artifact_bucket": eng.artifact_bucket,
+            "save_s": save_s, "artifact_load_s": artifact_s,
+            "artifact_lowerings": artifact_lowerings, "load_s": load_s,
+            "build_s": {b: e.build_seconds for b, e in exes.items()},
+            "memory_reserved_bytes": reserved,
+            "requests": len(records), "failed": len(errors),
+            "socket_requests": sum(r["via"] == "socket" for r in records),
+            "images": n_img, "seconds": wall,
+            "images_per_s": n_img / wall,
+            "request_ms_p50": _pct(lat, 0.5) if lat else None,
+            "request_ms_p99": _pct(lat, 0.99) if lat else None,
+            "batches": batches, "replays": replays,
+            "occupancy_mean": (disp.rows / disp.batches
+                               if disp.batches else None),
+            "padding_rows": disp.padding_rows,
+            "by_bucket": {b: sum(1 for x in logged if x[0] == b)
+                          for b in ladder},
+            "replies_exact": exact, "batches_direct_exact": direct_exact,
+            "cross_bucket_max_abs_err": cross_err, "tolerance": bucket_tol,
+            "traced": {"launches_per_replay": {kernel: k6},
+                       "symbols": symbols, "device_ms": busy,
+                       "idle_share": idle},
+            "launches": launches, "fallbacks": aot.FALLBACK_COUNT - f0}
+        del log, logged
+        if f32_ref is not None:
+            err = float(np.abs(probs16 - f32_ref).max())
+            result["softmax_max_abs_err_vs_f32"] = err
+            result["amp_tolerance"] = INFER_AMP_TOL
+            if not err <= INFER_AMP_TOL:
+                failures.append("bf16 softmax %g from the f32 tenant's" % err)
+        else:
+            result["probs16"] = probs16
+            result["swap"] = serve_swap(torch, srv, port, images, dirs,
+                                        failures)
+        srv.unload("resnet")
+    finally:
+        srv.close()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    result.update(failures=failures, ok=not failures)
+    return result
+
+
+def serve_swap(torch, srv, port, images, dirs, failures):
+    """The f32 tenant swapped to the model of SERVE_SEEDS[1] under
+    traffic of SERVE_SWAP_INPUTS fixed requests: every reply within
+    INFER_TOL of exactly one version's bucket-16 forward of its rows, none
+    dropped, both seen."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    params = served_params(torch, exe, SERVE_SEEDS[1])
+    save_served_resnet(torch, dirs[1], params)
+    del params
+    rng = np.random.RandomState(SERVE_SEEDS[1] + 1)
+    inputs = [images[rng.randint(0, len(images), n)]
+              for n in rng.randint(SERVE_ROWS[0], SERVE_ROWS[1] + 1,
+                                   SERVE_SWAP_INPUTS)]
+
+    def expect(engine):
+        exe16 = engine.executable(SERVE_BATCH)
+        out = []
+        for x in inputs:
+            pad = np.zeros((SERVE_BATCH,) + x.shape[1:], x.dtype)
+            pad[:len(x)] = x
+            out.append(exe16.run({"data": pad})[0][:len(x)])
+        return out
+
+    v1 = expect(srv.engine("resnet"))
+    swap = {}
+
+    def do_swap():
+        t0 = time.perf_counter()
+        swap["engine"] = srv.swap("resnet", dirs[1])
+        swap["s"] = time.perf_counter() - t0
+
+    records, wall = serve_traffic(srv, "resnet", port, images,
+                                  SERVE_SWAP_AFTER, SERVE_SEEDS[1],
+                                  inputs=inputs, during=do_swap)
+    v2 = expect(swap["engine"])
+    sep = min(float(np.abs(a - b).max()) for a, b in zip(v1, v2))
+    seen = {"v1": 0, "v2": 0, "torn": 0}
+    ids = {id(x): i for i, x in enumerate(inputs)}
+    dropped = sum(1 for r in records if r["error"])
+    for r in records:
+        if r["error"]:
+            continue
+        i = ids[id(r["x"])]
+        m1 = float(np.abs(r["out"] - v1[i]).max()) <= INFER_TOL
+        m2 = float(np.abs(r["out"] - v2[i]).max()) <= INFER_TOL
+        seen["v1" if m1 and not m2 else "v2" if m2 and not m1
+             else "torn"] += 1
+    ok = (dropped == 0 and seen["torn"] == 0 and seen["v1"] > 0
+          and seen["v2"] > 0 and sep > 100 * INFER_TOL)
+    if not ok:
+        failures.append("swap: %d dropped, %r, versions %g apart"
+                        % (dropped, seen, sep))
+    return {"requests": len(records), "dropped": dropped, **seen,
+            "swap_s": swap["s"], "seconds": wall,
+            "version_separation": sep, "ok": ok}
+
+
+def build_attention_block(fluid, batch_free=True):
+    """The encoder block's attention at ATTN's widths from the plain
+    front end: fc Q/K/V, reshape / transpose to [B, H, T, D],
+    matmul(transpose_y), scale 1/sqrt(D), softmax, matmul, transpose /
+    reshape back, the output fc.  Returns (main, startup, out)."""
+    layers = fluid.layers
+    dm, nh, t = ATTN["d_model"], ATTN["n_head"], ATTN["seq_len"]
+    dh = dm // nh
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = layers.data(name="x", shape=[t, dm], dtype="float32")
+
+        def heads(v):
+            return layers.transpose(layers.reshape(v, [-1, t, nh, dh]),
+                                    [0, 2, 1, 3])
+
+        q, k, v = (heads(layers.fc(x, dm, num_flatten_dims=2))
+                   for _ in range(3))
+        s = layers.scale(layers.matmul(q, k, transpose_y=True),
+                         scale=dh ** -0.5)
+        o = layers.matmul(layers.softmax(s), v)
+        o = layers.reshape(layers.transpose(o, [0, 2, 1, 3]), [-1, t, dm])
+        out = layers.fc(o, dm, num_flatten_dims=2)
+    return main, startup, out
+
+
+def predictor_attention(torch):
+    """Phase predictor_attention: the block saved with
+    save_inference_model; create_paddle_predictor(AnalysisConfig(dir)) on
+    the card rewrites its one attention chain to ring_attention
+    (causal=False), which runs K1 once a run; NativeConfig's predictor on
+    the untranspiled program (scores materialized, no K1) is the oracle,
+    ATOL = RTOL = 1e-4.  With use_bf16=True K1 bf16 runs once a run: its
+    attention op's output against attention_reference on the op's own
+    bf16 Q/K/V at K1 bf16's bar, and the block's output against the
+    oracle within ATTN_AMP_RTOL (relative Frobenius).  Batch 16 and 1;
+    ms a run (host wall, median of ATTN_RUNS after one)."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.inference import (AnalysisConfig, NativeConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.kernels import KERNELS, reset_launches
+    from paddle_tpu_torch.kernels.conv_fused import within_bf16_ulp
+    from paddle_tpu_torch.kernels.flash_attention import attention_reference
+
+    failures = []
+    root = smoke_dir("predictor_attention")
+    main, startup, out = build_attention_block(fluid)
+    startup.random_seed = SEED + 29
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        fluid.io.save_inference_model(root, ["x"], [out], exe,
+                                      main_program=main)
+    del scope
+    try:
+        oracle = create_paddle_predictor(NativeConfig(model_dir=root))
+        preds = {"f32": create_paddle_predictor(AnalysisConfig(root)),
+                 "bf16": create_paddle_predictor(AnalysisConfig(
+                     root, use_bf16=True))}
+        rings = {}
+        for tag, p in preds.items():
+            ops = p.program.desc.blocks[0].ops
+            ring = [op for op in ops if op.type == "ring_attention"]
+            rings[tag] = ring[0] if ring else None
+            if len(ring) != 1 or ring[0].attr("causal") is not False or \
+                    any(op.type in ("softmax", "matmul") for op in ops):
+                failures.append("%s: the chain did not fuse to one "
+                                "non-causal ring_attention" % tag)
+        result = {"phase": "predictor_attention", **ATTN, "batches": {}}
+        measured = {"flash_fwd": 0, "flash_fwd_bf16": 0}
+        rng = np.random.RandomState(SEED + 30)
+
+        def timed(p, feed):
+            p.run(feed)
+            ms = []
+            for _ in range(ATTN_RUNS):
+                t0 = time.perf_counter()
+                p.run(feed)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return _pct(ms, 0.5)
+
+        for b in ATTN_BATCHES:
+            feed = {"x": rng.randn(b, ATTN["seq_len"],
+                                   ATTN["d_model"]).astype(np.float32)}
+            want = oracle.run(feed)[0].data
+            row = {"oracle_ms": timed(oracle, feed)}
+            for tag, p in preds.items():
+                kname = "flash_fwd_bf16" if tag == "bf16" else "flash_fwd"
+                reset_launches()
+                got = p.run(feed)[0].data
+                launches = {k: fn.launches for k, fn in KERNELS.items()}
+                measured[kname] += launches[kname]
+                if launches[kname] != 1 or sum(launches.values()) != 1:
+                    failures.append("%s batch %d: launches %r"
+                                    % (tag, b, launches))
+                err = float(np.abs(got - want).max())
+                rel = float(np.linalg.norm(got - want) /
+                            np.linalg.norm(want))
+                row[tag] = {"max_abs_err": err, "rel_fro": rel,
+                            "launches": launches[kname],
+                            "ms": timed(p, feed)}
+                if tag == "f32":
+                    ok = bool(np.all(np.abs(got - want) <=
+                                     ATOL + RTOL * np.abs(want)))
+                else:
+                    ring = rings[tag]
+                    names = [ring.input(s_)[0] for s_ in ("Q", "K", "V")] + \
+                        [ring.output("Out")[0]]
+                    with fluid.scope_guard(p.scope):
+                        q, k, v, o = p.exe.run(p.program, feed=feed,
+                                               fetch_list=names,
+                                               return_numpy=False)
+                    ref, _ = attention_reference(q, k, v,
+                                                 float(ring.attr("scale")),
+                                                 False)
+                    op_err, op_ok = within_bf16_ulp(o, ref, FLASH_BF16_FLOOR)
+                    row[tag].update(op_dtype=str(o.dtype),
+                                    op_max_abs_err=op_err, op_ok=op_ok)
+                    ok = op_ok and o.dtype == torch.bfloat16 and \
+                        rel <= ATTN_AMP_RTOL
+                if not ok:
+                    failures.append("%s batch %d disagrees with the oracle: "
+                                    "%r" % (tag, b, row[tag]))
+            result["batches"][b] = row
+        result.update(tolerance={"f32": [ATOL, RTOL],
+                                 "bf16_op_floor": FLASH_BF16_FLOOR,
+                                 "bf16_rel_fro": ATTN_AMP_RTOL},
+                      launches=measured, failures=failures, ok=not failures)
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def slice29_phases(torch):
+    """Slice 29's phases in order, as (name, zero-argument callable)."""
+    state = {}
+
+    def f32():
+        r = serve_predict_resnet(torch)
+        state["ref"] = r.pop("probs16", None)
+        return r
+
+    return [("kernels29", lambda: check_serve_kernels(torch)),
+            ("serve_predict_resnet", f32),
+            ("serve_predict_resnet_bf16",
+             lambda: serve_predict_resnet(torch, amp=True,
+                                          f32_ref=state.get("ref"))),
+            ("predictor_attention", lambda: predictor_attention(torch))]
+
+
 SLICES = {"--slice21": slice21_phases, "--slice22": slice22_phases,
           "--slice23": slice23_phases, "--slice24": slice24_phases,
           "--slice25": slice25_phases, "--slice26": slice26_phases,
-          "--slice27": slice27_phases, "--slice28": slice28_phases}
+          "--slice27": slice27_phases, "--slice28": slice28_phases,
+          "--slice29": slice29_phases}
 
 
 def slice_main(flag):
-    """``chip_smoke.py --slice21`` .. ``--slice28``: that slice's phases
+    """``chip_smoke.py --slice21`` .. ``--slice29``: that slice's phases
     alone, each printed as one JSON line; stops at the
     first that fails (exit 1).  Slice 22's files go under
     ``_smoke_io/``, removed after."""
@@ -8596,6 +9398,22 @@ def main():
             phase = failure[0]
             raise AssertionError("%s: %s" % failure)
         launches_train.update(launches28)
+
+        # slice 29's phases (inference and the predict tier: ResNet-50
+        # served on K6, the fused attention block on non-causal K1), in a
+        # child process of their own too
+        phase = "slice29"
+        torch.cuda.empty_cache()
+        lines, launches29, failure = slice_subprocess(
+            "--slice29", SLICE29_TIMEOUT_S,
+            ("serve_predict_resnet", "serve_predict_resnet_bf16",
+             "predictor_attention"))
+        for line in lines:
+            emit(line)
+        if failure:
+            phase = failure[0]
+            raise AssertionError("%s: %s" % failure)
+        launches_train.update(launches29)
 
         phase = "serve_f32"
         cfg, params = tiny_lm(SEED, **FLAGSHIP_LM)

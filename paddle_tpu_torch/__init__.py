@@ -6,8 +6,11 @@ Hopper (``kernels/csrc``) where the JAX package wrote Pallas kernels for
 the TPU.  It imports nothing of jax or paddle_tpu.
 
 Ported so far: token-level generative serving
-(``serving.InferenceServer().load_generative(...)`` then ``generate``)
-and training of the transformer LM through the fluid front-end
+(``serving.InferenceServer().load_generative(...)`` then ``generate``),
+the predict tier (``InferenceServer().load(name, model_dir)`` then
+``submit`` / ``predict`` / ``swap``, the socket endpoint) and the
+predictor API (``inference.create_paddle_predictor``, AOT programs from
+``fluid.io.save_inference_model(aot_feed_specs=...)``), and training of the transformer LM through the fluid front-end
 (``fluid``, ``models.transformer.get_model``, ``fluid.Executor``), with
 checkpoints (``fluid.io``), ``fluid.Trainer`` / ``fluid.Inferencer``,
 readers (``reader``, ``batch``, ``DeviceLoader``, ``DeviceDatasetCache``),

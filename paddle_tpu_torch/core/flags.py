@@ -55,6 +55,20 @@ def define_flag(name, default, help=""):
 define_flag("serve_max_batch", 16,
             "generative serving: most sequences in one decode step; the "
             "top of the power-of-2 batch bucket ladder")
+define_flag("serve_max_wait_us", 2000,
+            "serving tier: continuous-batching deadline, microseconds, "
+            "anchored at the FIRST queued request's arrival.  The "
+            "scheduler launches a batch the moment it is full OR this "
+            "deadline expires — it never waits for a full batch, and a "
+            "request that arrived while the device was busy ships on "
+            "the very next dispatch (its deadline already passed).  "
+            "0 = never coalesce-wait: launch whatever is queued")
+define_flag("serve_warm_buckets", "",
+            "serving tier: comma-separated bucket sizes to pre-compile "
+            "at model load (e.g. '1,8').  Empty (default) warms the "
+            "whole ladder up to serve_max_batch.  A cold bucket hit at "
+            "runtime falls to the nearest warm bucket while a "
+            "background thread compiles the missed one")
 define_flag("serve_kv_block_size", 16,
             "generative serving: tokens per KV cache block (power of "
             "two)")

@@ -41,6 +41,11 @@ from .types import proto_to_np_dtype, proto_to_torch_dtype
 
 EMPTY_VAR = ""
 
+# every op lowering ``run_op`` has run in this process (a plain count,
+# never reset here): a serving path that replays a captured graph or an
+# exported program runs none, which the AOT tests read off this count
+LOWERINGS = 0
+
 # ---------------------------------------------------------------------------
 # bf16 mixed precision: the JAX package's lists, member for member.
 # ---------------------------------------------------------------------------
@@ -303,9 +308,11 @@ def run_ops(ctx):
 
 
 def run_op(ctx, op):
+    global LOWERINGS
     info = get_op_info(op.type)
     if info.host_op:
         return
+    LOWERINGS += 1
     ins = _gather_inputs(ctx.env, op)
     attrs = {k: a.value for k, a in op.attrs.items()}
     if ctx.amp:

@@ -124,8 +124,11 @@ class _Capture:
 
 class StepGraph:
     def __init__(self, core, program, block_id, entry, state_names,
-                 fixed_shapes, mode="train"):
+                 fixed_shapes, mode="train", capture_error_mode="global"):
         self._program = program
+        # "thread_local" where another thread may replay or launch while
+        # this one captures (a serving bucket's background capture)
+        self._capture_error_mode = capture_error_mode
         self._block_id = block_id
         self._entry = entry
         self._device = core.device
@@ -331,7 +334,7 @@ class StepGraph:
         graph, (fetches, outs), launches = capture(
             step, "the prepared step", at_op, restore=restore,
             stream=self._side, generators=self._stream.generators,
-            pool=self._pool)
+            pool=self._pool, capture_error_mode=self._capture_error_mode)
         if self._pool is None:
             self._pool = graph.pool()
         return _Capture(feeds, graph, fetches, outs, launches)

@@ -49,6 +49,7 @@ from .io import (save_vars, save_params, save_persistables, load_vars,
                  get_latest_checkpoint_serial)
 from . import nets
 from . import transpiler
+from .transpiler import memory_optimize, release_memory
 from . import data_feeder
 from .data_feeder import DataFeeder
 from . import trainer
@@ -93,7 +94,8 @@ __all__ = [
     "unique_name",
     "Executor", "global_scope", "scope_guard", "fetch_var", "io",
     "ParallelExecutor", "nets",
-    "transpiler", "save_vars", "save_params", "save_persistables",
+    "transpiler", "memory_optimize", "release_memory", "save_vars",
+    "save_params", "save_persistables",
     "load_vars", "load_params", "load_persistables", "save_inference_model",
     "load_inference_model", "get_inference_program", "save_checkpoint",
     "load_checkpoint", "clean_checkpoint", "get_latest_checkpoint_serial",

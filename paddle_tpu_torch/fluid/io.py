@@ -160,14 +160,12 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     """Write the test program pruned to ``target_vars``, with a ``feed``
     op per name of ``feeded_var_names`` and a ``fetch`` op per target
     (attr ``col``: the position), to ``model_filename`` (``__model__``),
-    and the persistables of ``main_program`` beside it.  The JAX
-    package's ``aot_feed_specs`` (an executable compiled ahead of time
-    for those feeds) is not ported (ROADMAP queue 1 item 8)."""
-    if aot_feed_specs:
-        raise NotImplementedError(
-            "save_inference_model(aot_feed_specs=...): the ahead-of-time "
-            "inference engine is not ported to paddle_tpu_torch yet "
-            "(ROADMAP queue 1 item 8)")
+    and the persistables of ``main_program`` beside it.
+    ``aot_feed_specs`` ({feed_name: (shape, dtype)}): also trace the
+    pruned program for those feed specs and save it beside the model as
+    a ``torch.export`` program (``inference/aot.py``, the counterpart of
+    the JAX package's serialized executable); the predictor and the
+    serving engine then run it without lowering the ops."""
     if main_program is None:
         main_program = default_main_program()
     if not isinstance(target_vars, list):
@@ -187,6 +185,12 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
               "wb") as f:
         f.write(inference_program.serialize_to_string())
     save_persistables(executor, dirname, main_program, params_filename)
+    if aot_feed_specs:
+        from paddle_tpu_torch.inference.aot import save_aot
+
+        save_aot(dirname, inference_program, dict(aot_feed_specs),
+                 [v.name for v in target_vars], _current_scope(),
+                 executor.place)
     return inference_program
 
 

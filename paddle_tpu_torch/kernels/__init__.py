@@ -4,7 +4,10 @@ its own) to its wrapper, whose ``launches`` attribute counts kernel
 launches.  A wrapper called while a CUDA graph is captured records a
 launch instead of making one: ``core/step_graph.py`` takes the counts
 the capturing thread recorded (``_build.recording``) back with
-``add_launches`` and adds them again at every replay."""
+``add_launches`` and adds them again at every replay.  The forward
+kernels an inference program reaches are also ``torch.library`` custom
+ops (``custom_ops``), through which the lowerings call them and
+``torch.export`` traces them."""
 from __future__ import annotations
 
 from . import _build
@@ -19,6 +22,7 @@ from .matmul_fused import (add_ln, add_ln_bf16, matmul_epilogue,
                            matmul_epilogue_bf16, matmul_int8_dequant)
 from .conv_fused import conv2d_nhwc, conv2d_nhwc_bf16
 from .fused import fused_softmax_cross_entropy
+from . import custom_ops  # noqa: F401  (registers the forward ops)
 
 __all__ = ["KERNELS", "reset_launches", "launch_counts", "add_launches",
            "flash_attention",

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.registry import register_op
-from paddle_tpu_torch.kernels import matmul_fused
+from paddle_tpu_torch.kernels import custom_ops, matmul_fused
 from paddle_tpu_torch.ops import random as _random
 from paddle_tpu_torch.ops.nn import test_mode
 
@@ -92,7 +92,8 @@ def _qkv_lower(ctx, ins, attrs, op):
     x = ins["X"]
     ws = [w for w in ins.list("W") if w is not None]
     x2, lead = _flat2(x, attrs.get("x_num_col_dims", 1))
-    y2 = matmul_fused.matmul_epilogue(x2.contiguous(), torch.cat(ws, dim=1))
+    y2, _ = custom_ops.matmul_epilogue(x2.contiguous(), torch.cat(ws, dim=1),
+                                       None, None, "", False)
     outs = []
     off = 0
     for w in ws:
@@ -157,10 +158,11 @@ def _mba_lower(ctx, ins, attrs, op):
     outs = {}
     # with dropout, K4 runs matmul + bias + act alone: the mask and the
     # residual tail follow in torch
-    r = matmul_fused.matmul_epilogue(
+    y2, pre2 = custom_ops.matmul_epilogue(
         x2.contiguous(), w, bias, None if p > 0.0 else res2,
-        attrs.get("act", ""), save_preact=save_pre)
-    y2, pre2 = r if save_pre else (r, None)
+        attrs.get("act", ""), save_pre)
+    if not save_pre:
+        pre2 = None
     if p > 0.0 and not test_mode(attrs, ctx):
         keep = _random.keep_mask(ctx, lead + (n,), 1.0 - p,
                                  attrs.get("seed", 0))
@@ -274,7 +276,7 @@ def _add_ln_lower(ctx, ins, attrs, op):
     begin = attrs.get("begin_norm_axis", 1)
     lead = tuple(x.shape[:begin])
     d = int(np.prod(x.shape[begin:]))
-    out2, sum2, mean, var = matmul_fused.add_ln(
+    out2, sum2, mean, var = custom_ops.add_ln(
         x.reshape(-1, d).contiguous(), y.reshape(-1, d).contiguous(),
         ins.get("Scale"), ins.get("Bias"), attrs.get("epsilon", 1e-5))
     return {"Out": out2.reshape(x.shape), "Sum": sum2.reshape(x.shape),

@@ -30,7 +30,7 @@ from paddle_tpu_torch.core.flags import FLAGS
 from paddle_tpu_torch.core.lowering import amp_cast_ins
 from paddle_tpu_torch.core.desc import OpDesc
 from paddle_tpu_torch.core.registry import register_op
-from paddle_tpu_torch.kernels import conv_fused
+from paddle_tpu_torch.kernels import conv_fused, custom_ops
 from paddle_tpu_torch.ops import random as _random
 
 
@@ -442,8 +442,10 @@ def _fused_conv_bn_lower(ctx, ins, attrs, op):
         inv = torch.rsqrt(var_in.float() + eps)
         a = scale.float() * inv
         b = bias.float() - mean_in.float() * a
-        y = conv_fused.conv2d_nhwc(x, w, strides, paddings, affine=(a, b),
-                                   residual=residual, act=act)
+        # K6 through its custom op (kernels/custom_ops.py), which
+        # torch.export traces
+        y = custom_ops.conv_stage(x, w, list(strides), list(paddings), a, b,
+                                  residual, act)
         # fully fused: the raw conv output never reaches memory, and a
         # test-mode program has no grad op to read it
         return {"Y": y, "MeanOut": mean_in, "VarianceOut": var_in,

@@ -17,12 +17,15 @@ operands; an ``ep`` axis of size > 1 (expert parallelism) raises.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from paddle_tpu_torch.core import lowering as core_lowering
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.kernels import custom_ops
 from paddle_tpu_torch.kernels.flash_attention import (
-    flash_attention_bwd, flash_attention_fwd_lse, flash_attention_train)
+    flash_attention_bwd, flash_attention_train)
 
 
 @register_op("sharding_constraint")
@@ -89,8 +92,15 @@ def _ring_attention_lower(ctx, ins, attrs, op=None):
                                       _scale(attrs))}
     train = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
-    fwd = flash_attention_train if train else flash_attention_fwd_lse
-    out, lse = fwd(q, k, v, _scale(attrs), causal)
+    scale = _scale(attrs)
+    if train:
+        out, lse = flash_attention_train(q, k, v, scale, causal)
+    else:
+        # K1 through its custom op (kernels/custom_ops.py), which
+        # torch.export traces
+        if scale is None:
+            scale = 1.0 / math.sqrt(q.shape[-1])
+        out, lse = custom_ops.flash_fwd(q, k, v, float(scale), causal)
     if with_lse:
         return {"Out": out, "LSE": lse}
     return {"Out": out}

@@ -315,15 +315,30 @@ def test_inference_model_crosses_the_packages(writer, reader, tmp_path):
 
 
 def test_aot_feed_specs_is_refused_before_writing(tmp_path):
+    """``aot_feed_specs`` writes the port's exported program beside the
+    model (``inference/aot.py``); what is still refused, before any
+    artifact is written, is a program with host ops besides its feed and
+    fetch ops."""
+    from paddle_tpu_torch.inference import aot
+
     main, startup, x, y, _ = _build(PORT)
     scope, exe = PORT.scope(), PORT.exe()
     with tfluid.scope_guard(scope):
         exe.run(startup)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tfluid.io.save_inference_model(
-                str(tmp_path / "m"), ["x"], [y], exe, main,
-                aot_feed_specs={"x": ((2, N_FEAT), "float32")})
-    assert not (tmp_path / "m").exists()
+        tfluid.io.save_inference_model(
+            str(tmp_path / "m"), ["x"], [y], exe, main,
+            aot_feed_specs={"x": ((2, N_FEAT), "float32")})
+        host = main.clone(for_test=True)
+        with tfluid.program_guard(host):
+            tfluid.layers.Print(host.global_block().var(y.name))
+        (tmp_path / "h").mkdir()
+        with pytest.raises(ValueError, match="host ops"):
+            aot.save_aot(str(tmp_path / "h"), host,
+                         {"x": ((2, N_FEAT), "float32")}, [y.name], scope,
+                         tfluid.CPUPlace())
+    assert (tmp_path / "m" / aot.AOT_PROGRAM).exists()
+    assert (tmp_path / "m" / aot.AOT_META).exists()
+    assert not os.listdir(tmp_path / "h")
 
 
 def test_get_inference_program_is_the_references():

@@ -1,6 +1,7 @@
 """paddle_tpu_torch stands alone: no module of the port, and not
-chip_smoke.py, imports jax or paddle_tpu; entry points default to CUDA
-and raise without it unless the caller asks for the CPU."""
+chip_smoke.py, imports jax or paddle_tpu; entry points (the generative
+and predict tiers, the predictor) default to CUDA and raise without it
+unless the caller asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -58,7 +59,12 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                 "ops/crf_ctc.py", "ops/beam_search.py", "ops/detection.py",
                 "ops/misc.py", "fluid/layers/detection.py",
                 "fluid/metrics.py", "fluid/evaluator.py",
-                "fluid/average.py"):
+                "fluid/average.py", "inference/__init__.py",
+                "inference/aot.py", "kernels/custom_ops.py",
+                "fluid/transpiler/inference_transpiler.py",
+                "fluid/transpiler/memory_optimization_transpiler.py",
+                "serving/engine.py", "serving/batcher.py",
+                "serving/wire.py"):
         assert "paddle_tpu_torch/" + mod in rel, mod
     bad = []
     for path in files:
@@ -216,6 +222,108 @@ def test_tp_moe_lm_trains_without_jax_or_protobuf():
     """The tp + moe + ep LM, 2 dense steps on a plain CPU Executor, with
     jax, protobuf and paddle_tpu unimportable."""
     proc = subprocess.run([sys.executable, "-c", MOE_STANDALONE],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK"), proc.stdout
+
+
+def _save_fc(dirname, aot_batch=None):
+    """A little fc model the port saves on the CPU (with its exported
+    program for batch ``aot_batch``)."""
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        y = fluid.layers.fc(x, size=3, act="softmax")
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        fluid.io.save_inference_model(
+            dirname, ["x"], [y], exe, main_program=main,
+            aot_feed_specs={"x": ((aot_batch, 4), "float32")}
+            if aot_batch else None)
+
+
+def test_predict_tier_defaults_to_the_card(monkeypatch, tmp_path):
+    """create_paddle_predictor, InferenceServer.load and ModelEngine run
+    on the card unless asked for the CPU: without one they raise, and
+    with the CPU asked for they serve."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference import (AnalysisConfig, NativeConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.serving import ModelEngine
+
+    d = str(tmp_path / "m")
+    _save_fc(d, aot_batch=2)
+    _no_cuda(monkeypatch)
+    for cfg in (NativeConfig(model_dir=d), AnalysisConfig(d)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            create_paddle_predictor(cfg)
+    with InferenceServer() as srv:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            srv.load("m", d)
+        assert srv.models() == []
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelEngine(d)
+    x = np.ones((2, 4), np.float32)
+    pred = create_paddle_predictor(NativeConfig(model_dir=d, use_gpu=False))
+    assert pred.aot is not None and pred.run({"x": x})[0].data.shape == (2, 3)
+    assert ModelEngine(d, device="cpu", max_batch=2).warm_buckets == [1, 2]
+    with InferenceServer(device="cpu", max_batch=2) as srv:
+        srv.load("m", d)
+        assert srv.predict("m", {"x": x}, timeout=60)
+
+
+PREDICT_STANDALONE = """
+import sys
+for mod in ("jax", "jaxlib", "paddle_tpu"):
+    sys.modules[mod] = None       # any import of them now fails
+import numpy as np
+import paddle_tpu_torch.fluid as fluid
+from paddle_tpu_torch.core import lowering
+from paddle_tpu_torch.inference import (AnalysisConfig, NativeConfig,
+                                        create_paddle_predictor)
+from paddle_tpu_torch.serving import InferenceServer, PredictClient
+
+d = sys.argv[1]
+main, startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(main, startup), fluid.unique_name.guard():
+    x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+    h = fluid.layers.batch_norm(fluid.layers.fc(x, size=8), is_test=True)
+    y = fluid.layers.fc(h, size=3, act="softmax")
+scope = fluid.Scope()
+exe = fluid.Executor(fluid.CPUPlace())
+with fluid.scope_guard(scope):
+    exe.run(startup)
+    fluid.io.save_inference_model(d, ["x"], [y], exe, main_program=main,
+                                  aot_feed_specs={"x": ((2, 4), "float32")})
+xs = np.random.RandomState(0).randn(2, 4).astype(np.float32)
+pred = create_paddle_predictor(NativeConfig(model_dir=d, use_gpu=False))
+n0 = lowering.LOWERINGS
+got = pred.run({"x": xs})[0].data
+assert pred.aot is not None and lowering.LOWERINGS == n0
+ana = create_paddle_predictor(AnalysisConfig(d, use_gpu=False))
+assert np.allclose(ana.run({"x": xs})[0].data, got, atol=1e-5)
+with InferenceServer(device="cpu", max_batch=2) as srv:
+    srv.load("m", d)
+    port = srv.start_endpoint()
+    with PredictClient("127.0.0.1", port, timeout=60) as cli:
+        out = next(iter(cli.predict("m", {"x": xs}).values()))
+assert np.array_equal(out, got)
+print("OK", got.shape)
+"""
+
+
+def test_predict_tier_runs_without_jax(tmp_path):
+    """Save with the exported program, predict (native and analysis) and
+    serve over the socket with jax and paddle_tpu unimportable (the
+    model file is a protobuf message: protobuf stays)."""
+    proc = subprocess.run([sys.executable, "-c", PREDICT_STANDALONE,
+                           str(tmp_path / "m")],
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
     assert proc.returncode == 0, proc.stdout + proc.stderr
